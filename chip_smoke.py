@@ -26,7 +26,28 @@ Phases, each printed on its own line; any failure exits non-zero:
                every pane assignment; a ``fused=False`` run of the first
                8 chunks drives ``table_lookup``;
 5. small    -- spill, TTL and early firing at a small size: kernels vs
-               plain, fused vs loop, and the card vs the CPU, bit-identical.
+               plain, fused vs loop, and the card vs the CPU, bit-identical;
+6. attention kernels -- flash and decode attention against their plain
+               versions on the card in bfloat16 (2e-2, and one bfloat16
+               rounding step of each value) and float32 (3e-5), at
+               the serve phase's shapes (prefill 6,144 tokens of Gemma2-27B's
+               32/16 heads, window 4,096 and 0, softcap 50; decode 8 slots of
+               an 8,192-row cache at ragged lengths) and on edge cases, with
+               the kernel's time, the plain version's, the bound, and
+               ``scaled_dot_product_attention``'s time as the yardstick;
+7. serve    -- the serving path's main run: ``ServingEngine`` over
+               Gemma2-27B at full width (16 of 46 layers, random weights from
+               the seed, bfloat16), 8 slots of 8,192 positions, 16 requests
+               of 256-6,144 prompt tokens and 32-64 new tokens, a resize to 6
+               slots after tick 20; launch counters must equal layers x
+               prefills and layers x decode steps; check (i) runs the same
+               schedule again in ops mode ``ref``, serving the kernel run's
+               tokens, and holds every request's last logits to the kernel
+               run's (RMS share of their spread, ``BF16_LOGIT_RMS``) and its
+               argmax to the kernel run's token; check (ii) a float32 2-layer
+               model at full width gives the same tokens with kernels, in
+               ``ref`` mode (last logits within 1e-4) and served one request
+               at a time.
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -35,6 +56,7 @@ result.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -49,7 +71,25 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: 32-bit non-tensor-core operation rate (the float32 rate of the data sheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+#: the bf16 tensor-core rate, the bound of attention's products
+PEAK_BF16_S = 989e12
 F32_TOL = 3e-5
+BF16_TOL = 2e-2
+#: one bfloat16 rounding step relative to the value (8 significant bits):
+#: a kernel and its plain version both do float32 math and round once, so
+#: their bfloat16 outputs differ by at most this much of each value (plus
+#: the float32 tolerance)
+BF16_STEP = 2.0 ** -7
+#: check (i): the bfloat16 main run's last logits against its replay in ops
+#: mode ref may differ by this share of the logits' standard deviation (RMS
+#: over the vocabulary).  The two differ only where an attention output
+#: rounds to the other neighbouring bfloat16 value, and 16 layers of a
+#: bfloat16 residual stream spread that to 0.0142 (PERF.md); the limit is
+#: about twice the reading.
+BF16_LOGIT_RMS = 0.03
+#: check (ii): float32 logits, absolute and relative, as the CPU tests hold
+#: the port's model to the reference's
+F32_MODEL_TOL = 1e-4
 
 # main-phase configuration: a Nexmark Query 5 style sliding "hot items"
 # window, sum + count per key
@@ -74,7 +114,22 @@ KERNEL_META = {
                      "src/repro/kernels/hash_table.py:111"),
     "batched_table_lookup": ("src/repro_torch/kernels/csrc/hash_table.cu",
                              "src/repro/kernels/hash_table.py:206"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:125"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:99"),
 }
+
+# serve-phase configuration: Gemma2-27B at full width, cut in depth
+SERVE_LAYERS = 16
+SERVE_SLOTS = 8
+SERVE_SMAX = 8192
+SERVE_REQUESTS = 16
+SERVE_PROMPT = (256, 6144)
+SERVE_NEW = (32, 64)
+SERVE_RESIZE = (20, 6)          # after tick 20, resize to 6 slots
+F32_PROMPTS = (4200, 300, 5000, 4700)
+F32_NEW = 8
 
 
 class SmokeFailure(Exception):
@@ -646,6 +701,500 @@ def phase_small(torch):
             bit_identical=["plain", "loop", "cpu"])
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the attention kernels vs their plain versions
+# ---------------------------------------------------------------------------
+
+def admitted_pairs(sq, skv, causal, window):
+    """(q, k) pairs the flash mask admits for one (batch, head)."""
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def decode_rows(valid, window, s):
+    """Cache rows the decode kernel reads for one kv head, summed over the
+    slots, by the kernel's own rule: positions ``[first, hi)`` with
+    ``hi = min(valid, S)`` and ``first = max(0, valid - window + 1)`` for
+    a window, else 0."""
+    valid = np.asarray(valid, np.int64)
+    hi = np.minimum(valid, s)
+    first = np.maximum(valid - window + 1, 0) if window else 0
+    return int(np.maximum(hi - first, 0).sum())
+
+
+def attention_bound(pairs, heads, hd, nbytes):
+    """4 * hd flops per admitted (query, key) pair and head at the bf16
+    tensor-core rate, or the bytes read and written once, whichever is
+    larger."""
+    t_ops = pairs * heads * 4 * hd / PEAK_BF16_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _close(torch, got, want, tol, what, steps):
+    """Largest absolute difference, held to ``tol`` (absolute and relative);
+    a bfloat16 output is also held to one rounding step of each value
+    (``BF16_STEP``), and its largest share of that step goes to
+    ``steps[what]``."""
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, atol=tol, rtol=tol),
+          f"{what}: max abs error {err} exceeds {tol}")
+    if bf16:
+        steps[what] = float(((got - want).abs()
+                             / (F32_TOL + BF16_STEP * want.abs())).max())
+        check(steps[what] <= 1.0, f"{what}: a bfloat16 output differs by "
+              f"{steps[what]} of a rounding step")
+    return err
+
+
+def phase_attention(torch):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+    S, HQ, HKV, HD = SERVE_PROMPT[1], 32, 16, 128
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    records = {}
+    steps = {}
+    # -- flash: the serve phase's longest prompt through one local and one
+    # global layer (window 4,096 and 0) with Gemma2-27B's heads --------------
+    errs = {}
+    for dtype, tol in ((bf16, BF16_TOL), (f32, F32_TOL)):
+        q = randn(1, HQ, S, HD, dtype=dtype)
+        k, v = randn(1, HKV, S, HD, dtype=dtype), randn(1, HKV, S, HD,
+                                                         dtype=dtype)
+        for window in (4096, 0):
+            kw = dict(causal=True, window=window, softcap=50.0)
+            errs[f"{dtype} window {window}"] = _close(
+                torch, fa.flash_attention(q, k, v, **kw),
+                ref.flash_attention_ref(q, k, v, **kw), tol,
+                f"flash_attention {dtype} window {window}", steps)
+        del q, k, v
+    # edge cases: a ragged last tile with head_dim 64, and a non-causal
+    # short query against a longer key range with 4 q heads per kv head
+    for b, hq, hkv, sq, skv, hd, window, causal in (
+            (2, 8, 2, 1000, 1000, 64, 300, True),
+            (1, 4, 1, 77, 513, 128, 0, False)):
+        for dtype, tol in ((bf16, BF16_TOL), (f32, F32_TOL)):
+            q = randn(b, hq, sq, hd, dtype=dtype)
+            k, v = randn(b, hkv, skv, hd, dtype=dtype), randn(
+                b, hkv, skv, hd, dtype=dtype)
+            kw = dict(causal=causal, window=window, softcap=30.0)
+            errs[f"{dtype} {sq}x{skv}"] = _close(
+                torch, fa.flash_attention(q, k, v, **kw),
+                ref.flash_attention_ref(q, k, v, **kw), tol,
+                f"flash_attention edge {dtype} {sq}x{skv}", steps)
+    q, k, v = randn(1, HQ, S, HD), randn(1, HKV, S, HD), randn(1, HKV, S, HD)
+    times = {}
+    for window in (4096, 0):
+        for cap in (50.0, 0.0):
+            kw = dict(causal=True, window=window, softcap=cap)
+            times[("kernel", window, cap)] = cuda_ms(
+                torch, lambda: fa.flash_attention(q, k, v, **kw), 5)
+        kw = dict(causal=True, window=window, softcap=50.0)
+        times[("plain", window)] = cuda_ms(
+            torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 2)
+        # the library yardstick: SDPA at softcap 0 on the same mask, the kv
+        # heads expanded beforehand (not timed); the port never calls it
+        kx = k.repeat_interleave(HQ // HKV, dim=1)
+        vx = v.repeat_interleave(HQ // HKV, dim=1)
+        if window:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - window)
+            times[("library", window)] = cuda_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, kx, vx, attn_mask=mask), 5)
+        else:
+            times[("library", window)] = cuda_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, kx, vx, is_causal=True), 5)
+        del kx, vx
+    pairs = {w: admitted_pairs(S, S, True, w) for w in (4096, 0)}
+    nbytes = 2 * (2 * HQ * S * HD + 2 * HKV * S * HD)  # q, o, k, v in bf16
+    bounds = {w: attention_bound(pairs[w], HQ, HD, nbytes) for w in pairs}
+    records["flash_attention"] = dict(
+        max_abs_err=max(errs.values()),
+        ms=times[("kernel", 4096, 50.0)] + times[("kernel", 0, 50.0)],
+        plain_ms=times[("plain", 4096)] + times[("plain", 0)],
+        bound_ms=bounds[4096][0] + bounds[0][0], bound_by=bounds[0][1],
+        library_ms=times[("library", 4096)] + times[("library", 0)],
+        ms_softcap0=times[("kernel", 4096, 0.0)] + times[("kernel", 0, 0.0)],
+        per_layer={f"window {w}": dict(
+            kernel_ms=times[("kernel", w, 50.0)],
+            kernel_softcap0_ms=times[("kernel", w, 0.0)],
+            plain_ms=times[("plain", w)], sdpa_ms=times[("library", w)],
+            bound_ms=bounds[w][0], admitted_pairs=pairs[w] * HQ)
+            for w in (4096, 0)},
+        errors=errs, bf16_rounding_steps=steps,
+        shape=f"q [1,{HQ},{S},{HD}] bf16, k/v {HKV} heads; one local "
+              f"(window 4096) + one global layer, softcap 50")
+    del q, k, v
+
+    # -- decode: 8 slots of an 8,192-row cache at ragged lengths --------------
+    rng = np.random.default_rng(6)
+    valid_np = np.sort(rng.integers(1, SERVE_SMAX + 1, SERVE_SLOTS))
+    valid_np[0] = 1                     # a slot at its first position
+    valid = torch.as_tensor(valid_np.astype(np.int32), device=dev)
+    errs, steps = {}, {}
+    for dtype, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
+        qd = randn(SERVE_SLOTS, HQ, HD, dtype=dtype)
+        ck = randn(SERVE_SLOTS, HKV, SERVE_SMAX, HD, dtype=dtype)
+        cv = randn(SERVE_SLOTS, HKV, SERVE_SMAX, HD, dtype=dtype)
+        for window in (4097, 0):         # a local layer passes window + 1
+            kw = dict(softcap=50.0, window=window)
+            errs[f"{dtype} window {window}"] = _close(
+                torch, da.decode_attention(qd, ck, cv, valid, **kw),
+                ref.decode_attention_ref(qd, ck, cv, valid, **kw), tol,
+                f"decode_attention {dtype} window {window}", steps)
+    times = {}
+    for window in (4097, 0):             # qd, ck, cv are the bf16 ones
+        kw = dict(softcap=50.0, window=window)
+        times[("kernel", window)] = cuda_ms(
+            torch, lambda: da.decode_attention(qd, ck, cv, valid, **kw), 20)
+        times[("plain", window)] = cuda_ms(
+            torch, lambda: ref.decode_attention_ref(qd, ck, cv, valid, **kw),
+            3)
+    rows = {w: decode_rows(valid_np, w, SERVE_SMAX) for w in (4097, 0)}
+    qo_bytes = 2 * SERVE_SLOTS * HQ * HD * 2
+    bounds = {w: attention_bound(rows[w], HQ, HD,
+                                 rows[w] * HKV * HD * 2 * 2 + qo_bytes)
+              for w in rows}
+    records["decode_attention"] = dict(
+        max_abs_err=max(errs.values()),
+        ms=times[("kernel", 4097)] + times[("kernel", 0)],
+        plain_ms=times[("plain", 4097)] + times[("plain", 0)],
+        bound_ms=bounds[4097][0] + bounds[0][0], bound_by=bounds[0][1],
+        library_ms=None,
+        per_layer={f"window {w}": dict(
+            kernel_ms=times[("kernel", w)], plain_ms=times[("plain", w)],
+            bound_ms=bounds[w][0], admitted_rows=rows[w])
+            for w in (4097, 0)},
+        valid_len=valid_np.tolist(), errors=errs, bf16_rounding_steps=steps,
+        shape=f"q [{SERVE_SLOTS},{HQ},{HD}] bf16, cache "
+              f"[{SERVE_SLOTS},{HKV},{SERVE_SMAX},{HD}]; one local + one "
+              f"global layer, softcap 50")
+    del qd, ck, cv
+    torch.cuda.empty_cache()
+    for name, rec in records.items():
+        say("attention", kernel=name, **rec)
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serving Gemma2-27B at full width
+# ---------------------------------------------------------------------------
+
+def _serve_requests(Request, seed, vocab, lengths, new):
+    rng = np.random.default_rng(seed)
+    return [Request(rid=rid,
+                    prompt=rng.integers(0, vocab, int(n)).astype(np.int32),
+                    max_new_tokens=int(m))
+            for rid, (n, m) in enumerate(zip(lengths, new))]
+
+
+def _run_engine(engine, reqs, resize=None):
+    """Submit everything and tick to the end, resizing after tick
+    ``resize[0]`` to ``resize[1]`` slots; returns the wall seconds."""
+    for r in reqs:
+        engine.submit(r)
+    t0 = time.perf_counter()
+    tick = 0
+    while engine.active or engine.waiting:
+        if resize is not None and tick == resize[0]:
+            engine.resize(resize[1])
+        engine.step()
+        tick += 1
+        check(tick < 10_000, "engine did not drain")
+    return time.perf_counter() - t0
+
+
+def _logit_errs(got, want, tol):
+    """``got`` against ``want`` (``[vocab]``): the largest absolute
+    difference, its largest share of ``tol + tol * |want|``, and the RMS
+    difference over ``want``'s standard deviation."""
+    diff = (got - want).abs()
+    return dict(max_abs=float(diff.max()),
+                over_tol=float((diff / (tol * (1 + want.abs()))).max()),
+                rms_over_std=float(diff.pow(2).mean().sqrt() / want.std()))
+
+
+def _replay_class(ServingEngine):
+    """A ``ServingEngine`` that serves given tokens in place of its own
+    argmax: ``script[rid]`` lists the tokens another run generated for
+    request ``rid``.  It follows that run's schedule exactly.  Where its own
+    argmax was another token, ``own_lead`` keeps that token's lead over the
+    script's one and the script token's logit."""
+
+    class Replay(ServingEngine):
+        def __init__(self, *args, script, **kw):
+            super().__init__(*args, **kw)
+            self.script, self.reqs, self.own_lead = script, [], []
+
+        def submit(self, req):
+            self.reqs.append(req)
+            super().submit(req)
+
+        def _admit(self):
+            # a request admitted here decodes in this same tick, so its
+            # first token is replaced before the decode reads it
+            super()._admit()
+            self._follow()
+
+        def step(self):
+            super().step()
+            self._follow()
+
+        def _follow(self):
+            for r in self.reqs:
+                want = self.script[r.rid][:len(r.generated)]
+                if r.generated and r.generated[-1] != want[-1]:
+                    self.own_lead.append((
+                        float(r.logits[r.generated[-1]]
+                              - r.logits[want[-1]]),
+                        float(r.logits[want[-1]])))
+                r.generated[:] = want
+            for slot, r in self.active.items():
+                self.last_token[slot] = r.generated[-1]
+
+    return Replay
+
+
+def profile_steps(torch, step, n):
+    """Wall time and device kernel time of ``n`` calls of ``step`` under
+    ``torch.profiler``; the busy share is their ratio."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+
+    def dev_time(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # kernels are the events on the device; summing them counts each once
+    kernels = sorted((e for e in rows if e.device_type
+                      == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -dev_time(e))
+    dev_us = sum(dev_time(e) for e in kernels)
+    return dict(
+        steps=n, wall_ms_per_step=wall / n * 1e3,
+        device_ms_per_step=dev_us / n / 1e3 if dev_us else "not measured",
+        device_busy_share=dev_us / 1e6 / wall if dev_us else "not measured",
+        kernels_per_step=sum(e.count for e in kernels) / n,
+        top_kernels_ms_per_step={e.key[:60]: dev_time(e) / n / 1e3
+                                 for e in kernels[:8]})
+
+
+def phase_serve(torch, seed):
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TT
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import Request, ServingEngine
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get("gemma2-27b"),
+                              num_layers=SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = TT.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+                           SERVE_REQUESTS)
+    new = rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1, SERVE_REQUESTS)
+    reqs = _serve_requests(Request, seed, cfg.vocab_size, lengths, new)
+    tracer = Tracer(recorder=None)
+    engine = ServingEngine(cfg, params, num_slots=SERVE_SLOTS,
+                           s_max=SERVE_SMAX, policy="ondemand", seed=seed,
+                           tracer=tracer, device=dev)
+    weight_bytes = TT.param_bytes(params)
+    cache_bytes = TT.cache_bytes(engine.caches)
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counts set to 0 just before, read just after ---------
+    ops.use_kernels("auto")
+    ops.reset_launch_counts()
+    wall = _run_engine(engine, reqs, SERVE_RESIZE)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    main_steps, main_events = engine.steps, list(engine.resize_events)
+    main_counts = {k: counts[k] for k in ("flash_attention",
+                                          "decode_attention")}
+    prefills = [sp for sp in tracer.spans if sp.name == "prefill"]
+    decodes = [sp for sp in tracer.spans if sp.name == "decode"]
+    check(all(len(r.generated) == r.max_new_tokens for r in reqs),
+          "a request did not finish")
+    check(main_counts["flash_attention"] == SERVE_LAYERS * len(prefills),
+          f"flash launches {main_counts['flash_attention']} != layers x "
+          f"prefills {SERVE_LAYERS} x {len(prefills)}")
+    check(main_counts["decode_attention"] == SERVE_LAYERS * engine.steps,
+          f"decode launches {main_counts['decode_attention']} != layers x "
+          f"steps {SERVE_LAYERS} x {engine.steps}")
+    per_tok = [sp.duration / sp.args["plen"] * 1e3 for sp in prefills]
+    dec_ms = np.array([sp.duration for sp in decodes]) * 1e3
+    say("serve", layers=SERVE_LAYERS, d_model=cfg.d_model,
+        heads=[cfg.num_heads, cfg.num_kv_heads], requests=SERVE_REQUESTS,
+        prompt_tokens=int(lengths.sum()), new_tokens=int(new.sum()),
+        tokens_out=engine.tokens_out, wall_s=wall,
+        tokens_per_s=engine.tokens_out / wall,
+        prefill_ms_per_prompt_token_median=float(np.median(per_tok)),
+        prefill_s_total=float(sum(sp.duration for sp in prefills)),
+        decode_step_ms_median=float(np.median(dec_ms)),
+        decode_step_ms_max=float(dec_ms.max()), decode_steps=engine.steps,
+        prefills=len(prefills), resize_events=engine.resize_events,
+        weight_bytes=weight_bytes, cache_bytes=cache_bytes,
+        peak_bytes=torch.cuda.max_memory_allocated(), init_s=init_s,
+        launches=main_counts)
+    # -- device busy share of decode steps: short requests fill every slot
+    n = engine.num_slots
+    for r in _serve_requests(Request, seed + 2, cfg.vocab_size,
+                             [SERVE_PROMPT[0]] * n, [8] * n):
+        engine.submit(r)
+    engine.step()                       # admits all, first decode step
+    torch.cuda.synchronize()
+    say("serve", profile="decode step", **profile_steps(torch, engine.step,
+                                                        6))
+    # -- and one prefill of the longest prompt (it ends at its first token)
+    check(not engine.active and not engine.waiting, "short requests left")
+    engine.submit(_serve_requests(Request, seed + 3, cfg.vocab_size,
+                                  [SERVE_PROMPT[1]], [1])[0])
+    say("serve", profile=f"prefill of {SERVE_PROMPT[1]} tokens",
+        **profile_steps(torch, engine.step, 1))
+    engine.caches = engine._one_caches = None
+    del engine
+    torch.cuda.empty_cache()
+
+    # -- check (i): the same run in ops mode ref, serving the kernel run's
+    # tokens, so that both runs take one schedule (admissions, decode steps,
+    # the resize) and differ only in how attention is computed.  Each
+    # request's last logits are held to BF16_LOGIT_RMS; where the ref run's
+    # own argmax is another token, that token's lead over the kernel run's
+    # one must stay inside the repo's bfloat16 tolerance.
+    Replay = _replay_class(ServingEngine)
+    replay = Replay(cfg, params, num_slots=SERVE_SLOTS, s_max=SERVE_SMAX,
+                    policy="ondemand", seed=seed, device=dev,
+                    script={r.rid: list(r.generated) for r in reqs})
+    ref_reqs = _serve_requests(Request, seed, cfg.vocab_size, lengths, new)
+    ops.use_kernels("ref")
+    try:
+        _run_engine(replay, ref_reqs, SERVE_RESIZE)
+    finally:
+        ops.use_kernels("auto")
+    check(replay.steps == main_steps
+          and replay.resize_events == main_events,
+          "the ref run took another schedule than the kernel run")
+    errs = [_logit_errs(a.logits, b.logits, BF16_TOL)
+            for a, b in zip(reqs, ref_reqs)]
+    leads = [lead / (BF16_TOL * (1 + abs(logit)))
+             for lead, logit in replay.own_lead]
+    rms = max(e["rms_over_std"] for e in errs)
+    say("serve", check="(i) the kernel run against ops mode ref on its "
+        "schedule", max_rms_err_over_logit_std=rms,
+        rms_limit=BF16_LOGIT_RMS,
+        max_abs_logit_err=max(e["max_abs"] for e in errs),
+        max_err_over_elementwise_tol=max(e["over_tol"] for e in errs),
+        elementwise_tol=f"{BF16_TOL} + {BF16_TOL} x |ref logit| (reported)",
+        tokens_compared=sum(len(r.generated) for r in reqs),
+        argmax_differs=len(leads),
+        max_lead_over_tolerance=max(leads, default=0.0))
+    check(rms <= BF16_LOGIT_RMS,
+          f"last logits differ from ops mode ref by {rms} of their standard "
+          f"deviation (RMS), limit {BF16_LOGIT_RMS}")
+    check(max(leads, default=0.0) <= 1.0,
+          "the ref run's argmax leads the kernel run's token beyond the "
+          "tolerance")
+    replay.caches = replay._one_caches = None
+    del replay
+    del params
+    torch.cuda.empty_cache()
+
+    # -- check (ii): float32, one local/global pair at full width -------------
+    cfg32 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32",
+                                compute_dtype="float32")
+    params = TT.init_params(cfg32, seed + 1, device=dev)
+    lengths = np.array(F32_PROMPTS)
+    new = np.full(len(lengths), F32_NEW)
+
+    # the kernel run, then its replay in ops mode ref on the same schedule:
+    # equal tokens, and last logits within F32_MODEL_TOL
+    reqs = _serve_requests(Request, seed + 1, cfg32.vocab_size, lengths, new)
+    eng = ServingEngine(cfg32, params, num_slots=3, s_max=SERVE_SMAX,
+                        device=dev)
+    ops.reset_launch_counts()
+    _run_engine(eng, reqs)
+    f32_counts = {k: ops.launch_counts()[k] for k in main_counts}
+    kern = [r.generated for r in reqs]
+    replay = Replay(cfg32, params, num_slots=3, s_max=SERVE_SMAX, device=dev,
+                    script={r.rid: list(r.generated) for r in reqs})
+    ref_reqs = _serve_requests(Request, seed + 1, cfg32.vocab_size, lengths,
+                               new)
+    ops.use_kernels("ref")
+    try:
+        _run_engine(replay, ref_reqs)
+    finally:
+        ops.use_kernels("auto")
+    errs = [_logit_errs(a.logits, b.logits, F32_MODEL_TOL)
+            for a, b in zip(reqs, ref_reqs)]
+    worst = max(e["over_tol"] for e in errs)
+    say("serve", check="(ii) float32 kernel run against ops mode ref",
+        max_abs_logit_err=max(e["max_abs"] for e in errs),
+        max_err_over_tolerance=worst,
+        tolerance=f"{F32_MODEL_TOL} + {F32_MODEL_TOL} x |ref logit|",
+        argmax_differs=len(replay.own_lead))
+    check(not replay.own_lead,
+          "float32 run: kernels and ref mode give other tokens")
+    check(worst <= 1.0, "float32 run: last logits differ from ops mode ref "
+          "beyond the tolerance")
+    del eng, replay
+    sequential = []
+    for r in _serve_requests(Request, seed + 1, cfg32.vocab_size, lengths,
+                             new):
+        caches = TT.init_caches(cfg32, 1, SERVE_SMAX, device=dev)
+        logits, caches = TT.prefill_forward(
+            params, {"tokens": torch.as_tensor(r.prompt, device=dev).long()
+                     [None]}, cfg32, caches)
+        out = [int(logits[0, -1].argmax())]
+        for pos in range(len(r.prompt), len(r.prompt) + F32_NEW - 1):
+            logits, caches = TT.decode_forward(
+                params, {"tokens": torch.tensor([[out[-1]]], device=dev)},
+                cfg32, caches,
+                torch.tensor([pos], dtype=torch.int32, device=dev))
+            out.append(int(logits[0, -1].argmax()))
+        sequential.append(out)
+        del caches
+    check(kern == sequential, "float32 run: continuous batching and "
+          "sequential prefill + decode give other tokens")
+    check(min(f32_counts.values()) > 0,
+          "float32 run launched no attention kernel")
+    say("serve", check="(ii) float32, 2 layers at full width",
+        prompts=lengths.tolist(), new_tokens=F32_NEW, kernel_eq_ref=True,
+        logits_within_tol=True, batched_eq_sequential=True,
+        launches=f32_counts)
+    del params
+    torch.cuda.empty_cache()
+    return main_counts
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -678,12 +1227,17 @@ def main(argv=None):
         ptxas = [ln.strip() for ln in _build.BUILD_INFO["ptxas"].splitlines()
                  if "registers" in ln or "Compiling entry" in ln]
         say("build", seconds=time.perf_counter() - t0,
-            compiled=_build.BUILD_INFO["compiled"], ptxas=ptxas)
+            compiled=_build.BUILD_INFO["compiled"],
+            compiler_cpu_seconds=_build.BUILD_INFO["compiler_cpu_seconds"],
+            ptxas=ptxas)
 
         items = make_stream(args.seed, keyed_stream)
         records = phase_kernels(torch, items)
         counts = phase_main(torch, items)
         phase_small(torch)
+        del items
+        records.update(phase_attention(torch))
+        serve_counts = phase_serve(torch, args.seed)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -693,10 +1247,12 @@ def main(argv=None):
     kernels = []
     for k, (source, replaces) in KERNEL_META.items():
         rec = records[k]
+        launches = serve_counts[k] if k in serve_counts else \
+            counts["fused"][k] + counts["loop"][k]
         kernels.append({
             "name": k, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": counts["fused"][k] + counts["loop"][k],
+            "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

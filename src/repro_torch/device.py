@@ -21,6 +21,10 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is "
+                               f"unavailable")
+        if dev.index is None:  # "cuda" names the current card, as tensors do
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

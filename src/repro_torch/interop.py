@@ -1,4 +1,4 @@
-"""State carry-over between the JAX reference and the port.
+"""State and weight carry-over between the JAX reference and the port.
 
 The keyed plane's data is made from a seed, so what carries over between
 the two packages is the STATE: the canonical snapshot that
@@ -8,6 +8,14 @@ reference's snapshot and returns the port's state; a port executor given it
 (``executor.state = ...``) continues the stream exactly where the reference
 would.  :func:`state_to_reference` goes the other way.  Neither needs the
 other package: both sides are plain numpy.
+
+The serving slice carries MODEL WEIGHTS the same way:
+:func:`params_from_reference` takes the reference's parameter pytree (its
+leaves as numpy arrays) and returns the port's
+:class:`~repro_torch.models.transformer.Transformer`;
+:func:`params_to_reference` goes the other way.  The reference stacks its
+layers as ``units[f"l{i}"][leaf][u]`` after the unrolled ``prefix_layers``;
+the port's layer ``len(prefix) + u * len(unit) + i`` is that entry.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
 
 #: row columns of the canonical snapshot, all int64 and of one length
 ROW_COLUMNS = ("w_key", "w_start", "w_end", "w_value", "w_count")
@@ -58,3 +67,107 @@ def state_from_reference(snapshot) -> Dict[str, np.ndarray]:
 def state_to_reference(state) -> Dict[str, np.ndarray]:
     """The port's canonical keyed state -> the JAX package's snapshot."""
     return _canonical(state)
+
+
+# ---------------------------------------------------------------------------
+# model weights
+# ---------------------------------------------------------------------------
+
+#: (reference path inside one layer's dict, port attribute path)
+_LAYER_LEAVES = (
+    (("ln1", "scale"), "ln1.scale"),
+    (("mixer", "wq"), "mixer.wq"),
+    (("mixer", "wk"), "mixer.wk"),
+    (("mixer", "wv"), "mixer.wv"),
+    (("mixer", "wo"), "mixer.wo"),
+    (("ln2", "scale"), "ln2.scale"),
+    (("mlp", "wi_gate"), "mlp.wi_gate"),
+    (("mlp", "wi_up"), "mlp.wi_up"),
+    (("mlp", "wo"), "mlp.wo"),
+)
+_POST_NORM_LEAVES = (
+    (("post_ln1", "scale"), "post_ln1.scale"),
+    (("post_ln2", "scale"), "post_ln2.scale"),
+)
+
+
+def _layer_leaves(cfg):
+    return _LAYER_LEAVES + (_POST_NORM_LEAVES if cfg.post_norms else ())
+
+
+def _reference_layers(tree, cfg):
+    """Yield, in the port's layer order, a getter ``path -> array`` for each
+    of the reference's layers."""
+    prefix, unit, n_units = cfg.layout()
+    for p in tree["prefix_layers"]:
+        yield lambda path, p=p: p[path[0]][path[1]]
+    for u in range(n_units):
+        for i in range(len(unit)):
+            sub = tree["units"][f"l{i}"]
+            yield lambda path, sub=sub, u=u: np.asarray(
+                sub[path[0]][path[1]])[u]
+
+
+def params_from_reference(tree, cfg, *, device=None):
+    """The reference's parameter pytree (numpy leaves) -> the port's
+    :class:`~repro_torch.models.transformer.Transformer` on ``device``
+    (``None``: the CUDA card)."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    model = Transformer(cfg, device=dev)
+
+    def put(dst: torch.Tensor, src) -> None:
+        src = np.asarray(src)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"shape {src.shape} does not fit {tuple(dst.shape)}")
+        dst.copy_(torch.as_tensor(src.astype(np.float32)).to(dst.dtype))
+
+    with torch.no_grad():
+        put(model.embed, tree["embed"]["table"])
+        if model.lm_head is not None:
+            put(model.lm_head, tree["lm_head"]["table"])
+        put(model.final_norm.scale, tree["final_norm"]["scale"])
+        for layer, get in zip(model.layers, _reference_layers(tree, cfg)):
+            for path, attr in _layer_leaves(cfg):
+                put(layer.get_parameter(attr), get(path))
+    return model
+
+
+def params_to_reference(params, cfg):
+    """The port's :class:`~repro_torch.models.transformer.Transformer` ->
+    the reference's parameter pytree, leaves as float32 numpy arrays (the
+    reference casts them to its own parameter dtype on use)."""
+
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    prefix, unit, n_units = cfg.layout()
+    layers = list(params.layers)
+    n_pre = len(prefix)
+
+    def layer_dict(layer):
+        out: Dict[str, Dict[str, np.ndarray]] = {}
+        for (group, leaf), attr in _layer_leaves(cfg):
+            out.setdefault(group, {})[leaf] = arr(layer.get_parameter(attr))
+        return out
+
+    units = {}
+    for i in range(len(unit)):
+        per_unit = [layer_dict(layers[n_pre + u * len(unit) + i])
+                    for u in range(n_units)]
+        units[f"l{i}"] = {
+            group: {leaf: np.stack([d[group][leaf] for d in per_unit])
+                    for leaf in per_unit[0][group]}
+            for group in per_unit[0]
+        }
+    tree = {
+        "embed": {"table": arr(params.embed)},
+        "final_norm": {"scale": arr(params.final_norm.scale)},
+        "prefix_layers": tuple(layer_dict(x) for x in layers[:n_pre]),
+        "units": units,
+    }
+    if params.lm_head is not None:
+        tree["lm_head"] = {"table": arr(params.lm_head)}
+    return tree

@@ -1,12 +1,14 @@
-"""Build and load the keyed plane's CUDA kernels.
+"""Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface.  One ``nvcc`` call
-compiles all of them for ``sm_90a`` into one shared library under the
-repository's ``build/`` directory (listed in ``.gitignore``); the file name
-carries a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing library.  The library is loaded with
-``ctypes``: every pointer and the stream are ``c_void_p``, every function
-returns ``cudaGetLastError()``.
+The sources under ``csrc/`` have a plain C interface.  Each ``.cu`` file is
+compiled by its own ``nvcc`` call for ``sm_90a`` into its own shared
+library under the repository's ``build/`` directory (listed in
+``.gitignore``); the calls for the libraries that are missing all start
+together, so the build takes about as long as its slowest source.  A file
+name carries a hash of its source, the shared headers and the flags, so an
+edited source rebuilds and an unchanged one loads the existing library.
+The libraries are loaded with ``ctypes``: every pointer and the stream are
+``c_void_p``, every function returns ``cudaGetLastError()``.
 
 Nothing here runs at import time.  :func:`library` builds on first use, so
 ``python3 chip_smoke.py`` alone builds everything.
@@ -17,12 +19,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import resource
 import shutil
 import subprocess
 import threading
 import time
+import types
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -42,12 +46,22 @@ _SIGNATURES = {
     "keyed_table_lookup": [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, _P],
     "keyed_batched_table_lookup":
         [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P],
+    # q, k, v, o, B, Hq, Hkv, Sq, Skv, hd, dtype, causal, window, softcap,
+    # stream
+    "attn_flash_forward":
+        [_P] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, _P],
+    # q, k, v, valid_len, o, B, Hq, Hkv, S, hd, dtype, window, softcap,
+    # stream
+    "attn_decode_forward":
+        [_P] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, _P],
 }
 
 _LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
+_LIB: Optional[types.SimpleNamespace] = None
 
-#: what the last build did: seconds, whether it compiled, ptxas report
+#: what the last build did: wall seconds, the compilers' CPU seconds summed
+#: over the sources (about what one source after another would take), the
+#: sources compiled, ptxas report
 BUILD_INFO: dict = {}
 
 
@@ -59,46 +73,66 @@ def _nvcc() -> str:
     if os.path.exists(default):
         return default
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the keyed kernels")
+                       "the port's kernels")
 
 
-def build(build_dir: Path = BUILD_DIR) -> Path:
-    """Compile ``csrc/*.cu`` into one shared library; returns its path."""
-    srcs = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.iterdir()):
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    out = Path(build_dir) / f"libkeyed_{digest.hexdigest()[:16]}.so"
+def build(build_dir: Path = BUILD_DIR) -> List[Path]:
+    """Compile each ``csrc/*.cu`` into its own shared library, the missing
+    ones in parallel; returns the libraries' paths."""
+    shared = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for h in sorted(CSRC.glob("*.cuh")):
+        shared.update(h.name.encode() + h.read_bytes())
+    outs, todo = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        digest = shared.copy()
+        digest.update(src.read_bytes())
+        out = Path(build_dir) / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
+        outs.append(out)
+        if not out.exists():
+            todo.append((src, out, out.with_suffix(f".{os.getpid()}.tmp")))
     t0 = time.perf_counter()
-    if out.exists():
-        BUILD_INFO.update(seconds=time.perf_counter() - t0, compiled=False,
-                          path=str(out), ptxas="")
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, compiled=True,
-                      path=str(out), ptxas=proc.stderr)
-    return out
+    cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    ptxas = []
+    if todo:
+        Path(build_dir).mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        cmds = [[nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+                for src, _, tmp in todo]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        outputs = [p.communicate() for p in procs]
+        for cmd, p, (out, err) in zip(cmds, procs, outputs):
+            if p.returncode:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}\n{err}")
+            ptxas.append(err)
+        for _, out, tmp in todo:
+            os.replace(tmp, out)
+    cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    BUILD_INFO.update(
+        seconds=time.perf_counter() - t0,
+        compiler_cpu_seconds=(cpu1.ru_utime + cpu1.ru_stime
+                              - cpu0.ru_utime - cpu0.ru_stime),
+        compiled=[src.name for src, _, _ in todo], ptxas="".join(ptxas))
+    return outs
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def library() -> types.SimpleNamespace:
+    """The kernels' C entry points by name (the libraries are built on the
+    first call)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
+            libs = [ctypes.CDLL(str(p)) for p in build()]
+            fns = {}
             for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name)
+                fn = next((getattr(lib, name) for lib in libs
+                           if hasattr(lib, name)), None)
+                if fn is None:
+                    raise RuntimeError(f"no kernel library exports {name}")
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
-            _LIB = lib
+                fns[name] = fn
+            _LIB = types.SimpleNamespace(**fns)
         return _LIB

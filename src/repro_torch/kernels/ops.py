@@ -1,6 +1,7 @@
 """Dispatch layer: CUDA kernel for CUDA tensors, plain PyTorch for CPU ones.
 
-Port of ``repro/kernels/ops.py`` for the keyed plane's four kernels.
+Port of ``repro/kernels/ops.py`` for the keyed plane's four kernels and the
+serving path's two attention kernels.
 ``use_kernels(mode)`` sets the dispatch globally:
 
 * ``"auto"`` (default): a CUDA tensor launches the kernel, a CPU tensor
@@ -20,6 +21,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import decode_attention as _dk
+from repro_torch.kernels import flash_attention as _fk
 from repro_torch.kernels import hash_table as _ht
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import segment_reduce as _sr
@@ -47,12 +50,15 @@ def kernels_active(device) -> bool:
     return dev.type == "cuda"
 
 
+_COUNTERS = (_sr.LAUNCHES, _ht.LAUNCHES, _fk.LAUNCHES, _dk.LAUNCHES)
+
+
 def launch_counts() -> Dict[str, int]:
-    return {**_sr.LAUNCHES, **_ht.LAUNCHES}
+    return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_sr.LAUNCHES, _ht.LAUNCHES):
+    for counts in _COUNTERS:
         for k in counts:
             counts[k] = 0
 
@@ -125,3 +131,29 @@ def batched_table_lookup(cell_owners, cell_keys, cell_starts, row_owners,
     if kernels_active(cell_keys.device):
         return _ht.batched_table_lookup(*args)
     return _ref.batched_table_lookup_ref(*args)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """q ``[B, Hq, Sq, hd]``; k, v ``[B, Hkv, Skv, hd]`` -> like q: causal /
+    sliding-window attention with softcap and GQA, float32 math."""
+    if kernels_active(q.device):
+        return _fk.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window, softcap=softcap)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    softcap=softcap)
+
+
+def decode_attention(q, cache_k, cache_v, valid_len, *, softcap=0.0,
+                     window=0):
+    """q ``[B, Hq, hd]`` against the cache ``[B, Hkv, S, hd]`` at positions
+    ``p < valid_len`` (``> valid_len - window``); ``valid_len`` a scalar or
+    one length per slot ``[B]``, each >= 1."""
+    if kernels_active(q.device):
+        if isinstance(valid_len, torch.Tensor):
+            valid_len = _i32(valid_len.to(q.device))
+        return _dk.decode_attention(q.contiguous(), cache_k.contiguous(),
+                                    cache_v.contiguous(), valid_len,
+                                    softcap=softcap, window=window)
+    return _ref.decode_attention_ref(q, cache_k, cache_v, valid_len,
+                                     softcap=softcap, window=window)

@@ -1,8 +1,11 @@
-"""Plain PyTorch versions of the keyed plane's four kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Each function computes what its CUDA kernel computes, on tensors of any
-device.  The wrappers take these for CPU tensors; on the card only
-``chip_smoke.py``, the GPU tests and ``ops`` mode ``"ref"`` use them.
+The keyed plane's four (segment sum, scatter-add, the two table lookups)
+and the serving path's two (flash attention for prefill, decode attention
+against the KV cache).  Each function computes what its CUDA kernel
+computes, on tensors of any device.  The wrappers take these for CPU
+tensors; on the card only ``chip_smoke.py``, the GPU tests and ``ops``
+mode ``"ref"`` use them.
 
 Integer accumulators: ``segment_sum`` sums integers into int32 with
 wraparound (the reference's i32 partials); ``scatter_add`` accumulates in
@@ -13,7 +16,12 @@ contribute nothing.
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+#: masked attention score, as in the reference's kernels
+NEG_INF = -2.0e38
 
 #: cell x row elements per tile of the plain lookup: its boolean
 #: temporaries stay near 1 GB whatever the table size
@@ -136,3 +144,62 @@ def batched_table_lookup_ref(cell_owners, cell_keys, cell_starts,
             m &= row_owners[None, :] == cell_owners[sl, None]
         out[sl] = _first_match(m, total).to(torch.int32)
     return out
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _masked_softmax_pv(s, mask, vf, out_dtype):
+    s = torch.where(mask, s, torch.full((), NEG_INF, dtype=s.dtype,
+                                        device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return (p @ vf).to(out_dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """q ``[B, Hq, Sq, hd]``; k, v ``[B, Hkv, Skv, hd]`` -> like q.
+
+    Float32 math; GQA maps q head ``h`` to kv head ``h // (Hq // Hkv)``;
+    the mask keeps ``k <= q`` (causal) and ``k > q - window`` (window), with
+    query and key positions both counted from 0."""
+    hq, hkv, sq, skv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
+    g = hq // hkv
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    s = (q.float() @ kf.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    return _masked_softmax_pv(s, mask, vf, q.dtype)
+
+
+def decode_attention_ref(q, cache_k, cache_v, valid_len, *, softcap=0.0,
+                         window=0):
+    """q ``[B, Hq, hd]``; cache ``[B, Hkv, S, hd]``; ``valid_len`` a scalar
+    or ``[B]`` (one length per slot) -> ``[B, Hq, hd]``.
+
+    Position ``p`` of row ``b`` is attended when ``p < valid_len[b]`` and,
+    with a window, ``p > valid_len[b] - window``.  Float32 math."""
+    b, hq, hd = q.shape
+    hkv, s_len = cache_k.shape[1], cache_k.shape[2]
+    g = hq // hkv
+    kf = cache_k.float().repeat_interleave(g, dim=1)
+    vf = cache_v.float().repeat_interleave(g, dim=1)
+    s = (q.float()[:, :, None, :] @ kf.transpose(-1, -2))[:, :, 0] \
+        / math.sqrt(hd)                                   # [B, Hq, S]
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    valid = torch.as_tensor(valid_len, device=q.device).reshape(-1, 1, 1)
+    pos = torch.arange(s_len, device=q.device)[None, None, :]
+    mask = pos < valid
+    if window:
+        mask &= pos > valid - window
+    return _masked_softmax_pv(s[:, :, None, :], mask[:, :, None, :], vf,
+                              q.dtype)[:, :, 0]

@@ -1,0 +1,174 @@
+"""GQA attention for the decoder: prefill (cache write) and decode (cache
+read), through the flash and decode attention kernels.
+
+Port of the causal and sliding-window parts of ``repro/models/attention.py``
+for one card: no tensor-parallel head padding (``launch/`` is not ported),
+and no prefix-LM, bidirectional or cross attention (the encoder-decoder and
+prefix-embedding models are not ported either).
+
+The KV cache of a layer is ``{"k", "v"}``, each ``[B, Hkv, S_max, hd]``:
+the decode kernel's layout, so neither mode transposes the cache.  A step
+of ``attention_block``:
+
+* **prefill** (``cache_index is None``): writes the prompt's k/v into the
+  cache rows ``[0, S)`` and attends with ``ops.flash_attention``;
+* **decode** (``cache_index`` given, one token per slot): writes the
+  token's k/v into the cache IN PLACE at each slot's own position, then
+  attends with ``ops.decode_attention`` over ``valid_len = index + 1``.
+  The reference attends the cache at ``k > index - window`` plus the
+  token's own k/v passed apart, ``window`` keys in all; with the token in
+  the cache and ``valid_len = index + 1`` the same keys need the kernel's
+  window to be ``window + 1``.
+
+:func:`attend_naive` is the plain, materializing oracle the tests use.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+
+NEG_INF = -2.0e38
+
+# mask modes
+CAUSAL = "causal"
+SLIDING = "sliding"
+MODES = (CAUSAL, SLIDING)
+
+
+class Attention(nn.Module):
+    """Projections ``wq [d, Hq, hd]``, ``wk``/``wv [d, Hkv, hd]``,
+    ``wo [Hq, hd, d]`` (the reference's layouts)."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
+                 *, dtype, device):
+        super().__init__()
+        if n_kv <= 0 or n_heads % n_kv:
+            raise ValueError(f"{n_heads} q heads do not group over {n_kv} "
+                             f"kv heads")
+        def param(*shape):
+            return layers.zeros_param(shape, dtype, device)
+
+        self.wq = param(d_model, n_heads, head_dim)
+        self.wk = param(d_model, n_kv, head_dim)
+        self.wv = param(d_model, n_kv, head_dim)
+        self.wo = param(n_heads, head_dim, d_model)
+
+    def init_weights(self, generator) -> None:
+        d = self.wq.shape[0]
+        for w in (self.wq, self.wk, self.wv):
+            layers.truncated_normal_(w.data, d ** -0.5, generator)
+        n, hd = self.wo.shape[:2]
+        layers.truncated_normal_(self.wo.data, (n * hd) ** -0.5, generator)
+
+
+def _project(x, w):
+    """x ``[B, S, d]`` @ w ``[d, H, hd]`` -> ``[B, S, H, hd]``."""
+    d, h, hd = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * hd)).view(*x.shape[:2], h, hd)
+
+
+def _mask(q_pos, k_pos, mode: str, window: int):
+    allowed = k_pos[None, :] <= q_pos[:, None]
+    if mode == SLIDING:
+        allowed &= k_pos[None, :] > q_pos[:, None] - window
+    return allowed
+
+
+def attend_naive(q, k, v, *, mode=CAUSAL, window=0, softcap=0.0,
+                 q_offset=0, kv_valid_len=None):
+    """Materializing oracle. q ``[B, Sq, Hq, hd]``; k, v ``[B, Skv, Hkv, hd]``
+    -> ``[B, Sq, Hq, hd]``; float32 scores, p cast to v's dtype for P.V as
+    in the reference."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    s = s.reshape(b, hq, sq, skv) / math.sqrt(hd)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    k_pos = torch.arange(skv, device=q.device)
+    allowed = _mask(q_pos, k_pos, mode, window)[None, None]
+    if kv_valid_len is not None:
+        allowed = allowed & (k_pos < kv_valid_len)[None, None, None, :]
+    s = torch.where(allowed, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1).reshape(b, hkv, g, sq, skv)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+    return o.reshape(b, sq, hq, hd)
+
+
+def _positions(cache_index, b: int, s: int, device) -> torch.Tensor:
+    base = torch.as_tensor(0 if cache_index is None else cache_index,
+                           device=device).reshape(-1)
+    if base.numel() == 1:
+        base = base.expand(b)
+    return base[:, None].to(torch.int64) + torch.arange(s, device=device)
+
+
+def attention_block(x, params: Attention, *, mode: str, rope_theta: float,
+                    window: int = 0, softcap: float = 0.0,
+                    cache: Optional[dict] = None,
+                    cache_index=None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x ``[B, S, d]`` -> (out ``[B, S, d]``, cache).
+
+    * ``cache_index is None``: prefill from position 0; with a cache, its
+      rows ``[0, S)`` are overwritten with the prompt's k/v.
+    * ``cache_index`` a scalar or one position per slot ``[B]``, ``S == 1``:
+      decode; the token's k/v land in the cache in place at those positions
+      (each must be ``< S_max``) and the step attends positions
+      ``[0, index]`` (the last ``window`` of them for a sliding layer).
+    The cache is updated in place and returned."""
+    if mode not in MODES:
+        raise NotImplementedError(
+            f"attention mode {mode!r}: the port has {MODES} (prefix-LM and "
+            f"bidirectional attention wait for ROADMAP Queue 1 item 12)")
+    b, s, _ = x.shape
+    q = _project(x, params.wq)
+    k = _project(x, params.wk)
+    v = _project(x, params.wv)
+    positions = _positions(cache_index, b, s, x.device)
+    q = layers.rope(q, positions, rope_theta)
+    k = layers.rope(k, positions, rope_theta)
+    win = window if mode == SLIDING else 0
+
+    if cache_index is not None:
+        if cache is None or s != 1:
+            raise ValueError("decode needs a cache and one token per slot")
+        idx = positions[:, 0]
+        slots = torch.arange(b, device=x.device)
+        ck, cv = cache["k"], cache["v"]
+        ck[slots, :, idx] = k[:, 0].to(ck.dtype)
+        cv[slots, :, idx] = v[:, 0].to(cv.dtype)
+        o = ops.decode_attention(
+            q[:, 0], ck, cv, (idx + 1).to(torch.int32),
+            softcap=softcap, window=win + 1 if win else 0,
+        )[:, None]                                        # [B, 1, Hq, hd]
+    else:
+        if cache is not None:
+            cache["k"][:, :, :s] = k.transpose(1, 2).to(cache["k"].dtype)
+            cache["v"][:, :, :s] = v.transpose(1, 2).to(cache["v"].dtype)
+        o = ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=win, softcap=softcap,
+        ).transpose(1, 2)                                 # [B, S, Hq, hd]
+    hq, hd, d = params.wo.shape
+    out = o.reshape(b, s, hq * hd) @ params.wo.to(x.dtype).reshape(hq * hd, d)
+    return out, cache
+
+
+def init_kv_cache(batch: int, s_max: int, n_kv: int, head_dim: int, dtype,
+                  device) -> dict:
+    return {
+        "k": torch.zeros((batch, n_kv, s_max, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, n_kv, s_max, head_dim), dtype=dtype,
+                         device=device),
+    }

@@ -1,0 +1,380 @@
+"""The serving slice's attention and model layers against the JAX package.
+
+The same numpy inputs go through the reference (its Pallas kernels in
+interpret mode, or its jnp oracles where interpret mode cannot take the
+shape) and through the port's plain versions on the CPU.  Everything is
+float32: attention is held to 3e-5 (the tolerance the reference holds its
+own kernels to), the layers to 1e-6, the attention block to 1e-5 and the
+whole reduced model to 1e-4 (sums in another order through several
+layers).  The CUDA kernels are held against the plain versions on the card
+by ``tests/test_torch_cuda.py``.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as jdecode
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import transformer as JT
+import repro_torch.configs as tconfigs
+from repro_torch.interop import params_from_reference, params_to_reference
+from repro_torch.kernels import ops as tops
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+from repro_torch.models import transformer as TT
+from repro_torch.models.config import MAMBA, NONE, LayerSpec, ModelConfig
+
+F32 = dict(atol=3e-5, rtol=3e-5)
+
+
+def t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _qkv(seed, b, hq, hkv, sq, skv, hd):
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, b, hq, sq, hd), _normal(rng, b, hkv, skv, hd),
+            _normal(rng, b, hkv, skv, hd))
+
+
+def _jax_tree(params):
+    return jax.tree.map(np.asarray, params)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the plain version against the reference's kernel
+# ---------------------------------------------------------------------------
+
+class TestFlashAttention:
+    @pytest.mark.parametrize(
+        "B,Hq,Hkv,Sq,Skv,hd",
+        [(1, 4, 4, 256, 256, 64), (2, 4, 2, 256, 512, 64),
+         (1, 4, 1, 128, 384, 128), (1, 8, 8, 512, 512, 64)],
+    )
+    def test_causal_vs_interpret_kernel(self, B, Hq, Hkv, Sq, Skv, hd):
+        q, k, v = _qkv(0, B, Hq, Hkv, Sq, Skv, hd)
+        got = tops.flash_attention(t(q), t(k), t(v), causal=True).numpy()
+        np.testing.assert_allclose(
+            got, np.asarray(jflash(q, k, v, causal=True)), **F32)
+        np.testing.assert_allclose(
+            got, np.asarray(jref.flash_attention_ref(q, k, v, causal=True)),
+            **F32)
+
+    @pytest.mark.parametrize("window,softcap,hkv", [
+        (64, 0.0, 2), (128, 0.0, 2), (0, 30.0, 2), (96, 50.0, 1),
+    ])
+    def test_window_softcap_gqa_vs_interpret_kernel(self, window, softcap,
+                                                    hkv):
+        q, k, v = _qkv(1, 1, 2, hkv, 256, 256, 64)
+        kw = dict(causal=True, window=window, softcap=softcap)
+        got = tops.flash_attention(t(q), t(k), t(v), **kw).numpy()
+        np.testing.assert_allclose(got, np.asarray(jflash(q, k, v, **kw)),
+                                   **F32)
+        np.testing.assert_allclose(
+            got, np.asarray(jref.flash_attention_ref(q, k, v, **kw)), **F32)
+
+    @pytest.mark.parametrize("Sq,Skv,window,causal", [
+        (37, 37, 0, True), (100, 100, 24, True), (5, 70, 0, False),
+        (65, 65, 64, True),
+    ])
+    def test_ragged_lengths_vs_reference_oracle(self, Sq, Skv, window,
+                                                causal):
+        """Prompt lengths are arbitrary; the reference's kernel asserts
+        tile divisibility, so these are held against its oracle only."""
+        q, k, v = _qkv(2, 2, 4, 2, Sq, Skv, 64)
+        kw = dict(causal=causal, window=window, softcap=50.0)
+        np.testing.assert_allclose(
+            tops.flash_attention(t(q), t(k), t(v), **kw).numpy(),
+            np.asarray(jref.flash_attention_ref(q, k, v, **kw)), **F32)
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+def _decode_case(seed, b, hq, hkv, s, hd):
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, b, hq, hd), _normal(rng, b, hkv, s, hd),
+            _normal(rng, b, hkv, s, hd))
+
+
+class TestDecodeAttention:
+    @pytest.mark.parametrize("B,Hq,Hkv,S,hd,valid", [
+        (2, 4, 4, 512, 64, 300), (1, 8, 2, 1024, 128, 1024),
+        (2, 4, 1, 512, 64, 17),
+    ])
+    @pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 50.0)])
+    def test_scalar_valid_len_vs_interpret_kernel(self, B, Hq, Hkv, S, hd,
+                                                  valid, window, softcap):
+        q, ck, cv = _decode_case(3, B, Hq, Hkv, S, hd)
+        kw = dict(softcap=softcap, window=window)
+        got = tops.decode_attention(t(q), t(ck), t(cv), valid, **kw).numpy()
+        np.testing.assert_allclose(
+            got, np.asarray(jdecode(q, ck, cv, jnp.int32(valid), **kw)),
+            **F32)
+
+    @pytest.mark.parametrize("window,softcap", [(0, 0.0), (9, 30.0)])
+    def test_per_slot_valid_len_vs_reference_row_by_row(self, window,
+                                                        softcap):
+        """One length per slot (the engine's ragged batch), a slot at 1
+        included; each row equals the reference's scalar oracle on that
+        row."""
+        q, ck, cv = _decode_case(4, 4, 4, 2, 64, 16)
+        valid = np.array([1, 9, 40, 64], np.int32)
+        kw = dict(softcap=softcap, window=window)
+        got = tops.decode_attention(t(q), t(ck), t(cv), t(valid), **kw)
+        for r in range(4):
+            want = jref.decode_attention_ref(
+                q[r:r + 1], ck[r:r + 1], cv[r:r + 1], int(valid[r]), **kw)
+            np.testing.assert_allclose(got[r:r + 1].numpy(),
+                                       np.asarray(want), **F32)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+L6 = dict(atol=1e-6, rtol=1e-6)
+
+
+class TestLayers:
+    def test_rmsnorm(self):
+        rng = np.random.default_rng(5)
+        x, scale = _normal(rng, 3, 7, 32), _normal(rng, 32) * 0.1
+        np.testing.assert_allclose(
+            tlayers.rmsnorm(t(x), t(scale), 1e-6).numpy(),
+            np.asarray(jlayers.rmsnorm(x, {"scale": scale}, 1e-6)), **L6)
+
+    def test_rope_halves_per_slot_positions(self):
+        rng = np.random.default_rng(6)
+        x = _normal(rng, 2, 5, 3, 16)
+        pos = np.array([[0, 1, 2, 3, 4], [40, 41, 42, 43, 44]], np.int32)
+        np.testing.assert_allclose(
+            tlayers.rope(t(x), t(pos), 1e4).numpy(),
+            np.asarray(jlayers.rope(x, pos, 1e4)), **L6)
+
+    @pytest.mark.parametrize("act", ["gelu", "silu"])
+    def test_gated_mlp(self, act):
+        rng = np.random.default_rng(7)
+        x = _normal(rng, 2, 3, 16)
+        p = {"wi_gate": _normal(rng, 16, 24) * 0.25,
+             "wi_up": _normal(rng, 16, 24) * 0.25,
+             "wo": _normal(rng, 24, 16) * 0.2}
+        mlp = tlayers.MLP(16, 24, act, dtype=torch.float32, device="cpu")
+        for name, w in p.items():
+            getattr(mlp, name).data.copy_(t(w))
+        np.testing.assert_allclose(
+            mlp(t(x)).numpy(), np.asarray(jlayers.mlp(x, p, act)), **L6)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_scaled_embedding(self, dtype):
+        rng = np.random.default_rng(8)
+        table = _normal(rng, 50, 4608) * 0.02
+        tokens = np.array([[3, 0, 49]], np.int32)
+        tdt = getattr(torch, dtype)
+        got = tlayers.embed(t(tokens).long(), t(table), scale=True,
+                            d_model=4608, compute_dtype=tdt)
+        want = jlayers.embed(tokens, {"table": table}, scale=True,
+                             d_model=4608, compute_dtype=jnp.dtype(dtype))
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **L6)
+        if dtype == "bfloat16":  # sqrt(4608) rounds to 68.0 before the product
+            rows = t(table[tokens[0]]).to(tdt)
+            assert torch.equal(got[0], rows * torch.tensor(68.0, dtype=tdt))
+
+    def test_capped_unembed(self):
+        rng = np.random.default_rng(9)
+        x, table = _normal(rng, 2, 1, 32) * 4, _normal(rng, 40, 32)
+        np.testing.assert_allclose(
+            tlayers.unembed(t(x), t(table), softcap=30.0).numpy(),
+            np.asarray(jlayers.unembed(x, {"table": table}, softcap=30.0)),
+            atol=1e-5, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# attention block: prefill and decode
+# ---------------------------------------------------------------------------
+
+D, HQ, HKV, HD, WIN, SMAX = 32, 4, 2, 16, 8, 32
+
+
+def _block_params(seed):
+    rng = np.random.default_rng(seed)
+    p = {"wq": _normal(rng, D, HQ, HD) * D ** -0.5,
+         "wk": _normal(rng, D, HKV, HD) * D ** -0.5,
+         "wv": _normal(rng, D, HKV, HD) * D ** -0.5,
+         "wo": _normal(rng, HQ, HD, D) * (HQ * HD) ** -0.5}
+    mod = tattn.Attention(D, HQ, HKV, HD, dtype=torch.float32, device="cpu")
+    for name, w in p.items():
+        getattr(mod, name).data.copy_(t(w))
+    return p, mod
+
+
+class TestAttentionBlock:
+    @pytest.mark.parametrize("mode", ["causal", "sliding"])
+    def test_prefill_writes_cache_and_matches(self, mode):
+        p, mod = _block_params(10)
+        x = _normal(np.random.default_rng(11), 2, 20, D)
+        kw = dict(mode=mode, rope_theta=1e4, window=WIN, softcap=50.0)
+        jcache = jattn.init_kv_cache(2, SMAX, HKV, HD, jnp.float32)
+        jout, jnew = jattn.attention_block(x, p, cache=jcache, **kw)
+        cache = tattn.init_kv_cache(2, SMAX, HKV, HD, torch.float32, "cpu")
+        out, cache = tattn.attention_block(t(x), mod, cache=cache, **kw)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-5,
+                                   rtol=1e-5)
+        for name in ("k", "v"):
+            np.testing.assert_allclose(
+                cache[name].transpose(1, 2).numpy(), np.asarray(jnew[name]),
+                atol=1e-5, rtol=1e-5)
+
+    @pytest.mark.parametrize("mode", ["causal", "sliding"])
+    def test_decode_per_slot_positions_cross_the_window(self, mode):
+        """Ragged per-slot positions (one below the window, two past it):
+        the port writes the token into the cache and attends window + 1
+        positions of it; the reference attends the cache and the token
+        apart.  Outputs and the written rows agree."""
+        p, mod = _block_params(12)
+        rng = np.random.default_rng(13)
+        idx = np.array([3, 12, 27], np.int32)
+        ck, cv = _normal(rng, 3, SMAX, HKV, HD), _normal(rng, 3, SMAX, HKV, HD)
+        x = _normal(rng, 3, 1, D)
+        kw = dict(mode=mode, rope_theta=1e4, window=WIN, softcap=50.0)
+        jout, jtok = jattn.attention_block(
+            x, p, cache={"k": ck, "v": cv}, cache_index=jnp.asarray(idx), **kw)
+        cache = {"k": t(ck).transpose(1, 2).contiguous(),
+                 "v": t(cv).transpose(1, 2).contiguous()}
+        out, cache = tattn.attention_block(t(x), mod, cache=cache,
+                                           cache_index=t(idx), **kw)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-5,
+                                   rtol=1e-5)
+        for b, i in enumerate(idx):
+            np.testing.assert_allclose(
+                cache["k"][b, :, i].numpy(), np.asarray(jtok["k_tok"])[b, 0],
+                atol=1e-6)
+            np.testing.assert_allclose(
+                cache["v"][b, :, i].numpy(), np.asarray(jtok["v_tok"])[b, 0],
+                atol=1e-6)
+
+    def test_naive_oracle_equals_flash_path(self):
+        p, mod = _block_params(14)
+        rng = np.random.default_rng(15)
+        q, k, v = (_normal(rng, 2, 19, HQ, HD), _normal(rng, 2, 19, HKV, HD),
+                   _normal(rng, 2, 19, HKV, HD))
+        for mode in ("causal", "sliding"):
+            want = jattn.attend_naive(q, k, v, mode=mode, window=WIN,
+                                      softcap=50.0)
+            got = tattn.attend_naive(t(q), t(k), t(v), mode=mode, window=WIN,
+                                     softcap=50.0)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+            flash = tops.flash_attention(
+                t(q).transpose(1, 2), t(k).transpose(1, 2),
+                t(v).transpose(1, 2), window=WIN if mode == "sliding" else 0,
+                softcap=50.0).transpose(1, 2)
+            np.testing.assert_allclose(flash.numpy(), got.numpy(), **F32)
+
+
+# ---------------------------------------------------------------------------
+# configs and the whole reduced model
+# ---------------------------------------------------------------------------
+
+class TestConfigs:
+    @pytest.mark.parametrize("name", ["gemma2-27b", "gemma2_27b",
+                                      "paper-synthetic"])
+    def test_same_fields_as_reference(self, name):
+        for reduce in (False, True):
+            jc, tc = jconfigs.get(name), tconfigs.get(name)
+            if reduce:
+                jc, tc = jc.reduced(), tc.reduced()
+            assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+            assert tc.cdtype == getattr(torch, tc.compute_dtype)
+            assert tc.padded_vocab == jc.padded_vocab
+            assert tc.layout()[2] == jc.layout()[2]
+
+    def test_unported_and_unknown_architectures(self):
+        assert set(tconfigs.names()) == set(jconfigs.names())
+        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+            tconfigs.get("mamba2-780m")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+            tconfigs.get("deepseek-moe-16b")
+        with pytest.raises(KeyError):
+            tconfigs.get("no-such-model")
+
+    def test_models_outside_the_slice_refuse(self):
+        ssm = ModelConfig(name="ssm", family="ssm", num_layers=2, d_model=8,
+                          num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=16,
+                          unit=(LayerSpec(MAMBA, NONE),))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+            TT.init_params(ssm, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def gemma_small():
+    cfg = jconfigs.get("gemma2-27b").reduced()
+    tree = _jax_tree(JT.init_params(cfg, jax.random.PRNGKey(0)))
+    tcfg = tconfigs.get("gemma2-27b").reduced()
+    return cfg, tree, tcfg, params_from_reference(tree, tcfg, device="cpu")
+
+
+class TestReducedGemma2:
+    def test_prefill_and_eight_decode_steps(self, gemma_small):
+        """Window 16; the 20-token prompts and 8 steps cross it."""
+        cfg, tree, tcfg, model = gemma_small
+        rng = np.random.default_rng(16)
+        prompt = rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+        jcaches = JT.init_caches(cfg, 2, 48, cfg.cdtype)
+        jlog, jcaches = JT.prefill_forward(tree, {"tokens": prompt}, cfg,
+                                           jcaches)
+        caches = TT.init_caches(tcfg, 2, 48, device="cpu")
+        tlog, caches = TT.prefill_forward(
+            model, {"tokens": t(prompt).long()}, tcfg, caches)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4,
+                                   rtol=1e-4)
+        tok = np.asarray(jnp.argmax(jlog[:, -1], -1), np.int32)[:, None]
+        for step in range(8):
+            idx = np.full(2, 20 + step, np.int32)
+            jlog, jcaches = JT.decode_forward(tree, {"tokens": tok}, cfg,
+                                              jcaches, jnp.asarray(idx))
+            tlog, caches = TT.decode_forward(
+                model, {"tokens": t(tok).long()}, tcfg, caches, t(idx))
+            np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                       atol=1e-4, rtol=1e-4)
+            tok = np.asarray(jnp.argmax(jlog[:, -1], -1), np.int32)[:, None]
+
+    def test_weights_round_trip(self, gemma_small):
+        cfg, tree, tcfg, model = gemma_small
+        back = params_to_reference(model, tcfg)
+        flat_a = jax.tree_util.tree_leaves_with_path(tree)
+        flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+        assert len(flat_a) == len(flat_b)
+        for path, leaf in flat_a:
+            np.testing.assert_array_equal(np.asarray(leaf, np.float32),
+                                          flat_b[path])
+
+    def test_init_params_stddevs(self):
+        tcfg = tconfigs.get("gemma2-27b").reduced()
+        g = torch.Generator().manual_seed(3)
+        model = TT.init_params(tcfg, device="cpu", generator=g)
+        assert model.embed.shape == (tcfg.padded_vocab, tcfg.d_model)
+        assert len(model.layers) == tcfg.num_layers
+        # a [-2, 2]-truncated unit normal has stddev 0.8796
+        assert abs(float(model.embed.std()) / 0.02 - 0.8796) < 0.02
+        assert float(model.embed.abs().max()) <= 0.04
+        wq = model.layers[0].mixer.wq
+        assert abs(float(wq.std()) * tcfg.d_model ** 0.5 - 0.8796) < 0.05
+        assert not model.final_norm.scale.any()
+        again = TT.init_params(tcfg, device="cpu",
+                               generator=torch.Generator().manual_seed(3))
+        assert torch.equal(again.layers[1].mlp.wo, model.layers[1].mlp.wo)

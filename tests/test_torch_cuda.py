@@ -7,13 +7,19 @@ package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Integers must be bit-exact; float32 sums are held to 3e-5 because the
-atomics add in another order than the plain version.
+atomics add in another order than the plain version.  The attention
+kernels are held to 3e-5 in float32 and 2e-2 in bfloat16, the tolerances
+the reference holds its Pallas kernels to (``tests/test_kernels.py``).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import hash_table as tht
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
@@ -22,6 +28,7 @@ from repro_torch.keyed import KeyedWindowAdapter, WindowSpec, synthetic_keyed_it
 from repro_torch.runtime import StreamExecutor
 
 F32 = dict(atol=3e-5, rtol=3e-5)
+BF16 = dict(atol=2e-2, rtol=2e-2)
 I64 = np.iinfo(np.int64)
 
 pytestmark = pytest.mark.cuda
@@ -147,3 +154,130 @@ def test_plane_on_the_card_equals_plain_and_cpu(dev, fused):
                     np.testing.assert_array_equal(a[ch][k], b[ch][k])
         for k in kern[1]:
             np.testing.assert_array_equal(kern[1][k], other[1][k])
+
+
+# ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+
+def _tol(dtype):
+    return BF16 if dtype == torch.bfloat16 else F32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,window,softcap,causal", [
+    (2, 4, 2, 100, 100, 64, 24, 50.0, True),    # ragged Sq, window, GQA
+    (1, 8, 2, 200, 200, 128, 0, 0.0, True),
+    (1, 4, 4, 65, 65, 128, 64, 30.0, True),     # one row past a tile
+    (2, 4, 1, 5, 70, 64, 0, 50.0, False),
+    (1, 32, 16, 300, 300, 128, 128, 50.0, True),  # Gemma2's heads
+])
+def test_flash_attention_vs_plain(dev, dtype, B, Hq, Hkv, Sq, Skv, hd,
+                                  window, softcap, causal):
+    gen = torch.Generator(device=dev).manual_seed(Sq)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, Hq, Sq, hd), (B, Hkv, Skv, hd),
+                             (B, Hkv, Skv, hd)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = ops.launch_counts()["flash_attention"]
+    got = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               tref.flash_attention_ref(q, k, v, **kw).float(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,hd,window,softcap", [
+    (32, 16, 128, 4097, 50.0), (8, 2, 64, 0, 0.0), (4, 4, 128, 9, 30.0),
+])
+def test_decode_attention_per_slot_lengths_vs_plain(dev, dtype, Hq, Hkv, hd,
+                                                    window, softcap):
+    """One length per slot, a slot at 1 and one at the full cache."""
+    S = 5000
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    q = torch.randn((5, Hq, hd), generator=gen, device=dev).to(dtype)
+    ck, cv = (torch.randn((5, Hkv, S, hd), generator=gen, device=dev)
+              .to(dtype) for _ in range(2))
+    valid = torch.tensor([1, 9, 4100, 333, S], dtype=torch.int32, device=dev)
+    kw = dict(softcap=softcap, window=window)
+    got = tda.decode_attention(q, ck, cv, valid, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), tref.decode_attention_ref(q, ck, cv, valid, **kw).float(),
+        **_tol(dtype))
+    scalar = tda.decode_attention(q, ck, cv, 77, **kw)
+    torch.testing.assert_close(
+        scalar.float(), tref.decode_attention_ref(q, ck, cv, 77, **kw).float(),
+        **_tol(dtype))
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """An unsupported head_dim, a group above 8, mixed dtypes, float16 and
+    a strided tensor raise before anything launches."""
+    counts = ops.launch_counts()
+    q = torch.zeros((1, 2, 8, 32), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        tda.decode_attention(q[:, :, 0].contiguous(), q, q, 3)
+    big = torch.zeros((1, 16, 64), device=dev)
+    cache = torch.zeros((1, 1, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="exceed"):
+        tda.decode_attention(big, cache, cache, 3)
+    x = torch.zeros((1, 2, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa.flash_attention(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa.flash_attention(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(x.transpose(1, 2), x, x)
+    assert ops.launch_counts() == counts
+
+
+def test_engine_on_the_card_equals_ref_mode_and_cpu(dev):
+    """A small float32 model at head_dim 64: the engine with the kernels
+    gives the tokens of ops mode ``ref`` on the card and of the CPU run,
+    and launched one flash kernel per layer per prefill and one decode
+    kernel per layer per step."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = dataclasses.replace(configs.get("gemma2-27b").reduced(),
+                              num_heads=4, num_kv_heads=2, head_dim=64,
+                              d_model=128, sliding_window=16)
+    cpu = TT.init_params(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 30, 17, 41)]
+
+    def serve(device, mode="auto"):
+        params = TT.Transformer(cfg, device=device)
+        params.load_state_dict(cpu.state_dict())
+        ops.use_kernels(mode)
+        try:
+            eng = ServingEngine(cfg, params, num_slots=3, s_max=64,
+                                device=device)
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.step()
+            eng.resize(2)
+            eng.run_to_completion()
+            return [r.generated for r in reqs], eng
+        finally:
+            ops.use_kernels("auto")
+
+    ops.reset_launch_counts()
+    kern, eng = serve(dev)
+    counts = ops.launch_counts()
+    n_prefills = len(prompts) + eng.resize_events[0]["requeued"]
+    assert counts["flash_attention"] == cfg.num_layers * n_prefills
+    assert counts["decode_attention"] == cfg.num_layers * eng.steps
+    assert kern == serve(dev, "ref")[0]
+    assert kern == serve("cpu")[0]

@@ -18,6 +18,8 @@ from repro.kernels import hash_table as jht
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import segment_reduce as jsr
+from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import hash_table as tht
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -247,9 +249,13 @@ class TestDispatch:
         tops.segment_sum(t(np.ones((4, 2), np.int32)), t(np.arange(4)), 4)
         tops.scatter_add_(t(np.zeros((4, 2), np.int64)), t(np.arange(4)),
                           t(np.ones((4, 2), np.int64)))
+        qkv = torch.ones((1, 2, 3, 64))
+        tops.flash_attention(qkv, qkv, qkv)
+        tops.decode_attention(qkv[:, :, 0], qkv, qkv, 2)
         assert tops.launch_counts() == dict.fromkeys(
             ("segment_sum", "scatter_add", "table_lookup",
-             "batched_table_lookup"), 0)
+             "batched_table_lookup", "flash_attention", "decode_attention"),
+            0)
         assert not tops.kernels_active("cpu")
 
     def test_kernel_mode_refuses_cpu_tensors(self):
@@ -273,3 +279,9 @@ class TestDispatch:
         with pytest.raises(ValueError, match="CUDA"):
             tht.table_lookup(*(t(np.zeros(2, np.int64)),) * 4,
                              t(np.zeros(2, bool)))
+        qkv = torch.ones((1, 2, 3, 64))
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa.flash_attention(qkv, qkv, qkv)
+        with pytest.raises(ValueError, match="CUDA"):
+            tda.decode_attention(qkv[:, :, 0], qkv, qkv,
+                                 torch.ones(1, dtype=torch.int32))

@@ -247,11 +247,13 @@ class TestCarryOver:
 # ---------------------------------------------------------------------------
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every repro_torch module, and what chip_smoke.py imports, loads
-    without pulling in JAX or the reference package."""
+    """Every repro_torch module (the serving slice's models and engine
+    included), and what chip_smoke.py imports, loads without pulling in JAX
+    or the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
+        "import repro_torch.models.transformer, repro_torch.serving\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "sys.path.insert(0, sys.argv[1])\n"
