@@ -32,22 +32,50 @@ Phases, each printed on its own line; any failure exits non-zero:
                rounding step of each value) and float32 (3e-5), at
                the serve phase's shapes (prefill 6,144 tokens of Gemma2-27B's
                32/16 heads, window 4,096 and 0, softcap 50; decode 8 slots of
-               an 8,192-row cache at ragged lengths) and on edge cases, with
+               an 8,192-row cache at ragged lengths), at the moe-serve
+               phase's (16/16 heads, no window, softcap 0) and on edge
+               cases, with
                the kernel's time, the plain version's, the bound, and
-               ``scaled_dot_product_attention``'s time as the yardstick;
-7. serve    -- the serving path's main run: ``ServingEngine`` over
-               Gemma2-27B at full width (16 of 46 layers, random weights from
-               the seed, bfloat16), 8 slots of 8,192 positions, 16 requests
-               of 256-6,144 prompt tokens and 32-64 new tokens, a resize to 6
-               slots after tick 20; launch counters must equal layers x
-               prefills and layers x decode steps; check (i) runs the same
+               ``scaled_dot_product_attention``'s time at softcap 0 as the
+               yardstick (for decode with a per-slot mask and
+               ``enable_gqa``);
+7. gemma2-serve -- ``ServingEngine`` over Gemma2-27B at full width (16 of
+               46 layers, random weights from the seed, bfloat16), 8 slots
+               of 8,192 positions, 16 requests of 256-6,144 prompt tokens and
+               32-64 new tokens, a resize to 6 slots after tick 20; launch
+               counters must equal layers x prefills (flash) and layers x
+               decode steps (decode attention); check (i) runs the same
                schedule again in ops mode ``ref``, serving the kernel run's
                tokens, and holds every request's last logits to the kernel
                run's (RMS share of their spread, ``BF16_LOGIT_RMS``) and its
                argmax to the kernel run's token; check (ii) a float32 2-layer
                model at full width gives the same tokens with kernels, in
                ``ref`` mode (last logits within 1e-4) and served one request
-               at a time.
+               at a time; a profiled decode step and long prefill;
+8. ssm-moe kernels -- the SSD scan against its plain version in float32
+               (2e-4) and bfloat16 (5e-2) at Mamba2-780M's shapes (48 heads
+               of 64, state 128, one shared B/C group) for the longest
+               prompt of phase 9 (8,192 tokens) and on edges (one token,
+               lengths no chunk divides), at dt about 0.7 and at a trained
+               model's small dt, where the state carried across chunks
+               decides the result (checked); the MoE gather bit-exact at
+               DeepSeekMoE-16B's dispatch of a 6,144-token prompt and of one
+               8-slot decode step, a sequence of only dummy rows and rows of
+               12 and 10 bytes; times, bounds, and ``index_select`` on the
+               zero-padded input as the gather's yardstick;
+9. mamba2-serve -- phase 7's run over Mamba2-780M at full width and
+               depth (48 layers, ``dt_bias`` as a trained model's), 8 slots,
+               ``s_max`` 16,384, one prompt of 5-16 tokens and 15 of
+               256-8,192: the scan launches once per layer per prefill;
+               checks (i) and (ii) as in phase 7, (i) to its own limits
+               (``MAMBA_LOGIT_RMS``, ``MAMBA_LEAD``);
+10. moe-serve  -- the same over DeepSeekMoE-16B at full width and depth (a
+               dense layer, then 27 MoE layers of 64 experts, top 6, plus 2
+               shared), 8 slots of 8,192: flash and decode attention as in
+               phase 7, the gather once per MoE layer per prefill and per
+               decode step; checks (i) (its replay taking the kernel run's
+               expert choices) and (ii), where (ii)'s two layers are the
+               dense one and one MoE layer.
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -118,18 +146,65 @@ KERNEL_META = {
                         "src/repro/kernels/flash_attention.py:125"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:99"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:98"),
+    "moe_gather": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
+                   "src/repro/kernels/moe_dispatch.py:54"),
 }
 
-# serve-phase configuration: Gemma2-27B at full width, cut in depth
-SERVE_LAYERS = 16
+# the attention kernels' phase-6 shapes: the Gemma2-27B serve phase's, and
+# DeepSeekMoE-16B's 16 heads over 16 kv heads (softcap 0, no window)
+MOE_HEADS = 16
 SERVE_SLOTS = 8
 SERVE_SMAX = 8192
-SERVE_REQUESTS = 16
 SERVE_PROMPT = (256, 6144)
-SERVE_NEW = (32, 64)
-SERVE_RESIZE = (20, 6)          # after tick 20, resize to 6 slots
-F32_PROMPTS = (4200, 300, 5000, 4700)
 F32_NEW = 8
+#: the SSD scan's tolerances, the reference's for its own kernel
+SSD_F32_TOL = 2e-4
+SSD_BF16_TOL = 5e-2
+#: the Mamba2 serve phase's prompt lengths (phase 8 times the longest)
+MAMBA_PROMPT = (256, 8192)
+#: dt = softplus(randn - SMALL_DT_SHIFT): 3e-4 to 0.1, a trained Mamba-2's
+#: range, where the state carries across many chunks
+SMALL_DT_SHIFT = 5.0
+
+#: check (i)'s limits for Mamba2-780M, whose 48 bfloat16 layers spread a
+#: rounding step further than Gemma2's 16 (PERF.md, H100): the sound run
+#: reads 0.0391 RMS and a lead of 1.46; with the scan's carry into its
+#: final state's last chunk dropped (a planted fault) it reads 0.0536 and
+#: 1.85.  Check (ii), in float32, reads that fault at 60x its tolerance.
+MAMBA_LOGIT_RMS = 0.046
+MAMBA_LEAD = 1.65
+
+#: every serve phase: 8 slots (SERVE_SLOTS), 16 requests of 32-64 new
+#: tokens, a resize to 6 slots after tick 20
+SERVE_REQUESTS = 16
+SERVE_NEW = (32, 64)
+SERVE_RESIZE = (20, 6)
+#: the serve phases: each model at full width; ``rms`` and ``lead`` are
+#: check (i)'s limits: the RMS share of the last logits' spread (see
+#: BF16_LOGIT_RMS), and the lead of the ref run's own argmax over the
+#: kernel run's token in units of the bfloat16 tolerance
+SERVES = {
+    # phase 7: Gemma2-27B cut to 16 of 46 layers
+    "gemma2-serve": dict(
+        model="gemma2-27b", layers=16, s_max=SERVE_SMAX, prompt=SERVE_PROMPT,
+        f32_prompts=(4200, 300, 5000, 4700), rms=BF16_LOGIT_RMS, lead=1.0),
+    # phase 9: Mamba2-780M at full depth, one short prompt of 5-16 tokens,
+    # dt_bias as a trained model's (trained_dt_bias_)
+    "mamba2-serve": dict(
+        model="mamba2-780m", layers=48, s_max=16384, prompt=MAMBA_PROMPT,
+        short=(5, 16), trained_dt=True, f32_prompts=(7000, 9, 300, 5000),
+        rms=MAMBA_LOGIT_RMS, lead=MAMBA_LEAD),
+    # phase 10: DeepSeekMoE-16B at full depth; with its replay's routing
+    # pinned, check (i) holds it to Gemma2's limits (PERF.md, H100: 0.0168
+    # RMS and a lead of 0.55 sound, 0.0755 and 2.08 with a gather row off
+    # by one)
+    "moe-serve": dict(
+        model="deepseek-moe-16b", layers=28, s_max=SERVE_SMAX,
+        prompt=SERVE_PROMPT, f32_prompts=(4200, 300, 5000, 4700),
+        rms=BF16_LOGIT_RMS, lead=1.0),
+}
 
 
 class SmokeFailure(Exception):
@@ -796,6 +871,16 @@ def phase_attention(torch):
                 torch, fa.flash_attention(q, k, v, **kw),
                 ref.flash_attention_ref(q, k, v, **kw), tol,
                 f"flash_attention edge {dtype} {sq}x{skv}", steps)
+    # DeepSeekMoE-16B's prefill in the moe-serve phase: 16 q heads over 16
+    # kv heads (one per group), causal, no window, no softcap
+    for dtype, tol in ((bf16, BF16_TOL), (f32, F32_TOL)):
+        q, k, v = (randn(1, MOE_HEADS, S, HD, dtype=dtype) for _ in range(3))
+        kw = dict(causal=True, window=0, softcap=0.0)
+        errs[f"moe-serve {dtype}"] = _close(
+            torch, fa.flash_attention(q, k, v, **kw),
+            ref.flash_attention_ref(q, k, v, **kw), tol,
+            f"flash_attention moe-serve {dtype}", steps)
+        del q, k, v
     q, k, v = randn(1, HQ, S, HD), randn(1, HKV, S, HD), randn(1, HKV, S, HD)
     times = {}
     for window in (4096, 0):
@@ -859,14 +944,41 @@ def phase_attention(torch):
                 torch, da.decode_attention(qd, ck, cv, valid, **kw),
                 ref.decode_attention_ref(qd, ck, cv, valid, **kw), tol,
                 f"decode_attention {dtype} window {window}", steps)
+    # DeepSeekMoE-16B's decode: 16 heads over 16, no window, no softcap
+    for dtype, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
+        qm = randn(SERVE_SLOTS, MOE_HEADS, HD, dtype=dtype)
+        km, vm = (randn(SERVE_SLOTS, MOE_HEADS, SERVE_SMAX, HD, dtype=dtype)
+                  for _ in range(2))
+        kw = dict(softcap=0.0, window=0)
+        errs[f"moe-serve {dtype}"] = _close(
+            torch, da.decode_attention(qm, km, vm, valid, **kw),
+            ref.decode_attention_ref(qm, km, vm, valid, **kw), tol,
+            f"decode_attention moe-serve {dtype}", steps)
+        del qm, km, vm
     times = {}
+    pos = torch.arange(SERVE_SMAX, device=dev)
     for window in (4097, 0):             # qd, ck, cv are the bf16 ones
         kw = dict(softcap=50.0, window=window)
         times[("kernel", window)] = cuda_ms(
             torch, lambda: da.decode_attention(qd, ck, cv, valid, **kw), 20)
+        times[("kernel softcap 0", window)] = cuda_ms(
+            torch, lambda: da.decode_attention(qd, ck, cv, valid, softcap=0.0,
+                                               window=window), 20)
         times[("plain", window)] = cuda_ms(
             torch, lambda: ref.decode_attention_ref(qd, ck, cv, valid, **kw),
             3)
+        # the library yardstick: SDPA at softcap 0 over the same ragged
+        # slots, a per-slot boolean mask [B, 1, 1, S] built beforehand (not
+        # timed), the kv heads grouped by SDPA itself; the port never calls
+        # it
+        mask = pos[None, :] < valid[:, None]
+        if window:
+            mask &= pos[None, :] > valid[:, None] - window
+        mask = mask[:, None, None, :]
+        q4 = qd[:, :, None, :]
+        times[("library", window)] = cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q4, ck, cv, attn_mask=mask, enable_gqa=True), 20)
     rows = {w: decode_rows(valid_np, w, SERVE_SMAX) for w in (4097, 0)}
     qo_bytes = 2 * SERVE_SLOTS * HQ * HD * 2
     bounds = {w: attention_bound(rows[w], HQ, HD,
@@ -877,9 +989,13 @@ def phase_attention(torch):
         ms=times[("kernel", 4097)] + times[("kernel", 0)],
         plain_ms=times[("plain", 4097)] + times[("plain", 0)],
         bound_ms=bounds[4097][0] + bounds[0][0], bound_by=bounds[0][1],
-        library_ms=None,
+        library_ms=times[("library", 4097)] + times[("library", 0)],
+        ms_softcap0=(times[("kernel softcap 0", 4097)]
+                     + times[("kernel softcap 0", 0)]),
         per_layer={f"window {w}": dict(
-            kernel_ms=times[("kernel", w)], plain_ms=times[("plain", w)],
+            kernel_ms=times[("kernel", w)],
+            kernel_softcap0_ms=times[("kernel softcap 0", w)],
+            plain_ms=times[("plain", w)], sdpa_ms=times[("library", w)],
             bound_ms=bounds[w][0], admitted_rows=rows[w])
             for w in (4097, 0)},
         valid_len=valid_np.tolist(), errors=errs, bf16_rounding_steps=steps,
@@ -890,6 +1006,179 @@ def phase_attention(torch):
     torch.cuda.empty_cache()
     for name, rec in records.items():
         say("attention", kernel=name, **rec)
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the SSD scan and the MoE gather vs their plain versions
+# ---------------------------------------------------------------------------
+
+def ssd_work(b, h, s, p, n, chunk=256):
+    """Operations of the chunked formulation at ``chunk`` (the reference's):
+    per chunk and head, the masked scores ``C B^T`` and their product with
+    ``x dt`` over the causal half (``c (c + 1) / 2`` pairs, ``N + P`` each)
+    and the carry-in and state products (``c N P`` each), 2 flops per
+    multiply-add."""
+    full, tail = divmod(s, chunk)
+    pairs = full * chunk * (chunk + 1) // 2 + tail * (tail + 1) // 2
+    return 2 * b * h * (pairs * (n + p) + 2 * s * n * p)
+
+
+def old_state_effect(scan, x, dt, A, Bm, Cm, tol, chunk=64):
+    """How far the contributions older than one whole ``chunk`` move y, in
+    units of ``tol`` (absolute and relative): y from position ``S/2 +
+    chunk`` on against the second half scanned alone from a zero state.
+    Only the state carried across at least one whole chunk (its decay
+    ``exp(total)``) separates the two."""
+    half = x.shape[2] // 2
+    alone, _ = scan(x[:, :, half:], dt[:, :, half:], A, Bm[:, :, half:],
+                    Cm[:, :, half:])
+    full, _ = scan(x, dt, A, Bm, Cm)
+    full = full[:, :, half + chunk:].float()
+    return float(((full - alone[:, :, chunk:].float()).abs()
+                  / (tol * (1 + full.abs()))).max())
+
+
+def phase_ssm_moe(torch):
+    from repro_torch import configs
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import moe as tmoe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    records = {}
+
+    # -- ssd_scan: Mamba2-780M's shapes (48 heads of 64, state 128, one
+    # shared B/C group) in the model's layouts, at the serve phase's longest
+    # prompt and on edges: one token, and lengths no chunk divides.  Two
+    # regimes of dt: softplus(randn), about 0.7, where the state forgets
+    # within a few positions, and softplus(randn - 5), 3e-4 to 0.1 as in a
+    # trained Mamba-2, where it carries across many chunks ----------------
+    H, P, N = 48, 64, 128
+
+    def scan_inputs(b, s, dtype, dt_shift):
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        x = randn(b, s, H, P, scale=0.5).to(dtype).transpose(1, 2)
+        dt = torch.nn.functional.softplus(randn(b, s, H) - dt_shift) \
+            .transpose(1, 2)
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        Bm = randn(b, s, N, scale=0.3).to(dtype)[:, None].expand(b, H, s, N)
+        Cm = randn(b, s, N, scale=0.3).to(dtype)[:, None].expand(b, H, s, N)
+        return x, dt, A, Bm, Cm
+
+    errs, carry = {}, {}
+    for dtype, tol in ((f32, SSD_F32_TOL), (bf16, SSD_BF16_TOL)):
+        for b, s, shift in ((1, MAMBA_PROMPT[1], 0.0), (1, 1, 0.0),
+                            (2, 300, 0.0), (1, 4097, 0.0),
+                            (1, MAMBA_PROMPT[1], SMALL_DT_SHIFT),
+                            (2, 4097, SMALL_DT_SHIFT)):
+            case = f"{dtype} S={s} dt shift {shift}"
+            args = scan_inputs(b, s, dtype, shift)
+            y, h = ss.ssd_scan(*args)
+            want_y, want_h = ref.ssd_scan_ref(*args)
+            for what, got, want in (("y", y, want_y), ("h", h, want_h)):
+                got, want = got.float(), want.float()
+                err = float((got - want).abs().max())
+                check(torch.allclose(got, want, atol=tol, rtol=tol),
+                      f"ssd_scan {case} B={b} {what}: max abs error {err} "
+                      f"exceeds {tol}")
+                errs[f"{case} {what}"] = err
+            if s == MAMBA_PROMPT[1] and dtype == f32:
+                carry[f"dt shift {shift}"] = old_state_effect(
+                    ref.ssd_scan_ref, *args, tol)
+            del args, y, h, want_y, want_h
+    check(carry[f"dt shift {SMALL_DT_SHIFT}"] > 10.0,
+          f"ssd_scan: the small-dt case does not depend on the state "
+          f"carried across a whole chunk ({carry})")
+    b, s = 1, MAMBA_PROMPT[1]
+    args = scan_inputs(b, s, bf16, 0.0)
+    ms = cuda_ms(torch, lambda: ss.ssd_scan(*args), 5)
+    plain = cuda_ms(torch, lambda: ref.ssd_scan_ref(*args), 3)
+    nbytes = (2 * b * s * H * P * 2 + 2 * b * s * N * 2 + b * s * H * 4
+              + H * 4 + b * H * N * P * 4)
+    # the function's least work is the recurrence's: per position and head,
+    # h <- decay h + B (x dt)^T and y = C h, 2 N P multiply-adds
+    ops_n = 4 * b * H * s * N * P
+    t_ops, t_bytes = ops_n / PEAK_BF16_S * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    records["ssd_scan"] = dict(
+        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
+        chunked_ops_at_256=ssd_work(b, H, s, P, N), recurrence_ops=ops_n,
+        errors=errs, carry_over_tolerance=carry,
+        tolerance={"float32": SSD_F32_TOL, "bfloat16": SSD_BF16_TOL},
+        shape=f"x [1,{H},{s},{P}] bf16 (a [1,{s},{H},{P}] view), B/C one "
+              f"group [1,{s},{N}] expanded over the heads, one layer")
+    del args
+
+    # -- moe_gather: DeepSeekMoE-16B's dispatch (64 experts, top 6, d 2,048)
+    # of the serve phase's longest prompt (capacity 720) and of one decode
+    # step of 8 slots (capacity 4); edges: a sequence of only dummy rows,
+    # rows of 12 and 10 bytes -------------------------------------------------
+    moe_cfg = configs.get("deepseek-moe-16b").moe
+    d = 2048
+
+    def dispatch(b, s):
+        logits = torch.randn((b, s, moe_cfg.num_experts), generator=gen,
+                             device=dev)
+        ids = torch.topk(logits, moe_cfg.top_k, dim=-1).indices
+        cap = tmoe.capacity(s, moe_cfg)
+        tok, _ = tmoe.dispatch_indices(ids, torch.ones_like(ids).float(),
+                                       moe_cfg, cap)
+        base = torch.arange(b, dtype=torch.int32, device=dev)[:, None] * s
+        return torch.where(tok < s, tok + base, b * s).reshape(-1), cap
+
+    cases = {}
+    for b, s in ((1, SERVE_PROMPT[1]), (SERVE_SLOTS, 1)):
+        rows, cap = dispatch(b, s)
+        cases[(b, s)] = (torch.randn((b * s, d), generator=gen,
+                                     device=dev).to(bf16), rows, cap)
+        for dtype in (bf16, f32):
+            x = cases[(b, s)][0].to(dtype)
+            check(torch.equal(md.moe_gather(x, rows),
+                              ref.moe_gather_ref(x, rows)),
+                  f"moe_gather {dtype} B={b} S={s} differs from plain")
+    x = cases[(1, SERVE_PROMPT[1])][0]
+    dummies = torch.full((4 * moe_cfg.num_experts,), x.shape[0],
+                         dtype=torch.int32, device=dev)
+    check(not md.moe_gather(x, dummies).any(), "moe_gather: dummy rows")
+    for dtype, width in ((f32, 3), (bf16, 5)):
+        xs = torch.randn((50, width), generator=gen, device=dev).to(dtype)
+        tok = torch.randint(-2, 53, (200,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        check(torch.equal(md.moe_gather(xs, tok), ref.moe_gather_ref(xs, tok)),
+              f"moe_gather edge rows of {width} {dtype}")
+    per = {}
+    for (b, s), (x, rows, cap) in cases.items():
+        x_pad = torch.cat([x, x.new_zeros((1, d))])
+        idx = rows.long()
+        live = int((rows < x.shape[0]).sum())
+        nbytes = rows.numel() * 4 + live * d * 2 + rows.numel() * d * 2
+        per[f"B={b} S={s}"] = dict(
+            rows=rows.numel(), live_rows=live, capacity=cap,
+            kernel_ms=cuda_ms(torch, lambda: md.moe_gather(x, rows), 50),
+            plain_ms=cuda_ms(torch, lambda: ref.moe_gather_ref(x, rows), 20),
+            library_ms=cuda_ms(torch, lambda: torch.index_select(
+                x_pad, 0, idx), 50),
+            bound_ms=nbytes / PEAK_BYTES_S * 1e3)
+    prefill = per[f"B=1 S={SERVE_PROMPT[1]}"]
+    records["moe_gather"] = dict(
+        max_abs_err=0.0, ms=prefill["kernel_ms"], plain_ms=prefill["plain_ms"],
+        bound_ms=prefill["bound_ms"], bound_by="bytes",
+        library_ms=prefill["library_ms"], per_call=per,
+        shape=f"x [{SERVE_PROMPT[1]},{d}] bf16, {prefill['rows']} rows "
+              f"(64 experts x capacity {prefill['capacity']}); library: "
+              f"index_select on the zero-padded x")
+    del cases, x, x_pad
+    torch.cuda.empty_cache()
+    for name, rec in records.items():
+        say("ssm-moe kernels", kernel=name, **rec)
     return records
 
 
@@ -972,6 +1261,66 @@ def _replay_class(ServingEngine):
     return Replay
 
 
+class _PinnedRoutes:
+    """Pins the MoE routing of check (i)'s replay to the kernel run's:
+    :meth:`record` keeps the expert ids of every ``route`` call of one run,
+    and :meth:`replay` makes the next run, on the same schedule, take them,
+    with weights from its own router probabilities.  The two runs then
+    differ only in how the kernels' functions are computed, and not in a
+    top-k choice that a rounding step flipped; ``rerouted`` counts the
+    tokens whose own choice was another set."""
+
+    def __init__(self, tmoe):
+        self.tmoe, self.route = tmoe, tmoe.route
+        self.ids, self.calls, self.rerouted, self.routed = [], None, 0, 0
+
+    def record(self):
+        def route(x, params, moe):
+            out = self.route(x, params, moe)
+            self.ids.append(out[0])
+            return out
+
+        self.tmoe.route = route
+
+    def replay(self):
+        import torch
+
+        self.calls = iter(self.ids)
+
+        def route(x, params, moe):
+            own, _, aux = self.route(x, params, moe)
+            ids = next(self.calls, None)
+            check(ids is not None and ids.shape == own.shape,
+                  "pinned routes: the replay routed other calls")
+            self.rerouted = self.rerouted + (
+                own.sort(-1).values != ids.sort(-1).values).any(-1).sum()
+            self.routed += own.shape[0] * own.shape[1]
+            w = torch.softmax(x.float() @ params.router, dim=-1).gather(-1,
+                                                                        ids)
+            return ids, w / w.sum(-1, keepdim=True).clamp_min(1e-9), aux
+
+        self.tmoe.route = route
+
+    def restore(self):
+        self.tmoe.route = self.route
+
+
+def trained_dt_bias_(torch, model, seed):
+    """Mamba-2's published ``dt_bias`` initialization in every Mamba layer
+    of ``model``: dt log-uniform in [1e-3, 1e-1], the bias its inverse
+    softplus.  The reference's zero bias gives dt about 0.7, where the state
+    forgets within a few positions; a trained model's carries across
+    hundreds, through the scan's chunk boundaries and the decode steps."""
+    gen = torch.Generator(device=model.embed.device).manual_seed(seed)
+    lo, hi = np.log(1e-3), np.log(1e-1)
+    for layer in model.layers:
+        bias = getattr(layer.mixer, "dt_bias", None)
+        if bias is not None:
+            u = torch.rand(bias.shape, generator=gen, device=bias.device)
+            dt = torch.exp(lo + u * (hi - lo))
+            bias.data.copy_(dt + torch.log(-torch.expm1(-dt)))
+
+
 def profile_steps(torch, step, n):
     """Wall time and device kernel time of ``n`` calls of ``step`` under
     ``torch.profiler``; the busy share is their ratio."""
@@ -1004,58 +1353,94 @@ def profile_steps(torch, step, n):
                                  for e in kernels[:8]})
 
 
-def phase_serve(torch, seed):
+def expected_launches(cfg, prefills, steps):
+    """Launches of each model kernel in a run of ``prefills`` prefills and
+    ``steps`` decode steps: flash once per attention layer per prefill,
+    decode attention once per attention layer per step, the scan once per
+    Mamba layer per prefill, the gather once per MoE layer per prefill and
+    per step."""
+    from repro_torch.models.config import MAMBA, MOE
+
+    specs = cfg.layer_specs()
+    n_mamba = sum(sp.mixer == MAMBA for sp in specs)
+    n_attn = len(specs) - n_mamba
+    n_moe = sum(sp.mlp == MOE for sp in specs)
+    return {"flash_attention": n_attn * prefills,
+            "decode_attention": n_attn * steps,
+            "ssd_scan": n_mamba * prefills,
+            "moe_gather": n_moe * (prefills + steps)}
+
+
+def phase_serve(torch, seed, label, spec):
+    """One serve phase: the configuration ``spec["model"]`` at full width
+    and ``spec["layers"]`` layers, bfloat16, random weights from the seed,
+    served through ``ServingEngine``; its launch counts, checks (i) and
+    (ii), a profiled decode step and a profiled long prefill."""
     from repro_torch import configs
     from repro_torch.kernels import ops
+    from repro_torch.models import moe as tmoe
     from repro_torch.models import transformer as TT
     from repro_torch.obs import Tracer
     from repro_torch.serving import Request, ServingEngine
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(configs.get("gemma2-27b"),
-                              num_layers=SERVE_LAYERS)
+    cfg = dataclasses.replace(configs.get(spec["model"]),
+                              num_layers=spec["layers"])
+    slots, s_max = SERVE_SLOTS, spec["s_max"]
+
+    def make_params(config, weights_seed):
+        params = TT.init_params(config, weights_seed, device=dev)
+        if spec.get("trained_dt"):
+            trained_dt_bias_(torch, params, weights_seed)
+        return params
+
     t0 = time.perf_counter()
-    params = TT.init_params(cfg, seed, device=dev)
+    params = make_params(cfg, seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+    lengths = rng.integers(spec["prompt"][0], spec["prompt"][1] + 1,
                            SERVE_REQUESTS)
+    if spec.get("short"):
+        lengths[0] = rng.integers(spec["short"][0], spec["short"][1] + 1)
     new = rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1, SERVE_REQUESTS)
     reqs = _serve_requests(Request, seed, cfg.vocab_size, lengths, new)
     tracer = Tracer(recorder=None)
-    engine = ServingEngine(cfg, params, num_slots=SERVE_SLOTS,
-                           s_max=SERVE_SMAX, policy="ondemand", seed=seed,
-                           tracer=tracer, device=dev)
+    engine = ServingEngine(cfg, params, num_slots=slots, s_max=s_max,
+                           policy="ondemand", seed=seed, tracer=tracer,
+                           device=dev)
     weight_bytes = TT.param_bytes(params)
     cache_bytes = TT.cache_bytes(engine.caches)
     torch.cuda.reset_peak_memory_stats()
 
     # -- the main path: counts set to 0 just before, read just after ---------
     ops.use_kernels("auto")
+    pins = _PinnedRoutes(tmoe)
+    pins.record()
     ops.reset_launch_counts()
-    wall = _run_engine(engine, reqs, SERVE_RESIZE)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    try:
+        wall = _run_engine(engine, reqs, SERVE_RESIZE)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        pins.restore()
     main_steps, main_events = engine.steps, list(engine.resize_events)
-    main_counts = {k: counts[k] for k in ("flash_attention",
-                                          "decode_attention")}
     prefills = [sp for sp in tracer.spans if sp.name == "prefill"]
     decodes = [sp for sp in tracer.spans if sp.name == "decode"]
+    want = expected_launches(cfg, len(prefills), engine.steps)
+    main_counts = {k: counts[k] for k, n in want.items() if n}
     check(all(len(r.generated) == r.max_new_tokens for r in reqs),
-          "a request did not finish")
-    check(main_counts["flash_attention"] == SERVE_LAYERS * len(prefills),
-          f"flash launches {main_counts['flash_attention']} != layers x "
-          f"prefills {SERVE_LAYERS} x {len(prefills)}")
-    check(main_counts["decode_attention"] == SERVE_LAYERS * engine.steps,
-          f"decode launches {main_counts['decode_attention']} != layers x "
-          f"steps {SERVE_LAYERS} x {engine.steps}")
+          f"{label}: a request did not finish")
+    for k, n in want.items():
+        check(counts[k] == n, f"{label}: {k} launched {counts[k]} times, "
+              f"expected {n} ({len(prefills)} prefills, {engine.steps} "
+              f"decode steps)")
     per_tok = [sp.duration / sp.args["plen"] * 1e3 for sp in prefills]
     dec_ms = np.array([sp.duration for sp in decodes]) * 1e3
-    say("serve", layers=SERVE_LAYERS, d_model=cfg.d_model,
-        heads=[cfg.num_heads, cfg.num_kv_heads], requests=SERVE_REQUESTS,
-        prompt_tokens=int(lengths.sum()), new_tokens=int(new.sum()),
-        tokens_out=engine.tokens_out, wall_s=wall,
+    say(label, model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        requests=len(reqs), prompt_tokens=int(lengths.sum()),
+        prompt_lengths=[int(n) for n in (lengths.min(), lengths.max())],
+        new_tokens=int(new.sum()), tokens_out=engine.tokens_out, wall_s=wall,
         tokens_per_s=engine.tokens_out / wall,
         prefill_ms_per_prompt_token_median=float(np.median(per_tok)),
         prefill_s_total=float(sum(sp.duration for sp in prefills)),
@@ -1068,83 +1453,92 @@ def phase_serve(torch, seed):
     # -- device busy share of decode steps: short requests fill every slot
     n = engine.num_slots
     for r in _serve_requests(Request, seed + 2, cfg.vocab_size,
-                             [SERVE_PROMPT[0]] * n, [8] * n):
+                             [spec["prompt"][0]] * n, [8] * n):
         engine.submit(r)
     engine.step()                       # admits all, first decode step
     torch.cuda.synchronize()
-    say("serve", profile="decode step", **profile_steps(torch, engine.step,
-                                                        6))
+    say(label, profile="decode step", **profile_steps(torch, engine.step, 6))
     # -- and one prefill of the longest prompt (it ends at its first token)
     check(not engine.active and not engine.waiting, "short requests left")
     engine.submit(_serve_requests(Request, seed + 3, cfg.vocab_size,
-                                  [SERVE_PROMPT[1]], [1])[0])
-    say("serve", profile=f"prefill of {SERVE_PROMPT[1]} tokens",
+                                  [spec["prompt"][1]], [1])[0])
+    say(label, profile=f"prefill of {spec['prompt'][1]} tokens",
         **profile_steps(torch, engine.step, 1))
     engine.caches = engine._one_caches = None
     del engine
     torch.cuda.empty_cache()
 
     # -- check (i): the same run in ops mode ref, serving the kernel run's
-    # tokens, so that both runs take one schedule (admissions, decode steps,
-    # the resize) and differ only in how attention is computed.  Each
-    # request's last logits are held to BF16_LOGIT_RMS; where the ref run's
-    # own argmax is another token, that token's lead over the kernel run's
-    # one must stay inside the repo's bfloat16 tolerance.
+    # tokens and taking its MoE routing, so that both runs take one
+    # schedule (admissions, decode steps, the resize, the experts) and
+    # differ only in how the kernels' functions are computed.  Each
+    # request's last logits are held to spec["rms"]; where
+    # the ref run's own argmax is another token, that token's lead over the
+    # kernel run's one must stay inside spec["lead"] times the repo's
+    # bfloat16 tolerance.
     Replay = _replay_class(ServingEngine)
-    replay = Replay(cfg, params, num_slots=SERVE_SLOTS, s_max=SERVE_SMAX,
+    replay = Replay(cfg, params, num_slots=slots, s_max=s_max,
                     policy="ondemand", seed=seed, device=dev,
                     script={r.rid: list(r.generated) for r in reqs})
     ref_reqs = _serve_requests(Request, seed, cfg.vocab_size, lengths, new)
     ops.use_kernels("ref")
+    pins.replay()
     try:
         _run_engine(replay, ref_reqs, SERVE_RESIZE)
     finally:
         ops.use_kernels("auto")
+        pins.restore()
+    check(next(pins.calls, None) is None,
+          f"{label}: the ref run routed fewer calls than the kernel run")
+    rerouted, pins_routed = int(pins.rerouted), pins.routed
+    del pins
     check(replay.steps == main_steps
           and replay.resize_events == main_events,
-          "the ref run took another schedule than the kernel run")
+          f"{label}: the ref run took another schedule than the kernel run")
     errs = [_logit_errs(a.logits, b.logits, BF16_TOL)
             for a, b in zip(reqs, ref_reqs)]
     leads = [lead / (BF16_TOL * (1 + abs(logit)))
              for lead, logit in replay.own_lead]
     rms = max(e["rms_over_std"] for e in errs)
-    say("serve", check="(i) the kernel run against ops mode ref on its "
-        "schedule", max_rms_err_over_logit_std=rms,
-        rms_limit=BF16_LOGIT_RMS,
+    say(label, check="(i) the kernel run against ops mode ref on its "
+        "schedule", max_rms_err_over_logit_std=rms, rms_limit=spec["rms"],
+        rms_per_request=[e["rms_over_std"] for e in errs],
         max_abs_logit_err=max(e["max_abs"] for e in errs),
         max_err_over_elementwise_tol=max(e["over_tol"] for e in errs),
         elementwise_tol=f"{BF16_TOL} + {BF16_TOL} x |ref logit| (reported)",
         tokens_compared=sum(len(r.generated) for r in reqs),
         argmax_differs=len(leads),
-        max_lead_over_tolerance=max(leads, default=0.0))
-    check(rms <= BF16_LOGIT_RMS,
-          f"last logits differ from ops mode ref by {rms} of their standard "
-          f"deviation (RMS), limit {BF16_LOGIT_RMS}")
-    check(max(leads, default=0.0) <= 1.0,
-          "the ref run's argmax leads the kernel run's token beyond the "
-          "tolerance")
+        max_lead_over_tolerance=max(leads, default=0.0),
+        lead_limit=spec["lead"], moe_tokens_routed=pins_routed,
+        moe_tokens_rerouted_unpinned=rerouted)
+    check(rms <= spec["rms"],
+          f"{label}: last logits differ from ops mode ref by {rms} of their "
+          f"standard deviation (RMS), limit {spec['rms']}")
+    lead = max(leads, default=0.0)
+    check(lead <= spec["lead"],
+          f"{label}: the ref run's argmax leads the kernel run's token by "
+          f"{lead} of the tolerance, limit {spec['lead']}")
     replay.caches = replay._one_caches = None
     del replay
     del params
     torch.cuda.empty_cache()
 
-    # -- check (ii): float32, one local/global pair at full width -------------
+    # -- check (ii): float32, 2 layers at full width --------------------------
     cfg32 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32",
                                 compute_dtype="float32")
-    params = TT.init_params(cfg32, seed + 1, device=dev)
-    lengths = np.array(F32_PROMPTS)
+    params = make_params(cfg32, seed + 1)
+    lengths = np.array(spec["f32_prompts"])
     new = np.full(len(lengths), F32_NEW)
 
     # the kernel run, then its replay in ops mode ref on the same schedule:
     # equal tokens, and last logits within F32_MODEL_TOL
     reqs = _serve_requests(Request, seed + 1, cfg32.vocab_size, lengths, new)
-    eng = ServingEngine(cfg32, params, num_slots=3, s_max=SERVE_SMAX,
-                        device=dev)
+    eng = ServingEngine(cfg32, params, num_slots=3, s_max=s_max, device=dev)
     ops.reset_launch_counts()
     _run_engine(eng, reqs)
     f32_counts = {k: ops.launch_counts()[k] for k in main_counts}
     kern = [r.generated for r in reqs]
-    replay = Replay(cfg32, params, num_slots=3, s_max=SERVE_SMAX, device=dev,
+    replay = Replay(cfg32, params, num_slots=3, s_max=s_max, device=dev,
                     script={r.rid: list(r.generated) for r in reqs})
     ref_reqs = _serve_requests(Request, seed + 1, cfg32.vocab_size, lengths,
                                new)
@@ -1156,20 +1550,20 @@ def phase_serve(torch, seed):
     errs = [_logit_errs(a.logits, b.logits, F32_MODEL_TOL)
             for a, b in zip(reqs, ref_reqs)]
     worst = max(e["over_tol"] for e in errs)
-    say("serve", check="(ii) float32 kernel run against ops mode ref",
+    say(label, check="(ii) float32 kernel run against ops mode ref",
         max_abs_logit_err=max(e["max_abs"] for e in errs),
         max_err_over_tolerance=worst,
         tolerance=f"{F32_MODEL_TOL} + {F32_MODEL_TOL} x |ref logit|",
         argmax_differs=len(replay.own_lead))
     check(not replay.own_lead,
-          "float32 run: kernels and ref mode give other tokens")
-    check(worst <= 1.0, "float32 run: last logits differ from ops mode ref "
-          "beyond the tolerance")
+          f"{label} float32 run: kernels and ref mode give other tokens")
+    check(worst <= 1.0, f"{label} float32 run: last logits differ from ops "
+          f"mode ref beyond the tolerance")
     del eng, replay
     sequential = []
     for r in _serve_requests(Request, seed + 1, cfg32.vocab_size, lengths,
                              new):
-        caches = TT.init_caches(cfg32, 1, SERVE_SMAX, device=dev)
+        caches = TT.init_caches(cfg32, 1, s_max, device=dev)
         logits, caches = TT.prefill_forward(
             params, {"tokens": torch.as_tensor(r.prompt, device=dev).long()
                      [None]}, cfg32, caches)
@@ -1182,17 +1576,37 @@ def phase_serve(torch, seed):
             out.append(int(logits[0, -1].argmax()))
         sequential.append(out)
         del caches
-    check(kern == sequential, "float32 run: continuous batching and "
-          "sequential prefill + decode give other tokens")
+    check(kern == sequential, f"{label} float32 run: continuous batching and "
+          f"sequential prefill + decode give other tokens")
     check(min(f32_counts.values()) > 0,
-          "float32 run launched no attention kernel")
-    say("serve", check="(ii) float32, 2 layers at full width",
+          f"{label} float32 run launched no kernel of its path")
+    say(label, check="(ii) float32, 2 layers at full width",
         prompts=lengths.tolist(), new_tokens=F32_NEW, kernel_eq_ref=True,
         logits_within_tol=True, batched_eq_sequential=True,
         launches=f32_counts)
     del params
     torch.cuda.empty_cache()
     return main_counts
+
+
+def kernels_line(records, keyed_counts, serve_counts):
+    """The ``kernels`` object: each kernel's measured numbers and its
+    launches on the main paths that run it (the keyed fused and loop runs,
+    or the sum over the serve phases)."""
+    kernels = []
+    for k, (source, replaces) in KERNEL_META.items():
+        rec = records[k]
+        on_path = [c[k] for c in serve_counts.values() if k in c]
+        launches = sum(on_path) if on_path else \
+            keyed_counts["fused"][k] + keyed_counts["loop"][k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        })
+    return {"kernels": kernels}
 
 
 def main(argv=None):
@@ -1237,27 +1651,19 @@ def main(argv=None):
         phase_small(torch)
         del items
         records.update(phase_attention(torch))
-        serve_counts = phase_serve(torch, args.seed)
+        serve_counts = {"gemma2-serve": phase_serve(
+            torch, args.seed, "gemma2-serve", SERVES["gemma2-serve"])}
+        records.update(phase_ssm_moe(torch))
+        for label in ("mamba2-serve", "moe-serve"):
+            serve_counts[label] = phase_serve(torch, args.seed, label,
+                                              SERVES[label])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         ops.use_kernels("auto")
 
-    kernels = []
-    for k, (source, replaces) in KERNEL_META.items():
-        rec = records[k]
-        launches = serve_counts[k] if k in serve_counts else \
-            counts["fused"][k] + counts["loop"][k]
-        kernels.append({
-            "name": k, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": launches,
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-        })
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps(kernels_line(records, counts, serve_counts)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

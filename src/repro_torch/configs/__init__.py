@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get(name)`` / ``names()``.
 
 The names and aliases are the reference's (``repro/configs/__init__.py``).
-The port serves the dense attention models so far; the other architectures
-raise ``NotImplementedError`` until their slice lands (ROADMAP Queue 1
-item 12: the Mamba-2 and MoE models, the encoder-decoder and the
+The port serves the dense attention models, Mamba2-780M and
+DeepSeekMoE-16B so far; the other architectures raise
+``NotImplementedError`` until their slice lands (ROADMAP Queue 1 item 12:
+the other dense and MoE models, the hybrid, the encoder-decoder and the
 prefix-embedding frontends).
 """
 
@@ -29,7 +30,8 @@ _ARCHS = (
     "paper_synthetic",
 )
 #: the architectures the port has a configuration module for
-PORTED = ("gemma2_27b", "paper_synthetic")
+PORTED = ("gemma2_27b", "deepseek_moe_16b", "mamba2_780m",
+          "paper_synthetic")
 
 _ALIAS = {name.replace("_", "-"): name for name in _ARCHS}
 _ALIAS.update(

@@ -9,13 +9,17 @@ reference's snapshot and returns the port's state; a port executor given it
 would.  :func:`state_to_reference` goes the other way.  Neither needs the
 other package: both sides are plain numpy.
 
-The serving slice carries MODEL WEIGHTS the same way:
+The serving slices carry MODEL WEIGHTS the same way:
 :func:`params_from_reference` takes the reference's parameter pytree (its
 leaves as numpy arrays) and returns the port's
 :class:`~repro_torch.models.transformer.Transformer`;
 :func:`params_to_reference` goes the other way.  The reference stacks its
 layers as ``units[f"l{i}"][leaf][u]`` after the unrolled ``prefix_layers``;
-the port's layer ``len(prefix) + u * len(unit) + i`` is that entry.
+the port's layer ``len(prefix) + u * len(unit) + i`` is that entry.  The
+leaves of a layer depend on its kind (attention or Mamba-2 mixer; dense,
+MoE or no MLP); ``put`` casts each to its parameter's dtype, and the
+float32 leaves (``A_log``, ``D``, ``dt_bias``, ``router``,
+``router_bias``) are float32 parameters in both packages.
 """
 
 from __future__ import annotations
@@ -73,39 +77,56 @@ def state_to_reference(state) -> Dict[str, np.ndarray]:
 # model weights
 # ---------------------------------------------------------------------------
 
-#: (reference path inside one layer's dict, port attribute path)
-_LAYER_LEAVES = (
-    (("ln1", "scale"), "ln1.scale"),
-    (("mixer", "wq"), "mixer.wq"),
-    (("mixer", "wk"), "mixer.wk"),
-    (("mixer", "wv"), "mixer.wv"),
-    (("mixer", "wo"), "mixer.wo"),
-    (("ln2", "scale"), "ln2.scale"),
-    (("mlp", "wi_gate"), "mlp.wi_gate"),
-    (("mlp", "wi_up"), "mlp.wi_up"),
-    (("mlp", "wo"), "mlp.wo"),
-)
-_POST_NORM_LEAVES = (
-    (("post_ln1", "scale"), "post_ln1.scale"),
-    (("post_ln2", "scale"), "post_ln2.scale"),
-)
+_ATTENTION_LEAVES = ("wq", "wk", "wv", "wo")
+_MAMBA_LEAVES = ("w_z", "w_x", "w_B", "w_C", "w_dt", "conv_x", "conv_B",
+                 "conv_C", "A_log", "D", "dt_bias", "norm.scale", "w_out")
+_MLP_LEAVES = ("wi_gate", "wi_up", "wo")
+_MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
 
 
-def _layer_leaves(cfg):
-    return _LAYER_LEAVES + (_POST_NORM_LEAVES if cfg.post_norms else ())
+def _layer_leaves(cfg, spec):
+    """The leaves of one layer of kind ``spec`` as port attribute paths
+    (``"mixer.norm.scale"``); the reference's path inside its layer dict is
+    the same split at the dots."""
+    from repro_torch.models.config import DENSE, MAMBA, MOE
+
+    out = ["ln1.scale"]
+    mixer = _MAMBA_LEAVES if spec.mixer == MAMBA else _ATTENTION_LEAVES
+    out += [f"mixer.{leaf}" for leaf in mixer]
+    if cfg.post_norms:
+        out.append("post_ln1.scale")
+    if spec.mlp == DENSE:
+        out += [f"mlp.{leaf}" for leaf in _MLP_LEAVES]
+    elif spec.mlp == MOE:
+        out += [f"mlp.{leaf}" for leaf in _MOE_LEAVES]
+        if cfg.moe.router_bias:
+            out.append("mlp.router_bias")
+        if cfg.moe.num_shared:
+            out += [f"mlp.shared.{leaf}" for leaf in _MLP_LEAVES]
+    if spec.mlp in (DENSE, MOE):
+        out.append("ln2.scale")
+        if cfg.post_norms:
+            out.append("post_ln2.scale")
+    return out
+
+
+def _walk(tree, attr: str):
+    for key in attr.split("."):
+        tree = tree[key]
+    return tree
 
 
 def _reference_layers(tree, cfg):
-    """Yield, in the port's layer order, a getter ``path -> array`` for each
-    of the reference's layers."""
+    """Yield, in the port's layer order, (spec, getter ``attr -> array``)
+    for each of the reference's layers."""
     prefix, unit, n_units = cfg.layout()
-    for p in tree["prefix_layers"]:
-        yield lambda path, p=p: p[path[0]][path[1]]
+    for spec, p in zip(prefix, tree["prefix_layers"]):
+        yield spec, lambda attr, p=p: _walk(p, attr)
     for u in range(n_units):
-        for i in range(len(unit)):
+        for i, spec in enumerate(unit):
             sub = tree["units"][f"l{i}"]
-            yield lambda path, sub=sub, u=u: np.asarray(
-                sub[path[0]][path[1]])[u]
+            yield spec, lambda attr, sub=sub, u=u: np.asarray(
+                _walk(sub, attr))[u]
 
 
 def params_from_reference(tree, cfg, *, device=None):
@@ -129,9 +150,10 @@ def params_from_reference(tree, cfg, *, device=None):
         if model.lm_head is not None:
             put(model.lm_head, tree["lm_head"]["table"])
         put(model.final_norm.scale, tree["final_norm"]["scale"])
-        for layer, get in zip(model.layers, _reference_layers(tree, cfg)):
-            for path, attr in _layer_leaves(cfg):
-                put(layer.get_parameter(attr), get(path))
+        for layer, (spec, get) in zip(model.layers,
+                                      _reference_layers(tree, cfg)):
+            for attr in _layer_leaves(cfg, spec):
+                put(layer.get_parameter(attr), get(attr))
     return model
 
 
@@ -147,21 +169,22 @@ def params_to_reference(params, cfg):
     layers = list(params.layers)
     n_pre = len(prefix)
 
-    def layer_dict(layer):
-        out: Dict[str, Dict[str, np.ndarray]] = {}
-        for (group, leaf), attr in _layer_leaves(cfg):
-            out.setdefault(group, {})[leaf] = arr(layer.get_parameter(attr))
+    def layer_dict(layer, stack=None):
+        out: Dict[str, dict] = {}
+        for attr in _layer_leaves(cfg, layer.spec):
+            *groups, leaf = attr.split(".")
+            node = out
+            for g in groups:
+                node = node.setdefault(g, {})
+            node[leaf] = (arr(layer.get_parameter(attr)) if stack is None
+                          else np.stack([arr(x.get_parameter(attr))
+                                         for x in stack]))
         return out
 
     units = {}
     for i in range(len(unit)):
-        per_unit = [layer_dict(layers[n_pre + u * len(unit) + i])
-                    for u in range(n_units)]
-        units[f"l{i}"] = {
-            group: {leaf: np.stack([d[group][leaf] for d in per_unit])
-                    for leaf in per_unit[0][group]}
-            for group in per_unit[0]
-        }
+        per_unit = [layers[n_pre + u * len(unit) + i] for u in range(n_units)]
+        units[f"l{i}"] = layer_dict(per_unit[0], stack=per_unit)
     tree = {
         "embed": {"table": arr(params.embed)},
         "final_norm": {"scale": arr(params.final_norm.scale)},

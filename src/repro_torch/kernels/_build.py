@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 )
 
 _P = ctypes.c_void_p
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)  # int64[3]
 _SCATTER_ARGS = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
 _SIGNATURES = {
     "keyed_segment_sum_i32": _SCATTER_ARGS,
@@ -54,6 +55,16 @@ _SIGNATURES = {
     # stream
     "attn_decode_forward":
         [_P] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, _P],
+    # x, x strides, dt, dt strides, A, Bm, Bm strides, Cm, Cm strides, y,
+    # y strides, h, B, H, S, P, N, dtype, stream (strides: int64[3] each)
+    "ssd_scan_forward":
+        [_P, _STRIDES, _P, _STRIDES, _P, _P, _STRIDES, _P, _STRIDES, _P,
+         _STRIDES, _P]
+        + [ctypes.c_int] * 6 + [_P],
+    # x, row_token, out, R, T, row bytes, unit bytes, stream
+    "moe_gather_forward":
+        [_P] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_int, _P],
 }
 
 _LOCK = threading.Lock()

@@ -1,7 +1,9 @@
 """Dispatch layer: CUDA kernel for CUDA tensors, plain PyTorch for CPU ones.
 
-Port of ``repro/kernels/ops.py`` for the keyed plane's four kernels and the
-serving path's two attention kernels.
+Port of ``repro/kernels/ops.py``: the keyed plane's four kernels, the
+serving path's two attention kernels, the Mamba-2 SSD scan and the MoE
+gather; the MoE combine has no kernel and takes its plain version on every
+device, as in the reference.
 ``use_kernels(mode)`` sets the dispatch globally:
 
 * ``"auto"`` (default): a CUDA tensor launches the kernel, a CPU tensor
@@ -24,8 +26,10 @@ import torch
 from repro_torch.kernels import decode_attention as _dk
 from repro_torch.kernels import flash_attention as _fk
 from repro_torch.kernels import hash_table as _ht
+from repro_torch.kernels import moe_dispatch as _mk
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import segment_reduce as _sr
+from repro_torch.kernels import ssd_scan as _sk
 
 MODES = ("auto", "kernel", "ref")
 _MODE = "auto"
@@ -50,7 +54,8 @@ def kernels_active(device) -> bool:
     return dev.type == "cuda"
 
 
-_COUNTERS = (_sr.LAUNCHES, _ht.LAUNCHES, _fk.LAUNCHES, _dk.LAUNCHES)
+_COUNTERS = (_sr.LAUNCHES, _ht.LAUNCHES, _fk.LAUNCHES, _dk.LAUNCHES,
+             _sk.LAUNCHES, _mk.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -157,3 +162,32 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap=0.0,
                                     softcap=softcap, window=window)
     return _ref.decode_attention_ref(q, cache_k, cache_v, valid_len,
                                      softcap=softcap, window=window)
+
+
+def ssd_scan(x, dt, A, Bm, Cm):
+    """x ``[B, H, S, P]``; dt ``[B, H, S]``; A ``[H]``; Bm, Cm ``[B, H, S,
+    N]`` (strided views allowed) -> (y ``[B, H, S, P]``, final h ``[B, H,
+    N, P]`` float32): the chunked SSD scan from a zero state, any S."""
+    if kernels_active(x.device):
+        return _sk.ssd_scan(x, dt.float(), A.float(), Bm.to(x.dtype),
+                            Cm.to(x.dtype))
+    return _ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+
+
+def moe_gather(x, row_token) -> torch.Tensor:
+    """x ``[T, d]``; row_token ``[R]`` -> ``[R, d]``: ``x[row_token[r]]``,
+    zeros for a token outside ``[0, T)`` (the dummy ``T``)."""
+    if kernels_active(x.device):
+        return _mk.moe_gather(x.contiguous(), _i32(row_token))
+    return _ref.moe_gather_ref(x, row_token)
+
+
+def moe_combine(expert_out, row_token, row_weight, num_tokens: int, *,
+                max_rows_per_token: int) -> torch.Tensor:
+    """``y[t] = sum_{r: row_token[r] == t} w_r expert_out[r]``, float32
+    accumulation in a fixed order, rounded once to expert_out's dtype.  No
+    kernel, in every mode (the reference's ``ops.moe_combine`` is its jnp
+    version too)."""
+    return _ref.moe_combine_ref(expert_out, row_token, row_weight,
+                                num_tokens,
+                                max_rows_per_token=max_rows_per_token)

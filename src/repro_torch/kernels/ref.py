@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels.
 
-The keyed plane's four (segment sum, scatter-add, the two table lookups)
-and the serving path's two (flash attention for prefill, decode attention
-against the KV cache).  Each function computes what its CUDA kernel
-computes, on tensors of any device.  The wrappers take these for CPU
+The keyed plane's four (segment sum, scatter-add, the two table lookups),
+the serving path's two (flash attention for prefill, decode attention
+against the KV cache), the Mamba-2 chunked SSD scan and the MoE gather,
+plus the MoE combine, which has no kernel.  Each function computes what its
+CUDA kernel computes, on tensors of any device.  The wrappers take these for CPU
 tensors; on the card only ``chip_smoke.py``, the GPU tests and ``ops``
 mode ``"ref"`` use them.
 
@@ -203,3 +204,128 @@ def decode_attention_ref(q, cache_k, cache_v, valid_len, *, softcap=0.0,
         mask &= pos > valid - window
     return _masked_softmax_pv(s[:, :, None, :], mask[:, :, None, :], vf,
                               q.dtype)[:, :, 0]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD scan
+# ---------------------------------------------------------------------------
+
+#: the decays' clip, as in the reference's chunked formulation and kernel
+SSD_CLIP = -60.0
+
+
+def _clip_exp(t: torch.Tensor) -> torch.Tensor:
+    return torch.exp(t.clamp(SSD_CLIP, 0.0))
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int = 256):
+    """x ``[B, H, S, P]``; dt ``[B, H, S]`` (softplus'd, float32); A ``[H]``
+    (negative); Bm, Cm ``[B, H, S, N]`` -> (y like x, final h ``[B, H, N,
+    P]`` float32), from a zero state.
+
+    The chunked formulation of ``repro/kernels/ssd_scan.py`` in float32:
+    within a chunk ``y = (C B^T o L)(x dt) + C exp(cum) h``, across chunks
+    ``h <- h exp(total) + sum_j exp(total - cum_j) B_j x_j dt_j``, every
+    decay clipped to ``[-60, 0]``.  Any S: the tail is padded with
+    ``dt = 0``, which leaves the state unchanged.  The chunk changes the
+    result only through the clip (below ``exp(-60)``) and rounding.  Inputs
+    may be strided views (an expanded ``[B, H, S, N]`` of one shared B/C
+    group, a transposed ``[B, S, H, P]``)."""
+    b, h, s, p = x.shape
+    n = Bm.shape[-1]
+    c = min(chunk, s)
+    pad = (-s) % c
+    nc = (s + pad) // c
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, pad))
+        dtf = torch.nn.functional.pad(dtf, (0, pad))
+        Bf = torch.nn.functional.pad(Bf, (0, 0, 0, pad))
+        Cf = torch.nn.functional.pad(Cf, (0, 0, 0, pad))
+    xc = (xf * dtf[..., None]).reshape(b, h, nc, c, p)
+    Bc = Bf.reshape(b, h, nc, c, n)
+    Cc = Cf.reshape(b, h, nc, c, n)
+    cum = torch.cumsum((dtf * A.float()[None, :, None]).reshape(b, h, nc, c),
+                       dim=-1)
+    total = cum[..., -1]                                   # [b, h, nc]
+    tril = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(tril, _clip_exp(cum[..., :, None] - cum[..., None, :]),
+                        torch.zeros((), device=x.device))
+    y = ((Cc @ Bc.transpose(-1, -2)) * decay) @ xc         # [b, h, nc, c, p]
+    states = (Bc * _clip_exp(total[..., None] - cum)[..., None]) \
+        .transpose(-1, -2) @ xc                            # [b, h, nc, n, p]
+    hs = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    h_prev = []
+    for k in range(nc):
+        h_prev.append(hs)
+        hs = hs * _clip_exp(total[..., k])[..., None, None] + states[:, :, k]
+    y = y + (Cc * _clip_exp(cum)[..., None]) @ torch.stack(h_prev, dim=2)
+    return y.reshape(b, h, nc * c, p)[:, :, :s].to(x.dtype), hs
+
+
+def ssd_scan_sequential(x, dt, A, Bm, Cm):
+    """The same scan as a recurrence over positions, float32, without the
+    clip: the small-size oracle (the reference's ``ref.ssd_scan_ref``)."""
+    b, h, s, p = x.shape
+    n = Bm.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), Bm.float(), Cm.float()
+    hs = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        dA = torch.exp(dtf[:, :, t] * A.float()[None, :])
+        hs = hs * dA[..., None, None] + Bf[:, :, t, :, None] \
+            * (xf[:, :, t] * dtf[:, :, t, None])[:, :, None, :]
+        ys.append((Cf[:, :, t, :, None] * hs).sum(dim=2))
+    return torch.stack(ys, dim=2).to(x.dtype), hs
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch
+# ---------------------------------------------------------------------------
+
+def moe_gather_ref(x, row_token) -> torch.Tensor:
+    """x ``[T, d]``; row_token ``[R]`` -> ``[R, d]`` with ``out[r] =
+    x[row_token[r]]``; a token outside ``[0, T)`` (the dummy ``T``) gives a
+    zero row."""
+    t = x.shape[0]
+    tok = row_token.to(torch.int64)
+    ok = (tok >= 0) & (tok < t)
+    out = x[torch.where(ok, tok, 0)] if t else x.new_zeros(
+        (len(tok), x.shape[1]))
+    return torch.where(ok[:, None], out, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+
+
+def moe_combine_ref(expert_out, row_token, row_weight, num_tokens: int, *,
+                    max_rows_per_token: int) -> torch.Tensor:
+    """expert_out ``[R, d]``; ``y[t] = sum_{r: row_token[r] == t} w_r *
+    expert_out[r]`` for ``t < num_tokens`` (rows of other tokens drop) ->
+    ``[num_tokens, d]`` in expert_out's dtype.
+
+    Accumulates in float32 in a fixed order and rounds once: each token
+    sums its rows in the order of their buffer index, so two runs give the
+    same bits on any device (a bfloat16 ``index_add_`` on the card adds in
+    the atomics' order).  ``max_rows_per_token`` bounds the rows of one
+    token (``top_k`` in the model)."""
+    r, d = expert_out.shape
+    dev = expert_out.device
+    tok = row_token.to(torch.int64)
+    tok = torch.where((tok >= 0) & (tok < num_tokens), tok, num_tokens)
+    order = torch.sort(tok, stable=True).indices
+    t_sorted = tok[order]
+    counts = torch.bincount(t_sorted, minlength=num_tokens + 1)
+    start = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(r, device=dev) - start[t_sorted]
+    # table[t, j]: the j-th row of token t, or r (a zero row); the dummy
+    # token's row and a spare last column take what the bound drops
+    table = torch.full((num_tokens + 1, max(max_rows_per_token, 1) + 1), r,
+                       dtype=torch.int64, device=dev)
+    table[t_sorted, pos.clamp(max=table.shape[1] - 1)] = order
+    table = table[:num_tokens, :-1]
+    rows = torch.cat([expert_out.float() * row_weight.float()[:, None],
+                      expert_out.new_zeros((1, d), dtype=torch.float32)])
+    y = torch.zeros((num_tokens, d), dtype=torch.float32, device=dev)
+    for j in range(table.shape[1]):
+        y += rows[table[:, j]]
+    return y.to(expert_out.dtype)

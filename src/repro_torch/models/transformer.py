@@ -1,26 +1,28 @@
-"""The dense decoder: parameters, KV caches, prefill and decode.
+"""The decoder: parameters, caches, prefill and decode.
 
-Port of the dense subset of ``repro/models/transformer.py``: attention
-mixers (full and sliding) with dense MLPs, optional post-norms, tied or
-untied embeddings.  The reference stacks its layers into a prefix and
-``lax.scan``-ned units; the port keeps one module per layer, in order:
-layer ``len(prefix) + u * len(unit) + i`` is the reference's unit ``u``,
-entry ``l{i}`` (:mod:`repro_torch.interop` carries weights across).
+Port of ``repro/models/transformer.py`` for decoder-only models: attention
+mixers (full and sliding) or Mamba-2 mixers, with dense, MoE or no MLPs,
+optional post-norms, tied or untied embeddings.  The reference stacks its
+layers into a prefix and ``lax.scan``-ned units; the port keeps one module
+per layer, in order: layer ``len(prefix) + u * len(unit) + i`` is the
+reference's unit ``u``, entry ``l{i}`` (:mod:`repro_torch.interop` carries
+weights across).
 
 Entry points (the reference's names):
 
 * :func:`init_params` -- a :class:`Transformer` with random weights drawn
   from a seeded ``torch.Generator`` at the reference's stddevs;
-* :func:`init_caches` -- one ``{"k", "v"}`` cache per layer,
-  ``[B, Hkv, S_max, hd]``;
+* :func:`init_caches` -- per layer, a KV cache ``{"k", "v"}`` of
+  ``[B, Hkv, S_max, hd]`` or a Mamba state ``{"h", "conv_x", "conv_B",
+  "conv_C"}``;
 * :func:`prefill_forward` -- the prompt, writing the caches; returns the
   last position's logits;
 * :func:`decode_forward` -- one token per slot at per-slot positions
   ``cache_index`` (ragged continuous batching), updating the caches in
   place; returns the logits.
 
-Mamba, MoE, encoder-decoder and prefix-embedding models raise
-``NotImplementedError``: they are ROADMAP Queue 1 item 12's later slices.
+Encoder-decoder and prefix-embedding models raise ``NotImplementedError``:
+they are a later part of ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -32,25 +34,18 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba2, moe
 from repro_torch.models.config import (
-    DENSE, FULL, MAMBA, MOE, SLIDING, LayerSpec, ModelConfig,
+    DENSE, FULL, MAMBA, MOE, NONE, SLIDING, LayerSpec, ModelConfig,
 )
 
 Caches = List[Dict[str, torch.Tensor]]
+#: the leaves of a KV cache; every other cache leaf is recurrent state
+KV_LEAVES = ("k", "v")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not serve."""
-    specs = cfg.layer_specs()
-    if any(s.mixer == MAMBA for s in specs):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba-2 mixers wait for ROADMAP Queue 1 item 12 "
-            f"(models/mamba2.py with the ssd_scan kernel, Queue 2 item 7)")
-    if any(s.mlp == MOE for s in specs) or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers wait for ROADMAP Queue 1 item 12 "
-            f"(models/moe.py with the moe_gather kernel, Queue 2 item 8)")
+    """Raise ``NotImplementedError`` for what the port does not serve."""
     if cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models wait for ROADMAP Queue 1 "
@@ -59,29 +54,49 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: prefix-embedding frontends wait for ROADMAP Queue 1 "
             f"item 12 (prefix-LM attention)")
-    bad = [s for s in specs if s.mixer not in (FULL, SLIDING)
-           or s.mlp != DENSE]
+    specs = cfg.layer_specs()
+    bad = [s for s in specs if s.mixer not in (FULL, SLIDING, MAMBA)
+           or s.mlp not in (DENSE, MOE, NONE)]
     if bad:
         raise NotImplementedError(f"{cfg.name}: layer kinds {set(bad)} are "
                                   f"not ported (ROADMAP Queue 1 item 12)")
+    if any(s.mixer == MAMBA for s in specs) and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: Mamba layers need an SSMConfig")
+    if any(s.mlp == MOE for s in specs) and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: MoE layers need a MoEConfig")
 
 
 class DecoderLayer(nn.Module):
-    """``x + post_ln1(attn(ln1(x)))``, then ``x + post_ln2(mlp(ln2(x)))``."""
+    """``x + post_ln1(mixer(ln1(x)))``, then, unless the layer has no MLP,
+    ``x + post_ln2(mlp(ln2(x)))``; the mixer is attention or Mamba-2, the
+    MLP dense or MoE."""
 
     def __init__(self, spec: LayerSpec, cfg: ModelConfig, *, device):
         super().__init__()
         dt, d, eps = cfg.pdtype, cfg.d_model, cfg.norm_eps
         self.spec = spec
+        self.cfg = cfg
         self.ln1 = layers.RMSNorm(d, eps, dtype=dt, device=device)
-        self.mixer = attn.Attention(d, cfg.num_heads, cfg.num_kv_heads,
-                                    cfg.head_dim_, dtype=dt, device=device)
-        self.ln2 = layers.RMSNorm(d, eps, dtype=dt, device=device)
-        self.mlp = layers.MLP(d, cfg.d_ff, cfg.mlp_activation, dtype=dt,
-                              device=device)
+        if spec.mixer == MAMBA:
+            self.mixer = mamba2.Mamba(d, cfg.ssm, eps, dtype=dt,
+                                      device=device)
+        else:
+            self.mixer = attn.Attention(d, cfg.num_heads, cfg.num_kv_heads,
+                                        cfg.head_dim_, dtype=dt,
+                                        device=device)
         if cfg.post_norms:
             self.post_ln1 = layers.RMSNorm(d, eps, dtype=dt, device=device)
-            self.post_ln2 = layers.RMSNorm(d, eps, dtype=dt, device=device)
+        if spec.mlp == MOE:
+            self.mlp = moe.MoE(d, cfg.moe, cfg.mlp_activation, dtype=dt,
+                               device=device)
+        elif spec.mlp == DENSE:
+            self.mlp = layers.MLP(d, cfg.d_ff, cfg.mlp_activation, dtype=dt,
+                                  device=device)
+        if spec.mlp != NONE:
+            self.ln2 = layers.RMSNorm(d, eps, dtype=dt, device=device)
+            if cfg.post_norms:
+                self.post_ln2 = layers.RMSNorm(d, eps, dtype=dt,
+                                               device=device)
         self.post_norms = cfg.post_norms
         self.residual_scale = cfg.residual_scale
         self.attn_kwargs = dict(
@@ -92,13 +107,22 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, cache: Optional[dict], cache_index=None):
         rs = self.residual_scale
-        h, cache = attn.attention_block(self.ln1(x), self.mixer, cache=cache,
+        if self.spec.mixer == MAMBA:
+            h, _ = mamba2.mamba_block(self.ln1(x), self.mixer, self.cfg.ssm,
+                                      norm_eps=self.cfg.norm_eps, state=cache)
+        else:
+            h, _ = attn.attention_block(self.ln1(x), self.mixer, cache=cache,
                                         cache_index=cache_index,
                                         **self.attn_kwargs)
         if self.post_norms:
             h = self.post_ln1(h)
         x = x + rs * h if rs != 1.0 else x + h
-        h = self.mlp(self.ln2(x))
+        if self.spec.mlp == NONE:
+            return x
+        if self.spec.mlp == MOE:
+            h, _ = moe.moe_ffn(self.ln2(x), self.mlp, self.cfg.moe)
+        else:
+            h = self.mlp(self.ln2(x))
         if self.post_norms:
             h = self.post_ln2(h)
         return x + rs * h if rs != 1.0 else x + h
@@ -151,9 +175,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     the reference's initialization: truncated normals with stddev 0.02 for
     the embedding, ``d ** -0.5`` for the input projections,
     ``(Hq * hd) ** -0.5`` and ``ff ** -0.5`` for the output ones, zeros for
-    the norm scales.  Drawn from ``generator``, or from a generator on the
-    device seeded with ``seed``.  The numbers differ from the reference's
-    (another generator); weights that must match are carried over with
+    the norm scales (the Mamba and MoE modules say their own).  Drawn from
+    ``generator``, or from a generator on the device seeded with ``seed``.
+    The numbers differ from the reference's (another generator); weights
+    that must match are carried over with
     :func:`repro_torch.interop.params_from_reference`."""
     dev = resolve_device(device)
     if generator is None:
@@ -164,28 +189,49 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
         layers.truncated_normal_(model.lm_head.data, 0.02, generator)
     for layer in model.layers:
         layer.mixer.init_weights(generator)
-        layer.mlp.init_weights(generator)
+        if layer.spec.mlp != NONE:
+            layer.mlp.init_weights(generator)
     return model
 
 
 def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *,
                 device=None) -> Caches:
-    """Zeroed KV caches, one ``{"k", "v"}`` of ``[batch, Hkv, s_max, hd]``
-    per layer, in the compute dtype unless ``dtype`` is given."""
+    """Zeroed caches, one per layer, in the compute dtype unless ``dtype``
+    is given: ``{"k", "v"}`` of ``[batch, Hkv, s_max, hd]`` for attention,
+    the Mamba state (``h`` float32, conv histories in ``dtype``) for
+    Mamba-2."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.cdtype
-    return [attn.init_kv_cache(batch, s_max, cfg.num_kv_heads, cfg.head_dim_,
-                               dtype, dev)
-            for _ in cfg.layer_specs()]
+
+    def one(spec: LayerSpec) -> dict:
+        if spec.mixer == MAMBA:
+            return mamba2.init_mamba_state(batch, cfg.d_model, cfg.ssm,
+                                           dtype, dev)
+        return attn.init_kv_cache(batch, s_max, cfg.num_kv_heads,
+                                  cfg.head_dim_, dtype, dev)
+
+    return [one(spec) for spec in cfg.layer_specs()]
+
+
+def zero_recurrent_(caches: Caches) -> Caches:
+    """Zero every recurrent (non-KV) leaf in place: a prefill from position
+    0 starts from a zero Mamba state and conv history."""
+    for cache in caches:
+        for name, leaf in cache.items():
+            if name not in KV_LEAVES:
+                leaf.zero_()
+    return caches
 
 
 @torch.no_grad()
 def prefill_forward(params: Transformer, batch: dict, cfg: ModelConfig,
                     caches: Optional[Caches]):
     """The prompt ``batch["tokens"] [B, S]`` from position 0, writing the
-    caches' rows ``[0, S)``.  Returns (last-position logits ``[B, 1, V]``
-    float32, caches)."""
+    KV caches' rows ``[0, S)`` and the Mamba states.  A Mamba layer's conv
+    continues from the state it is given (the reference's semantics), so a
+    reused cache is zeroed first (:func:`zero_recurrent_`).  Returns
+    (last-position logits ``[B, 1, V]`` float32, caches)."""
     x = params.run(batch["tokens"], caches)
     return params.logits(x[:, -1:]), caches
 

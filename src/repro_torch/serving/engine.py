@@ -19,9 +19,12 @@ What differs from the reference, and why: there is no ``jit``, so prefill
 and decode are plain calls of :mod:`repro_torch.models.transformer`; the
 caches are updated IN PLACE (the decode step writes each slot's token into
 its cache, the prefill writes the reusable one-slot cache, and admission
-copies the prompt's rows into the slot); and each request keeps a copy of
-the logits its last token was taken from (``Request.logits``), so a run
-can be checked against a reference without recomputing it.
+copies the prompt's KV rows and the whole recurrent state into the slot);
+and each request keeps a copy of the logits its last token was taken from
+(``Request.logits``), so a run can be checked against a reference without
+recomputing it.  Because the one-slot cache is reused, its recurrent
+(Mamba) leaves are zeroed before every prefill: the reference never
+mutates its own, so each of its prefills starts from a zero conv history.
 """
 
 from __future__ import annotations
@@ -100,8 +103,9 @@ class ServingEngine:
         self.resize_events: List[dict] = []
         # reusable single-slot prefill cache: admitting a request prefills
         # into this buffer instead of allocating a fresh one-slot cache;
-        # rows beyond the prompt hold stale values from earlier admissions,
-        # which attention never reads (it stops at each slot's length)
+        # KV rows beyond the prompt hold stale values from earlier
+        # admissions, which attention never reads (it stops at each slot's
+        # length); recurrent leaves are zeroed before each prefill
         self._one_caches = self._new_caches(1)
 
     def _new_caches(self, n: int) -> T.Caches:
@@ -190,6 +194,7 @@ class ServingEngine:
     def _prefill(self, prefix: np.ndarray):
         tokens = torch.as_tensor(prefix, dtype=torch.int64,
                                  device=self.device)[None, :]
+        T.zero_recurrent_(self._one_caches)
         logits, _ = T.prefill_forward(self.params, {"tokens": tokens},
                                       self.cfg, self._one_caches)
         return logits[0, -1]
@@ -237,7 +242,11 @@ class ServingEngine:
                 continue
             for big, one in zip(self.caches, self._one_caches):
                 for name in big:
-                    big[name][slot, :, :plen].copy_(one[name][0, :, :plen])
+                    if name in T.KV_LEAVES:     # [B, Hkv, S_max, hd] rows
+                        big[name][slot, :, :plen].copy_(
+                            one[name][0, :, :plen])
+                    else:                       # recurrent state, whole
+                        big[name][slot].copy_(one[name][0])
             req.slot = slot
             self.active[slot] = req
             self.lengths[slot] = plen

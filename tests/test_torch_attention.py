@@ -292,7 +292,8 @@ class TestAttentionBlock:
 
 class TestConfigs:
     @pytest.mark.parametrize("name", ["gemma2-27b", "gemma2_27b",
-                                      "paper-synthetic"])
+                                      "paper-synthetic", "mamba2-780m",
+                                      "deepseek-moe-16b"])
     def test_same_fields_as_reference(self, name):
         for reduce in (False, True):
             jc, tc = jconfigs.get(name), tconfigs.get(name)
@@ -304,20 +305,31 @@ class TestConfigs:
             assert tc.layout()[2] == jc.layout()[2]
 
     def test_unported_and_unknown_architectures(self):
+        """The encoder-decoder and prefix-embedding models (and the hybrid)
+        have no configuration module yet; an unknown name is a KeyError."""
         assert set(tconfigs.names()) == set(jconfigs.names())
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            tconfigs.get("mamba2-780m")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            tconfigs.get("deepseek-moe-16b")
+        for name in ("seamless-m4t-medium", "paligemma-3b",
+                     "jamba-1.5-large-398b"):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+                tconfigs.get(name)
         with pytest.raises(KeyError):
             tconfigs.get("no-such-model")
 
     def test_models_outside_the_slice_refuse(self):
-        ssm = ModelConfig(name="ssm", family="ssm", num_layers=2, d_model=8,
-                          num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=16,
-                          unit=(LayerSpec(MAMBA, NONE),))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            TT.init_params(ssm, device="cpu")
+        """The model refuses encoder-decoder and prefix-embedding
+        configurations and unknown layer kinds."""
+        base = ModelConfig(name="x", family="dense", num_layers=2, d_model=8,
+                           num_heads=2, num_kv_heads=2, d_ff=8,
+                           vocab_size=16)
+        for cfg in (dataclasses.replace(base, encoder_layers=2),
+                    dataclasses.replace(base, num_prefix_embeds=4),
+                    dataclasses.replace(base, unit=(LayerSpec("rwkv",
+                                                              NONE),))):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+                TT.init_params(cfg, device="cpu")
+        ssm = dataclasses.replace(base, unit=(LayerSpec(MAMBA, NONE),))
+        with pytest.raises(ValueError, match="SSMConfig"):
+            TT.init_caches(ssm, 1, 4, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -8,8 +8,9 @@ package, so it runs on a machine that has only PyTorch:
 
 Integers must be bit-exact; float32 sums are held to 3e-5 because the
 atomics add in another order than the plain version.  The attention
-kernels are held to 3e-5 in float32 and 2e-2 in bfloat16, the tolerances
-the reference holds its Pallas kernels to (``tests/test_kernels.py``).
+kernels are held to 3e-5 in float32 and 2e-2 in bfloat16, the SSD scan to
+2e-4 and 5e-2, the tolerances the reference holds its Pallas kernels to
+(``tests/test_kernels.py``); the MoE gather, a copy, must be bit-exact.
 """
 
 import dataclasses
@@ -21,9 +22,11 @@ import torch
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import hash_table as tht
+from repro_torch.kernels import moe_dispatch as tmd
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import segment_reduce as tsr
+from repro_torch.kernels import ssd_scan as tss
 from repro_torch.keyed import KeyedWindowAdapter, WindowSpec, synthetic_keyed_items
 from repro_torch.runtime import StreamExecutor
 
@@ -281,3 +284,160 @@ def test_engine_on_the_card_equals_ref_mode_and_cpu(dev):
     assert counts["decode_attention"] == cfg.num_layers * eng.steps
     assert kern == serve(dev, "ref")[0]
     assert kern == serve("cpu")[0]
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 scan and the MoE gather
+# ---------------------------------------------------------------------------
+
+SSD_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4),
+           torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
+
+
+def _scan_inputs(dev, dtype, B, H, S, P, N, dt_shift=0.0):
+    """Model layouts: x and dt transposed from [B, S, H, ...], one B/C group
+    expanded over the heads with stride 0; dt = softplus(randn - dt_shift)."""
+    gen = torch.Generator(device=dev).manual_seed(S)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = randn(B, S, H, P, scale=0.5).to(dtype).transpose(1, 2)
+    dt = torch.nn.functional.softplus(randn(B, S, H) - dt_shift) \
+        .transpose(1, 2)
+    A = -torch.exp(randn(H, scale=0.3))
+    Bm = randn(B, S, N, scale=0.3).to(dtype)[:, None].expand(B, H, S, N)
+    Cm = randn(B, S, N, scale=0.3).to(dtype)[:, None].expand(B, H, S, N)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,P,N", [
+    (1, 48, 1, 64, 128),       # one token
+    (2, 4, 300, 64, 128),      # no chunk divides 300
+    (1, 3, 129, 8, 16),        # a slice of P wider than P
+    (1, 2, 64, 96, 256),       # the largest state, three P slices
+])
+def test_ssd_scan_vs_plain(dev, dtype, B, H, S, P, N):
+    x, dt, A, Bm, Cm = _scan_inputs(dev, dtype, B, H, S, P, N)
+    before = ops.launch_counts()["ssd_scan"]
+    y, h = tss.ssd_scan(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    assert y.dtype == dtype and y.shape == (B, H, S, P)
+    assert h.dtype == torch.float32 and h.shape == (B, H, N, P)
+    want_y, want_h = tref.ssd_scan_ref(x, dt, A, Bm, Cm)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(h, want_h, **SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S", [(1, 8192), (2, 4097)])
+def test_ssd_scan_carries_the_state_across_chunks(dev, dtype, B, S):
+    """Mamba2-780M's heads with dt = softplus(randn - 5), 3e-4 to 0.1 as in
+    a trained model: the state carried across a whole 64-position chunk
+    moves y far past the tolerance, so a kernel that dropped or mis-scaled
+    its carry ``exp(total) h`` between chunks fails."""
+    x, dt, A, Bm, Cm = _scan_inputs(dev, dtype, B, 48, S, 64, 128,
+                                    dt_shift=5.0)
+    y, h = tss.ssd_scan(x, dt, A, Bm, Cm)
+    want_y, want_h = tref.ssd_scan_ref(x, dt, A, Bm, Cm)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(h, want_h, **SSD_TOL[dtype])
+    # from one whole chunk past the half on, the second half scanned alone
+    # differs from the full scan only by the state carried across a chunk
+    half = S // 2
+    alone, _ = tref.ssd_scan_ref(x[:, :, half:], dt[:, :, half:], A,
+                                 Bm[:, :, half:], Cm[:, :, half:])
+    assert not torch.allclose(alone[:, :, 64:].float(),
+                              want_y[:, :, half + 64:].float(),
+                              **SSD_TOL[dtype])
+
+
+def test_ssd_scan_refuses_what_it_does_not_take(dev):
+    counts = ops.launch_counts()
+    x = torch.zeros((1, 2, 8, 16), device=dev)
+    dt = torch.zeros((1, 2, 8), device=dev)
+    A = torch.zeros(2, device=dev)
+    b = torch.zeros((1, 2, 8, 300), device=dev)
+    with pytest.raises(ValueError, match="state size"):
+        tss.ssd_scan(x, dt, A, b, b)
+    b = torch.zeros((1, 2, 8, 16), device=dev)
+    with pytest.raises(ValueError, match="float32 or"):
+        tss.ssd_scan(x.half(), dt, A, b.half(), b.half())
+    with pytest.raises(ValueError, match="float32"):
+        tss.ssd_scan(x, dt.bfloat16(), A, b, b)
+    strided = torch.zeros((1, 2, 16, 8), device=dev).transpose(2, 3)
+    with pytest.raises(ValueError, match="last axis"):
+        tss.ssd_scan(strided, dt, A, b, b)
+    assert ops.launch_counts() == counts
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 2048),
+                                     (torch.float32, 2048),
+                                     (torch.float32, 3), (torch.bfloat16, 5)])
+def test_moe_gather_bit_exact(dev, dtype, d):
+    """16-byte units, and 4- and 2-byte ones for rows of 12 and 10 bytes;
+    the dummy token, a negative one and one past it read zeros."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn((300, d), generator=gen, device=dev).to(dtype)
+    tok = torch.randint(0, 301, (1000,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    tok[:3] = torch.tensor([300, -1, 1 << 30], dtype=torch.int32)
+    before = ops.launch_counts()["moe_gather"]
+    got = tmd.moe_gather(x, tok)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["moe_gather"] == before + 1
+    assert torch.equal(got, tref.moe_gather_ref(x, tok))
+    assert not got[:3].any()
+
+
+def test_mamba_and_moe_engines_on_the_card_equal_ref_mode_and_cpu(dev):
+    """Reduced float32 Mamba2 and DeepSeekMoE: the engine with the kernels
+    gives the tokens of ops mode ``ref`` on the card and of the CPU run,
+    with one scan per Mamba layer per prefill and one gather per MoE layer
+    per prefill and decode step."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.config import MAMBA, MOE
+    from repro_torch.serving import Request, ServingEngine
+
+    rng = np.random.default_rng(1)
+    for name in ("mamba2-780m", "deepseek-moe-16b"):
+        # head_dim 64: the attention kernels take 64 and 128
+        cfg = dataclasses.replace(configs.get(name).reduced(), head_dim=64,
+                                  d_model=128)
+        cpu = TT.init_params(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (5, 30, 17, 70)]
+
+        def serve(device, mode="auto"):
+            params = TT.Transformer(cfg, device=device)
+            params.load_state_dict(cpu.state_dict())
+            ops.use_kernels(mode)
+            try:
+                eng = ServingEngine(cfg, params, num_slots=3, s_max=96,
+                                    device=device)
+                reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                        for i, p in enumerate(prompts)]
+                for r in reqs:
+                    eng.submit(r)
+                eng.step()
+                eng.resize(2)
+                eng.run_to_completion()
+                return [r.generated for r in reqs], eng
+            finally:
+                ops.use_kernels("auto")
+
+        ops.reset_launch_counts()
+        kern, eng = serve(dev)
+        counts = ops.launch_counts()
+        specs = cfg.layer_specs()
+        n_prefills = len(prompts) + eng.resize_events[0]["requeued"]
+        n_mamba = sum(s.mixer == MAMBA for s in specs)
+        n_moe = sum(s.mlp == MOE for s in specs)
+        assert counts["ssd_scan"] == n_mamba * n_prefills
+        assert counts["moe_gather"] == n_moe * (n_prefills + eng.steps)
+        assert kern == serve(dev, "ref")[0]
+        assert kern == serve("cpu")[0]

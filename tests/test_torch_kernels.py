@@ -21,9 +21,11 @@ from repro.kernels import segment_reduce as jsr
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import hash_table as tht
+from repro_torch.kernels import moe_dispatch as tmd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import segment_reduce as tsr
+from repro_torch.kernels import ssd_scan as tss
 
 F32 = dict(atol=3e-5, rtol=3e-5)
 I64 = np.iinfo(np.int64)
@@ -252,10 +254,12 @@ class TestDispatch:
         qkv = torch.ones((1, 2, 3, 64))
         tops.flash_attention(qkv, qkv, qkv)
         tops.decode_attention(qkv[:, :, 0], qkv, qkv, 2)
+        tops.ssd_scan(qkv, qkv[..., 0], torch.ones(2), qkv, qkv)
+        tops.moe_gather(qkv[0, 0], t(np.arange(4, dtype=np.int32)))
         assert tops.launch_counts() == dict.fromkeys(
             ("segment_sum", "scatter_add", "table_lookup",
-             "batched_table_lookup", "flash_attention", "decode_attention"),
-            0)
+             "batched_table_lookup", "flash_attention", "decode_attention",
+             "ssd_scan", "moe_gather"), 0)
         assert not tops.kernels_active("cpu")
 
     def test_kernel_mode_refuses_cpu_tensors(self):
@@ -285,3 +289,7 @@ class TestDispatch:
         with pytest.raises(ValueError, match="CUDA"):
             tda.decode_attention(qkv[:, :, 0], qkv, qkv,
                                  torch.ones(1, dtype=torch.int32))
+        with pytest.raises(ValueError, match="CUDA"):
+            tss.ssd_scan(qkv, qkv[..., 0], torch.ones(2), qkv, qkv)
+        with pytest.raises(ValueError, match="CUDA"):
+            tmd.moe_gather(qkv[0, 0], torch.zeros(2, dtype=torch.int32))

@@ -4,7 +4,12 @@ Both engines get the same weights (the reference's, carried over with
 ``params_from_reference``), the same requests and the same tick schedule,
 including a resize in the middle of the run; every request's generated
 tokens and the engines' ``resize_events`` must be identical.  Float32
-models on the CPU, where the port runs the plain attention versions.
+models on the CPU, where the port runs the plain kernel versions: reduced
+Gemma2 and paper-synthetic (attention), Mamba2 (recurrent state, prompts
+of at least 5 tokens, whose prefill the reference computes right) and
+DeepSeekMoE (a dense layer, then MoE layers).  Several requests are
+admitted in one tick, one after another through the reused one-slot
+prefill cache.
 """
 
 import jax
@@ -27,12 +32,13 @@ S_MAX = 64
 LENGTHS = (5, 17, 40, 17, 5, 17, 40)
 
 
-@pytest.fixture(scope="module", params=["gemma2-27b", "paper-synthetic"])
+@pytest.fixture(scope="module", params=["gemma2-27b", "paper-synthetic",
+                                        "mamba2-780m", "deepseek-moe-16b"])
 def model(request):
     name = request.param
     jcfg = jconfigs.get(name)
     tcfg = tconfigs.get(name)
-    if name == "gemma2-27b":
+    if name != "paper-synthetic":
         jcfg, tcfg = jcfg.reduced(), tcfg.reduced()
     tree = jax.tree.map(np.asarray, JT.init_params(jcfg, jax.random.PRNGKey(1)))
     return jcfg, tree, tcfg, params_from_reference(tree, tcfg, device="cpu")
@@ -111,6 +117,31 @@ def test_continuous_batching_equals_sequential(model):
         assert int(r.logits.argmax()) == out[-1]
         torch.testing.assert_close(r.logits, logits[0, -1], atol=1e-5,
                                    rtol=1e-5)
+
+
+def test_each_prefill_starts_from_a_zero_state(model):
+    """Requests that finish at their prefill keep its logits: admitted one
+    after another through the reused one-slot cache, each must equal a
+    prefill into a fresh cache (a Mamba layer's conv history of the
+    previous prompt would move the first positions, and through the state
+    the last one)."""
+    _, _, tcfg, params = model
+    rng = np.random.default_rng(11)
+    reqs = [Request(rid=i, prompt=rng.integers(0, tcfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=1)
+            for i, n in enumerate((9, 5, 6))]
+    eng = ServingEngine(tcfg, params, num_slots=2, s_max=S_MAX, device="cpu")
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    assert all(r.done for r in reqs) and eng.steps == 0
+    for r in reqs:
+        caches = TT.init_caches(tcfg, 1, S_MAX, device="cpu")
+        logits, _ = TT.prefill_forward(
+            params, {"tokens": torch.as_tensor(r.prompt).long()[None]}, tcfg,
+            caches)
+        torch.testing.assert_close(r.logits, logits[0, -1], atol=1e-6,
+                                   rtol=1e-6)
 
 
 def test_observability_and_bad_arguments(model):
