@@ -15,7 +15,9 @@ Phases, each printed on its own line; any failure exits non-zero:
                on the card, at the main path's shapes and on edge cases
                (integers bit-exact, float32 within 3e-5), with its time, the
                plain version's time, one PyTorch library call's time where
-               one computes the same function, and its bound;
+               one computes the same function, and its bound; the two
+               segment kernels and their ``index_add_`` yardsticks also by
+               device time per call under ``torch.profiler``;
 4. main     -- ``StreamExecutor`` + ``KeyedWindowAdapter`` (fused,
                ``device_table``) over a 1,048,576-key sliding-window stream
                at a real state size (8 x 262,144 table rows on the card),
@@ -38,7 +40,10 @@ Phases, each printed on its own line; any failure exits non-zero:
                the kernel's time, the plain version's, the bound, and
                ``scaled_dot_product_attention``'s time at softcap 0 as the
                yardstick (for decode with a per-slot mask and
-               ``enable_gqa``);
+               ``enable_gqa``); for flash also its TFLOP/s, its share of the
+               bound, the first version's recorded time, ptxas's registers,
+               spills and shared memory, and the HGMMA (``wgmma``)
+               instructions ``cuobjdump -sass`` finds in the bf16 kernel;
 7. gemma2-serve -- ``ServingEngine`` over Gemma2-27B at full width (16 of
                46 layers, random weights from the seed, bfloat16), 8 slots
                of 8,192 positions, 16 requests of 256-6,144 prompt tokens and
@@ -101,6 +106,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 #: the bf16 tensor-core rate, the bound of attention's products
 PEAK_BF16_S = 989e12
+#: the first flash kernel's time for phase 6's bf16 pair (float32 FMAs on the
+#: CUDA cores; PERF.md kernel table, row 5, H100 80GB HBM3 at 700 W), printed
+#: beside the tensor-core kernel's for reference
+FLASH_FIRST_VERSION_MS = 23.9582
 F32_TOL = 3e-5
 BF16_TOL = 2e-2
 #: one bfloat16 rounding step relative to the value (8 significant bits):
@@ -250,6 +259,30 @@ def cuda_ms(torch, fn, reps, warmup=1):
     return e0.elapsed_time(e1) / reps
 
 
+def _device_us(event):
+    """A profiler row's own device time in microseconds."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0))
+
+
+def device_ms_by_kernel(torch, fn, reps):
+    """Device milliseconds per call of ``fn`` by kernel name, under
+    ``torch.profiler`` over ``reps`` calls after one warm-up call: each
+    kernel's own time on the card, without the host time between launches
+    that back-to-back CUDA events also count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: _device_us(e) / reps / 1e3 for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and _device_us(e)}
+
+
 def bound(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS_S * 1e3
@@ -384,18 +417,26 @@ def phase_kernels(torch, items):
     check(torch.allclose(f_got, f_want, atol=F32_TOL, rtol=F32_TOL),
           f"segment_sum float32 error {f_err}")
     errs.append(f_err)
-    ms = cuda_ms(torch, lambda: sr.segment_sum(seg_vals, seg_ids, n_cells), 50)
+    def kernel_fn():
+        return sr.segment_sum(seg_vals, seg_ids, n_cells)
+
+    ids_l = seg_ids.to(torch.int64)
+
+    def library_fn():
+        return torch.zeros((n_cells, 2), dtype=torch.int32,
+                           device=dev).index_add_(0, ids_l, seg_vals)
+
+    ms = cuda_ms(torch, kernel_fn, 50)
     plain = cuda_ms(torch, lambda: ref.segment_sum_sorted(
         seg_vals, seg_ids, n_cells), 20)
-    ids_l = seg_ids.to(torch.int64)
-    lib = cuda_ms(torch, lambda: torch.zeros(
-        (n_cells, 2), dtype=torch.int32, device=dev).index_add_(
-            0, ids_l, seg_vals), 50)
+    lib = cuda_ms(torch, library_fn, 50)
     b_ms, b_by = bound(n_rows * 4 + n_rows * 2 * 4 + n_cells * 2 * 4,
                        n_rows * 2)
     records["segment_sum"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib,
+        device_ms=device_ms_by_kernel(torch, kernel_fn, 50),
+        library_device_ms=device_ms_by_kernel(torch, library_fn, 50),
         shape=f"values [{n_rows},2] i32 -> [{n_cells},2]")
 
     # -- scatter_add: the table accumulate, int64 ------------------------------
@@ -432,16 +473,25 @@ def phase_kernels(torch, items):
         torch.zeros((0, 2), dtype=torch.int64, device=dev)), e_tab),
         "scatter_add empty")
     work = table.clone()
-    ms = cuda_ms(torch, lambda: sr.scatter_add_(work, rows_at, partial), 50)
+    rows_l = rows_at.to(torch.int64)
+
+    def kernel_fn():
+        return sr.scatter_add_(work, rows_at, partial)
+
+    def library_fn():
+        return work.index_add_(0, rows_l, partial)
+
+    ms = cuda_ms(torch, kernel_fn, 50)
     plain = cuda_ms(torch, lambda: ref.scatter_add_ref_(work, rows_at,
                                                         partial), 20)
-    rows_l = rows_at.to(torch.int64)
-    lib = cuda_ms(torch, lambda: work.index_add_(0, rows_l, partial), 50)
+    lib = cuda_ms(torch, library_fn, 50)
     b_ms, b_by = bound(n_cells * 4 + n_cells * 2 * 8 + 2 * n_cells * 2 * 8,
                        n_cells * 2)
     records["scatter_add"] = dict(
         max_abs_err=f_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib,
+        device_ms=device_ms_by_kernel(torch, kernel_fn, 50),
+        library_device_ms=device_ms_by_kernel(torch, library_fn, 50),
         shape=f"table [{total},2] i64, {n_cells} rows")
 
     # -- the lookups: a steady-state table of ~23% load ------------------------
@@ -808,6 +858,70 @@ def attention_bound(pairs, heads, hd, nbytes):
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
 
+def ptxas_entries(report):
+    """Each kernel's registers, spills and static shared memory from an
+    ``nvcc -Xptxas -v`` report, by mangled name."""
+    entries, name = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            entries[name] = {}
+        elif name and "spill stores" in ln:
+            f = ln.replace(",", "").split()
+            entries[name].update(stack_bytes=int(f[0]),
+                                 spill_store_bytes=int(f[4]),
+                                 spill_load_bytes=int(f[8]))
+        elif name and "Used" in ln and "registers" in ln:
+            f = ln.replace(",", "").split()
+            entries[name]["registers"] = int(f[f.index("Used") + 1])
+            entries[name]["static_smem_bytes"] = (
+                int(f[f.index("smem") - 2]) if "smem" in f else 0)
+    return entries
+
+
+def sass_opcode_counts(library, opcode):
+    """Instructions whose text holds ``opcode`` in each function of a built
+    library, from ``cuobjdump -sass``; None where the toolkit has no
+    ``cuobjdump``."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    counts, name = {}, None
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and opcode in ln:
+            counts[name] += 1
+    return counts
+
+
+def flash_build_report():
+    """The flash kernels as built: ptxas's registers, spills and static
+    shared memory, and the HGMMA (wgmma) instructions in each kernel's
+    machine code; the bf16 kernel must have some where ``cuobjdump`` can
+    tell."""
+    from repro_torch.kernels import _build
+
+    text = _build.BUILD_INFO["ptxas"].get("flash_attention.cu")
+    report = {"ptxas": (ptxas_entries(text) if text
+                        else "not compiled in this run")}
+    hgmma = sass_opcode_counts(
+        _build.BUILD_INFO["libraries"]["flash_attention.cu"], "HGMMA")
+    report["hgmma_instructions"] = (hgmma if hgmma is not None
+                                    else "no cuobjdump in the toolkit")
+    if hgmma is not None:
+        wg = {k: n for k, n in hgmma.items() if "flash_forward_wgmma" in k}
+        check(len(wg) == 2 and min(wg.values()) > 0,
+              f"flash_forward_wgmma without HGMMA instructions: {hgmma}")
+    return report
+
+
 def _close(torch, got, want, tol, what, steps):
     """Largest absolute difference, held to ``tol`` (absolute and relative);
     a bfloat16 output is also held to one rounding step of each value
@@ -910,13 +1024,24 @@ def phase_attention(torch):
     pairs = {w: admitted_pairs(S, S, True, w) for w in (4096, 0)}
     nbytes = 2 * (2 * HQ * S * HD + 2 * HKV * S * HD)  # q, o, k, v in bf16
     bounds = {w: attention_bound(pairs[w], HQ, HD, nbytes) for w in pairs}
+    flops = sum(pairs.values()) * HQ * 4 * HD   # the function's, both layers
+    pair_ms = {cap: times[("kernel", 4096, cap)] + times[("kernel", 0, cap)]
+               for cap in (50.0, 0.0)}
+    bound_ms = bounds[4096][0] + bounds[0][0]
     records["flash_attention"] = dict(
         max_abs_err=max(errs.values()),
-        ms=times[("kernel", 4096, 50.0)] + times[("kernel", 0, 50.0)],
+        ms=pair_ms[50.0],
         plain_ms=times[("plain", 4096)] + times[("plain", 0)],
-        bound_ms=bounds[4096][0] + bounds[0][0], bound_by=bounds[0][1],
+        bound_ms=bound_ms, bound_by=bounds[0][1],
         library_ms=times[("library", 4096)] + times[("library", 0)],
-        ms_softcap0=times[("kernel", 4096, 0.0)] + times[("kernel", 0, 0.0)],
+        ms_softcap0=pair_ms[0.0],
+        tflops={f"softcap {c:g}": flops / (t * 1e-3) / 1e12
+                for c, t in pair_ms.items()},
+        bound_share={f"softcap {c:g}": bound_ms / t
+                     for c, t in pair_ms.items()},
+        first_version_ms=FLASH_FIRST_VERSION_MS,
+        speedup_over_first_version=FLASH_FIRST_VERSION_MS / pair_ms[50.0],
+        build=flash_build_report(),
         per_layer={f"window {w}": dict(
             kernel_ms=times[("kernel", w, 50.0)],
             kernel_softcap0_ms=times[("kernel", w, 0.0)],
@@ -1334,22 +1459,17 @@ def profile_steps(torch, step, n):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = prof.key_averages()
-
-    def dev_time(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     # kernels are the events on the device; summing them counts each once
     kernels = sorted((e for e in rows if e.device_type
                       == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -dev_time(e))
-    dev_us = sum(dev_time(e) for e in kernels)
+                     key=lambda e: -_device_us(e))
+    dev_us = sum(_device_us(e) for e in kernels)
     return dict(
         steps=n, wall_ms_per_step=wall / n * 1e3,
         device_ms_per_step=dev_us / n / 1e3 if dev_us else "not measured",
         device_busy_share=dev_us / 1e6 / wall if dev_us else "not measured",
         kernels_per_step=sum(e.count for e in kernels) / n,
-        top_kernels_ms_per_step={e.key[:60]: dev_time(e) / n / 1e3
+        top_kernels_ms_per_step={e.key[:60]: _device_us(e) / n / 1e3
                                  for e in kernels[:8]})
 
 
@@ -1638,8 +1758,10 @@ def main(argv=None):
 
         t0 = time.perf_counter()
         _build.library()
-        ptxas = [ln.strip() for ln in _build.BUILD_INFO["ptxas"].splitlines()
-                 if "registers" in ln or "Compiling entry" in ln]
+        report = "".join(_build.BUILD_INFO["ptxas"].values())
+        ptxas = [ln.strip() for ln in report.splitlines()
+                 if "registers" in ln or "Compiling entry" in ln
+                 or "Performance Loss" in ln]
         say("build", seconds=time.perf_counter() - t0,
             compiled=_build.BUILD_INFO["compiled"],
             compiler_cpu_seconds=_build.BUILD_INFO["compiler_cpu_seconds"],

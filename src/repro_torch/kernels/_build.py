@@ -72,7 +72,7 @@ _LIB: Optional[types.SimpleNamespace] = None
 
 #: what the last build did: wall seconds, the compilers' CPU seconds summed
 #: over the sources (about what one source after another would take), the
-#: sources compiled, ptxas report
+#: sources compiled, the ptxas report of each, and each source's library
 BUILD_INFO: dict = {}
 
 
@@ -93,17 +93,18 @@ def build(build_dir: Path = BUILD_DIR) -> List[Path]:
     shared = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for h in sorted(CSRC.glob("*.cuh")):
         shared.update(h.name.encode() + h.read_bytes())
-    outs, todo = [], []
+    outs, todo, libraries = [], [], {}
     for src in sorted(CSRC.glob("*.cu")):
         digest = shared.copy()
         digest.update(src.read_bytes())
         out = Path(build_dir) / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
         outs.append(out)
+        libraries[src.name] = out
         if not out.exists():
             todo.append((src, out, out.with_suffix(f".{os.getpid()}.tmp")))
     t0 = time.perf_counter()
     cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
-    ptxas = []
+    ptxas = {}
     if todo:
         Path(build_dir).mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
@@ -113,11 +114,12 @@ def build(build_dir: Path = BUILD_DIR) -> List[Path]:
                                   stderr=subprocess.PIPE, text=True)
                  for c in cmds]
         outputs = [p.communicate() for p in procs]
-        for cmd, p, (out, err) in zip(cmds, procs, outputs):
+        for (src, _, _), cmd, p, (out, err) in zip(todo, cmds, procs,
+                                                   outputs):
             if p.returncode:
                 raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
                                    f"{' '.join(cmd)}\n{out}\n{err}")
-            ptxas.append(err)
+            ptxas[src.name] = err
         for _, out, tmp in todo:
             os.replace(tmp, out)
     cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
@@ -125,7 +127,8 @@ def build(build_dir: Path = BUILD_DIR) -> List[Path]:
         seconds=time.perf_counter() - t0,
         compiler_cpu_seconds=(cpu1.ru_utime + cpu1.ru_stime
                               - cpu0.ru_utime - cpu0.ru_stime),
-        compiled=[src.name for src, _, _ in todo], ptxas="".join(ptxas))
+        compiled=[src.name for src, _, _ in todo], ptxas=ptxas,
+        libraries=libraries)
     return outs
 
 

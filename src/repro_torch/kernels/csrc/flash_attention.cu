@@ -1,38 +1,73 @@
 // Causal / sliding-window flash attention (prefill), for sm_90a.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py
+// Replaces the TPU kernel src/repro/kernels/flash_attention.py:125
 // (flash_attention / _kernel).  Same function: scores q.k / sqrt(hd) in
 // float32, optional softcap c*tanh(s/c), mask k <= q (causal) and
 // k > q - window (window > 0) with masked scores -2e38, online softmax, and
 // the output acc / max(l, 1e-37) in q's dtype.  GQA: q head h reads kv head
 // h / (Hq / Hkv).  Layouts: q, o [B, Hq, Sq, hd]; k, v [B, Hkv, Skv, hd],
-// all contiguous, float32 or bfloat16 (the math is float32 either way).
+// all contiguous, float32 or bfloat16, hd 64 or 128.  The TPU kernel walks
+// the kv axis as its innermost, sequential grid dimension and carries m / l
+// / acc in VMEM scratch; blocks on Hopper run in parallel and carry nothing,
+// so here a block owns a tile of q rows of one (b, q head) and loops over
+// the kv tiles the mask admits ([q0 - window + 1, q_last] rounded to
+// tiles).  The TPU kernel asserts Sq % block_q == 0; these mask the ragged
+// edge (rows >= Sq are computed and never stored; keys >= Skv masked).
 //
-// Design.  The TPU kernel walks the kv axis as the innermost, sequential
-// grid dimension and carries m / l / acc in VMEM scratch from one grid step
-// to the next, skipping masked blocks with pl.when.  Blocks on Hopper run in
-// parallel and carry nothing, so here one block owns one (b, q head, 64-row
-// q tile) and loops over the kv tiles itself, visiting only the tiles the
-// mask admits ([q0 - window + 1, q_last] rounded to tiles).  The q tile
-// (pre-scaled) stays in shared memory; each 64-row kv tile is staged there
-// twice per step, first K transposed for the score product, then V row-major
-// for the P.V product, in one buffer.  256 threads; thread (ty, tx) owns
-// score rows 4ty..4ty+3 and columns tx + 16j, so a row's max and sum are
-// shuffles across the 16 lanes that share it, and output columns
-// tx + 16j of the same rows.  m, l and acc stay in registers, in float32.
-// The TPU kernel asserts Sq % block_q == 0; this one masks the ragged edge
-// (rows >= Sq are computed on zeros and never stored; keys >= Skv masked).
+// What bounds it on an H100: operations.  Each admitted (q, k) pair costs
+// 4 * hd flops of products, hundreds per byte moved, so the bound is the
+// bf16 tensor cores' 989 TFLOP/s; with a softcap, each score also takes a
+// tanh and an exp on the special-function units (about 0.3-0.8 ms of the
+// serve path's local + global layer pair), near that bound.
 //
-// What bounds it on an H100: operations.  At the serving path's shapes
-// (Sq = Skv = 6,144, hd 128) each admitted (q, k) pair costs 4 * hd flops,
-// hundreds per byte moved.  This first version does them as float32 FMAs
-// on the CUDA cores out of shared memory (no tensor cores), so it runs far
-// from the 989 TFLOP/s bf16 tensor-core bound; wgmma tiles are a later
-// change.  The measured time and bound are in PERF.md.
+// bfloat16 inputs (the serving dtype): flash_forward_wgmma.  Both products
+// run on the tensor cores as wgmma with float32 sums.
+// - One block: 128 q rows as two consumer warpgroups of 64 rows, and a
+//   producer warpgroup whose one thread issues the loads and whose
+//   registers go to the consumers (setmaxnreg 40 / 232: registers are
+//   granted per 128 threads, so even a lone producer warp costs a
+//   warpgroup's share).  kv tiles of 64 rows: the scores S (64 x 64), the
+//   output O (64 x hd) and P as bf16 registers fit without spills (the
+//   ptxas report is printed by chip_smoke.py and kept in PERF.md).
+// - S = Q.K^T: wgmma m64n64k16, Q and K K-major in shared memory.  Scaled
+//   by 1/sqrt(hd) in float32 after the product, as the plain version does
+//   (2^-3.5 is not exact in bf16, so q is not pre-scaled).
+// - O += P.V: P from registers (the S accumulator packed into bf16 pairs is
+//   already wgmma's A register layout), V MN-major from shared memory
+//   through the transpose bit.  P is split, P_hi = bf16(p) and P_lo =
+//   bf16(p - P_hi), two products, so P keeps about 16 bits (error ~2^-17)
+//   where one bf16 rounding (2^-9) would move an output of a row with few
+//   admitted keys by ~1e-3, beyond one bf16 rounding step of a value near
+//   zero.  l sums the unrounded p in float32.  The split costs 1.5x the
+//   tensor work; the bound stays the function's 4 * hd flops per pair.
+// - Each warpgroup issues tile j's S, then tile j-1's P.V, and runs S's
+//   softmax while that P.V runs (FlashAttention-3's intra-warpgroup
+//   overlap); O is rescaled and P packed only after the P.V is waited for,
+//   and each product opens with its own wgmma.fence: otherwise ptxas
+//   serializes the products.
+// - The softcap uses tanhf (accurate), not tanh.approx (2^-11 relative).
+// - K and V come by TMA (cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint, so no -lcuda) into a ring of three stages with
+//   mbarriers, in the 128-byte swizzle the wgmma descriptors read.  The
+//   maps are 3-D [B*H, S, hd]: a tile past the end of one (b, h)'s rows
+//   reads TMA's zero fill, never the next head's rows.
+// - The per-element mask runs only on tiles that cross the diagonal, the
+//   window's lower edge or Skv for some row of the warpgroup.  A tile none
+//   of a row's keys lie in adds exp(-2e38 - m) = 0 to it (before its first
+//   admitted key, ones that the next rescale by exp(-2e38 - m) = 0
+//   removes, as in the float32 kernel).  The q tiles with the most kv
+//   tiles are launched first.
+//
+// float32 inputs: flash_forward, float32 FMAs on the CUDA cores out of
+// shared memory (q pre-scaled in float32).  It stays because TF32 (10-bit
+// mantissa) cannot hold the float32 model to 1e-4 logits nor the kernel to
+// 3e-5 of the plain version.
 
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda link
 #include <cmath>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace attn {
 
@@ -217,13 +252,381 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- bfloat16: wgmma products fed by TMA -------------------------------------
+
+constexpr int kWgBQ = 128;   // q rows per block: two warpgroups of 64
+constexpr int kWgBK = 64;    // kv rows per tile
+constexpr int kWgStages = 3;
+constexpr int kWgConsumers = 2;
+// + a producer warpgroup: registers are granted per 128 threads, so it
+// hands its share to the consumers (setmaxnreg) and one of its threads
+// issues the loads
+constexpr int kWgThreads = (kWgConsumers + 1) * 128;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kSwRow = 128;  // bytes of a swizzled row: 64 bf16
+
+template <int HD>
+struct WgSmem {
+  static constexpr int kQ = kWgBQ * HD * 2;     // Q, hd/64 column blocks
+  static constexpr int kKV = kWgBK * HD * 2;    // one K or V tile
+  static constexpr int kBytes = kQ + kWgStages * 2 * kKV;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align to 1,024
+};
+
+// One kv tile's scores -> probabilities, in place, for this thread's two
+// rows r0, r0 + 8: scale, softcap and (on tiles that cross the diagonal,
+// the window's lower edge or Skv) the mask, in float32; the online softmax
+// update of m, l (this thread's share of the row sums, of the unrounded p)
+// and alpha, the factor of the output so far.
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[kWgBK / 2], int k0, bool edge, int r0, int cq, int Skv,
+    int causal, int window, float softcap, float inv_cap, float scale,
+    float (&m)[2], float (&l)[2], float (&alpha)[2]) {
+#pragma unroll
+  for (int e = 0; e < kWgBK / 2; ++e) {
+    float x = sc[e] * scale;
+    if (softcap > 0.f) x = softcap * tanhf(x * inv_cap);
+    sc[e] = x;
+  }
+  if (edge) {
+#pragma unroll
+    for (int e = 0; e < kWgBK / 2; ++e) {
+      const int qi = r0 + ((e & 2) ? 8 : 0);
+      const int kj = k0 + (e / 4) * 8 + cq + (e & 1);
+      bool ok = kj < Skv;
+      if (causal) ok = ok && kj <= qi;
+      if (window > 0) ok = ok && kj > qi - window;
+      if (!ok) sc[e] = kNegInf;
+    }
+  }
+  // a row's kWgBK scores lie on the 4 lanes that share it
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int e = 0; e < kWgBK / 2; ++e)
+    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = expf(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int e = 0; e < kWgBK / 2; ++e) {
+    const int r = (e >> 1) & 1;
+    sc[e] = expf(sc[e] - m[r]);
+    l[r] += sc[e];
+  }
+}
+
+// P = P_hi + P_lo, bf16(p) and bf16(p - bf16(p)), each packed as wgmma's A
+// registers: columns 16c..16c+15 of the tile are sc[8c..8c+7]
+__device__ __forceinline__ void split_p(const float (&sc)[kWgBK / 2],
+                                        uint32_t (&p_hi)[kWgBK / 16][4],
+                                        uint32_t (&p_lo)[kWgBK / 16][4]) {
+#pragma unroll
+  for (int c = 0; c < kWgBK / 16; ++c) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x0 = sc[8 * c + 2 * i], x1 = sc[8 * c + 2 * i + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(
+          x0 - __low2float(hi), x1 - __high2float(hi));
+      p_hi[c][i] = *reinterpret_cast<const uint32_t*>(&hi);
+      p_lo[c][i] = *reinterpret_cast<const uint32_t*>(&lo);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq,
+                    int Skv, int causal, int window, float softcap,
+                    float scale) {
+  using namespace hopper;
+  using L = WgSmem<HD>;
+  constexpr int BQ = kWgBQ, BK = kWgBK, ST = kWgStages;
+  constexpr int NCB = HD / 64;  // 64-column blocks of a row
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_q, bar_k[ST], bar_v[ST], bar_free[ST];
+  // the swizzle atoms need 1,024-byte aligned shared addresses
+  uint8_t* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Ks = Qs + L::kQ;           // stage s at Ks + s * L::kKV
+  uint8_t* Vs = Ks + ST * L::kKV;
+
+  // the q tiles with the most kv tiles first: blockIdx.z runs slowest
+  const int q0 = int(gridDim.z - 1 - blockIdx.z) * BQ;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  // kv tiles the mask admits for rows [q0, q_last]
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int k_hi = causal ? min(Skv, q_last + 1) : Skv;
+  int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  k_lo = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&bar_free[s], kWgConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  if (warp >= kWgConsumers * 4) {
+    // producer: one thread issues every load; tile j goes to stage j % ST
+    // once both warpgroups have freed tile j - ST there
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kWgConsumers * 4 && lane == 0) {
+      const int zq = b * Hq + h, zk = b * Hkv + hk;
+      mbar_expect_tx(&bar_q, L::kQ);
+      for (int c = 0; c < NCB; ++c)
+        tma_load_3d(Qs + c * BQ * kSwRow, &tm_q, &bar_q, c * 64, q0, zq);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        if (j >= ST) mbar_wait(&bar_free[s], ((j / ST) - 1) & 1);
+        const int k0 = k_lo + j * BK;
+        uint8_t* kd = Ks + s * L::kKV;
+        uint8_t* vd = Vs + s * L::kKV;
+        mbar_expect_tx(&bar_k[s], L::kKV);
+        for (int c = 0; c < NCB; ++c)
+          tma_load_3d(kd + c * BK * kSwRow, &tm_k, &bar_k[s], c * 64, k0, zk);
+        mbar_expect_tx(&bar_v[s], L::kKV);
+        for (int c = 0; c < NCB; ++c)
+          tma_load_3d(vd + c * BK * kSwRow, &tm_v, &bar_v[s], c * 64, k0, zk);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: q rows qa..qa+63; this thread holds rows r0 and
+  // r0 + 8 at columns 8i + cq + {0, 1} of every accumulator
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4;
+  const int qa = q0 + wg * 64;
+  const int r0 = qa + (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const uint32_t q_addr = smem_u32(Qs) + wg * 64 * kSwRow;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float alpha[2];
+  float sc[BK / 2];
+  // P of the tile whose P.V is next
+  uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+
+  // S = Q.K^T of the tile in stage s, issued (not waited for)
+  auto issue_s = [&](int s) {
+    const uint32_t k_addr = smem_u32(Ks + s * L::kKV);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 columns
+      wgmma_ss_n64(sc,
+                   sw128_desc(q_addr + (kk / 4) * BQ * kSwRow + off, 16, 1024),
+                   sw128_desc(k_addr + (kk / 4) * BK * kSwRow + off, 16, 1024),
+                   kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P.V of the tile in stage s, issued: V's 64-column blocks lie
+  // BK * 128 bytes apart (LBO), a k step is 16 kv rows (2,048 bytes)
+  auto issue_pv = [&](int s) {
+    const uint32_t v_addr = smem_u32(Vs + s * L::kKV);
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+      const uint64_t dv = sw128_desc(v_addr + c * 16 * kSwRow, BK * kSwRow,
+                                     1024);
+      if constexpr (HD == 128) {
+        wgmma_rs_n128(acc, p_hi[c], dv);
+        wgmma_rs_n128(acc, p_lo[c], dv);
+      } else {
+        wgmma_rs_n64(acc, p_hi[c], dv);
+        wgmma_rs_n64(acc, p_lo[c], dv);
+      }
+    }
+    wgmma_commit();
+  };
+  // the per-element mask is needed only where a tile crosses the diagonal,
+  // the window's lower edge or Skv for some row of this warpgroup
+  auto edge = [&](int k0) {
+    return (causal && k0 + BK - 1 > qa)
+           || (window > 0 && k0 <= qa + 63 - window) || k0 + BK > Skv;
+  };
+  // this warpgroup's products of the tile in stage s are complete: its
+  // thread 0 frees the stage
+  auto free_stage = [&](int s) {
+    if ((warp % 4) == 0 && lane == 0) mbar_arrive(&bar_free[s]);
+  };
+
+  mbar_wait(&bar_q, 0);
+  if (n_tiles > 0) {
+    // tile 0: its scores and P
+    mbar_wait(&bar_k[0], 0);
+    fence_regs(sc);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax_tile(sc, k_lo, edge(k_lo), r0, cq, Skv, causal, window,
+                     softcap, inv_cap, scale, m, l, alpha);
+    split_p(sc, p_hi, p_lo);
+    // tile j: S_j is issued, then the tile before's O += P.V, so the tensor
+    // cores run that P.V while the CUDA cores run S_j's softmax; O is
+    // rescaled and P_j packed once that P.V is complete, so no register of
+    // a product in flight is written.
+    for (int j = 1; j < n_tiles; ++j) {
+      const int s = j % ST, sp = (j - 1) % ST;
+      const int k0 = k_lo + j * BK;
+      mbar_wait(&bar_k[s], (j / ST) & 1);
+      fence_regs(sc);
+      fence_regs(acc);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      wgmma_fence();
+      issue_s(s);
+      mbar_wait(&bar_v[sp], ((j - 1) / ST) & 1);
+      wgmma_fence();  // a fence per product, or ptxas serializes them
+      issue_pv(sp);
+      wgmma_wait<1>();  // S_j is done
+      fence_regs(sc);
+      softmax_tile(sc, k0, edge(k0), r0, cq, Skv, causal, window,
+                       softcap, inv_cap, scale, m, l, alpha);
+      wgmma_wait<0>();  // the tile before's P.V is done
+      fence_regs(acc);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      free_stage(sp);
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      split_p(sc, p_hi, p_lo);
+    }
+    // the last tile's P.V
+    const int sl = (n_tiles - 1) % ST;
+    mbar_wait(&bar_v[sl], ((n_tiles - 1) / ST) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+    issue_pv(sl);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    free_stage(sl);
+  }
+
+  // epilogue: row sums over the 4 lanes, divide, round once to bf16
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], kMinDenom);
+  }
+  const int64_t row_base = (int64_t(b) * Hq + h) * Sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    if (qi < Sq) {
+      __nv_bfloat16* orow = o + (row_base + qi) * HD + cq;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * r] / l[r],
+                                  acc[4 * i + 2 * r + 1] / l[r]);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found at run time (once)
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 [heads, rows, hd] tensor as boxes of `box_rows` x 64 columns,
+// 128-byte swizzled, zero fill past `rows`
+static bool encode_map(CUtensorMap* map, const void* ptr, int heads, int rows,
+                       int hd, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(hd), cuuint64_t(rows),
+                              cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(hd) * 2,
+                                 cuuint64_t(rows) * hd * 2};
+  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
+                       int B, int Hq, int Hkv, int Sq, int Skv, int causal,
+                       int window, float softcap, void* stream) {
+  const int n_qt = (Sq + kWgBQ - 1) / kWgBQ;
+  if (Skv <= 0 || n_qt > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_map(&tm_q, q, B * Hq, Sq, HD, kWgBQ)
+      || !encode_map(&tm_k, k, B * Hkv, Skv, HD, kWgBK)
+      || !encode_map(&tm_v, v, B * Hkv, Skv, HD, kWgBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = WgSmem<HD>::kAlloc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_forward_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(Hq, B, n_qt);
+  flash_forward_wgmma<HD><<<grid, kWgThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv,
+      causal, window, softcap, static_cast<float>(1.0 / std::sqrt(double(HD))));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace attn
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; hd: 64 or 128.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
-// the kernel does not take (the wrapper refuses those before calling).
+// dtype: 0 = float32 (flash_forward), 1 = bfloat16 (flash_forward_wgmma);
+// hd: 64 or 128.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a shape the kernel does not take (the wrapper
+// refuses most before calling) or a tensor map the driver refuses.
 int attn_flash_forward(const void* q, const void* k, const void* v, void* o,
                        int B, int Hq, int Hkv, int Sq, int Skv, int hd,
                        int dtype, int causal, int window, float softcap,
@@ -237,11 +640,11 @@ int attn_flash_forward(const void* q, const void* k, const void* v, void* o,
     return attn::launch_flash<float, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
                                          causal, window, softcap, stream);
   if (dtype == 1 && hd == 128)
-    return attn::launch_flash<__nv_bfloat16, 128>(
-        q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, softcap, stream);
+    return attn::launch_flash_wgmma<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                         causal, window, softcap, stream);
   if (dtype == 1 && hd == 64)
-    return attn::launch_flash<__nv_bfloat16, 64>(
-        q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, softcap, stream);
+    return attn::launch_flash_wgmma<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                        causal, window, softcap, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

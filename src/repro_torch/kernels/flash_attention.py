@@ -1,9 +1,11 @@
 """Flash attention for prefill: wrapper around the CUDA kernel.
 
-Port of ``repro/kernels/flash_attention.py``.  The kernel is
+Port of ``repro/kernels/flash_attention.py``.  The kernels are in
 ``csrc/flash_attention.cu``: causal and sliding-window attention with
-online softmax, softcap and GQA, in float32 math for float32 or bfloat16
-inputs, head_dim 64 or 128.  The wrapper takes CUDA tensors only: it checks
+online softmax, softcap and GQA, head_dim 64 or 128.  bfloat16 inputs go to
+``flash_forward_wgmma`` (tensor-core products fed by TMA, float32 scores
+and softmax), float32 inputs to ``flash_forward`` (float32 FMAs); there is
+no other route.  The wrapper takes CUDA tensors only: it checks
 device, dtype, shape and contiguity, allocates the output, launches on the
 current stream, raises if the launch was refused, and counts the launch in
 :data:`LAUNCHES`.  CPU tensors go to
@@ -67,8 +69,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
     out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
+    if q.numel() == 0 or skv == 0:  # no key: the plain version's zeros
+        return out.zero_()
     fn = _build.library().attn_flash_forward
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

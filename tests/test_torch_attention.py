@@ -11,6 +11,7 @@ by ``tests/test_torch_cuda.py``.
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -99,6 +100,82 @@ class TestFlashAttention:
         np.testing.assert_allclose(
             tops.flash_attention(t(q), t(k), t(v), **kw).numpy(),
             np.asarray(jref.flash_attention_ref(q, k, v, **kw)), **F32)
+
+
+def _bf16_kernel_emulation(q, k, v, *, causal, window, softcap, split,
+                           bk=64):
+    """The bf16 CUDA flash kernel's arithmetic on the CPU: bf16 inputs,
+    float32 scores scaled by 1/sqrt(hd) after the product, the tanh softcap,
+    online softmax over kv tiles of ``bk`` with float32 m and l (the sum of
+    the unrounded p), P passed to the P.V product as bf16(p) plus, with
+    ``split``, bf16(p - bf16(p)), the products summed in float32 as the
+    tensor cores sum them, and one bf16 rounding of acc / l at the end."""
+    hq, hkv, sq, skv, hd = (q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                            q.shape[3])
+    qf = q.float()
+    kf = k.float().repeat_interleave(hq // hkv, dim=1)
+    vf = v.float().repeat_interleave(hq // hkv, dim=1)
+    neg = torch.tensor(-2e38)
+    m = torch.full((*q.shape[:3], 1), -2e38)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    q_pos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, bk):
+        k_pos = torch.arange(k0, min(k0 + bk, skv))[None, :]
+        s = (qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)) \
+            * torch.tensor(1 / math.sqrt(hd))
+        if softcap:
+            s = softcap * torch.tanh(s * torch.tensor(1 / softcap))
+        ok = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            ok &= k_pos <= q_pos
+        if window:
+            ok &= k_pos > q_pos - window
+        s = torch.where(ok, s, neg)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        parts = [p_hi, (p - p_hi).bfloat16().float()] if split else [p_hi]
+        acc = acc * alpha + sum(part @ vf[:, :, k0:k0 + bk] for part in parts)
+        m = m_new
+    return (acc / l.clamp_min(1e-37)).bfloat16()
+
+
+def _rounding_steps(got, want):
+    """Largest difference in units of one bf16 rounding step of each value,
+    ``3e-5 + 2^-7 |x|``, the rule chip_smoke.py holds the kernel to."""
+    want = want.float()
+    return float(((got.float() - want).abs()
+                  / (3e-5 + 2.0 ** -7 * want.abs())).max())
+
+
+class TestBf16KernelPrecision:
+    """Why the bf16 kernel splits P: at Gemma2's head ratio and softcap 50,
+    P kept to ~16 bits stays within one bf16 rounding step of the plain
+    version, and P rounded once to bf16 (2^-9) does not, on rows with few
+    admitted keys whose outputs lie near zero."""
+
+    @staticmethod
+    def _case(window):
+        rng = np.random.default_rng(14)
+        q, k, v = (t(_normal(rng, *shape)).bfloat16() for shape in
+                   ((1, 4, 320, 128), (1, 2, 320, 128), (1, 2, 320, 128)))
+        kw = dict(causal=True, window=window, softcap=50.0)
+        return q, k, v, kw, tops.flash_attention(q, k, v, **kw)
+
+    @pytest.mark.parametrize("window", [0, 100])
+    def test_split_p_within_one_rounding_step(self, window):
+        q, k, v, kw, want = self._case(window)
+        got = _bf16_kernel_emulation(q, k, v, split=True, **kw)
+        assert _rounding_steps(got, want) <= 1.0
+
+    @pytest.mark.parametrize("window", [0, 100])
+    def test_p_rounded_once_exceeds_the_step(self, window):
+        q, k, v, kw, want = self._case(window)
+        got = _bf16_kernel_emulation(q, k, v, split=False, **kw)
+        assert _rounding_steps(got, want) > 1.0
 
 
 # ---------------------------------------------------------------------------

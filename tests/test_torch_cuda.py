@@ -10,7 +10,9 @@ Integers must be bit-exact; float32 sums are held to 3e-5 because the
 atomics add in another order than the plain version.  The attention
 kernels are held to 3e-5 in float32 and 2e-2 in bfloat16, the SSD scan to
 2e-4 and 5e-2, the tolerances the reference holds its Pallas kernels to
-(``tests/test_kernels.py``); the MoE gather, a copy, must be bit-exact.
+(``tests/test_kernels.py``); bfloat16 flash also to one bfloat16 rounding
+step of each value, as ``chip_smoke.py`` holds it; the MoE gather, a copy,
+must be bit-exact.
 """
 
 import dataclasses
@@ -167,6 +169,22 @@ def _tol(dtype):
     return BF16 if dtype == torch.bfloat16 else F32
 
 
+def _bf16_steps(got, want):
+    """Largest difference in units of one bfloat16 rounding step of each
+    value (``3e-5 + 2^-7 |x|``): the kernel and its plain version both do
+    float32 math and round once, so they may differ by one step."""
+    want = want.float()
+    return float(((got.float() - want).abs()
+                  / (F32["atol"] + 2.0 ** -7 * want.abs())).max())
+
+
+def _flash_inputs(dev, dtype, B, Hq, Hkv, Sq, Skv, hd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, Hq, Sq, hd), (B, Hkv, Skv, hd),
+                          (B, Hkv, Skv, hd)))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,window,softcap,causal", [
     (2, 4, 2, 100, 100, 64, 24, 50.0, True),    # ragged Sq, window, GQA
@@ -174,22 +192,53 @@ def _tol(dtype):
     (1, 4, 4, 65, 65, 128, 64, 30.0, True),     # one row past a tile
     (2, 4, 1, 5, 70, 64, 0, 50.0, False),
     (1, 32, 16, 300, 300, 128, 128, 50.0, True),  # Gemma2's heads
+    # one row past a 128-row q tile of the bf16 kernel
+    (1, 4, 2, 129, 129, 128, 0, 0.0, True),
+    (1, 2, 1, 257, 257, 64, 0, 50.0, True),
+    # the window's lower edge inside a 64-row kv tile
+    (1, 4, 2, 300, 300, 128, 65, 50.0, True),
+    (1, 2, 2, 400, 400, 64, 127, 0.0, True),
+    # B = 2, tiles that cross the end of one (b, h)'s rows
+    (2, 4, 2, 200, 200, 128, 0, 30.0, True),
+    (1, 32, 16, 1000, 1000, 128, 300, 50.0, True),  # Gemma2, 1,000 tokens
 ])
 def test_flash_attention_vs_plain(dev, dtype, B, Hq, Hkv, Sq, Skv, hd,
                                   window, softcap, causal):
-    gen = torch.Generator(device=dev).manual_seed(Sq)
-    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-               for shape in ((B, Hq, Sq, hd), (B, Hkv, Skv, hd),
-                             (B, Hkv, Skv, hd)))
+    q, k, v = _flash_inputs(dev, dtype, B, Hq, Hkv, Sq, Skv, hd, Sq)
     kw = dict(causal=causal, window=window, softcap=softcap)
     before = ops.launch_counts()["flash_attention"]
     got = tfa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    torch.testing.assert_close(got.float(),
-                               tref.flash_attention_ref(q, k, v, **kw).float(),
-                               **_tol(dtype))
+    want = tref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    if dtype == torch.bfloat16:
+        assert _bf16_steps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "flash_forward_wgmma"), (torch.float32, "flash_forward"),
+])
+def test_flash_attention_routes_by_dtype(dev, dtype, kernel):
+    """bfloat16 runs the tensor-core kernel; float32 keeps the float32-FMA
+    kernel, one launch, within 3e-5 (TF32 could not hold that)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _flash_inputs(dev, dtype, 1, 8, 4, 300, 300, 128, 7)
+    kw = dict(causal=True, window=100, softcap=50.0)
+    before = ops.launch_counts()["flash_attention"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tfa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    flash = [n for n in names if "flash_forward" in n]
+    assert len(flash) == 1 and (kernel + "<") in flash[0], names
+    torch.testing.assert_close(
+        got.float(), tref.flash_attention_ref(q, k, v, **kw).float(),
+        **_tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
