@@ -17,7 +17,12 @@ Phases, each printed on its own line; any failure exits non-zero:
                plain version's time, one PyTorch library call's time where
                one computes the same function, and its bound; the two
                segment kernels and their ``index_add_`` yardsticks also by
-               device time per call under ``torch.profiler``;
+               device time per call under ``torch.profiler``; then every
+               kernel wrapper's host microseconds per call at its main
+               path's shape (beside ``index_add_``'s for the segment
+               kernels), a ``cProfile`` of ``scatter_add_`` and the shared
+               launch helper's steps timed one by one (``--host-only``
+               runs this part alone after the build);
 4. main     -- ``StreamExecutor`` + ``KeyedWindowAdapter`` (fused,
                ``device_table``) over a 1,048,576-key sliding-window stream
                at a real state size (8 x 262,144 table rows on the card),
@@ -44,6 +49,10 @@ Phases, each printed on its own line; any failure exits non-zero:
                bound, the first version's recorded time, ptxas's registers,
                spills and shared memory, and the HGMMA (``wgmma``)
                instructions ``cuobjdump -sass`` finds in the bf16 kernel;
+               for decode its share of the bound, the first version's
+               recorded time, the split count, the blocks that hold rows,
+               its device time at 6 short slots (the serve phases' profiled
+               step) and ptxas's registers and spills of every instance;
 7. gemma2-serve -- ``ServingEngine`` over Gemma2-27B at full width (16 of
                46 layers, random weights from the seed, bfloat16), 8 slots
                of 8,192 positions, 16 requests of 256-6,144 prompt tokens and
@@ -110,6 +119,10 @@ PEAK_BF16_S = 989e12
 #: CUDA cores; PERF.md kernel table, row 5, H100 80GB HBM3 at 700 W), printed
 #: beside the tensor-core kernel's for reference
 FLASH_FIRST_VERSION_MS = 23.9582
+#: the first decode kernel's time for phase 6's bf16 pair (one block per
+#: slot and kv head; PERF.md kernel table, row 6, H100 80GB HBM3 at 700 W),
+#: printed beside the split-KV kernel's for reference
+DECODE_FIRST_VERSION_MS = 0.88111
 F32_TOL = 3e-5
 BF16_TOL = 2e-2
 #: one bfloat16 rounding step relative to the value (8 significant bits):
@@ -257,6 +270,18 @@ def cuda_ms(torch, fn, reps, warmup=1):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def in_turns(measure, fns, rounds):
+    """The median of ``rounds`` readings ``measure(fn)`` of each of ``fns``
+    (a dict), taken in turns (a, b, b, a, ...) so that a drift of the host
+    or the card falls on all of them alike."""
+    got = {k: [] for k in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            got[k].append(measure(fns[k]))
+    return {k: float(np.median(v)) for k, v in got.items()}
 
 
 def _device_us(event):
@@ -432,9 +457,13 @@ def phase_kernels(torch, items):
     lib = cuda_ms(torch, library_fn, 50)
     b_ms, b_by = bound(n_rows * 4 + n_rows * 2 * 4 + n_cells * 2 * 4,
                        n_rows * 2)
+    turns = in_turns(lambda f: cuda_ms(torch, f, 50),
+                     {"kernel": kernel_fn, "library": library_fn}, 7)
     records["segment_sum"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib,
+        ms_median_of_7_in_turns=turns["kernel"],
+        library_ms_median_of_7_in_turns=turns["library"],
         device_ms=device_ms_by_kernel(torch, kernel_fn, 50),
         library_device_ms=device_ms_by_kernel(torch, library_fn, 50),
         shape=f"values [{n_rows},2] i32 -> [{n_cells},2]")
@@ -487,9 +516,13 @@ def phase_kernels(torch, items):
     lib = cuda_ms(torch, library_fn, 50)
     b_ms, b_by = bound(n_cells * 4 + n_cells * 2 * 8 + 2 * n_cells * 2 * 8,
                        n_cells * 2)
+    turns = in_turns(lambda f: cuda_ms(torch, f, 50),
+                     {"kernel": kernel_fn, "library": library_fn}, 7)
     records["scatter_add"] = dict(
         max_abs_err=f_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib,
+        ms_median_of_7_in_turns=turns["kernel"],
+        library_ms_median_of_7_in_turns=turns["library"],
         device_ms=device_ms_by_kernel(torch, kernel_fn, 50),
         library_device_ms=device_ms_by_kernel(torch, library_fn, 50),
         shape=f"table [{total},2] i64, {n_cells} rows")
@@ -600,6 +633,150 @@ def _lookup_edges(torch, t, rng, ht, ref):
     check(len(ht.batched_table_lookup(z32, z64, z64, row_own, tk, tst,
                                       occ)) == 0,
           "batched_table_lookup empty")
+
+
+def host_us(torch, fn, n):
+    """Host microseconds per call of ``fn`` over ``n`` back-to-back calls
+    after a warm-up call and a synchronize: the time to check and enqueue,
+    with the launches queued, not waited for (``n`` stays below the launch
+    queue's depth)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def host_profile(fn, n, top=10):
+    """The ``top`` functions by own time under ``cProfile`` over ``n`` calls
+    of ``fn``, in microseconds per call of ``fn`` (the profiler's own cost
+    inflates every entry; read them as shares)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(n):
+        fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [{"function": f"{os.path.basename(f)}:{line}({name})",
+             "calls": nc / n, "own_us": tt / n * 1e6, "cum_us": ct / n * 1e6}
+            for (f, line, name), (_, nc, tt, ct, _) in rows]
+
+
+def phase_host(torch):
+    """Each kernel wrapper's host time per call at its main path's shape
+    (the lookups' at a small table: their host path does not depend on
+    it), beside one PyTorch call's where one computes the same function
+    (medians of 5 readings in turns); a
+    ``cProfile`` of ``scatter_add_``, and where the shared launch helper
+    exists, its steps timed one by one."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hash_table as ht
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels import ssd_scan as ss
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def ints(hi, n, dtype=torch.int32):
+        return torch.randint(0, hi, (n,), generator=gen, device=dev,
+                             dtype=dtype)
+
+    # keyed: phase 3's scatter into 8 x 262,144 rows and segment sum
+    total, n_cells, n_rows = DEGREE * CAPACITY, 65044, 65536
+    table = torch.zeros((total, 2), dtype=torch.int64, device=dev)
+    rows_at = torch.randperm(total, generator=gen, device=dev)[:n_cells] \
+        .to(torch.int32)
+    partial = torch.ones((n_cells, 2), dtype=torch.int64, device=dev)
+    rows_l = rows_at.long()
+    seg_ids = torch.sort(ints(n_cells, n_rows)).values
+    seg_vals = ints(100, 2 * n_rows).reshape(n_rows, 2)
+    seg_l = seg_ids.long()
+    n_tab = 8 * 4096
+    keys, starts = (ints(1 << 20, n_tab, torch.int64) for _ in range(2))
+    occ = torch.rand(n_tab, generator=gen, device=dev) < 0.25
+    owners = torch.arange(8, dtype=torch.int32, device=dev) \
+        .repeat_interleave(4096)
+    c_keys, c_starts = keys[:4096].clone(), starts[:4096].clone()
+    c_own = owners[:4096].clone()
+    # serving: phase 6's and phase 8's shapes
+    S, HQ, HKV, HD = SERVE_PROMPT[1], 32, 16, 128
+    q, k, v = randn(1, HQ, S, HD), randn(1, HKV, S, HD), randn(1, HKV, S, HD)
+    qd = randn(SERVE_SLOTS, HQ, HD)
+    ck, cv = (randn(SERVE_SLOTS, HKV, SERVE_SMAX, HD) for _ in range(2))
+    valid = ints(SERVE_SMAX, SERVE_SLOTS) + 1
+    s_m, H, P, N = MAMBA_PROMPT[1], 48, 64, 128
+    x = randn(1, s_m, H, P).transpose(1, 2)
+    dt = torch.rand((1, H, s_m), generator=gen, device=dev)
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    Bm, Cm = (randn(1, s_m, N)[:, None].expand(1, H, s_m, N)
+              for _ in range(2))
+    xt = randn(SERVE_SLOTS, 2048)
+    tok = torch.where(torch.rand(2048, generator=gen, device=dev) < 48 / 2048,
+                      ints(SERVE_SLOTS, 2048), SERVE_SLOTS).to(torch.int32)
+
+    calls = {
+        "segment_sum": (lambda: sr.segment_sum(seg_vals, seg_ids, n_cells),
+                        lambda: torch.zeros((n_cells, 2), dtype=torch.int32,
+                                            device=dev).index_add_(
+                            0, seg_l, seg_vals), 500),
+        "scatter_add": (lambda: sr.scatter_add_(table, rows_at, partial),
+                        lambda: table.index_add_(0, rows_l, partial), 500),
+        "table_lookup": (lambda: ht.table_lookup(
+            c_keys, c_starts, keys, starts, occ), None, 20),
+        "batched_table_lookup": (lambda: ht.batched_table_lookup(
+            c_own, c_keys, c_starts, owners, keys, starts, occ), None, 20),
+        "flash_attention": (lambda: fa.flash_attention(
+            q, k, v, causal=True, window=4096, softcap=50.0), None, 20),
+        "decode_attention": (lambda: da.decode_attention(
+            qd, ck, cv, valid, window=4097, softcap=50.0), None, 200),
+        "ssd_scan": (lambda: ss.ssd_scan(x, dt, A, Bm, Cm), None, 20),
+        "moe_gather": (lambda: md.moe_gather(xt, tok), None, 500),
+    }
+    out = {}
+    for name, (fn, lib, n) in calls.items():
+        fns = {"host_us": fn} if lib is None else \
+            {"host_us": fn, "library_host_us": lib}
+        out[name] = in_turns(lambda f: host_us(torch, f, n), fns, 5)
+    profile = host_profile(lambda: sr.scatter_add_(table, rows_at, partial),
+                           1000)
+    steps = None
+    from repro_torch.kernels import _build
+    if hasattr(_build, "launch"):   # the shared launch helper's steps
+        idx = rows_at.get_device()
+        fn = _build.library().keyed_scatter_add_i64
+        stream = _build.current_stream(idx)
+        ptrs = (rows_at.data_ptr(), partial.data_ptr(), table.data_ptr())
+        steps = {
+            "check_cuda": host_us(torch, lambda: _build.check_cuda(
+                ("table", "ids", "rows"), table, rows_at, partial), 2000),
+            "shape checks": host_us(
+                torch, lambda: sr._scatter_shapes(partial, rows_at, total,
+                                                  "scatter_add"), 2000),
+            "current device and raw stream": host_us(
+                torch, lambda: (torch._C._cuda_getDevice(),
+                                _build.current_stream(idx)), 2000),
+            "three data_ptr": host_us(torch, lambda: (
+                rows_at.data_ptr(), partial.data_ptr(), table.data_ptr()),
+                2000),
+            "entry point (ctypes, cudaLaunchKernel)": host_us(
+                torch, lambda: fn(*ptrs, n_cells, 2, total, stream), 500),
+        }
+    say("kernels", host_us_per_call=out, scatter_add_cprofile=profile,
+        scatter_add_launch_steps_us=steps)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -849,6 +1026,17 @@ def decode_rows(valid, window, s):
     return int(np.maximum(hi - first, 0).sum())
 
 
+def decode_blocks(da, valid, window, s, splits, tile):
+    """Blocks of the split-KV decode kernel that hold admitted rows, per kv
+    head, summed over the slots: each slot's runs of ``da.split_length``."""
+    n = 0
+    for v in valid:
+        rows = min(int(v), s) - (max(int(v) - window + 1, 0) if window else 0)
+        if rows > 0:
+            n += -(-rows // da.split_length(rows, splits, tile))
+    return n
+
+
 def attention_bound(pairs, heads, hd, nbytes):
     """4 * hd flops per admitted (query, key) pair and head at the bf16
     tensor-core rate, or the bytes read and written once, whichever is
@@ -920,6 +1108,15 @@ def flash_build_report():
         check(len(wg) == 2 and min(wg.values()) > 0,
               f"flash_forward_wgmma without HGMMA instructions: {hgmma}")
     return report
+
+
+def decode_build_report():
+    """ptxas's registers, spills and static shared memory of every decode
+    kernel instance (dtype, head dim, q heads per kv head)."""
+    from repro_torch.kernels import _build
+
+    text = _build.BUILD_INFO["ptxas"].get("decode_attention.cu")
+    return ptxas_entries(text) if text else "not compiled in this run"
 
 
 def _close(torch, got, want, tol, what, steps):
@@ -1104,24 +1301,45 @@ def phase_attention(torch):
         times[("library", window)] = cuda_ms(
             torch, lambda: F.scaled_dot_product_attention(
                 q4, ck, cv, attn_mask=mask, enable_gqa=True), 20)
+    # the serve phases' profiled decode step: 6 slots of about 260 rows,
+    # where back-to-back events time the host; the kernel's own device time
+    short = torch.arange(257, 263, dtype=torch.int32, device=dev)
+    short_ms = {f"window {w}": sum(device_ms_by_kernel(
+        torch, lambda: da.decode_attention(qd[:6], ck[:6], cv[:6], short,
+                                           softcap=50.0, window=w),
+        20).values()) for w in (4097, 0)}
     rows = {w: decode_rows(valid_np, w, SERVE_SMAX) for w in (4097, 0)}
     qo_bytes = 2 * SERVE_SLOTS * HQ * HD * 2
     bounds = {w: attention_bound(rows[w], HQ, HD,
                                  rows[w] * HKV * HD * 2 * 2 + qo_bytes)
               for w in rows}
+    pair_ms = times[("kernel", 4097)] + times[("kernel", 0)]
+    pair_ms0 = (times[("kernel softcap 0", 4097)]
+                + times[("kernel softcap 0", 0)])
+    bound_ms = bounds[4097][0] + bounds[0][0]
+    splits = da.num_splits(SERVE_SLOTS, HKV, SERVE_SMAX, HD, 2)
+    tile = da.tile_rows(HD, 2)
     records["decode_attention"] = dict(
         max_abs_err=max(errs.values()),
-        ms=times[("kernel", 4097)] + times[("kernel", 0)],
+        ms=pair_ms,
         plain_ms=times[("plain", 4097)] + times[("plain", 0)],
-        bound_ms=bounds[4097][0] + bounds[0][0], bound_by=bounds[0][1],
+        bound_ms=bound_ms, bound_by=bounds[0][1],
         library_ms=times[("library", 4097)] + times[("library", 0)],
-        ms_softcap0=(times[("kernel softcap 0", 4097)]
-                     + times[("kernel softcap 0", 0)]),
+        ms_softcap0=pair_ms0,
+        bound_share={"softcap 50": bound_ms / pair_ms,
+                     "softcap 0": bound_ms / pair_ms0},
+        first_version_ms=DECODE_FIRST_VERSION_MS,
+        speedup_over_first_version=DECODE_FIRST_VERSION_MS / pair_ms,
+        splits=splits, tile_rows=tile,
+        short_slots=dict(valid_len=short.tolist(), device_ms=short_ms),
+        build=decode_build_report(),
         per_layer={f"window {w}": dict(
             kernel_ms=times[("kernel", w)],
             kernel_softcap0_ms=times[("kernel softcap 0", w)],
             plain_ms=times[("plain", w)], sdpa_ms=times[("library", w)],
-            bound_ms=bounds[w][0], admitted_rows=rows[w])
+            bound_ms=bounds[w][0], admitted_rows=rows[w],
+            blocks_with_rows=decode_blocks(da, valid_np, w, SERVE_SMAX,
+                                           splits, tile) * HKV)
             for w in (4097, 0)},
         valid_len=valid_np.tolist(), errors=errs, bf16_rounding_steps=steps,
         shape=f"q [{SERVE_SLOTS},{HQ},{HD}] bf16, cache "
@@ -1732,6 +1950,9 @@ def kernels_line(records, keyed_counts, serve_counts):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--host-only", action="store_true",
+                        help="build, then only time each kernel wrapper's "
+                             "host path (phase 3's host part) and stop")
     args = parser.parse_args(argv)
 
     import torch
@@ -1767,8 +1988,13 @@ def main(argv=None):
             compiler_cpu_seconds=_build.BUILD_INFO["compiler_cpu_seconds"],
             ptxas=ptxas)
 
+        if args.host_only:
+            phase_host(torch)
+            print(smi)
+            return 0
         items = make_stream(args.seed, keyed_stream)
         records = phase_kernels(torch, items)
+        phase_host(torch)
         counts = phase_main(torch, items)
         phase_small(torch)
         del items

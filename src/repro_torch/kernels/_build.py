@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  Each ``.cu`` file is
 compiled by its own ``nvcc`` call for ``sm_90a`` into its own shared
@@ -7,8 +7,20 @@ library under the repository's ``build/`` directory (listed in
 together, so the build takes about as long as its slowest source.  A file
 name carries a hash of its source, the shared headers and the flags, so an
 edited source rebuilds and an unchanged one loads the existing library.
-The libraries are loaded with ``ctypes``: every pointer and the stream are
-``c_void_p``, every function returns ``cudaGetLastError()``.
+The libraries are loaded with ``ctypes.PyDLL``: every pointer and the
+stream are ``c_void_p``, every function returns ``cudaGetLastError()``.
+
+Every kernel wrapper launches through the two helpers here, which keep the
+host's time per call near that of one PyTorch operator:
+
+- :func:`check_cuda` checks that the tensors are contiguous and on one CUDA
+  device in one pass of cheap tensor properties, and returns the device's
+  index; only a refusal builds a message;
+- :func:`launch` calls an entry point resolved once by name (no lock once
+  the libraries are loaded), on the raw current stream of that device (no
+  ``torch.cuda.Stream`` object), entering a device context only when the
+  tensors are not on the current device, and raises ``RuntimeError`` on a
+  nonzero return code.
 
 Nothing here runs at import time.  :func:`library` builds on first use, so
 ``python3 chip_smoke.py`` alone builds everything.
@@ -27,6 +39,8 @@ import time
 import types
 from pathlib import Path
 from typing import List, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -51,10 +65,10 @@ _SIGNATURES = {
     # stream
     "attn_flash_forward":
         [_P] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, _P],
-    # q, k, v, valid_len, o, B, Hq, Hkv, S, hd, dtype, window, softcap,
-    # stream
+    # q, k, v, valid_len, o, workspace, counters, B, Hq, Hkv, S, hd, dtype,
+    # window, softcap, n_splits, stream
     "attn_decode_forward":
-        [_P] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, _P],
+        [_P] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, _P],
     # x, x strides, dt, dt strides, A, Bm, Bm strides, Cm, Cm strides, y,
     # y strides, h, B, H, S, P, N, dtype, stream (strides: int64[3] each)
     "ssd_scan_forward":
@@ -69,6 +83,8 @@ _SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIB: Optional[types.SimpleNamespace] = None
+#: the entry points by name, filled when the libraries are loaded
+_ENTRIES: dict = {}
 
 #: what the last build did: wall seconds, the compilers' CPU seconds summed
 #: over the sources (about what one source after another would take), the
@@ -136,9 +152,13 @@ def library() -> types.SimpleNamespace:
     """The kernels' C entry points by name (the libraries are built on the
     first call)."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
-            libs = [ctypes.CDLL(str(p)) for p in build()]
+            # PyDLL keeps the GIL through the call (a launch returns within
+            # microseconds), which spares ctypes releasing and taking it
+            libs = [ctypes.PyDLL(str(p)) for p in build()]
             fns = {}
             for name, args in _SIGNATURES.items():
                 fn = next((getattr(lib, name) for lib in libs
@@ -148,5 +168,56 @@ def library() -> types.SimpleNamespace:
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
                 fns[name] = fn
+            _ENTRIES.update(fns)
             _LIB = types.SimpleNamespace(**fns)
         return _LIB
+
+
+def check_cuda(names, *tensors) -> int:
+    """All ``tensors`` (called ``names`` in a refusal) contiguous and on one
+    CUDA device; returns its index.  The checks read the cheapest tensor
+    properties: the first tensor is on CUDA, and every one has its device
+    index (``get_device()``, -1 on the CPU; a build has one accelerator)."""
+    first = tensors[0]
+    dev = first.get_device() if isinstance(first, torch.Tensor) \
+        and first.is_cuda else -1
+    if dev >= 0:
+        for t in tensors:
+            if not (isinstance(t, torch.Tensor) and t.get_device() == dev
+                    and t.is_contiguous()):
+                break
+        else:
+            return dev
+    where = None
+    for name, t in zip(names, tensors):  # the refusal's message
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if where is None:
+            where = t.device
+        elif t.device != where:
+            raise ValueError(f"{name} is on {t.device}, expected {where}")
+    raise AssertionError("unreachable")
+
+
+#: ``current_stream(device)``: the raw ``cudaStream_t`` of the device's
+#: current stream, without building a ``torch.cuda.Stream``; and the index
+#: of the current device.  PyTorch's own hooks, bound once (a CPU-only build
+#: has neither, and never launches)
+current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+
+
+def launch(name: str, device: int, *args) -> None:
+    """Call the entry point ``name`` with ``args`` and the current stream of
+    CUDA device ``device`` (from :func:`check_cuda`); raise if it returns a
+    CUDA error (a launch the card refused)."""
+    fn = _ENTRIES.get(name) or getattr(library(), name)
+    if device == _current_device():
+        rc = fn(*args, current_stream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, current_stream(device))
+    if rc:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

@@ -8,58 +8,154 @@
 // acc / max(l, 1e-37) in q's dtype.  Layouts: q, o [B, Hq, hd];
 // cache k, v [B, Hkv, S, hd]; valid_len int32 [B], one length per slot (the
 // TPU kernel took one scalar for the whole batch; the engine's slots are
-// ragged).  A row needs valid_len >= 1; valid_len > S reads S rows.
+// ragged).  A row with no admitted position (valid_len 0) gets zeros;
+// valid_len > S reads S rows.
 //
-// Design.  The TPU kernel streams the whole cache through a sequential kv
-// grid axis with a [S] bias vector of 0 / -2e38.  Here one block of 8 warps
-// owns one (b, kv head) and serves all g q heads of its group, so each
-// cached row is read once per group, and it loops only over the admitted
-// positions [max(0, valid - window + 1), valid): the masked part of the
-// cache is never read.  Warp w takes groups of 4 rows at positions
-// first + 4 (w + 8 i); a lane holds hd / 32 elements of each row (one vector
-// load), dot products are warp shuffles, and each warp keeps its own m / l /
-// acc per head in registers.  The 8 partial states are merged in shared
-// memory at the end (the flash-decoding combine).
+// Design: split-KV (flash-decoding).  The TPU kernel streams the whole
+// cache through a sequential kv grid axis with a [S] bias vector of
+// 0 / -2e38.  Here the grid is (split, kv head, slot) with n_splits splits
+// (the wrapper picks ceil(S / 256), more when B * Hkv is too small for
+// several waves on 132 SMs, at most 64), and each block serves all g q
+// heads of its group, so each cached row is read once per group.  A slot's
+// admitted positions [first, hi) are cut on the card into runs of
+// len = ceil((hi - first) / n_splits) rounded up to whole tiles, at least
+// 4 tiles: a full 8,192-row cache gets 32 runs of 256 rows, a 1,000-row one
+// 8 runs of 128, so a short slot is spread over blocks too, while no block
+// is so short that its set-up and merge outweigh its reads.  A block past
+// its slot's last run exits at once: the masked part of the cache is never
+// read, and no length is read on the host.
 //
-// What bounds it on an H100: bytes.  It reads each admitted K and V row
-// once (2 * hd * dtype bytes per row per kv head) and does 4 * hd * g
-// flops per row, far below the card's ridge point.  One block per
-// (b, kv head) gives 128 blocks at the serving path's shapes (8 slots x 16
-// kv heads), about one per SM; splitting each slot's positions over more
-// blocks is a later change.  The measured time and bound are in PERF.md.
+// Bytes in flight.  K and V rows of one (slot, kv head) are contiguous, so
+// a tile of rows is one span: thread 0 fetches each tile of K and of V with
+// one bulk copy (cp.async.bulk, completion on an mbarrier) into a 2-stage
+// ring of 8 KB tiles (32 KB; 6 blocks fit an SM at g <= 2), so up to 16 KB
+// per block stay in flight while the other stage is read.  The 128 threads
+// read a tile row by row from shared memory, 16 bytes a lane: L = hd *
+// sizeof(T) / 16 lanes hold one row, a warp covers 32 / L rows per load,
+// and each lane group keeps its own online softmax (m, l, acc) per q head
+// over 4 rows a step; the dot products are L-lane shuffle sums.  V is read
+// from shared memory only for the P.V update, so the registers hold q, acc
+// and the scores, not 4 rows of V.  The CUDA cores and not wgmma: with at
+// most 8 query rows per kv head the kernel does 4 * hd * g flops per
+// 4 * hd bytes of K and V, far below the card's ridge point, and a 64-row
+// wgmma tile would be 7/8 empty.
+//
+// Merge.  The block merges its lane groups in shared memory.  A slot whose
+// admitted rows fit one split writes the output directly.  Otherwise each
+// block writes its (m, l, acc[hd]) per q head to the float32 workspace
+// [B, Hq, splits, hd + 2], fences, and counts itself on its (slot, kv
+// head)'s counter; the block that counts last merges every split in split
+// order (so two calls on the same input are bit-identical), writes the
+// output and resets the counter to 0 for the next launch.  One launch, no
+// second kernel.
+//
+// What bounds it on an H100: bytes (2 * hd * sizeof(T) per admitted row per
+// kv head).  The measured time and bound are in PERF.md.
 
 #include <cmath>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace attn {
 
-constexpr int kDecodeWarps = 8;
-constexpr int kDecodeRows = 4;   // rows per warp step
-constexpr int kMaxGroup = 8;     // q heads per kv head
+constexpr int kDecThreads = 128;
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecStages = 2;
+constexpr int kDecTileBytes = 8192;   // one tile of K (and one of V)
+constexpr int kDecRows = 4;           // rows a lane group takes per step
+constexpr int kMaxGroup = 8;          // q heads per kv head
+constexpr int kMaxSplits = 64;        // splits per slot (the merge's table)
+constexpr int kMinRunTiles = 4;       // the shortest run but a slot's last
+constexpr int kDecRing = kDecStages * 2 * kDecTileBytes;
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
-decode_forward(const T* __restrict__ q, const T* __restrict__ ck,
-               const T* __restrict__ cv, const int32_t* __restrict__ valid_len,
-               T* __restrict__ o, int Hq, int Hkv, int S, int window,
-               float softcap, float scale) {
-  constexpr int E = HD / 32;  // elements of a row per lane
-  constexpr int U = kDecodeRows;
-  constexpr int NW = kDecodeWarps;
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
+template <typename T, int HD, int G>
+struct DecodeShape {
+  static constexpr int kVec = 16 / int(sizeof(T));   // elements per lane
+  static constexpr int kLanes = HD / kVec;           // lanes per row
+  static constexpr int kRowsPerLoad = 32 / kLanes;   // rows per warp load
+  static constexpr int kGroups = kDecWarps * kRowsPerLoad;
+  static constexpr int kRowBytes = HD * int(sizeof(T));
+  static constexpr int kTile = kDecTileBytes / kRowBytes;   // rows
+  static_assert(kTile == kGroups * kDecRows, "a tile is one step of rows");
+  // the ring, reused for the lane groups' partial states once drained
+  static constexpr int kMerge = kGroups * G * (HD + 2) * 4;
+  static constexpr int kSmem = kMerge > kDecRing ? kMerge : kDecRing;
+  static_assert(kSmem <= 48 * 1024, "no shared-memory opt-in needed");
+};
+
+// G: q heads the registers are sized for (1, 2, 4 or 8), g = Hq / Hkv <= G
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(kDecThreads)
+decode_split(const T* __restrict__ q, const T* __restrict__ ck,
+             const T* __restrict__ cv, const int32_t* __restrict__ valid_len,
+             T* __restrict__ o, float* __restrict__ ws,
+             int* __restrict__ counters, int Hq, int Hkv, int S, int window,
+             float softcap, float scale) {
+  using Sh = DecodeShape<T, HD, G>;
+  constexpr int E = Sh::kVec;
+  constexpr int L = Sh::kLanes;
+  constexpr int U = kDecRows;
+  constexpr int TILE = Sh::kTile;
+  constexpr int W = HD + 2;   // a partial state: acc[hd], m, l
+  const int split = blockIdx.x;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_splits = gridDim.x;
   const int g = Hq / Hkv;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int grp = warp * Sh::kRowsPerLoad + lane / L;
+  const int col = (lane % L) * E;
+  const int64_t q_row = int64_t(b) * Hq + int64_t(hk) * g;   // first q head
 
   const int valid = valid_len[b];
   const int hi = min(valid, S);
   const int first = window > 0 ? max(0, valid - window + 1) : 0;
+  if (hi <= first) {   // nothing admitted: zeros, as the old kernel gave
+    if (split == 0)
+      for (int t = tid; t < g * HD; t += kDecThreads)
+        o[q_row * HD + t] = from_f32<T>(0.f);
+    return;
+  }
+  // this slot's runs: whole tiles, at most n_splits of them
+  const int per = (hi - first + n_splits - 1) / n_splits;
+  const int len = max((per + TILE - 1) / TILE, kMinRunTiles) * TILE;
+  const int n_act = (hi - first + len - 1) / len;
+  if (split >= n_act) return;
+  const int start = first + split * len;
+  const int end = min(start + len, hi);
+  const int n_tiles = (end - start + TILE - 1) / TILE;
 
-  float qf[kMaxGroup][E], acc[kMaxGroup][E], m[kMaxGroup], l[kMaxGroup];
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t full[kDecStages];
+  __shared__ int merges;
+  T* ring = reinterpret_cast<T*>(smem);   // [stage][K, V][TILE * HD]
+  const int64_t kv = (int64_t(b) * Hkv + hk) * S * HD;
+
+  if (tid == 0) {
 #pragma unroll
-  for (int h = 0; h < kMaxGroup; ++h) {
+    for (int s = 0; s < kDecStages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  // tile i of this split into stage i % kDecStages (thread 0 only)
+  auto fetch = [&](int i) {
+    const int p = start + i * TILE;
+    const uint32_t bytes = uint32_t(min(TILE, end - p)) * Sh::kRowBytes;
+    uint64_t* bar = &full[i % kDecStages];
+    T* dst = ring + (i % kDecStages) * 2 * TILE * HD;
+    hopper::mbar_expect_tx(bar, 2 * bytes);
+    hopper::bulk_load(dst, ck + kv + int64_t(p) * HD, bytes, bar);
+    hopper::bulk_load(dst + TILE * HD, cv + kv + int64_t(p) * HD, bytes, bar);
+  };
+  if (tid == 0)
+    for (int i = 0; i < min(kDecStages, n_tiles); ++i) fetch(i);
+
+  float qf[G][E], acc[G][E], m[G], l[G];
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
     m[h] = kNegInf;
     l[h] = 0.f;
 #pragma unroll
@@ -68,111 +164,198 @@ decode_forward(const T* __restrict__ q, const T* __restrict__ ck,
       acc[h][e] = 0.f;
     }
     if (h < g) {
-      load_f32<T, E>(q + (int64_t(b) * Hq + hk * g + h) * HD + lane * E,
-                     qf[h]);
+      load_f32<T, E>(q + (q_row + h) * HD + col, qf[h]);
 #pragma unroll
       for (int e = 0; e < E; ++e) qf[h][e] *= scale;
     }
   }
 
-  const int64_t base = (int64_t(b) * Hkv + hk) * S * HD + lane * E;
-  for (int p0 = first + warp * U; p0 < hi; p0 += NW * U) {
-    float kf[U][E], vf[U][E];
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kDecStages;
+    const int rows = min(TILE, end - (start + i * TILE));
+    hopper::mbar_wait(&full[st], (i / kDecStages) & 1);
+    const T* kt = ring + st * 2 * TILE * HD;
+    const T* vt = kt + TILE * HD;
+    float s[G][U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
+      const int r = u * Sh::kGroups + grp;
+      float kf[E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) kf[u][e] = vf[u][e] = 0.f;
-      if (p0 + u < hi) {
-        load_f32<T, E>(ck + base + int64_t(p0 + u) * HD, kf[u]);
-        load_f32<T, E>(cv + base + int64_t(p0 + u) * HD, vf[u]);
+      for (int e = 0; e < E; ++e) kf[e] = 0.f;
+      if (r < rows) load_f32<T, E>(kt + r * HD + col, kf);
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) dot = fmaf(qf[h][e], kf[e], dot);
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[h][u] = r < rows ? cap_score(dot, softcap) : kNegInf;
       }
     }
-    float s[kMaxGroup][U];
+    // online softmax: rescale by the new maximum, the scores become p
 #pragma unroll
-    for (int h = 0; h < kMaxGroup; ++h)
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float dot = 0.f;
-        if (h < g) {
-#pragma unroll
-          for (int e = 0; e < E; ++e) dot = fmaf(qf[h][e], kf[u][e], dot);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        }
-        s[h][u] = dot;
-      }
-#pragma unroll
-    for (int h = 0; h < kMaxGroup; ++h) {
+    for (int h = 0; h < G; ++h) {
       if (h >= g) continue;
       float mx = m[h];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float x = p0 + u < hi ? cap_score(s[h][u], softcap) : kNegInf;
-        s[h][u] = x;
-        mx = fmaxf(mx, x);
-      }
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[h][u]);
       const float alpha = expf(m[h] - mx);
       l[h] *= alpha;
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[h][e] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const float p = expf(s[h][u] - mx);
-        l[h] += p;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[h][e] = fmaf(p, vf[u][e], acc[h][e]);
+        s[h][u] = u * Sh::kGroups + grp < rows ? expf(s[h][u] - mx) : 0.f;
+        l[h] += s[h][u];
       }
       m[h] = mx;
     }
+    // acc += p . V, one V row of shared memory at a time
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = u * Sh::kGroups + grp;
+      if (r >= rows) continue;
+      float vf[E];
+      load_f32<T, E>(vt + r * HD + col, vf);
+#pragma unroll
+      for (int h = 0; h < G; ++h)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[h][e] = fmaf(s[h][u], vf[e], acc[h][e]);
+    }
+    __syncthreads();   // every thread is done with stage st
+    if (tid == 0 && i + kDecStages < n_tiles) fetch(i + kDecStages);
   }
 
-  // merge the warps' partial states: [NW][g] m and l, [NW][g][HD] acc
-  extern __shared__ float smem[];
-  float* sm_m = smem;
-  float* sm_l = sm_m + NW * g;
-  float* sm_acc = sm_l + NW * g;
+  // merge the lane groups' states in the drained ring: [grp][h] m, l and
+  // [grp][h][HD] acc
+  float* sm_m = reinterpret_cast<float*>(smem);
+  float* sm_l = sm_m + Sh::kGroups * G;
+  float* sm_acc = sm_l + Sh::kGroups * G;
 #pragma unroll
-  for (int h = 0; h < kMaxGroup; ++h) {
+  for (int h = 0; h < G; ++h) {
     if (h >= g) continue;
-    if (lane == 0) {
-      sm_m[warp * g + h] = m[h];
-      sm_l[warp * g + h] = l[h];
+    if (lane % L == 0) {
+      sm_m[grp * G + h] = m[h];
+      sm_l[grp * G + h] = l[h];
     }
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      sm_acc[(warp * g + h) * HD + lane * E + e] = acc[h][e];
+      sm_acc[(grp * G + h) * HD + col + e] = acc[h][e];
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < g * HD; t += blockDim.x) {
+  const bool alone = n_act == 1;
+  for (int t = tid; t < g * HD; t += kDecThreads) {
     const int h = t / HD, d = t % HD;
     float mx = kNegInf;
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w * g + h]);
+    for (int r = 0; r < Sh::kGroups; ++r) mx = fmaxf(mx, sm_m[r * G + h]);
     float den = 0.f, num = 0.f;
-    for (int w = 0; w < NW; ++w) {
-      const float f = expf(sm_m[w * g + h] - mx);
-      den = fmaf(sm_l[w * g + h], f, den);
-      num = fmaf(sm_acc[(w * g + h) * HD + d], f, num);
+    for (int r = 0; r < Sh::kGroups; ++r) {
+      const float f = expf(sm_m[r * G + h] - mx);
+      den = fmaf(sm_l[r * G + h], f, den);
+      num = fmaf(sm_acc[(r * G + h) * HD + d], f, num);
     }
-    o[(int64_t(b) * Hq + hk * g + h) * HD + d] =
-        from_f32<T>(num / fmaxf(den, kMinDenom));
+    if (alone) {
+      o[(q_row + h) * HD + d] = from_f32<T>(num / fmaxf(den, kMinDenom));
+    } else {
+      float* part = ws + ((q_row + h) * n_splits + split) * W;
+      part[d] = num;
+      if (d == 0) {
+        part[HD] = mx;
+        part[HD + 1] = den;
+      }
+    }
+  }
+  if (alone) return;
+
+  // count this split in; the last of the slot's splits merges them all
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* counter = counters + int64_t(b) * Hkv + hk;
+    merges = atomicAdd(counter, 1) == n_act - 1;
+    if (merges) *counter = 0;
+  }
+  __syncthreads();
+  if (!merges) return;
+  __threadfence();
+
+  // per q head: each split's weight exp(m_s - M) and the denominator, one
+  // warp per head, a lane per split (two rounds of 32)
+  float* wt = reinterpret_cast<float*>(smem);   // [G][kMaxSplits]
+  float* dens = wt + G * kMaxSplits;            // [G]
+  for (int h = warp; h < g; h += kDecWarps) {
+    const float* part = ws + (q_row + h) * n_splits * W;
+    float ms[kMaxSplits / 32], ls[kMaxSplits / 32];
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kMaxSplits / 32; ++j) {
+      const int s = lane + 32 * j;
+      ms[j] = s < n_act ? __ldcg(part + s * W + HD) : kNegInf;
+      ls[j] = s < n_act ? __ldcg(part + s * W + HD + 1) : 0.f;
+      mx = fmaxf(mx, ms[j]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float den = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxSplits / 32; ++j) {
+      const int s = lane + 32 * j;
+      const float f = s < n_act ? expf(ms[j] - mx) : 0.f;
+      wt[h * kMaxSplits + s] = f;
+      den = fmaf(ls[j], f, den);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      den += __shfl_xor_sync(0xffffffffu, den, off);
+    if (lane == 0) dens[h] = den;
+  }
+  __syncthreads();
+  for (int t = tid; t < g * HD; t += kDecThreads) {
+    const int h = t / HD, d = t % HD;
+    const float* part = ws + (q_row + h) * n_splits * W + d;
+    const float* f = wt + h * kMaxSplits;
+    float num = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_act; ++s) num = fmaf(__ldcg(part + s * W), f[s], num);
+    o[(q_row + h) * HD + d] = from_f32<T>(num / fmaxf(dens[h], kMinDenom));
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int G>
 int launch_decode(const void* q, const void* k, const void* v,
-                  const void* valid_len, void* o, int B, int Hq, int Hkv,
-                  int S, int window, float softcap, void* stream) {
-  const int g = Hq / Hkv;
-  const int smem = kDecodeWarps * g * (HD + 2) * int(sizeof(float));
-  const dim3 grid(Hkv, B);
-  decode_forward<T, HD><<<grid, kDecodeWarps * 32, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+                  const void* valid_len, void* o, void* ws, void* counters,
+                  int B, int Hq, int Hkv, int S, int n_splits, int window,
+                  float softcap, void* stream) {
+  const dim3 grid(n_splits, Hkv, B);
+  decode_split<T, HD, G><<<grid, kDecThreads, DecodeShape<T, HD, G>::kSmem,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(valid_len),
-      static_cast<T*>(o), Hq, Hkv, S, window, softcap,
+      static_cast<T*>(o), static_cast<float*>(ws),
+      static_cast<int*>(counters), Hq, Hkv, S, window, softcap,
       static_cast<float>(1.0 / std::sqrt(double(HD))));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch_decode_group(const void* q, const void* k, const void* v,
+                        const void* valid_len, void* o, void* ws,
+                        void* counters, int B, int Hq, int Hkv, int S,
+                        int n_splits, int window, float softcap,
+                        void* stream) {
+  const int g = Hq / Hkv;
+#define ATTN_DECODE_ARGS \
+  q, k, v, valid_len, o, ws, counters, B, Hq, Hkv, S, n_splits, window, \
+      softcap, stream
+  if (g == 1) return launch_decode<T, HD, 1>(ATTN_DECODE_ARGS);
+  if (g == 2) return launch_decode<T, HD, 2>(ATTN_DECODE_ARGS);
+  if (g <= 4) return launch_decode<T, HD, 4>(ATTN_DECODE_ARGS);
+  return launch_decode<T, HD, 8>(ATTN_DECODE_ARGS);
+#undef ATTN_DECODE_ARGS
 }
 
 }  // namespace attn
@@ -180,27 +363,31 @@ int launch_decode(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; hd: 64 or 128; Hq / Hkv <= 8.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a shape the kernel does not take (the wrapper refuses those first).
+// ws: float32 [B, Hq, n_splits, hd + 2]; counters: int32 [B, Hkv], zero
+// before the launch and zero after it; n_splits in [1, 64].  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// shape the kernel does not take (the wrapper refuses those first).
 int attn_decode_forward(const void* q, const void* k, const void* v,
-                        const void* valid_len, void* o, int B, int Hq,
-                        int Hkv, int S, int hd, int dtype, int window,
-                        float softcap, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > attn::kMaxGroup ||
-      S <= 0)
+                        const void* valid_len, void* o, void* ws,
+                        void* counters, int B, int Hq, int Hkv, int S, int hd,
+                        int dtype, int window, float softcap, int n_splits,
+                        void* stream) {
+  if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || Hq % Hkv != 0 ||
+      Hq / Hkv > attn::kMaxGroup || S <= 0 || n_splits <= 0 ||
+      n_splits > attn::kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
+#define ATTN_DECODE_ARGS \
+  q, k, v, valid_len, o, ws, counters, B, Hq, Hkv, S, n_splits, window, \
+      softcap, stream
   if (dtype == 0 && hd == 128)
-    return attn::launch_decode<float, 128>(q, k, v, valid_len, o, B, Hq, Hkv,
-                                           S, window, softcap, stream);
+    return attn::launch_decode_group<float, 128>(ATTN_DECODE_ARGS);
   if (dtype == 0 && hd == 64)
-    return attn::launch_decode<float, 64>(q, k, v, valid_len, o, B, Hq, Hkv,
-                                          S, window, softcap, stream);
+    return attn::launch_decode_group<float, 64>(ATTN_DECODE_ARGS);
   if (dtype == 1 && hd == 128)
-    return attn::launch_decode<__nv_bfloat16, 128>(
-        q, k, v, valid_len, o, B, Hq, Hkv, S, window, softcap, stream);
+    return attn::launch_decode_group<__nv_bfloat16, 128>(ATTN_DECODE_ARGS);
   if (dtype == 1 && hd == 64)
-    return attn::launch_decode<__nv_bfloat16, 64>(
-        q, k, v, valid_len, o, B, Hq, Hkv, S, window, softcap, stream);
+    return attn::launch_decode_group<__nv_bfloat16, 64>(ATTN_DECODE_ARGS);
+#undef ATTN_DECODE_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) primitives in inline PTX: mbarriers, TMA tile loads and
-// warpgroup matrix products (wgmma) on bf16 operands with float32 sums.
+// Hopper (sm_90a) primitives in inline PTX: mbarriers, TMA tile loads, bulk
+// copies and warpgroup matrix products (wgmma) on bf16 operands with
+// float32 sums.
 //
 // Operand layouts.  A shared-memory operand is stored as TMA writes it with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), 16-byte chunks
@@ -72,6 +73,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global memory into shared memory by the copy
+// engine (a bulk copy, no tensor map); both addresses and `bytes` multiples
+// of 16; completion counts the bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

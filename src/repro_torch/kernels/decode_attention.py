@@ -5,28 +5,93 @@ Port of ``repro/kernels/decode_attention.py``.  The kernel is
 cached rows ``p < valid_len[slot]`` (and ``p > valid_len[slot] - window``),
 with softcap and GQA, float32 math for float32 or bfloat16 inputs,
 head_dim 64 or 128, at most 8 q heads per kv head.  ``valid_len`` is one
-length per slot (int32 ``[B]``); a scalar broadcasts.  The wrapper takes
-CUDA tensors only, checks them, launches on the current stream, raises on a
-refused launch and counts the launch in :data:`LAUNCHES`.
+length per slot (int32 ``[B]``); a scalar broadcasts.
+
+The kernel cuts each slot's admitted positions into at most
+:func:`num_splits` runs of whole tiles (:func:`split_length`), one block
+per (run, kv head, slot), and merges the runs in the same launch
+(split-KV, flash-decoding).  The wrapper picks the number of runs from the
+shapes alone (it never reads ``valid_len`` on the host), keeps
+the merge's float32 workspace and its per-(slot, kv head) counters, which
+the kernel leaves at zero, per device and stream, takes CUDA tensors only,
+checks them, launches on the current stream through the shared helpers of
+:mod:`repro_torch.kernels._build`, raises on a refused launch and counts
+the launch in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import check_cuda
 from repro_torch.kernels.flash_attention import (
     DTYPE_CODES,
     check_attention_inputs,
 )
-from repro_torch.kernels.segment_reduce import check_cuda
 
-__all__ = ["LAUNCHES", "MAX_GROUP", "decode_attention"]
+__all__ = ["LAUNCHES", "MAX_GROUP", "decode_attention", "num_splits",
+           "split_length", "tile_rows"]
 
 #: kernel launches (reset with ``ops.reset_launch_counts``)
 LAUNCHES = {"decode_attention": 0}
 #: most q heads one kv head may serve
 MAX_GROUP = 8
+#: the kernel's constants (``csrc/decode_attention.cu``): bytes of K (and
+#: of V) in one shared-memory tile, most splits per slot, the fewest tiles
+#: in a run; the rows of a split of a full cache, and the blocks that make
+#: several waves on the H100's 132 SMs
+TILE_BYTES = 8192
+MAX_SPLITS = 64
+MIN_RUN_TILES = 4
+SPLIT_ROWS = 256
+WAVE_BLOCKS = 8 * 132
+
+#: (device, stream) -> (workspace, counters), grown as shapes need
+_SCRATCH: dict = {}
+
+
+def tile_rows(head_dim: int, itemsize: int) -> int:
+    """Cache rows in one tile of the kernel's shared-memory ring."""
+    return TILE_BYTES // (head_dim * itemsize)
+
+
+@functools.lru_cache(maxsize=256)
+def num_splits(b: int, hkv: int, s_len: int, head_dim: int,
+               itemsize: int) -> int:
+    """Splits per slot, the grid's first axis: ``ceil(S / 256)``, raised
+    until ``b * hkv`` slots and heads give :data:`WAVE_BLOCKS` blocks, but
+    no more than ``S`` has tiles, and at most :data:`MAX_SPLITS`."""
+    n = -(-s_len // SPLIT_ROWS)
+    if b * hkv * n < WAVE_BLOCKS:
+        n = -(-WAVE_BLOCKS // (b * hkv))
+    return max(1, min(n, -(-s_len // tile_rows(head_dim, itemsize)),
+                      MAX_SPLITS))
+
+
+def split_length(rows: int, splits: int, tile: int) -> int:
+    """Positions per split of a slot with ``rows`` admitted positions, as
+    the kernel cuts them: ``ceil(rows / splits)`` rounded up to whole
+    tiles, at least :data:`MIN_RUN_TILES` of them (the last split takes
+    the rest)."""
+    per = -(-rows // splits)
+    return max(-(-per // tile), MIN_RUN_TILES) * tile
+
+
+def _scratch(dev: int, n_ws: int, n_counters: int):
+    """The merge's float32 workspace (at least ``n_ws``) and zeroed int32
+    counters (at least ``n_counters``) of the current stream."""
+    key = (dev, _build.current_stream(dev))
+    ws, counters = _SCRATCH.get(key, (None, None))
+    if ws is None or ws.numel() < n_ws or counters.numel() < n_counters:
+        n_ws = max(n_ws, 0 if ws is None else ws.numel())
+        n_counters = max(n_counters, 0 if ws is None else counters.numel())
+        ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=dev)
+        _SCRATCH[key] = ws, counters
+    return ws, counters
 
 
 def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
@@ -41,15 +106,15 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
     if not isinstance(valid_len, torch.Tensor) or valid_len.dim() == 0:
         valid_len = torch.full((b,), int(valid_len), dtype=torch.int32,
                                device=q.device)
-    dev = check_cuda(q=q, cache_k=cache_k, cache_v=cache_v,
-                     valid_len=valid_len)
+    dev = check_cuda(("q", "cache_k", "cache_v", "valid_len"), q, cache_k,
+                     cache_v, valid_len)
     if q.dim() != 3 or cache_k.dim() != 4:
         raise ValueError(f"decode_attention: need q [B,Hq,hd] and cache "
                          f"[B,Hkv,S,hd], got {tuple(q.shape)} and "
                          f"{tuple(cache_k.shape)}")
     check_attention_inputs("decode_attention", q, cache_k, cache_v)
-    hq, hd = q.shape[1], q.shape[2]
-    hkv, s_len = cache_k.shape[1], cache_k.shape[2]
+    _, hq, hd = q.shape
+    _, hkv, s_len, _ = cache_k.shape
     if cache_k.shape[0] != b or hkv == 0 or hq % hkv or s_len == 0:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit "
                          f"the cache {tuple(cache_k.shape)}")
@@ -61,18 +126,18 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
                          f"got {valid_len.dtype} {tuple(valid_len.shape)}")
     if window < 0:
         raise ValueError(f"decode_attention: window must be >= 0, got {window}")
-    if b > 65535:
-        raise ValueError("decode_attention: batch must be < 65536")
+    if b > 65535 or hkv > 65535:
+        raise ValueError("decode_attention: batch and kv heads must be < "
+                         "65536")
     out = torch.empty_like(q)
     if b == 0:
         return out
-    fn = _build.library().attn_decode_forward
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                valid_len.data_ptr(), out.data_ptr(), b, hq, hkv, s_len, hd,
-                DTYPE_CODES[q.dtype], int(window), float(softcap),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        raise RuntimeError(f"decode_attention launch failed: CUDA error {rc}")
+    splits = num_splits(b, hkv, s_len, hd, q.element_size())
+    ws, counters = _scratch(dev, b * hq * splits * (hd + 2), b * hkv)
+    _build.launch("attn_decode_forward", dev, q.data_ptr(),
+                  cache_k.data_ptr(), cache_v.data_ptr(),
+                  valid_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  counters.data_ptr(), b, hq, hkv, s_len, hd,
+                  DTYPE_CODES[q.dtype], int(window), float(softcap), splits)
     LAUNCHES["decode_attention"] += 1
     return out

@@ -7,8 +7,9 @@ online softmax, softcap and GQA, head_dim 64 or 128.  bfloat16 inputs go to
 and softmax), float32 inputs to ``flash_forward`` (float32 FMAs); there is
 no other route.  The wrapper takes CUDA tensors only: it checks
 device, dtype, shape and contiguity, allocates the output, launches on the
-current stream, raises if the launch was refused, and counts the launch in
-:data:`LAUNCHES`.  CPU tensors go to
+current stream through the shared helpers of
+:mod:`repro_torch.kernels._build`, raises if the launch was refused, and
+counts the launch in :data:`LAUNCHES`.  CPU tensors go to
 :func:`repro_torch.kernels.ref.flash_attention_ref` through
 :mod:`repro_torch.kernels.ops`, never through this wrapper.
 """
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.segment_reduce import check_cuda
+from repro_torch.kernels._build import check_cuda
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "check_attention_inputs",
            "flash_attention"]
@@ -53,7 +54,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q ``[B, Hq, Sq, hd]``; k, v ``[B, Hkv, Skv, hd]`` -> ``[B, Hq, Sq,
     hd]`` of q's dtype.  Any ``Sq`` (the ragged last tile is masked)."""
-    dev = check_cuda(q=q, k=k, v=v)
+    dev = check_cuda(("q", "k", "v"), q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: need q [B,Hq,Sq,hd] and k, v "
                          f"[B,Hkv,Skv,hd], got {tuple(q.shape)} and "
@@ -71,13 +72,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty_like(q)
     if q.numel() == 0 or skv == 0:  # no key: the plain version's zeros
         return out.zero_()
-    fn = _build.library().attn_flash_forward
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, sq, skv, hd, DTYPE_CODES[q.dtype], int(causal),
-                int(window), float(softcap),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    _build.launch("attn_flash_forward", dev, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, hd,
+                  DTYPE_CODES[q.dtype], int(causal), int(window),
+                  float(softcap))
     LAUNCHES["flash_attention"] += 1
     return out

@@ -5,8 +5,9 @@ Port of ``repro/kernels/moe_dispatch.py``.  The kernel is
 (or writes zeros for a token outside ``[0, T)``) in 16-byte units where the
 row and both base addresses allow it, else in 4- or 2-byte units.  A copy,
 so bit-exact for any dtype.  The wrapper takes CUDA tensors only: it checks
-them, allocates the output, launches on the current stream, raises on a
-refused launch and counts the launch in :data:`LAUNCHES`.  The combine has
+them, allocates the output, launches on the current stream through the
+shared helpers of :mod:`repro_torch.kernels._build`, raises on a refused
+launch and counts the launch in :data:`LAUNCHES`.  The combine has
 no kernel (as in the reference): it is
 :func:`repro_torch.kernels.ref.moe_combine_ref`.
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.segment_reduce import check_cuda
+from repro_torch.kernels._build import check_cuda
 
 __all__ = ["LAUNCHES", "moe_gather"]
 
@@ -36,7 +37,7 @@ def moe_gather(x, row_token) -> torch.Tensor:
     """x ``[T, d]``; row_token int32 ``[R]`` -> ``[R, d]`` of x's dtype with
     ``out[r] = x[row_token[r]]``, zeros where the token is outside
     ``[0, T)``."""
-    check_cuda(x=x, row_token=row_token)
+    dev = check_cuda(("x", "row_token"), x, row_token)
     if x.dim() != 2 or row_token.dim() != 1:
         raise ValueError(f"moe_gather: need x [T, d] and row_token [R], got "
                          f"{tuple(x.shape)} and {tuple(row_token.shape)}")
@@ -52,12 +53,7 @@ def moe_gather(x, row_token) -> torch.Tensor:
         return out
     row_bytes = d * x.element_size()
     unit = _unit(row_bytes, x.data_ptr(), out.data_ptr())
-    fn = _build.library().moe_gather_forward
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), row_token.data_ptr(), out.data_ptr(), r, t,
-                row_bytes, unit,
-                torch.cuda.current_stream(x.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"moe_gather launch failed: CUDA error {rc}")
+    _build.launch("moe_gather_forward", dev, x.data_ptr(),
+                  row_token.data_ptr(), out.data_ptr(), r, t, row_bytes, unit)
     LAUNCHES["moe_gather"] += 1
     return out

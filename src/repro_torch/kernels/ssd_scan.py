@@ -14,8 +14,8 @@ group expanded over the heads (head stride 0), and the kernel reads them
 in place.  Only the last axis must be contiguous.  y comes back as a
 ``[B, H, S, P]`` view of a ``[B, S, H, P]`` buffer, the model's own
 layout.  The wrapper takes CUDA tensors only: it checks them, launches on
-the current stream, raises on a refused launch and counts the launch in
-:data:`LAUNCHES`.
+the current stream through :func:`repro_torch.kernels._build.launch`,
+raises on a refused launch and counts the launch in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -88,15 +88,11 @@ def ssd_scan(x, dt, A, Bm, Cm):
     h_out = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return y, h_out.zero_()
-    fn = _build.library().ssd_scan_forward
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), _strides("x", x, 4), dt.data_ptr(),
-                _strides("dt", dt, 3), A.data_ptr(), Bm.data_ptr(),
-                _strides("Bm", Bm, 4), Cm.data_ptr(), _strides("Cm", Cm, 4),
-                y.data_ptr(), _strides("y", y, 4), h_out.data_ptr(), b, h, s,
-                p, n, DTYPE_CODES[x.dtype],
-                torch.cuda.current_stream(x.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
+    _build.launch("ssd_scan_forward", x.get_device(), x.data_ptr(),
+                  _strides("x", x, 4), dt.data_ptr(), _strides("dt", dt, 3),
+                  A.data_ptr(), Bm.data_ptr(), _strides("Bm", Bm, 4),
+                  Cm.data_ptr(), _strides("Cm", Cm, 4), y.data_ptr(),
+                  _strides("y", y, 4), h_out.data_ptr(), b, h, s, p, n,
+                  DTYPE_CODES[x.dtype])
     LAUNCHES["ssd_scan"] += 1
     return y, h_out

@@ -220,6 +220,131 @@ class TestDecodeAttention:
                                        np.asarray(want), **F32)
 
 
+def _split_kv_emulation(q, ck, cv, valid, *, window, softcap, splits, tile):
+    """The split-KV CUDA decode kernel's arithmetic on the CPU in float32:
+    q pre-scaled by 1/sqrt(hd); a slot's admitted positions cut into runs
+    of ``split_length`` rows from its first admitted one, each run read in
+    tiles of ``tile`` rows by ``tile / 4`` lane groups that take 4 rows a
+    step and keep their own online softmax (m, l, acc) per q head; the
+    groups merged per run, then the runs merged in run order; a lone run
+    written directly, and no admitted row giving zeros."""
+    from repro_torch.kernels.decode_attention import split_length
+
+    b, hq, hd = q.shape
+    hkv, s_len = ck.shape[1], ck.shape[2]
+    g, groups, neg = hq // hkv, tile // 4, torch.tensor(-2e38)
+    out = torch.zeros_like(q)
+    r_idx = torch.arange(4)[:, None] * groups + torch.arange(groups)[None]
+    for row in range(b):
+        hi = min(int(valid[row]), s_len)
+        first = max(0, int(valid[row]) - window + 1) if window else 0
+        if hi <= first:
+            continue
+        run = split_length(hi - first, splits, tile)
+        for hk in range(hkv):
+            qs = q[row, hk * g:(hk + 1) * g] * torch.tensor(1 / math.sqrt(hd))
+            parts = []
+            for start in range(first, hi, run):
+                end = min(start + run, hi)
+                m = torch.full((groups, g), -2e38)
+                l = torch.zeros((groups, g))
+                acc = torch.zeros((groups, g, hd))
+                for p0 in range(start, end, tile):
+                    ok = r_idx < min(tile, end - p0)            # [4, groups]
+                    pos = torch.where(ok, p0 + r_idx, 0)
+                    kk = ck[row, hk][pos] * ok[..., None]       # [4, grp, hd]
+                    vv = cv[row, hk][pos] * ok[..., None]
+                    sc = torch.einsum("ugd,hd->ghu", kk, qs)
+                    if softcap:
+                        sc = softcap * torch.tanh(sc / softcap)
+                    sc = torch.where(ok.T[:, None, :], sc, neg)
+                    mx = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp(m - mx)
+                    p = torch.where(ok.T[:, None, :],
+                                    torch.exp(sc - mx[..., None]), 0.0)
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[..., None] \
+                        + torch.einsum("ghu,ugd->ghd", p, vv)
+                    m = mx
+                big = m.amax(0)
+                f = torch.exp(m - big)
+                parts.append((big, (l * f).sum(0),
+                              (acc * f[..., None]).sum(0)))
+            big = torch.stack([pm for pm, _, _ in parts]).amax(0)
+            den, num = torch.zeros(g), torch.zeros((g, hd))
+            for pm, pl, pacc in parts:   # run order
+                f = torch.exp(pm - big)
+                den = den + pl * f
+                num = num + pacc * f[:, None]
+            out[row, hk * g:(hk + 1) * g] = num / den.clamp_min(1e-37)[:, None]
+    return out
+
+
+class TestSplitKvDecode:
+    """The split-KV decode kernel's split-and-merge arithmetic, emulated in
+    float32, against the reference's Pallas kernel in interpret mode: at
+    the edges of a run (its length - 1, the length, + 1), a slot at 1 and
+    one at the whole cache, and a window whose first admitted row (where the
+    runs start) is off a tile boundary; with the split count the wrapper
+    picks for this shape (runs of the fewest tiles, 128 rows) and with 4
+    splits (256 rows at the whole cache)."""
+
+    S, HQ, HKV, HD = 1024, 4, 2, 64
+    _jax = {}
+
+    @classmethod
+    def _reference(cls, q, ck, cv, row, valid, window, softcap):
+        key = (row, valid, window, softcap)
+        if key not in cls._jax:
+            cls._jax[key] = np.asarray(jdecode(
+                q[row:row + 1], ck[row:row + 1], cv[row:row + 1],
+                jnp.int32(valid), softcap=softcap, window=window))[0]
+        return cls._jax[key]
+
+    @pytest.mark.parametrize("window,softcap", [
+        (0, 0.0), (0, 50.0), (301, 30.0)])
+    @pytest.mark.parametrize("wrapper_splits", [True, False])
+    def test_split_and_merge_vs_interpret_kernel(self, wrapper_splits,
+                                                 window, softcap):
+        from repro_torch.kernels import decode_attention as tda
+
+        tile = tda.tile_rows(self.HD, 4)
+        splits = tda.num_splits(5, self.HKV, self.S, self.HD, 4) \
+            if wrapper_splits else 4
+        run = tda.split_length(self.S, splits, tile)
+        assert run == (tda.MIN_RUN_TILES * tile if wrapper_splits
+                       else tda.SPLIT_ROWS)
+        valid = [1, run - 1, run, run + 1, self.S]
+        if window:
+            assert (valid[-1] - window + 1) % tile
+        q, ck, cv = _decode_case(15, 5, self.HQ, self.HKV, self.S, self.HD)
+        got = _split_kv_emulation(t(q), t(ck), t(cv), valid, window=window,
+                                  softcap=softcap, splits=splits, tile=tile)
+        for row, v in enumerate(valid):
+            np.testing.assert_allclose(
+                got[row].numpy(),
+                self._reference(q, ck, cv, row, v, window, softcap), **F32)
+
+    @pytest.mark.parametrize("b,hkv,s_len,hd,itemsize", [
+        (8, 16, 8192, 128, 2), (8, 16, 8192, 128, 4), (1, 1, 100000, 64, 2),
+        (2, 4, 512, 64, 4)])
+    def test_split_rule(self, b, hkv, s_len, hd, itemsize):
+        """At most 64 splits and no more than the cache has tiles; a whole
+        cache in runs of whole tiles that cover it; 256-row runs once the
+        grid has several waves of blocks."""
+        from repro_torch.kernels import decode_attention as tda
+
+        tile = tda.tile_rows(hd, itemsize)
+        n = tda.num_splits(b, hkv, s_len, hd, itemsize)
+        assert 1 <= n <= min(tda.MAX_SPLITS, -(-s_len // tile))
+        run = tda.split_length(s_len, n, tile)
+        assert run % tile == 0 and run >= tda.MIN_RUN_TILES * tile
+        assert run * n >= s_len
+        if b * hkv * -(-s_len // tda.SPLIT_ROWS) >= tda.WAVE_BLOCKS \
+                and s_len <= tda.MAX_SPLITS * tda.SPLIT_ROWS:
+            assert run == tda.SPLIT_ROWS
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------

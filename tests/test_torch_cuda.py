@@ -266,6 +266,95 @@ def test_decode_attention_per_slot_lengths_vs_plain(dev, dtype, Hq, Hkv, hd,
         **_tol(dtype))
 
 
+def _decode_inputs(dev, dtype, B, Hq, Hkv, S, hd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, Hq, hd), (B, Hkv, S, hd), (B, Hkv, S, hd)))
+
+
+def _split_decode_holds(dev, q, ck, cv, valid, **kw):
+    """One launch per call, within the tolerance of the plain version (bf16
+    also within one rounding step), and a second call bit-identical (the
+    merge's fixed split order, the counters back at zero)."""
+    valid = torch.tensor(valid, dtype=torch.int32, device=dev)
+    before = ops.launch_counts()["decode_attention"]
+    got = tda.decode_attention(q, ck, cv, valid, **kw)
+    again = tda.decode_attention(q, ck, cv, valid, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + 2
+    assert torch.equal(got, again)
+    want = tref.decode_attention_ref(q, ck, cv, valid, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(q.dtype))
+    if q.dtype == torch.bfloat16:
+        assert _bf16_steps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_split_decode_groups_vs_plain(dev, dtype, hd, group):
+    """Every register instance (q heads per kv head 1, 2, 4, 8) at both head
+    dims: a slot at 1, at the edges of the whole cache's run length, past
+    two runs and at the whole cache; with no window, and with a window whose
+    first admitted row (where the runs start) is off a tile boundary."""
+    B, Hkv, S = 6, 4, 3000
+    q, ck, cv = _decode_inputs(dev, dtype, B, group * Hkv, Hkv, S, hd,
+                               group + hd)
+    size = q.element_size()
+    run = tda.split_length(S, tda.num_splits(B, Hkv, S, hd, size),
+                           tda.tile_rows(hd, size))
+    valid = [1, run - 1, run, run + 1, 2 * run + 3, S]
+    _split_decode_holds(dev, q, ck, cv, valid, softcap=30.0, window=0)
+    _split_decode_holds(dev, q, ck, cv, valid, softcap=0.0, window=run + 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 4097, 263])
+def test_split_decode_at_the_serving_split(dev, dtype, window):
+    """Gemma2-27B's 32/16 heads at softcap 50 over a cache whose whole
+    length the wrapper cuts into runs of 256 rows: lengths at a run's
+    edges, valid_len 1 and valid_len S in one batch; window 263 starts the
+    runs of the longer slots off a tile boundary."""
+    B, S = 6, 5000
+    q, ck, cv = _decode_inputs(dev, dtype, B, 32, 16, S, 128, window)
+    size = q.element_size()
+    run = tda.split_length(S, tda.num_splits(B, 16, S, 128, size),
+                           tda.tile_rows(128, size))
+    assert run == tda.SPLIT_ROWS
+    _split_decode_holds(dev, q, ck, cv, [run - 1, run, run + 1, 1, S, 4100],
+                        softcap=50.0, window=window)
+
+
+def test_decode_valid_len_zero_gives_zeros(dev):
+    """A slot with no admitted row gets zeros (the plain version averages
+    the masked rows instead; the model never passes 0); its neighbour is
+    unaffected."""
+    q, ck, cv = _decode_inputs(dev, torch.float32, 2, 4, 2, 600, 64, 0)
+    valid = torch.tensor([0, 300], dtype=torch.int32, device=dev)
+    got = tda.decode_attention(q, ck, cv, valid)
+    torch.cuda.synchronize()
+    assert not got[0].any()
+    torch.testing.assert_close(
+        got[1:], tref.decode_attention_ref(q[1:], ck[1:], cv[1:], valid[1:]),
+        **F32)
+
+
+def test_launch_helper_raises_on_a_refused_launch(dev):
+    """The shared launch helper raises with the entry point's CUDA error
+    (here the decode entry refusing 0 splits before it launches)."""
+    from repro_torch.kernels import _build
+
+    q, ck, cv = _decode_inputs(dev, torch.float32, 1, 2, 1, 64, 64, 0)
+    valid = torch.ones(1, dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError, match="attn_decode_forward launch "
+                                           "failed: CUDA error 1"):
+        _build.launch("attn_decode_forward", 0, q.data_ptr(), ck.data_ptr(),
+                      cv.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                      out.data_ptr(), valid.data_ptr(), 1, 2, 1, 64, 64, 0,
+                      0, 0.0, 0)
+
+
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """An unsupported head_dim, a group above 8, mixed dtypes, float16 and
     a strided tensor raise before anything launches."""
