@@ -15,9 +15,14 @@ Phases, each printed on its own line; any failure exits non-zero:
                on the card, at the main path's shapes and on edge cases
                (integers bit-exact, float32 within 3e-5), with its time, the
                plain version's time, one PyTorch library call's time where
-               one computes the same function, and its bound; the two
-               segment kernels and their ``index_add_`` yardsticks also by
-               device time per call under ``torch.profiler``; then every
+               one computes the same function, and its bound; the lookups
+               on a steady-state table that holds the probe-window
+               invariant, their edge cases on one that breaks it (kernel
+               and plain version compute the same probe-window function
+               there), their bound the probe window's bytes with the old
+               full scan's reported apart; the two segment kernels, the
+               lookups and the ``index_add_`` yardsticks also by device
+               time per call under ``torch.profiler``; then every
                kernel wrapper's host microseconds per call at its main
                path's shape (beside ``index_add_``'s for the segment
                kernels), a ``cProfile`` of ``scatter_add_`` and the shared
@@ -53,6 +58,10 @@ Phases, each printed on its own line; any failure exits non-zero:
                recorded time, the split count, the blocks that hold rows,
                its device time at 6 short slots (the serve phases' profiled
                step) and ptxas's registers and spills of every instance;
+               then head_dim 256 (PaliGemma-3B's 8 q heads over 1 kv head:
+               flash over 4,096 tokens, decode over the same slots) and
+               decode at 16 q heads per kv head, each against its plain
+               version in both dtypes, timed beside SDPA at softcap 0;
 7. gemma2-serve -- ``ServingEngine`` over Gemma2-27B at full width (16 of
                46 layers, random weights from the seed, bfloat16), 8 slots
                of 8,192 positions, 16 requests of 256-6,144 prompt tokens and
@@ -76,7 +85,7 @@ Phases, each printed on its own line; any failure exits non-zero:
                DeepSeekMoE-16B's dispatch of a 6,144-token prompt and of one
                8-slot decode step, a sequence of only dummy rows and rows of
                12 and 10 bytes; times, bounds, and ``index_select`` on the
-               zero-padded input as the gather's yardstick;
+               zero-padded input as the gather's yardstick, at both shapes;
 9. mamba2-serve -- phase 7's run over Mamba2-780M at full width and
                depth (48 layers, ``dt_bias`` as a trained model's), 8 slots,
                ``s_max`` 16,384, one prompt of 5-16 tokens and 15 of
@@ -177,6 +186,9 @@ KERNEL_META = {
 # the attention kernels' phase-6 shapes: the Gemma2-27B serve phase's, and
 # DeepSeekMoE-16B's 16 heads over 16 kv heads (softcap 0, no window)
 MOE_HEADS = 16
+#: tokens of phase 6's head_dim 256 flash layer (PaliGemma-3B's 8 q heads
+#: over 1 kv head)
+PALI_PROMPT = 4096
 SERVE_SLOTS = 8
 SERVE_SMAX = 8192
 SERVE_PROMPT = (256, 6144)
@@ -392,8 +404,8 @@ def states_equal(a, b):
 # ---------------------------------------------------------------------------
 
 def phase_kernels(torch, items):
-    from repro_torch.keyed import dedup_cells, expand_panes, hash_to_slot
-    from repro_torch.keyed import WindowSpec
+    from repro_torch.keyed import cell_hash, dedup_cells, expand_panes
+    from repro_torch.keyed import hash_to_slot, WindowSpec
     from repro_torch.kernels import hash_table as ht
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_reduce as sr
@@ -534,105 +546,122 @@ def phase_kernels(torch, items):
     occ = t(rng.random(total) < 0.23)
     tk = t(rng.integers(-2 ** 63, 2 ** 63 - 1, total, dtype=np.int64))
     tst = c_starts[t(rng.integers(0, n_cells, total))].clone()
-    # ~12% of the cells are open already (hits), placed anywhere in their
-    # owner's segment — not where their probe window would put them
+    # ~12% of the cells are open already (hits), each placed at a random
+    # probe of its own window in its owner's segment, as the table's claim
+    # places rows (the invariant the lookup relies on)
     hit = rng.random(n_cells) < 0.12
     hit_idx = t(np.flatnonzero(hit))
-    hit_rows = c_own[hit_idx].to(torch.int64) * CAPACITY \
-        + t(rng.integers(0, CAPACITY, len(hit_idx)))
+    hit_rows = c_own[hit_idx].to(torch.int64) * CAPACITY + torch.remainder(
+        cell_hash(c_keys[hit_idx], c_starts[hit_idx], CAPACITY)
+        + t(rng.integers(0, MAX_PROBES, len(hit_idx))), CAPACITY)
     tk[hit_rows] = c_keys[hit_idx]
     tst[hit_rows] = c_starts[hit_idx]
     occ[hit_rows] = True
-    row_own = torch.arange(DEGREE, dtype=torch.int32, device=dev) \
-        .repeat_interleave(CAPACITY)
 
     def lookup_pairs(out, n_tab):
-        # cell-row pairs the full-scan kernel compares: a hit scans up to
-        # its row, a miss the whole table
+        # cell-row pairs the full-scan kernel this one replaced compared: a
+        # hit scans up to its row, a miss the whole table
         o = out.to(torch.int64)
         return int(torch.where(o < n_tab, o + 1, n_tab).sum())
 
     def lookup_bound(n_cells, cell_bytes, n_tab, row_bytes, planes, pairs):
-        # the function's bound: a hash join (or the probe window under the
-        # table's invariant) reads each input once and does O(cells + rows)
-        # compares, so bytes bound it; the full scan's compares, `planes`
-        # 32-bit compares per cell-row pair, are reported apart
-        b_ms, b_by = bound(n_cells * (cell_bytes + 4) + n_tab * row_bytes,
-                           (n_cells + n_tab) * planes)
-        return dict(bound_ms=b_ms, bound_by=b_by, scan_pairs=pairs,
-                    scan_ops_ms=bound(0, pairs * planes)[0])
+        # the probe window's bound: each cell read once and its row written,
+        # and its window's max_probes rows read, capped at the whole table;
+        # `planes` 32-bit compares per probe.  The full scan's bound (the
+        # whole table read once) and its compares, `planes` per cell-row
+        # pair, are reported apart
+        window = min(n_cells * MAX_PROBES * row_bytes, n_tab * row_bytes)
+        b_ms, b_by = bound(n_cells * (cell_bytes + 4) + window,
+                           n_cells * MAX_PROBES * planes)
+        return dict(bound_ms=b_ms, bound_by=b_by,
+                    full_scan_bound_ms=bound(
+                        n_cells * (cell_bytes + 4) + n_tab * row_bytes,
+                        (n_cells + n_tab) * planes)[0],
+                    scan_pairs=pairs, scan_ops_ms=bound(0, pairs * planes)[0])
 
-    got = ht.batched_table_lookup(c_own, c_keys, c_starts, row_own, tk, tst,
-                                  occ)
-    want = ref.batched_table_lookup_ref(c_own, c_keys, c_starts, row_own, tk,
-                                        tst, occ)
+    lk = (c_own, c_keys, c_starts, tk, tst, occ, CAPACITY, MAX_PROBES)
+    got = ht.batched_table_lookup(*lk)
+    want = ref.batched_table_lookup_ref(*lk)
     check(torch.equal(got, want), "batched_table_lookup main shape")
     _lookup_edges(torch, t, rng, ht, ref)
     pairs = lookup_pairs(got, total)
-    ms = cuda_ms(torch, lambda: ht.batched_table_lookup(
-        c_own, c_keys, c_starts, row_own, tk, tst, occ), 5)
-    plain = cuda_ms(torch, lambda: ref.batched_table_lookup_ref(
-        c_own, c_keys, c_starts, row_own, tk, tst, occ), 1, warmup=0)
+    ms = cuda_ms(torch, lambda: ht.batched_table_lookup(*lk), 50)
+    plain = cuda_ms(torch, lambda: ref.batched_table_lookup_ref(*lk), 20)
     records["batched_table_lookup"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=plain,
-        **lookup_bound(n_cells, 20, total, 21, 6, pairs),
+        **lookup_bound(n_cells, 20, total, 17, 5, pairs),
         library_ms=None, hits=int((got < total).sum()),
-        shape=f"{n_cells} cells x {total} rows")
+        device_ms=device_ms_by_kernel(
+            torch, lambda: ht.batched_table_lookup(*lk), 50),
+        shape=f"{n_cells} cells x {total} rows, {MAX_PROBES} probes")
 
     # per-shard lookup: shard 0's cells against its own segment
     s0 = torch.nonzero(c_own == 0).flatten()
-    k0, st0 = c_keys[s0].contiguous(), c_starts[s0].contiguous()
     seg = slice(0, CAPACITY)
-    got = ht.table_lookup(k0, st0, tk[seg], tst[seg], occ[seg])
-    want = ref.table_lookup_ref(k0, st0, tk[seg], tst[seg], occ[seg])
+    l1 = (c_keys[s0].contiguous(), c_starts[s0].contiguous(), tk[seg],
+          tst[seg], occ[seg], MAX_PROBES)
+    got = ht.table_lookup(*l1)
+    want = ref.table_lookup_ref(*l1)
     check(torch.equal(got, want), "table_lookup main shape")
     pairs = lookup_pairs(got, CAPACITY)
-    ms = cuda_ms(torch, lambda: ht.table_lookup(k0, st0, tk[seg], tst[seg],
-                                                occ[seg]), 10)
-    plain = cuda_ms(torch, lambda: ref.table_lookup_ref(
-        k0, st0, tk[seg], tst[seg], occ[seg]), 2)
+    ms = cuda_ms(torch, lambda: ht.table_lookup(*l1), 50)
+    plain = cuda_ms(torch, lambda: ref.table_lookup_ref(*l1), 20)
     records["table_lookup"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=plain,
         **lookup_bound(len(s0), 16, CAPACITY, 17, 5, pairs),
         library_ms=None, hits=int((got < CAPACITY).sum()),
-        shape=f"{len(s0)} cells x {CAPACITY} rows")
+        device_ms=device_ms_by_kernel(torch, lambda: ht.table_lookup(*l1),
+                                      50),
+        shape=f"{len(s0)} cells x {CAPACITY} rows, {MAX_PROBES} probes")
     for name, rec in records.items():
         say("kernels", kernel=name, **rec)
     return records
 
 
 def _lookup_edges(torch, t, rng, ht, ref):
-    """Misses, negative and extreme int64 keys, rows of another shard, an
-    empty input, and a table that breaks the probe-window invariant
-    (duplicate cells anywhere, unoccupied copies)."""
+    """Misses, negative and extreme int64 keys, 33 probes (three passes of
+    the kernel's 16 lanes), windows that wrap a segment's end, an empty
+    input and an empty table, owners outside the segments (misses), and a
+    table that breaks the invariant (duplicate cells anywhere, unoccupied
+    copies): the kernel and its plain version compute the same
+    probe-window function there."""
     dev = torch.device("cuda")
     i64 = np.iinfo(np.int64)
-    n_tab = 3000
+    n_tab, n_w, probes = 3000, 4, 33
+    cap = n_tab // n_w
     tk = t(rng.choice(np.array([i64.min, i64.max, -1, 0, 1, -(2 ** 40)],
                                np.int64), n_tab))
     tst = t(rng.integers(-3, 3, n_tab))
     occ = t(rng.random(n_tab) < 0.7)
-    row_own = t(rng.integers(0, 4, n_tab).astype(np.int32))
     ck = t(rng.choice(np.array([i64.min, i64.max, -1, 0, 1, 7], np.int64),
                       700))
     cs = t(rng.integers(-4, 4, 700))
-    c_own = t(rng.integers(0, 5, 700).astype(np.int32))
-    got = ht.table_lookup(ck, cs, tk, tst, occ)
-    check(torch.equal(got, ref.table_lookup_ref(ck, cs, tk, tst, occ)),
+    c_own = t(rng.integers(0, n_w, 700).astype(np.int32))
+    c_own[:2] = t(np.array([-1, n_w], np.int32))
+    one = (ck, cs, tk, tst, occ, probes)
+    got = ht.table_lookup(*one)
+    check(torch.equal(got, ref.table_lookup_ref(*one)),
           "table_lookup edge cases")
     check(bool((got == n_tab).any()) and bool((got < n_tab).any()),
           "table_lookup edge cases need hits and misses")
-    got = ht.batched_table_lookup(c_own, ck, cs, row_own, tk, tst, occ)
-    check(torch.equal(got, ref.batched_table_lookup_ref(
-        c_own, ck, cs, row_own, tk, tst, occ)),
-        "batched_table_lookup edge cases")
+    lk = (c_own, ck, cs, tk, tst, occ, cap, probes)
+    got = ht.batched_table_lookup(*lk)
+    check(torch.equal(got, ref.batched_table_lookup_ref(*lk)),
+          "batched_table_lookup edge cases")
+    check(bool((got == n_tab).any()) and bool((got < n_tab).any())
+          and bool((got[:2] == n_tab).all()),
+          "batched_table_lookup edge cases need hits and misses")
     z64 = torch.zeros(0, dtype=torch.int64, device=dev)
     z32 = torch.zeros(0, dtype=torch.int32, device=dev)
-    check(len(ht.table_lookup(z64, z64, tk, tst, occ)) == 0,
+    zb = torch.zeros(0, dtype=torch.bool, device=dev)
+    check(len(ht.table_lookup(z64, z64, tk, tst, occ, probes)) == 0,
           "table_lookup empty")
-    check(len(ht.batched_table_lookup(z32, z64, z64, row_own, tk, tst,
-                                      occ)) == 0,
+    check(len(ht.batched_table_lookup(z32, z64, z64, tk, tst, occ, cap,
+                                      probes)) == 0,
           "batched_table_lookup empty")
+    check(not ht.batched_table_lookup(c_own, ck, cs, z64, z64, zb, cap,
+                                      probes).any(),
+          "batched_table_lookup on an empty table: all misses")
 
 
 def host_us(torch, fn, n):
@@ -707,10 +736,8 @@ def phase_host(torch):
     n_tab = 8 * 4096
     keys, starts = (ints(1 << 20, n_tab, torch.int64) for _ in range(2))
     occ = torch.rand(n_tab, generator=gen, device=dev) < 0.25
-    owners = torch.arange(8, dtype=torch.int32, device=dev) \
-        .repeat_interleave(4096)
     c_keys, c_starts = keys[:4096].clone(), starts[:4096].clone()
-    c_own = owners[:4096].clone()
+    c_own = ints(8, 4096)
     # serving: phase 6's and phase 8's shapes
     S, HQ, HKV, HD = SERVE_PROMPT[1], 32, 16, 128
     q, k, v = randn(1, HQ, S, HD), randn(1, HKV, S, HD), randn(1, HKV, S, HD)
@@ -735,9 +762,10 @@ def phase_host(torch):
         "scatter_add": (lambda: sr.scatter_add_(table, rows_at, partial),
                         lambda: table.index_add_(0, rows_l, partial), 500),
         "table_lookup": (lambda: ht.table_lookup(
-            c_keys, c_starts, keys, starts, occ), None, 20),
+            c_keys, c_starts, keys, starts, occ, MAX_PROBES), None, 20),
         "batched_table_lookup": (lambda: ht.batched_table_lookup(
-            c_own, c_keys, c_starts, owners, keys, starts, occ), None, 20),
+            c_own, c_keys, c_starts, keys, starts, occ, 4096, MAX_PROBES),
+            None, 20),
         "flash_attention": (lambda: fa.flash_attention(
             q, k, v, causal=True, window=4096, softcap=50.0), None, 20),
         "decode_attention": (lambda: da.decode_attention(
@@ -840,9 +868,8 @@ def phase_main(torch, items):
         spill_rows=gauges["keyed.plane.spill_rows"],
         resizes=ex.metrics.migration_volume())
 
-    # -- the table's lookup on its live planes: the CUDA full-scan kernel
-    # against the probe-window realization that ops mode ``ref`` runs (the
-    # table holds its invariant, so both give the same rows) ----------------
+    # -- the table's lookup on its live planes: the CUDA probe-window kernel
+    # against its plain version, which ops mode ``ref`` runs ----------------
     dev = torch.device("cuda")
     last = chunks[-1]
     a_key, _, _, _, a_start = expand_panes(
@@ -856,7 +883,7 @@ def phase_main(torch, items):
     c_own = ad._cell_owners(c_keys)
     table = ad._batched
     k_rows = table.lookup(c_own, c_keys, c_starts)
-    k_ms = cuda_ms(torch, lambda: table.lookup(c_own, c_keys, c_starts), 5)
+    k_ms = cuda_ms(torch, lambda: table.lookup(c_own, c_keys, c_starts), 20)
     ops.use_kernels("ref")
     try:
         p_rows = table.lookup(c_own, c_keys, c_starts)
@@ -865,10 +892,10 @@ def phase_main(torch, items):
     finally:
         ops.use_kernels("auto")
     check(torch.equal(k_rows, p_rows),
-          "live-table lookup: kernel and probe window differ")
+          "live-table lookup: kernel and plain version differ")
     say("main", lookup="live table", cells=len(c_keys),
         rows=table.total_rows, hits=int((k_rows >= 0).sum()),
-        kernel_ms=k_ms, probe_window_ms=p_ms)
+        kernel_ms=k_ms, plain_ms=p_ms)
 
     # -- a traced run: per-stage shares (each span synchronizes the card) -----
     tracer = Tracer(recorder=None)
@@ -881,7 +908,9 @@ def phase_main(torch, items):
     say("main", run="traced", wall_s=traced_wall,
         chunk_ms_median=float(np.median(t_svc)),
         tracing_overhead=float(np.median(t_svc) / np.median(svc)),
-        stage_share=shares, stage_coverage=sum(shares.values()))
+        stage_share=shares, stage_coverage=sum(shares.values()),
+        stage_ms_per_chunk={s: totals.get(s, (0, 0.0))[1] / N_CHUNKS * 1e3
+                            for s in FUSED_STAGES})
 
     # -- the per-shard loop over the first chunks: table_lookup ---------------
     ops.reset_launch_counts()
@@ -900,14 +929,16 @@ def phase_main(torch, items):
     # -- (b) the same stream on the plain versions, on the card ---------------
     ops.use_kernels("ref")
     try:
-        _, ref_outs, ref_snap8, ref_final, ref_wall = drive(adapter(),
-                                                            N_CHUNKS)
+        ref_ex, ref_outs, ref_snap8, ref_final, ref_wall = drive(adapter(),
+                                                                 N_CHUNKS)
     finally:
         ops.use_kernels("auto")
     check(outputs_equal(ref_outs, outs), "kernel run differs from ref mode")
     check(states_equal(ref_snap8, snap8) and states_equal(ref_final, final),
           "kernel barrier snapshot differs from ref mode")
+    ref_svc = np.array([c.service_time for c in ref_ex.metrics.chunks]) * 1e3
     say("main", run="ref mode", wall_s=ref_wall,
+        chunk_ms_median=float(np.median(ref_svc)),
         kernel_over_ref_wall=wall / ref_wall, bit_identical=True)
 
     # -- (c) late count 0; emissions + open rows == numpy group-by ------------
@@ -1347,9 +1378,97 @@ def phase_attention(torch):
               f"global layer, softcap 50")
     del qd, ck, cv
     torch.cuda.empty_cache()
+    wide = phase_attention_wide(torch, randn, valid, valid_np)
+    records["flash_attention"]["head_dim_256"] = wide["flash"]
+    records["decode_attention"]["head_dim_256"] = wide["decode"]
+    records["decode_attention"]["group_16"] = wide["group_16"]
     for name, rec in records.items():
         say("attention", kernel=name, **rec)
     return records
+
+
+def phase_attention_wide(torch, randn, valid, valid_np):
+    """The instances this repository's other configurations need: head_dim
+    256 (PaliGemma-3B's 8 q heads over 1 kv head) in flash (the CUDA-core
+    kernel in both dtypes) and in decode, and decode at 16 q heads per kv
+    head; each against its plain version in float32 and bfloat16, with the
+    kernel's time beside the plain version's, SDPA's at softcap 0 and the
+    bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    S, HQ, HKV, HD = PALI_PROMPT, 8, 1, 256
+    out = {}
+    errs, steps = {}, {}
+    kw = dict(causal=True, window=0, softcap=0.0)
+    for dtype, tol in ((bf16, BF16_TOL), (f32, F32_TOL)):
+        q = randn(1, HQ, S, HD, dtype=dtype)
+        k, v = (randn(1, HKV, S, HD, dtype=dtype) for _ in range(2))
+        errs[str(dtype)] = _close(
+            torch, fa.flash_attention(q, k, v, **kw),
+            ref.flash_attention_ref(q, k, v, **kw), tol,
+            f"flash_attention hd 256 {dtype}", steps)
+    # q, k, v are the float32 ones; the times are bf16's
+    q, k, v = (x.to(bf16) for x in (q, k, v))
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), 5)
+    plain = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 2)
+    kx, vx = k.repeat_interleave(HQ, dim=1), v.repeat_interleave(HQ, dim=1)
+    sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, kx, vx, is_causal=True), 5)
+    pairs = admitted_pairs(S, S, True, 0)
+    b_ms, b_by = attention_bound(pairs, HQ, HD,
+                                 2 * (2 * HQ * S * HD + 2 * HKV * S * HD))
+    out["flash"] = dict(
+        ms=ms, plain_ms=plain, sdpa_ms=sdpa, bound_ms=b_ms, bound_by=b_by,
+        tflops=pairs * HQ * 4 * HD / (ms * 1e-3) / 1e12, errors=errs,
+        bf16_rounding_steps=steps,
+        shape=f"q [1,{HQ},{S},{HD}] bf16, k/v {HKV} head, causal, "
+              f"softcap 0")
+    del q, k, v, kx, vx
+
+    # decode at head_dim 256 over phase 6's ragged slots, and at a group of
+    # 16 (16 q heads over 1 kv head, hd 128)
+    for label, hq, hd in (("decode", HQ, HD), ("group_16", 16, 128)):
+        errs, steps = {}, {}
+        for dtype, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
+            qd = randn(SERVE_SLOTS, hq, hd, dtype=dtype)
+            ck, cv = (randn(SERVE_SLOTS, HKV, SERVE_SMAX, hd, dtype=dtype)
+                      for _ in range(2))
+            for window, cap in ((0, 0.0), (4097, 50.0)):
+                kw = dict(softcap=cap, window=window)
+                errs[f"{dtype} window {window}"] = _close(
+                    torch, da.decode_attention(qd, ck, cv, valid, **kw),
+                    ref.decode_attention_ref(qd, ck, cv, valid, **kw), tol,
+                    f"decode_attention {label} {dtype} window {window}",
+                    steps)
+        kw = dict(softcap=0.0, window=0)   # qd, ck, cv are the bf16 ones
+        ms = cuda_ms(torch, lambda: da.decode_attention(qd, ck, cv, valid,
+                                                        **kw), 20)
+        plain = cuda_ms(torch, lambda: ref.decode_attention_ref(
+            qd, ck, cv, valid, **kw), 3)
+        pos = torch.arange(SERVE_SMAX, device=dev)
+        mask = (pos[None, :] < valid[:, None])[:, None, None, :]
+        sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd[:, :, None, :], ck, cv, attn_mask=mask, enable_gqa=True), 20)
+        rows = decode_rows(valid_np, 0, SERVE_SMAX)
+        b_ms, b_by = attention_bound(
+            rows, hq, hd,
+            rows * HKV * hd * 2 * 2 + 2 * SERVE_SLOTS * hq * hd * 2)
+        out[label] = dict(
+            ms=ms, plain_ms=plain, sdpa_ms=sdpa, bound_ms=b_ms, bound_by=b_by,
+            splits=da.num_splits(SERVE_SLOTS, HKV * da.chunks(hq, HKV),
+                                 SERVE_SMAX, hd, 2),
+            errors=errs, bf16_rounding_steps=steps,
+            shape=f"q [{SERVE_SLOTS},{hq},{hd}] bf16, cache "
+                  f"[{SERVE_SLOTS},{HKV},{SERVE_SMAX},{hd}], softcap 0")
+        del qd, ck, cv
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1511,10 +1630,13 @@ def phase_ssm_moe(torch):
                 x_pad, 0, idx), 50),
             bound_ms=nbytes / PEAK_BYTES_S * 1e3)
     prefill = per[f"B=1 S={SERVE_PROMPT[1]}"]
+    step = per[f"B={SERVE_SLOTS} S=1"]   # one decode step of every slot
     records["moe_gather"] = dict(
         max_abs_err=0.0, ms=prefill["kernel_ms"], plain_ms=prefill["plain_ms"],
         bound_ms=prefill["bound_ms"], bound_by="bytes",
-        library_ms=prefill["library_ms"], per_call=per,
+        library_ms=prefill["library_ms"], decode_step_ms=step["kernel_ms"],
+        decode_step_library_ms=step["library_ms"],
+        decode_step_bound_ms=step["bound_ms"], per_call=per,
         shape=f"x [{SERVE_PROMPT[1]},{d}] bf16, {prefill['rows']} rows "
               f"(64 experts x capacity {prefill['capacity']}); library: "
               f"index_select on the zero-padded x")

@@ -58,9 +58,13 @@ _SIGNATURES = {
     "keyed_scatter_add_i64": _SCATTER_ARGS,
     "keyed_scatter_add_i32": _SCATTER_ARGS,
     "keyed_scatter_add_f32": _SCATTER_ARGS,
-    "keyed_table_lookup": [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, _P],
+    # cell key, cell start, row key, row start, row occ, out, n_cells,
+    # capacity, max_probes, stream
+    "keyed_table_lookup":
+        [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+    # cell owner, then as above with n_rows before capacity
     "keyed_batched_table_lookup":
-        [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P],
+        [_P] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P],
     # q, k, v, o, B, Hq, Hkv, Sq, Skv, hd, dtype, causal, window, softcap,
     # stream
     "attn_flash_forward":

@@ -8,15 +8,21 @@
 // acc / max(l, 1e-37) in q's dtype.  Layouts: q, o [B, Hq, hd];
 // cache k, v [B, Hkv, S, hd]; valid_len int32 [B], one length per slot (the
 // TPU kernel took one scalar for the whole batch; the engine's slots are
-// ragged).  A row with no admitted position (valid_len 0) gets zeros;
-// valid_len > S reads S rows.
+// ragged); hd 64, 128 or 256; any number g = Hq / Hkv of q heads per kv
+// head.  valid_len > S reads S rows.  A row with no admitted position
+// (valid_len 0, or a window past the cache's end) gets what the reference
+// gives: its finite mask (-2e38) weighs every one of the S rows alike, so
+// the output is the mean of V over all S rows; here such a slot reads all S
+// rows with every score set to 0.
 //
 // Design: split-KV (flash-decoding).  The TPU kernel streams the whole
 // cache through a sequential kv grid axis with a [S] bias vector of
 // 0 / -2e38.  Here the grid is (split, kv head, slot) with n_splits splits
 // (the wrapper picks ceil(S / 256), more when B * Hkv is too small for
-// several waves on 132 SMs, at most 64), and each block serves all g q
-// heads of its group, so each cached row is read once per group.  A slot's
+// several waves on 132 SMs, at most 64), and each block serves the q heads
+// of its group, at most 8 (kMaxGroup), so each cached row is read once per
+// group; a larger group is cut into chunks of 8 along the grid's second
+// axis (Hkv * chunks), each chunk reading the rows once.  A slot's
 // admitted positions [first, hi) are cut on the card into runs of
 // len = ceil((hi - first) / n_splits) rounded up to whole tiles, at least
 // 4 tiles: a full 8,192-row cache gets 32 runs of 256 rows, a 1,000-row one
@@ -30,13 +36,17 @@
 // one bulk copy (cp.async.bulk, completion on an mbarrier) into a 2-stage
 // ring of 8 KB tiles (32 KB; 6 blocks fit an SM at g <= 2), so up to 16 KB
 // per block stay in flight while the other stage is read.  The 128 threads
-// read a tile row by row from shared memory, 16 bytes a lane: L = hd *
-// sizeof(T) / 16 lanes hold one row, a warp covers 32 / L rows per load,
-// and each lane group keeps its own online softmax (m, l, acc) per q head
-// over 4 rows a step; the dot products are L-lane shuffle sums.  V is read
-// from shared memory only for the P.V update, so the registers hold q, acc
-// and the scores, not 4 rows of V.  The CUDA cores and not wgmma: with at
-// most 8 query rows per kv head the kernel does 4 * hd * g flops per
+// read a tile row by row from shared memory, 16 bytes a load: L = min(hd *
+// sizeof(T) / 16, 32) lanes hold one row (a lane takes hd / L elements,
+// one or two 16-byte loads, L * 16 bytes apart), a warp covers 32 / L rows
+// per load, and each lane group keeps its own online softmax (m, l, acc)
+// per q head over tile / groups rows a step (4, or 2 for float32 at hd 256,
+// whose 8 KB tile is 8 rows); the dot products are L-lane shuffle sums.
+// The tile stays 8 KB at every hd, so a run of at least 4 tiles moves the
+// same bytes whatever the row width.  V is read from shared memory only
+// for the P.V update, so the registers hold q, acc and the scores, not 4
+// rows of V.  The CUDA cores and not wgmma: with at most 8 query rows per
+// block the kernel does 4 * hd * g flops per
 // 4 * hd bytes of K and V, far below the card's ridge point, and a 64-row
 // wgmma tile would be 7/8 empty.
 //
@@ -44,8 +54,8 @@
 // admitted rows fit one split writes the output directly.  Otherwise each
 // block writes its (m, l, acc[hd]) per q head to the float32 workspace
 // [B, Hq, splits, hd + 2], fences, and counts itself on its (slot, kv
-// head)'s counter; the block that counts last merges every split in split
-// order (so two calls on the same input are bit-identical), writes the
+// head, chunk)'s counter; the block that counts last merges every split in
+// split order (so two calls on the same input are bit-identical), writes the
 // output and resets the counter to 0 for the next launch.  One launch, no
 // second kernel.
 //
@@ -63,28 +73,42 @@ constexpr int kDecThreads = 128;
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kDecStages = 2;
 constexpr int kDecTileBytes = 8192;   // one tile of K (and one of V)
-constexpr int kDecRows = 4;           // rows a lane group takes per step
-constexpr int kMaxGroup = 8;          // q heads per kv head
+constexpr int kMaxGroup = 8;          // q heads one block serves
 constexpr int kMaxSplits = 64;        // splits per slot (the merge's table)
 constexpr int kMinRunTiles = 4;       // the shortest run but a slot's last
 constexpr int kDecRing = kDecStages * 2 * kDecTileBytes;
 
 template <typename T, int HD, int G>
 struct DecodeShape {
-  static constexpr int kVec = 16 / int(sizeof(T));   // elements per lane
-  static constexpr int kLanes = HD / kVec;           // lanes per row
+  static constexpr int kVec = 16 / int(sizeof(T));   // elements per load
+  static constexpr int kLanes = HD / kVec < 32 ? HD / kVec : 32;  // per row
+  static constexpr int kPerLane = HD / kLanes;       // elements per lane
+  static constexpr int kStride = kLanes * kVec;      // between its loads
   static constexpr int kRowsPerLoad = 32 / kLanes;   // rows per warp load
   static constexpr int kGroups = kDecWarps * kRowsPerLoad;
   static constexpr int kRowBytes = HD * int(sizeof(T));
   static constexpr int kTile = kDecTileBytes / kRowBytes;   // rows
-  static_assert(kTile == kGroups * kDecRows, "a tile is one step of rows");
+  static constexpr int kRows = kTile / kGroups;      // per group and step
+  static_assert(kPerLane % kVec == 0, "a lane takes whole loads");
+  static_assert(kRows >= 1 && kTile == kGroups * kRows,
+                "a tile is one step of rows");
   // the ring, reused for the lane groups' partial states once drained
   static constexpr int kMerge = kGroups * G * (HD + 2) * 4;
   static constexpr int kSmem = kMerge > kDecRing ? kMerge : kDecRing;
   static_assert(kSmem <= 48 * 1024, "no shared-memory opt-in needed");
 };
 
-// G: q heads the registers are sized for (1, 2, 4 or 8), g = Hq / Hkv <= G
+// the kPerLane elements of one lane at column col of a row, as float32
+template <typename T, int HD>
+__device__ __forceinline__ void load_lane(const T* row, int col, float* out) {
+  using Sh = DecodeShape<T, HD, 1>;
+#pragma unroll
+  for (int c = 0; c < Sh::kPerLane / Sh::kVec; ++c)
+    load_f32<T, Sh::kVec>(row + col + c * Sh::kStride, out + c * Sh::kVec);
+}
+
+// G: q heads the registers are sized for (1, 2, 4 or 8); a block serves
+// min(G, g - chunk * G) q heads of its kv head's g = Hq / Hkv
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kDecThreads)
 decode_split(const T* __restrict__ q, const T* __restrict__ ck,
@@ -93,31 +117,39 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
              int* __restrict__ counters, int Hq, int Hkv, int S, int window,
              float softcap, float scale) {
   using Sh = DecodeShape<T, HD, G>;
-  constexpr int E = Sh::kVec;
+  constexpr int E = Sh::kPerLane;
   constexpr int L = Sh::kLanes;
-  constexpr int U = kDecRows;
+  constexpr int U = Sh::kRows;
   constexpr int TILE = Sh::kTile;
   constexpr int W = HD + 2;   // a partial state: acc[hd], m, l
   const int split = blockIdx.x;
-  const int hk = blockIdx.y;
+  const int n_chunks = gridDim.y / Hkv;
+  const int hk = blockIdx.y / n_chunks;
+  const int h0 = (blockIdx.y % n_chunks) * G;   // first q head in the group
   const int b = blockIdx.z;
   const int n_splits = gridDim.x;
-  const int g = Hq / Hkv;
+  const int g = min(G, Hq / Hkv - h0);          // q heads of this block
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int grp = warp * Sh::kRowsPerLoad + lane / L;
-  const int col = (lane % L) * E;
-  const int64_t q_row = int64_t(b) * Hq + int64_t(hk) * g;   // first q head
+  const int col = (lane % L) * Sh::kVec;
+  // the row's column of a lane's element e
+  auto col_of = [&](int e) {
+    return (e / Sh::kVec) * Sh::kStride + col + e % Sh::kVec;
+  };
+  const int64_t q_row =   // first q head
+      int64_t(b) * Hq + int64_t(hk) * (Hq / Hkv) + h0;
 
   const int valid = valid_len[b];
-  const int hi = min(valid, S);
-  const int first = window > 0 ? max(0, valid - window + 1) : 0;
-  if (hi <= first) {   // nothing admitted: zeros, as the old kernel gave
-    if (split == 0)
-      for (int t = tid; t < g * HD; t += kDecThreads)
-        o[q_row * HD + t] = from_f32<T>(0.f);
-    return;
+  int hi = min(valid, S);
+  int first = window > 0 ? max(0, valid - window + 1) : 0;
+  // nothing admitted: every row weighs alike, as under the reference's
+  // finite mask
+  const bool uniform = hi <= first;
+  if (uniform) {
+    first = 0;
+    hi = S;
   }
   // this slot's runs: whole tiles, at most n_splits of them
   const int per = (hi - first + n_splits - 1) / n_splits;
@@ -164,7 +196,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
       acc[h][e] = 0.f;
     }
     if (h < g) {
-      load_f32<T, E>(q + (q_row + h) * HD + col, qf[h]);
+      load_lane<T, HD>(q + (q_row + h) * HD, col, qf[h]);
 #pragma unroll
       for (int e = 0; e < E; ++e) qf[h][e] *= scale;
     }
@@ -183,7 +215,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
       float kf[E];
 #pragma unroll
       for (int e = 0; e < E; ++e) kf[e] = 0.f;
-      if (r < rows) load_f32<T, E>(kt + r * HD + col, kf);
+      if (r < rows) load_lane<T, HD>(kt + r * HD, col, kf);
 #pragma unroll
       for (int h = 0; h < G; ++h) {
         float dot = 0.f;
@@ -192,7 +224,8 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
 #pragma unroll
         for (int off = L / 2; off > 0; off >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        s[h][u] = r < rows ? cap_score(dot, softcap) : kNegInf;
+        s[h][u] = r >= rows ? kNegInf
+                  : uniform ? 0.f : cap_score(dot, softcap);
       }
     }
     // online softmax: rescale by the new maximum, the scores become p
@@ -219,7 +252,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
       const int r = u * Sh::kGroups + grp;
       if (r >= rows) continue;
       float vf[E];
-      load_f32<T, E>(vt + r * HD + col, vf);
+      load_lane<T, HD>(vt + r * HD, col, vf);
 #pragma unroll
       for (int h = 0; h < G; ++h)
 #pragma unroll
@@ -243,7 +276,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
     }
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      sm_acc[(grp * G + h) * HD + col + e] = acc[h][e];
+      sm_acc[(grp * G + h) * HD + col_of(e)] = acc[h][e];
   }
   __syncthreads();
   const bool alone = n_act == 1;
@@ -274,7 +307,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    int* counter = counters + int64_t(b) * Hkv + hk;
+    int* counter = counters + int64_t(b) * gridDim.y + blockIdx.y;
     merges = atomicAdd(counter, 1) == n_act - 1;
     if (merges) *counter = 0;
   }
@@ -330,7 +363,8 @@ int launch_decode(const void* q, const void* k, const void* v,
                   const void* valid_len, void* o, void* ws, void* counters,
                   int B, int Hq, int Hkv, int S, int n_splits, int window,
                   float softcap, void* stream) {
-  const dim3 grid(n_splits, Hkv, B);
+  const int n_chunks = (Hq / Hkv + kMaxGroup - 1) / kMaxGroup;
+  const dim3 grid(n_splits, Hkv * n_chunks, B);
   decode_split<T, HD, G><<<grid, kDecThreads, DecodeShape<T, HD, G>::kSmem,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -362,9 +396,10 @@ int launch_decode_group(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; hd: 64 or 128; Hq / Hkv <= 8.
-// ws: float32 [B, Hq, n_splits, hd + 2]; counters: int32 [B, Hkv], zero
-// before the launch and zero after it; n_splits in [1, 64].  Returns
+// dtype: 0 = float32, 1 = bfloat16; hd: 64, 128 or 256; any Hq / Hkv, in
+// chunks = ceil(Hq / Hkv / 8) blocks per kv head.  ws: float32 [B, Hq,
+// n_splits, hd + 2]; counters: int32 [B, Hkv * chunks], zero before the
+// launch and zero after it; n_splits in [1, 64].  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
 // shape the kernel does not take (the wrapper refuses those first).
 int attn_decode_forward(const void* q, const void* k, const void* v,
@@ -372,17 +407,22 @@ int attn_decode_forward(const void* q, const void* k, const void* v,
                         void* counters, int B, int Hq, int Hkv, int S, int hd,
                         int dtype, int window, float softcap, int n_splits,
                         void* stream) {
-  if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || Hq % Hkv != 0 ||
-      Hq / Hkv > attn::kMaxGroup || S <= 0 || n_splits <= 0 ||
-      n_splits > attn::kMaxSplits)
+  if (B <= 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || Hq <= 0 ||
+      int64_t(Hkv) * ((Hq / Hkv + attn::kMaxGroup - 1) / attn::kMaxGroup) >
+          65535 ||
+      S <= 0 || n_splits <= 0 || n_splits > attn::kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
 #define ATTN_DECODE_ARGS \
   q, k, v, valid_len, o, ws, counters, B, Hq, Hkv, S, n_splits, window, \
       softcap, stream
+  if (dtype == 0 && hd == 256)
+    return attn::launch_decode_group<float, 256>(ATTN_DECODE_ARGS);
   if (dtype == 0 && hd == 128)
     return attn::launch_decode_group<float, 128>(ATTN_DECODE_ARGS);
   if (dtype == 0 && hd == 64)
     return attn::launch_decode_group<float, 64>(ATTN_DECODE_ARGS);
+  if (dtype == 1 && hd == 256)
+    return attn::launch_decode_group<__nv_bfloat16, 256>(ATTN_DECODE_ARGS);
   if (dtype == 1 && hd == 128)
     return attn::launch_decode_group<__nv_bfloat16, 128>(ATTN_DECODE_ARGS);
   if (dtype == 1 && hd == 64)

@@ -6,7 +6,7 @@
 // k > q - window (window > 0) with masked scores -2e38, online softmax, and
 // the output acc / max(l, 1e-37) in q's dtype.  GQA: q head h reads kv head
 // h / (Hq / Hkv).  Layouts: q, o [B, Hq, Sq, hd]; k, v [B, Hkv, Skv, hd],
-// all contiguous, float32 or bfloat16, hd 64 or 128.  The TPU kernel walks
+// all contiguous, float32 or bfloat16, hd 64, 128 or 256.  The TPU kernel walks
 // the kv axis as its innermost, sequential grid dimension and carries m / l
 // / acc in VMEM scratch; blocks on Hopper run in parallel and carry nothing,
 // so here a block owns a tile of q rows of one (b, q head) and loops over
@@ -62,6 +62,15 @@
 // shared memory (q pre-scaled in float32).  It stays because TF32 (10-bit
 // mantissa) cannot hold the float32 model to 1e-4 logits nor the kernel to
 // 3e-5 of the plain version.
+//
+// hd 256, both dtypes: flash_forward<T, 256>.  The wgmma kernel's tile plan
+// does not fit hd 256: the O accumulator alone would take 128 registers a
+// thread, and the 128-row Q tile with a 3-stage ring of 64-row K and V
+// tiles 256 KB of shared memory, above the 227 KB a block may have.  The
+// CUDA-core kernel takes it with (64 * 257 + 256 * 65 + 64 * 65) floats =
+// 149 KB of shared memory, one block per SM; bfloat16 is loaded into
+// float32 and the output rounded once.  At hd 256 it runs at the CUDA
+// cores' rate, far below the tensor cores' bound.
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda link
 #include <cmath>
@@ -623,16 +632,23 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32 (flash_forward), 1 = bfloat16 (flash_forward_wgmma);
-// hd: 64 or 128.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a shape the kernel does not take (the wrapper
-// refuses most before calling) or a tensor map the driver refuses.
+// dtype: 0 = float32 (flash_forward), 1 = bfloat16 (flash_forward_wgmma,
+// flash_forward at hd 256); hd: 64, 128 or 256.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a shape the kernel does
+// not take (the wrapper refuses most before calling) or a tensor map the
+// driver refuses.
 int attn_flash_forward(const void* q, const void* k, const void* v, void* o,
                        int B, int Hq, int Hkv, int Sq, int Skv, int hd,
                        int dtype, int causal, int window, float softcap,
                        void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && hd == 256)
+    return attn::launch_flash<float, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                          causal, window, softcap, stream);
+  if (dtype == 1 && hd == 256)
+    return attn::launch_flash<__nv_bfloat16, 256>(
+        q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, softcap, stream);
   if (dtype == 0 && hd == 128)
     return attn::launch_flash<float, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
                                           causal, window, softcap, stream);

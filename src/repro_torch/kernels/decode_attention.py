@@ -4,8 +4,12 @@ Port of ``repro/kernels/decode_attention.py``.  The kernel is
 ``csrc/decode_attention.cu``: one query row per (slot, q head) against the
 cached rows ``p < valid_len[slot]`` (and ``p > valid_len[slot] - window``),
 with softcap and GQA, float32 math for float32 or bfloat16 inputs,
-head_dim 64 or 128, at most 8 q heads per kv head.  ``valid_len`` is one
-length per slot (int32 ``[B]``); a scalar broadcasts.
+head_dim 64, 128 or 256, any number of q heads per kv head (a block serves
+at most :data:`MAX_GROUP` of them; a larger group takes :func:`chunks`
+blocks per kv head).  ``valid_len`` is one length per slot (int32
+``[B]``); a scalar broadcasts.  A slot with no admitted position
+(``valid_len`` 0) gets the mean of V over all S rows, as the reference's
+finite mask gives.
 
 The kernel cuts each slot's admitted positions into at most
 :func:`num_splits` runs of whole tiles (:func:`split_length`), one block
@@ -32,12 +36,12 @@ from repro_torch.kernels.flash_attention import (
     check_attention_inputs,
 )
 
-__all__ = ["LAUNCHES", "MAX_GROUP", "decode_attention", "num_splits",
-           "split_length", "tile_rows"]
+__all__ = ["LAUNCHES", "MAX_GROUP", "chunks", "decode_attention",
+           "num_splits", "split_length", "tile_rows"]
 
 #: kernel launches (reset with ``ops.reset_launch_counts``)
 LAUNCHES = {"decode_attention": 0}
-#: most q heads one kv head may serve
+#: most q heads one block serves (``kMaxGroup`` in the kernel)
 MAX_GROUP = 8
 #: the kernel's constants (``csrc/decode_attention.cu``): bytes of K (and
 #: of V) in one shared-memory tile, most splits per slot, the fewest tiles
@@ -51,6 +55,12 @@ WAVE_BLOCKS = 8 * 132
 
 #: (device, stream) -> (workspace, counters), grown as shapes need
 _SCRATCH: dict = {}
+
+
+def chunks(hq: int, hkv: int) -> int:
+    """Blocks per kv head and split: its q heads in chunks of at most
+    :data:`MAX_GROUP`."""
+    return -(-(hq // hkv) // MAX_GROUP)
 
 
 def tile_rows(head_dim: int, itemsize: int) -> int:
@@ -97,11 +107,10 @@ def _scratch(dev: int, n_ws: int, n_counters: int):
 def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
                      window: int = 0) -> torch.Tensor:
     """q ``[B, Hq, hd]``; cache ``[B, Hkv, S, hd]``; ``valid_len`` int32
-    ``[B]`` (or a scalar) with every entry >= 1 -> ``[B, Hq, hd]``.
+    ``[B]`` (or a scalar) -> ``[B, Hq, hd]``.
 
-    A row with ``valid_len`` 0 admits no position; the kernel then returns
-    zeros where the plain version averages the masked rows, so callers pass
-    at least 1 (the model passes the cache index plus one)."""
+    A row with no admitted position (``valid_len`` 0) gets the mean of V
+    over all S rows, as the plain version and the reference give."""
     b = q.shape[0]
     if not isinstance(valid_len, torch.Tensor) or valid_len.dim() == 0:
         valid_len = torch.full((b,), int(valid_len), dtype=torch.int32,
@@ -118,22 +127,20 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
     if cache_k.shape[0] != b or hkv == 0 or hq % hkv or s_len == 0:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit "
                          f"the cache {tuple(cache_k.shape)}")
-    if hq // hkv > MAX_GROUP:
-        raise ValueError(f"decode_attention: {hq // hkv} q heads per kv head "
-                         f"exceed {MAX_GROUP}")
     if valid_len.dtype != torch.int32 or valid_len.shape != (b,):
         raise ValueError(f"decode_attention: valid_len must be int32 [{b}], "
                          f"got {valid_len.dtype} {tuple(valid_len.shape)}")
     if window < 0:
         raise ValueError(f"decode_attention: window must be >= 0, got {window}")
-    if b > 65535 or hkv > 65535:
-        raise ValueError("decode_attention: batch and kv heads must be < "
-                         "65536")
+    blocks = hkv * chunks(hq, hkv)   # per slot and split
+    if b > 65535 or blocks > 65535:
+        raise ValueError("decode_attention: batch and kv heads times "
+                         "chunks must be < 65536")
     out = torch.empty_like(q)
     if b == 0:
         return out
-    splits = num_splits(b, hkv, s_len, hd, q.element_size())
-    ws, counters = _scratch(dev, b * hq * splits * (hd + 2), b * hkv)
+    splits = num_splits(b, blocks, s_len, hd, q.element_size())
+    ws, counters = _scratch(dev, b * hq * splits * (hd + 2), b * blocks)
     _build.launch("attn_decode_forward", dev, q.data_ptr(),
                   cache_k.data_ptr(), cache_v.data_ptr(),
                   valid_len.data_ptr(), out.data_ptr(), ws.data_ptr(),

@@ -2,10 +2,11 @@
 
 Port of ``repro/kernels/flash_attention.py``.  The kernels are in
 ``csrc/flash_attention.cu``: causal and sliding-window attention with
-online softmax, softcap and GQA, head_dim 64 or 128.  bfloat16 inputs go to
-``flash_forward_wgmma`` (tensor-core products fed by TMA, float32 scores
-and softmax), float32 inputs to ``flash_forward`` (float32 FMAs); there is
-no other route.  The wrapper takes CUDA tensors only: it checks
+online softmax, softcap and GQA, head_dim 64, 128 or 256.  bfloat16 inputs
+at head_dim 64 and 128 go to ``flash_forward_wgmma`` (tensor-core products
+fed by TMA, float32 scores and softmax); float32 inputs, and head_dim 256
+in either dtype, to ``flash_forward`` (float32 FMAs on the CUDA cores);
+there is no other route.  The wrapper takes CUDA tensors only: it checks
 device, dtype, shape and contiguity, allocates the output, launches on the
 current stream through the shared helpers of
 :mod:`repro_torch.kernels._build`, raises if the launch was refused, and
@@ -27,7 +28,7 @@ __all__ = ["HEAD_DIMS", "LAUNCHES", "check_attention_inputs",
 #: kernel launches (reset with ``ops.reset_launch_counts``)
 LAUNCHES = {"flash_attention": 0}
 #: the head dims the kernels are compiled for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

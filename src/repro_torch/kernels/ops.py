@@ -115,26 +115,32 @@ def scatter_add(table, ids, rows) -> torch.Tensor:
 
 
 def table_lookup(cell_keys, cell_starts, table_keys, table_starts,
-                 table_occ) -> torch.Tensor:
+                 table_occ, max_probes: int) -> torch.Tensor:
     """Row index of each ``(key, start)`` cell, int32, ``capacity`` = miss:
-    the least matching occupied row over the whole table."""
+    the first occupied match in the cell's probe window of ``max_probes``
+    rows (``capacity = len(table_keys)``)."""
     args = (_i64(cell_keys), _i64(cell_starts), _i64(table_keys),
-            _i64(table_starts), table_occ.to(torch.bool).contiguous())
+            _i64(table_starts), table_occ.to(torch.bool).contiguous(),
+            max_probes)
     if kernels_active(cell_keys.device):
         return _ht.table_lookup(*args)
+    _ht.check_lookup(len(table_keys), len(table_keys), max_probes)
     return _ref.table_lookup_ref(*args)
 
 
-def batched_table_lookup(cell_owners, cell_keys, cell_starts, row_owners,
-                         table_keys, table_starts,
-                         table_occ) -> torch.Tensor:
+def batched_table_lookup(cell_owners, cell_keys, cell_starts, table_keys,
+                         table_starts, table_occ, capacity: int,
+                         max_probes: int) -> torch.Tensor:
     """Global row of each ``(owner, key, start)`` cell in the stacked
-    all-shard planes, int32, ``n_w * capacity`` = miss."""
+    all-shard planes of ``capacity`` rows per shard, int32, ``n_w *
+    capacity`` = miss: the first occupied match in the probe window inside
+    the owner's segment."""
     args = (_i32(cell_owners), _i64(cell_keys), _i64(cell_starts),
-            _i32(row_owners), _i64(table_keys), _i64(table_starts),
-            table_occ.to(torch.bool).contiguous())
+            _i64(table_keys), _i64(table_starts),
+            table_occ.to(torch.bool).contiguous(), capacity, max_probes)
     if kernels_active(cell_keys.device):
         return _ht.batched_table_lookup(*args)
+    _ht.check_lookup(len(table_keys), capacity, max_probes)
     return _ref.batched_table_lookup_ref(*args)
 
 
@@ -153,7 +159,8 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap=0.0,
                      window=0):
     """q ``[B, Hq, hd]`` against the cache ``[B, Hkv, S, hd]`` at positions
     ``p < valid_len`` (``> valid_len - window``); ``valid_len`` a scalar or
-    one length per slot ``[B]``, each >= 1."""
+    one length per slot ``[B]``; a slot with no admitted position gets the
+    mean of V over all S rows, as the reference gives."""
     if kernels_active(q.device):
         if isinstance(valid_len, torch.Tensor):
             valid_len = _i32(valid_len.to(q.device))

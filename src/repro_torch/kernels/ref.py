@@ -24,10 +24,6 @@ import torch
 #: masked attention score, as in the reference's kernels
 NEG_INF = -2.0e38
 
-#: cell x row elements per tile of the plain lookup: its boolean
-#: temporaries stay near 1 GB whatever the table size
-LOOKUP_TILE_ELEMS = 1 << 28
-
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 modulo 2^32 (two's complement), explicitly."""
@@ -110,41 +106,55 @@ def scatter_add_ref_(table, ids, rows) -> torch.Tensor:
     return _accumulate(table, ids, rows)
 
 
-def _first_match(m: torch.Tensor, miss: int) -> torch.Tensor:
-    first = m.to(torch.uint8).argmax(dim=1)  # first maximal index
-    return torch.where(m.any(dim=1), first, miss)
-
-
 def table_lookup_ref(cell_keys, cell_starts, table_keys, table_starts,
-                     table_occ) -> torch.Tensor:
-    """Least occupied row whose ``(key, start)`` equals each cell's, over
-    the WHOLE table; int32 ``[n]`` with ``capacity`` = miss.  The cell axis
-    is tiled so the ``[cells, rows]`` temporaries stay bounded."""
+                     table_occ, max_probes: int) -> torch.Tensor:
+    """Row of each ``(key, start)`` cell in one table of ``capacity =
+    len(table_keys)`` rows: the first row of the cell's probe window, in
+    probe order, that is occupied and holds the cell; int32 ``[n]`` with
+    ``capacity`` = miss.  :func:`batched_table_lookup_ref` with one
+    shard."""
     return batched_table_lookup_ref(
-        None, cell_keys, cell_starts, None, table_keys, table_starts,
-        table_occ,
+        None, cell_keys, cell_starts, table_keys, table_starts, table_occ,
+        table_keys.shape[0], max_probes,
     )
 
 
 def batched_table_lookup_ref(cell_owners, cell_keys, cell_starts,
-                             row_owners, table_keys, table_starts,
-                             table_occ) -> torch.Tensor:
-    """:func:`table_lookup_ref` with an owner plane: a cell matches only
-    rows whose owner equals its own; ``n_rows`` = miss."""
+                             table_keys, table_starts, table_occ,
+                             capacity: int, max_probes: int) -> torch.Tensor:
+    """Global row of each ``(owner, key, start)`` cell in ``n_w`` stacked
+    segments of ``capacity`` rows; int32 ``[n]`` with ``n_rows`` = miss.
+
+    The cell's home is ``h = cell_hash(key, start, capacity)``; its
+    candidates are ``owner * capacity + (h + p) % capacity`` for ``p`` in
+    ``0 .. max_probes - 1``; the result is the first candidate in probe
+    order that is occupied and whose key and start equal the cell's (the
+    CUDA kernel's function, ``csrc/hash_table.cu``).  ``cell_owners`` None
+    means owner 0; an owner outside ``[0, n_rows / capacity)`` has no
+    segment and misses, as in the reference.
+    Under the table's invariant this is the least matching row of the whole
+    table, the reference's full-scan result; on a table that breaks it the
+    two differ."""
+    # the keyed package imports this module: take its hash at call time
+    from repro_torch.keyed.table import cell_hash
+
     n, total = cell_keys.shape[0], table_keys.shape[0]
-    out = torch.full((n,), total, dtype=torch.int32, device=cell_keys.device)
-    if not total:
-        return out
-    occ = table_occ.to(torch.bool)
-    tile = max(1, LOOKUP_TILE_ELEMS // max(total, 1))
-    for i in range(0, n, tile):
-        sl = slice(i, i + tile)
-        m = (table_keys[None, :] == cell_keys[sl, None]) \
-            & (table_starts[None, :] == cell_starts[sl, None]) & occ[None, :]
-        if cell_owners is not None:
-            m &= row_owners[None, :] == cell_owners[sl, None]
-        out[sl] = _first_match(m, total).to(torch.int32)
-    return out
+    dev = cell_keys.device
+    if not n or not total:
+        return torch.full((n,), total, dtype=torch.int32, device=dev)
+    p = torch.arange(max_probes, dtype=torch.int64, device=dev)
+    cand = torch.remainder(
+        cell_hash(cell_keys, cell_starts, capacity)[:, None] + p, capacity)
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    if cell_owners is not None:
+        owners = cell_owners.to(torch.int64)
+        live = (owners >= 0) & (owners < total // capacity)
+        cand = cand + torch.where(live, owners, 0)[:, None] * capacity
+    m = table_occ[cand].to(torch.bool) & live[:, None] \
+        & (table_keys[cand] == cell_keys[:, None]) \
+        & (table_starts[cand] == cell_starts[:, None])
+    rows = cand.gather(1, m.to(torch.uint8).argmax(dim=1)[:, None])[:, 0]
+    return torch.where(m.any(dim=1), rows, total).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ Layout and addressing
     ``home .. home + max_probes`` (mod capacity) for a match or an empty
     row.  **Lookup scans the whole probe window** (it does not stop at the
     first empty row), so freeing rows needs no tombstones and a live cell
-    always has exactly one row — the invariant under which the CUDA
-    full-scan lookup kernel and the probe-window realization agree.
+    always has exactly one row, inside its window — the invariant under
+    which the probe-window lookup returns the row the reference's
+    full-scan kernel returns.
 
 Planes
     ``key``, ``start``, ``end``, ``touch`` are int64 ``[capacity]``; the
@@ -31,14 +32,16 @@ Tiering (spill + TTL eviction)
     placement is never semantic.
 
 Realizations
-    When the kernels are active (CUDA tensors, ops mode ``auto`` or
-    ``kernel``) lookup is the CUDA full-scan match kernel and the
-    accumulate is the CUDA ``scatter_add`` kernel, in int64.  Otherwise
-    lookup is the probe-window gather-and-compare and the accumulate is the
-    plain ``scatter_add``.  All paths produce bit-identical tables.  The
-    reference's accumulate is int64 ``np.add.at`` (its docstrings name the
-    i32 ``scatter_add`` kernel, which its code does not call); the port
-    runs the kernel in int64, which equals ``np.add.at``.
+    Lookup is one algorithm, the probe window: the first occupied row of
+    the cell's window that holds it (``ops.table_lookup`` /
+    ``ops.batched_table_lookup``).  When the kernels are active (CUDA
+    tensors, ops mode ``auto`` or ``kernel``) it is the CUDA probe-window
+    kernel, which hashes the cell itself, and the accumulate is the CUDA
+    ``scatter_add`` kernel, in int64; otherwise both are their plain
+    versions in ``kernels/ref.py``.  All paths produce bit-identical
+    tables.  The reference's accumulate is int64 ``np.add.at`` (its
+    docstrings name the i32 ``scatter_add`` kernel, which its code does not
+    call); the port runs the kernel in int64, which equals ``np.add.at``.
 """
 
 from __future__ import annotations
@@ -242,27 +245,15 @@ class DeviceWindowTable:
         return torch.remainder(h[:, None] + p, self.capacity)
 
     def lookup(self, cell_keys, cell_starts) -> torch.Tensor:
-        """Row of each cell, or ``-1`` for absent cells.
-
-        The CUDA full-scan match kernel when the kernels are active, the
-        probe-window gather-and-compare otherwise; both return the identical
-        (unique) row."""
+        """Row of each cell, or ``-1`` for absent cells: the first occupied
+        row of its probe window that holds it."""
         ck = _i64(cell_keys, self.device)
         cs = _i64(cell_starts, self.device)
         if not len(ck):
             return torch.zeros(0, dtype=I64, device=self.device)
-        if ops.kernels_active(self.device):
-            rows = ops.table_lookup(ck, cs, self.key, self.start,
-                                    self.occ).to(I64)
-            return torch.where(rows >= self.capacity, -1, rows)
-        cand = self._probe_window(cell_hash(ck, cs, self.capacity))
-        m = (
-            self.occ[cand]
-            & (self.key[cand] == ck[:, None])
-            & (self.start[cand] == cs[:, None])
-        )
-        rows = cand.gather(1, _first_true(m)[:, None])[:, 0]
-        return torch.where(m.any(dim=1), rows, -1)
+        rows = ops.table_lookup(ck, cs, self.key, self.start, self.occ,
+                                self.max_probes).to(I64)
+        return torch.where(rows >= self.capacity, -1, rows)
 
     # -- open-addressing claim -------------------------------------------------
     def _claim(self, ck, cs, ce) -> torch.Tensor:
@@ -435,7 +426,6 @@ class BatchedWindowTable:
             setattr(self, f"_a{name}", torch.zeros(
                 (self._alloc, *src.shape), dtype=src.dtype, device=self.device
             ))
-        self._arow_owner = self._owner_plane(self._alloc)
         for w, t in enumerate(tables):
             for name in self._PLANES:
                 getattr(self, f"_a{name}")[w] = getattr(t, name)
@@ -443,15 +433,10 @@ class BatchedWindowTable:
         self._activate()
         self._adopt(tables)
 
-    def _owner_plane(self, alloc: int) -> torch.Tensor:
-        return torch.arange(alloc, dtype=torch.int32, device=self.device) \
-            .repeat_interleave(self.capacity)
-
     def _activate(self) -> None:
         """Re-derive the active-prefix views from the backing planes:
-        ``(n_shards, capacity)`` per column, their flat aliases (global row
-        = ``w*cap + row``), and the row-owner column — views, never
-        copies."""
+        ``(n_shards, capacity)`` per column and their flat aliases (global
+        row = ``w*cap + row``) — views, never copies."""
         n = self.n_shards
         for name in self._PLANES:
             plane = getattr(self, f"_a{name}")[:n]
@@ -460,8 +445,6 @@ class BatchedWindowTable:
             setattr(self, f"_f{name}", flat)
         self.value, self.count = self.vc[..., 0], self.vc[..., 1]
         self._fvalue, self._fcount = self._fvc[:, 0], self._fvc[:, 1]
-        #: shard id of every global row — the kernel's owner plane
-        self.row_owner = self._arow_owner[: n * self.capacity]
 
     def _adopt(self, tables: List[DeviceWindowTable]) -> None:
         """Re-point every shard table at its segment of the planes (the
@@ -490,7 +473,6 @@ class BatchedWindowTable:
             new[:n] = old[:n]
             self.copied_bytes += self._nbytes(old[:n])
             setattr(self, f"_a{name}", new)
-        self._arow_owner = self._owner_plane(alloc2)
         self._alloc = alloc2
 
     def restack(self, tables: List[DeviceWindowTable]) -> None:
@@ -525,11 +507,19 @@ class BatchedWindowTable:
     def total_rows(self) -> int:
         return self.n_shards * self.capacity
 
+    @property
+    def row_owner(self) -> torch.Tensor:
+        """Shard id of every global row (``row // capacity``), int32: the
+        reference's owner plane, made on demand; the probe-window lookup
+        needs none."""
+        return torch.arange(self.n_shards, dtype=torch.int32,
+                            device=self.device) \
+            .repeat_interleave(self.capacity)
+
     def plane_bytes(self) -> Tuple[int, int]:
-        """``(active, allocated)`` bytes of the device planes, row-owner
-        plane included."""
+        """``(active, allocated)`` bytes of the device planes."""
         per_seg = sum(self._nbytes(getattr(self, f"_a{n}")[0])
-                      for n in self._PLANES) + 4 * self.capacity
+                      for n in self._PLANES)
         return self.n_shards * per_seg, self._alloc * per_seg
 
     def _probe_window(self, owners: torch.Tensor,
@@ -543,26 +533,17 @@ class BatchedWindowTable:
     # -- batched lookup --------------------------------------------------------
     def lookup(self, owners, cell_keys, cell_starts) -> torch.Tensor:
         """Global row of each ``(owner, key, start)`` cell, ``-1`` = absent:
-        one CUDA batched-lookup launch for ALL shards when the kernels are
-        active, the probe-window realization otherwise."""
+        one lookup for ALL shards, each cell's probe window inside its
+        owner's segment."""
         d = self.device
         ck, cs, ow = _i64(cell_keys, d), _i64(cell_starts, d), _i64(owners, d)
         if not len(ck):
             return torch.zeros(0, dtype=I64, device=d)
-        if ops.kernels_active(d):
-            rows = ops.batched_table_lookup(
-                ow, ck, cs, self.row_owner, self._fkey, self._fstart,
-                self._focc,
-            ).to(I64)
-            return torch.where(rows >= self.total_rows, -1, rows)
-        cand = self._probe_window(ow, cell_hash(ck, cs, self.capacity))
-        m = (
-            self._focc[cand]
-            & (self._fkey[cand] == ck[:, None])
-            & (self._fstart[cand] == cs[:, None])
-        )
-        rows = cand.gather(1, _first_true(m)[:, None])[:, 0]
-        return torch.where(m.any(dim=1), rows, -1)
+        rows = ops.batched_table_lookup(
+            ow, ck, cs, self._fkey, self._fstart, self._focc, self.capacity,
+            self.max_probes,
+        ).to(I64)
+        return torch.where(rows >= self.total_rows, -1, rows)
 
     # -- batched open-addressing claim -----------------------------------------
     def _claim(self, owners, ck, cs, ce) -> torch.Tensor:
@@ -611,7 +592,7 @@ class BatchedWindowTable:
         count, touch)`` in global (shard-major) row order."""
         idx = torch.nonzero(mask).flatten()
         out = (
-            self.row_owner[idx].to(I64),
+            idx // self.capacity,
             self._fkey[idx], self._fstart[idx], self._fend[idx],
             self._fvalue[idx], self._fcount[idx], self._ftouch[idx],
         )

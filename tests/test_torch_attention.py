@@ -63,7 +63,8 @@ class TestFlashAttention:
     @pytest.mark.parametrize(
         "B,Hq,Hkv,Sq,Skv,hd",
         [(1, 4, 4, 256, 256, 64), (2, 4, 2, 256, 512, 64),
-         (1, 4, 1, 128, 384, 128), (1, 8, 8, 512, 512, 64)],
+         (1, 4, 1, 128, 384, 128), (1, 8, 8, 512, 512, 64),
+         (1, 8, 1, 128, 256, 256)],   # PaliGemma's head_dim and 8:1 group
     )
     def test_causal_vs_interpret_kernel(self, B, Hq, Hkv, Sq, Skv, hd):
         q, k, v = _qkv(0, B, Hq, Hkv, Sq, Skv, hd)
@@ -80,6 +81,18 @@ class TestFlashAttention:
     def test_window_softcap_gqa_vs_interpret_kernel(self, window, softcap,
                                                     hkv):
         q, k, v = _qkv(1, 1, 2, hkv, 256, 256, 64)
+        kw = dict(causal=True, window=window, softcap=softcap)
+        got = tops.flash_attention(t(q), t(k), t(v), **kw).numpy()
+        np.testing.assert_allclose(got, np.asarray(jflash(q, k, v, **kw)),
+                                   **F32)
+        np.testing.assert_allclose(
+            got, np.asarray(jref.flash_attention_ref(q, k, v, **kw)), **F32)
+
+    @pytest.mark.parametrize("window,softcap", [(64, 0.0), (0, 30.0)])
+    def test_head_dim_256_vs_interpret_kernel(self, window, softcap):
+        """head_dim 256 (PaliGemma's) with a window or a softcap, 8 q heads
+        over one kv head."""
+        q, k, v = _qkv(5, 1, 8, 1, 128, 128, 256)
         kw = dict(causal=True, window=window, softcap=softcap)
         got = tops.flash_attention(t(q), t(k), t(v), **kw).numpy()
         np.testing.assert_allclose(got, np.asarray(jflash(q, k, v, **kw)),
@@ -192,6 +205,9 @@ class TestDecodeAttention:
     @pytest.mark.parametrize("B,Hq,Hkv,S,hd,valid", [
         (2, 4, 4, 512, 64, 300), (1, 8, 2, 1024, 128, 1024),
         (2, 4, 1, 512, 64, 17),
+        (1, 8, 1, 256, 256, 40),      # PaliGemma's head_dim and group
+        (1, 16, 1, 256, 64, 100),     # 16 q heads per kv head
+        (2, 4, 2, 128, 64, 0),        # no admitted row: the mean of V
     ])
     @pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 50.0)])
     def test_scalar_valid_len_vs_interpret_kernel(self, B, Hq, Hkv, S, hd,
@@ -227,7 +243,8 @@ def _split_kv_emulation(q, ck, cv, valid, *, window, softcap, splits, tile):
     tiles of ``tile`` rows by ``tile / 4`` lane groups that take 4 rows a
     step and keep their own online softmax (m, l, acc) per q head; the
     groups merged per run, then the runs merged in run order; a lone run
-    written directly, and no admitted row giving zeros."""
+    written directly; a slot with no admitted row reads all S rows with
+    every score 0 (the mean of V, as under the reference's finite mask)."""
     from repro_torch.kernels.decode_attention import split_length
 
     b, hq, hd = q.shape
@@ -238,8 +255,9 @@ def _split_kv_emulation(q, ck, cv, valid, *, window, softcap, splits, tile):
     for row in range(b):
         hi = min(int(valid[row]), s_len)
         first = max(0, int(valid[row]) - window + 1) if window else 0
-        if hi <= first:
-            continue
+        uniform = hi <= first
+        if uniform:
+            first, hi = 0, s_len
         run = split_length(hi - first, splits, tile)
         for hk in range(hkv):
             qs = q[row, hk * g:(hk + 1) * g] * torch.tensor(1 / math.sqrt(hd))
@@ -255,7 +273,9 @@ def _split_kv_emulation(q, ck, cv, valid, *, window, softcap, splits, tile):
                     kk = ck[row, hk][pos] * ok[..., None]       # [4, grp, hd]
                     vv = cv[row, hk][pos] * ok[..., None]
                     sc = torch.einsum("ugd,hd->ghu", kk, qs)
-                    if softcap:
+                    if uniform:
+                        sc = torch.zeros_like(sc)
+                    elif softcap:
                         sc = softcap * torch.tanh(sc / softcap)
                     sc = torch.where(ok.T[:, None, :], sc, neg)
                     mx = torch.maximum(m, sc.amax(-1))
@@ -324,6 +344,30 @@ class TestSplitKvDecode:
             np.testing.assert_allclose(
                 got[row].numpy(),
                 self._reference(q, ck, cv, row, v, window, softcap), **F32)
+
+    def test_no_admitted_row_is_the_mean_of_v(self):
+        """valid_len 0, and a window that ends past the cache (nothing
+        admitted in [0, S)): every row weighs alike, as the reference's
+        kernel weighs them under its finite mask; beside a normal slot."""
+        from repro_torch.kernels import decode_attention as tda
+
+        tile = tda.tile_rows(self.HD, 4)
+        splits = tda.num_splits(3, self.HKV, self.S, self.HD, 4)
+        q, ck, cv = _decode_case(16, 3, self.HQ, self.HKV, self.S, self.HD)
+        window = 50
+        valid = [0, 300, self.S + window]
+        got = _split_kv_emulation(t(q), t(ck), t(cv), valid, window=window,
+                                  softcap=30.0, splits=splits, tile=tile)
+        for row, v in enumerate(valid):
+            np.testing.assert_allclose(
+                got[row].numpy(),
+                self._reference(q, ck, cv, row, v, window, 30.0), **F32)
+        np.testing.assert_allclose(
+            got[0].numpy(), np.repeat(cv[0].mean(axis=1), 2, axis=0), **F32)
+        np.testing.assert_allclose(
+            tops.decode_attention(t(q), t(ck), t(cv), t(np.int32(valid)),
+                                  window=window, softcap=30.0).numpy(),
+            got.numpy(), **F32)
 
     @pytest.mark.parametrize("b,hkv,s_len,hd,itemsize", [
         (8, 16, 8192, 128, 2), (8, 16, 8192, 128, 4), (1, 1, 100000, 64, 2),

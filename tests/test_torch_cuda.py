@@ -50,12 +50,32 @@ def _on(dev, a):
     return torch.as_tensor(np.asarray(a), device=dev)
 
 
-def _lookup_case(rng, n, capacity):
+def _lookup_case(dev, rng, n, capacity, n_w, max_probes):
+    """Cells and stacked planes of ``n_w`` segments that break the
+    invariant (keys from a small pool of extreme and negative values, so a
+    cell has copies anywhere, live and stale), with about half the cells
+    also written into a random probe of their own window, live or stale;
+    the first two cells' owners lie outside the segments (-1 and n_w),
+    which the function answers with misses."""
+    from repro_torch.keyed import cell_hash
+
     pool = np.array([I64.min, I64.max, -1, 0, 1, -(2 ** 40), 2 ** 33 + 5],
                     np.int64)
-    return (rng.choice(np.append(pool, 12345), n), rng.integers(-2, 3, n) * 7,
-            rng.choice(pool, capacity), rng.integers(-2, 2, capacity) * 7,
-            rng.random(capacity) < 0.6)
+    total = n_w * capacity
+    ck = _on(dev, rng.choice(np.append(pool, 12345), n))
+    cs = _on(dev, rng.integers(-2, 3, n) * 7)
+    own = _on(dev, rng.integers(0, n_w, n).astype(np.int32))
+    tk = _on(dev, rng.choice(pool, total))
+    ts = _on(dev, rng.integers(-2, 2, total) * 7)
+    occ = _on(dev, rng.random(total) < 0.6)
+    put = torch.nonzero(_on(dev, rng.random(n) < 0.5)).flatten()
+    probe = _on(dev, rng.integers(0, max_probes, len(put)))
+    rows = own[put].long() * capacity + torch.remainder(
+        cell_hash(ck[put], cs[put], capacity) + probe, capacity)
+    tk[rows], ts[rows] = ck[put], cs[put]
+    occ[rows] = _on(dev, rng.random(len(put)) < 0.8)
+    own[:2] = _on(dev, np.array([-1, n_w], np.int32))
+    return own, ck, cs, tk, ts, occ
 
 
 def test_segment_sum(dev):
@@ -83,18 +103,60 @@ def test_scatter_add(dev):
                        tref.scatter_add_ref(small, ids, rows32))
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_lookups(dev, seed):
-    rng = np.random.default_rng(seed)
-    ck, cs, tk, ts, occ = (_on(dev, a) for a in _lookup_case(rng, 3000, 5000))
-    got = tht.table_lookup(ck, cs, tk, ts, occ)
-    assert torch.equal(got, tref.table_lookup_ref(ck, cs, tk, ts, occ))
-    assert bool((got == 5000).any()) and bool((got < 5000).any())
-    row_own = (torch.arange(5000, device=dev) // 1250).to(torch.int32)
-    c_own = _on(dev, rng.integers(0, 5, 3000).astype(np.int32))
-    assert torch.equal(
-        tht.batched_table_lookup(c_own, ck, cs, row_own, tk, ts, occ),
-        tref.batched_table_lookup_ref(c_own, ck, cs, row_own, tk, ts, occ))
+@pytest.mark.parametrize("max_probes,capacity", [
+    (1, 40), (16, 40), (33, 40), (16, 4096)])
+def test_lookups(dev, max_probes, capacity):
+    """The probe-window kernel against its plain version, bit-exact, on
+    tables that break the invariant (both compute the same probe-window
+    function there); at capacity 40 most windows wrap the segment's end,
+    and 33 probes take the kernel's 16-lane loop three passes."""
+    rng = np.random.default_rng(max_probes + capacity)
+    own, ck, cs, tk, ts, occ = _lookup_case(dev, rng, 3000, capacity, 5,
+                                            max_probes)
+    total = 5 * capacity
+    before = ops.launch_counts()
+    got = tht.batched_table_lookup(own, ck, cs, tk, ts, occ, capacity,
+                                   max_probes)
+    assert torch.equal(got, tref.batched_table_lookup_ref(
+        own, ck, cs, tk, ts, occ, capacity, max_probes))
+    assert bool((got == total).any()) and bool((got < total).any())
+    assert bool((got[:2] == total).all())
+    seg = slice(0, capacity)
+    got = tht.table_lookup(ck, cs, tk[seg], ts[seg], occ[seg], max_probes)
+    assert torch.equal(got, tref.table_lookup_ref(
+        ck, cs, tk[seg], ts[seg], occ[seg], max_probes))
+    assert bool((got < capacity).any())
+    after = ops.launch_counts()
+    assert after["batched_table_lookup"] == before["batched_table_lookup"] + 1
+    assert after["table_lookup"] == before["table_lookup"] + 1
+
+
+@pytest.mark.parametrize("capacity", [1, 37, 262144, 10_000_019])
+def test_lookup_home_equals_cell_hash(dev, capacity):
+    """The kernel's own home is ``cell_hash``: the last cell of each home
+    is written at row ``cell_hash(key, start)``, and a one-probe lookup
+    finds exactly the cells that hold their row; extreme and negative keys
+    and starts included."""
+    from repro_torch.keyed import cell_hash
+
+    rng = np.random.default_rng(capacity)
+    ck = _on(dev, np.append(rng.integers(I64.min, I64.max, 20000,
+                                         dtype=np.int64),
+                            [I64.min, I64.max, -1, 0, -5]))
+    cs = _on(dev, np.append(rng.integers(-(2 ** 40), 2 ** 40, 20000),
+                            [I64.max, I64.min, -1, 0, 7]))
+    home = cell_hash(ck, cs, capacity)
+    tk = torch.zeros(capacity, dtype=torch.int64, device=dev)
+    ts = torch.zeros(capacity, dtype=torch.int64, device=dev)
+    last = torch.full((capacity,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, home, torch.arange(len(ck), device=dev), "amax")
+    rows = torch.nonzero(last >= 0).flatten()
+    tk[rows], ts[rows] = ck[last[rows]], cs[last[rows]]
+    occ = torch.ones(capacity, dtype=torch.bool, device=dev)
+    kept = (tk[home] == ck) & (ts[home] == cs)
+    got = tht.table_lookup(ck, cs, tk, ts, occ, 1).long()
+    assert torch.equal(got, torch.where(kept, home, capacity))
+    assert int(kept.sum()) >= min(capacity, 1000)
 
 
 def test_hashes_on_the_card_equal_numpy(dev):
@@ -201,6 +263,11 @@ def _flash_inputs(dev, dtype, B, Hq, Hkv, Sq, Skv, hd, seed):
     # B = 2, tiles that cross the end of one (b, h)'s rows
     (2, 4, 2, 200, 200, 128, 0, 30.0, True),
     (1, 32, 16, 1000, 1000, 128, 300, 50.0, True),  # Gemma2, 1,000 tokens
+    # head_dim 256 (the CUDA-core kernel in both dtypes): PaliGemma's 8 q
+    # heads over 1, a ragged tile with a window and a softcap
+    (1, 8, 1, 300, 300, 256, 0, 0.0, True),
+    (2, 4, 2, 129, 129, 256, 64, 50.0, True),
+    (1, 2, 1, 5, 70, 256, 0, 30.0, False),
 ])
 def test_flash_attention_vs_plain(dev, dtype, B, Hq, Hkv, Sq, Skv, hd,
                                   window, softcap, causal):
@@ -217,15 +284,18 @@ def test_flash_attention_vs_plain(dev, dtype, B, Hq, Hkv, Sq, Skv, hd,
         assert _bf16_steps(got, want) <= 1.0
 
 
-@pytest.mark.parametrize("dtype,kernel", [
-    (torch.bfloat16, "flash_forward_wgmma"), (torch.float32, "flash_forward"),
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 128, "flash_forward_wgmma"),
+    (torch.float32, 128, "flash_forward"),
+    (torch.bfloat16, 256, "flash_forward"),
 ])
-def test_flash_attention_routes_by_dtype(dev, dtype, kernel):
+def test_flash_attention_routes_by_dtype(dev, dtype, hd, kernel):
     """bfloat16 runs the tensor-core kernel; float32 keeps the float32-FMA
-    kernel, one launch, within 3e-5 (TF32 could not hold that)."""
+    kernel, one launch, within 3e-5 (TF32 could not hold that); head_dim
+    256 runs the float32-FMA kernel in bfloat16 too."""
     from torch.profiler import ProfilerActivity, profile
 
-    q, k, v = _flash_inputs(dev, dtype, 1, 8, 4, 300, 300, 128, 7)
+    q, k, v = _flash_inputs(dev, dtype, 1, 8, 4, 300, 300, hd, 7)
     kw = dict(causal=True, window=100, softcap=50.0)
     before = ops.launch_counts()["flash_attention"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -244,6 +314,7 @@ def test_flash_attention_routes_by_dtype(dev, dtype, kernel):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,hd,window,softcap", [
     (32, 16, 128, 4097, 50.0), (8, 2, 64, 0, 0.0), (4, 4, 128, 9, 30.0),
+    (8, 1, 256, 0, 0.0), (16, 1, 64, 300, 30.0),
 ])
 def test_decode_attention_per_slot_lengths_vs_plain(dev, dtype, Hq, Hkv, hd,
                                                     window, softcap):
@@ -290,19 +361,21 @@ def _split_decode_holds(dev, q, ck, cv, valid, **kw):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16])
 def test_split_decode_groups_vs_plain(dev, dtype, hd, group):
-    """Every register instance (q heads per kv head 1, 2, 4, 8) at both head
-    dims: a slot at 1, at the edges of the whole cache's run length, past
-    two runs and at the whole cache; with no window, and with a window whose
-    first admitted row (where the runs start) is off a tile boundary."""
+    """Every register instance (q heads per kv head 1, 2, 4, 8) at every
+    head dim, and a group of 16 (two blocks of 8 per kv head): a slot at
+    1, at the edges of the whole cache's run length, past two runs and at
+    the whole cache; with no window, and with a window whose first admitted
+    row (where the runs start) is off a tile boundary."""
     B, Hkv, S = 6, 4, 3000
     q, ck, cv = _decode_inputs(dev, dtype, B, group * Hkv, Hkv, S, hd,
                                group + hd)
     size = q.element_size()
-    run = tda.split_length(S, tda.num_splits(B, Hkv, S, hd, size),
-                           tda.tile_rows(hd, size))
+    run = tda.split_length(
+        S, tda.num_splits(B, Hkv * tda.chunks(group * Hkv, Hkv), S, hd,
+                          size), tda.tile_rows(hd, size))
     valid = [1, run - 1, run, run + 1, 2 * run + 3, S]
     _split_decode_holds(dev, q, ck, cv, valid, softcap=30.0, window=0)
     _split_decode_holds(dev, q, ck, cv, valid, softcap=0.0, window=run + 5)
@@ -325,18 +398,20 @@ def test_split_decode_at_the_serving_split(dev, dtype, window):
                         softcap=50.0, window=window)
 
 
-def test_decode_valid_len_zero_gives_zeros(dev):
-    """A slot with no admitted row gets zeros (the plain version averages
-    the masked rows instead; the model never passes 0); its neighbour is
-    unaffected."""
-    q, ck, cv = _decode_inputs(dev, torch.float32, 2, 4, 2, 600, 64, 0)
-    valid = torch.tensor([0, 300], dtype=torch.int32, device=dev)
-    got = tda.decode_attention(q, ck, cv, valid)
-    torch.cuda.synchronize()
-    assert not got[0].any()
-    torch.testing.assert_close(
-        got[1:], tref.decode_attention_ref(q[1:], ck[1:], cv[1:], valid[1:]),
-        **F32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,window", [(64, 0), (128, 0), (256, 40)])
+def test_decode_valid_len_zero_is_the_mean_of_v(dev, dtype, hd, window):
+    """A slot with no admitted row (valid_len 0, or with a window one whose
+    window ends past the cache) gets what the plain version and the
+    reference give, the mean of V over all S rows, beside a normal slot;
+    a second call is bit-identical."""
+    q, ck, cv = _decode_inputs(dev, dtype, 3, 4, 2, 600, hd, hd)
+    valid = [0, 300, 600 + window] if window else [0, 300, 0]
+    _split_decode_holds(dev, q, ck, cv, valid, softcap=30.0, window=window)
+    got = tda.decode_attention(q, ck, cv, torch.tensor(
+        valid, dtype=torch.int32, device=dev), softcap=30.0, window=window)
+    mean = cv[0].float().mean(dim=1).repeat_interleave(2, dim=0)
+    torch.testing.assert_close(got[0].float(), mean, **_tol(dtype))
 
 
 def test_launch_helper_raises_on_a_refused_launch(dev):
@@ -356,18 +431,19 @@ def test_launch_helper_raises_on_a_refused_launch(dev):
 
 
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    """An unsupported head_dim, a group above 8, mixed dtypes, float16 and
-    a strided tensor raise before anything launches."""
+    """An unsupported head_dim, q heads that are no multiple of the kv
+    heads, mixed dtypes, float16 and a strided tensor raise before anything
+    launches."""
     counts = ops.launch_counts()
     q = torch.zeros((1, 2, 8, 32), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="head_dim"):
         tda.decode_attention(q[:, :, 0].contiguous(), q, q, 3)
-    big = torch.zeros((1, 16, 64), device=dev)
-    cache = torch.zeros((1, 1, 8, 64), device=dev)
-    with pytest.raises(ValueError, match="exceed"):
-        tda.decode_attention(big, cache, cache, 3)
+    odd = torch.zeros((1, 6, 64), device=dev)
+    cache = torch.zeros((1, 4, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="does not fit"):
+        tda.decode_attention(odd, cache, cache, 3)
     x = torch.zeros((1, 2, 8, 64), device=dev)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa.flash_attention(x, x.bfloat16(), x)
@@ -542,7 +618,7 @@ def test_mamba_and_moe_engines_on_the_card_equal_ref_mode_and_cpu(dev):
 
     rng = np.random.default_rng(1)
     for name in ("mamba2-780m", "deepseek-moe-16b"):
-        # head_dim 64: the attention kernels take 64 and 128
+        # head_dim 64 keeps the reduced models small
         cfg = dataclasses.replace(configs.get(name).reduced(), head_dim=64,
                                   d_model=128)
         cpu = TT.init_params(cfg, device="cpu",

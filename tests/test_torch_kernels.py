@@ -18,6 +18,7 @@ from repro.kernels import hash_table as jht
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import segment_reduce as jsr
+from repro.keyed import table as jtable
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import hash_table as tht
@@ -161,82 +162,182 @@ class TestScatterAdd:
 # table lookups
 # ---------------------------------------------------------------------------
 
-def _lookup_case(seed, n=60, capacity=45):
-    """Keys from a small pool of extreme / negative int64 values so cells
-    hit, miss and match duplicate rows (a table that breaks the
-    probe-window invariant: the least occupied match must win)."""
+#: extreme and negative int64 keys, the cells' key pool
+POOL = np.array([I64.min, I64.max, -1, 0, 1, -(2 ** 40), 2 ** 33 + 5, 12345],
+                np.int64)
+MAX_PROBES = 16
+
+
+def _window_tables(seed, capacity, n_w):
+    """Window tables built by the JAX package's own mutators, so they hold
+    the invariant (a live cell has one row, inside its probe window).
+
+    Cells are the pool's keys at 7 window starts; about 70% are placed,
+    each in one of the first ``n_w - 1`` shards (the last has no rows), by
+    ``BatchedWindowTable.update`` over a canonically sorted batch; a
+    watermark then closes some of them, which leaves stale unoccupied
+    copies behind, and stale copies of further cells are written into
+    unoccupied rows of their own windows.  At this capacity many windows
+    wrap the segment's end.  Returns the table and the looked-up cells
+    ``(owner, key, start)``: every cell, each with the owner it was placed
+    under (a random one for the others, the empty shard included)."""
     rng = np.random.default_rng(seed)
-    pool = np.array([I64.min, I64.max, -1, 0, 1, -(2 ** 40), 2 ** 33 + 5],
-                    np.int64)
-    tk = rng.choice(pool, capacity)
-    ts = rng.integers(-2, 2, capacity) * 7
-    occ = rng.random(capacity) < 0.6
-    ck = rng.choice(np.append(pool, 12345), n)
-    cs = rng.integers(-2, 3, n) * 7
-    return ck, cs, tk, ts, occ
+    tables = [jtable.DeviceWindowTable(capacity, max_probes=MAX_PROBES)
+              for _ in range(n_w)]
+    bt = jtable.BatchedWindowTable(tables)
+    ck = np.repeat(POOL, 7)
+    cs = np.tile(np.arange(-3, 4, dtype=np.int64) * 7, len(POOL))
+    own = rng.integers(0, n_w - 1, len(ck))
+    put = rng.random(len(ck)) < 0.7
+    ends = cs + rng.integers(1, 30, len(ck))
+    order = np.lexsort((cs[put], ck[put]))
+    bt.update(own[put][order], ck[put][order], cs[put][order],
+              ends[put][order], np.ones(put.sum(), np.int64),
+              np.ones(put.sum(), np.int64), 0)
+    bt.take_due(10)
+    home = jtable.cell_hash(ck, cs, capacity)
+    for i in rng.choice(len(ck), 12, replace=False):
+        window = own[i] * capacity + (home[i] + np.arange(MAX_PROBES)) \
+            % capacity
+        free = window[~bt._focc[window]]
+        if len(free):
+            row = rng.choice(free)
+            bt._fkey[row], bt._fstart[row] = ck[i], cs[i]
+    own = np.where(put, own, rng.integers(0, n_w, len(ck)))
+    return bt, own.astype(np.int32), ck, cs
+
+
+def _jax_lookup(fn, *args, mode):
+    jops.use_kernels(mode)
+    try:
+        return np.asarray(fn(*args))
+    finally:
+        jops.use_kernels("auto")
 
 
 class TestTableLookup:
-    @pytest.mark.parametrize("seed", [0, 1, 2])
-    def test_matches_reference_and_interpret_kernel(self, seed):
-        ck, cs, tk, ts, occ = _lookup_case(seed)
-        got = tops.table_lookup(t(ck), t(cs), t(tk), t(ts), t(occ)).numpy()
-        assert got.dtype == np.int32
-        assert (got == len(tk)).any() and (got < len(tk)).any()
-        jops.use_kernels("ref")
-        try:
-            want = np.asarray(jops.table_lookup(ck, cs, tk, ts, occ))
-        finally:
-            jops.use_kernels("auto")
-        np.testing.assert_array_equal(got, want)
-        np.testing.assert_array_equal(
-            got, _interpret(jops.table_lookup, ck, cs, tk, ts, occ))
+    """The port's probe-window lookups on tables that hold the invariant,
+    bit-exact against the JAX package's full-scan Pallas kernel in
+    interpret mode, its jnp oracle (ops mode ``ref``) and its own tables'
+    probe-window lookup."""
+
+    @pytest.mark.parametrize("seed,capacity", [(0, 37), (1, 45), (2, 37)])
+    def test_matches_reference_and_interpret_kernel(self, seed, capacity):
+        bt, _, ck, cs = _window_tables(seed, capacity, 3)
+        hits = 0
+        for w, tab in enumerate(bt._adopted[:2]):
+            got = tops.table_lookup(t(ck), t(cs), t(tab.key), t(tab.start),
+                                    t(tab.occ), MAX_PROBES).numpy()
+            assert got.dtype == np.int32
+            args = (ck, cs, tab.key, tab.start, tab.occ)
+            np.testing.assert_array_equal(
+                got, _jax_lookup(jops.table_lookup, *args, mode="ref"))
+            np.testing.assert_array_equal(
+                got, _jax_lookup(jops.table_lookup, *args,
+                                 mode="interpret"))
+            np.testing.assert_array_equal(
+                np.where(got == capacity, -1, got), tab.lookup(ck, cs))
+            hits += int((got < capacity).sum())
+        assert 0 < hits < 2 * len(ck)
 
     def test_blocked_interpret_kernel_with_padding(self):
-        ck, cs, tk, ts, occ = _lookup_case(7, n=23, capacity=37)
-        cells = jops._split_i64(ck) + jops._split_i64(cs)
-        table = jops._split_i64(tk) + jops._split_i64(ts)
+        """Cell and row counts that no block size divides."""
+        bt, _, ck, cs = _window_tables(7, 37, 2)
+        tab = bt._adopted[0]
+        cells = jops._split_i64(ck[:23]) + jops._split_i64(cs[:23])
+        table = jops._split_i64(tab.key) + jops._split_i64(tab.start)
         want = np.asarray(jht.table_lookup(
-            cells, table, occ.astype(np.int32), block_cells=8,
+            cells, table, tab.occ.astype(np.int32), block_cells=8,
             block_table=16, interpret=True))
-        got = tops.table_lookup(t(ck), t(cs), t(tk), t(ts), t(occ)).numpy()
-        np.testing.assert_array_equal(got, want)
+        got = tops.table_lookup(t(ck[:23]), t(cs[:23]), t(tab.key),
+                                t(tab.start), t(tab.occ), MAX_PROBES)
+        np.testing.assert_array_equal(got.numpy(), want)
 
-    @pytest.mark.parametrize("seed", [3, 4])
-    def test_batched_matches_reference_and_interpret_kernel(self, seed):
-        """The owner plane keeps matches inside the cell's own shard: the
-        same (key, start) in another shard's rows is not a match."""
-        ck, cs, tk, ts, occ = _lookup_case(seed, capacity=48)
-        rng = np.random.default_rng(seed)
-        row_own = np.arange(48) // 12
-        c_own = rng.integers(0, 5, len(ck))  # owner 4 has no rows
-        got = tops.batched_table_lookup(t(c_own), t(ck), t(cs), t(row_own),
-                                        t(tk), t(ts), t(occ)).numpy()
-        jops.use_kernels("ref")
-        try:
-            want = np.asarray(jops.batched_table_lookup(
-                c_own, ck, cs, row_own, tk, ts, occ))
-        finally:
-            jops.use_kernels("auto")
-        np.testing.assert_array_equal(got, want)
-        np.testing.assert_array_equal(got, _interpret(
-            jops.batched_table_lookup, c_own, ck, cs, row_own, tk, ts, occ))
-        assert (got[c_own == 4] == 48).all()
+    @pytest.mark.parametrize("seed,capacity", [(3, 37), (4, 45)])
+    def test_batched_matches_reference_and_interpret_kernel(self, seed,
+                                                            capacity):
+        """Hits, misses, windows that wrap their segment's end, cells of the
+        shard with no rows and of owners outside the segments (-1, 4: no
+        row of theirs, so a miss in both packages); the same (key, start)
+        in another shard's rows is not a match."""
+        bt, own, ck, cs = _window_tables(seed, capacity, 4)
+        own[:2] = -1, 4
+        total = bt.total_rows
+        got = tops.batched_table_lookup(
+            t(own), t(ck), t(cs), t(bt._fkey), t(bt._fstart), t(bt._focc),
+            capacity, MAX_PROBES).numpy()
+        args = (own, ck, cs, bt.row_owner, bt._fkey, bt._fstart, bt._focc)
+        np.testing.assert_array_equal(
+            got, _jax_lookup(jops.batched_table_lookup, *args, mode="ref"))
+        np.testing.assert_array_equal(
+            got, _jax_lookup(jops.batched_table_lookup, *args,
+                             mode="interpret"))
+        # the JAX table's own lookup indexes by owner: in-range owners only
+        np.testing.assert_array_equal(np.where(got == total, -1, got)[2:],
+                                      bt.lookup(own[2:], ck[2:], cs[2:]))
+        assert (got < total).any() and (got[own == 3] == total).all()
+        assert (got[:2] == total).all()
+        home = jtable.cell_hash(ck, cs, capacity)
+        hit = got < total
+        assert ((home + MAX_PROBES > capacity) & hit).any()  # wrapped
 
-    def test_tiled_plain_version_equals_untiled(self, monkeypatch):
-        ck, cs, tk, ts, occ = _lookup_case(9, n=50)
-        whole = tref.table_lookup_ref(t(ck), t(cs), t(tk), t(ts), t(occ))
-        monkeypatch.setattr(tref, "LOOKUP_TILE_ELEMS", 3 * len(tk))
-        tiled = tref.table_lookup_ref(t(ck), t(cs), t(tk), t(ts), t(occ))
-        np.testing.assert_array_equal(whole.numpy(), tiled.numpy())
+    def test_probe_window_contract_off_the_invariant(self):
+        """On a table that breaks the invariant the lookup is the probe
+        window's, not the full scan's: a live copy outside the window is
+        not found, and of two live copies inside it the first in probe
+        order wins, here the higher row of a window that wraps the end."""
+        cap, probes = 20, 6
+        keys = np.arange(-500, 500, dtype=np.int64)
+        homes = jtable.cell_hash(keys, np.zeros_like(keys), cap)
+        ck = np.array([keys[homes == 3][0], keys[homes == cap - 2][0]])
+        cs = np.zeros(2, np.int64)
+        tk, ts = np.zeros(cap, np.int64), np.full(cap, -1, np.int64)
+        occ = np.zeros(cap, bool)
+        tk[3 + probes], ts[3 + probes], occ[3 + probes] = ck[0], 0, True
+        # cell 1's window is rows 18, 19, 0, 1, 2, 3: copies at probes 1, 4
+        for row in (cap - 1, 2):
+            tk[row], ts[row], occ[row] = ck[1], 0, True
+        got = tops.table_lookup(t(ck), t(cs), t(tk), t(ts), t(occ),
+                                probes).numpy()
+        np.testing.assert_array_equal(got, [cap, cap - 1])
+        full = _jax_lookup(jops.table_lookup, ck, cs, tk, ts, occ, mode="ref")
+        np.testing.assert_array_equal(full, [3 + probes, 2])
+        # the batched lookup: the same in shard 1's segment
+        got = tops.batched_table_lookup(
+            t(np.ones(2, np.int32)), t(ck), t(cs),
+            t(np.concatenate([tk, tk])), t(np.concatenate([ts, ts])),
+            t(np.concatenate([np.zeros(cap, bool), occ])), cap,
+            probes).numpy()
+        np.testing.assert_array_equal(got, [2 * cap, 2 * cap - 1])
 
     def test_empty_cells_and_empty_table(self):
         z = torch.zeros(0, dtype=torch.int64)
-        _, _, tk, ts, occ = _lookup_case(0)
-        assert len(tops.table_lookup(z, z, t(tk), t(ts), t(occ))) == 0
+        bt, own, ck, cs = _window_tables(0, 37, 2)
+        tab = bt._adopted[0]
+        assert len(tops.table_lookup(z, z, t(tab.key), t(tab.start),
+                                     t(tab.occ), MAX_PROBES)) == 0
         out = tops.table_lookup(t([1, 2]), t([0, 0]), z, z,
-                                torch.zeros(0, dtype=torch.bool))
+                                torch.zeros(0, dtype=torch.bool), MAX_PROBES)
         np.testing.assert_array_equal(out.numpy(), [0, 0])
+        out = tops.batched_table_lookup(
+            t(np.array([0, 5], np.int32)), t([1, 2]), t([0, 0]), z, z,
+            torch.zeros(0, dtype=torch.bool), 37, MAX_PROBES)
+        np.testing.assert_array_equal(out.numpy(), [0, 0])
+
+    def test_refuses_what_the_function_does_not_define(self):
+        """max_probes outside [1, capacity] and planes that are not whole
+        segments raise."""
+        bt, own, ck, cs = _window_tables(1, 37, 2)
+        planes = (t(bt._fkey), t(bt._fstart), t(bt._focc))
+        for bad in (0, 38):
+            with pytest.raises(ValueError, match="max_probes"):
+                tops.batched_table_lookup(t(own), t(ck), t(cs), *planes, 37,
+                                          bad)
+        with pytest.raises(ValueError, match="max_probes"):
+            tops.table_lookup(t(ck), t(cs), *planes, 75)
+        with pytest.raises(ValueError, match="segments"):
+            tops.batched_table_lookup(t(own), t(ck), t(cs), *planes, 36,
+                                      MAX_PROBES)
 
 
 # ---------------------------------------------------------------------------
@@ -246,8 +347,9 @@ class TestTableLookup:
 class TestDispatch:
     def test_cpu_tensors_take_the_plain_versions(self):
         tops.reset_launch_counts()
-        ck, cs, tk, ts, occ = _lookup_case(0)
-        tops.table_lookup(t(ck), t(cs), t(tk), t(ts), t(occ))
+        bt, _, ck, cs = _window_tables(0, 37, 2)
+        tops.table_lookup(t(ck), t(cs), t(bt._fkey), t(bt._fstart),
+                          t(bt._focc), MAX_PROBES)
         tops.segment_sum(t(np.ones((4, 2), np.int32)), t(np.arange(4)), 4)
         tops.scatter_add_(t(np.zeros((4, 2), np.int64)), t(np.arange(4)),
                           t(np.ones((4, 2), np.int64)))
@@ -282,7 +384,7 @@ class TestDispatch:
                             t(np.zeros(2, np.int32)), 1)
         with pytest.raises(ValueError, match="CUDA"):
             tht.table_lookup(*(t(np.zeros(2, np.int64)),) * 4,
-                             t(np.zeros(2, bool)))
+                             t(np.zeros(2, bool)), 1)
         qkv = torch.ones((1, 2, 3, 64))
         with pytest.raises(ValueError, match="CUDA"):
             tfa.flash_attention(qkv, qkv, qkv)
