@@ -76,20 +76,27 @@ Phases, each printed on its own line; any failure exits non-zero:
                ``ref`` mode (last logits within 1e-4) and served one request
                at a time; a profiled decode step and long prefill;
 8. ssm-moe kernels -- the SSD scan against its plain version in float32
-               (2e-4) and bfloat16 (5e-2) at Mamba2-780M's shapes (48 heads
-               of 64, state 128, one shared B/C group) for the longest
-               prompt of phase 9 (8,192 tokens) and on edges (one token,
-               lengths no chunk divides), at dt about 0.7 and at a trained
-               model's small dt, where the state carried across chunks
-               decides the result (checked); the MoE gather bit-exact at
+               (2e-4) and bfloat16 (5e-2, and one bfloat16 rounding step of
+               each value) at Mamba2-780M's shapes (48 heads of 64, state
+               128, one shared B/C group) for the longest prompt of phase 9
+               (8,192 tokens), on edges (one token, lengths no chunk
+               divides) and with B/C per head, at dt about 0.7 and at a
+               trained model's small dt, where the state carried across
+               chunks decides the result (checked); its time beside the
+               first version's, its device time per pass under
+               ``torch.profiler``, TFLOP/s, share of the bound, chunk, the
+               chunk states' bytes and ptxas's registers and spills of
+               every instance; the MoE gather bit-exact at
                DeepSeekMoE-16B's dispatch of a 6,144-token prompt and of one
                8-slot decode step, a sequence of only dummy rows and rows of
-               12 and 10 bytes; times, bounds, and ``index_select`` on the
-               zero-padded input as the gather's yardstick, at both shapes;
+               12 and 10 bytes; times (by events and by device time),
+               bounds, and ``index_select`` on the zero-padded input as the
+               gather's yardstick, at both shapes;
 9. mamba2-serve -- phase 7's run over Mamba2-780M at full width and
                depth (48 layers, ``dt_bias`` as a trained model's), 8 slots,
                ``s_max`` 16,384, one prompt of 5-16 tokens and 15 of
-               256-8,192: the scan launches once per layer per prefill;
+               256-8,192: the scan launches once per layer per prefill, and
+               the long prefill's profile names its three kernels;
                checks (i) and (ii) as in phase 7, (i) to its own limits
                (``MAMBA_LOGIT_RMS``, ``MAMBA_LEAD``);
 10. moe-serve  -- the same over DeepSeekMoE-16B at full width and depth (a
@@ -132,6 +139,11 @@ FLASH_FIRST_VERSION_MS = 23.9582
 #: slot and kv head; PERF.md kernel table, row 6, H100 80GB HBM3 at 700 W),
 #: printed beside the split-KV kernel's for reference
 DECODE_FIRST_VERSION_MS = 0.88111
+#: the first SSD scan kernel's time for phase 8's bf16 Mamba2-780M layer (one
+#: block per head and 32 columns walking the chunks in series, float32 FMAs;
+#: PERF.md kernel table, row 7, H100 80GB HBM3 at 700 W), printed beside the
+#: chunk-parallel kernels' for reference
+SSD_FIRST_VERSION_MS = 2.8495
 F32_TOL = 3e-5
 BF16_TOL = 2e-2
 #: one bfloat16 rounding step relative to the value (8 significant bits):
@@ -229,7 +241,9 @@ SERVES = {
     "mamba2-serve": dict(
         model="mamba2-780m", layers=48, s_max=16384, prompt=MAMBA_PROMPT,
         short=(5, 16), trained_dt=True, f32_prompts=(7000, 9, 300, 5000),
-        rms=MAMBA_LOGIT_RMS, lead=MAMBA_LEAD),
+        rms=MAMBA_LOGIT_RMS, lead=MAMBA_LEAD,
+        # the prefill profile lists the scan's three kernels
+        watch=("ssd::",), watched=3),
     # phase 10: DeepSeekMoE-16B at full depth; with its replay's routing
     # pinned, check (i) holds it to Gemma2's limits (PERF.md, H100: 0.0168
     # RMS and a lead of 0.55 sound, 0.0755 and 2.08 with a gather row off
@@ -1141,12 +1155,13 @@ def flash_build_report():
     return report
 
 
-def decode_build_report():
-    """ptxas's registers, spills and static shared memory of every decode
-    kernel instance (dtype, head dim, q heads per kv head)."""
+def build_report(source):
+    """ptxas's registers, spills and static shared memory of every kernel
+    instance of one source (for decode: dtype, head dim, q heads per kv
+    head; for the scan: each pass and dtype)."""
     from repro_torch.kernels import _build
 
-    text = _build.BUILD_INFO["ptxas"].get("decode_attention.cu")
+    text = _build.BUILD_INFO["ptxas"].get(source)
     return ptxas_entries(text) if text else "not compiled in this run"
 
 
@@ -1363,7 +1378,7 @@ def phase_attention(torch):
         speedup_over_first_version=DECODE_FIRST_VERSION_MS / pair_ms,
         splits=splits, tile_rows=tile,
         short_slots=dict(valid_len=short.tolist(), device_ms=short_ms),
-        build=decode_build_report(),
+        build=build_report("decode_attention.cu"),
         per_layer={f"window {w}": dict(
             kernel_ms=times[("kernel", w)],
             kernel_softcap0_ms=times[("kernel softcap 0", w)],
@@ -1475,8 +1490,8 @@ def phase_attention_wide(torch, randn, valid, valid_np):
 # phase 8: the SSD scan and the MoE gather vs their plain versions
 # ---------------------------------------------------------------------------
 
-def ssd_work(b, h, s, p, n, chunk=256):
-    """Operations of the chunked formulation at ``chunk`` (the reference's):
+def ssd_work(b, h, s, p, n, chunk):
+    """Operations of the chunked formulation at ``chunk`` positions:
     per chunk and head, the masked scores ``C B^T`` and their product with
     ``x dt`` over the causal half (``c (c + 1) / 2`` pairs, ``N + P`` each)
     and the carry-in and state products (``c N P`` each), 2 flops per
@@ -1486,7 +1501,7 @@ def ssd_work(b, h, s, p, n, chunk=256):
     return 2 * b * h * (pairs * (n + p) + 2 * s * n * p)
 
 
-def old_state_effect(scan, x, dt, A, Bm, Cm, tol, chunk=64):
+def old_state_effect(scan, x, dt, A, Bm, Cm, tol, chunk):
     """How far the contributions older than one whole ``chunk`` move y, in
     units of ``tol`` (absolute and relative): y from position ``S/2 +
     chunk`` on against the second half scanned alone from a zero state.
@@ -1521,7 +1536,7 @@ def phase_ssm_moe(torch):
     # trained Mamba-2, where it carries across many chunks ----------------
     H, P, N = 48, 64, 128
 
-    def scan_inputs(b, s, dtype, dt_shift):
+    def scan_inputs(b, s, dtype, dt_shift, per_head=False):
         def randn(*shape, scale=1.0):
             return torch.randn(shape, generator=gen, device=dev) * scale
 
@@ -1529,18 +1544,24 @@ def phase_ssm_moe(torch):
         dt = torch.nn.functional.softplus(randn(b, s, H) - dt_shift) \
             .transpose(1, 2)
         A = -torch.linspace(1.0, 16.0, H, device=dev)
+        if per_head:  # B and C of every head (a nonzero head stride)
+            return (x, dt, A, randn(b, H, s, N, scale=0.3).to(dtype),
+                    randn(b, H, s, N, scale=0.3).to(dtype))
         Bm = randn(b, s, N, scale=0.3).to(dtype)[:, None].expand(b, H, s, N)
         Cm = randn(b, s, N, scale=0.3).to(dtype)[:, None].expand(b, H, s, N)
         return x, dt, A, Bm, Cm
 
-    errs, carry = {}, {}
+    errs, carry, steps = {}, {}, {}
     for dtype, tol in ((f32, SSD_F32_TOL), (bf16, SSD_BF16_TOL)):
-        for b, s, shift in ((1, MAMBA_PROMPT[1], 0.0), (1, 1, 0.0),
-                            (2, 300, 0.0), (1, 4097, 0.0),
-                            (1, MAMBA_PROMPT[1], SMALL_DT_SHIFT),
-                            (2, 4097, SMALL_DT_SHIFT)):
-            case = f"{dtype} S={s} dt shift {shift}"
-            args = scan_inputs(b, s, dtype, shift)
+        for b, s, shift, per_head in (
+                (1, MAMBA_PROMPT[1], 0.0, False), (1, 1, 0.0, False),
+                (2, 300, 0.0, False), (1, 4097, 0.0, False),
+                (1, MAMBA_PROMPT[1], SMALL_DT_SHIFT, False),
+                (2, 4097, SMALL_DT_SHIFT, False),
+                (1, 4097, SMALL_DT_SHIFT, True)):
+            case = f"{dtype} S={s} dt shift {shift}" + \
+                (" per-head B/C" if per_head else "")
+            args = scan_inputs(b, s, dtype, shift, per_head)
             y, h = ss.ssd_scan(*args)
             want_y, want_h = ref.ssd_scan_ref(*args)
             for what, got, want in (("y", y, want_y), ("h", h, want_h)):
@@ -1550,29 +1571,58 @@ def phase_ssm_moe(torch):
                       f"ssd_scan {case} B={b} {what}: max abs error {err} "
                       f"exceeds {tol}")
                 errs[f"{case} {what}"] = err
+            if dtype == bf16:  # both round y once: one step at most, past
+                # the float32 tolerance of two orders of summation
+                steps[case] = float(((y.float() - want_y.float()).abs()
+                                     / (SSD_F32_TOL + BF16_STEP
+                                        * want_y.float().abs())).max())
+                check(steps[case] <= 1.0, f"ssd_scan {case}: y differs by "
+                      f"{steps[case]} of a bfloat16 rounding step")
             if s == MAMBA_PROMPT[1] and dtype == f32:
+                # across a whole chunk of either route's kernel
                 carry[f"dt shift {shift}"] = old_state_effect(
-                    ref.ssd_scan_ref, *args, tol)
+                    ref.ssd_scan_ref, *args, tol, max(ss.CHUNK.values()))
             del args, y, h, want_y, want_h
     check(carry[f"dt shift {SMALL_DT_SHIFT}"] > 10.0,
           f"ssd_scan: the small-dt case does not depend on the state "
           f"carried across a whole chunk ({carry})")
     b, s = 1, MAMBA_PROMPT[1]
     args = scan_inputs(b, s, bf16, 0.0)
-    ms = cuda_ms(torch, lambda: ss.ssd_scan(*args), 5)
+    ms = cuda_ms(torch, lambda: ss.ssd_scan(*args), 20)
     plain = cuda_ms(torch, lambda: ref.ssd_scan_ref(*args), 3)
+    by_kernel = device_ms_by_kernel(torch, lambda: ss.ssd_scan(*args), 10)
+    # the same layer in float32, its B/C group still shared (head stride 0)
+    args32 = [args[0].float(), args[1], args[2]] + [
+        g[:, 0].float()[:, None].expand_as(g) for g in args[3:]]
+    ms_f32 = cuda_ms(torch, lambda: ss.ssd_scan(*args32), 5)
+    del args32
+    chunk = ss.CHUNK[bf16]
+    nc = -(-s // chunk)
     nbytes = (2 * b * s * H * P * 2 + 2 * b * s * N * 2 + b * s * H * 4
               + H * 4 + b * H * N * P * 4)
     # the function's least work is the recurrence's: per position and head,
     # h <- decay h + B (x dt)^T and y = C h, 2 N P multiply-adds
     ops_n = 4 * b * H * s * N * P
     t_ops, t_bytes = ops_n / PEAK_BF16_S * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    chunked_ops = ssd_work(b, H, s, P, N, chunk)
     records["ssd_scan"] = dict(
         max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
-        bound_ms=max(t_ops, t_bytes),
+        bound_ms=bound_ms,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=None, bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
-        chunked_ops_at_256=ssd_work(b, H, s, P, N), recurrence_ops=ops_n,
+        bound_share=bound_ms / ms, first_version_ms=SSD_FIRST_VERSION_MS,
+        speedup_over_first_version=SSD_FIRST_VERSION_MS / ms,
+        device_ms_by_kernel=by_kernel,
+        device_ms=sum(by_kernel.values()),
+        ms_float32=ms_f32, chunk_float32=ss.CHUNK[f32],
+        chunk=chunk, chunked_ops=chunked_ops,
+        tflops_chunked=chunked_ops / ms / 1e9,
+        recurrence_ops=ops_n, tflops_recurrence=ops_n / ms / 1e9,
+        chunk_state_bytes=b * H * nc * N * P * 4,
+        state_traffic_bytes=4 * b * H * nc * N * P * 4,
+        workspace_bytes=ss.workspace_bytes(b, H, s, P, N, bf16, True),
+        ptxas=build_report("ssd_scan.cu"), bf16_rounding_steps=steps,
         errors=errs, carry_over_tolerance=carry,
         tolerance={"float32": SSD_F32_TOL, "bfloat16": SSD_BF16_TOL},
         shape=f"x [1,{H},{s},{P}] bf16 (a [1,{s},{H},{P}] view), B/C one "
@@ -1622,12 +1672,25 @@ def phase_ssm_moe(torch):
         idx = rows.long()
         live = int((rows < x.shape[0]).sum())
         nbytes = rows.numel() * 4 + live * d * 2 + rows.numel() * d * 2
+
+        def kernel_fn():
+            return md.moe_gather(x, rows)
+
+        def library_fn():
+            return torch.index_select(x_pad, 0, idx)
+
+        # by device time too: at a decode step's size, events measure the
+        # host's launch as much as the kernel
+        dev_k = device_ms_by_kernel(torch, kernel_fn, 50)
+        dev_l = device_ms_by_kernel(torch, library_fn, 50)
         per[f"B={b} S={s}"] = dict(
             rows=rows.numel(), live_rows=live, capacity=cap,
-            kernel_ms=cuda_ms(torch, lambda: md.moe_gather(x, rows), 50),
+            kernel_ms=cuda_ms(torch, kernel_fn, 50),
             plain_ms=cuda_ms(torch, lambda: ref.moe_gather_ref(x, rows), 20),
-            library_ms=cuda_ms(torch, lambda: torch.index_select(
-                x_pad, 0, idx), 50),
+            library_ms=cuda_ms(torch, library_fn, 50),
+            kernel_device_ms=sum(dev_k.values()),
+            library_device_ms=sum(dev_l.values()),
+            device_kernels={**dev_k, **dev_l},
             bound_ms=nbytes / PEAK_BYTES_S * 1e3)
     prefill = per[f"B=1 S={SERVE_PROMPT[1]}"]
     step = per[f"B={SERVE_SLOTS} S=1"]   # one decode step of every slot
@@ -1636,7 +1699,12 @@ def phase_ssm_moe(torch):
         bound_ms=prefill["bound_ms"], bound_by="bytes",
         library_ms=prefill["library_ms"], decode_step_ms=step["kernel_ms"],
         decode_step_library_ms=step["library_ms"],
-        decode_step_bound_ms=step["bound_ms"], per_call=per,
+        decode_step_bound_ms=step["bound_ms"],
+        device_ms=prefill["kernel_device_ms"],
+        library_device_ms=prefill["library_device_ms"],
+        decode_step_device_ms=step["kernel_device_ms"],
+        decode_step_library_device_ms=step["library_device_ms"],
+        per_call=per,
         shape=f"x [{SERVE_PROMPT[1]},{d}] bf16, {prefill['rows']} rows "
               f"(64 experts x capacity {prefill['capacity']}); library: "
               f"index_select on the zero-padded x")
@@ -1786,9 +1854,10 @@ def trained_dt_bias_(torch, model, seed):
             bias.data.copy_(dt + torch.log(-torch.expm1(-dt)))
 
 
-def profile_steps(torch, step, n):
+def profile_steps(torch, step, n, watch=()):
     """Wall time and device kernel time of ``n`` calls of ``step`` under
-    ``torch.profiler``; the busy share is their ratio."""
+    ``torch.profiler``; the busy share is their ratio.  Kernels whose name
+    holds one of ``watch`` are also listed with their rank by time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1810,7 +1879,12 @@ def profile_steps(torch, step, n):
         device_busy_share=dev_us / 1e6 / wall if dev_us else "not measured",
         kernels_per_step=sum(e.count for e in kernels) / n,
         top_kernels_ms_per_step={e.key[:60]: _device_us(e) / n / 1e3
-                                 for e in kernels[:8]})
+                                 for e in kernels[:8]},
+        **({"watched_kernels": {
+            e.key[:60]: dict(rank=i + 1, ms_per_step=_device_us(e) / n / 1e3,
+                             launches_per_step=e.count / n)
+            for i, e in enumerate(kernels)
+            if any(w in e.key for w in watch)}} if watch else {}))
 
 
 def expected_launches(cfg, prefills, steps):
@@ -1922,8 +1996,13 @@ def phase_serve(torch, seed, label, spec):
     check(not engine.active and not engine.waiting, "short requests left")
     engine.submit(_serve_requests(Request, seed + 3, cfg.vocab_size,
                                   [spec["prompt"][1]], [1])[0])
-    say(label, profile=f"prefill of {spec['prompt'][1]} tokens",
-        **profile_steps(torch, engine.step, 1))
+    prof = profile_steps(torch, engine.step, 1, spec.get("watch", ()))
+    say(label, profile=f"prefill of {spec['prompt'][1]} tokens", **prof)
+    if spec.get("watch"):
+        check(len(prof["watched_kernels"]) == spec["watched"],
+              f"{label}: the prefill profile names "
+              f"{list(prof['watched_kernels'])}, expected {spec['watched']} "
+              f"kernels holding {spec['watch']}")
     engine.caches = engine._one_caches = None
     del engine
     torch.cuda.empty_cache()

@@ -74,10 +74,11 @@ _SIGNATURES = {
     "attn_decode_forward":
         [_P] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, _P],
     # x, x strides, dt, dt strides, A, Bm, Bm strides, Cm, Cm strides, y,
-    # y strides, h, B, H, S, P, N, dtype, stream (strides: int64[3] each)
+    # y strides, h, workspace, its bytes, B, H, S, P, N, dtype, stream
+    # (strides: int64[3] each)
     "ssd_scan_forward":
         [_P, _STRIDES, _P, _STRIDES, _P, _P, _STRIDES, _P, _STRIDES, _P,
-         _STRIDES, _P]
+         _STRIDES, _P, _P, ctypes.c_longlong]
         + [ctypes.c_int] * 6 + [_P],
     # x, row_token, out, R, T, row bytes, unit bytes, stream
     "moe_gather_forward":
@@ -177,18 +178,20 @@ def library() -> types.SimpleNamespace:
         return _LIB
 
 
-def check_cuda(names, *tensors) -> int:
-    """All ``tensors`` (called ``names`` in a refusal) contiguous and on one
-    CUDA device; returns its index.  The checks read the cheapest tensor
-    properties: the first tensor is on CUDA, and every one has its device
-    index (``get_device()``, -1 on the CPU; a build has one accelerator)."""
+def check_cuda(names, *tensors, contiguous: bool = True) -> int:
+    """All ``tensors`` (called ``names`` in a refusal) on one CUDA device,
+    and contiguous unless ``contiguous`` is False (a kernel that reads
+    strided views checks their strides itself); returns the device's index.
+    The checks read the cheapest tensor properties: the first tensor is on
+    CUDA, and every one has its device index (``get_device()``, -1 on the
+    CPU; a build has one accelerator)."""
     first = tensors[0]
     dev = first.get_device() if isinstance(first, torch.Tensor) \
         and first.is_cuda else -1
     if dev >= 0:
         for t in tensors:
             if not (isinstance(t, torch.Tensor) and t.get_device() == dev
-                    and t.is_contiguous()):
+                    and (not contiguous or t.is_contiguous())):
                 break
         else:
             return dev
@@ -196,7 +199,7 @@ def check_cuda(names, *tensors) -> int:
     for name, t in zip(names, tensors):  # the refusal's message
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if where is None:
             where = t.device

@@ -11,8 +11,9 @@ atomics add in another order than the plain version.  The attention
 kernels are held to 3e-5 in float32 and 2e-2 in bfloat16, the SSD scan to
 2e-4 and 5e-2, the tolerances the reference holds its Pallas kernels to
 (``tests/test_kernels.py``); bfloat16 flash also to one bfloat16 rounding
-step of each value, as ``chip_smoke.py`` holds it; the MoE gather, a copy,
-must be bit-exact.
+step of each value, and the bfloat16 scan to one step past its float32
+tolerance, as ``chip_smoke.py`` holds them; the MoE gather, a copy, must be
+bit-exact.
 """
 
 import dataclasses
@@ -566,6 +567,58 @@ def test_ssd_scan_carries_the_state_across_chunks(dev, dtype, B, S):
     assert not torch.allclose(alone[:, :, 64:].float(),
                               want_y[:, :, half + 64:].float(),
                               **SSD_TOL[dtype])
+
+
+def _within_one_bf16_step(got, want):
+    """bfloat16 y within one rounding step of each value of the plain
+    version's (which rounds once too), past the float32 tolerance of two
+    orders of summation: the kernel's split operands keep its products near
+    float32."""
+    got, want = got.float(), want.float()
+    assert float(((got - want).abs()
+                  / (2e-4 + 2 ** -7 * want.abs())).max()) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", [-1, 0, 1, "2c+1"])
+@pytest.mark.parametrize("per_head", [False, True])
+def test_ssd_scan_at_the_chunk_edges(dev, dtype, edge, per_head):
+    """S at the kernel's chunk - 1, the chunk, + 1 and 2 x + 1, over 9 heads
+    (a full group of 8 and one more), with one B/C group shared by every
+    head (head stride 0: one score tile per chunk) or B/C per head, at a
+    trained model's small dt."""
+    c = tss.CHUNK[dtype]
+    S = 2 * c + 1 if edge == "2c+1" else c + edge
+    x, dt, A, Bm, Cm = _scan_inputs(dev, dtype, 2, 9, S, 64, 128,
+                                    dt_shift=5.0)
+    if per_head:
+        gen = torch.Generator(device=dev).manual_seed(S + 1)
+        Bm, Cm = ((torch.randn((2, 9, S, 128), generator=gen, device=dev)
+                   * 0.3).to(dtype) for _ in range(2))
+    assert tss.shared_group(Bm, Cm) != per_head
+    y, h = tss.ssd_scan(x, dt, A, Bm, Cm)
+    want_y, want_h = tref.ssd_scan_ref(x, dt, A, Bm, Cm)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(h, want_h, **SSD_TOL[dtype])
+    if dtype == torch.bfloat16:
+        _within_one_bf16_step(y, want_y)
+
+
+def test_ssd_scan_mamba2_layer_twice_bit_identical(dev):
+    """One Mamba2-780M layer of 8,192 tokens in bfloat16 (48 heads of 64,
+    state 128, one shared group): within tolerance and one rounding step of
+    the plain version, and a second call gives the same bits (no atomics,
+    a fixed order of sums)."""
+    args = _scan_inputs(dev, torch.bfloat16, 1, 48, 8192, 64, 128,
+                        dt_shift=5.0)
+    y, h = tss.ssd_scan(*args)
+    y2, h2 = tss.ssd_scan(*args)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    want_y, want_h = tref.ssd_scan_ref(*args)
+    torch.testing.assert_close(y.float(), want_y.float(),
+                               **SSD_TOL[torch.bfloat16])
+    torch.testing.assert_close(h, want_h, **SSD_TOL[torch.bfloat16])
+    _within_one_bf16_step(y, want_y)
 
 
 def test_ssd_scan_refuses_what_it_does_not_take(dev):

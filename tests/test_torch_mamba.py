@@ -10,6 +10,8 @@ to 1e-4 (sums in another order through several layers).  The CUDA kernel is
 held against the plain version on the card by ``tests/test_torch_cuda.py``.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ import repro_torch.configs as tconfigs
 from repro_torch.interop import params_from_reference, params_to_reference
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tss
 from repro_torch.models import mamba2 as tmamba
 from repro_torch.models import transformer as TT
 
@@ -101,6 +104,154 @@ def test_plain_scan_takes_strided_views():
                                group.contiguous())
     torch.testing.assert_close(y, y2, atol=1e-6, rtol=1e-6)
     torch.testing.assert_close(h, h2, atol=1e-6, rtol=1e-6)
+
+
+def _planes(v, split):
+    """A float32 operand as the kernel's products take it: whole (float32),
+    or bf16 hi = bf16(v) and lo = bf16(v - hi) (bfloat16)."""
+    if not split:
+        return [v]
+    hi = v.to(torch.bfloat16).float()
+    return [hi, (v - hi).to(torch.bfloat16).float()]
+
+
+def _scan_emulation(x, dt, A, Bm, Cm, *, drop_carry=False):
+    """The chunk-parallel CUDA scan's arithmetic on the CPU in float32, at
+    its chunk (``tss.CHUNK`` of x's dtype), the tail padded with dt = 0:
+    (a) cum, the decays and S_k = B^T (x w) with w_j = exp(total - cum_j)
+    dt_j, the score tile C B^T once per chunk for a shared group (head
+    stride 0) else per head; (b) h_{k-1} passed over the chunks; (c) y =
+    exp(cum_i) C h_{k-1} + (C B^T o L dt) x.  bfloat16: x w, h_{k-1} and G
+    enter the products as bf16 hi + lo planes, x, B, C exact, y rounded
+    once.  ``drop_carry`` leaves out h_{k-1} (a planted fault)."""
+    b, h, s, p = x.shape
+    n = Bm.shape[-1]
+    c = tss.CHUNK[x.dtype]
+    split = x.dtype == torch.bfloat16
+    nc = -(-s // c)
+    pad = nc * c - s
+    rows = torch.nn.functional.pad
+
+    def chunked(v, width):
+        return rows(v.float(), (0, 0, 0, pad)).reshape(v.shape[0], v.shape[1],
+                                                      nc, c, width)
+
+    def clip_exp(v):
+        return torch.exp(v.clamp(-60.0, 0.0))
+
+    xf, Bf, Cf = chunked(x, p), chunked(Bm, n), chunked(Cm, n)
+    dtf = rows(dt.float(), (0, pad)).reshape(b, h, nc, c)
+    cum = torch.cumsum(dtf * A.float()[None, :, None, None], -1)
+    total = cum[..., -1]
+    # (a)
+    xw = xf * (clip_exp(total[..., None] - cum) * dtf)[..., None]
+    states = sum(Bf.transpose(-1, -2) @ part for part in _planes(xw, split))
+    shared = tss.shared_group(Bm, Cm)
+    scores = (Cf[:, :1] @ Bf[:, :1].transpose(-1, -2)) if shared \
+        else Cf @ Bf.transpose(-1, -2)
+    # (b)
+    hk = torch.zeros((b, h, n, p))
+    h_prev = []
+    for k in range(nc):
+        h_prev.append(hk)
+        hk = clip_exp(total[..., k])[..., None, None] * hk + states[:, :, k]
+    h_prev = torch.stack(h_prev, dim=2)
+    # (c)
+    lower = torch.ones((c, c), dtype=torch.bool).tril()
+    G = scores * clip_exp(cum[..., :, None] - cum[..., None, :]) \
+        * torch.where(lower, dtf[..., None, :], 0.0)
+    y = sum(part @ xf for part in _planes(G, split))
+    if not drop_carry:
+        carry = sum(Cf @ part for part in _planes(h_prev, split))
+        y = y + carry * clip_exp(cum)[..., None]
+    return y.reshape(b, h, nc * c, p)[:, :, :s].to(x.dtype), hk
+
+
+class TestChunkParallelScan:
+    """The CUDA scan's decomposition (``_scan_emulation``) against the
+    reference's Pallas kernel in interpret mode, at the edges of the
+    kernel's chunk (its length - 1, the length, + 1, 2 x + 1), with one B/C
+    group shared by every head (stride 0, one score tile per chunk) and
+    with B/C per head, at dt = softplus(randn - 5), where the state carried
+    across chunks matters (and at softplus(randn)).  float32 within 2e-4;
+    bfloat16 (x, B, C rounded to bf16 first, the operand splits emulated)
+    within 5e-2 and within one bf16 rounding step of each value past 3e-5
+    (float32 sums at these widths differ by less), since the splits keep
+    the products near float32 and y is rounded once; a run without the
+    splits fails it."""
+
+    H, P, N = 3, 16, 32
+
+    def _inputs(self, seed, s, shift):
+        rng = np.random.default_rng(seed)
+        x = (rng.standard_normal((1, s, self.H, self.P)) * 0.5)
+        dt = np.log1p(np.exp(rng.standard_normal((1, self.H, s)) - shift))
+        a = -np.exp(rng.standard_normal(self.H) * 0.3)
+        bm = rng.standard_normal((1, s, self.N)) * 0.3
+        cm = rng.standard_normal((1, s, self.N)) * 0.3
+        return [v.astype(np.float32) for v in (x, dt, a, bm, cm)]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("edge,shared,shift", [
+        (-1, True, 5.0), (-1, False, 5.0), (0, True, 5.0), (0, False, 5.0),
+        (1, True, 5.0), (1, False, 5.0), ("2c+1", True, 5.0),
+        ("2c+1", False, 5.0), ("2c+1", True, 0.0)])
+    def test_emulation_vs_interpret_kernel(self, dtype, edge, shared, shift):
+        c = tss.CHUNK[dtype]
+        s = 2 * c + 1 if edge == "2c+1" else c + edge
+        x, dt, a, bm, cm = self._inputs(s, s, shift)
+        # the model's layouts: x transposed from [B, S, H, P], the group
+        # expanded over the heads (stride 0) or copied per head
+        tx = torch.as_tensor(x).to(dtype).transpose(1, 2)
+        group = [torch.as_tensor(v).to(dtype)[:, None].expand(
+            1, self.H, s, self.N) for v in (bm, cm)]
+        if not shared:
+            group = [g.contiguous() for g in group]
+        assert tss.shared_group(*group) == shared
+        # the reference on the same (rounded) values, one chunk of S
+        ref_in = [tx.float().numpy(), dt, a] + [g.float().numpy()
+                                               for g in group]
+        jy, jh = jssd(*(jnp.asarray(v) for v in ref_in), chunk=s,
+                      interpret=True)
+        jy, jh = np.asarray(jy), np.asarray(jh)
+        y, h = _scan_emulation(tx, t(dt), t(a), *group)
+        assert y.dtype == dtype and y.shape == (1, self.H, s, self.P)
+        tol = SSD if dtype == torch.float32 else dict(atol=5e-2, rtol=5e-2)
+        np.testing.assert_allclose(y.float().numpy(), jy, **tol)
+        np.testing.assert_allclose(h.numpy(), jh, **SSD)
+
+        def steps(got):  # in bf16 rounding steps of each value, past 3e-5
+            return (np.abs(got.float().numpy() - jy)
+                    / (3e-5 + 2 ** -7 * np.abs(jy))).max()
+
+        if dtype == torch.bfloat16:
+            assert steps(y) <= 1.0
+        if edge == "2c+1" and shift:
+            # the state carried across chunks moves y past the check here
+            lost, _ = _scan_emulation(tx, t(dt), t(a), *group,
+                                      drop_carry=True)
+            if dtype == torch.bfloat16:
+                assert steps(lost) > 1.0
+            else:
+                assert not np.allclose(lost.numpy(), jy, **SSD)
+
+    def test_chunk_and_workspace_follow_the_source(self):
+        """The wrapper's chunks and workspace size are the kernel's own
+        (csrc/ssd_scan.cu), which refuses a smaller workspace."""
+        src = (Path(tss.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+        for dtype, cname in ((torch.bfloat16, "bf16"),
+                             (torch.float32, "float")):
+            block = src.split(f"struct Route<{cname}> {{")[1].split("};")[0]
+            assert f"kChunk = {tss.CHUNK[dtype]};" in block
+        c = tss.CHUNK[torch.bfloat16]
+        nc = -(-8192 // c)
+        states = 48 * nc * 128 * 64 * 4
+        assert tss.workspace_bytes(1, 48, 8192, 64, 128, torch.bfloat16,
+                                   True) == 2 * states + 48 * nc * 4 \
+            + nc * c * c * 4
+        assert tss.workspace_bytes(1, 48, 8192, 64, 128, torch.bfloat16,
+                                   False) == 2 * states + 48 * nc * 4 \
+            + 48 * nc * c * c * 4
 
 
 # ---------------------------------------------------------------------------
