@@ -15,7 +15,13 @@ Phases, each printed on its own line; any failure exits non-zero:
                on the card, at the main path's shapes and on edge cases
                (integers bit-exact, float32 within 3e-5), with its time, the
                plain version's time, one PyTorch library call's time where
-               one computes the same function, and its bound; the lookups
+               one computes the same function, and its bound; segment_sum
+               is the sorted reduce-by-key (the main path's: one kernel a
+               call, checked, float32 bit-identical from call to call, runs
+               at its tile edges), with the order-blind scatter and its fill
+               beside it, and both segment kernels also on a skewed input
+               (a hot cell holding half of 1,048,576 rows) and with ptxas's
+               registers and spills; the lookups
                on a steady-state table that holds the probe-window
                invariant, their edge cases on one that breaks it (kernel
                and plain version compute the same probe-window function
@@ -426,6 +432,7 @@ def phase_kernels(torch, items):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
+    gen = torch.Generator(device=dev).manual_seed(1)
 
     def t(a):
         return torch.as_tensor(a, device=dev)
@@ -446,21 +453,54 @@ def phase_kernels(torch, items):
     seg_vals = torch.stack([a_val, torch.ones_like(a_val)], 1)[order] \
         .to(torch.int32).contiguous()
 
-    # -- segment_sum ----------------------------------------------------------
+    # -- segment_sum: the sorted reduce-by-key (the main path's) ---------------
     errs = []
-    got = sr.segment_sum(seg_vals, seg_ids, n_cells)
-    want = ref.segment_sum_ref(seg_vals, seg_ids, n_cells)
-    check(torch.equal(got, want), "segment_sum main shape")
+    got = sr.segment_sum_sorted(seg_vals, seg_ids, n_cells)
+    check(torch.equal(got, ref.segment_sum_sorted(seg_vals, seg_ids, n_cells))
+          and torch.equal(got, ref.segment_sum_ref(seg_vals, seg_ids,
+                                                   n_cells)),
+          "segment_sum_sorted main shape")
     errs.append(0.0)
-    # edge cases: ids >= S dropped, int32 wraparound, empty, float32
+    # edge cases: runs that end one row before, at and after the kernel's
+    # tile edges, one run of two tiles + 1, ids out of range at both ends,
+    # int32 wraparound, empty, float32 (bit-identical from call to call)
+    tile = sr.SORTED_TILE
+    lengths = [tile - 1, 1, tile, 1, 2 * tile + 1, tile - 2, 3, tile + 1]
+    te_ids = t(np.repeat(np.arange(0, 3 * len(lengths), 3), lengths)
+               .astype(np.int32))
+    te_n = 3 * len(lengths) + 1
+    te_vals = t(rng.integers(2 ** 31 - 200, 2 ** 31, (len(te_ids), 2))
+                .astype(np.int32))
+    check(torch.equal(sr.segment_sum_sorted(te_vals, te_ids, te_n),
+                      ref.segment_sum_sorted(te_vals, te_ids, te_n)),
+          "segment_sum_sorted tile edges / wraparound")
+    o_ids = t(np.sort(rng.integers(-600, 1500, 3 * tile + 5))
+              .astype(np.int32))
+    o_vals = t(rng.integers(2 ** 31 - 200, 2 ** 31, (len(o_ids), 2))
+               .astype(np.int32))
+    check(torch.equal(sr.segment_sum_sorted(o_vals, o_ids, 1000),
+                      ref.segment_sum_ref(o_vals, o_ids, 1000)),
+          "segment_sum_sorted ids out of range at both ends")
+    empty = sr.segment_sum_sorted(
+        torch.zeros((0, 2), dtype=torch.int32, device=dev),
+        torch.zeros(0, dtype=torch.int32, device=dev), 7)
+    check(empty.shape == (7, 2) and not empty.any(),
+          "segment_sum_sorted empty")
+    f_vals = t(rng.standard_normal((len(te_ids), 2)).astype(np.float32))
+    f_got = sr.segment_sum_sorted(f_vals, te_ids, te_n)
+    f_want = ref.segment_sum_ref(f_vals, te_ids, te_n)
+    f_err = float((f_got - f_want).abs().max())
+    check(torch.allclose(f_got, f_want, atol=F32_TOL, rtol=F32_TOL),
+          f"segment_sum_sorted float32 error {f_err}")
+    check(torch.equal(f_got, sr.segment_sum_sorted(f_vals, te_ids, te_n)),
+          "segment_sum_sorted float32: a second call differs")
+    errs.append(f_err)
+    # the order-blind kernel (no main-path caller): a scatter into zeros
     e_ids = t(rng.integers(0, 70, 5000).astype(np.int32))
     e_vals = t(rng.integers(2 ** 31 - 200, 2 ** 31, (5000, 3)).astype(np.int32))
     check(torch.equal(sr.segment_sum(e_vals, e_ids, 50),
                       ref.segment_sum_ref(e_vals, e_ids, 50)),
           "segment_sum wraparound / dropped ids")
-    empty = sr.segment_sum(torch.zeros((0, 2), dtype=torch.int32, device=dev),
-                           torch.zeros(0, dtype=torch.int32, device=dev), 7)
-    check(empty.shape == (7, 2) and not empty.any(), "segment_sum empty")
     f_vals = t(rng.standard_normal((5000, 2)).astype(np.float32))
     f_got = sr.segment_sum(f_vals, e_ids, 50)
     f_want = ref.segment_sum_ref(f_vals, e_ids, 50)
@@ -468,7 +508,11 @@ def phase_kernels(torch, items):
     check(torch.allclose(f_got, f_want, atol=F32_TOL, rtol=F32_TOL),
           f"segment_sum float32 error {f_err}")
     errs.append(f_err)
+
     def kernel_fn():
+        return sr.segment_sum_sorted(seg_vals, seg_ids, n_cells)
+
+    def blind_fn():
         return sr.segment_sum(seg_vals, seg_ids, n_cells)
 
     ids_l = seg_ids.to(torch.int64)
@@ -484,15 +528,59 @@ def phase_kernels(torch, items):
     b_ms, b_by = bound(n_rows * 4 + n_rows * 2 * 4 + n_cells * 2 * 4,
                        n_rows * 2)
     turns = in_turns(lambda f: cuda_ms(torch, f, 50),
-                     {"kernel": kernel_fn, "library": library_fn}, 7)
+                     {"kernel": kernel_fn, "library": library_fn,
+                      "order_blind": blind_fn}, 7)
+    device = device_ms_by_kernel(torch, kernel_fn, 50)
+    check(len(device) == 1, f"segment_sum_sorted launched {device}")
+    blind_device = device_ms_by_kernel(torch, blind_fn, 50)
+    lib_device = device_ms_by_kernel(torch, library_fn, 50)
+    # a hot cell: half of 1,048,576 rows in one cell, the rest spread over
+    # 200,000 (Nexmark's hot items), through the look-back over records
+    n_skew = 1 << 20
+    sk_ids = torch.sort(torch.cat([
+        torch.randint(0, 200_000, (n_skew // 2,), generator=gen, device=dev),
+        torch.full((n_skew // 2,), 70_001, device=dev)])).values \
+        .to(torch.int32)
+    sk_vals = torch.randint(0, 100, (n_skew, 2), dtype=torch.int32,
+                            generator=gen, device=dev)
+    check(torch.equal(sr.segment_sum_sorted(sk_vals, sk_ids, 200_000),
+                      ref.segment_sum_sorted(sk_vals, sk_ids, 200_000)),
+          "segment_sum_sorted skewed input")
+    sk_l = sk_ids.to(torch.int64)
+
+    def skew_kernel():
+        return sr.segment_sum_sorted(sk_vals, sk_ids, 200_000)
+
+    def skew_library():
+        return torch.zeros((200_000, 2), dtype=torch.int32,
+                           device=dev).index_add_(0, sk_l, sk_vals)
+
+    sk_bound, _ = bound(n_skew * 12 + 200_000 * 8, n_skew * 2)
+    sk_turns = in_turns(lambda f: cuda_ms(torch, f, 20),
+                        {"kernel": skew_kernel, "library": skew_library}, 3)
+    ptxas = build_report("segment_reduce.cu")
     records["segment_sum"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib,
         ms_median_of_7_in_turns=turns["kernel"],
         library_ms_median_of_7_in_turns=turns["library"],
-        device_ms=device_ms_by_kernel(torch, kernel_fn, 50),
-        library_device_ms=device_ms_by_kernel(torch, library_fn, 50),
-        shape=f"values [{n_rows},2] i32 -> [{n_cells},2]")
+        order_blind_ms_median_of_7_in_turns=turns["order_blind"],
+        device_ms=device, device_ms_sum=sum(device.values()),
+        order_blind_device_ms=blind_device,
+        order_blind_device_ms_sum=sum(blind_device.values()),
+        library_device_ms=lib_device,
+        library_device_ms_sum=sum(lib_device.values()),
+        skewed=dict(ms_median_of_3_in_turns=sk_turns["kernel"],
+                    library_ms_median_of_3_in_turns=sk_turns["library"],
+                    device_ms=device_ms_by_kernel(torch, skew_kernel, 20),
+                    library_device_ms=device_ms_by_kernel(
+                        torch, skew_library, 20),
+                    bound_ms=sk_bound,
+                    shape=f"values [{n_skew},2] i32, half in one cell "
+                          "-> [200000,2]"),
+        ptxas={k: v for k, v in ptxas.items() if "sorted" in k}
+        if isinstance(ptxas, dict) else ptxas,
+        shape=f"values [{n_rows},2] i32 -> [{n_cells},2], sorted ids")
 
     # -- scatter_add: the table accumulate, int64 ------------------------------
     total = DEGREE * CAPACITY
@@ -504,13 +592,19 @@ def phase_kernels(torch, items):
     want = ref.scatter_add_ref(table, rows_at, partial)
     check(torch.equal(got, want), "scatter_add main shape")
     # edge cases: ids >= C dropped, repeats, int64 and int32 wraparound,
-    # float32, empty
+    # rows at an 8-byte offset (the generic column loop), float32, empty
     e_tab = t(rng.integers(2 ** 62, 2 ** 63 - 1, (64, 2)))
-    e_ids = t(rng.integers(0, 80, 4000).astype(np.int32))
+    e_ids = t(rng.integers(-8, 80, 4000).astype(np.int32))
     e_rows = t(rng.integers(2 ** 61, 2 ** 62, (4000, 2)))
     check(torch.equal(sr.scatter_add_(e_tab.clone(), e_ids, e_rows),
                       ref.scatter_add_ref(e_tab, e_ids, e_rows)),
           "scatter_add int64 wraparound / dropped ids")
+    shifted = torch.empty(2 * 4000 + 1, dtype=torch.int64, device=dev)
+    shifted[1:] = e_rows.flatten()
+    check(torch.equal(sr.scatter_add_(e_tab.clone(), e_ids,
+                                      shifted[1:].view(4000, 2)),
+                      ref.scatter_add_ref(e_tab, e_ids, e_rows)),
+          "scatter_add rows at an 8-byte offset")
     i_tab = e_tab.to(torch.int32)
     i_rows = t(rng.integers(2 ** 30, 2 ** 31 - 1, (4000, 2)).astype(np.int32))
     check(torch.equal(sr.scatter_add_(i_tab.clone(), e_ids, i_rows),
@@ -544,13 +638,48 @@ def phase_kernels(torch, items):
                        n_cells * 2)
     turns = in_turns(lambda f: cuda_ms(torch, f, 50),
                      {"kernel": kernel_fn, "library": library_fn}, 7)
+    device = device_ms_by_kernel(torch, kernel_fn, 50)
+    lib_device = device_ms_by_kernel(torch, library_fn, 50)
+    # a hot cell: half of 1,048,576 rows into one table row, the rest into
+    # random rows (repeats), bit-exact, timed beside index_add_
+    sk_at = torch.where(
+        torch.rand(n_skew, generator=gen, device=dev) < 0.5,
+        torch.randint(0, total, (n_skew,), generator=gen, device=dev),
+        70_001).to(torch.int32)
+    sk_rows = torch.randint(0, 400, (n_skew, 2), generator=gen, device=dev)
+    check(torch.equal(sr.scatter_add_(table.clone(), sk_at, sk_rows),
+                      ref.scatter_add_ref(table, sk_at, sk_rows)),
+          "scatter_add skewed input")
+    sk_l = sk_at.to(torch.int64)
+
+    def skew_kernel():
+        return sr.scatter_add_(work, sk_at, sk_rows)
+
+    def skew_library():
+        return work.index_add_(0, sk_l, sk_rows)
+
+    # ids and rows read once, each table row they touch read and written
+    sk_bound, _ = bound(n_skew * 20 + 2 * 16 * len(torch.unique(sk_at)),
+                        n_skew * 2)
+    sk_turns = in_turns(lambda f: cuda_ms(torch, f, 20),
+                        {"kernel": skew_kernel, "library": skew_library}, 3)
     records["scatter_add"] = dict(
         max_abs_err=f_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib,
         ms_median_of_7_in_turns=turns["kernel"],
         library_ms_median_of_7_in_turns=turns["library"],
-        device_ms=device_ms_by_kernel(torch, kernel_fn, 50),
-        library_device_ms=device_ms_by_kernel(torch, library_fn, 50),
+        device_ms=device, device_ms_sum=sum(device.values()),
+        library_device_ms=lib_device,
+        library_device_ms_sum=sum(lib_device.values()),
+        skewed=dict(ms_median_of_3_in_turns=sk_turns["kernel"],
+                    library_ms_median_of_3_in_turns=sk_turns["library"],
+                    device_ms=device_ms_by_kernel(torch, skew_kernel, 20),
+                    library_device_ms=device_ms_by_kernel(
+                        torch, skew_library, 20),
+                    bound_ms=sk_bound,
+                    shape=f"{n_skew} rows i64, half into one of {total}"),
+        ptxas={k: v for k, v in ptxas.items() if "scatter_rows" in k}
+        if isinstance(ptxas, dict) else ptxas,
         shape=f"table [{total},2] i64, {n_cells} rows")
 
     # -- the lookups: a steady-state table of ~23% load ------------------------
@@ -769,10 +898,13 @@ def phase_host(torch):
                       ints(SERVE_SLOTS, 2048), SERVE_SLOTS).to(torch.int32)
 
     calls = {
-        "segment_sum": (lambda: sr.segment_sum(seg_vals, seg_ids, n_cells),
+        "segment_sum": (lambda: sr.segment_sum_sorted(seg_vals, seg_ids,
+                                                      n_cells),
                         lambda: torch.zeros((n_cells, 2), dtype=torch.int32,
                                             device=dev).index_add_(
                             0, seg_l, seg_vals), 500),
+        "segment_sum (order-blind)": (
+            lambda: sr.segment_sum(seg_vals, seg_ids, n_cells), None, 500),
         "scatter_add": (lambda: sr.scatter_add_(table, rows_at, partial),
                         lambda: table.index_add_(0, rows_l, partial), 500),
         "table_lookup": (lambda: ht.table_lookup(

@@ -52,7 +52,13 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)  # int64[3]
 _SCATTER_ARGS = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
+# ids, values, out, R, d, S, workspace (tile counter and look-back
+# records), tiles claimed from its counter before this call, stream
+_SORTED_ARGS = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                _P, ctypes.c_ulonglong, _P]
 _SIGNATURES = {
+    "keyed_segment_sum_sorted_i32": _SORTED_ARGS,
+    "keyed_segment_sum_sorted_f32": _SORTED_ARGS,
     "keyed_segment_sum_i32": _SCATTER_ARGS,
     "keyed_segment_sum_f32": _SCATTER_ARGS,
     "keyed_scatter_add_i64": _SCATTER_ARGS,

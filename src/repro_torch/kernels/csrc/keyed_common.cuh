@@ -9,20 +9,23 @@
 
 namespace keyed {
 
-// Integer accumulators wrap modulo 2^32 / 2^64 exactly like the reference's
-// int32 (JAX) and int64 (numpy np.add.at) sums: the add is done on the
-// unsigned type, whose overflow is defined.
-__device__ __forceinline__ void atomic_acc(int32_t* p, int32_t v) {
-  atomicAdd(reinterpret_cast<unsigned int*>(p), static_cast<unsigned int>(v));
+// Accumulating adds whose result is unused (red.global.add).  Integer
+// accumulators wrap modulo 2^32 / 2^64 exactly like the reference's int32
+// (JAX) and int64 (numpy np.add.at) sums: the add is done on the unsigned
+// type, whose overflow is defined.
+__device__ __forceinline__ void red_acc(int32_t* p, int32_t v) {
+  asm volatile("red.global.add.u32 [%0], %1;"
+               :: "l"(__cvta_generic_to_global(p)), "r"(v) : "memory");
 }
 
-__device__ __forceinline__ void atomic_acc(int64_t* p, int64_t v) {
-  atomicAdd(reinterpret_cast<unsigned long long*>(p),
-            static_cast<unsigned long long>(v));
+__device__ __forceinline__ void red_acc(int64_t* p, int64_t v) {
+  asm volatile("red.global.add.u64 [%0], %1;"
+               :: "l"(__cvta_generic_to_global(p)), "l"(v) : "memory");
 }
 
-__device__ __forceinline__ void atomic_acc(float* p, float v) {
-  atomicAdd(p, v);
+__device__ __forceinline__ void red_acc(float* p, float v) {
+  asm volatile("red.global.add.f32 [%0], %1;"
+               :: "l"(__cvta_generic_to_global(p)), "f"(v) : "memory");
 }
 
 inline unsigned int grid_for(int64_t work, int threads) {

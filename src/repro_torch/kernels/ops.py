@@ -88,10 +88,14 @@ def segment_sum(values, seg_ids, num_segments: int) -> torch.Tensor:
 
 def segment_sum_sorted(values, seg_ids, num_segments: int) -> torch.Tensor:
     """Segment sums for ids already sorted ascending (the keyed layer
-    sorts first).  The kernel is order-blind; the plain path exploits the
-    sorted layout with the scatter-free prefix-sum realization."""
+    sorts first).  PRECONDITION, not checked (a check costs a reduction and
+    a host sync): unsorted ids give wrong sums.  CUDA tensors take the
+    single-pass reduce-by-key kernel (one launch, no zeroing); the plain
+    path is the scatter-free prefix-sum realization."""
     if kernels_active(values.device):
-        return segment_sum(values, seg_ids, num_segments)
+        acc = torch.float32 if values.dtype.is_floating_point else torch.int32
+        return _sr.segment_sum_sorted(values.to(acc).contiguous(),
+                                      _i32(seg_ids), num_segments)
     return _ref.segment_sum_sorted(values, seg_ids, num_segments)
 
 

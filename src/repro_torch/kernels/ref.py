@@ -67,24 +67,23 @@ def segment_sum_sorted(values, seg_ids, num_segments: int) -> torch.Tensor:
     """Segment sum for **sorted** ids: prefix sum + gather, no scatter.
 
     ``P[k]`` is the running total of the first ``k`` rows; each segment is
-    the difference of the prefix rows at its end and at the previous
-    segment's end (``searchsorted``).  Integers sum in int64 and wrap to
-    int32, which gives the same values as the reference's int32 prefix with
-    wraparound.  Ids ``>= num_segments`` sort to the tail and drop out.
+    the difference of the prefix rows at its end and at its start
+    (``searchsorted``).  Integers sum in int64 and wrap to int32, which
+    gives the same values as the reference's int32 prefix with wraparound.
+    Ids outside ``[0, num_segments)`` sort to the head or the tail and drop
+    out, as in the kernels (the reference's realization, defined for ids in
+    ``[0, S]``, would fold negative ids into segment 0).
     PRECONDITION, not checked: unsorted ids give wrong sums."""
     d = values.shape[1]
     acc = _acc_dtype(values.dtype)
     wide = torch.float32 if acc == torch.float32 else torch.int64
     zero = torch.zeros((1, d), dtype=wide, device=values.device)
     prefix = torch.cat([zero, torch.cumsum(values.to(wide), dim=0)])
-    ends = torch.searchsorted(
-        seg_ids.contiguous(),
-        torch.arange(num_segments, dtype=seg_ids.dtype,
-                     device=seg_ids.device),
-        right=True,
-    )
-    totals = prefix[ends]
-    out = totals - torch.cat([zero, totals[:-1]])
+    ids = seg_ids.contiguous()
+    segs = torch.arange(num_segments, dtype=ids.dtype, device=ids.device)
+    starts = torch.searchsorted(ids, segs)
+    ends = torch.searchsorted(ids, segs, right=True)
+    out = prefix[ends] - prefix[starts]
     return wrap_i32(out) if acc == torch.int32 else out
 
 

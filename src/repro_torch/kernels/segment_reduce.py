@@ -1,13 +1,16 @@
 """Segment sum / scatter-add: wrappers around the CUDA kernels.
 
 Port of ``repro/kernels/segment_reduce.py``.  The TPU pair contracts a
-one-hot block against the value rows on the MXU; the CUDA pair
-(``csrc/segment_reduce.cu``) is one atomic scatter per element.  Each
-wrapper takes CUDA tensors only: it checks device, dtype, shape and
-contiguity, allocates the output, launches on the current stream through
-the shared helpers of :mod:`repro_torch.kernels._build` (``check_cuda``,
-``launch``), raises if the launch was refused, and counts the launch in
-:data:`LAUNCHES`.
+one-hot block against the value rows on the MXU; the CUDA kernels
+(``csrc/segment_reduce.cu``) are a single-pass reduce-by-key over sorted
+ids (:func:`segment_sum_sorted`, the keyed main path's) and a scatter with
+one thread per row (:func:`scatter_add_`, and :func:`segment_sum` into a
+zeroed output for ids in any order).  Each wrapper takes CUDA tensors
+only: it checks device, dtype, shape and contiguity, allocates the output,
+launches on the current stream through the shared helpers of
+:mod:`repro_torch.kernels._build` (``check_cuda``, ``launch``), raises if
+the launch was refused, and counts the launch in :data:`LAUNCHES` (both
+segment-sum kernels under ``"segment_sum"``, the TPU kernel they port).
 CPU tensors go to the plain versions in :mod:`repro_torch.kernels.ref`
 through :mod:`repro_torch.kernels.ops`, never through these wrappers.
 """
@@ -18,13 +21,20 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_cuda
-from repro_torch.kernels.ref import segment_sum_sorted
 
-__all__ = ["LAUNCHES", "scatter_add_", "segment_sum", "segment_sum_sorted"]
+__all__ = ["LAUNCHES", "SORTED_TILE", "scatter_add_", "segment_sum",
+           "segment_sum_sorted"]
 
 #: kernel launches per wrapper (reset with ``ops.reset_launch_counts``)
 LAUNCHES = {"segment_sum": 0, "scatter_add": 0}
 
+#: rows per tile of the sorted kernel (``kSortedTile`` in the source)
+SORTED_TILE = 512
+
+_SORTED_FNS = {
+    torch.int32: "keyed_segment_sum_sorted_i32",
+    torch.float32: "keyed_segment_sum_sorted_f32",
+}
 _SEGMENT_FNS = {
     torch.int32: "keyed_segment_sum_i32",
     torch.float32: "keyed_segment_sum_f32",
@@ -35,6 +45,46 @@ _SCATTER_FNS = {
     torch.float32: "keyed_scatter_add_f32",
 }
 _SCATTER_NAMES = ("table", "ids", "rows")
+
+
+#: look-back tags are 31 bits: a workspace serves this many tiles, then a
+#: zeroed one takes its place
+_MAX_TICKETS = 2 ** 31 - 1
+
+
+class _Workspace:
+    """The sorted kernel's tile counter and look-back records on one
+    stream: int64 word 0 counts the tiles claimed, then one record word per
+    (tile, column), all zeroed once when allocated.  The counter is never
+    reset: ``tickets`` is the number of tiles that earlier calls claimed
+    from it, which each call passes to the kernel, and a record is tagged
+    with its tile's ticket, so the records need no zeroing launch per call.
+    Calls on one stream run in order, so one workspace per stream is enough
+    (a CUDA graph would freeze ``tickets``: the kernel is not for
+    capture)."""
+
+    __slots__ = ("words", "size", "ptr", "tickets")
+
+    def __init__(self, device, size: int):
+        self.words = torch.zeros(size, dtype=torch.int64, device=device)
+        self.size, self.ptr, self.tickets = size, self.words.data_ptr(), 0
+
+
+#: one workspace per (device index, raw stream), grown on demand
+_WORKSPACES: dict = {}
+
+
+def _workspace(dev: int, stream: int, n_tiles: int, d: int) -> _Workspace:
+    size = 1 + n_tiles * d
+    ws = _WORKSPACES.get((dev, stream))
+    if ws is not None and ws.size >= size \
+            and ws.tickets + n_tiles <= _MAX_TICKETS:
+        return ws
+    if ws is not None:
+        size = max(size, ws.size if ws.size >= size else 2 * ws.size)
+    ws = _WORKSPACES[(dev, stream)] = _Workspace(torch.device("cuda", dev),
+                                                 max(size, 1024))
+    return ws
 
 
 def _scatter_shapes(rows, ids, n_out: int, what: str):
@@ -66,6 +116,36 @@ def segment_sum(values, seg_ids, num_segments: int) -> torch.Tensor:
         _build.launch(fn, dev, seg_ids.data_ptr(), values.data_ptr(),
                       out.data_ptr(), n_rows, d, num_segments)
         LAUNCHES["segment_sum"] += 1
+    return out
+
+
+def segment_sum_sorted(values, seg_ids, num_segments: int) -> torch.Tensor:
+    """:func:`segment_sum` for ``seg_ids`` sorted ascending: one launch of
+    the reduce-by-key kernel into an uninitialized output, which the kernel
+    writes in full (zeros for empty segments).  PRECONDITION, not checked:
+    unsorted ids give wrong or unwritten rows.  Float32 sums are
+    bit-identical from call to call."""
+    dev = check_cuda(("values", "seg_ids"), values, seg_ids)
+    fn = _SORTED_FNS.get(values.dtype)
+    if fn is None:
+        raise ValueError(f"segment_sum_sorted takes int32/float32, got "
+                         f"{values.dtype}")
+    n_rows, d = _scatter_shapes(values, seg_ids, num_segments,
+                                "segment_sum_sorted")
+    if n_rows > 2 ** 31 - 2 * SORTED_TILE:
+        raise ValueError(f"segment_sum_sorted: {n_rows} rows exceed int32")
+    if not (n_rows and d and num_segments):
+        return torch.zeros((num_segments, d), dtype=values.dtype,
+                           device=values.device)
+    out = torch.empty((num_segments, d), dtype=values.dtype,
+                      device=values.device)
+    n_tiles = -(-n_rows // SORTED_TILE)
+    ws = _workspace(dev, _build.current_stream(dev), n_tiles, d)
+    _build.launch(fn, dev, seg_ids.data_ptr(), values.data_ptr(),
+                  out.data_ptr(), n_rows, d, num_segments, ws.ptr,
+                  ws.tickets)
+    ws.tickets += n_tiles
+    LAUNCHES["segment_sum"] += 1
     return out
 
 

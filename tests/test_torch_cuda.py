@@ -104,6 +104,129 @@ def test_scatter_add(dev):
                        tref.scatter_add_ref(small, ids, rows32))
 
 
+def _sorted_case(dev, case, rng):
+    """(sorted int32 ids, S) on the card: the keyed main path's shape
+    (about 65,536 pane rows into 65,044 cells), runs at the kernel's 512-row
+    tile edges, and a hot cell holding half of 1,048,576 rows."""
+    tile = tsr.SORTED_TILE
+    if case == "keyed":
+        S = 65044  # every cell has a row, 492 have two
+        ids = np.sort(np.concatenate([np.arange(S),
+                                      rng.integers(0, S, 65536 - S)]))
+    elif case == "tile edges":
+        # runs ending one row before, at and after each edge, one run of
+        # exactly one tile, one of 2 tiles + 1, and a ragged last tile
+        lengths = [tile - 1, 1, tile, 1, 2 * tile + 1, tile - 2, 3, tile + 1]
+        ids = np.repeat(np.arange(0, 3 * len(lengths), 3), lengths)
+        S = int(ids.max()) + 2
+    elif case == "out of range at both ends":
+        ids = np.sort(rng.integers(-600, 1500, 3 * tile + 5))
+        S = 1000
+    elif case == "skewed":
+        n = 1 << 20
+        cold = np.sort(rng.integers(0, 200_000, n // 2))
+        ids = np.sort(np.concatenate([cold, np.full(n // 2, 70_001)]))
+        S = 200_000
+    else:
+        raise AssertionError(case)
+    return _on(dev, ids.astype(np.int32)), S
+
+
+@pytest.mark.parametrize("case", ["keyed", "tile edges",
+                                  "out of range at both ends", "skewed"])
+def test_segment_sum_sorted_vs_plain(dev, case):
+    """The reduce-by-key kernel: int32 bit-exact against the plain
+    prefix-sum version (values near 2^31, so the sums wrap), at d = 2 (the
+    keyed path's) and d = 3; float32 within
+    3e-5 of the plain scatter (both sum short runs exactly or nearly), or,
+    for the hot cell's 524,288 rows, within the kernel's rounding: at most
+    32 float32 adds between a value and the sum (4 in the thread, 7 in the
+    tile's scan, the look-back's windows and its 7-step tree), so within
+    32 * 2^-24 of the sum of magnitudes; and a second float32 call
+    bit-identical to the first."""
+    rng = np.random.default_rng(7)
+    ids, S = _sorted_case(dev, case, rng)
+    n = len(ids)
+    vals = _on(dev, rng.integers(2 ** 31 - 99, 2 ** 31, (n, 2))
+               .astype(np.int32))
+    got = tsr.segment_sum_sorted(vals, ids, S)
+    assert torch.equal(got, tref.segment_sum_sorted(vals, ids, S))
+    assert torch.equal(got, tref.segment_sum_ref(vals, ids, S))
+    # d = 3: one column per pass, rows read one value at a time
+    wide = _on(dev, rng.integers(-2 ** 31, 2 ** 31, (n, 3)).astype(np.int32))
+    assert torch.equal(tsr.segment_sum_sorted(wide, ids, S),
+                       tref.segment_sum_sorted(wide, ids, S))
+    f = _on(dev, rng.standard_normal((n, 2)).astype(np.float32))
+    first = tsr.segment_sum_sorted(f, ids, S)
+    assert torch.equal(first, tsr.segment_sum_sorted(f, ids, S))
+    if case == "skewed":
+        exact = tref.segment_sum_ref(f.double(), ids, S)
+        mags = tref.segment_sum_ref(f.double().abs(), ids, S)
+        assert ((first.double() - exact).abs()
+                <= 32 * 2.0 ** -24 * mags + 1e-30).all()
+    else:
+        torch.testing.assert_close(first, tref.segment_sum_ref(f, ids, S),
+                                   **F32)
+
+
+def test_segment_sum_sorted_is_one_launch(dev):
+    """On CUDA tensors ``ops.segment_sum_sorted`` runs one device kernel,
+    the reduce-by-key, and no fill; empty inputs launch none of ours."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(8)
+    ids, S = _sorted_case(dev, "keyed", rng)
+    vals = _on(dev, rng.integers(0, 100, (len(ids), 2)).astype(np.int32))
+    ops.segment_sum_sorted(vals, ids, S)  # the workspace's first allocation
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.segment_sum_sorted(vals, ids, S)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [(e.key, e.count) for e in kernels] == [(kernels[0].key, 1)]
+    assert "segment_sum_sorted" in kernels[0].key
+    assert ops.launch_counts()["segment_sum"] == 1
+    empty = ops.segment_sum_sorted(vals[:0], ids[:0], 5)
+    assert empty.shape == (5, 2) and not empty.any()
+    assert ops.launch_counts()["segment_sum"] == 1
+
+
+@pytest.mark.parametrize("case", ["distinct", "repeats and dropped",
+                                  "unaligned rows"])
+def test_scatter_add_row_per_thread(dev, case):
+    """One thread per row: the window table's int64 accumulate at distinct
+    rows (the main path's), repeats with ids outside [0, C) dropped, and
+    rows at an 8-byte offset (the generic column loop); int64 and int32
+    both wrap, bit-exact against the plain version."""
+    rng = np.random.default_rng(9)
+    if case == "distinct":
+        C, n = 8 * 262144, 65044
+        ids = rng.choice(C, n, replace=False)
+    else:
+        C, n = 3000, 20000
+        ids = rng.integers(-50, C + 50, n)
+    ids = _on(dev, ids.astype(np.int32))
+    table = _on(dev, rng.integers(2 ** 62, I64.max, (C, 2)))
+    rows = _on(dev, rng.integers(2 ** 61, 2 ** 62, (n, 2)))
+    if case == "unaligned rows":
+        flat = torch.empty(2 * n + 1, dtype=torch.int64, device=dev)
+        flat[1:] = rows.flatten()
+        rows = flat[1:].view(n, 2)
+        assert rows.data_ptr() % 16
+    assert torch.equal(tsr.scatter_add_(table.clone(), ids, rows),
+                       tref.scatter_add_ref(table, ids, rows))
+    small, rows32 = table.to(torch.int32), rows.to(torch.int32)
+    assert torch.equal(tsr.scatter_add_(small.clone(), ids, rows32),
+                       tref.scatter_add_ref(small, ids, rows32))
+    f_tab = _on(dev, rng.standard_normal((C, 3)).astype(np.float32))
+    f_rows = _on(dev, rng.standard_normal((n, 3)).astype(np.float32))
+    torch.testing.assert_close(tsr.scatter_add_(f_tab.clone(), ids, f_rows),
+                               tref.scatter_add_ref(f_tab, ids, f_rows),
+                               **F32)
+
+
 @pytest.mark.parametrize("max_probes,capacity", [
     (1, 40), (16, 40), (33, 40), (16, 4096)])
 def test_lookups(dev, max_probes, capacity):
