@@ -111,7 +111,35 @@ Phases, each printed on its own line; any failure exits non-zero:
                phase 7, the gather once per MoE layer per prefill and per
                decode step; checks (i) (its replay taking the kernel run's
                expert choices) and (ii), where (ii)'s two layers are the
-               dense one and one MoE layer.
+               dense one and one MoE layer;
+11. supervised -- phase 4's stream and configuration under the port's
+               ``Supervisor``: a checkpoint every 6 chunks into a temporary
+               directory (removed at the end), a failure before chunk 15, a
+               restore of chunk 12's checkpoint, a shrink to 4 and a grow
+               back to 8 four chunks later; every chunk's emissions, early
+               and late channels and the final rows bit-exact against phase
+               4's run, every event kind logged, the black box a Chrome
+               trace holding the 15 ``chunk`` spans before the failure, the
+               three keyed kernels launched on each replayed chunk; the
+               checkpoint's bytes, the seconds to save and restore it, the
+               recovery time as the reference defines it and the first
+               replayed chunk's wall (which puts the restored rows back on
+               the card).  Then the same stream under ``Autoscaler`` with
+               ``SLOLatencyPolicy`` (an objective of 3x phase 4's chunk
+               median) and no schedule: the degree must change, the run stay
+               bit-exact; the decisions are printed with their signals;
+12. serving-runtime -- ``ServingRuntime`` over phase 7's Gemma2-27B (16
+               layers, bfloat16, 8,192 positions a slot, slot counts 2, 4
+               and 8), requests from ``request_source`` with prompts of
+               256-2,048 tokens and 32 new tokens: (a) a burst of 12 under
+               ``QueueDepthPolicy`` must grow the slot count; (b) a burst of
+               8 from 8 slots under an objective no decode step meets, read
+               through an ``SLOTracker`` fed from the engine's
+               ``serving.decode_step_s`` histogram, must breach and shrink
+               it; every request completes, and flash (decode) attention
+               launches once per layer per prefill (decode step); (a) again
+               on check (ii)'s float32 two-layer model must give each
+               request the tokens it gets alone.
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -1104,7 +1132,8 @@ def phase_main(torch, items):
     say("main", groupby_cells=int(want.shape[1]),
         emitted_cells=int(len(em["key"])), open_cells=int(len(final["w_key"])),
         bit_identical=True)
-    return {"fused": fused_counts, "loop": loop_counts}
+    return {"fused": fused_counts, "loop": loop_counts, "outs": outs,
+            "final": final, "chunk_ms_median": float(np.median(svc))}
 
 
 # ---------------------------------------------------------------------------
@@ -2260,19 +2289,317 @@ def phase_serve(torch, seed, label, spec):
     return main_counts
 
 
-def kernels_line(records, keyed_counts, serve_counts):
+# ---------------------------------------------------------------------------
+# phase 11: the keyed main path under the supervisor and the autoscaler
+# ---------------------------------------------------------------------------
+
+KEYED_KERNELS = ("segment_sum", "scatter_add", "batched_table_lookup")
+#: the supervised run: a checkpoint every SUP_CKPT_EVERY chunks, a failure
+#: before chunk SUP_FAIL_AT, the capacity back SUP_RECOVER chunks after the
+#: restored checkpoint
+SUP_CKPT_EVERY, SUP_FAIL_AT, SUP_RECOVER = 6, 15, 4
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def phase_supervised(torch, items, main, smi):
+    """Phase 4's stream and configuration under ``Supervisor``, then under
+    ``Autoscaler`` with an SLO latency policy and no schedule; both
+    bit-exact against phase 4's run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.interop import ROW_COLUMNS
+    from repro_torch.keyed import KeyedWindowAdapter, WindowSpec
+    from repro_torch.kernels import ops
+    from repro_torch.obs import FlightRecorder, MetricsRegistry, Tracer
+    from repro_torch.runtime import (
+        Autoscaler,
+        FailurePlan,
+        SLOLatencyPolicy,
+        StreamExecutor,
+        Supervisor,
+    )
+
+    spec = WindowSpec("sliding", size=SIZE, slide=SLIDE, lateness=LATENESS)
+    chunks = [items[i: i + CHUNK] for i in range(0, len(items), CHUNK)]
+    scalars = ("wm", "wm_valid", "max_ts", "max_ts_valid", "late_count")
+
+    def adapter():
+        return KeyedWindowAdapter(
+            spec, num_slots=NUM_SLOTS, impl="segment",
+            backend="device_table", capacity=CAPACITY,
+            max_probes=MAX_PROBES)
+
+    def check_run(label, outs, state):
+        check(outputs_equal(outs, main["outs"]),
+              f"{label}: emissions differ from phase 4's run")
+        for k in ROW_COLUMNS + scalars:
+            check(np.array_equal(state[k], main["final"][k]),
+                  f"{label}: final state {k} differs from phase 4's run")
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # -- (a) the supervised run: counts set to 0 just before ------------
+        ring = FlightRecorder()
+        tracer = Tracer(recorder=ring)
+        registry = MetricsRegistry()
+        ex = StreamExecutor(adapter(), degree=DEGREE, chunk_size=CHUNK,
+                            tracer=tracer)
+        order, per_chunk = [], []
+        process = ex.process
+
+        def counted(chunk, **kw):
+            before = ops.launch_counts()
+            out = process(chunk, **kw)
+            after = ops.launch_counts()
+            per_chunk.append({k: after[k] - before[k] for k in KEYED_KERNELS})
+            return out
+
+        def chunk_fn(i):
+            order.append(i)
+            return chunks[i]
+
+        ex.process = counted
+        sup = Supervisor(ex, chunk_fn, N_CHUNKS, ckpt_dir=ckpt_dir,
+                         ckpt_every=SUP_CKPT_EVERY,
+                         failure_plan=FailurePlan(fail_at=SUP_FAIL_AT,
+                                                  recover_after=SUP_RECOVER),
+                         registry=registry)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = sup.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sup_counts = ops.launch_counts()
+        check(sorted(outs) == list(range(N_CHUNKS)),
+              "supervised: a chunk's output is missing")
+        check_run("supervised", [outs[i] for i in range(N_CHUNKS)],
+                  ex.snapshot_barrier())
+        kinds = [e.kind for e in sup.events]
+        need = {"ckpt", "failure", "restore", "shrink", "grow", "blackbox"}
+        check(need <= set(kinds), f"supervised: events {sorted(set(kinds))} "
+              f"lack {sorted(need - set(kinds))}")
+        # the replayed chunks: processed after the failure, before its cursor
+        restored = next(e.chunk_index for e in sup.events
+                        if e.kind == "restore")
+        replayed = [c for pos, (i, c) in enumerate(zip(order, per_chunk))
+                    if pos >= SUP_FAIL_AT and restored <= i < SUP_FAIL_AT]
+        check(len(replayed) == SUP_FAIL_AT - restored and all(
+            c[k] > 0 for c in replayed for k in KEYED_KERNELS),
+            f"supervised: replayed chunks launched {replayed}")
+        with open(sup.blackbox_paths[0]) as f:
+            box = json.load(f)
+        fail_t = next(e["ts"] for e in box["traceEvents"]
+                      if e["ph"] == "i" and e["name"] == "failure")
+        box_chunks = [e for e in box["traceEvents"]
+                      if e["ph"] == "X" and e["name"] == "chunk"]
+        check(len(box_chunks) == SUP_FAIL_AT and all(
+            e["ts"] < fail_t for e in box_chunks),
+            f"supervised: the black box holds {len(box_chunks)} chunk spans "
+            f"before the failure, expected {SUP_FAIL_AT}")
+        spans = {}
+        for sp in tracer.spans:
+            spans.setdefault(sp.name, []).append(sp.duration)
+        step_bytes = {int(d[5:]): _dir_bytes(os.path.join(ckpt_dir, d))
+                      for d in os.listdir(ckpt_dir) if d.startswith("step_")}
+        svc = np.array([c.service_time for c in ex.metrics.chunks]) * 1e3
+        say("supervised", run="Supervisor", chunks_processed=len(order),
+            wall_s=wall, launches=sup_counts, events=[
+                (e.chunk_index, e.kind) for e in sup.events],
+            checkpoint_bytes=step_bytes[restored],
+            checkpoint_bytes_by_step=step_bytes,
+            ckpt_s=spans["ckpt"], barrier_s=spans["barrier"],
+            restore_s=spans["restore"], mttr_s=sup.mttr_s,
+            first_replayed_chunk_s=ex.metrics.chunks[
+                SUP_FAIL_AT].service_time,
+            chunk_ms_median=float(np.median(svc)),
+            phase4_chunk_ms_median=main["chunk_ms_median"],
+            blackbox_chunk_spans=len(box_chunks),
+            replayed_chunk_launches=replayed, bit_identical=True, card=smi)
+        del ex, sup, outs, tracer, ring
+
+        # -- (b) the autoscaled run: the degree from an SLO policy ----------
+        objective = 3 * main["chunk_ms_median"] / 1e3
+        policy = SLOLatencyPolicy(objective=objective, q=0.5, window=4)
+        scaler = Autoscaler(policy, [2, 4, 8], cooldown_chunks=2)
+        ex = StreamExecutor(adapter(), degree=DEGREE, chunk_size=CHUNK)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = ex.run(chunks, autoscaler=scaler)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        auto_counts = ops.launch_counts()
+        check_run("autoscaled", outs, ex.snapshot_barrier())
+        check(any(d.applied for d in scaler.decisions),
+              "autoscaled: the policy never changed the degree")
+        for k in KEYED_KERNELS:
+            check(auto_counts[k] > 0, f"autoscaled run launched no {k}")
+        svc = np.array([c.service_time for c in ex.metrics.chunks]) * 1e3
+        say("supervised", run="Autoscaler(SLOLatencyPolicy)",
+            objective_s=objective, wall_s=wall, launches=auto_counts,
+            chunk_ms_median=float(np.median(svc)), decisions=[
+                dict(chunk=d.chunk_index, current=d.current,
+                     proposed=d.proposed, applied=d.applied,
+                     handoff_rows=d.handoff_rows, signal=d.signal)
+                for d in scaler.decisions],
+            bit_identical=True, card=smi)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return [{k: sup_counts[k] for k in KEYED_KERNELS},
+            {k: auto_counts[k] for k in KEYED_KERNELS}]
+
+
+# ---------------------------------------------------------------------------
+# phase 12: ServingRuntime over Gemma2-27B with online slot scaling
+# ---------------------------------------------------------------------------
+
+#: phase 12's traffic: bursts of requests with prompts of 256-2,048 tokens
+#: and 32 new tokens each, slot counts 2, 4 and 8 of 8,192 positions
+RT_PROMPT = (256, 2048)
+RT_NEW = 32
+RT_SLOTS = (2, 4, 8)
+RT_GROW_REQUESTS = 12
+RT_SHRINK_REQUESTS = 8
+
+
+def phase_serving_runtime(torch, seed, smi):
+    """``ServingRuntime`` over phase 7's Gemma2-27B (16 layers, bfloat16):
+    (a) a burst under ``QueueDepthPolicy`` grows the slot count, (b) an
+    objective no decode step meets, read through an ``SLOTracker`` fed from
+    the engine's decode histogram, shrinks it; then (a) again on check
+    (ii)'s float32 two-layer model, held to one request at a time."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TT
+    from repro_torch.obs import MetricsRegistry, SLOSpec, SLOTracker, Tracer
+    from repro_torch.runtime import BurstyRate, SLOLatencyPolicy
+    from repro_torch.serving import ServingEngine, ServingRuntime, \
+        request_source
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get("gemma2-27b"), num_layers=16)
+    prompt_lens = [int(n) for n in np.random.default_rng(seed + 7).integers(
+        RT_PROMPT[0], RT_PROMPT[1] + 1, RT_GROW_REQUESTS)]
+
+    def run(config, params, slots, total, policy=None, registry=None):
+        tracer = Tracer(recorder=None)
+        engine = ServingEngine(config, params, num_slots=slots,
+                               s_max=SERVE_SMAX, device=dev)
+        rt = ServingRuntime(
+            engine,
+            request_source(vocab=config.vocab_size, prompt_lens=prompt_lens,
+                           max_new_tokens=RT_NEW, total=total, seed=seed),
+            BurstyRate(base=0, burst=total, period=64, duty=1),
+            slot_candidates=RT_SLOTS, queue_capacity=total + 2,
+            policy=policy, cooldown_ticks=1, tracer=tracer,
+            registry=registry)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rt.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        prefills = sum(sp.name == "prefill" for sp in tracer.spans)
+        want = expected_launches(config, prefills, engine.steps)
+        for k in ("flash_attention", "decode_attention"):
+            check(counts[k] == want[k] > 0,
+                  f"serving-runtime: {k} launched {counts[k]} times, "
+                  f"expected {want[k]} ({prefills} prefills, "
+                  f"{engine.steps} decode steps)")
+        check(engine.tokens_out == total * RT_NEW and all(
+            len(r.generated) == RT_NEW for r in rt.requests),
+            f"serving-runtime: {engine.tokens_out} tokens out, expected "
+            f"{total * RT_NEW}")
+        ticks = np.array([sp.duration for sp in tracer.spans
+                          if sp.name == "tick"]) * 1e3
+        summary = dict(
+            requests=total, tokens_out=engine.tokens_out, wall_s=wall,
+            tokens_per_s=engine.tokens_out / wall, ticks=len(rt.reports),
+            tick_ms_median=float(np.median(ticks)),
+            tick_ms_max=float(ticks.max()), prefills=prefills,
+            decode_steps=engine.steps, resize_events=engine.resize_events,
+            slots_by_tick=[r.num_slots for r in rt.reports],
+            launches={k: counts[k] for k in ("flash_attention",
+                                             "decode_attention")})
+        tokens = {r.rid: list(r.generated) for r in rt.requests}
+        engine.caches = engine._one_caches = None
+        return summary, tokens, summary["launches"]
+
+    params = TT.init_params(cfg, seed, device=dev)
+    grow, _, grow_counts = run(cfg, params, RT_SLOTS[0], RT_GROW_REQUESTS)
+    check(any(e["new"] > e["old"] for e in grow["resize_events"]),
+          "serving-runtime (a): the burst did not grow the slot count")
+    say("serving-runtime", run="(a) burst, QueueDepthPolicy, bf16",
+        model=cfg.name, layers=cfg.num_layers, prompt_lengths=prompt_lens,
+        **grow, card=smi)
+
+    registry = MetricsRegistry()
+    tracker = SLOTracker(SLOSpec(
+        name="decode", objective=1e-4, compliance=0.9, short_window=2,
+        long_window=4, fast_burn=2.0, slow_burn=1.0))
+    policy = SLOLatencyPolicy(objective=1e-4, mode="serving", tracker=tracker)
+    shrink, _, shrink_counts = run(cfg, params, RT_SLOTS[-1],
+                                   RT_SHRINK_REQUESTS, policy, registry)
+    check(policy.histogram is registry.histogram("serving.decode_step_s"),
+          "serving-runtime (b): the tracker is not fed from the engine")
+    check(any(e["new"] < e["old"] for e in shrink["resize_events"]),
+          "serving-runtime (b): the breach did not shrink the slot count")
+    check(tracker.breaches >= 1, "serving-runtime (b): no breach")
+    say("serving-runtime", run="(b) unmeetable SLOLatencyPolicy, bf16",
+        **shrink, tracker_percentile_s=tracker.percentile(),
+        tracker_breaches=tracker.breaches,
+        tracker_samples=tracker.total_n, last_signal=policy.last_signal,
+        card=smi)
+    del params
+    torch.cuda.empty_cache()
+
+    # -- (a) in float32, 2 layers at full width: batched == one at a time ----
+    cfg32 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32",
+                                compute_dtype="float32")
+    params = TT.init_params(cfg32, seed + 1, device=dev)
+    f32, tokens, _ = run(cfg32, params, RT_SLOTS[0], RT_GROW_REQUESTS)
+    check(any(e["new"] > e["old"] for e in f32["resize_events"]),
+          "serving-runtime float32: the burst did not grow the slot count")
+    source = request_source(vocab=cfg32.vocab_size, prompt_lens=prompt_lens,
+                            max_new_tokens=RT_NEW, total=RT_GROW_REQUESTS,
+                            seed=seed)
+    for req in source.take(RT_GROW_REQUESTS):
+        caches = TT.init_caches(cfg32, 1, SERVE_SMAX, device=dev)
+        logits, caches = TT.prefill_forward(
+            params, {"tokens": torch.as_tensor(req.prompt, device=dev).long()
+                     [None]}, cfg32, caches)
+        out = [int(logits[0, -1].argmax())]
+        for pos in range(len(req.prompt), len(req.prompt) + RT_NEW - 1):
+            logits, caches = TT.decode_forward(
+                params, {"tokens": torch.tensor([[out[-1]]], device=dev)},
+                cfg32, caches,
+                torch.tensor([pos], dtype=torch.int32, device=dev))
+            out.append(int(logits[0, -1].argmax()))
+        check(tokens[req.rid] == out, f"serving-runtime float32: request "
+              f"{req.rid} differs from one request at a time")
+        del caches
+    say("serving-runtime", run="(a) float32, 2 layers at full width",
+        **f32, batched_eq_sequential=True, card=smi)
+    del params
+    torch.cuda.empty_cache()
+    return [grow_counts, shrink_counts]
+
+
+def kernels_line(records, path_counts):
     """The ``kernels`` object: each kernel's measured numbers and its
-    launches on the main paths that run it (the keyed fused and loop runs,
-    or the sum over the serve phases)."""
+    launches summed over the main paths' runs (``path_counts``: one count
+    dict per run, each read just after the run it counts)."""
     kernels = []
     for k, (source, replaces) in KERNEL_META.items():
         rec = records[k]
-        on_path = [c[k] for c in serve_counts.values() if k in c]
-        launches = sum(on_path) if on_path else \
-            keyed_counts["fused"][k] + keyed_counts["loop"][k]
         kernels.append({
             "name": k, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": sum(c.get(k, 0) for c in path_counts),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -2328,23 +2655,25 @@ def main(argv=None):
         items = make_stream(args.seed, keyed_stream)
         records = phase_kernels(torch, items)
         phase_host(torch)
-        counts = phase_main(torch, items)
+        main = phase_main(torch, items)
+        paths = [main["fused"], main["loop"]]
         phase_small(torch)
-        del items
         records.update(phase_attention(torch))
-        serve_counts = {"gemma2-serve": phase_serve(
-            torch, args.seed, "gemma2-serve", SERVES["gemma2-serve"])}
+        paths.append(phase_serve(torch, args.seed, "gemma2-serve",
+                                 SERVES["gemma2-serve"]))
         records.update(phase_ssm_moe(torch))
         for label in ("mamba2-serve", "moe-serve"):
-            serve_counts[label] = phase_serve(torch, args.seed, label,
-                                              SERVES[label])
+            paths.append(phase_serve(torch, args.seed, label, SERVES[label]))
+        paths += phase_supervised(torch, items, main, smi)
+        del items, main
+        paths += phase_serving_runtime(torch, args.seed, smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         ops.use_kernels("auto")
 
-    print(json.dumps(kernels_line(records, counts, serve_counts)))
+    print(json.dumps(kernels_line(records, paths)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

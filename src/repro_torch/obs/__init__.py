@@ -1,6 +1,14 @@
-"""`repro_torch.obs` — span tracing and the metrics registry the executor
-and the keyed plane's ``export_health`` need.  SLOs, regression detection
-and the Chrome-trace export are a later slice.
+"""`repro_torch.obs` — structured observability for the elastic runtime.
+
+Nested span tracing over the keyed plane, the executor and the serving
+engine (:mod:`~repro_torch.obs.trace`), a counters/gauges/log-bucket
+histogram registry (:mod:`~repro_torch.obs.metrics`), Chrome/Perfetto
+trace export (:mod:`~repro_torch.obs.export`), a markdown report renderer
+(``python -m repro_torch.obs.report``), declarative SLOs with error-budget
+burn rates (:mod:`~repro_torch.obs.slo`), an online per-stage regression
+detector (:mod:`~repro_torch.obs.detect`), and the
+:class:`~repro_torch.obs.trace.FlightRecorder` black box the supervisor
+dumps on failure.
 
 Disabled by default everywhere: instrumented hot paths hold
 :data:`~repro_torch.obs.trace.NULL_TRACER` and pay one attribute load +
@@ -8,7 +16,14 @@ no-op call per stage.
 """
 
 from repro_torch.obs.clock import LogicalClock, WallClock
+from repro_torch.obs.detect import (
+    RegressionDetector,
+    StageBaseline,
+    StageRegression,
+)
+from repro_torch.obs.export import chrome_trace, write_metrics, write_trace
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
+from repro_torch.obs.slo import SLOEngine, SLOSpec, SLOStatus, SLOTracker
 from repro_torch.obs.trace import (
     FLIGHT_RECORDER,
     NULL_TRACER,
@@ -32,7 +47,17 @@ __all__ = [
     "LogicalClock",
     "MetricsRegistry",
     "NullTracer",
+    "RegressionDetector",
+    "SLOEngine",
+    "SLOSpec",
+    "SLOStatus",
+    "SLOTracker",
     "SpanRecord",
+    "StageBaseline",
+    "StageRegression",
     "Tracer",
     "WallClock",
+    "chrome_trace",
+    "write_metrics",
+    "write_trace",
 ]

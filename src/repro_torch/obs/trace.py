@@ -27,7 +27,9 @@ instead of silent.
 
 A :class:`FlightRecorder` is the complementary bound: a ring that keeps the
 **newest** events (the main buffers keep the oldest), so the moments just
-before a failure survive even on a saturated tracer.
+before a failure survive even on a saturated tracer.  The supervisor dumps
+it as a Chrome-trace "black box" artifact on worker failure and
+checkpoint-restore.
 """
 
 from __future__ import annotations
@@ -341,8 +343,9 @@ class FlightRecorder:
 
     The main tracer buffers keep the *oldest* ``max_events`` events and count
     drops; the recorder inverts that, so the timeline leading *into* a
-    failure is always available.  (The Chrome-trace export that dumps it is
-    not ported yet.)
+    failure is always available.  :meth:`dump` writes a Chrome-trace artifact
+    (the recorder duck-types the `Tracer` surface `chrome_trace` reads), and
+    the supervisor calls it on worker failure and checkpoint-restore.
     """
 
     def __init__(self, capacity: int = 4096, metrics_capacity: int = 16):
@@ -374,6 +377,17 @@ class FlightRecorder:
 
     def __len__(self) -> int:
         return len(self.spans) + len(self.instants) + len(self.counters)
+
+    def dump(self, path: str, *, registry=None,
+             process_name: str = "blackbox") -> dict:
+        """Write the ring as a Chrome-trace JSON "black box" and return the
+        document.  ``registry`` adds a final metrics snapshot; the rolling
+        :attr:`metrics_ring` rides along under ``otherData``."""
+        from repro_torch.obs.export import write_trace
+
+        return write_trace(path, self, registry=registry,
+                           process_name=process_name,
+                           extra={"metrics_ring": list(self.metrics_ring)})
 
 
 #: the process-wide black box every enabled `Tracer` feeds by default

@@ -2,10 +2,22 @@
 
 An :mod:`~repro_torch.runtime.stream` source feeds a backpressure queue;
 the :mod:`~repro_torch.runtime.executor` drives a host pattern adapter over
-fixed-size chunks; the :mod:`~repro_torch.runtime.metrics` bus records
-chunks and resizes.  The autoscaler, the supervisor and the SPMD adapters
-are a later slice.
+fixed-size chunks; the :mod:`~repro_torch.runtime.autoscaler` changes the
+degree online through the adapter's resize protocol; the
+:mod:`~repro_torch.runtime.metrics` bus closes the loop; the
+:mod:`~repro_torch.runtime.supervisor` adds checkpoint-mediated failure
+shrink and recovery grow.  The executor's SPMD adapters are not ported.
 """
+
+from repro_torch.runtime.autoscaler import (
+    Autoscaler,
+    Decision,
+    Policy,
+    QueueDepthPolicy,
+    SLOLatencyPolicy,
+    ThroughputTargetPolicy,
+    UtilizationPolicy,
+)
 
 from repro_torch.runtime.executor import (
     PatternAdapter,
@@ -33,8 +45,21 @@ from repro_torch.runtime.stream import (
     SyntheticSource,
     pump,
 )
+from repro_torch.runtime.supervisor import (
+    FailurePlan,
+    Supervisor,
+    SupervisorEvent,
+    WorkerFailure,
+)
 
 __all__ = [
+    "Autoscaler",
+    "Decision",
+    "Policy",
+    "QueueDepthPolicy",
+    "SLOLatencyPolicy",
+    "ThroughputTargetPolicy",
+    "UtilizationPolicy",
     "PatternAdapter",
     "ResizeInfo",
     "StreamExecutor",
@@ -55,4 +80,8 @@ __all__ = [
     "Source",
     "SyntheticSource",
     "pump",
+    "FailurePlan",
+    "Supervisor",
+    "SupervisorEvent",
+    "WorkerFailure",
 ]

@@ -347,6 +347,78 @@ def test_plane_on_the_card_equals_plain_and_cpu(dev, fused):
             np.testing.assert_array_equal(kern[1][k], other[1][k])
 
 
+def test_supervised_run_on_the_card_equals_the_cpu(dev, tmp_path):
+    """``Supervisor`` over the device-table plane with spill, TTL and early
+    firing: a checkpoint every 2 chunks, a failure before chunk 3, a restore,
+    a shrink and a grow.  The run on the card equals the same run on the
+    CPU (outputs, final state, events), and the replay launched the keyed
+    kernels."""
+    from repro_torch.runtime import BoundedSource, FailurePlan, Supervisor
+
+    spec = WindowSpec("tumbling", size=30, lateness=5, late_policy="side",
+                      early_every=2)
+    items = synthetic_keyed_items(16 * 6, num_keys=7, disorder=5, seed=3)
+
+    def run(device, name):
+        src = BoundedSource(items)
+        ad = KeyedWindowAdapter(spec, num_slots=10, backend="device_table",
+                                capacity=8, max_probes=2, ttl=4,
+                                device=device)
+        ex = StreamExecutor(ad, degree=3, chunk_size=16)
+        sup = Supervisor(
+            ex, lambda i: (src.seek(i * 16), src.take(16))[1], 6,
+            ckpt_dir=str(tmp_path / name), ckpt_every=2,
+            failure_plan=FailurePlan(fail_at=3, recover_after=2))
+        outs = sup.run()
+        return ([outs[i] for i in range(6)], ex.state,
+                [(e.chunk_index, e.kind) for e in sup.events])
+
+    ops.reset_launch_counts()
+    card = run(dev, "card")
+    counts = ops.launch_counts()
+    for k in ("segment_sum", "scatter_add", "batched_table_lookup"):
+        assert counts[k] > 6, k     # more than one per chunk: the replay
+    cpu = run("cpu", "host")
+    assert card[2] == cpu[2]
+    assert {"failure", "restore", "shrink", "grow"} <= {k for _, k in card[2]}
+    for a, b in zip(card[0], cpu[0]):
+        for ch in a:
+            for k in a[ch]:
+                assert a[ch][k].dtype == b[ch][k].dtype
+                np.testing.assert_array_equal(a[ch][k], b[ch][k])
+    for k in cpu[1]:
+        np.testing.assert_array_equal(card[1][k], cpu[1][k], err_msg=k)
+
+
+def test_checkpoint_of_card_tensors_restores_onto_the_card(dev, tmp_path):
+    """Card tensors are copied to the host before a non-blocking save
+    returns and come back on the card, in their dtype; a CPU tensor and a
+    numpy leaf of the template stay where they were."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tree = {"w": torch.randn(64, 32, generator=gen, device=dev),
+            "ids": torch.arange(100, device=dev),
+            "mask": torch.arange(7, device=dev) % 2 == 0,
+            "cpu": torch.ones(3), "host": np.arange(5)}
+    want = {k: v.clone() if isinstance(v, torch.Tensor) else v.copy()
+            for k, v in tree.items()}
+    writer = ckpt.save(str(tmp_path), 7, tree, blocking=False)
+    tree["w"].mul_(2.0)
+    tree["ids"].zero_()
+    writer.join()
+    template = {"w": torch.empty(64, 32, device=dev),
+                "ids": torch.empty(100, dtype=torch.int64, device=dev),
+                "mask": torch.empty(7, dtype=torch.bool, device=dev),
+                "cpu": torch.empty(3), "host": np.zeros(5, np.int64)}
+    got, _ = ckpt.restore(str(tmp_path), 7, template)
+    for k in ("w", "ids", "mask", "cpu"):
+        assert got[k].device == template[k].device, k
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+    assert isinstance(got["host"], np.ndarray)
+    np.testing.assert_array_equal(got["host"], want["host"])
+
+
 # ---------------------------------------------------------------------------
 # attention kernels
 # ---------------------------------------------------------------------------
@@ -416,11 +488,17 @@ def test_flash_attention_vs_plain(dev, dtype, B, Hq, Hkv, Sq, Skv, hd,
 def test_flash_attention_routes_by_dtype(dev, dtype, hd, kernel):
     """bfloat16 runs the tensor-core kernel; float32 keeps the float32-FMA
     kernel, one launch, within 3e-5 (TF32 could not hold that); head_dim
-    256 runs the float32-FMA kernel in bfloat16 too."""
+    256 runs the float32-FMA kernel in bfloat16 too.  The profile window
+    holds one warm launch: the inputs are made, and the library's build or
+    load, the kernel's first (lazily loading) launch and a first profiler
+    session happen before it."""
     from torch.profiler import ProfilerActivity, profile
 
     q, k, v = _flash_inputs(dev, dtype, 1, 8, 4, 300, 300, hd, 7)
     kw = dict(causal=True, window=100, softcap=50.0)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        tfa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
     before = ops.launch_counts()["flash_attention"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         got = tfa.flash_attention(q, k, v, **kw)
