@@ -139,7 +139,25 @@ Phases, each printed on its own line; any failure exits non-zero:
                it; every request completes, and flash (decode) attention
                launches once per layer per prefill (decode step); (a) again
                on check (ii)'s float32 two-layer model must give each
-               request the tokens it gets alone.
+               request the tokens it gets alone;
+13. patterns -- the paper's five state access patterns on the card
+               through their entry points: ``SerialState.run`` on a
+               ``WorkerMesh``, and ``StreamExecutor`` with the SPMD
+               adapters (default mesh factory: the card) over 1,048,576
+               int64 slots (S2 block, degrees 8 -> 4 -> 2 -> 8; S2 slotmap
+               replicated per worker, 3 -> 5 -> 7) and streams of 65,536
+               tasks (S3 at ``flush_every`` 1, 16 and 256 and 8 -> 4 -> 8;
+               S4 on a float32 fitness stream at ``sync_every`` 1 and 64,
+               8 -> 2 -> 8; S5 4 -> 8), each bit-exact against the port's
+               CPU oracle (``core.semantics``) and its schedule-dependent
+               outputs (S3's stale-view ys, S4's traces) against the same
+               run on the CPU; then S3 under ``Supervisor`` with a failure,
+               equal to the unfailed 8 -> 4 -> 8 run.  Per run: the wall,
+               microseconds per scan step, and one chunk under
+               ``torch.profiler`` (kernels per step, the device's busy
+               share) and CUDA's sync debug mode (the chunk's host
+               synchronizations: its copy to the card and nothing else);
+               no kernel of ours runs here.
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -2589,6 +2607,279 @@ def phase_serving_runtime(torch, seed, smi):
     return [grow_counts, shrink_counts]
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the paper's five state access patterns through StreamExecutor
+# ---------------------------------------------------------------------------
+
+#: the patterns' state: the keyed plane's key space, int64 slots (8 MiB)
+PAT_SLOTS = 1 << 20
+#: S1 and S2: tasks in chunks of 2,048 (slotmap: 2,100, a multiple of its
+#: degrees 3, 5 and 7); S3-S5: 65,536 tasks in chunks of 8,192
+PAT_S1_TASKS = 4096
+PAT_S2_TASKS, PAT_S2_CHUNK = 16384, 2048
+PAT_SLOTMAP_CHUNK = 2100
+PAT_TASKS, PAT_CHUNK = 65536, 8192
+
+
+def pattern_profile(torch, process, chunk, steps):
+    """One chunk under ``torch.profiler``: kernels launched per scan step,
+    device time and the device's busy share of the chunk's wall
+    (``process`` ends in a synchronize); and, by CUDA's sync debug mode,
+    the host synchronizations the chunk made (a copy from or to the host
+    or a value read back; the explicit synchronize is not one).  The
+    profiler can drop device events late in a long process, so its counts
+    are floors; the sync count does not depend on it."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as syncs, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            process(chunk)
+            wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith(("Memcpy", "Memset"))]
+    dev_us = sum(e.time_range.elapsed_us() for e in events)
+    return dict(
+        profiled_steps=steps, kernels_per_step=len(events) / steps,
+        host_syncs=sum("synchronizing CUDA operation" in str(w.message)
+                       for w in syncs),
+        profiled_wall_ms=wall * 1e3,
+        device_ms=dev_us / 1e3 if dev_us else "not measured",
+        device_busy_share=dev_us / 1e6 / wall if dev_us else "not measured")
+
+
+def phase_patterns(torch, seed, smi):
+    """S1-S5 on the card through their entry points (S1: ``SerialState.run``
+    on a card mesh; S2-S5: ``StreamExecutor`` with the SPMD adapters, online
+    resizes, the default mesh factory: the card), each held to the port's
+    CPU oracle (``core.semantics``) and the schedule-dependent outputs to
+    the same batched run on the CPU; then S3 under ``Supervisor`` with a
+    failure, equal to the unfailed run with the same degrees."""
+    import functools
+    import shutil
+    import tempfile
+
+    from repro_torch.core import WorkerMesh, patterns as P, semantics as S
+    from repro_torch.runtime import (
+        AccumulatorAdapter,
+        FailurePlan,
+        PartitionedAdapter,
+        SeparateAdapter,
+        StreamExecutor,
+        SuccessiveAdapter,
+        Supervisor,
+        default_mesh_factory,
+    )
+
+    t_phase = time.perf_counter()
+    cpu_factory = functools.partial(default_mesh_factory, device="cpu")
+    rng = np.random.default_rng(seed + 13)
+    tasks = rng.integers(0, 1 << 40, PAT_TASKS)              # int64
+    v0 = rng.integers(-1000, 1000, PAT_SLOTS)                # int64, 8 MiB
+    # S4's fitness stream, drawn as the simulator draws it
+    fitness = np.random.default_rng(seed).random(PAT_TASKS).astype(np.float32)
+    i64 = functools.partial(torch.tensor, dtype=torch.int64)
+
+    def same(a, b):
+        if isinstance(b, dict):
+            return all(same(a[k], b[k]) for k in b)
+        a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+        return a.dtype == b.dtype and torch.equal(a, b)
+
+    def cat(outs, key=None):
+        return torch.cat([(o if key is None else o[key]).cpu() for o in outs])
+
+    def drive(make, xs, chunk, degree, schedule, factory=None, steps=None,
+              label=None):
+        """The stream through ``StreamExecutor`` at ``degree`` with
+        ``schedule``.  On the card (``factory`` None) the chunks but the
+        last are timed, and the last runs under the profiler."""
+        kw = {} if factory is None else dict(mesh_factory=factory)
+        ex = StreamExecutor(make(), degree=degree, chunk_size=chunk, **kw)
+        chunks = [xs[i: i + chunk] for i in range(0, len(xs), chunk)]
+        if factory is not None:
+            outs = ex.run(chunks, schedule=schedule)
+            return dict(outs=outs, state=ex.state)
+        t0 = time.perf_counter()
+        outs = ex.run(chunks[:-1], schedule=schedule)
+        wall = time.perf_counter() - t0
+        last = len(chunks) - 1
+        if schedule and last in schedule:
+            ex.set_degree(schedule[last])
+        degrees = [c.n_workers for c in ex.metrics.chunks]
+        prof = pattern_profile(
+            torch, lambda c: outs.append(ex.process(c)), chunks[-1],
+            steps(chunk, ex.degree))
+        total = sum(steps(chunk, d) for d in degrees)
+        record = dict(
+            run=label, wall_s=wall, timed_chunks=len(degrees), steps=total,
+            step_us=wall / total * 1e6,
+            chunk_ms_median=float(np.median(
+                [c.service_time for c in ex.metrics.chunks[:-1]]) * 1e3),
+            degrees=degrees + [ex.degree], resizes=[
+                (r.n_old, r.n_new, r.protocol, r.handoff_items)
+                for r in ex.metrics.resizes], **prof)
+        return dict(outs=outs, state=ex.state, record=record)
+
+    records = []
+
+    def timed(fn, *args, **kw):
+        """``fn``'s result and its seconds (the CPU checks' cost)."""
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        return out, time.perf_counter() - t
+
+    def report(res, cpu_s, **checks):
+        for what, ok in checks.items():
+            check(ok, f"patterns {res['record']['run']}: {what} differs")
+        res["record"]["cpu_check_s"] = cpu_s
+        records.append(res["record"])
+        say("patterns", **res["record"], bit_exact=sorted(checks), card=smi)
+
+    # -- S1: the serial fold on a card mesh --------------------------------
+    s1 = P.SerialState(f=lambda x, s: x - s, ns=lambda x, s: s * 3 + x)
+    xs1 = torch.as_tensor(tasks[:PAT_S1_TASKS])
+    t0 = time.perf_counter()
+    ys, s = s1.run(WorkerMesh(8), "workers", xs1, i64(7))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (ys_ref, s_ref), cpu_s = timed(S.serial, s1.f, s1.ns, xs1, i64(7))
+    check(ys.is_cuda and same(ys, ys_ref) and same(s, s_ref),
+          "patterns S1: the card's fold differs from the CPU oracle")
+    prof = pattern_profile(
+        torch, lambda c: (s1.run(WorkerMesh(8), "workers", c, i64(7)),
+                          torch.cuda.synchronize()), xs1[:512], 512)
+    rec = dict(run="S1 serial", wall_s=wall, steps=PAT_S1_TASKS,
+               step_us=wall / PAT_S1_TASKS * 1e6, **prof, cpu_check_s=cpu_s)
+    records.append(rec)
+    say("patterns", **rec, bit_exact=["ys", "state"], card=smi)
+
+    # -- S2 block: 1,048,576 int64 slots, degrees 8 -> 4 -> 2 -> 8 --------
+    def s2(ownership):
+        return P.PartitionedState(
+            f=lambda x, s: x - s, ns=lambda x, s: s * 3 + x,
+            h=lambda x: (x * 2654435761) % PAT_SLOTS, num_slots=PAT_SLOTS,
+            ownership=ownership)
+
+    xs2 = torch.as_tensor(tasks[:PAT_S2_TASKS])
+    (ys_ref, v_ref), cpu_s = timed(S.partitioned, s2("block").f,
+                                   s2("block").ns, s2("block").h, xs2,
+                                   torch.as_tensor(v0))
+    res = drive(lambda: PartitionedAdapter(s2("block"), v0), xs2,
+                PAT_S2_CHUNK, 8, {2: 4, 4: 2, 6: 8},
+                steps=lambda m, n: m, label="S2 block")
+    check(res["state"].is_cuda and res["record"]["host_syncs"] == 1,
+          f"patterns S2 block: state left the card, or the chunk made "
+          f"{res['record']['host_syncs']} host synchronizations (1: its "
+          f"copy to the card)")
+    report(res, cpu_s, ys=same(cat(res["outs"]), ys_ref),
+           v=same(res["state"], v_ref))
+
+    # -- S2 slotmap: the same slots replicated [n, N], degrees 3 -> 5 -> 7 --
+    xs2m = torch.as_tensor(tasks[:8 * PAT_SLOTMAP_CHUNK])
+    (ys_ref, v_ref), cpu_s = timed(S.partitioned, s2("slotmap").f,
+                                   s2("slotmap").ns, s2("slotmap").h, xs2m,
+                                   torch.as_tensor(v0))
+    res = drive(lambda: PartitionedAdapter(s2("slotmap"), v0), xs2m,
+                PAT_SLOTMAP_CHUNK, 3, {3: 5, 6: 7},
+                steps=lambda m, n: m, label="S2 slotmap")
+    report(res, cpu_s, ys=same(cat(res["outs"]), ys_ref),
+           v=same(res["state"], v_ref))
+    del ys_ref, v_ref
+
+    # -- S3: flush_every 1, 16, 256 at degree 8; 8 -> 4 -> 8 at 16 ----------
+    s3 = P.AccumulatorState(f=lambda x, view: view - x, g=lambda x: x,
+                            combine=lambda a, b: a + b, zero=lambda: i64(0))
+    xs3 = torch.as_tensor(tasks)
+    (_, s3_ref), oracle_s = timed(S.accumulator, s3.f, s3.g, s3.combine, xs3,
+                                  i64(0))
+    resized = {2: 4, 4: 8}
+    for fe, schedule in ((1, None), (16, None), (256, None), (16, resized)):
+        def make(fe=fe):
+            return AccumulatorAdapter(s3, flush_every=fe)
+
+        label = f"S3 flush_every={fe}" + (" 8->4->8" if schedule else "")
+        res = drive(make, xs3, PAT_CHUNK, 8, schedule,
+                    steps=lambda m, n: m // n, label=label)
+        cpu, cpu_s = timed(drive, make, xs3, PAT_CHUNK, 8, schedule,
+                           factory=cpu_factory)
+        report(res, cpu_s + oracle_s / 4, state=same(res["state"], s3_ref),
+               ys_vs_cpu_run=same(cat(res["outs"]), cat(cpu["outs"])))
+        if schedule:
+            s3_resized = cat(res["outs"]), res["state"]
+
+    # -- S4: a float32 fitness stream, sync_every 1 and 64, 8 -> 2 -> 8 -----
+    s4 = P.SuccessiveApproximationState(
+        c=lambda x, s: x < s, s_prime=lambda x, s: torch.minimum(x, s))
+    xs4 = torch.as_tensor(fitness)
+    inf = torch.tensor(np.inf, dtype=torch.float32)
+    (_, s4_ref), oracle_s = timed(S.successive_approximation, s4.c,
+                                  s4.s_prime, xs4, inf)
+    for se in (1, 64):
+        def make(se=se):
+            return SuccessiveAdapter(s4, inf, sync_every=se)
+
+        res = drive(make, xs4, PAT_CHUNK, 8, {3: 2, 5: 8},
+                    steps=lambda m, n: m // n,
+                    label=f"S4 sync_every={se} 8->2->8")
+        cpu, cpu_s = timed(drive, make, xs4, PAT_CHUNK, 8, {3: 2, 5: 8},
+                           factory=cpu_factory)
+        report(res, cpu_s + oracle_s / 2, state=same(res["state"], s4_ref),
+               trace_vs_cpu_run=same(cat(res["outs"], "trace"),
+                                     cat(cpu["outs"], "trace")))
+
+    # -- S5: 65,536 int64 tasks, degrees 4 -> 8 -----------------------------
+    s5 = P.SeparateTaskState(f=lambda x: x * x, s=lambda y, s: s * 31 + y)
+    (ys_ref, tr_ref, s5_ref), cpu_s = timed(S.separate_task_state, s5.f,
+                                            s5.s, xs3, i64(1))
+    res = drive(lambda: SeparateAdapter(s5, i64(1)), xs3, PAT_CHUNK, 4,
+                {4: 8}, steps=lambda m, n: m, label="S5 4->8")
+    report(res, cpu_s, ys=same(cat(res["outs"], "ys"), ys_ref),
+           trace=same(cat(res["outs"], "trace"), tr_ref),
+           state=same(res["state"], s5_ref))
+
+    # -- S3 under Supervisor: a failure before chunk 3 ----------------------
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_patterns_")
+    try:
+        ex = StreamExecutor(AccumulatorAdapter(s3, flush_every=16), degree=8,
+                            chunk_size=PAT_CHUNK)
+        sup = Supervisor(ex, lambda i: tasks[i * PAT_CHUNK:
+                                             (i + 1) * PAT_CHUNK],
+                         PAT_TASKS // PAT_CHUNK, ckpt_dir=ckpt_dir,
+                         ckpt_every=2,
+                         failure_plan=FailurePlan(fail_at=3, recover_after=2))
+        t0 = time.perf_counter()
+        outs = sup.run()
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    events = [(e.chunk_index, e.kind) for e in sup.events]
+    # restore of chunk 2 at 8 -> 4, growth back to 8 before chunk 4: the
+    # degrees of the 8 -> 4 -> 8 run above
+    check(same(cat([outs[i] for i in range(len(outs))]), s3_resized[0])
+          and same(ex.state, s3_resized[1]),
+          "patterns supervised S3: outputs differ from the unfailed run")
+    kinds = {k for _, k in events}
+    check({"failure", "restore", "shrink", "grow"} <= kinds,
+          f"patterns supervised S3: events {events}")
+    rec = dict(run="S3 flush_every=16 supervised", wall_s=wall,
+               events=events, mttr_s=sup.mttr_s,
+               degrees=[c.n_workers for c in ex.metrics.chunks])
+    records.append(rec)
+    say("patterns", **rec, bit_exact=["ys", "state"], card=smi)
+    say("patterns", seconds=time.perf_counter() - t_phase, card=smi)
+    return records
+
+
 def kernels_line(records, path_counts):
     """The ``kernels`` object: each kernel's measured numbers and its
     launches summed over the main paths' runs (``path_counts``: one count
@@ -2667,6 +2958,7 @@ def main(argv=None):
         paths += phase_supervised(torch, items, main, smi)
         del items, main
         paths += phase_serving_runtime(torch, args.seed, smi)
+        phase_patterns(torch, args.seed, smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -50,9 +50,9 @@ def stable_flush_period(t_f: float, t_acc: float, n_w: int) -> float:
 
     Note: this differs from :func:`paper_flush_threshold` by the ratio
     ``(t_f/t_acc)^2`` — the two coincide when ``t_f ~= t_acc`` (the regime of
-    the paper's Fig. 4, where ``t_f = 2 t_acc``).  The discrepancy is recorded
-    in EXPERIMENTS.md; the simulator (and the real shard_map farm) confirm the
-    queueing form.
+    the paper's Fig. 4, where ``t_f = 2 t_acc``).  The queueing form is the
+    one :func:`repro_torch.core.simulator.simulate_accumulator` reproduces;
+    the farm it models runs as :class:`repro_torch.core.patterns.AccumulatorState`.
     """
     return n_w * t_acc / t_f
 

@@ -1,12 +1,13 @@
-"""repro_torch.runtime — the elastic streaming runtime, host-adapter path.
+"""repro_torch.runtime — the elastic streaming runtime.
 
 An :mod:`~repro_torch.runtime.stream` source feeds a backpressure queue;
-the :mod:`~repro_torch.runtime.executor` drives a host pattern adapter over
-fixed-size chunks; the :mod:`~repro_torch.runtime.autoscaler` changes the
-degree online through the adapter's resize protocol; the
-:mod:`~repro_torch.runtime.metrics` bus closes the loop; the
-:mod:`~repro_torch.runtime.supervisor` adds checkpoint-mediated failure
-shrink and recovery grow.  The executor's SPMD adapters are not ported.
+the :mod:`~repro_torch.runtime.executor` drives a pattern adapter (one of
+the SPMD adapters of S2-S5 over a worker mesh, or a host adapter such as
+the keyed window plane) over fixed-size chunks; the
+:mod:`~repro_torch.runtime.autoscaler` changes the degree online through
+the adapter's resize protocol; the :mod:`~repro_torch.runtime.metrics` bus
+closes the loop; the :mod:`~repro_torch.runtime.supervisor` adds
+checkpoint-mediated failure shrink and recovery grow.
 """
 
 from repro_torch.runtime.autoscaler import (
@@ -20,9 +21,14 @@ from repro_torch.runtime.autoscaler import (
 )
 
 from repro_torch.runtime.executor import (
+    AccumulatorAdapter,
+    PartitionedAdapter,
     PatternAdapter,
     ResizeInfo,
+    SeparateAdapter,
     StreamExecutor,
+    SuccessiveAdapter,
+    default_mesh_factory,
     run_stream,
 )
 from repro_torch.runtime.metrics import (
@@ -60,9 +66,14 @@ __all__ = [
     "SLOLatencyPolicy",
     "ThroughputTargetPolicy",
     "UtilizationPolicy",
+    "AccumulatorAdapter",
+    "PartitionedAdapter",
     "PatternAdapter",
     "ResizeInfo",
+    "SeparateAdapter",
     "StreamExecutor",
+    "SuccessiveAdapter",
+    "default_mesh_factory",
     "run_stream",
     "ChunkRecord",
     "LogicalClock",

@@ -1,15 +1,23 @@
-"""Pattern-agnostic elastic executor — the host-adapter path.
+"""Pattern-agnostic elastic executor.
 
 Port of ``repro/runtime/executor.py``.  A :class:`PatternAdapter` wraps a
 state pattern behind a uniform interface the runtime drives over successive
-stream chunks; :class:`StreamExecutor` owns the degree, a per-degree step
-cache, the live-state attach/detach lifecycle and the optional
-double-buffered chunk pipeline.
+stream chunks:
 
-Only host-driven adapters (``is_host``, e.g. the keyed window plane) are
-ported so far; their device work happens inside the adapter.  The
-reference's SPMD adapters over a device mesh are a later slice, and an
-adapter without ``is_host`` is refused at construction.
+* ``step(state, chunk)`` — one execution of ``pattern.run`` over a
+  :class:`~repro_torch.core.mesh.WorkerMesh` at the current degree (the
+  SPMD adapters: S2 :class:`PartitionedAdapter`, S3
+  :class:`AccumulatorAdapter`, S4 :class:`SuccessiveAdapter`, S5
+  :class:`SeparateAdapter`), or host code that launches its own device work
+  (``is_host`` adapters such as the keyed window plane, which get no mesh);
+* ``resize(state, n_old, n_new)`` — the pattern's §4.x adaptivity protocol,
+  returning the re-placed state and an accounting record.
+
+:class:`StreamExecutor` owns the degree, one mesh per degree, a per-degree
+step cache, the live-state attach/detach lifecycle and the optional
+double-buffered chunk pipeline.  An SPMD adapter's state is placed on the
+mesh's device once (and after a resize) and stays there between chunks;
+each chunk is moved there once, as the emitter.
 
 Because every chunk is identical in shape and chunk boundaries are the only
 resize points, a run with any schedule of degree changes processes exactly
@@ -22,8 +30,19 @@ import concurrent.futures
 import dataclasses
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+import torch
+
+from repro_torch.core import patterns
+from repro_torch.core.mesh import WorkerMesh
+from repro_torch.core.tree import tree_leaves
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime.metrics import ChunkRecord, MetricsBus, ResizeRecord
+
+
+def default_mesh_factory(n: int, axis: str, device=None) -> WorkerMesh:
+    """``n`` workers on one device; ``device=None`` is the CUDA card (bind
+    ``device="cpu"`` with ``functools.partial`` to run on the host)."""
+    return WorkerMesh(n, axis, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +75,8 @@ class PatternAdapter:
     tracer = NULL_TRACER
 
     #: host-driven adapters run their step as plain host code (launching
-    #: their own device work) with state as a host pytree
+    #: their own device work) with state as a host pytree: no mesh is
+    #: built — the executor switches on this flag
     is_host: bool = False
 
     #: live-state adapters keep resident state between chunks and are
@@ -91,13 +111,17 @@ class PatternAdapter:
     def init_state(self):
         raise NotImplementedError
 
+    def make_step(self, mesh: WorkerMesh, axis: str) -> Callable:
+        """Return ``(state, chunk) -> (state, out)`` over ``mesh``."""
+        raise NotImplementedError
+
     def make_host_step(self, n_w: int) -> Callable:
         """Host-driven step ``(state, chunk) -> (state, out)``."""
         raise NotImplementedError
 
-    def place(self, state, mesh, axis: str):
-        """Place ``state`` for the current degree; host adapters keep it as
-        a host pytree (``mesh`` is None)."""
+    def place(self, state, mesh: Optional[WorkerMesh], axis: str):
+        """Place ``state`` for ``mesh`` (the physical handoff); host
+        adapters receive ``mesh=None`` and keep state as a host pytree."""
         return state
 
     def resize(self, state, n_old: int, n_new: int) -> Tuple[Any, ResizeInfo]:
@@ -133,17 +157,180 @@ class PatternAdapter:
         raise NotImplementedError
 
 
+class PartitionedAdapter(PatternAdapter):
+    """S2 fully-partitioned state: resize = repartitioning (block handoff,
+    or slot-map handoff when the pattern uses slot-map ownership — every
+    degree feasible, replicated state vector)."""
+
+    def __init__(self, pattern: patterns.PartitionedState, v0):
+        self.pattern = pattern
+        self._v0 = v0
+
+    def init_state(self):
+        return self._v0
+
+    def validate_degree(self, chunk_size: int, n_w: int) -> None:
+        super().validate_degree(chunk_size, n_w)
+        self.pattern.validate_degree(n_w)  # mode-appropriate ownership check
+
+    def make_step(self, mesh: WorkerMesh, axis: str) -> Callable:
+        def step(v, chunk):
+            ys, v = self.pattern.run(mesh, axis, chunk, v)
+            return v, ys
+
+        return step
+
+    def place(self, v, mesh: WorkerMesh, axis: str):
+        # block mode's P(axis) and slotmap's P() are both the flat vector on
+        # the card: ``run`` views it per worker (block) or replicates it
+        return mesh.put(v)
+
+    def resize(self, v, n_old: int, n_new: int) -> Tuple[Any, ResizeInfo]:
+        moved = self.pattern.transition_volume(n_old, n_new)
+        v = self.pattern.reshard(v, n_old, n_new)  # value is placement-invariant
+        proto = (
+            "S2-slotmap-handoff"
+            if self.pattern.ownership == "slotmap"
+            else "S2-block-handoff"
+        )
+        return v, ResizeInfo(
+            protocol=proto,
+            handoff_items=moved,
+            detail=f"{moved}/{self.pattern.num_slots} slots change owner",
+        )
+
+
+class AccumulatorAdapter(PatternAdapter):
+    """S3 accumulator: state is the committed global value; resize merges
+    (shrink) or identity-initializes (grow) worker-local accumulators.
+
+    Local accumulators are always flushed at chunk boundaries (the chunk's
+    trailing flush), so at a resize point the *entire* state is the global
+    value: a shrink's merge folds identity elements (recorded for the
+    accounting), never loses contributions, and the carried ``s0`` threads
+    the committed view into the next chunk's reads.
+    """
+
+    def __init__(self, pattern: patterns.AccumulatorState, flush_every: int):
+        self.pattern = pattern
+        self.flush_every = flush_every
+        self.granularity = flush_every
+
+    def init_state(self):
+        return self.pattern.zero()
+
+    def make_step(self, mesh: WorkerMesh, axis: str) -> Callable:
+        def step(s, chunk):
+            ys, s = self.pattern.run(
+                mesh, axis, chunk, flush_every=self.flush_every, s0=s
+            )
+            return s, ys
+
+        return step
+
+    def place(self, s, mesh: WorkerMesh, axis: str):
+        return mesh.put(s)
+
+    def resize(self, s, n_old: int, n_new: int) -> Tuple[Any, ResizeInfo]:
+        if n_new < n_old:
+            # departing workers' accumulators are identities (flushed at the
+            # chunk boundary); merging them is exact: s (+) 0 (+) ... (+) 0
+            merged = s
+            for _ in range(n_old - n_new):
+                merged = self.pattern.merge_workers(
+                    merged, self.pattern.new_worker_state()
+                )
+            return merged, ResizeInfo(
+                protocol="S3-merge",
+                detail=f"merged {n_old - n_new} flushed (identity) accumulators",
+            )
+        fresh = n_new - n_old
+        # growth: new workers start from the identity (paper's init rule)
+        return s, ResizeInfo(
+            protocol="S3-identity-init",
+            detail=f"{fresh} new workers initialized to zero()",
+        )
+
+
+class SuccessiveAdapter(PatternAdapter):
+    """S4 successive approximation: state is the committed global best;
+    resize hands every (new) worker the global value — the paper's
+    join-with-global rule, avoiding the convergence slowdown of s_init."""
+
+    def __init__(
+        self,
+        pattern: patterns.SuccessiveApproximationState,
+        s_init,
+        sync_every: int,
+    ):
+        self.pattern = pattern
+        self._s_init = s_init
+        self.sync_every = sync_every
+        self.granularity = sync_every
+
+    def init_state(self):
+        return self._s_init
+
+    def make_step(self, mesh: WorkerMesh, axis: str) -> Callable:
+        def step(s, chunk):
+            trace, s = self.pattern.run(
+                mesh, axis, chunk, s, sync_every=self.sync_every
+            )
+            # the committed global value is the application-visible output
+            return s, {"trace": trace, "committed": s}
+
+        return step
+
+    def place(self, s, mesh: WorkerMesh, axis: str):
+        return mesh.put(s)
+
+    def resize(self, s, n_old: int, n_new: int) -> Tuple[Any, ResizeInfo]:
+        joined = self.pattern.new_worker_state(s)  # global-value join
+        return joined, ResizeInfo(
+            protocol="S4-global-join",
+            detail=f"workers join with committed global value ({n_old}->{n_new})",
+        )
+
+
+class SeparateAdapter(PatternAdapter):
+    """S5 separate task/state: the commit fold is replicated and canonical-
+    order, so a degree change needs no state protocol at all."""
+
+    def __init__(self, pattern: patterns.SeparateTaskState, s0):
+        self.pattern = pattern
+        self._s0 = s0
+
+    def init_state(self):
+        return self._s0
+
+    def make_step(self, mesh: WorkerMesh, axis: str) -> Callable:
+        def step(s, chunk):
+            ys, trace, s = self.pattern.run(mesh, axis, chunk, s)
+            return s, {"ys": ys, "trace": trace}
+
+        return step
+
+    def place(self, s, mesh: WorkerMesh, axis: str):
+        return mesh.put(s)
+
+    def resize(self, s, n_old: int, n_new: int) -> Tuple[Any, ResizeInfo]:
+        return s, ResizeInfo(
+            protocol="S5-noop", detail="replicated state: no transfer"
+        )
+
+
 # ---------------------------------------------------------------------------
 # executor
 # ---------------------------------------------------------------------------
 
 class StreamExecutor:
-    """Drive a host pattern adapter over successive chunks with online
-    resizes.
+    """Drive a pattern adapter over successive chunks with online resizes.
 
     ``set_degree`` is legal *between* chunks only (chunk boundaries are the
-    quiescent points of the paper's protocols).  Steps are cached per
-    degree.
+    quiescent points of the paper's protocols: all in-flight tasks of the
+    old degree have committed).  Steps are cached per degree, so a degree
+    revisited after further resizes reuses its step.  The meshes come from
+    ``mesh_factory(n, axis)``, by default ``n`` workers on the CUDA card.
     """
 
     def __init__(
@@ -153,24 +340,22 @@ class StreamExecutor:
         degree: int,
         chunk_size: int,
         axis: str = "workers",
+        mesh_factory: Callable[[int, str], WorkerMesh] = default_mesh_factory,
         metrics: Optional[MetricsBus] = None,
         max_degree: Optional[int] = None,
         pipeline: bool = False,
         tracer=None,
     ):
-        if not adapter.is_host:
-            raise NotImplementedError(
-                "only host-driven adapters are ported; the SPMD mesh "
-                "adapters are not"
-            )
         self.adapter = adapter
         self.axis = axis
         self.chunk_size = chunk_size
+        self.mesh_factory = mesh_factory
         self.metrics = metrics if metrics is not None else MetricsBus()
         self.tracer = tracer if tracer is not None else NULL_TRACER
         if tracer is not None:
             adapter.tracer = tracer
         self.max_degree = max_degree
+        self._meshes: Dict[int, WorkerMesh] = {}
         self._steps: Dict[int, Callable] = {}
         self.degree = degree
         adapter.validate_degree(chunk_size, degree)
@@ -216,20 +401,34 @@ class StreamExecutor:
             return self.state
 
     # -- degree / step cache --------------------------------------------------
+    def _mesh(self, n: int) -> WorkerMesh:
+        if n not in self._meshes:
+            if self.max_degree is not None and n > self.max_degree:
+                raise ValueError(f"degree {n} exceeds max_degree={self.max_degree}")
+            self._meshes[n] = self.mesh_factory(n, self.axis)
+        return self._meshes[n]
+
     def _step(self, n: int) -> Callable:
         if n not in self._steps:
-            self._steps[n] = self.adapter.make_host_step(n)
+            if self.adapter.is_host:
+                self._steps[n] = self.adapter.make_host_step(n)
+            else:
+                self._steps[n] = self.adapter.make_step(self._mesh(n), self.axis)
         return self._steps[n]
 
     def place_state(self, state):
-        """Host adapters keep their state as a host pytree."""
-        return self.adapter.place(state, None, self.axis)
+        """Place ``state`` for the current degree (host adapters skip the
+        mesh entirely — their state is a host pytree)."""
+        mesh = None if self.adapter.is_host else self._mesh(self.degree)
+        return self.adapter.place(state, mesh, self.axis)
 
     def feasible_degrees(self, candidates) -> List[int]:
         return self.adapter.feasible_degrees(self.chunk_size, candidates)
 
     @property
     def compiled_degrees(self) -> List[int]:
+        """Degrees with a cached step (no compilation here: the name is the
+        reference's)."""
         return sorted(self._steps)
 
     def set_degree(self, n_new: int, *, reason: str = "") -> Optional[ResizeRecord]:
@@ -268,15 +467,25 @@ class StreamExecutor:
 
     # -- execution ------------------------------------------------------------
     def process(self, chunk, *, queue_depth: int = 0, prepared=None):
-        """Run one chunk at the current degree; returns the chunk output
-        (host numpy for the keyed plane, so the chunk's time covers its
-        device work).  ``prepared`` is this chunk's
-        :meth:`PatternAdapter.prepare_chunk` result when :meth:`run`'s
-        pipeline computed it ahead of time."""
-        m = _chunk_len(chunk)
+        """Run one chunk at the current degree; returns the chunk output.
+
+        A chunk may be a single array, a pytree of arrays (leading axis =
+        stream order; an SPMD adapter's chunk is moved to the mesh's device
+        here, once) or — for host adapters — a structured record array or a
+        dict of columns.  The chunk's time covers its device work: the
+        keyed plane returns host numpy, and an SPMD step is synchronized.
+        ``prepared`` is this chunk's :meth:`PatternAdapter.prepare_chunk`
+        result when :meth:`run`'s pipeline computed it ahead of time."""
+        if self.adapter.is_host:
+            m = _chunk_len(chunk)
+        else:
+            m = int(len(tree_leaves(chunk)[0]))
         if m != self.chunk_size:
             # tail chunk: fall back to the largest compatible degree
             self._fit_degree_for(m)
+        mesh = None if self.adapter.is_host else self._mesh(self.degree)
+        if mesh is not None:
+            chunk = mesh.put(chunk)
         t0 = self.metrics.clock.now()
         with self.tracer.span(
             "chunk", m=m, degree=self.degree, queue_depth=queue_depth
@@ -291,6 +500,8 @@ class StreamExecutor:
                 out = self.adapter.step_live(chunk, prepared=prepared)
             else:
                 self._state, out = self._step(self.degree)(self._state, chunk)
+            if mesh is not None and mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
         t1 = self.metrics.clock.now()
         self.metrics.record_chunk(
             ChunkRecord(

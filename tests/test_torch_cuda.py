@@ -909,3 +909,121 @@ def test_mamba_and_moe_engines_on_the_card_equal_ref_mode_and_cpu(dev):
         assert counts["moe_gather"] == n_moe * (n_prefills + eng.steps)
         assert kern == serve(dev, "ref")[0]
         assert kern == serve("cpu")[0]
+
+
+# ---------------------------------------------------------------------------
+# the five state access patterns through StreamExecutor on the card
+# ---------------------------------------------------------------------------
+
+def _pattern_adapter(case):
+    """A fresh adapter for ``case`` and its int32 stream (a chunk of 16,
+    degrees 2 -> 4 -> 8 -> 2, as ``tests/runtime_checks.py``)."""
+    from repro_torch.core import patterns as P
+    from repro_torch.runtime import (AccumulatorAdapter, PartitionedAdapter,
+                                     SeparateAdapter, SuccessiveAdapter)
+
+    rng = np.random.default_rng(5)
+    xs = rng.integers(-1000, 1000, 128).astype(np.int32)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    if case.startswith("S2"):
+        ownership = case.split()[1]
+        pat = P.PartitionedState(
+            f=lambda x, s: x * 2 + s, ns=lambda x, s: s * 3 + x,
+            h=lambda x: (x * 7) % 16, num_slots=16, ownership=ownership)
+        return PartitionedAdapter(pat, np.arange(16, dtype=np.int32)), xs
+    if case == "S3":
+        pat = P.AccumulatorState(f=lambda x, v: v * 2 - x, g=lambda x: x,
+                                 combine=lambda a, b: a + b,
+                                 zero=lambda: i32(0))
+        return AccumulatorAdapter(pat, flush_every=2), xs
+    if case == "S4":
+        pat = P.SuccessiveApproximationState(
+            c=lambda x, s: x < s, s_prime=lambda x, s: torch.minimum(x, s))
+        return SuccessiveAdapter(pat, i32(2_000), sync_every=2), xs
+    pat = P.SeparateTaskState(f=lambda x: x * x, s=lambda y, s: s * 31 + y)
+    return SeparateAdapter(pat, i32(1)), xs
+
+
+def _flat(out):
+    if isinstance(out, dict):
+        return {k: _flat(v) for k, v in out.items()}
+    assert isinstance(out, torch.Tensor)
+    return out.cpu().numpy()
+
+
+@pytest.mark.parametrize("case", ["S2 block", "S2 slotmap", "S3", "S4",
+                                  "S5"])
+def test_pattern_on_the_card_equals_the_cpu(dev, case):
+    """Each SPMD adapter through ``StreamExecutor`` on the card, with a grow
+    and a shrink, equals the same run on the CPU bit for bit: outputs,
+    final state, resizes; the state is a card tensor throughout."""
+    import functools
+
+    from repro_torch.runtime import default_mesh_factory
+
+    def run(factory):
+        adapter, xs = _pattern_adapter(case)
+        ex = StreamExecutor(adapter, degree=2, chunk_size=16,
+                            mesh_factory=factory)
+        outs = []
+        for i in range(8):
+            if i in (2, 4, 6):
+                ex.set_degree({2: 4, 4: 8, 6: 2}[i])
+            outs.append(_flat(ex.process(xs[i * 16:(i + 1) * 16])))
+            assert ex.state.device.type == factory(1, "w").device.type
+        return outs, ex.state.cpu().numpy(), [
+            (r.protocol, r.handoff_items) for r in ex.metrics.resizes]
+
+    card = run(default_mesh_factory)
+    cpu = run(functools.partial(default_mesh_factory, device="cpu"))
+    assert card[2] == cpu[2]
+    np.testing.assert_array_equal(card[1], cpu[1])
+    for a, b in zip(card[0], cpu[0]):
+        if isinstance(b, dict):
+            for k in b:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        else:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+def test_serial_run_on_the_card_equals_the_cpu(dev):
+    """S1's ``run`` on a card mesh: the fold on the card, equal to the CPU's
+    bit for bit, int32 wrapping alike."""
+    from repro_torch.core import SerialState, WorkerMesh
+
+    xs = np.random.default_rng(6).integers(-1000, 1000, 300).astype(np.int32)
+    pat = SerialState(f=lambda x, s: x * 10 - s // 3,
+                      ns=lambda x, s: s * 1000003 + x % 7)
+    s0 = torch.tensor(5, dtype=torch.int32)
+    ys, s = pat.run(WorkerMesh(4), "workers", xs, s0)
+    ys_cpu, s_cpu = pat.run(WorkerMesh(4, device="cpu"), "workers", xs, s0)
+    assert ys.is_cuda and ys.dtype == torch.int32
+    np.testing.assert_array_equal(ys.cpu().numpy(), ys_cpu.numpy())
+    assert int(s) == int(s_cpu)
+
+
+def test_partitioned_state_stays_on_the_card(dev):
+    """S2's state vector is placed on the card once and stays there: over
+    three numpy chunks the host synchronizes with the card exactly three
+    times, by CUDA's sync debug mode: the chunks' copies to the card (a
+    copy back to the host or a value read back would add more; the
+    executor's explicit synchronize is not counted)."""
+    import warnings
+
+    adapter, xs = _pattern_adapter("S2 block")
+    ex = StreamExecutor(adapter, degree=4, chunk_size=16)
+    ex.process(xs[:16])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            for i in (1, 2, 3):
+                ex.process(xs[i * 16:(i + 1) * 16])
+                assert ex.state.is_cuda
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in got
+             if "synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 3, syncs
