@@ -157,7 +157,31 @@ Phases, each printed on its own line; any failure exits non-zero:
                ``torch.profiler`` (kernels per step, the device's busy
                share) and CUDA's sync debug mode (the chunk's host
                synchronizations: its copy to the card and nothing else);
-               no kernel of ours runs here.
+               no kernel of ours runs here;
+14. dist    -- phase 4's stream and configuration through
+               ``DistributedKeyedPlane``: 8 spawned shard-host processes,
+               each with its own CUDA context running its shard's engine
+               (``device_table``, 262,144 rows) and the keyed kernels on
+               the card.  (a) the ring transport under ``StreamExecutor``
+               with the scatter-ahead pipeline, a warm spare, the shrink to
+               5 and the grow to 8: every chunk's outputs, the chunk-8 and
+               final snapshots and the migrated rows and slots equal to
+               phase 4's, ``step_ahead`` on every chunk but each run's
+               first, no fault event, the workers' launches of
+               segment_sum, table_lookup and scatter_add (shipped on their
+               ``shard_step`` spans) each above 0; printed: the seconds
+               from spawn to the last HELLO, each worker's card memory, the
+               wall, items/s and chunk median beside phase 4's, the
+               workers' ``shard_step`` time a chunk, the wire bytes by
+               family and transport, the launches; (b) the same plane under
+               ``Supervisor`` (a checkpoint every 6 chunks), shard 3's
+               worker killed before chunk 15: the spare promoted, outputs
+               and final rows equal to phase 4's, one death and one
+               recovery, the plane's MTTR beside phase 11's; (c) the pipe
+               transport over the first 8 chunks, equal to phase 4's; (d)
+               after each plane closes, none of its workers alive and none
+               of its ring segments left.  ``--dist-only`` runs phases 4
+               and 14 alone after the build.
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -1151,7 +1175,10 @@ def phase_main(torch, items):
         emitted_cells=int(len(em["key"])), open_cells=int(len(final["w_key"])),
         bit_identical=True)
     return {"fused": fused_counts, "loop": loop_counts, "outs": outs,
-            "final": final, "chunk_ms_median": float(np.median(svc))}
+            "snap8": snap8, "final": final,
+            "volume": ex.metrics.migration_volume(), "wall_s": wall,
+            "items_per_s": len(items) / wall, "first_chunk_ms": float(svc[0]),
+            "chunk_ms_median": float(np.median(svc))}
 
 
 # ---------------------------------------------------------------------------
@@ -2393,6 +2420,7 @@ def phase_supervised(torch, items, main, smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         sup_counts = ops.launch_counts()
+        main["supervised_mttr_s"] = sup.mttr_s  # phase 14 prints it beside
         check(sorted(outs) == list(range(N_CHUNKS)),
               "supervised: a chunk's output is missing")
         check_run("supervised", [outs[i] for i in range(N_CHUNKS)],
@@ -2880,6 +2908,255 @@ def phase_patterns(torch, seed, smi):
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the multi-process keyed plane, shard hosts on the card
+# ---------------------------------------------------------------------------
+
+#: per-direction ring bytes of each shard host: a STEP frame (about 64 KB)
+#: and a STEP_OUT frame (up to about 0.7 MB of emissions a shard) fit with
+#: room to spare; snapshot, ATTACH and migration frames of several MB may
+#: take the pipe, which the transport does by itself
+DIST_SHM_CAPACITY = 8 << 20
+DIST_KERNELS = ("segment_sum", "table_lookup", "scatter_add")
+#: phase 14 (c): the pipe transport over the first chunks
+DIST_PIPE_CHUNKS = 8
+
+
+def card_memory():
+    """The card's used MiB and its compute processes' ``(pid, used MiB)``
+    as ``nvidia-smi`` reports them (a pid as the driver sees it, which in
+    a container need not be the process's own)."""
+    def query(what):
+        out = subprocess.run(["nvidia-smi", what,
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60)
+        check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+        return [[int(v) for v in line.split(",") if v.strip().isdigit()]
+                for line in out.stdout.strip().splitlines()]
+
+    return (query("--query-gpu=memory.used")[0][0],
+            [tuple(r) for r in query("--query-compute-apps=pid,used_memory")
+             if len(r) == 2])
+
+
+def phase_dist(torch, items, main, smi):
+    """Phase 4's stream through ``DistributedKeyedPlane`` with 8 shard-host
+    processes on the card: (a) the ring transport with the scatter-ahead
+    pipeline, (b) a worker killed under ``Supervisor``, (c) the pipe
+    transport, (d) nothing left behind; each bit-exact against phase 4."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from repro_torch.dist import DistributedKeyedPlane
+    from repro_torch.interop import ROW_COLUMNS
+    from repro_torch.keyed import WindowSpec
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime import StreamExecutor, Supervisor
+
+    spec = WindowSpec("sliding", size=SIZE, slide=SLIDE, lateness=LATENESS)
+    chunks = [items[i: i + CHUNK] for i in range(0, len(items), CHUNK)]
+    scalars = ("wm", "wm_valid", "max_ts", "max_ts_valid", "late_count")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    t_phase = time.perf_counter()
+    planes = []
+
+    def plane(transport, spares):
+        ad = DistributedKeyedPlane(
+            spec, num_slots=NUM_SLOTS, impl="segment",
+            backend="device_table", capacity=CAPACITY,
+            max_probes=MAX_PROBES, transport=transport, shards_per_host=1,
+            spares=spares, prespawn=DEGREE, shm_capacity=DIST_SHM_CAPACITY,
+            blackbox_dir=os.path.join(tmp, f"bb_{transport}"))
+        planes.append(ad)
+        t0 = time.perf_counter()
+        ad._ensure_pool(DEGREE)  # spawn, then every HELLO
+        return ad, time.perf_counter() - t0
+
+    def hosts(ad):
+        return [h for h in ad._pool + ad._spares if h is not None]
+
+    def close(ad, seen):
+        """Close a plane; none of its workers ``seen`` (the dead ones too)
+        may live on, and none of their rings remain."""
+        rings = [r.name for h in seen for r in (h.rings or ())]
+        ad.close()
+        alive = [h.pid for h in seen if h.proc.is_alive()]
+        left = [r for r in rings if os.path.exists(f"/dev/shm/{r}")]
+        check(not alive, f"dist: worker processes {alive} outlive close()")
+        check(not left, f"dist: ring segments {left} outlive close()")
+        return len(seen), len(rings)
+
+    def check_rows(label, outs, state):
+        check(outputs_equal(outs, main["outs"][:len(outs)]),
+              f"dist {label}: emissions differ from phase 4's run")
+        for k in ROW_COLUMNS + scalars:
+            check(np.array_equal(state[k], main["final"][k]),
+                  f"dist {label}: final state {k} differs from phase 4's")
+
+    try:
+        # -- (a) the ring transport, the scatter-ahead pipeline -------------
+        used0, _ = card_memory()
+        ad, startup_s = plane("shm", spares=1)
+        seen = hosts(ad)
+        say("dist", run="startup", workers=DEGREE, spares=1,
+            spawn_to_last_hello_s=startup_s,
+            worker_pids=[h.pid for h in ad._pool], card=smi)
+        hits = []
+        inner = ad.step_ahead
+
+        def counting(chunk, prepared=None):
+            ok = inner(chunk, prepared=prepared)
+            hits.append(ok)
+            return ok
+
+        ad.step_ahead = counting
+        tracer = Tracer(recorder=None)
+        ad.tracer = tracer  # the workers' spans; the executor is untraced
+        ex = StreamExecutor(ad, degree=DEGREE, chunk_size=CHUNK,
+                            pipeline=True)
+        ad.kernel_launches.clear()
+        t0 = time.perf_counter()
+        outs = ex.run(chunks[:LOOP_CHUNKS])
+        snap8 = ex.snapshot_barrier()
+        sched = {i - LOOP_CHUNKS: d for i, d in SCHEDULE.items()}
+        outs += ex.run(chunks[LOOP_CHUNKS:], schedule=sched)
+        wall = time.perf_counter() - t0
+        launches = dict(ad.kernel_launches)
+        used1, apps = card_memory()  # the workers' CUDA contexts are up
+        final = ex.snapshot_barrier()
+        check(outputs_equal(outs, main["outs"]),
+              "dist (a): emissions differ from phase 4's run")
+        check(states_equal(snap8, main["snap8"]),
+              "dist (a): chunk-8 barrier snapshot differs from phase 4's")
+        check(states_equal(final, main["final"]),
+              "dist (a): final state differs from phase 4's")
+        vol = ex.metrics.migration_volume()
+        check(vol["rows"] == main["volume"]["rows"]
+              and vol["slots"] == main["volume"]["slots"],
+              f"dist (a): migration {vol} differs from phase 4's "
+              f"{main['volume']}")
+        want_hits = N_CHUNKS - 2  # each run's first chunk is synchronous
+        check(len(hits) == want_hits and all(hits),
+              f"dist (a): step_ahead engaged {sum(hits)} of {want_hits}")
+        check(not any(ad.fault_events.values()),
+              f"dist (a): fault events {ad.fault_events}")
+        for k in DIST_KERNELS:
+            check(launches.get(k, 0) > 0, f"dist (a): workers launched no {k}")
+        steps = [sp.duration for sp in tracer.spans
+                 if sp.name == "shard_step"]
+        degrees = [DEGREE if i < 12 or i >= 24 else 5
+                   for i in range(N_CHUNKS)]
+        check(len(steps) == sum(degrees),
+              f"dist (a): {len(steps)} shard_step spans, want {sum(degrees)}")
+        svc = np.array([c.service_time for c in ex.metrics.chunks]) * 1e3
+        say("dist", run="(a) shm", items=len(items), chunks=N_CHUNKS,
+            wall_s=wall, items_per_s=len(items) / wall,
+            # without the first chunk, whose attach starts each worker's
+            # CUDA context
+            items_per_s_after_first=(len(items) - CHUNK)
+            / (wall - svc[0] / 1e3),
+            first_chunk_ms=float(svc[0]),
+            chunk_ms_median=float(np.median(svc)),
+            chunk_ms_max=float(svc.max()),
+            phase4_items_per_s=main["items_per_s"],
+            phase4_items_per_s_after_first=(len(items) - CHUNK)
+            / (main["wall_s"] - main["first_chunk_ms"] / 1e3),
+            phase4_chunk_ms_median=main["chunk_ms_median"],
+            card_mib_used_by_plane=used1 - used0,
+            card_mib_per_worker=(used1 - used0) / DEGREE,
+            compute_apps_mib=apps,
+            shard_step_ms_per_chunk=float(np.sum(steps)) / N_CHUNKS * 1e3,
+            shard_step_ms_median=float(np.median(steps)) * 1e3,
+            shard_step_ms_max=float(np.max(steps)) * 1e3,
+            wire_bytes=ad.wire_bytes, launches=launches, resizes=vol,
+            step_ahead=f"{sum(hits)}/{want_hits}", bit_identical=True,
+            card=smi)
+        del ex, outs, snap8, final
+
+        # -- (b) a worker killed under Supervisor on the same plane ---------
+        spare = ad._spares[0]
+        ad.tracer = Tracer(recorder=None)
+        ex = StreamExecutor(ad, degree=DEGREE, chunk_size=CHUNK)
+        ad.kernel_launches.clear()
+        killed = []
+
+        def chunk_fn(i):
+            if i == SUP_FAIL_AT and not killed:
+                killed.append(ad._pool[3].pid)
+                ad.kill_worker(3)
+            return chunks[i]
+
+        sup = Supervisor(ex, chunk_fn, N_CHUNKS,
+                         ckpt_dir=os.path.join(tmp, "ckpt"),
+                         ckpt_every=SUP_CKPT_EVERY)
+        t0 = time.perf_counter()
+        souts = sup.run()
+        swall = time.perf_counter() - t0
+        sup_launches = dict(ad.kernel_launches)
+        seen += [h for h in hosts(ad) if h not in seen]
+        check(sorted(souts) == list(range(N_CHUNKS)),
+              "dist (b): a chunk's output is missing")
+        check_rows("(b)", [souts[i] for i in range(N_CHUNKS)],
+                   ex.snapshot_barrier())
+        kinds = {e.kind for e in sup.events}
+        check({"failure", "restore", "shrink", "grow"} <= kinds,
+              f"dist (b): supervisor events {sorted(kinds)}")
+        ev = ad.fault_events
+        check(ev["death_dead"] == 1 and ev["recoveries"] == 1,
+              f"dist (b): fault events {ev}")
+        check(spare in ad._pool and len(ad._spares) == 1,
+              "dist (b): the warm spare was not promoted and replaced")
+        for k in DIST_KERNELS:
+            check(sup_launches.get(k, 0) > 0,
+                  f"dist (b): workers launched no {k}")
+        say("dist", run="(b) kill_worker(3) under Supervisor",
+            killed_pid=killed, wall_s=swall, mttr_s=ad.mttr_s,
+            supervisor_mttr_s=sup.mttr_s,
+            phase11_mttr_s=main.get("supervised_mttr_s"),
+            events=[(e.chunk_index, e.kind) for e in sup.events],
+            fault_events=ev, blackboxes=len(ad.collected_blackboxes),
+            launches=sup_launches, bit_identical=True, card=smi)
+        n_hosts, n_rings = close(ad, seen)
+        say("dist", run="(d) closed shm plane", processes=n_hosts,
+            rings=n_rings, alive=0, rings_left=0)
+        del ex, sup, souts
+
+        # -- (c) the pipe transport over the first chunks ---------------------
+        ad, pipe_startup_s = plane("pipe", spares=0)
+        ex = StreamExecutor(ad, degree=DEGREE, chunk_size=CHUNK,
+                            pipeline=True)
+        ad.kernel_launches.clear()
+        t0 = time.perf_counter()
+        pouts = ex.run(chunks[:DIST_PIPE_CHUNKS])
+        pwall = time.perf_counter() - t0
+        pipe_launches = dict(ad.kernel_launches)
+        check(outputs_equal(pouts, main["outs"][:DIST_PIPE_CHUNKS]),
+              "dist (c): pipe emissions differ from phase 4's run")
+        check(states_equal(ex.snapshot_barrier(), main["snap8"]),
+              "dist (c): pipe barrier snapshot differs from phase 4's")
+        check(ad.wire_bytes["shm"] == 0, "dist (c): the pipe used a ring")
+        svc = np.array([c.service_time for c in ex.metrics.chunks]) * 1e3
+        say("dist", run="(c) pipe", chunks=DIST_PIPE_CHUNKS,
+            spawn_to_last_hello_s=pipe_startup_s, wall_s=pwall,
+            items_per_s=DIST_PIPE_CHUNKS * CHUNK / pwall,
+            chunk_ms_median=float(np.median(svc)),
+            wire_bytes=ad.wire_bytes, launches=pipe_launches,
+            bit_identical=True, card=smi)
+        del ex, pouts
+        n_hosts, n_rings = close(ad, hosts(ad))
+        left = multiprocessing.active_children()
+        check(not left, f"dist (d): child processes left: {left}")
+        say("dist", run="(d) closed pipe plane", processes=n_hosts,
+            rings=n_rings, children_left=0,
+            phase_s=time.perf_counter() - t_phase)
+    finally:
+        for ad in planes:
+            ad.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [launches, sup_launches, pipe_launches]
+
+
 def kernels_line(records, path_counts):
     """The ``kernels`` object: each kernel's measured numbers and its
     launches summed over the main paths' runs (``path_counts``: one count
@@ -2904,6 +3181,10 @@ def main(argv=None):
     parser.add_argument("--host-only", action="store_true",
                         help="build, then only time each kernel wrapper's "
                              "host path (phase 3's host part) and stop")
+    parser.add_argument("--dist-only", action="store_true",
+                        help="build, then run only the keyed main path "
+                             "(phase 4) and the multi-process plane "
+                             "(phase 14) and stop")
     args = parser.parse_args(argv)
 
     import torch
@@ -2944,6 +3225,10 @@ def main(argv=None):
             print(smi)
             return 0
         items = make_stream(args.seed, keyed_stream)
+        if args.dist_only:
+            phase_dist(torch, items, phase_main(torch, items), smi)
+            print(smi)
+            return 0
         records = phase_kernels(torch, items)
         phase_host(torch)
         main = phase_main(torch, items)
@@ -2956,6 +3241,7 @@ def main(argv=None):
         for label in ("mamba2-serve", "moe-serve"):
             paths.append(phase_serve(torch, args.seed, label, SERVES[label]))
         paths += phase_supervised(torch, items, main, smi)
+        paths += phase_dist(torch, items, main, smi)
         del items, main
         paths += phase_serving_runtime(torch, args.seed, smi)
         phase_patterns(torch, args.seed, smi)

@@ -551,7 +551,10 @@ class StreamExecutor:
         chunks when given.  With :attr:`pipeline` on (live-state adapters),
         chunk ``k+1``'s prepare runs on a one-deep background worker while
         chunk ``k`` updates the live plane; outputs are bit-identical with
-        the pipeline off."""
+        the pipeline off.  An adapter with the scatter-ahead hooks
+        (``step_ahead`` / ``drain_ahead``, the distributed plane) also gets
+        each full chunk ``k+1`` scattered to its workers once chunk ``k``'s
+        output is in, and drained when the run ends."""
         outs: List[Any] = []
         if not (self.pipeline and self.adapter.has_live_state):
             for i, chunk in enumerate(chunks):
@@ -563,6 +566,7 @@ class StreamExecutor:
             return outs
         pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         done = object()  # sentinel: a None CHUNK must not truncate the run
+        step_ahead = getattr(self.adapter, "step_ahead", None)
         try:
             it = iter(chunks)
             cur = next(it, done)
@@ -582,7 +586,9 @@ class StreamExecutor:
                 outs.append(self.process(cur, prepared=prepared))
                 prepared = None
                 if nxt is not done:
-                    # degree changes for chunk i+1 happen before its step
+                    # degree changes for chunk i+1 happen before its step,
+                    # and before the scatter below: a resize precedes the
+                    # chunk it applies to
                     if schedule and (i + 1) in schedule:
                         self.set_degree(
                             schedule[i + 1], reason=f"schedule@chunk{i + 1}"
@@ -590,11 +596,24 @@ class StreamExecutor:
                     if autoscaler is not None:
                         autoscaler.maybe_scale(self, queue=queue)
                     prepared = fut.result()
+                    if step_ahead is not None and \
+                            _chunk_len(nxt) == self.chunk_size:
+                        # scatter chunk i+1 to the workers now; they compute
+                        # while this loop records metrics and pulls chunk
+                        # i+2.  Tail chunks stay synchronous (they may
+                        # refit the degree)
+                        step_ahead(nxt, prepared=prepared)
                 self._inflight = None
                 cur = nxt
                 i += 1
         finally:
             self._inflight = None
+            drain = getattr(self.adapter, "drain_ahead", None)
+            if drain is not None:
+                try:
+                    drain()  # an abandoned run must not strand an epoch
+                except Exception:
+                    pass
             pool.shutdown(wait=True)
         return outs
 

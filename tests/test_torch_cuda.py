@@ -13,7 +13,8 @@ kernels are held to 3e-5 in float32 and 2e-2 in bfloat16, the SSD scan to
 (``tests/test_kernels.py``); bfloat16 flash also to one bfloat16 rounding
 step of each value, and the bfloat16 scan to one step past its float32
 tolerance, as ``chip_smoke.py`` holds them; the MoE gather, a copy, must be
-bit-exact.
+bit-exact.  The distributed keyed plane's workers run on the card too
+(``test_dist_plane_*``), held to the in-process plane bit for bit.
 """
 
 import dataclasses
@@ -1027,3 +1028,59 @@ def test_partitioned_state_stays_on_the_card(dev):
     syncs = [str(w.message) for w in got
              if "synchronizing CUDA operation" in str(w.message)]
     assert len(syncs) == 3, syncs
+
+
+# The distributed plane's tests come last: their worker processes make CUDA
+# contexts of their own, and in a run of this file with them placed before
+# the profiler tests above, a torch.profiler window opened after them held
+# no device event.
+@pytest.mark.parametrize("transport", ["shm", "pipe"])
+def test_dist_plane_on_the_card_equals_in_process(dev, tmp_path, transport):
+    """The distributed plane with its workers on the card (spill, TTL,
+    early firing, a grow 2 -> 3 and a shrink back, the scatter-ahead
+    overlap): every chunk's outputs and the barrier snapshot equal the
+    in-process plane's on the card, the workers launched the three keyed
+    kernels, and closing it leaves no worker alive."""
+    from repro_torch.dist import DistributedKeyedPlane
+    from repro_torch.kernels import _build
+
+    _build.library()  # build once here, not in each worker
+    spec = WindowSpec("sliding", size=48, slide=16, lateness=3,
+                      late_policy="side", early_every=2)
+    items = synthetic_keyed_items(16 * 12, num_keys=40, disorder=10, seed=0)
+    chunks = [items[i: i + 16] for i in range(0, len(items), 16)]
+    table = dict(num_slots=20, backend="device_table", capacity=16,
+                 max_probes=4, ttl=4, device=dev)
+    schedule = {4: 3, 8: 2}
+    ref = StreamExecutor(KeyedWindowAdapter(spec, fused=False, **table),
+                         degree=2, chunk_size=16)
+    want = ref.run(chunks, schedule=schedule)
+    ad = DistributedKeyedPlane(spec, prespawn=3, transport=transport,
+                               blackbox_dir=str(tmp_path / "bb"), **table)
+    try:
+        ex = StreamExecutor(ad, degree=2, chunk_size=16, pipeline=True)
+        got = ex.run(chunks, schedule=schedule)
+        for a, b in zip(got, want):
+            for ch in ("emissions", "early", "late"):
+                for k in b[ch]:
+                    assert a[ch][k].dtype == b[ch][k].dtype
+                    np.testing.assert_array_equal(a[ch][k], b[ch][k])
+        snap, ref_snap = ex.snapshot_barrier(), ref.snapshot_barrier()
+        for k in ref_snap:
+            np.testing.assert_array_equal(snap[k], ref_snap[k], err_msg=k)
+        for k in ("segment_sum", "table_lookup", "scatter_add"):
+            assert ad.kernel_launches.get(k, 0) > 0, k
+        assert not any(ad.fault_events.values())
+        hosts = [h for h in ad._pool if h is not None]
+    finally:
+        ad.close()
+    assert hosts and not any(h.proc.is_alive() for h in hosts)
+
+
+def test_dist_plane_refuses_fork_for_the_card(dev):
+    """A forked child cannot initialize CUDA once the coordinator has."""
+    from repro_torch.dist import DistributedKeyedPlane
+
+    with pytest.raises(ValueError, match="fork"):
+        DistributedKeyedPlane(WindowSpec("tumbling", size=8), num_slots=4,
+                              start_method="fork", device=dev)
