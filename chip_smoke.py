@@ -68,6 +68,13 @@ Phases, each printed on its own line; any failure exits non-zero:
                flash over 4,096 tokens, decode over the same slots) and
                decode at 16 q heads per kv head, each against its plain
                version in both dtypes, timed beside SDPA at softcap 0;
+               then flash at phase 15's shapes: the prefix-LM mask at
+               PaliGemma-3B's (8 q heads over 1, hd 256, 256 of 4,096
+               positions) and on the wgmma route (hd 128, 200 of 1,000),
+               SeamlessM4T-medium's bidirectional encoder (16/16 heads, hd
+               64, 1,024 frames) and cross prefill (4,096 queries x 1,024
+               frames), each in both dtypes, timed beside SDPA on the same
+               boolean mask;
 7. gemma2-serve -- ``ServingEngine`` over Gemma2-27B at full width (16 of
                46 layers, random weights from the seed, bfloat16), 8 slots
                of 8,192 positions, 16 requests of 256-6,144 prompt tokens and
@@ -181,7 +188,34 @@ Phases, each printed on its own line; any failure exits non-zero:
                transport over the first 8 chunks, equal to phase 4's; (d)
                after each plane closes, none of its workers alive and none
                of its ring segments left.  ``--dist-only`` runs phases 4
-               and 14 alone after the build.
+               and 14 alone after the build;
+15. families -- every other architecture the JAX package registers, at
+               full width, one after another (random bfloat16 weights from
+               the seed, each freed before the next): Kimi-K2 (its dense
+               first layer and one MoE layer of 384 experts) and
+               Jamba-1.5-Large (layers 0-3 of its unit: Mamba with dense,
+               Mamba with MoE, Mamba with dense, attention with MoE) first,
+               then PaliGemma-3B at full depth (four requests of 256 patch
+               embeddings and 768-3,840 tokens, the prefix-LM mask),
+               SeamlessM4T-medium at full depth (12 encoder and 12 decoder
+               layers; 1,024 source frames and 1,024-4,096 tokens a
+               request, each slot decoding against its own encoder output)
+               and CodeQwen1.5-7B, Granite-8B and MiniCPM-2B at 4 layers.
+               Each request is prefilled alone into its slot of a 4-slot
+               cache through ``prefill_forward``, then the slots decode
+               together (32 steps; 16 for the cut models) through
+               ``decode_forward`` at their own positions.  Launch counts
+               (flash per attention, encoder and cross layer per run,
+               decode per self and cross layer per step, the scan per Mamba
+               layer per prefill, the gather per MoE layer per prefill and
+               step), check (i) against a replay in ops mode ``ref`` on the
+               kernel run's tokens and MoE routing (limits per model), and
+               check (ii) on a float32 2-layer model at full width (not for
+               the two largest); printed per model: the cut, prefill ms per
+               prompt position, decode step ms, generated tokens/s, weight
+               bytes and ``max_memory_allocated``; one profiled PaliGemma
+               prefill names the flash kernel and its share of device time.
+               ``--families-only`` runs it alone after the build.
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -1258,10 +1292,13 @@ def phase_small(torch):
 # phase 6: the attention kernels vs their plain versions
 # ---------------------------------------------------------------------------
 
-def admitted_pairs(sq, skv, causal, window):
-    """(q, k) pairs the flash mask admits for one (batch, head)."""
+def admitted_pairs(sq, skv, causal, window, prefix=0):
+    """(q, k) pairs the flash mask admits for one (batch, head): with
+    ``causal`` the keys ``k <= q`` and, with a prefix, every ``k <
+    prefix``."""
     q = np.arange(sq, dtype=np.int64)
-    hi = np.minimum(q + 1, skv) if causal else np.full(sq, skv)
+    hi = (np.minimum(np.maximum(q + 1, prefix), skv) if causal
+          else np.full(sq, skv))
     lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, np.int64)
     return int(np.maximum(hi - lo, 0).sum())
 
@@ -1601,6 +1638,8 @@ def phase_attention(torch):
     torch.cuda.empty_cache()
     wide = phase_attention_wide(torch, randn, valid, valid_np)
     records["flash_attention"]["head_dim_256"] = wide["flash"]
+    records["flash_attention"]["families"] = phase_attention_families(
+        torch, randn)
     records["decode_attention"]["head_dim_256"] = wide["decode"]
     records["decode_attention"]["group_16"] = wide["group_16"]
     for name, rec in records.items():
@@ -1688,6 +1727,71 @@ def phase_attention_wide(torch, randn, valid, valid_np):
             shape=f"q [{SERVE_SLOTS},{hq},{hd}] bf16, cache "
                   f"[{SERVE_SLOTS},{HKV},{SERVE_SMAX},{hd}], softcap 0")
         del qd, ck, cv
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 6's flash cases of phase 15's models: (label, heads, kv heads,
+#: queries, keys, head_dim, causal, prefix)
+FAMILY_FLASH = (
+    # PaliGemma-3B's prefix-LM prefill: 256 image positions of 4,096
+    ("paligemma prefix-LM", 8, 1, 4096, 4096, 256, True, 256),
+    # the prefix-LM mask on the wgmma route (bf16, hd 128)
+    ("prefix-LM wgmma", 8, 2, 1000, 1000, 128, True, 200),
+    # SeamlessM4T-medium's encoder over 1,024 frames, bidirectional
+    ("seamless encoder", 16, 16, 1024, 1024, 64, False, 0),
+    # its decoder's cross attention at prefill: 4,096 queries x 1,024 frames
+    ("seamless cross", 16, 16, 4096, 1024, 64, False, 0),
+)
+
+
+def phase_attention_families(torch, randn):
+    """Flash at phase 15's new shapes: the prefix-LM mask (PaliGemma's hd
+    256 on the float32-FMA kernel, and hd 128 on the wgmma one) and the
+    encoder-decoder's bidirectional and cross attention, each against its
+    plain version in bfloat16 and float32, with the kernel's time, the plain
+    version's, the bound and SDPA's on the same boolean mask (bf16)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    for label, hq, hkv, sq, skv, hd, causal, prefix in FAMILY_FLASH:
+        kw = dict(causal=causal, prefix_len=prefix)
+        errs, steps = {}, {}
+        for dtype, tol in ((bf16, BF16_TOL), (f32, F32_TOL)):
+            q = randn(1, hq, sq, hd, dtype=dtype)
+            k, v = (randn(1, hkv, skv, hd, dtype=dtype) for _ in range(2))
+            errs[str(dtype)] = _close(
+                torch, fa.flash_attention(q, k, v, **kw),
+                ref.flash_attention_ref(q, k, v, **kw), tol,
+                f"flash_attention {label} {dtype}", steps)
+        q, k, v = (x.to(bf16) for x in (q, k, v))   # the times are bf16's
+        ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), 5)
+        plain = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
+                        2)
+        qp = torch.arange(sq, device=dev)[:, None]
+        kp = torch.arange(skv, device=dev)[None, :]
+        mask = ((kp <= qp) | (kp < prefix)) if causal \
+            else torch.ones(sq, skv, dtype=torch.bool, device=dev)
+        kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+        sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kx, vx, attn_mask=mask), 5)
+        pairs = admitted_pairs(sq, skv, causal, 0, prefix)
+        nbytes = 2 * (2 * hq * sq * hd + 2 * hkv * skv * hd)
+        b_ms, b_by = attention_bound(pairs, hq, hd, nbytes)
+        out[label] = dict(
+            ms=ms, plain_ms=plain, sdpa_ms=sdpa, bound_ms=b_ms, bound_by=b_by,
+            bound_share=b_ms / ms,
+            tflops=pairs * hq * 4 * hd / (ms * 1e-3) / 1e12,
+            admitted_pairs=pairs * hq, errors=errs,
+            bf16_rounding_steps=steps,
+            shape=f"q [1,{hq},{sq},{hd}] bf16, k/v [1,{hkv},{skv},{hd}], "
+                  f"causal {causal}, prefix_len {prefix}, softcap 0")
+        del q, k, v, kx, vx, mask
     torch.cuda.empty_cache()
     return out
 
@@ -3157,6 +3261,310 @@ def phase_dist(torch, items, main, smi):
     return [launches, sup_launches, pipe_launches]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: every other architecture the JAX package registers
+# ---------------------------------------------------------------------------
+
+#: phase 15's slots
+FAMILY_SLOTS = 4
+#: phase 15's models at full width, the two largest first: ``layers`` their
+#: depth (cut where it is less than the published one; Jamba's cut takes
+#: the first ``layers`` of its unit), ``prompt`` the range of the prompts'
+#: token counts, ``new`` the decode steps, ``prefix`` / ``src`` the stub
+#: frontend's positions (PaliGemma's patch embeddings, Seamless's frames),
+#: ``f32`` whether check (ii) runs, and ``rms`` / ``lead`` check (i)'s
+#: limits (see SERVES), each between the sound run's reading and that of a
+#: fault planted in the kernel route on a throwaway copy (PERF.md, H100):
+#: Kimi 0.0063 / 0 sound, 0.162 / 2.86 with every 64th gather row off by
+#: one; Jamba 0.0029 / 0.196 sound, 0.0082 / 0.207 with the scan's last
+#: position's dt zeroed; PaliGemma 0.0183 / 0 sound, 0.0339 / 0 with the
+#: prefix one key short; Seamless 0.0140 / 0.224 sound, 0.108 / 0.943 with
+#: one cross layer's output dropped; the dense three 0.0085 / 0 at most
+#: sound, CodeQwen 0.0517 / 1.117 with decode one key short
+FAMILIES = {
+    "kimi-k2-1t-a32b": dict(layers=2, prompt=(256, 1024), new=16,
+                            rms=0.02, lead=1.0, f32=False),
+    "jamba-1.5-large-398b": dict(layers=4, prompt=(256, 1024), new=16,
+                                 rms=0.0055, lead=1.0, f32=False),
+    "paligemma-3b": dict(layers=18, prompt=(768, 3840), prefix=256, new=32,
+                         rms=0.026, lead=1.0, f32=True),
+    "seamless-m4t-medium": dict(layers=12, prompt=(1024, 4096), src=1024,
+                                new=32, rms=0.03, lead=1.0, f32=True),
+    "codeqwen1.5-7b": dict(layers=4, prompt=(256, 1024), new=16, rms=0.02,
+                           lead=1.0, f32=True),
+    "granite-8b": dict(layers=4, prompt=(256, 1024), new=16, rms=0.02,
+                       lead=1.0, f32=True),
+    "minicpm-2b": dict(layers=4, prompt=(256, 1024), new=16, rms=0.02,
+                       lead=1.0, f32=True),
+}
+
+
+def family_config(configs, name, layers, **over):
+    """``name``'s configuration cut to ``layers`` layers (a unit that does
+    not divide the cut is cut to fit), with ``over`` replaced."""
+    cfg = configs.get(name)
+    unit = cfg.unit
+    rest = layers - len(cfg.prefix)
+    if rest % len(unit):
+        unit = unit[:rest]
+    return dataclasses.replace(cfg, num_layers=layers, unit=unit, **over)
+
+
+def family_launches(cfg, prefills, steps, encodes):
+    """``expected_launches`` plus an encoder-decoder's: flash once per
+    encoder layer per encoder run (one in each prefill and in each
+    ``encodes``) and once per cross layer per prefill, decode attention
+    once per cross layer per step."""
+    want = expected_launches(cfg, prefills, steps)
+    if cfg.encoder_layers:
+        want["flash_attention"] += (cfg.num_layers * prefills
+                                    + cfg.encoder_layers
+                                    * (prefills + encodes))
+        want["decode_attention"] += cfg.num_layers * steps
+    return want
+
+
+def family_requests(torch, cfg, spec, seed, lengths):
+    """Each request's batch for ``TT.prefill_forward``: its tokens and the
+    stub frontend's embeddings (bf16 normals from the seed), and its
+    prompt positions."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for n in lengths:
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, int(n))), device=dev)}
+        for key, what in (("prefix_embeds", "prefix"), ("src_embeds", "src")):
+            if spec.get(what):
+                batch[key] = torch.randn(
+                    (1, spec[what], cfg.frontend_dim), generator=gen,
+                    device=dev).to(cfg.cdtype)
+        out.append((batch, int(n) + spec.get("prefix", 0)))
+    return out
+
+
+def family_serve(torch, TT, cfg, params, reqs, steps, s_max, script=None):
+    """Prefill each request alone into its slot of a ``len(reqs)``-slot
+    cache of ``s_max`` positions (the prefill writes through views of the
+    slot's rows), then
+    decode every slot together ``steps`` times at its own positions; an
+    encoder-decoder's slots decode against their own encoder output
+    (``TT._encode``).  With ``script`` (one token list per request) the
+    run serves those tokens in place of its own argmax and keeps, where its
+    own was another token, that token's lead over the script's and the
+    script token's logit.  Returns the tokens, each request's last logits,
+    the prefills' walls and prompt positions, the steps' walls, the
+    leads and the run's wall."""
+    dev = torch.device("cuda")
+    n = len(reqs)
+    caches = TT.init_caches(cfg, n, s_max, device=dev)
+    tokens, enc, prefill_s, leads = [], [], [], []
+
+    def take(row, i, k):
+        own = int(row.argmax())
+        if script is None:
+            return own
+        want = script[i][k]
+        if own != want:
+            leads.append((float(row[own] - row[want]), float(row[want])))
+        return want
+
+    t_run = time.perf_counter()
+    for i, (batch, _) in enumerate(reqs):
+        view = [{k: v[i:i + 1] for k, v in c.items()} for c in caches]
+        t0 = time.perf_counter()
+        logits, _ = TT.prefill_forward(params, batch, cfg, view)
+        tokens.append([take(logits[0, -1], i, 0)])
+        prefill_s.append(time.perf_counter() - t0)
+        if "src_embeds" in batch:
+            enc.append(TT._encode(params, batch["src_embeds"], cfg))
+    extra = {"enc_out": torch.cat(enc)} if enc else {}
+    pos = torch.tensor([p for _, p in reqs], dtype=torch.int32, device=dev)
+    step_s = []
+    for k in range(steps):
+        t0 = time.perf_counter()
+        tok = torch.tensor([[t[-1]] for t in tokens], device=dev)
+        logits, _ = TT.decode_forward(params, {"tokens": tok, **extra}, cfg,
+                                      caches, pos + k)
+        rows = logits[:, -1].cpu()
+        for i in range(n):
+            tokens[i].append(take(rows[i], i, k + 1))
+        step_s.append(time.perf_counter() - t0)
+    wall = time.perf_counter() - t_run
+    del caches, extra
+    return dict(tokens=tokens, last=[rows[i] for i in range(n)],
+                prefill_s=prefill_s, positions=[p for _, p in reqs],
+                step_s=step_s, leads=leads, wall=wall)
+
+
+def phase_families(torch, seed, smi):
+    """Phase 15: each model of ``FAMILIES`` at full width (random bf16
+    weights from the seed, freed before the next), four requests prefilled
+    one at a time into a 4-slot cache and decoded together, through
+    ``TT.prefill_forward`` / ``TT.decode_forward`` with the batch keys a
+    user passes (``prefix_embeds``, ``src_embeds``, ``enc_out``); launch
+    counts, check (i) against a replay in ops mode ``ref`` on the kernel
+    run's tokens and MoE routing, and check (ii) on a float32 2-layer model
+    at full width.  Returns the main runs' launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as TT
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    paths = []
+    for m, (name, spec) in enumerate(FAMILIES.items()):
+        t_model = time.perf_counter()
+        cfg = family_config(configs, name, spec["layers"])
+        full = configs.get(name)
+        cut = {}
+        if cfg.num_layers < full.num_layers:
+            cut["layers"] = f"{cfg.num_layers} of {full.num_layers}"
+        if cfg.unit != full.unit:
+            cut["unit"] = (f"layers 0-{len(cfg.unit) - 1} of its unit of "
+                           f"{len(full.unit)}")
+        torch.cuda.reset_peak_memory_stats()
+        params = TT.init_params(cfg, seed + m, device=dev)
+        rng = np.random.default_rng(seed + 100 + m)
+        lengths = rng.integers(spec["prompt"][0], spec["prompt"][1] + 1,
+                               FAMILY_SLOTS)
+        reqs = family_requests(torch, cfg, spec, seed + 200 + m, lengths)
+        # every prompt of the spec's range fits, and its decode steps
+        s_max = spec["prompt"][1] + spec.get("prefix", 0) + spec["new"]
+
+        # -- the main path: counts set to 0 just before, read just after -----
+        ops.use_kernels("auto")
+        pins = _PinnedRoutes(tmoe)
+        pins.record()
+        ops.reset_launch_counts()
+        try:
+            run = family_serve(torch, TT, cfg, params, reqs, spec["new"],
+                               s_max)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        finally:
+            pins.restore()
+        want = family_launches(cfg, len(reqs), spec["new"],
+                               len(reqs) if cfg.encoder_layers else 0)
+        main_counts = {k: counts[k] for k, n in want.items() if n}
+        for k, n in want.items():
+            check(counts[k] == n, f"{name}: {k} launched {counts[k]} times, "
+                  f"expected {n}")
+        paths.append(main_counts)
+        generated = sum(len(t) for t in run["tokens"])
+        say("families", model=cfg.name, cut=cut or "none",
+            d_model=cfg.d_model, layers=cfg.num_layers,
+            encoder_layers=cfg.encoder_layers, requests=len(reqs),
+            prompt_positions=run["positions"], decode_steps=spec["new"],
+            cache_positions=s_max,
+            generated_tokens=generated, wall_s=run["wall"],
+            generated_tokens_per_s=generated / run["wall"],
+            prefill_ms_per_prompt_token=[
+                s / p * 1e3 for s, p in zip(run["prefill_s"],
+                                            run["positions"])],
+            decode_step_ms_median=float(np.median(run["step_s"]) * 1e3),
+            weight_bytes=TT.param_bytes(params),
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            launches=main_counts)
+        if name == "paligemma-3b":
+            batch = reqs[0][0]
+            one = TT.init_caches(cfg, 1, reqs[0][1], device=dev)
+            prof = profile_steps(torch, lambda: TT.prefill_forward(
+                params, batch, cfg, one), 1, ("flash_forward",))
+            flash = sum(k["ms_per_step"]
+                        for k in prof["watched_kernels"].values())
+            say("families", model=cfg.name,
+                profile=f"prefill of {reqs[0][1]} positions", **prof,
+                flash_share_of_device_time=(
+                    flash / prof["device_ms_per_step"]
+                    if prof["watched_kernels"] else "not measured"))
+            check(len(prof["watched_kernels"]) == 1,
+                  f"{name}: the prefill profile names "
+                  f"{list(prof['watched_kernels'])}, expected the flash "
+                  f"kernel")
+            del one
+
+        # -- check (i): the same schedule in ops mode ref ---------------------
+        ops.use_kernels("ref")
+        pins.replay()
+        try:
+            ref = family_serve(torch, TT, cfg, params, reqs, spec["new"],
+                               s_max, script=run["tokens"])
+        finally:
+            ops.use_kernels("auto")
+            pins.restore()
+        check(next(pins.calls, None) is None,
+              f"{name}: the ref run routed fewer calls than the kernel run")
+        errs = [_logit_errs(a, b, BF16_TOL)
+                for a, b in zip(run["last"], ref["last"])]
+        leads = [lead / (BF16_TOL * (1 + abs(logit)))
+                 for lead, logit in ref["leads"]]
+        rms = max(e["rms_over_std"] for e in errs)
+        lead = max(leads, default=0.0)
+        say("families", model=cfg.name,
+            check="(i) the kernel run against ops mode ref on its schedule",
+            max_rms_err_over_logit_std=rms, rms_limit=spec["rms"],
+            rms_per_request=[e["rms_over_std"] for e in errs],
+            max_abs_logit_err=max(e["max_abs"] for e in errs),
+            tokens_compared=generated, argmax_differs=len(leads),
+            max_lead_over_tolerance=lead, lead_limit=spec["lead"],
+            moe_tokens_routed=pins.routed,
+            moe_tokens_rerouted_unpinned=int(pins.rerouted))
+        check(rms <= spec["rms"], f"{name}: last logits differ from ops mode "
+              f"ref by {rms} of their standard deviation (RMS), limit "
+              f"{spec['rms']}")
+        check(lead <= spec["lead"], f"{name}: the ref run's argmax leads the "
+              f"kernel run's token by {lead} of the tolerance, limit "
+              f"{spec['lead']}")
+        del params, run, ref, pins
+        torch.cuda.empty_cache()
+
+        # -- check (ii): float32, 2 layers (and 2 encoder layers) at full
+        # width, kernels against ops mode ref on the same requests
+        if spec["f32"]:
+            cfg32 = family_config(
+                configs, name, 2, param_dtype="float32",
+                compute_dtype="float32",
+                encoder_layers=min(cfg.encoder_layers, 2))
+            params = TT.init_params(cfg32, seed + m + 1, device=dev)
+            reqs = family_requests(torch, cfg32, spec, seed + 300 + m,
+                                   lengths)
+            ops.reset_launch_counts()
+            kern = family_serve(torch, TT, cfg32, params, reqs, F32_NEW,
+                                s_max)
+            f32_counts = {k: ops.launch_counts()[k] for k in main_counts}
+            ops.use_kernels("ref")
+            try:
+                ref = family_serve(torch, TT, cfg32, params, reqs, F32_NEW,
+                                   s_max, script=kern["tokens"])
+            finally:
+                ops.use_kernels("auto")
+            errs = [_logit_errs(a, b, F32_MODEL_TOL)
+                    for a, b in zip(kern["last"], ref["last"])]
+            worst = max(e["over_tol"] for e in errs)
+            say("families", model=cfg.name,
+                check="(ii) float32, 2 layers at full width, kernels "
+                      "against ops mode ref",
+                max_abs_logit_err=max(e["max_abs"] for e in errs),
+                max_err_over_tolerance=worst,
+                tolerance=f"{F32_MODEL_TOL} + {F32_MODEL_TOL} x |ref logit|",
+                argmax_differs=len(ref["leads"]), launches=f32_counts)
+            check(not ref["leads"], f"{name} float32 run: kernels and ref "
+                  f"mode give other tokens")
+            check(worst <= 1.0, f"{name} float32 run: last logits differ "
+                  f"from ops mode ref beyond the tolerance")
+            check(min(f32_counts.values()) > 0,
+                  f"{name} float32 run launched no kernel of its path")
+            del params, kern, ref
+            torch.cuda.empty_cache()
+        say("families", model=cfg.name,
+            model_s=time.perf_counter() - t_model)
+    say("families", seconds=time.perf_counter() - t_phase, card=smi)
+    return paths
+
+
 def kernels_line(records, path_counts):
     """The ``kernels`` object: each kernel's measured numbers and its
     launches summed over the main paths' runs (``path_counts``: one count
@@ -3185,6 +3593,9 @@ def main(argv=None):
                         help="build, then run only the keyed main path "
                              "(phase 4) and the multi-process plane "
                              "(phase 14) and stop")
+    parser.add_argument("--families-only", action="store_true",
+                        help="build, then run only phase 15 (the other "
+                             "architectures at full width) and stop")
     args = parser.parse_args(argv)
 
     import torch
@@ -3224,6 +3635,10 @@ def main(argv=None):
             phase_host(torch)
             print(smi)
             return 0
+        if args.families_only:
+            phase_families(torch, args.seed, smi)
+            print(smi)
+            return 0
         items = make_stream(args.seed, keyed_stream)
         if args.dist_only:
             phase_dist(torch, items, phase_main(torch, items), smi)
@@ -3245,6 +3660,7 @@ def main(argv=None):
         del items, main
         paths += phase_serving_runtime(torch, args.seed, smi)
         phase_patterns(torch, args.seed, smi)
+        paths += phase_families(torch, args.seed, smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

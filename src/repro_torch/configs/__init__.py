@@ -1,11 +1,11 @@
 """Architecture registry of the port: ``get(name)`` / ``names()``.
 
-The names and aliases are the reference's (``repro/configs/__init__.py``).
-The port serves the dense attention models, Mamba2-780M and
-DeepSeekMoE-16B so far; the other architectures raise
-``NotImplementedError`` until their slice lands (ROADMAP Queue 1 item 12:
-the other dense and MoE models, the hybrid, the encoder-decoder and the
-prefix-embedding frontends).
+The names and aliases are the reference's (``repro/configs/__init__.py``),
+and every architecture it registers has a module here: the dense models,
+the MoE models, Mamba2-780M, the Jamba hybrid, the prefix-LM VLM
+(PaliGemma-3B) and the encoder-decoder (SeamlessM4T-medium).  Each module
+is a copy of the reference's, built on the port's own
+:mod:`repro_torch.models.config`.
 """
 
 from __future__ import annotations
@@ -29,9 +29,6 @@ _ARCHS = (
     "jamba_1_5_large_398b",
     "paper_synthetic",
 )
-#: the architectures the port has a configuration module for
-PORTED = ("gemma2_27b", "deepseek_moe_16b", "mamba2_780m",
-          "paper_synthetic")
 
 _ALIAS = {name.replace("_", "-"): name for name in _ARCHS}
 _ALIAS.update(
@@ -51,9 +48,4 @@ def get(name: str) -> ModelConfig:
     mod_name = _ALIAS.get(name, name).replace("-", "_").replace(".", "_")
     if mod_name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ALIAS)}")
-    if mod_name not in PORTED:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP Queue 1 item 12); the port "
-            f"has {sorted(PORTED)}"
-        )
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG

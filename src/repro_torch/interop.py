@@ -15,10 +15,13 @@ leaves as numpy arrays) and returns the port's
 :class:`~repro_torch.models.transformer.Transformer`;
 :func:`params_to_reference` goes the other way.  The reference stacks its
 layers as ``units[f"l{i}"][leaf][u]`` after the unrolled ``prefix_layers``;
-the port's layer ``len(prefix) + u * len(unit) + i`` is that entry.  The
-leaves of a layer depend on its kind (attention or Mamba-2 mixer; dense,
-MoE or no MLP); ``put`` casts each to its parameter's dtype, and the
-float32 leaves (``A_log``, ``D``, ``dt_bias``, ``router``,
+the port's layer ``len(prefix) + u * len(unit) + i`` is that entry.  An
+encoder-decoder's encoder is stacked as ``enc_units[leaf][i]``, the port's
+``encoder[i]``; ``frontend_proj.w`` and ``enc_final_norm.scale`` are
+single leaves.  The leaves of a layer depend on its kind (attention or
+Mamba-2 mixer; dense, MoE or no MLP; a cross attention in every decoder
+layer of an encoder-decoder); ``put`` casts each to its parameter's dtype,
+and the float32 leaves (``A_log``, ``D``, ``dt_bias``, ``router``,
 ``router_bias``) are float32 parameters in both packages.
 """
 
@@ -84,10 +87,11 @@ _MLP_LEAVES = ("wi_gate", "wi_up", "wo")
 _MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
 
 
-def _layer_leaves(cfg, spec):
-    """The leaves of one layer of kind ``spec`` as port attribute paths
-    (``"mixer.norm.scale"``); the reference's path inside its layer dict is
-    the same split at the dots."""
+def _layer_leaves(cfg, spec, cross=False):
+    """The leaves of one layer of kind ``spec`` (with a cross attention when
+    ``cross``) as port attribute paths (``"mixer.norm.scale"``); the
+    reference's path inside its layer dict is the same split at the
+    dots."""
     from repro_torch.models.config import DENSE, MAMBA, MOE
 
     out = ["ln1.scale"]
@@ -95,6 +99,9 @@ def _layer_leaves(cfg, spec):
     out += [f"mixer.{leaf}" for leaf in mixer]
     if cfg.post_norms:
         out.append("post_ln1.scale")
+    if cross:
+        out.append("ln_cross.scale")
+        out += [f"cross.{leaf}" for leaf in _ATTENTION_LEAVES]
     if spec.mlp == DENSE:
         out += [f"mlp.{leaf}" for leaf in _MLP_LEAVES]
     elif spec.mlp == MOE:
@@ -116,17 +123,32 @@ def _walk(tree, attr: str):
     return tree
 
 
+def _stacked(sub, u):
+    """Entry ``u`` of every leaf of a stacked layer dict, as a getter."""
+    return lambda attr: np.asarray(_walk(sub, attr))[u]
+
+
 def _reference_layers(tree, cfg):
-    """Yield, in the port's layer order, (spec, getter ``attr -> array``)
-    for each of the reference's layers."""
+    """Yield, in the port's layer order, a getter ``attr -> array`` for
+    each of the reference's decoder layers."""
     prefix, unit, n_units = cfg.layout()
-    for spec, p in zip(prefix, tree["prefix_layers"]):
-        yield spec, lambda attr, p=p: _walk(p, attr)
+    for p in tree["prefix_layers"]:
+        yield lambda attr, p=p: _walk(p, attr)
     for u in range(n_units):
-        for i, spec in enumerate(unit):
-            sub = tree["units"][f"l{i}"]
-            yield spec, lambda attr, sub=sub, u=u: np.asarray(
-                _walk(sub, attr))[u]
+        for i in range(len(unit)):
+            yield _stacked(tree["units"][f"l{i}"], u)
+
+
+def _single_leaves(model):
+    """The port's leaves outside the layers, with the reference's paths."""
+    out = {"embed": "embed.table", "final_norm.scale": "final_norm.scale"}
+    if model.lm_head is not None:
+        out["lm_head"] = "lm_head.table"
+    if model.frontend_proj is not None:
+        out["frontend_proj.w"] = "frontend_proj.w"
+    if model.enc_final_norm is not None:
+        out["enc_final_norm.scale"] = "enc_final_norm.scale"
+    return out
 
 
 def params_from_reference(tree, cfg, *, device=None):
@@ -145,14 +167,15 @@ def params_from_reference(tree, cfg, *, device=None):
             raise ValueError(f"shape {src.shape} does not fit {tuple(dst.shape)}")
         dst.copy_(torch.as_tensor(src.astype(np.float32)).to(dst.dtype))
 
+    encoder = [_stacked(tree["enc_units"], i)
+               for i in range(len(model.encoder))]
     with torch.no_grad():
-        put(model.embed, tree["embed"]["table"])
-        if model.lm_head is not None:
-            put(model.lm_head, tree["lm_head"]["table"])
-        put(model.final_norm.scale, tree["final_norm"]["scale"])
-        for layer, (spec, get) in zip(model.layers,
-                                      _reference_layers(tree, cfg)):
-            for attr in _layer_leaves(cfg, spec):
+        for attr, path in _single_leaves(model).items():
+            put(model.get_parameter(attr), _walk(tree, path))
+        for layer, get in zip((*model.layers, *model.encoder),
+                              (*_reference_layers(tree, cfg), *encoder)):
+            for attr in _layer_leaves(cfg, layer.spec,
+                                      layer.cross is not None):
                 put(layer.get_parameter(attr), get(attr))
     return model
 
@@ -171,7 +194,7 @@ def params_to_reference(params, cfg):
 
     def layer_dict(layer, stack=None):
         out: Dict[str, dict] = {}
-        for attr in _layer_leaves(cfg, layer.spec):
+        for attr in _layer_leaves(cfg, layer.spec, layer.cross is not None):
             *groups, leaf = attr.split(".")
             node = out
             for g in groups:
@@ -186,11 +209,13 @@ def params_to_reference(params, cfg):
         per_unit = [layers[n_pre + u * len(unit) + i] for u in range(n_units)]
         units[f"l{i}"] = layer_dict(per_unit[0], stack=per_unit)
     tree = {
-        "embed": {"table": arr(params.embed)},
-        "final_norm": {"scale": arr(params.final_norm.scale)},
         "prefix_layers": tuple(layer_dict(x) for x in layers[:n_pre]),
         "units": units,
     }
-    if params.lm_head is not None:
-        tree["lm_head"] = {"table": arr(params.lm_head)}
+    for attr, path in _single_leaves(params).items():
+        head, leaf = path.split(".")
+        tree.setdefault(head, {})[leaf] = arr(params.get_parameter(attr))
+    if len(params.encoder):
+        tree["enc_units"] = layer_dict(params.encoder[0],
+                                       stack=list(params.encoder))
     return tree

@@ -1,4 +1,5 @@
-// Causal / sliding-window flash attention (prefill), for sm_90a.
+// Causal / sliding-window / prefix-LM / bidirectional flash attention
+// (prefill), for sm_90a.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:125
 // (flash_attention / _kernel).  Same function: scores q.k / sqrt(hd) in
@@ -13,6 +14,11 @@
 // the kv tiles the mask admits ([q0 - window + 1, q_last] rounded to
 // tiles).  The TPU kernel asserts Sq % block_q == 0; these mask the ragged
 // edge (rows >= Sq are computed and never stored; keys >= Skv masked).
+// The prefix-LM mask (causal with prefix_len P > 0: k <= q or k < P, the
+// reference model's PREFIX mode, which its Pallas kernel does not take)
+// widens a q tile's kv range to max(q_last + 1, P); a kv tile wholly
+// below P needs no per-element mask.  causal = 0 is the bidirectional and
+// cross mode (every key < Skv, Sq != Skv allowed).
 //
 // What bounds it on an H100: operations.  Each admitted (q, k) pair costs
 // 4 * hd flops of products, hundreds per byte moved, so the bound is the
@@ -95,7 +101,7 @@ __global__ void __launch_bounds__(kFlashThreads)
 flash_forward(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
               int Sq, int Skv, int causal, int window, float softcap,
-              float scale) {
+              int prefix, float scale) {
   constexpr int BQ = kFlashBQ, BK = kFlashBK, NT = kFlashThreads;
   constexpr int QS = HD + 1, KS = BK + 1, PS = BK + 1;
   constexpr int DJ = HD / 16;  // output columns per thread
@@ -135,7 +141,7 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
 
   // kv tiles the mask admits for rows [q0, q_last]
   const int q_last = min(q0 + BQ, Sq) - 1;
-  const int k_hi = causal ? min(Skv, q_last + 1) : Skv;
+  const int k_hi = causal ? min(Skv, max(q_last + 1, prefix)) : Skv;
   int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   k_lo = (k_lo / BK) * BK;
 
@@ -176,7 +182,7 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
         bool ok = kj < Skv;
-        if (causal) ok = ok && kj <= qi;
+        if (causal) ok = ok && (kj <= qi || kj < prefix);
         if (window > 0) ok = ok && kj > qi - window;
         const float x = ok ? cap_score(s[i][j], softcap) : kNegInf;
         s[i][j] = x;
@@ -245,7 +251,7 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
                  int Hq, int Hkv, int Sq, int Skv, int causal, int window,
-                 float softcap, void* stream) {
+                 float softcap, int prefix, void* stream) {
   constexpr int smem = flash_smem_floats<HD>() * int(sizeof(float));
   // above 48 KB of dynamic shared memory needs the opt-in (per device, so
   // it is set on every launch; the call costs about a microsecond)
@@ -257,7 +263,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, causal,
-      window, softcap, static_cast<float>(1.0 / std::sqrt(double(HD))));
+      window, softcap, prefix, static_cast<float>(1.0 / std::sqrt(double(HD))));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -285,13 +291,13 @@ struct WgSmem {
 
 // One kv tile's scores -> probabilities, in place, for this thread's two
 // rows r0, r0 + 8: scale, softcap and (on tiles that cross the diagonal,
-// the window's lower edge or Skv) the mask, in float32; the online softmax
-// update of m, l (this thread's share of the row sums, of the unrounded p)
-// and alpha, the factor of the output so far.
+// the window's lower edge, the prefix's end or Skv) the mask, in float32;
+// the online softmax update of m, l (this thread's share of the row sums,
+// of the unrounded p) and alpha, the factor of the output so far.
 __device__ __forceinline__ void softmax_tile(
     float (&sc)[kWgBK / 2], int k0, bool edge, int r0, int cq, int Skv,
-    int causal, int window, float softcap, float inv_cap, float scale,
-    float (&m)[2], float (&l)[2], float (&alpha)[2]) {
+    int causal, int window, int prefix, float softcap, float inv_cap,
+    float scale, float (&m)[2], float (&l)[2], float (&alpha)[2]) {
 #pragma unroll
   for (int e = 0; e < kWgBK / 2; ++e) {
     float x = sc[e] * scale;
@@ -304,7 +310,7 @@ __device__ __forceinline__ void softmax_tile(
       const int qi = r0 + ((e & 2) ? 8 : 0);
       const int kj = k0 + (e / 4) * 8 + cq + (e & 1);
       bool ok = kj < Skv;
-      if (causal) ok = ok && kj <= qi;
+      if (causal) ok = ok && (kj <= qi || kj < prefix);
       if (window > 0) ok = ok && kj > qi - window;
       if (!ok) sc[e] = kNegInf;
     }
@@ -357,7 +363,7 @@ flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_v,
                     __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq,
                     int Skv, int causal, int window, float softcap,
-                    float scale) {
+                    int prefix, float scale) {
   using namespace hopper;
   using L = WgSmem<HD>;
   constexpr int BQ = kWgBQ, BK = kWgBK, ST = kWgStages;
@@ -376,7 +382,7 @@ flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int hk = h / (Hq / Hkv);
   // kv tiles the mask admits for rows [q0, q_last]
   const int q_last = min(q0 + BQ, Sq) - 1;
-  const int k_hi = causal ? min(Skv, q_last + 1) : Skv;
+  const int k_hi = causal ? min(Skv, max(q_last + 1, prefix)) : Skv;
   int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   k_lo = (k_lo / BK) * BK;
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
@@ -473,9 +479,11 @@ flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wgmma_commit();
   };
   // the per-element mask is needed only where a tile crosses the diagonal,
-  // the window's lower edge or Skv for some row of this warpgroup
+  // the window's lower edge or Skv for some row of this warpgroup; with a
+  // prefix, a key above the diagonal is masked only at or past the prefix,
+  // so a tile wholly below it needs none
   auto edge = [&](int k0) {
-    return (causal && k0 + BK - 1 > qa)
+    return (causal && k0 + BK - 1 > qa && k0 + BK - 1 >= prefix)
            || (window > 0 && k0 <= qa + 63 - window) || k0 + BK > Skv;
   };
   // this warpgroup's products of the tile in stage s are complete: its
@@ -493,8 +501,8 @@ flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
     issue_s(0);
     wgmma_wait<0>();
     fence_regs(sc);
-    softmax_tile(sc, k_lo, edge(k_lo), r0, cq, Skv, causal, window,
-                     softcap, inv_cap, scale, m, l, alpha);
+    softmax_tile(sc, k_lo, edge(k_lo), r0, cq, Skv, causal, window, prefix,
+                 softcap, inv_cap, scale, m, l, alpha);
     split_p(sc, p_hi, p_lo);
     // tile j: S_j is issued, then the tile before's O += P.V, so the tensor
     // cores run that P.V while the CUDA cores run S_j's softmax; O is
@@ -515,8 +523,8 @@ flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
       issue_pv(sp);
       wgmma_wait<1>();  // S_j is done
       fence_regs(sc);
-      softmax_tile(sc, k0, edge(k0), r0, cq, Skv, causal, window,
-                       softcap, inv_cap, scale, m, l, alpha);
+      softmax_tile(sc, k0, edge(k0), r0, cq, Skv, causal, window, prefix,
+                   softcap, inv_cap, scale, m, l, alpha);
       wgmma_wait<0>();  // the tile before's P.V is done
       fence_regs(acc);
       fence_regs(p_hi);
@@ -606,7 +614,7 @@ static bool encode_map(CUtensorMap* map, const void* ptr, int heads, int rows,
 template <int HD>
 int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
                        int B, int Hq, int Hkv, int Sq, int Skv, int causal,
-                       int window, float softcap, void* stream) {
+                       int window, float softcap, int prefix, void* stream) {
   const int n_qt = (Sq + kWgBQ - 1) / kWgBQ;
   if (Skv <= 0 || n_qt > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -624,7 +632,8 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
   flash_forward_wgmma<HD><<<grid, kWgThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv,
-      causal, window, softcap, static_cast<float>(1.0 / std::sqrt(double(HD))));
+      causal, window, softcap, prefix,
+      static_cast<float>(1.0 / std::sqrt(double(HD))));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -633,34 +642,39 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 = float32 (flash_forward), 1 = bfloat16 (flash_forward_wgmma,
-// flash_forward at hd 256); hd: 64, 128 or 256.  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for a shape the kernel does
-// not take (the wrapper refuses most before calling) or a tensor map the
-// driver refuses.
+// flash_forward at hd 256); hd: 64, 128 or 256; prefix_len: the keys every
+// query sees under the causal mask (0 <= prefix_len <= Skv, and 0 without
+// the causal mask or with a window).  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a shape the kernel does not take
+// (the wrapper refuses most before calling) or a tensor map the CUDA driver
+// refuses.
 int attn_flash_forward(const void* q, const void* k, const void* v, void* o,
                        int B, int Hq, int Hkv, int Sq, int Skv, int hd,
                        int dtype, int causal, int window, float softcap,
-                       void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv < 0)
+                       int prefix_len, void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv < 0
+      || prefix_len < 0 || prefix_len > Skv
+      || (prefix_len > 0 && (!causal || window > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int P = prefix_len;
   if (dtype == 0 && hd == 256)
     return attn::launch_flash<float, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                          causal, window, softcap, stream);
+                                          causal, window, softcap, P, stream);
   if (dtype == 1 && hd == 256)
     return attn::launch_flash<__nv_bfloat16, 256>(
-        q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, softcap, stream);
+        q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, softcap, P, stream);
   if (dtype == 0 && hd == 128)
     return attn::launch_flash<float, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                          causal, window, softcap, stream);
+                                          causal, window, softcap, P, stream);
   if (dtype == 0 && hd == 64)
     return attn::launch_flash<float, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                         causal, window, softcap, stream);
+                                         causal, window, softcap, P, stream);
   if (dtype == 1 && hd == 128)
     return attn::launch_flash_wgmma<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                         causal, window, softcap, stream);
+                                         causal, window, softcap, P, stream);
   if (dtype == 1 && hd == 64)
     return attn::launch_flash_wgmma<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                        causal, window, softcap, stream);
+                                        causal, window, softcap, P, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

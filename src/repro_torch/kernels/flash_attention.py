@@ -1,8 +1,12 @@
 """Flash attention for prefill: wrapper around the CUDA kernel.
 
 Port of ``repro/kernels/flash_attention.py``.  The kernels are in
-``csrc/flash_attention.cu``: causal and sliding-window attention with
-online softmax, softcap and GQA, head_dim 64, 128 or 256.  bfloat16 inputs
+``csrc/flash_attention.cu``: causal, sliding-window, prefix-LM and
+bidirectional attention with online softmax, softcap and GQA, head_dim 64,
+128 or 256.  The prefix-LM mask (``k <= q or k < prefix_len``) is the
+reference model's ``PREFIX`` mode (``repro/models/attention.py``), which
+its Pallas kernel does not take: the JAX model computes it outside the
+kernel, the port's prefill through it.  bfloat16 inputs
 at head_dim 64 and 128 go to ``flash_forward_wgmma`` (tensor-core products
 fed by TMA, float32 scores and softmax); float32 inputs, and head_dim 256
 in either dtype, to ``flash_forward`` (float32 FMAs on the CUDA cores);
@@ -23,7 +27,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_cuda
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "check_attention_inputs",
-           "flash_attention"]
+           "check_prefix", "flash_attention"]
 
 #: kernel launches (reset with ``ops.reset_launch_counts``)
 LAUNCHES = {"flash_attention": 0}
@@ -51,10 +55,26 @@ def check_attention_inputs(what: str, q, k, v) -> None:
             raise ValueError(f"{what}: {name} is not 16-byte aligned")
 
 
+def check_prefix(prefix_len: int, skv: int, causal: bool,
+                 window: int) -> None:
+    """``0 <= prefix_len <= Skv``, and a prefix only with the causal mask
+    and no window (the reference's ``PREFIX`` mode has neither)."""
+    if not 0 <= prefix_len <= skv:
+        raise ValueError(f"flash_attention: prefix_len must lie in [0, "
+                         f"{skv}], got {prefix_len}")
+    if prefix_len and (not causal or window):
+        raise ValueError(f"flash_attention: prefix_len {prefix_len} needs "
+                         f"causal=True and no window (got causal={causal}, "
+                         f"window={window})")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0,
+                    prefix_len: int = 0) -> torch.Tensor:
     """q ``[B, Hq, Sq, hd]``; k, v ``[B, Hkv, Skv, hd]`` -> ``[B, Hq, Sq,
-    hd]`` of q's dtype.  Any ``Sq`` (the ragged last tile is masked)."""
+    hd]`` of q's dtype.  Any ``Sq`` (the ragged last tile is masked).
+    With ``causal``, query ``i`` sees keys ``j <= i`` and, with
+    ``prefix_len``, every key ``j < prefix_len``."""
     dev = check_cuda(("q", "k", "v"), q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: need q [B,Hq,Sq,hd] and k, v "
@@ -70,12 +90,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("flash_attention: batch and heads must be < 65536")
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    check_prefix(prefix_len, skv, causal, window)
     out = torch.empty_like(q)
     if q.numel() == 0 or skv == 0:  # no key: the plain version's zeros
         return out.zero_()
     _build.launch("attn_flash_forward", dev, q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, hd,
                   DTYPE_CODES[q.dtype], int(causal), int(window),
-                  float(softcap))
+                  float(softcap), int(prefix_len))
     LAUNCHES["flash_attention"] += 1
     return out

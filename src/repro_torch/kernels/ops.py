@@ -148,15 +148,20 @@ def batched_table_lookup(cell_owners, cell_keys, cell_starts, table_keys,
     return _ref.batched_table_lookup_ref(*args)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    prefix_len=0):
     """q ``[B, Hq, Sq, hd]``; k, v ``[B, Hkv, Skv, hd]`` -> like q: causal /
-    sliding-window attention with softcap and GQA, float32 math."""
+    sliding-window / prefix-LM (``causal`` with ``prefix_len`` keys that
+    every query sees) / bidirectional (``causal=False``) attention with
+    softcap and GQA, float32 math."""
     if kernels_active(q.device):
         return _fk.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal,
-                                   window=window, softcap=softcap)
+                                   window=window, softcap=softcap,
+                                   prefix_len=prefix_len)
+    _fk.check_prefix(prefix_len, k.shape[2], causal, window)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    softcap=softcap)
+                                    softcap=softcap, prefix_len=prefix_len)
 
 
 def decode_attention(q, cache_k, cache_v, valid_len, *, softcap=0.0,

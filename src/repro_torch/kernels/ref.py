@@ -167,11 +167,13 @@ def _masked_softmax_pv(s, mask, vf, out_dtype):
     return (p @ vf).to(out_dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        prefix_len=0):
     """q ``[B, Hq, Sq, hd]``; k, v ``[B, Hkv, Skv, hd]`` -> like q.
 
     Float32 math; GQA maps q head ``h`` to kv head ``h // (Hq // Hkv)``;
-    the mask keeps ``k <= q`` (causal) and ``k > q - window`` (window), with
+    the mask keeps ``k <= q or k < prefix_len`` (causal; the prefix-LM
+    mask when ``prefix_len > 0``) and ``k > q - window`` (window), with
     query and key positions both counted from 0."""
     hq, hkv, sq, skv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
     g = hq // hkv
@@ -184,7 +186,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     k_pos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= k_pos <= q_pos
+        mask &= (k_pos <= q_pos) | (k_pos < prefix_len)
     if window:
         mask &= k_pos > q_pos - window
     return _masked_softmax_pv(s, mask, vf, q.dtype)

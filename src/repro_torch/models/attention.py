@@ -1,17 +1,22 @@
-"""GQA attention for the decoder: prefill (cache write) and decode (cache
-read), through the flash and decode attention kernels.
+"""GQA attention: causal, sliding-window, prefix-LM, bidirectional and
+cross attention, with prefill (cache write) and decode (cache read), through
+the flash and decode attention kernels.
 
-Port of the causal and sliding-window parts of ``repro/models/attention.py``
-for one card: no tensor-parallel head padding (``launch/`` is not ported),
-and no prefix-LM, bidirectional or cross attention (the encoder-decoder and
-prefix-embedding models are not ported either).
+Port of ``repro/models/attention.py`` for one card, without the
+tensor-parallel head padding (``launch/`` is not ported).  The mask modes are the reference's: ``CAUSAL``, ``SLIDING``, ``PREFIX``
+(bidirectional over the first ``prefix_len`` positions, causal after:
+``k <= q or k < prefix_len``, which is what the reference's rule reduces
+to) and ``BIDIR`` (the encoder).  Cross attention
+(:func:`cross_attention_block`) reads the encoder's k/v
+(:func:`encode_cross_kv`), with no rope, as the reference does.
 
 The KV cache of a layer is ``{"k", "v"}``, each ``[B, Hkv, S_max, hd]``:
 the decode kernel's layout, so neither mode transposes the cache.  A step
 of ``attention_block``:
 
 * **prefill** (``cache_index is None``): writes the prompt's k/v into the
-  cache rows ``[0, S)`` and attends with ``ops.flash_attention``;
+  cache rows ``[0, S)`` and attends with ``ops.flash_attention``; without
+  a cache (the encoder) it only attends;
 * **decode** (``cache_index`` given, one token per slot): writes the
   token's k/v into the cache IN PLACE at each slot's own position, then
   attends with ``ops.decode_attention`` over ``valid_len = index + 1``.
@@ -39,7 +44,9 @@ NEG_INF = -2.0e38
 # mask modes
 CAUSAL = "causal"
 SLIDING = "sliding"
-MODES = (CAUSAL, SLIDING)
+PREFIX = "prefix"   # bidirectional over [0, prefix_len), causal after
+BIDIR = "bidir"
+MODES = (CAUSAL, SLIDING, PREFIX, BIDIR)
 
 
 class Attention(nn.Module):
@@ -74,15 +81,25 @@ def _project(x, w):
     return (x @ w.to(x.dtype).reshape(d, h * hd)).view(*x.shape[:2], h, hd)
 
 
-def _mask(q_pos, k_pos, mode: str, window: int):
-    allowed = k_pos[None, :] <= q_pos[:, None]
+def _mask(q_pos, k_pos, mode: str, window: int, prefix_len: int):
+    """The admitted (q, k) pairs ``[len(q_pos), len(k_pos)]`` of ``mode``
+    (the reference's ``_mask_bias``)."""
+    q, k = q_pos[:, None], k_pos[None, :]
+    if mode == BIDIR:
+        return torch.ones(q.shape[0], k.shape[1], dtype=torch.bool,
+                          device=q.device)
+    allowed = k <= q
     if mode == SLIDING:
-        allowed &= k_pos[None, :] > q_pos[:, None] - window
+        allowed &= k > q - window
+    elif mode == PREFIX:
+        allowed |= k < prefix_len
+    elif mode != CAUSAL:
+        raise ValueError(f"attention mode {mode!r}; known: {MODES}")
     return allowed
 
 
-def attend_naive(q, k, v, *, mode=CAUSAL, window=0, softcap=0.0,
-                 q_offset=0, kv_valid_len=None):
+def attend_naive(q, k, v, *, mode=CAUSAL, window=0, prefix_len=0,
+                 softcap=0.0, q_offset=0, kv_valid_len=None):
     """Materializing oracle. q ``[B, Sq, Hq, hd]``; k, v ``[B, Skv, Hkv, hd]``
     -> ``[B, Sq, Hq, hd]``; float32 scores, p cast to v's dtype for P.V as
     in the reference."""
@@ -96,7 +113,7 @@ def attend_naive(q, k, v, *, mode=CAUSAL, window=0, softcap=0.0,
         s = softcap * torch.tanh(s / softcap)
     q_pos = torch.arange(sq, device=q.device) + q_offset
     k_pos = torch.arange(skv, device=q.device)
-    allowed = _mask(q_pos, k_pos, mode, window)[None, None]
+    allowed = _mask(q_pos, k_pos, mode, window, prefix_len)[None, None]
     if kv_valid_len is not None:
         allowed = allowed & (k_pos < kv_valid_len)[None, None, None, :]
     s = torch.where(allowed, s, torch.full((), NEG_INF, device=q.device))
@@ -114,22 +131,22 @@ def _positions(cache_index, b: int, s: int, device) -> torch.Tensor:
 
 
 def attention_block(x, params: Attention, *, mode: str, rope_theta: float,
-                    window: int = 0, softcap: float = 0.0,
-                    cache: Optional[dict] = None,
+                    window: int = 0, prefix_len: int = 0,
+                    softcap: float = 0.0, cache: Optional[dict] = None,
                     cache_index=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """x ``[B, S, d]`` -> (out ``[B, S, d]``, cache).
 
-    * ``cache_index is None``: prefill from position 0; with a cache, its
-      rows ``[0, S)`` are overwritten with the prompt's k/v.
+    * ``cache_index is None``: the whole sequence from position 0 under
+      ``mode`` (``PREFIX`` with ``prefix_len``; ``BIDIR`` for the encoder,
+      which has no cache); with a cache, its rows ``[0, S)`` are
+      overwritten with the sequence's k/v (a prefill).
     * ``cache_index`` a scalar or one position per slot ``[B]``, ``S == 1``:
       decode; the token's k/v land in the cache in place at those positions
       (each must be ``< S_max``) and the step attends positions
       ``[0, index]`` (the last ``window`` of them for a sliding layer).
     The cache is updated in place and returned."""
     if mode not in MODES:
-        raise NotImplementedError(
-            f"attention mode {mode!r}: the port has {MODES} (prefix-LM and "
-            f"bidirectional attention wait for ROADMAP Queue 1 item 12)")
+        raise ValueError(f"attention mode {mode!r}; known: {MODES}")
     b, s, _ = x.shape
     q = _project(x, params.wq)
     k = _project(x, params.wk)
@@ -157,11 +174,43 @@ def attention_block(x, params: Attention, *, mode: str, rope_theta: float,
             cache["v"][:, :, :s] = v.transpose(1, 2).to(cache["v"].dtype)
         o = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=win, softcap=softcap,
+            causal=mode != BIDIR, window=win, softcap=softcap,
+            prefix_len=prefix_len if mode == PREFIX else 0,
         ).transpose(1, 2)                                 # [B, S, Hq, hd]
-    hq, hd, d = params.wo.shape
-    out = o.reshape(b, s, hq * hd) @ params.wo.to(x.dtype).reshape(hq * hd, d)
-    return out, cache
+    return _out(o, params.wo, x.dtype), cache
+
+
+def _out(o, wo, dtype):
+    """o ``[B, S, Hq, hd]`` @ wo ``[Hq, hd, d]`` -> ``[B, S, d]``."""
+    b, s = o.shape[:2]
+    hq, hd, d = wo.shape
+    return o.reshape(b, s, hq * hd) @ wo.to(dtype).reshape(hq * hd, d)
+
+
+def encode_cross_kv(enc_out, params: Attention) -> dict:
+    """The encoder output ``[B, S_src, d]`` through a cross layer's ``wk``,
+    ``wv`` (no rope) -> ``{"k", "v"}``, each ``[B, Hkv, S_src, hd]``: the
+    flash and decode kernels' layout (the reference's is ``[B, S_src, Hkv,
+    hd]``)."""
+    return {"k": _project(enc_out, params.wk).transpose(1, 2).contiguous(),
+            "v": _project(enc_out, params.wv).transpose(1, 2).contiguous()}
+
+
+def cross_attention_block(x, params: Attention,
+                          enc_kv: dict) -> torch.Tensor:
+    """Decoder cross attention ``[B, S, d]`` -> ``[B, S, d]`` against the
+    encoder's k/v (:func:`encode_cross_kv`), every source position
+    admitted, no rope.  ``S`` queries run ``ops.flash_attention`` with no
+    causal mask (against ``S_src`` keys); one query a slot (a decode step)
+    runs ``ops.decode_attention`` with ``valid_len = S_src``."""
+    q = _project(x, params.wq)                            # [B, S, Hq, hd]
+    k, v = enc_kv["k"], enc_kv["v"]
+    if x.shape[1] == 1:
+        o = ops.decode_attention(q[:, 0], k, v, k.shape[2])[:, None]
+    else:
+        o = ops.flash_attention(q.transpose(1, 2), k, v,
+                                causal=False).transpose(1, 2)
+    return _out(o, params.wo, x.dtype)
 
 
 def init_kv_cache(batch: int, s_max: int, n_kv: int, head_dim: int, dtype,

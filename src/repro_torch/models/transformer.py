@@ -1,12 +1,16 @@
-"""The decoder: parameters, caches, prefill and decode.
+"""The language model: parameters, caches, prefill and decode.
 
-Port of ``repro/models/transformer.py`` for decoder-only models: attention
-mixers (full and sliding) or Mamba-2 mixers, with dense, MoE or no MLPs,
-optional post-norms, tied or untied embeddings.  The reference stacks its
-layers into a prefix and ``lax.scan``-ned units; the port keeps one module
-per layer, in order: layer ``len(prefix) + u * len(unit) + i`` is the
-reference's unit ``u``, entry ``l{i}`` (:mod:`repro_torch.interop` carries
-weights across).
+Port of ``repro/models/transformer.py`` for serving: attention mixers
+(full and sliding) or Mamba-2 mixers, with dense, MoE or no MLPs, optional
+post-norms, tied or untied embeddings; the prefix-LM VLM (stub patch
+embeddings projected by ``frontend_proj`` and put ahead of the tokens,
+full-attention layers in mask mode ``PREFIX``) and the encoder-decoder (a
+bidirectional encoder over stub frame embeddings, and per decoder layer a
+cross attention to its output).  The reference stacks its layers into a
+prefix and ``lax.scan``-ned units; the port keeps one module per layer, in
+order: layer ``len(prefix) + u * len(unit) + i`` is the reference's unit
+``u``, entry ``l{i}``, and encoder layer ``i`` is entry ``i`` of its
+``enc_units`` (:mod:`repro_torch.interop` carries weights across).
 
 Entry points (the reference's names):
 
@@ -21,8 +25,15 @@ Entry points (the reference's names):
   ``cache_index`` (ragged continuous batching), updating the caches in
   place; returns the logits.
 
-Encoder-decoder and prefix-embedding models raise ``NotImplementedError``:
-they are a later part of ROADMAP Queue 1 item 12.
+Their batch keys are the reference's: ``tokens``; ``prefix_embeds``
+``[B, P, frontend_dim]`` (prefill of a VLM: the cache then holds ``P +
+S`` rows); ``src_embeds`` ``[B, S_src, frontend_dim]`` (prefill of an
+encoder-decoder: the encoder runs) and ``enc_out`` ``[B, S_src, d]``
+(decode of one: :func:`_encode`'s output).  Cross attention runs only when
+the encoder output is given, as in the reference, so a batch of tokens
+alone runs an encoder-decoder as a plain decoder (the serving engine's
+text-only path).  Each cross layer computes its k/v from the encoder
+output at every call, as the reference does.
 """
 
 from __future__ import annotations
@@ -45,21 +56,15 @@ KV_LEAVES = ("k", "v")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models wait for ROADMAP Queue 1 "
-            f"item 12 (cross attention)")
-    if cfg.num_prefix_embeds:
-        raise NotImplementedError(
-            f"{cfg.name}: prefix-embedding frontends wait for ROADMAP Queue 1 "
-            f"item 12 (prefix-LM attention)")
+    """Raise for a configuration the model cannot be built from: an unknown
+    layer kind (``NotImplementedError``), or Mamba / MoE layers without
+    their ``SSMConfig`` / ``MoEConfig`` (``ValueError``)."""
     specs = cfg.layer_specs()
     bad = [s for s in specs if s.mixer not in (FULL, SLIDING, MAMBA)
            or s.mlp not in (DENSE, MOE, NONE)]
     if bad:
         raise NotImplementedError(f"{cfg.name}: layer kinds {set(bad)} are "
-                                  f"not ported (ROADMAP Queue 1 item 12)")
+                                  f"not ported")
     if any(s.mixer == MAMBA for s in specs) and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: Mamba layers need an SSMConfig")
     if any(s.mlp == MOE for s in specs) and cfg.moe is None:
@@ -67,11 +72,14 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class DecoderLayer(nn.Module):
-    """``x + post_ln1(mixer(ln1(x)))``, then, unless the layer has no MLP,
-    ``x + post_ln2(mlp(ln2(x)))``; the mixer is attention or Mamba-2, the
-    MLP dense or MoE."""
+    """``x + post_ln1(mixer(ln1(x)))``, then, with ``cross`` and an encoder
+    output, ``x + cross(ln_cross(x))``, then, unless the layer has no MLP,
+    ``x + post_ln2(mlp(ln2(x)))`` (each branch times the residual scale);
+    the mixer is attention or Mamba-2, the MLP dense or MoE.  The encoder's
+    layers are of this class too (``FULL``, ``DENSE``, no cross)."""
 
-    def __init__(self, spec: LayerSpec, cfg: ModelConfig, *, device):
+    def __init__(self, spec: LayerSpec, cfg: ModelConfig, *, device,
+                 cross: bool = False):
         super().__init__()
         dt, d, eps = cfg.pdtype, cfg.d_model, cfg.norm_eps
         self.spec = spec
@@ -86,6 +94,12 @@ class DecoderLayer(nn.Module):
                                         device=device)
         if cfg.post_norms:
             self.post_ln1 = layers.RMSNorm(d, eps, dtype=dt, device=device)
+        self.cross = None
+        if cross:
+            self.ln_cross = layers.RMSNorm(d, eps, dtype=dt, device=device)
+            self.cross = attn.Attention(d, cfg.num_heads, cfg.num_kv_heads,
+                                        cfg.head_dim_, dtype=dt,
+                                        device=device)
         if spec.mlp == MOE:
             self.mlp = moe.MoE(d, cfg.moe, cfg.mlp_activation, dtype=dt,
                                device=device)
@@ -99,24 +113,32 @@ class DecoderLayer(nn.Module):
                                                device=device)
         self.post_norms = cfg.post_norms
         self.residual_scale = cfg.residual_scale
-        self.attn_kwargs = dict(
-            mode=attn.SLIDING if spec.mixer == SLIDING else attn.CAUSAL,
-            rope_theta=cfg.rope_theta, window=cfg.sliding_window,
-            softcap=cfg.attn_logit_softcap,
-        )
+        self.attn_kwargs = dict(rope_theta=cfg.rope_theta,
+                                window=cfg.sliding_window,
+                                softcap=cfg.attn_logit_softcap)
 
-    def forward(self, x, cache: Optional[dict], cache_index=None):
+    def forward(self, x, cache: Optional[dict], cache_index=None, *,
+                mode: str = attn.CAUSAL, prefix_len: int = 0, enc_out=None):
+        """``mode`` and ``prefix_len`` are a full-attention layer's mask (a
+        sliding layer's is always ``SLIDING``); ``enc_out`` drives the
+        cross attention, when the layer has one."""
         rs = self.residual_scale
         if self.spec.mixer == MAMBA:
             h, _ = mamba2.mamba_block(self.ln1(x), self.mixer, self.cfg.ssm,
                                       norm_eps=self.cfg.norm_eps, state=cache)
         else:
-            h, _ = attn.attention_block(self.ln1(x), self.mixer, cache=cache,
-                                        cache_index=cache_index,
-                                        **self.attn_kwargs)
+            h, _ = attn.attention_block(
+                self.ln1(x), self.mixer, cache=cache, cache_index=cache_index,
+                mode=attn.SLIDING if self.spec.mixer == SLIDING else mode,
+                prefix_len=prefix_len, **self.attn_kwargs)
         if self.post_norms:
             h = self.post_ln1(h)
         x = x + rs * h if rs != 1.0 else x + h
+        if self.cross is not None and enc_out is not None:
+            h = attn.cross_attention_block(
+                self.ln_cross(x), self.cross,
+                attn.encode_cross_kv(enc_out, self.cross))
+            x = x + rs * h if rs != 1.0 else x + h
         if self.spec.mlp == NONE:
             return x
         if self.spec.mlp == MOE:
@@ -128,10 +150,26 @@ class DecoderLayer(nn.Module):
         return x + rs * h if rs != 1.0 else x + h
 
 
+class FrontendProj(nn.Module):
+    """The stub frontend's projection ``w [frontend_dim or d, d]``: patch
+    or frame embeddings into the model's width, in the compute dtype."""
+
+    def __init__(self, fd: int, d: int, *, dtype, device):
+        super().__init__()
+        self.w = layers.zeros_param((fd, d), dtype, device)
+
+    def forward(self, e, compute_dtype):
+        return e.to(compute_dtype) @ self.w.to(compute_dtype)
+
+
 class Transformer(nn.Module):
-    """The decoder's weights: embedding table ``[padded_vocab, d]``, the
-    layers in order, the final norm, and ``lm_head`` when embeddings are
-    untied.  Built with zero weights; :func:`init_params` draws them."""
+    """The model's weights: embedding table ``[padded_vocab, d]``, the
+    decoder layers in order, the final norm, and ``lm_head`` when
+    embeddings are untied; with a frontend (prefix embeddings or an
+    encoder) ``frontend_proj``, and with an encoder its layers
+    (``encoder``), ``enc_final_norm`` and a cross attention in every
+    decoder layer.  Built with zero weights; :func:`init_params` draws
+    them."""
 
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
@@ -142,9 +180,21 @@ class Transformer(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else layers.zeros_param(shape, cfg.pdtype, device))
         self.layers = nn.ModuleList(
-            DecoderLayer(s, cfg, device=device) for s in cfg.layer_specs())
+            DecoderLayer(s, cfg, device=device, cross=cfg.encoder_layers > 0)
+            for s in cfg.layer_specs())
         self.final_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps,
                                          dtype=cfg.pdtype, device=device)
+        self.frontend_proj = None
+        if cfg.num_prefix_embeds or cfg.encoder_layers:
+            self.frontend_proj = FrontendProj(
+                cfg.frontend_dim or cfg.d_model, cfg.d_model,
+                dtype=cfg.pdtype, device=device)
+        self.encoder = nn.ModuleList(
+            DecoderLayer(LayerSpec(FULL, DENSE), cfg, device=device)
+            for _ in range(cfg.encoder_layers))
+        self.enc_final_norm = (
+            layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=cfg.pdtype,
+                           device=device) if cfg.encoder_layers else None)
 
     @property
     def device(self) -> torch.device:
@@ -160,11 +210,12 @@ class Transformer(nn.Module):
         return layers.unembed(self.final_norm(x), table,
                               softcap=self.cfg.final_logit_softcap)
 
-    def run(self, tokens, caches: Optional[Caches], cache_index=None):
-        x = self.embed_tokens(tokens)
+    def run(self, x, caches: Optional[Caches], cache_index=None, **kw):
+        """The decoder layers over embeddings ``x``; ``kw`` goes to each
+        layer (mask mode, prefix length, encoder output)."""
         for i, layer in enumerate(self.layers):
             x = layer(x, caches[i] if caches is not None else None,
-                      cache_index)
+                      cache_index, **kw)
         return x
 
 
@@ -173,7 +224,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
                 generator: Optional[torch.Generator] = None) -> Transformer:
     """A :class:`Transformer` on ``device`` (``None``: the CUDA card) with
     the reference's initialization: truncated normals with stddev 0.02 for
-    the embedding, ``d ** -0.5`` for the input projections,
+    the embedding, ``frontend_dim ** -0.5`` for ``frontend_proj``,
+    ``d ** -0.5`` for the input projections (cross attention's too),
     ``(Hq * hd) ** -0.5`` and ``ff ** -0.5`` for the output ones, zeros for
     the norm scales (the Mamba and MoE modules say their own).  Drawn from
     ``generator``, or from a generator on the device seeded with ``seed``.
@@ -187,8 +239,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     layers.truncated_normal_(model.embed.data, 0.02, generator)
     if model.lm_head is not None:
         layers.truncated_normal_(model.lm_head.data, 0.02, generator)
-    for layer in model.layers:
+    if model.frontend_proj is not None:
+        w = model.frontend_proj.w
+        layers.truncated_normal_(w.data, w.shape[0] ** -0.5, generator)
+    for layer in (*model.layers, *model.encoder):
         layer.mixer.init_weights(generator)
+        if layer.cross is not None:
+            layer.cross.init_weights(generator)
         if layer.spec.mlp != NONE:
             layer.mlp.init_weights(generator)
     return model
@@ -225,14 +282,43 @@ def zero_recurrent_(caches: Caches) -> Caches:
 
 
 @torch.no_grad()
+def _encode(params: Transformer, src_embeds, cfg: ModelConfig):
+    """The bidirectional encoder over stub frontend embeddings ``[B, S_src,
+    frontend_dim]`` -> its output ``[B, S_src, d]`` (after
+    ``enc_final_norm``), in the compute dtype."""
+    x = params.frontend_proj(src_embeds, cfg.cdtype)
+    for layer in params.encoder:
+        x = layer(x, None, mode=attn.BIDIR)
+    return params.enc_final_norm(x)
+
+
+def _embed_inputs(params: Transformer, batch: dict, cfg: ModelConfig):
+    """The tokens' embeddings, with a VLM's ``prefix_embeds`` projected
+    and put ahead of them -> (x ``[B, P + S, d]``, ``P``; 0 without)."""
+    x = params.embed_tokens(batch["tokens"])
+    if not (cfg.num_prefix_embeds and "prefix_embeds" in batch):
+        return x, 0
+    pe = params.frontend_proj(batch["prefix_embeds"], cfg.cdtype)
+    return torch.cat([pe, x], dim=1), pe.shape[1]
+
+
+@torch.no_grad()
 def prefill_forward(params: Transformer, batch: dict, cfg: ModelConfig,
                     caches: Optional[Caches]):
-    """The prompt ``batch["tokens"] [B, S]`` from position 0, writing the
-    KV caches' rows ``[0, S)`` and the Mamba states.  A Mamba layer's conv
-    continues from the state it is given (the reference's semantics), so a
-    reused cache is zeroed first (:func:`zero_recurrent_`).  Returns
-    (last-position logits ``[B, 1, V]`` float32, caches)."""
-    x = params.run(batch["tokens"], caches)
+    """The prompt ``batch["tokens"] [B, S]`` from position 0 (after
+    ``prefix_embeds``' ``P`` positions, which every position attends),
+    writing the KV caches' rows ``[0, P + S)`` and the Mamba states; with
+    ``src_embeds`` the encoder runs and every decoder layer attends its
+    output.  A Mamba layer's conv continues from the state it is given (the
+    reference's semantics), so a reused cache is zeroed first
+    (:func:`zero_recurrent_`).  Returns (last-position logits ``[B, 1, V]``
+    float32, caches)."""
+    x, prefix_len = _embed_inputs(params, batch, cfg)
+    enc_out = None
+    if cfg.encoder_layers and "src_embeds" in batch:
+        enc_out = _encode(params, batch["src_embeds"], cfg)
+    x = params.run(x, caches, mode=attn.PREFIX if prefix_len else attn.CAUSAL,
+                   prefix_len=prefix_len, enc_out=enc_out)
     return params.logits(x[:, -1:]), caches
 
 
@@ -240,9 +326,12 @@ def prefill_forward(params: Transformer, batch: dict, cfg: ModelConfig,
 def decode_forward(params: Transformer, batch: dict, cfg: ModelConfig,
                    caches: Caches, cache_index):
     """One token per slot ``batch["tokens"] [B, 1]`` at positions
-    ``cache_index`` (a scalar or ``[B]``), written into the caches in place.
-    Returns (logits ``[B, 1, V]`` float32, caches)."""
-    x = params.run(batch["tokens"], caches, cache_index)
+    ``cache_index`` (a scalar or ``[B]``), written into the caches in place;
+    with ``enc_out`` every decoder layer attends it.  Returns (logits
+    ``[B, 1, V]`` float32, caches)."""
+    enc_out = batch.get("enc_out") if cfg.encoder_layers else None
+    x = params.run(params.embed_tokens(batch["tokens"]), caches, cache_index,
+                   enc_out=enc_out)
     return params.logits(x), caches
 
 

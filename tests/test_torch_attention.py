@@ -539,7 +539,12 @@ class TestAttentionBlock:
 class TestConfigs:
     @pytest.mark.parametrize("name", ["gemma2-27b", "gemma2_27b",
                                       "paper-synthetic", "mamba2-780m",
-                                      "deepseek-moe-16b"])
+                                      "deepseek-moe-16b", "codeqwen1.5-7b",
+                                      "granite-8b", "minicpm-2b",
+                                      "kimi-k2-1t-a32b",
+                                      "jamba-1.5-large-398b",
+                                      "paligemma-3b",
+                                      "seamless-m4t-medium"])
     def test_same_fields_as_reference(self, name):
         for reduce in (False, True):
             jc, tc = jconfigs.get(name), tconfigs.get(name)
@@ -551,28 +556,31 @@ class TestConfigs:
             assert tc.layout()[2] == jc.layout()[2]
 
     def test_unported_and_unknown_architectures(self):
-        """The encoder-decoder and prefix-embedding models (and the hybrid)
-        have no configuration module yet; an unknown name is a KeyError."""
-        assert set(tconfigs.names()) == set(jconfigs.names())
-        for name in ("seamless-m4t-medium", "paligemma-3b",
-                     "jamba-1.5-large-398b"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-                tconfigs.get(name)
+        """Every name the reference registers (and its aliases) resolves in
+        the port to the reference's configuration; an unknown name is a
+        KeyError."""
+        assert tconfigs.names() == jconfigs.names()
+        for name in jconfigs.names():
+            assert dataclasses.asdict(tconfigs.get(name)) == \
+                dataclasses.asdict(jconfigs.get(name))
+            alias = tconfigs.get(name).name
+            assert tconfigs.get(alias).name == jconfigs.get(alias).name
         with pytest.raises(KeyError):
             tconfigs.get("no-such-model")
 
     def test_models_outside_the_slice_refuse(self):
-        """The model refuses encoder-decoder and prefix-embedding
-        configurations and unknown layer kinds."""
+        """The model refuses unknown layer kinds, and Mamba layers without
+        an SSMConfig; encoder-decoder and prefix-embedding configurations
+        build."""
         base = ModelConfig(name="x", family="dense", num_layers=2, d_model=8,
                            num_heads=2, num_kv_heads=2, d_ff=8,
                            vocab_size=16)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TT.init_params(dataclasses.replace(
+                base, unit=(LayerSpec("rwkv", NONE),)), device="cpu")
         for cfg in (dataclasses.replace(base, encoder_layers=2),
-                    dataclasses.replace(base, num_prefix_embeds=4),
-                    dataclasses.replace(base, unit=(LayerSpec("rwkv",
-                                                              NONE),))):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-                TT.init_params(cfg, device="cpu")
+                    dataclasses.replace(base, num_prefix_embeds=4)):
+            assert TT.init_params(cfg, device="cpu").frontend_proj is not None
         ssm = dataclasses.replace(base, unit=(LayerSpec(MAMBA, NONE),))
         with pytest.raises(ValueError, match="SSMConfig"):
             TT.init_caches(ssm, 1, 4, device="cpu")

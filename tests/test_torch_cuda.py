@@ -481,6 +481,41 @@ def test_flash_attention_vs_plain(dev, dtype, B, Hq, Hkv, Sq, Skv, hd,
         assert _bf16_steps(got, want) <= 1.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd,prefix_len", [
+    (1, 4, 2, 300, 64, 64),       # P on a 64-row kv tile's edge
+    (2, 4, 2, 300, 64, 100),      # P inside a tile, past the first q tile
+    (1, 8, 1, 1000, 128, 200),    # the wgmma route at bf16, P = 200
+    (1, 4, 2, 129, 128, 128),     # P on an edge, one row past a q tile
+    (1, 2, 2, 300, 128, 280),     # kv tiles far above the diagonal
+    (1, 8, 1, 600, 256, 256),     # PaliGemma's heads, P on a tile edge
+    (1, 8, 1, 300, 256, 101),
+    (1, 4, 4, 77, 64, 1),
+    (1, 4, 2, 150, 128, 150),     # P = S: no mask at all
+])
+def test_flash_prefix_lm_vs_plain(dev, dtype, B, Hq, Hkv, S, hd,
+                                  prefix_len):
+    """The prefix-LM mask ``k <= q or k < P`` on both routes (bfloat16 at
+    head_dim 64/128 is the wgmma kernel, the rest the float32-FMA one), one
+    launch, against the plain version."""
+    q, k, v = _flash_inputs(dev, dtype, B, Hq, Hkv, S, S, hd, prefix_len)
+    kw = dict(causal=True, prefix_len=prefix_len, softcap=30.0 * (hd == 64))
+    before = ops.launch_counts()["flash_attention"]
+    got = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = tref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    if dtype == torch.bfloat16:
+        assert _bf16_steps(got, want) <= 1.0
+    causal = tref.flash_attention_ref(q, k, v, causal=True,
+                                      softcap=kw["softcap"])
+    rows = min(prefix_len, S) - 1     # the last row whose keys the prefix adds
+    if 0 < rows:
+        assert (got[:, :, :rows].float() - causal[:, :, :rows].float()
+                ).abs().max() > 1e-2
+
+
 @pytest.mark.parametrize("dtype,hd,kernel", [
     (torch.bfloat16, 128, "flash_forward_wgmma"),
     (torch.float32, 128, "flash_forward"),
