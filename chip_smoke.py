@@ -74,7 +74,20 @@ Phases, each printed on its own line; any failure exits non-zero:
                SeamlessM4T-medium's bidirectional encoder (16/16 heads, hd
                64, 1,024 frames) and cross prefill (4,096 queries x 1,024
                frames), each in both dtypes, timed beside SDPA on the same
-               boolean mask;
+               boolean mask; then the training path's flash backward (three
+               kernels a call: D, dK/dV, dQ) and the forward's row
+               log-sum-exp against their plain versions in both dtypes at
+               MiniCPM-2B's layer (36/36 heads, 4,096 tokens, hd 64),
+               Gemma2's (softcap 50, window 4,096, 32/16, hd 128, 5,000
+               tokens), PaliGemma's prefix-LM (hd 256, 8/1, P 256),
+               Seamless's encoder and cross attention, and edges (Sq off
+               the tile, a window shorter than a tile, one kv head, rows
+               that admit no key): float32 gradients within 1e-4 of each
+               one's largest magnitude, bfloat16 within 2e-2 of it and one
+               rounding step of each value, a second call bit-identical; at
+               MiniCPM's shape its time beside the plain version's, the
+               bound and SDPA's backward (``--train-only`` runs this part
+               and phase 16 after the build);
 7. gemma2-serve -- ``ServingEngine`` over Gemma2-27B at full width (16 of
                46 layers, random weights from the seed, bfloat16), 8 slots
                of 8,192 positions, 16 requests of 256-6,144 prompt tokens and
@@ -216,6 +229,31 @@ Phases, each printed on its own line; any failure exits non-zero:
                bytes and ``max_memory_allocated``; one profiled PaliGemma
                prefill names the flash kernel and its share of device time.
                ``--families-only`` runs it alone after the build.
+16. train   -- in a child process with ``CUBLAS_WORKSPACE_CONFIG`` set and
+               ``torch.use_deterministic_algorithms(True)``: (a)
+               MiniCPM-2B at full width and depth (40 layers, bf16, random
+               weights from the seed) trained 8 steps by
+               ``build_train_step`` under ``TrainLoop`` on ``SyntheticLM``
+               (4 microbatches of one 4,096-token row, remat, float32
+               accumulation, AdamW with the WSD schedule): finite losses
+               whose last 3 average below the first, per step flash forward
+               = layers x microbatches x 2 and the backward layers x
+               microbatches; step ms, tokens/s, model FLOP/s
+               (``model_flops_per_token``) and its share of 989 TFLOP/s,
+               ``max_memory_allocated``, one profiled step's device time by
+               kernel class, the AdamW update and one microbatch's cross
+               entropy by events; (b) check (ii) for training: a float32
+               2-layer model, one step in ops mode ``kernel`` against
+               ``ref`` (loss 1e-5, each gradient leaf 1e-4 of its largest,
+               the parameters after the step), then bf16 at full depth the
+               first step's loss and gradient norm against ref mode
+               (calibrated limits); (c) ``TrainLoop`` on 2 layers at full
+               width, 6 steps, a checkpoint every 3, an ``InjectedFailure``
+               before step 4 (the loop's ``fail_at=4``): the final
+               parameters and optimizer state bit-identical to the
+               uninterrupted run's, every bfloat16 leaf written with descr
+               ``'<V2'``, a checkpoint's bytes and the save and restore
+               seconds (on tmpfs when it has room).
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -303,6 +341,11 @@ KERNEL_META = {
                  "src/repro/kernels/ssd_scan.py:98"),
     "moe_gather": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
                    "src/repro/kernels/moe_dispatch.py:54"),
+    # no Pallas site: the reference trains through its jnp block-chunked
+    # attention, which jax.grad differentiates
+    "flash_attention_backward": (
+        "src/repro_torch/kernels/csrc/flash_attention_backward.cu",
+        "src/repro/models/attention.py:171"),
 }
 
 # the attention kernels' phase-6 shapes: the Gemma2-27B serve phase's, and
@@ -3565,6 +3608,560 @@ def phase_families(torch, seed, smi):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 6 (training): the flash backward vs its plain version
+# ---------------------------------------------------------------------------
+
+#: the flash backward's shapes: (label, B, Hq, Hkv, Sq, Skv, hd, causal,
+#: window, softcap, prefix_len)
+BWD_SHAPES = (
+    # MiniCPM-2B's layer at phase 16's train shape (the timed one)
+    ("minicpm", 1, 36, 36, 4096, 4096, 64, True, 0, 0.0, 0),
+    # Gemma2-27B's local layer: softcap 50, window 4,096 (past the window)
+    ("gemma2", 1, 32, 16, 5000, 5000, 128, True, 4096, 50.0, 0),
+    # PaliGemma-3B's prefix-LM: hd 256, 8 q heads over 1, 256 patches
+    ("paligemma prefix-LM", 1, 8, 1, PALI_PROMPT, PALI_PROMPT, 256, True, 0,
+     0.0, 256),
+    # SeamlessM4T-medium's encoder (1,024 frames) and cross attention
+    ("seamless encoder", 1, 16, 16, 1024, 1024, 64, False, 0, 0.0, 0),
+    ("seamless cross", 1, 16, 16, 4096, 1024, 64, False, 0, 0.0, 0),
+    # edges: Sq off the tile (with GQA, window, softcap), a window shorter
+    # than a tile, one kv head, and rows that admit no key (Sq > Skv +
+    # window - 1: rows from 149 on)
+    ("ragged tile", 2, 8, 2, 1000, 1000, 128, True, 300, 30.0, 0),
+    ("short window", 1, 4, 2, 333, 333, 64, True, 20, 0.0, 0),
+    ("one kv head", 1, 8, 1, 777, 777, 128, True, 0, 0.0, 0),
+    ("rows without keys", 1, 4, 2, 300, 100, 64, True, 50, 0.0, 0),
+)
+#: float32 gradients within this share of each gradient's largest
+#: magnitude: the kernel and the plain version each sum up to Sq (dK, dV)
+#: or Skv (dQ) float32 products, in another order (at most 8.3e-6 on an
+#: H100 at these shapes, PERF.md)
+F32_GRAD_REL = 1e-4
+#: the forward's row log-sum-exp, absolute (values about 5-15)
+LSE_TOL = 1e-4
+
+
+def _grad_close(torch, got, want, what, steps):
+    """The largest error as a share of ``want``'s largest magnitude, held to
+    ``F32_GRAD_REL`` (float32) or ``BF16_TOL`` (bfloat16); a bfloat16
+    gradient is also held to one rounding step of each value plus
+    ``F32_GRAD_REL`` of the largest (its share of that goes to
+    ``steps[what]``).  Returns (share, absolute error)."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max()) or 1.0
+    err = float((g - w).abs().max())
+    if got.dtype == torch.bfloat16:
+        check(err <= BF16_TOL * scale, f"{what}: error {err} exceeds "
+              f"{BF16_TOL} of the largest gradient {scale}")
+        steps[what] = float(((g - w).abs()
+                             / (F32_GRAD_REL * scale + BF16_STEP * w.abs()))
+                            .max())
+        check(steps[what] <= 1.0, f"{what}: a bfloat16 gradient differs by "
+              f"{steps[what]} of a rounding step")
+    else:
+        check(err <= F32_GRAD_REL * scale, f"{what}: error {err} exceeds "
+              f"{F32_GRAD_REL} of the largest gradient {scale}")
+    return err / scale, err
+
+
+def flash_backward_bound(pairs, hq, hkv, sq, skv, hd, elem):
+    """The backward's least time: 2.5x the forward's products (10 * hd
+    flops per admitted pair and head) at the bf16 tensor-core rate, or the
+    bytes read once (q, k, v, o, dO, lse) and written once (dq, dk, dv)."""
+    t_ops = pairs * hq * 10 * hd / PEAK_BF16_S * 1e3
+    nbytes = elem * (3 * hq * sq * hd + 2 * hkv * skv * hd) + 4 * hq * sq \
+        + elem * (hq * sq * hd + 2 * hkv * skv * hd)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
+
+
+def phase_flash_backward(torch):
+    """The training path's flash backward (three kernels a call) and the
+    forward's row log-sum-exp against their plain versions on the card, at
+    each of ``BWD_SHAPES`` in bfloat16 and float32, with a second call
+    bit-identical (no atomics); at MiniCPM-2B's shape (bf16) its time
+    beside the plain version's, the bound and the backward of SDPA at
+    softcap 0 (``torch.autograd.grad`` of SDPA timed, minus SDPA's
+    forward).  Returns the ``flash_attention_backward`` record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bf16, f32 = torch.bfloat16, torch.float32
+    t_phase = time.perf_counter()
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    errs, abs_errs, steps, lse_errs, identical = {}, [], {}, {}, {}
+    for (label, b, hq, hkv, sq, skv, hd, causal, window, cap,
+         prefix) in BWD_SHAPES:
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  prefix_len=prefix)
+        for dtype in (bf16, f32):
+            what = f"flash backward {label} {dtype}"
+            q, do = randn(b, hq, sq, hd, dtype=dtype), randn(
+                b, hq, sq, hd, dtype=dtype)
+            k, v = (randn(b, hkv, skv, hd, dtype=dtype) for _ in range(2))
+            lse = torch.empty((b, hq, sq), dtype=f32, device=dev)
+            o = fa.flash_attention(q, k, v, lse=lse, **kw)
+            got = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+            again = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+            identical[what] = all(torch.equal(x, y)
+                                  for x, y in zip(got, again))
+            check(identical[what], f"{what}: two calls differ")
+            del again
+            lse_want = ref.flash_attention_lse_ref(q, k, **kw)
+            finite = torch.isfinite(lse_want)
+            check(torch.equal(torch.isinf(lse), ~finite),
+                  f"{what}: lse is +inf on other rows than the plain one")
+            lse_errs[what] = float((lse[finite] - lse_want[finite]).abs()
+                                   .max()) if bool(finite.any()) else 0.0
+            check(lse_errs[what] <= LSE_TOL,
+                  f"{what}: lse error {lse_errs[what]} exceeds {LSE_TOL}")
+            if not bool(finite.all()):   # the dead rows' output
+                _close(torch, o, ref.flash_attention_ref(q, k, v, **kw),
+                       BF16_TOL if dtype == bf16 else F32_TOL,
+                       f"{what} forward", steps)
+            want = ref.flash_attention_backward_ref(q, k, v, o, lse, do, **kw)
+            shares = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                share, err = _grad_close(torch, g, w, f"{what} {name}", steps)
+                shares.append(share)
+                abs_errs.append(err)
+            errs[what] = max(shares)
+            del q, k, v, o, do, lse, got, want, lse_want
+            torch.cuda.empty_cache()
+
+    # -- time at MiniCPM-2B's shape, bf16 -------------------------------------
+    label, b, hq, hkv, sq, skv, hd, causal, window, cap, prefix = \
+        BWD_SHAPES[0]
+    q, do = randn(b, hq, sq, hd), randn(b, hq, sq, hd)
+    k, v = randn(b, hkv, skv, hd), randn(b, hkv, skv, hd)
+    lse = torch.empty((b, hq, sq), dtype=f32, device=dev)
+    o = fa.flash_attention(q, k, v, lse=lse)
+    ms = cuda_ms(torch, lambda: fa.flash_attention_backward(
+        q, k, v, o, lse, do), 5)
+    fwd_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, lse=lse), 5)
+    plain = cuda_ms(torch, lambda: ref.flash_attention_backward_ref(
+        q, k, v, o, lse, do), 2)
+    dev_ms = device_ms_by_kernel(torch, lambda: fa.flash_attention_backward(
+        q, k, v, o, lse, do), 3)
+    # the library yardstick: SDPA's backward at softcap 0 on the same
+    # inputs, by torch.autograd.grad (forward and backward) minus the
+    # forward; the port never calls it
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    with torch.enable_grad():
+        sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=True), 5)
+        sdpa_both = cuda_ms(torch, lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+            (qg, kg, vg), do), 5)
+    pairs = admitted_pairs(sq, skv, causal, window, prefix)
+    b_ms, b_by = flash_backward_bound(pairs, hq, hkv, sq, skv, hd, 2)
+    fma_ms = pairs * hq * 7 * hd * 2 / PEAK_OPS_S * 1e3
+    rec = dict(
+        max_abs_err=max(abs_errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=sdpa_both - sdpa_fwd,
+        library_fwd_bwd_ms=sdpa_both, library_fwd_ms=sdpa_fwd,
+        forward_with_lse_ms=fwd_ms, device_ms_by_kernel=dev_ms,
+        bound_share=b_ms / ms,
+        float32_fma_bound_ms=fma_ms, float32_fma_share=fma_ms / ms,
+        tflops=pairs * hq * 10 * hd / (ms * 1e-3) / 1e12,
+        admitted_pairs=pairs * hq, errors=errs, lse_errors=lse_errs,
+        bf16_rounding_steps=steps, bit_identical=identical,
+        build=build_report("flash_attention_backward.cu"),
+        seconds=time.perf_counter() - t_phase,
+        shape=f"q, o, dO [1,{hq},{sq},{hd}] bf16, k/v {hkv} heads, causal")
+    del q, k, v, o, do, lse, qg, kg, vg
+    torch.cuda.empty_cache()
+    say("attention", kernel="flash_attention_backward", **rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training MiniCPM-2B on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_MODEL = "minicpm-2b"
+TRAIN_SEQ = 4096              # the reference's TRAIN_4K
+TRAIN_ROWS = 1                # rows a microbatch (the reference's 256 / 64)
+TRAIN_STEPS = 8
+#: the step's AdamW: WSD, as the reference picks for MiniCPM, at the
+#: reference's default peak (3e-4) with a warm-up of one step (PERF.md:
+#: 1e-3 and above overshoot at this width, and the stream's batches share
+#: little, so 8 steps lower the loss on new batches by about 0.1)
+TRAIN_OPT = dict(peak_lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS,
+                 schedule="wsd")
+#: check (ii) for training (float32, 2 layers at full width, kernel vs ref
+#: mode): the loss, each gradient leaf as a share of its largest
+#: magnitude (the two modes sum the attention's products in another
+#: order), the parameters after the step (AdamW moves an element whose
+#: gradient is near that noise by up to its learning rate, 1e-3 / 2 at
+#: step 1, either way; every other element agrees to float32 rounding, so
+#: at most TRAIN_F32_LOOSE of the elements may differ by more than 1e-6)
+TRAIN_F32_LOSS_REL = 1e-5
+TRAIN_F32_GRAD_REL = 1e-4
+TRAIN_F32_PARAM_ATOL = 1e-3
+TRAIN_F32_LOOSE = 1e-3
+#: bf16 at full depth, the first step's loss and gradient norm in kernel
+#: mode against ref mode (relative), calibrated as check (i) was (PERF.md,
+#: H100): the sound run reads 2.69e-6 and 1.08e-4; with the backward's dQ
+#: dropping each q tile's last kv tile (a planted fault) 2.69e-6 (the loss
+#: is the forward's) and 2.96e-3.  The gradient norm's limit lies between;
+#: the loss's is about 20x its sound reading
+TRAIN_BF16_LOSS_REL = 5e-5
+TRAIN_BF16_GNORM_REL = 1e-3
+#: the fault-tolerance run: 2 layers at full width, bf16
+FT_LAYERS, FT_STEPS, FT_CKPT_EVERY, FT_FAIL_AT = 2, 6, 3, 4
+
+
+def _kernel_class(name):
+    if "flash_bwd" in name:
+        return "flash backward"
+    if "flash_forward" in name:
+        return "flash forward"
+    if any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet",
+                               "matmul", "sm90_")):
+        return "products"
+    return "other"
+
+
+def _profiled_step(torch, accumulate, apply, batch):
+    """One step under ``torch.profiler``: device ms by kernel class, the
+    AdamW update by CUDA events, the wall and the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grads = accumulate(batch)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        apply(grads)
+        e1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del grads
+    by_class, launches = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        c = _kernel_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + _device_us(e) / 1e3
+        if c.startswith("flash"):
+            launches[e.key[:60]] = e.count
+    busy = sum(by_class.values())
+    return dict(wall_ms=wall * 1e3,
+                device_ms=busy if busy else "not measured",
+                device_ms_by_class=by_class, flash_launches=launches,
+                adamw_ms_by_events=e0.elapsed_time(e1),
+                busy_share=busy / (wall * 1e3) if busy else "not measured")
+
+
+def _ckpt_root(need_bytes):
+    """A temporary directory on the host's tmpfs when it has room for
+    ``need_bytes``, else in the default temporary directory."""
+    import shutil
+    import tempfile
+
+    shm = "/dev/shm"
+    if os.path.isdir(shm) and shutil.disk_usage(shm).free > 2 * need_bytes:
+        return tempfile.mkdtemp(prefix="repro_train_", dir=shm), "tmpfs"
+    return tempfile.mkdtemp(prefix="repro_train_"), "disk"
+
+
+def _npy_descr(path):
+    with open(path, "rb") as f:
+        head = f.read(128).decode("latin1")
+    return head.split("'descr': '")[1].split("'")[0]
+
+
+def phase_train(torch, seed, smi):
+    """Phase 16: MiniCPM-2B trained on the card (a), check (ii) for
+    training (b) and the fault-tolerant loop (c).  Runs in a child process
+    (``--train-child``) under ``torch.use_deterministic_algorithms(True)``
+    with ``CUBLAS_WORKSPACE_CONFIG`` set.  Returns (a)'s launch counts."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.ft.driver import TrainLoop
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import knobs_for
+    from repro_torch.launch.steps import accumulate_grads, build_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    torch.use_deterministic_algorithms(True)
+    t_phase = time.perf_counter()
+    base = configs.get(TRAIN_MODEL)
+    knobs = knobs_for(base)
+    check(knobs.microbatches == 4 and knobs.remat
+          and knobs.grad_accum_dtype == "float32",
+          f"knobs_for({TRAIN_MODEL}) gave {knobs}")
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    data = SyntheticLM(vocab=base.padded_vocab, seq_len=TRAIN_SEQ,
+                       batch=TRAIN_ROWS, microbatches=knobs.microbatches,
+                       seed=seed)
+    tokens_per_step = TRAIN_SEQ * TRAIN_ROWS * knobs.microbatches
+    L, k = base.num_layers, knobs.microbatches
+
+    # -- (a) the run -----------------------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(base, seed)
+    opt = adamw.init_state(params)
+    step = build_train_step(base, knobs, opt_cfg)
+    walls, metrics, per_step = [], [], []
+
+    def timed(p, o, batch):
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(p, o, batch)
+        m = {key: float(val) for key, val in out[2].items()}
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append(m)
+        after = ops.launch_counts()
+        per_step.append({key: after[key] - before[key] for key in after})
+        return out
+
+    ckpt_dir = tempfile.mkdtemp(prefix="repro_train_a_")
+    loop = TrainLoop(train_step=timed, data=data, ckpt_dir=ckpt_dir, cfg=base,
+                     ckpt_every=TRAIN_STEPS + 1, metric_flush_every=1)
+    logs = []
+    ops.reset_launch_counts()
+    params, opt, best = loop.run(params, opt, TRAIN_STEPS, log=logs.append)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = [m["loss"] for m in metrics]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train losses {losses}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"the loss did not decrease: {losses}")
+    for i, c in enumerate(per_step):
+        check(c["flash_attention"] == L * k * 2,
+              f"step {i}: flash forward {c['flash_attention']}, expected "
+              f"{L * k * 2} (layers x microbatches x 2, remat)")
+        check(c["flash_attention_backward"] == L * k,
+              f"step {i}: flash backward {c['flash_attention_backward']}, "
+              f"expected {L * k}")
+        check(all(v == 0 for key, v in c.items()
+                  if key not in ("flash_attention",
+                                 "flash_attention_backward")),
+              f"step {i}: another kernel launched: {c}")
+    step_ms = float(np.median(walls[1:])) * 1e3
+    flops_tok = T.model_flops_per_token(base, params)
+    mflops = flops_tok * tokens_per_step / (step_ms * 1e-3)
+    # one more step, profiled, its AdamW update timed by events
+    run_cfg = dataclasses.replace(base, remat=knobs.remat)
+    prof = _profiled_step(
+        torch, lambda batch: accumulate_grads(params, batch, run_cfg)[1],
+        lambda grads: adamw.apply_updates(params, grads, opt, opt_cfg),
+        data.batch_at(TRAIN_STEPS))
+    # the cross entropy of one microbatch's logits, forward and backward
+    logits = torch.randn((TRAIN_SEQ, base.padded_vocab), device="cuda",
+                         requires_grad=True)
+    labels = data.batch_at(0)["labels"][0, 0].long()
+    from repro_torch.models.layers import cross_entropy_loss
+    with torch.enable_grad():
+        ce_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            cross_entropy_loss(logits, labels), logits), 3)
+    del logits
+    say("train", part="a", model=TRAIN_MODEL, layers=L, d_model=base.d_model,
+        heads=f"{base.num_heads}/{base.num_kv_heads}", d_ff=base.d_ff,
+        vocab=base.padded_vocab, params=T.count_params(params),
+        reduced=dict(global_batch=f"256 -> {TRAIN_ROWS * k} rows (one card, "
+                     f"a smoke run's time)", depth="all 40 layers kept"),
+        seq_len=TRAIN_SEQ, microbatches=k, rows_per_microbatch=TRAIN_ROWS,
+        tokens_per_step=tokens_per_step, remat=knobs.remat, opt=TRAIN_OPT,
+        losses=losses, grad_norms=[m["grad_norm"] for m in metrics],
+        lrs=[m["lr"] for m in metrics], best=best.best,
+        step_ms=[w * 1e3 for w in walls], step_ms_median=step_ms,
+        tokens_per_s=tokens_per_step / (step_ms * 1e-3),
+        model_flops_per_token=flops_tok, model_flops_per_s=mflops,
+        mfu_bf16_dense=mflops / PEAK_BF16_S,
+        max_memory_allocated=peak, launches=counts,
+        launches_per_step=per_step[0], profiled_step=prof,
+        cross_entropy_ms_per_microbatch=ce_ms, logs=logs,
+        nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+    first = metrics[0]
+    del params, opt, step, loop
+    torch.cuda.empty_cache()
+
+    # -- (b) check (ii) for training --------------------------------------------
+    t_b = time.perf_counter()
+    batch = data.batch_at(0)
+    f32cfg = dataclasses.replace(base, num_layers=2, param_dtype="float32",
+                                 compute_dtype="float32", remat=True)
+    got = {}
+    for mode in ("kernel", "ref"):
+        ops.use_kernels(mode)
+        ops.reset_launch_counts()
+        p = T.init_params(f32cfg, seed)
+        o = adamw.init_state(p)
+        loss, grads = accumulate_grads(p, batch, f32cfg)
+        adamw.apply_updates(p, grads, o, opt_cfg)
+        got[mode] = (float(loss), grads,
+                     {n: t.detach() for n, t in p.named_parameters()},
+                     ops.launch_counts())
+        del p, o
+    ops.use_kernels("auto")
+    (lk, gk, pk, ck), (lr_, gr, pr, cr) = got["kernel"], got["ref"]
+    check(ck["flash_attention_backward"] == 2 * k
+          and cr["flash_attention_backward"] == 0,
+          f"check (ii): backward launches kernel {ck} ref {cr}")
+    loss_rel = abs(lk - lr_) / abs(lr_)
+    check(loss_rel <= TRAIN_F32_LOSS_REL,
+          f"check (ii): loss {lk} vs ref {lr_} ({loss_rel})")
+    grad_rel = {n: float((gk[n] - gr[n]).abs().max()
+                         / gr[n].abs().max().clamp_min(1e-30)) for n in gk}
+    worst = max(grad_rel, key=grad_rel.get)
+    check(grad_rel[worst] <= TRAIN_F32_GRAD_REL,
+          f"check (ii): gradient {worst} differs by {grad_rel[worst]} of "
+          f"its largest magnitude")
+    diffs = torch.cat([(pk[n] - pr[n]).abs().flatten() for n in pk])
+    param_max = float(diffs.max())
+    loose = float((diffs > 1e-6).float().mean())
+    check(param_max <= TRAIN_F32_PARAM_ATOL and loose <= TRAIN_F32_LOOSE,
+          f"check (ii): parameters after the step differ by {param_max} "
+          f"({loose} of them by more than 1e-6)")
+    del got, gk, gr, pk, pr, diffs
+    torch.cuda.empty_cache()
+    # bf16 at full depth: the first step's loss and gradient norm in ref
+    # mode against (a)'s first step (kernel mode), from the same weights
+    ops.use_kernels("ref")
+    p = T.init_params(base, seed)
+    loss_ref, grads = accumulate_grads(p, batch, run_cfg)
+    gnorm_ref = float(adamw.global_norm(grads))
+    loss_ref = float(loss_ref)
+    ops.use_kernels("auto")
+    del p, grads
+    torch.cuda.empty_cache()
+    bf16_loss_rel = abs(first["loss"] - loss_ref) / abs(loss_ref)
+    bf16_gnorm_rel = abs(first["grad_norm"] - gnorm_ref) / gnorm_ref
+    say("train", part="b", f32_layers=2, f32_loss_rel=loss_rel,
+        f32_loss=(lk, lr_), f32_grad_rel_worst=grad_rel[worst],
+        f32_grad_rel_worst_leaf=worst, f32_param_max_diff=param_max,
+        f32_params_off_by_1e6_share=loose,
+        limits=dict(loss_rel=TRAIN_F32_LOSS_REL,
+                    grad_rel=TRAIN_F32_GRAD_REL,
+                    param_atol=TRAIN_F32_PARAM_ATOL,
+                    loose_share=TRAIN_F32_LOOSE,
+                    bf16_loss_rel=TRAIN_BF16_LOSS_REL,
+                    bf16_gnorm_rel=TRAIN_BF16_GNORM_REL),
+        bf16_full_depth=dict(loss_kernel=first["loss"], loss_ref=loss_ref,
+                             loss_rel=bf16_loss_rel,
+                             grad_norm_kernel=first["grad_norm"],
+                             grad_norm_ref=gnorm_ref,
+                             grad_norm_rel=bf16_gnorm_rel),
+        seconds=time.perf_counter() - t_b)
+    check(bf16_loss_rel <= TRAIN_BF16_LOSS_REL,
+          f"bf16 first step: loss {first['loss']} vs ref {loss_ref}")
+    check(bf16_gnorm_rel <= TRAIN_BF16_GNORM_REL,
+          f"bf16 first step: grad norm {first['grad_norm']} vs ref "
+          f"{gnorm_ref}")
+
+    # -- (c) fault tolerance ------------------------------------------------------
+    t_c = time.perf_counter()
+    ftcfg = dataclasses.replace(base, num_layers=FT_LAYERS)
+    n_params = T.count_params(T.Transformer(ftcfg, device="meta"))
+    ckpt_bytes_expected = n_params * (2 + 4 + 4)
+    root, medium = _ckpt_root(4 * ckpt_bytes_expected)
+    timings = {"save": [], "restore": []}
+
+    class TimedLoop(TrainLoop):
+        def _save(self, *a):
+            t0 = time.perf_counter()
+            super()._save(*a)
+            timings["save"].append(time.perf_counter() - t0)
+
+        def _restore(self, *a):
+            t0 = time.perf_counter()
+            out = super()._restore(*a)
+            torch.cuda.synchronize()
+            timings["restore"].append(time.perf_counter() - t0)
+            return out
+
+    finals, ft_logs = {}, []
+    try:
+        for label, fail_at in (("clean", None), ("failed", FT_FAIL_AT)):
+            p = T.init_params(ftcfg, seed)
+            o = adamw.init_state(p)
+            lp = TimedLoop(train_step=build_train_step(ftcfg, knobs, opt_cfg),
+                           data=data, ckpt_dir=os.path.join(root, label),
+                           cfg=ftcfg, ckpt_every=FT_CKPT_EVERY,
+                           metric_flush_every=1, fail_at=fail_at)
+            p, o, _ = lp.run(p, o, FT_STEPS, log=ft_logs.append)
+            finals[label] = (p, o)
+        (pa, oa), (pb, ob) = finals["clean"], finals["failed"]
+        same = all(torch.equal(x, y) for x, y in zip(pa.parameters(),
+                                                      pb.parameters()))
+        same = same and all(torch.equal(oa[key][n], ob[key][n])
+                            for key in ("m", "v") for n in oa["m"])
+        same = same and int(oa["step"]) == int(ob["step"]) == FT_STEPS
+        check(any("injected failure" in line for line in ft_logs)
+              and any("restarting" in line for line in ft_logs),
+              f"no injected failure: {ft_logs}")
+        step_dir = os.path.join(root, "clean", f"step_{FT_CKPT_EVERY}")
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            leaves = json.load(f)["leaves"]
+        bf16 = [name for name, meta in leaves.items()
+                if meta["dtype"] == "bfloat16"]
+        descrs = {_npy_descr(os.path.join(step_dir, name + ".npy"))
+                  for name in bf16}
+        ckpt_bytes = _dir_bytes(step_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say("train", part="c", layers=FT_LAYERS, steps=FT_STEPS,
+        ckpt_every=FT_CKPT_EVERY, fail_at=FT_FAIL_AT,
+        bit_identical=same, logs=ft_logs, checkpoint_bytes=ckpt_bytes,
+        checkpoint_bytes_expected=ckpt_bytes_expected,
+        bf16_leaves=len(bf16), bf16_descrs=sorted(descrs),
+        save_s=timings["save"], restore_s=timings["restore"],
+        directory=medium, seconds=time.perf_counter() - t_c)
+    check(same, "the restarted run's parameters or optimizer state differ "
+          "from the uninterrupted run's")
+    check(bf16 and descrs == {"<V2"},
+          f"bf16 leaves written with descr {descrs}")
+    del finals, pa, oa, pb, ob, p, o
+    torch.cuda.empty_cache()
+    say("train", phase_seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def phase_train_child(torch, seed, smi):
+    """Phase 16 in a child process with a deterministic cuBLAS workspace
+    (set before the child's first cuBLAS call); the child prints its lines
+    and, last, its launch counts, which are returned."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--train-child",
+         "--seed", str(seed)], env=env, cwd=ROOT, capture_output=True,
+        text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    if proc.returncode or not lines:
+        print("\n".join(lines), flush=True)
+        sys.stderr.write(proc.stderr[-20000:])
+        raise SmokeFailure(f"phase 16 (train) failed with code "
+                           f"{proc.returncode}")
+    print("\n".join(lines[:-1]), flush=True)
+    return json.loads(lines[-1])["launches"]
+
+
 def kernels_line(records, path_counts):
     """The ``kernels`` object: each kernel's measured numbers and its
     launches summed over the main paths' runs (``path_counts``: one count
@@ -3596,6 +4193,12 @@ def main(argv=None):
     parser.add_argument("--families-only", action="store_true",
                         help="build, then run only phase 15 (the other "
                              "architectures at full width) and stop")
+    parser.add_argument("--train-only", action="store_true",
+                        help="build, then run only the flash backward's "
+                             "part of phase 6 and phase 16 (training "
+                             "MiniCPM-2B) and stop")
+    parser.add_argument("--train-child", action="store_true",
+                        help=argparse.SUPPRESS)  # phase 16's own process
     args = parser.parse_args(argv)
 
     import torch
@@ -3639,6 +4242,15 @@ def main(argv=None):
             phase_families(torch, args.seed, smi)
             print(smi)
             return 0
+        if args.train_child:
+            counts = phase_train(torch, args.seed, smi)
+            print(json.dumps({"launches": counts}))
+            return 0
+        if args.train_only:
+            phase_flash_backward(torch)
+            phase_train_child(torch, args.seed, smi)
+            print(smi)
+            return 0
         items = make_stream(args.seed, keyed_stream)
         if args.dist_only:
             phase_dist(torch, items, phase_main(torch, items), smi)
@@ -3650,6 +4262,7 @@ def main(argv=None):
         paths = [main["fused"], main["loop"]]
         phase_small(torch)
         records.update(phase_attention(torch))
+        records["flash_attention_backward"] = phase_flash_backward(torch)
         paths.append(phase_serve(torch, args.seed, "gemma2-serve",
                                  SERVES["gemma2-serve"]))
         records.update(phase_ssm_moe(torch))
@@ -3661,6 +4274,7 @@ def main(argv=None):
         paths += phase_serving_runtime(torch, args.seed, smi)
         phase_patterns(torch, args.seed, smi)
         paths += phase_families(torch, args.seed, smi)
+        paths.append(phase_train_child(torch, args.seed, smi))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -24,8 +24,18 @@ are made of:
 On :func:`restore`, a tensor leaf of the template becomes a tensor on that
 leaf's device (the port's counterpart of the reference's
 ``sharding_tree``) in the saved dtype; every other leaf comes back as the
-saved numpy array, in its saved dtype.  bfloat16 tensors have no numpy
-dtype and are refused (training checkpoints, ROADMAP Queue 1 item 14).
+saved numpy array, in its saved dtype.
+
+bfloat16 leaves (training checkpoints) are written as the reference writes
+them: the reference's ``np.save`` of an ``ml_dtypes.bfloat16`` array
+stores the raw 16-bit words under the descr ``'<V2'``, with the manifest
+dtype ``"bfloat16"``; the port writes the same bytes without ml_dtypes (the
+``.npy`` header by hand).  A leaf whose manifest dtype is ``"bfloat16"``
+is read back as a ``torch.bfloat16`` tensor, on the template leaf's device
+(the CPU for a non-tensor template leaf), whichever package wrote it.  The
+reference's own ``restore`` fails on such a leaf (``jnp.asarray`` of a
+``V2`` array, ROADMAP Queue 3), so it reads only the port's float32
+directories.
 """
 
 from __future__ import annotations
@@ -86,16 +96,52 @@ def _unflatten(template, loaded: Dict[str, Any], prefix: str = ""):
     return None
 
 
-def _to_host(name: str, leaf) -> np.ndarray:
+#: the manifest dtype and the ``.npy`` descr of a bfloat16 leaf, as the
+#: reference writes them
+BF16 = "bfloat16"
+BF16_DESCR = "<V2"
+
+
+class _Bf16Words:
+    """A bfloat16 leaf on the host: its raw 16-bit words (int16)."""
+
+    def __init__(self, words: np.ndarray):
+        self.words = words
+        self.shape = words.shape
+        self.dtype = BF16
+
+
+def _to_host(leaf):
     """A copy of ``leaf`` on the host, taken now."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"checkpoint leaf {name!r} is a bfloat16 tensor, which has no "
-                f"numpy dtype; bfloat16 checkpoints come with the training "
-                f"checkpoints of ROADMAP Queue 1 item 14")
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return _Bf16Words(host.view(torch.int16).numpy())
+        return host.numpy()
     return np.array(leaf)
+
+
+def _save_leaf(path: str, v) -> None:
+    if not isinstance(v, _Bf16Words):
+        np.save(path, v)
+        return
+    # np.save of an ml_dtypes.bfloat16 array, byte for byte: a version 1.0
+    # header with descr '<V2', then the words in C order
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": BF16_DESCR, "fortran_order": False,
+                "shape": v.shape})
+        f.write(np.ascontiguousarray(v.words).tobytes())
+
+
+def _load_leaf(path: str, dtype: str):
+    """The saved array, or a CPU ``torch.bfloat16`` tensor when the
+    manifest says ``"bfloat16"``."""
+    arr = np.load(path)
+    if dtype == BF16:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)) \
+            .view(torch.bfloat16)
+    return arr
 
 
 def save(
@@ -109,7 +155,7 @@ def save(
     """Write ``step_<n>`` atomically.  ``blocking=False`` returns the writer
     thread; every leaf is copied to the host before this returns, so the
     caller may change or free its tensors at once."""
-    host = {k: _to_host(k, v) for k, v in _flatten(tree).items()}
+    host = {k: _to_host(v) for k, v in _flatten(tree).items()}
 
     def write():
         tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
@@ -118,7 +164,7 @@ def save(
         os.makedirs(tmp, exist_ok=True)
         manifest = {"step": step, "metadata": metadata or {}, "leaves": {}}
         for k, v in host.items():
-            np.save(os.path.join(tmp, k + ".npy"), v)
+            _save_leaf(os.path.join(tmp, k + ".npy"), v)
             manifest["leaves"][k] = {"shape": list(v.shape),
                                      "dtype": str(v.dtype)}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -152,15 +198,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore(ckpt_dir: str, step: int, target_tree):
     """Load ``step_<n>`` into the structure of ``target_tree``; returns
     ``(tree, metadata)``.  A tensor leaf of the template is replaced by a
-    tensor on its device, any other leaf by the saved numpy array."""
+    tensor on its device, any other leaf by the saved numpy array (a
+    bfloat16 leaf by a CPU ``torch.bfloat16`` tensor)."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     loaded = {}
     for k, leaf in _flatten(target_tree).items():
-        arr = np.load(os.path.join(path, k + ".npy"))
+        dtype = manifest["leaves"].get(k, {}).get("dtype")
+        arr = _load_leaf(os.path.join(path, k + ".npy"), dtype)
         if isinstance(leaf, torch.Tensor):
-            loaded[k] = torch.from_numpy(arr).to(leaf.device)
+            if isinstance(arr, np.ndarray):
+                arr = torch.from_numpy(arr)
+            loaded[k] = arr.to(leaf.device)
         else:
             loaded[k] = arr
     return _unflatten(target_tree, loaded), manifest["metadata"]

@@ -1,6 +1,6 @@
 """MiniCPM-2B [arXiv:2404.06395] -- llama-like dense with depth-scaled
-residuals (mup) and the WSD schedule (the JAX package's optimizer; training
-is not ported).
+residuals (mup) and the WSD schedule (``launch.steps.default_opt_config``
+picks it for this model, as the reference does).
 
 40L d_model=2304 36H (kv=36 = MHA) d_ff=5760 vocab=122753.
 """

@@ -9,7 +9,11 @@ reference's snapshot and returns the port's state; a port executor given it
 would.  :func:`state_to_reference` goes the other way.  Neither needs the
 other package: both sides are plain numpy.
 
-The serving slices carry MODEL WEIGHTS the same way:
+The serving slices carry MODEL WEIGHTS the same way, and the training slice
+the AdamW state (:func:`opt_state_to_reference`,
+:func:`opt_state_from_reference`: ``m`` and ``v`` leaf for leaf as the
+parameters, ``step`` an int), which is how a training checkpoint is
+written under the reference's leaf names and shapes:
 :func:`params_from_reference` takes the reference's parameter pytree (its
 leaves as numpy arrays) and returns the port's
 :class:`~repro_torch.models.transformer.Transformer`;
@@ -124,8 +128,13 @@ def _walk(tree, attr: str):
 
 
 def _stacked(sub, u):
-    """Entry ``u`` of every leaf of a stacked layer dict, as a getter."""
-    return lambda attr: np.asarray(_walk(sub, attr))[u]
+    """Entry ``u`` of every leaf of a stacked layer dict (numpy arrays or
+    tensors), as a getter."""
+    def get(attr):
+        leaf = _walk(sub, attr)
+        return leaf[u] if isinstance(leaf, torch.Tensor) \
+            else np.asarray(leaf)[u]
+    return get
 
 
 def _reference_layers(tree, cfg):
@@ -151,6 +160,45 @@ def _single_leaves(model):
     return out
 
 
+def _put(dst: torch.Tensor, src) -> None:
+    """Copy a reference leaf (a numpy array, or a tensor as the port's
+    checkpoint restores it) into the port's tensor ``dst``: a tensor of
+    ``dst``'s dtype bit for bit, anything else through float32."""
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {tuple(src.shape)} does not fit "
+                         f"{tuple(dst.shape)}")
+    if not isinstance(src, torch.Tensor):
+        src = torch.as_tensor(np.asarray(src).astype(np.float32))
+    dst.copy_(src.to(dst.dtype))
+
+
+def _load_reference(model, tree, cfg, dst) -> None:
+    """Copy each leaf of the reference's pytree into ``dst(name)``, the
+    tensor of the port's parameter called ``name`` (its name in
+    ``model.named_parameters()``), or a tensor kept under that name."""
+    encoder = [_stacked(tree["enc_units"], i)
+               for i in range(len(model.encoder))]
+    names = [f"layers.{i}" for i in range(len(model.layers))] \
+        + [f"encoder.{i}" for i in range(len(model.encoder))]
+    with torch.no_grad():
+        for attr, path in _single_leaves(model).items():
+            _put(dst(attr), _walk(tree, path))
+        for name, layer, get in zip(names, (*model.layers, *model.encoder),
+                                    (*_reference_layers(tree, cfg),
+                                     *encoder)):
+            for attr in _layer_leaves(cfg, layer.spec,
+                                      layer.cross is not None):
+                _put(dst(f"{name}.{attr}"), get(attr))
+
+
+def load_reference_(model, tree, cfg):
+    """Copy the reference's parameter pytree into the port's existing
+    :class:`~repro_torch.models.transformer.Transformer` ``model`` in place
+    (leaves as numpy arrays, or tensors); returns ``model``."""
+    _load_reference(model, tree, cfg, model.get_parameter)
+    return model
+
+
 def params_from_reference(tree, cfg, *, device=None):
     """The reference's parameter pytree (numpy leaves) -> the port's
     :class:`~repro_torch.models.transformer.Transformer` on ``device``
@@ -158,64 +206,119 @@ def params_from_reference(tree, cfg, *, device=None):
     from repro_torch.models.transformer import Transformer
     from repro_torch.device import resolve_device
 
-    dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
-
-    def put(dst: torch.Tensor, src) -> None:
-        src = np.asarray(src)
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"shape {src.shape} does not fit {tuple(dst.shape)}")
-        dst.copy_(torch.as_tensor(src.astype(np.float32)).to(dst.dtype))
-
-    encoder = [_stacked(tree["enc_units"], i)
-               for i in range(len(model.encoder))]
-    with torch.no_grad():
-        for attr, path in _single_leaves(model).items():
-            put(model.get_parameter(attr), _walk(tree, path))
-        for layer, get in zip((*model.layers, *model.encoder),
-                              (*_reference_layers(tree, cfg), *encoder)):
-            for attr in _layer_leaves(cfg, layer.spec,
-                                      layer.cross is not None):
-                put(layer.get_parameter(attr), get(attr))
-    return model
+    return load_reference_(Transformer(cfg, device=resolve_device(device)),
+                           tree, cfg)
 
 
-def params_to_reference(params, cfg):
-    """The port's :class:`~repro_torch.models.transformer.Transformer` ->
-    the reference's parameter pytree, leaves as float32 numpy arrays (the
-    reference casts them to its own parameter dtype on use)."""
-
-    def arr(t: torch.Tensor) -> np.ndarray:
-        return t.detach().float().cpu().numpy()
-
+def reference_tree(model, cfg, leaf, stack):
+    """The reference's pytree of the port's leaves: ``leaf(name)`` gives the
+    leaf of the parameter called ``name`` in ``model.named_parameters()``,
+    ``stack(leaves)`` stacks a unit entry's leaves over the units.  (With
+    placeholder leaves it is the template of a training checkpoint's
+    restore.)"""
     prefix, unit, n_units = cfg.layout()
-    layers = list(params.layers)
     n_pre = len(prefix)
 
-    def layer_dict(layer, stack=None):
+    def layer_dict(names, layer, stacked):
         out: Dict[str, dict] = {}
         for attr in _layer_leaves(cfg, layer.spec, layer.cross is not None):
-            *groups, leaf = attr.split(".")
+            *groups, last = attr.split(".")
             node = out
             for g in groups:
                 node = node.setdefault(g, {})
-            node[leaf] = (arr(layer.get_parameter(attr)) if stack is None
-                          else np.stack([arr(x.get_parameter(attr))
-                                         for x in stack]))
+            vals = [leaf(f"{n}.{attr}") for n in names]
+            node[last] = stack(vals) if stacked else vals[0]
         return out
 
-    units = {}
-    for i in range(len(unit)):
-        per_unit = [layers[n_pre + u * len(unit) + i] for u in range(n_units)]
-        units[f"l{i}"] = layer_dict(per_unit[0], stack=per_unit)
+    layers = model.layers
+    units = {f"l{i}": layer_dict(
+        [f"layers.{n_pre + u * len(unit) + i}" for u in range(n_units)],
+        layers[n_pre + i], True) for i in range(len(unit))}
     tree = {
-        "prefix_layers": tuple(layer_dict(x) for x in layers[:n_pre]),
+        "prefix_layers": tuple(layer_dict([f"layers.{j}"], layers[j], False)
+                               for j in range(n_pre)),
         "units": units,
     }
-    for attr, path in _single_leaves(params).items():
-        head, leaf = path.split(".")
-        tree.setdefault(head, {})[leaf] = arr(params.get_parameter(attr))
-    if len(params.encoder):
-        tree["enc_units"] = layer_dict(params.encoder[0],
-                                       stack=list(params.encoder))
+    for attr, path in _single_leaves(model).items():
+        head, last = path.split(".")
+        tree.setdefault(head, {})[last] = leaf(attr)
+    if len(model.encoder):
+        tree["enc_units"] = layer_dict(
+            [f"encoder.{i}" for i in range(len(model.encoder))],
+            model.encoder[0], True)
     return tree
+
+
+def _numpy_f32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _host_tensor(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def params_to_reference(params, cfg, *, keep_dtype: bool = False):
+    """The port's :class:`~repro_torch.models.transformer.Transformer` ->
+    the reference's parameter pytree: leaves as float32 numpy arrays (the
+    reference casts them to its own parameter dtype on use), or, with
+    ``keep_dtype``, as CPU tensors in the parameters' own dtype (what a
+    training checkpoint stores: bfloat16 parameters stay bfloat16)."""
+    named = dict(params.named_parameters())
+    if keep_dtype:
+        return reference_tree(params, cfg, lambda n: _host_tensor(named[n]),
+                               torch.stack)
+    return reference_tree(params, cfg, lambda n: _numpy_f32(named[n]),
+                           np.stack)
+
+
+# ---------------------------------------------------------------------------
+# optimizer state
+# ---------------------------------------------------------------------------
+
+def opt_state_to_reference(state, params, cfg, *, keep_dtype: bool = False):
+    """The port's AdamW state (:mod:`repro_torch.optim.adamw`: ``m``, ``v``
+    by parameter name) -> the reference's ``{"m", "v", "step"}``: ``m`` and
+    ``v`` leaf for leaf as :func:`params_to_reference`'s tree (float32
+    numpy arrays, or CPU float32 tensors with ``keep_dtype``), ``step`` an
+    ``np.int32`` (the reference's ``step`` is an int32 scalar)."""
+    out = {}
+    for key in ("m", "v"):
+        leaves = state[key]
+        if keep_dtype:
+            out[key] = reference_tree(
+                params, cfg, lambda n, d=leaves: _host_tensor(d[n]),
+                torch.stack)
+        else:
+            out[key] = reference_tree(
+                params, cfg, lambda n, d=leaves: _numpy_f32(d[n]), np.stack)
+    out["step"] = np.int32(int(state["step"]))
+    return out
+
+
+def load_opt_state_(state, ref_state, params, cfg):
+    """Copy the reference's AdamW state into the port's ``state`` in place
+    (``m``, ``v`` by parameter name; ``step`` becomes a new int32 0-d
+    tensor on its old device); returns ``state``."""
+    for key in ("m", "v"):
+        _load_reference(params, ref_state[key], cfg, state[key].__getitem__)
+    state["step"] = torch.tensor(int(np.asarray(ref_state["step"])),
+                                 dtype=torch.int32, device=state["step"].device)
+    return state
+
+
+def opt_state_from_reference(ref_state, params, cfg, *, device=None):
+    """The reference's AdamW state -> the port's: ``m`` and ``v`` as
+    float32 tensors by parameter name on ``device`` (None: each
+    parameter's own device), ``step`` an int32 0-d tensor."""
+    named = dict(params.named_parameters())
+
+    def zeros(p):
+        return torch.empty(p.shape, dtype=torch.float32,
+                           device=device if device is not None else p.device)
+
+    state = {key: {n: zeros(p) for n, p in named.items()}
+             for key in ("m", "v")}
+    state["step"] = torch.zeros((), dtype=torch.int32,
+                                device=device if device is not None
+                                else next(iter(named.values())).device)
+    return load_opt_state_(state, ref_state, params, cfg)

@@ -71,10 +71,14 @@ _SIGNATURES = {
     # cell owner, then as above with n_rows before capacity
     "keyed_batched_table_lookup":
         [_P] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P],
-    # q, k, v, o, B, Hq, Hkv, Sq, Skv, hd, dtype, causal, window, softcap,
-    # prefix_len, stream
+    # q, k, v, o, lse (or null), B, Hq, Hkv, Sq, Skv, hd, dtype, causal,
+    # window, softcap, prefix_len, stream
     "attn_flash_forward":
-        [_P] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, _P],
+        [_P] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, _P],
+    # q, k, v, o, lse, dout, dq, dk, dv, delta, B, Hq, Hkv, Sq, Skv, hd,
+    # dtype, causal, window, softcap, prefix_len, stream
+    "attn_flash_backward":
+        [_P] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, _P],
     # q, k, v, valid_len, o, workspace, counters, B, Hq, Hkv, S, hd, dtype,
     # window, softcap, n_splits, stream
     "attn_decode_forward":

@@ -45,4 +45,45 @@ __device__ __forceinline__ float cap_score(float s, float softcap) {
   return softcap > 0.f ? softcap * tanhf(s / softcap) : s;
 }
 
+// +inf: the log-sum-exp of a row that admits no key, which makes every
+// p = exp(s - lse) of that row 0 in the backward
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+
+// The flash mask, shared by the forward and the backward kernels so that
+// the two cannot drift apart: query qi sees key kj < Skv when kj <= qi or
+// kj < prefix (causal; the prefix-LM mask when prefix > 0) and, with a
+// window, kj > qi - window.  causal = 0 admits every key (bidirectional and
+// cross attention).
+__device__ __forceinline__ bool admitted(int qi, int kj, int Skv, int causal,
+                                         int window, int prefix) {
+  bool ok = kj < Skv;
+  if (causal) ok = ok && (kj <= qi || kj < prefix);
+  if (window > 0) ok = ok && kj > qi - window;
+  return ok;
+}
+
+struct Range {
+  int lo, hi;  // [lo, hi)
+};
+
+// The keys the mask admits for some query row in [q0, q_last]; lo is not
+// rounded to a tile.
+__device__ __forceinline__ Range kv_range(int q0, int q_last, int Skv,
+                                          int causal, int window, int prefix) {
+  Range r;
+  r.hi = causal ? min(Skv, max(q_last + 1, prefix)) : Skv;
+  r.lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  return r;
+}
+
+// The query rows the mask admits for some key in [k0, k_last] (the
+// backward's dK/dV blocks walk these); lo is not rounded to a tile.
+__device__ __forceinline__ Range q_range(int k0, int k_last, int Sq,
+                                         int causal, int window, int prefix) {
+  Range r;
+  r.lo = causal && k0 >= prefix ? min(k0, Sq) : 0;
+  r.hi = window > 0 ? min(Sq, k_last + window) : Sq;
+  return r;
+}
+
 }  // namespace attn

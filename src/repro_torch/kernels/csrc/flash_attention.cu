@@ -19,6 +19,11 @@
 // widens a q tile's kv range to max(q_last + 1, P); a kv tile wholly
 // below P needs no per-element mask.  causal = 0 is the bidirectional and
 // cross mode (every key < Skv, Sq != Skv allowed).
+// The mask and a q tile's kv range are attention_common.cuh's admitted()
+// and kv_range(), which the backward kernels (flash_attention_backward.cu)
+// share.  For training, each kernel also writes, when given an lse
+// pointer, every row's log-sum-exp m + log(l) from the thread that writes
+// its output row (+inf for a row that admits no key); serving passes null.
 //
 // What bounds it on an H100: operations.  Each admitted (q, k) pair costs
 // 4 * hd flops of products, hundreds per byte moved, so the bound is the
@@ -99,9 +104,10 @@ constexpr int flash_smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_forward(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-              int Sq, int Skv, int causal, int window, float softcap,
-              int prefix, float scale) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
+              int causal, int window, float softcap, int prefix,
+              float scale) {
   constexpr int BQ = kFlashBQ, BK = kFlashBK, NT = kFlashThreads;
   constexpr int QS = HD + 1, KS = BK + 1, PS = BK + 1;
   constexpr int DJ = HD / 16;  // output columns per thread
@@ -140,12 +146,10 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // kv tiles the mask admits for rows [q0, q_last]
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  const int k_hi = causal ? min(Skv, max(q_last + 1, prefix)) : Skv;
-  int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  k_lo = (k_lo / BK) * BK;
+  const Range kr = kv_range(q0, min(q0 + BQ, Sq) - 1, Skv, causal, window,
+                            prefix);
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
+  for (int k0 = (kr.lo / BK) * BK; k0 < kr.hi; k0 += BK) {
     __syncthreads();  // the previous tile's V and P are consumed
     for (int e = tid * 4; e < BK * HD; e += NT * 4) {
       const int c = e / HD, d = e % HD;
@@ -181,9 +185,7 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        bool ok = kj < Skv;
-        if (causal) ok = ok && (kj <= qi || kj < prefix);
-        if (window > 0) ok = ok && kj > qi - window;
+        const bool ok = admitted(qi, kj, Skv, causal, window, prefix);
         const float x = ok ? cap_score(s[i][j], softcap) : kNegInf;
         s[i][j] = x;
         rmax = fmaxf(rmax, x);
@@ -244,14 +246,19 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
         op[int64_t(qi) * HD + tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
+      // m stays kNegInf exactly when the row admits no key
+      if (lse != nullptr && tx == 0)
+        lse[(int64_t(b) * Hq + h) * Sq + qi] =
+            m[i] == kNegInf ? pos_inf() : m[i] + logf(l[i]);
     }
   }
 }
 
 template <typename T, int HD>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
-                 int Hq, int Hkv, int Sq, int Skv, int causal, int window,
-                 float softcap, int prefix, void* stream) {
+int launch_flash(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+                 int causal, int window, float softcap, int prefix,
+                 void* stream) {
   constexpr int smem = flash_smem_floats<HD>() * int(sizeof(float));
   // above 48 KB of dynamic shared memory needs the opt-in (per device, so
   // it is set on every launch; the call costs about a microsecond)
@@ -262,8 +269,9 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
   flash_forward<T, HD><<<grid, kFlashThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, causal,
-      window, softcap, prefix, static_cast<float>(1.0 / std::sqrt(double(HD))));
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Skv,
+      causal, window, softcap, prefix,
+      static_cast<float>(1.0 / std::sqrt(double(HD))));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -309,10 +317,7 @@ __device__ __forceinline__ void softmax_tile(
     for (int e = 0; e < kWgBK / 2; ++e) {
       const int qi = r0 + ((e & 2) ? 8 : 0);
       const int kj = k0 + (e / 4) * 8 + cq + (e & 1);
-      bool ok = kj < Skv;
-      if (causal) ok = ok && (kj <= qi || kj < prefix);
-      if (window > 0) ok = ok && kj > qi - window;
-      if (!ok) sc[e] = kNegInf;
+      if (!admitted(qi, kj, Skv, causal, window, prefix)) sc[e] = kNegInf;
     }
   }
   // a row's kWgBK scores lie on the 4 lanes that share it
@@ -361,9 +366,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
-                    __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq,
-                    int Skv, int causal, int window, float softcap,
-                    int prefix, float scale) {
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int Hq, int Hkv, int Sq, int Skv, int causal, int window,
+                    float softcap, int prefix, float scale) {
   using namespace hopper;
   using L = WgSmem<HD>;
   constexpr int BQ = kWgBQ, BK = kWgBK, ST = kWgStages;
@@ -381,10 +386,9 @@ flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.y;
   const int hk = h / (Hq / Hkv);
   // kv tiles the mask admits for rows [q0, q_last]
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  const int k_hi = causal ? min(Skv, max(q_last + 1, prefix)) : Skv;
-  int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  k_lo = (k_lo / BK) * BK;
+  const Range kr = kv_range(q0, min(q0 + BQ, Sq) - 1, Skv, causal, window,
+                            prefix);
+  const int k_lo = (kr.lo / BK) * BK, k_hi = kr.hi;
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
 
   const int tid = threadIdx.x;
@@ -545,14 +549,19 @@ flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
     free_stage(sl);
   }
 
-  // epilogue: row sums over the 4 lanes, divide, round once to bf16
+  // epilogue: row sums over the 4 lanes, the log-sum-exp from the same
+  // rows that write O (m is already the row's on all 4 lanes; kNegInf
+  // exactly when the row admits no key), divide, round once to bf16
+  const int64_t row_base = (int64_t(b) * Hq + h) * Sq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = r0 + 8 * r;
+    if (lse != nullptr && (lane % 4) == 0 && qi < Sq)
+      lse[row_base + qi] = m[r] == kNegInf ? pos_inf() : m[r] + logf(l[r]);
     l[r] = fmaxf(l[r], kMinDenom);
   }
-  const int64_t row_base = (int64_t(b) * Hq + h) * Sq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = r0 + 8 * r;
@@ -613,8 +622,9 @@ static bool encode_map(CUtensorMap* map, const void* ptr, int heads, int rows,
 
 template <int HD>
 int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int Sq, int Skv, int causal,
-                       int window, float softcap, int prefix, void* stream) {
+                       float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+                       int causal, int window, float softcap, int prefix,
+                       void* stream) {
   const int n_qt = (Sq + kWgBQ - 1) / kWgBQ;
   if (Skv <= 0 || n_qt > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -631,8 +641,8 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(Hq, B, n_qt);
   flash_forward_wgmma<HD><<<grid, kWgThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv,
-      causal, window, softcap, prefix,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, Hq, Hkv, Sq,
+      Skv, causal, window, softcap, prefix,
       static_cast<float>(1.0 / std::sqrt(double(HD))));
   return static_cast<int>(cudaGetLastError());
 }
@@ -644,36 +654,41 @@ extern "C" {
 // dtype: 0 = float32 (flash_forward), 1 = bfloat16 (flash_forward_wgmma,
 // flash_forward at hd 256); hd: 64, 128 or 256; prefix_len: the keys every
 // query sees under the causal mask (0 <= prefix_len <= Skv, and 0 without
-// the causal mask or with a window).  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a shape the kernel does not take
-// (the wrapper refuses most before calling) or a tensor map the CUDA driver
-// refuses.
+// the causal mask or with a window).  lse: null, or float32 [B, Hq, Sq]
+// that receives each row's log-sum-exp of its scaled, soft-capped, masked
+// scores (natural log; +inf for a row that admits no key), which the
+// backward (flash_attention_backward.cu) reads.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a shape the kernel does
+// not take (the wrapper refuses most before calling) or a tensor map the
+// CUDA driver refuses.
 int attn_flash_forward(const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int Sq, int Skv, int hd,
-                       int dtype, int causal, int window, float softcap,
-                       int prefix_len, void* stream) {
+                       void* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+                       int hd, int dtype, int causal, int window,
+                       float softcap, int prefix_len, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv < 0
       || prefix_len < 0 || prefix_len > Skv
       || (prefix_len > 0 && (!causal || window > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int P = prefix_len;
+  float* L = static_cast<float*>(lse);
   if (dtype == 0 && hd == 256)
-    return attn::launch_flash<float, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+    return attn::launch_flash<float, 256>(q, k, v, o, L, B, Hq, Hkv, Sq, Skv,
                                           causal, window, softcap, P, stream);
   if (dtype == 1 && hd == 256)
     return attn::launch_flash<__nv_bfloat16, 256>(
-        q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, softcap, P, stream);
+        q, k, v, o, L, B, Hq, Hkv, Sq, Skv, causal, window, softcap, P,
+        stream);
   if (dtype == 0 && hd == 128)
-    return attn::launch_flash<float, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+    return attn::launch_flash<float, 128>(q, k, v, o, L, B, Hq, Hkv, Sq, Skv,
                                           causal, window, softcap, P, stream);
   if (dtype == 0 && hd == 64)
-    return attn::launch_flash<float, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+    return attn::launch_flash<float, 64>(q, k, v, o, L, B, Hq, Hkv, Sq, Skv,
                                          causal, window, softcap, P, stream);
   if (dtype == 1 && hd == 128)
-    return attn::launch_flash_wgmma<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+    return attn::launch_flash_wgmma<128>(q, k, v, o, L, B, Hq, Hkv, Sq, Skv,
                                          causal, window, softcap, P, stream);
   if (dtype == 1 && hd == 64)
-    return attn::launch_flash_wgmma<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+    return attn::launch_flash_wgmma<64>(q, k, v, o, L, B, Hq, Hkv, Sq, Skv,
                                         causal, window, softcap, P, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

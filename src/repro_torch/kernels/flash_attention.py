@@ -10,7 +10,12 @@ kernel, the port's prefill through it.  bfloat16 inputs
 at head_dim 64 and 128 go to ``flash_forward_wgmma`` (tensor-core products
 fed by TMA, float32 scores and softmax); float32 inputs, and head_dim 256
 in either dtype, to ``flash_forward`` (float32 FMAs on the CUDA cores);
-there is no other route.  The wrapper takes CUDA tensors only: it checks
+there is no other route.  For training, :func:`flash_attention` also
+writes each row's log-sum-exp when given ``lse``, and
+:func:`flash_attention_backward` launches the backward kernels
+(``csrc/flash_attention_backward.cu``, float32 FMAs, no atomics), which
+:class:`FlashAttentionFunction` ties to the forward for autograd.  The
+wrappers take CUDA tensors only: each checks
 device, dtype, shape and contiguity, allocates the output, launches on the
 current stream through the shared helpers of
 :mod:`repro_torch.kernels._build`, raises if the launch was refused, and
@@ -26,11 +31,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_cuda
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "check_attention_inputs",
-           "check_prefix", "flash_attention"]
+__all__ = ["HEAD_DIMS", "LAUNCHES", "FlashAttentionFunction",
+           "check_attention_inputs", "check_prefix", "dead_rows_start",
+           "flash_attention", "flash_attention_backward"]
 
-#: kernel launches (reset with ``ops.reset_launch_counts``)
-LAUNCHES = {"flash_attention": 0}
+#: kernel launches (reset with ``ops.reset_launch_counts``); a backward call
+#: (three kernels) counts once
+LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0}
 #: the head dims the kernels are compiled for
 HEAD_DIMS = (64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,35 +75,154 @@ def check_prefix(prefix_len: int, skv: int, causal: bool,
                          f"window={window})")
 
 
+def dead_rows_start(sq: int, skv: int, window: int) -> int:
+    """The first query row that admits no key: with a window, row ``q``
+    sees keys ``(q - window, q]`` (or ``(q - window, Skv)`` without the
+    causal mask), none of which lies below ``Skv`` once ``q >= Skv + window
+    - 1``; without a window every row sees key 0.  ``sq`` when there is no
+    such row."""
+    if window > 0:
+        return min(sq, max(0, skv + window - 1))
+    return sq if skv else 0
+
+
+def _check_flash(what: str, q, k, v, causal: bool, window: int,
+                 prefix_len: int) -> None:
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{what}: need q [B,Hq,Sq,hd] and k, v "
+                         f"[B,Hkv,Skv,hd], got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    check_attention_inputs(what, q, k, v)
+    b, hq = q.shape[:2]
+    hkv, skv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or hkv == 0 or hq % hkv:
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not fit k "
+                         f"{tuple(k.shape)} (batch, or Hq % Hkv)")
+    if hq > 65535 or b > 65535:
+        raise ValueError(f"{what}: batch and heads must be < 65536")
+    if window < 0:
+        raise ValueError(f"{what}: window must be >= 0, got {window}")
+    check_prefix(prefix_len, skv, causal, window)
+
+
+def _check_like(what: str, ref, **tensors) -> None:
+    """Each of ``tensors`` has ``ref``'s shape and dtype and 16-byte aligned
+    storage."""
+    for name, t in tensors.items():
+        if t.shape != ref.shape or t.dtype != ref.dtype:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} {t.dtype} "
+                             f"does not match {tuple(ref.shape)} {ref.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
+
+
+def _check_lse(what: str, q, lse) -> None:
+    if lse.dtype != torch.float32 or tuple(lse.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"{what}: lse must be float32 {tuple(q.shape[:3])}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0,
-                    prefix_len: int = 0) -> torch.Tensor:
+                    softcap: float = 0.0, prefix_len: int = 0,
+                    lse=None) -> torch.Tensor:
     """q ``[B, Hq, Sq, hd]``; k, v ``[B, Hkv, Skv, hd]`` -> ``[B, Hq, Sq,
     hd]`` of q's dtype.  Any ``Sq`` (the ragged last tile is masked).
     With ``causal``, query ``i`` sees keys ``j <= i`` and, with
-    ``prefix_len``, every key ``j < prefix_len``."""
-    dev = check_cuda(("q", "k", "v"), q, k, v)
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"flash_attention: need q [B,Hq,Sq,hd] and k, v "
-                         f"[B,Hkv,Skv,hd], got {tuple(q.shape)} and "
-                         f"{tuple(k.shape)}")
-    check_attention_inputs("flash_attention", q, k, v)
+    ``prefix_len``, every key ``j < prefix_len``.
+
+    ``lse``: None (serving), or a float32 ``[B, Hq, Sq]`` tensor that
+    receives each row's log-sum-exp (natural log) of its scaled,
+    soft-capped, admitted scores, which :func:`flash_attention_backward`
+    reads.  A row that admits no key (only with a window, from
+    :func:`dead_rows_start` on) has ``lse = +inf``, so the backward gives
+    it no gradient; its output is the plain version's, the mean of V over
+    all ``Skv`` keys (a softmax over scores all at -2e38), which this
+    wrapper writes after the kernel."""
+    what = "flash_attention"
+    dev = check_cuda(("q", "k", "v") + (("lse",) if lse is not None else ()),
+                     q, k, v, *(() if lse is None else (lse,)))
+    _check_flash(what, q, k, v, causal, window, prefix_len)
+    if lse is not None:
+        _check_lse(what, q, lse)
     b, hq, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if k.shape[0] != b or hkv == 0 or hq % hkv:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
-                         f"k {tuple(k.shape)} (batch, or Hq % Hkv)")
-    if hq > 65535 or b > 65535:
-        raise ValueError("flash_attention: batch and heads must be < 65536")
-    if window < 0:
-        raise ValueError(f"flash_attention: window must be >= 0, got {window}")
-    check_prefix(prefix_len, skv, causal, window)
     out = torch.empty_like(q)
     if q.numel() == 0 or skv == 0:  # no key: the plain version's zeros
+        if lse is not None:
+            lse.fill_(float("inf"))
         return out.zero_()
     _build.launch("attn_flash_forward", dev, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, hd,
-                  DTYPE_CODES[q.dtype], int(causal), int(window),
+                  v.data_ptr(), out.data_ptr(),
+                  None if lse is None else lse.data_ptr(), b, hq, hkv, sq,
+                  skv, hd, DTYPE_CODES[q.dtype], int(causal), int(window),
                   float(softcap), int(prefix_len))
     LAUNCHES["flash_attention"] += 1
+    dead = dead_rows_start(sq, skv, window)
+    if dead < sq:
+        mean_v = v.float().mean(dim=2, keepdim=True)
+        out[:, :, dead:] = mean_v.repeat_interleave(hq // hkv, dim=1) \
+            .to(q.dtype)
     return out
+
+
+def flash_attention_backward(q, k, v, o, lse, dout, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0,
+                             prefix_len: int = 0):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention`'s output
+    ``o`` for its gradient ``dout`` (``[B, Hq, Sq, hd]`` like q), from the
+    forward's ``lse``; the same options as the forward's.  Each in its
+    input's dtype, accumulated in float32 and rounded once; a row whose lse
+    is +inf contributes nothing.  Three kernels a call
+    (``csrc/flash_attention_backward.cu``: D, dK/dV, dQ), counted as one
+    launch; no atomics, so a call's result is the same bits every time."""
+    what = "flash_attention_backward"
+    dev = check_cuda(("q", "k", "v", "o", "lse", "dout"), q, k, v, o, lse,
+                     dout)
+    _check_flash(what, q, k, v, causal, window, prefix_len)
+    _check_like(what, q, o=o, dout=dout)
+    _check_lse(what, q, lse)
+    b, hq, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    _build.launch("attn_flash_backward", dev, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, hd,
+                  DTYPE_CODES[q.dtype], int(causal), int(window),
+                  float(softcap), int(prefix_len))
+    LAUNCHES["flash_attention_backward"] += 1
+    return dq, dk, dv
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with 16-byte aligned storage (copied if not)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention` with its gradient from
+    :func:`flash_attention_backward`: the forward launches the kernel with
+    ``lse``, keeps q, k, v, its output and ``lse``, and the backward
+    launches the backward kernels.  ``apply(q, k, v, causal, window,
+    softcap, prefix_len)``; q, k, v contiguous and aligned."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, prefix_len):
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            softcap=softcap, prefix_len=prefix_len, lse=lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = dict(causal=causal, window=window, softcap=softcap,
+                        prefix_len=prefix_len)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, _aligned(dout),
+                                              **ctx.mask)
+        return dq, dk, dv, None, None, None, None

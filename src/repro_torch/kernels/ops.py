@@ -15,6 +15,14 @@ device, as in the reference.
 
 There is no fallback: a CUDA tensor in ``auto`` mode gets the kernel or an
 exception.  The wrappers count their launches (:func:`launch_counts`).
+
+Gradients (training): on the CPU, and in mode ``"ref"``, every function is
+plain PyTorch, which autograd differentiates.  Where the kernels run,
+:func:`flash_attention` is a ``torch.autograd.Function`` whose backward is
+the hand-written backward kernel; the other kernels have no backward yet,
+so :func:`decode_attention`, :func:`ssd_scan`, :func:`moe_gather` and
+:func:`moe_combine` raise ``NotImplementedError`` when grad mode is on and
+an input requires grad, rather than return an output without a gradient.
 """
 
 from __future__ import annotations
@@ -66,6 +74,26 @@ def reset_launch_counts() -> None:
     for counts in _COUNTERS:
         for k in counts:
             counts[k] = 0
+
+
+#: where the backward kernels that the guard asks for are queued
+BACKWARD_QUEUE = ("ROADMAP Queue 1 item 16: the backward kernels of "
+                  "ssd_scan, moe_gather and moe_combine")
+
+
+def _requires_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, *tensors) -> None:
+    """Raise when a kernel without a backward would cut a gradient."""
+    if _requires_grad(*tensors):
+        raise NotImplementedError(
+            f"ops.{name} has no backward kernel yet ({BACKWARD_QUEUE}); with "
+            f"grad enabled on an input that requires grad its output would "
+            f"silently carry no gradient.  Train this path on the CPU or in "
+            f"ops mode 'ref', or run it under torch.no_grad()")
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -153,12 +181,18 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     """q ``[B, Hq, Sq, hd]``; k, v ``[B, Hkv, Skv, hd]`` -> like q: causal /
     sliding-window / prefix-LM (``causal`` with ``prefix_len`` keys that
     every query sees) / bidirectional (``causal=False``) attention with
-    softcap and GQA, float32 math."""
+    softcap and GQA, float32 math.  Differentiable in every mode: with grad
+    on and an input that requires grad, the kernel route runs
+    :class:`~repro_torch.kernels.flash_attention.FlashAttentionFunction`
+    (the forward with its row log-sum-exp, the backward kernel for the
+    gradient)."""
     if kernels_active(q.device):
-        return _fk.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal,
-                                   window=window, softcap=softcap,
-                                   prefix_len=prefix_len)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if _requires_grad(q, k, v):
+            return _fk.FlashAttentionFunction.apply(q, k, v, causal, window,
+                                                    softcap, prefix_len)
+        return _fk.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, prefix_len=prefix_len)
     _fk.check_prefix(prefix_len, k.shape[2], causal, window)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     softcap=softcap, prefix_len=prefix_len)
@@ -171,6 +205,7 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap=0.0,
     one length per slot ``[B]``; a slot with no admitted position gets the
     mean of V over all S rows, as the reference gives."""
     if kernels_active(q.device):
+        _no_backward("decode_attention", q, cache_k, cache_v)
         if isinstance(valid_len, torch.Tensor):
             valid_len = _i32(valid_len.to(q.device))
         return _dk.decode_attention(q.contiguous(), cache_k.contiguous(),
@@ -185,6 +220,7 @@ def ssd_scan(x, dt, A, Bm, Cm):
     N]`` (strided views allowed) -> (y ``[B, H, S, P]``, final h ``[B, H,
     N, P]`` float32): the chunked SSD scan from a zero state, any S."""
     if kernels_active(x.device):
+        _no_backward("ssd_scan", x, dt, A, Bm, Cm)
         return _sk.ssd_scan(x, dt.float(), A.float(), Bm.to(x.dtype),
                             Cm.to(x.dtype))
     return _ref.ssd_scan_ref(x, dt, A, Bm, Cm)
@@ -194,6 +230,7 @@ def moe_gather(x, row_token) -> torch.Tensor:
     """x ``[T, d]``; row_token ``[R]`` -> ``[R, d]``: ``x[row_token[r]]``,
     zeros for a token outside ``[0, T)`` (the dummy ``T``)."""
     if kernels_active(x.device):
+        _no_backward("moe_gather", x)
         return _mk.moe_gather(x.contiguous(), _i32(row_token))
     return _ref.moe_gather_ref(x, row_token)
 
@@ -203,7 +240,10 @@ def moe_combine(expert_out, row_token, row_weight, num_tokens: int, *,
     """``y[t] = sum_{r: row_token[r] == t} w_r expert_out[r]``, float32
     accumulation in a fixed order, rounded once to expert_out's dtype.  No
     kernel, in every mode (the reference's ``ops.moe_combine`` is its jnp
-    version too)."""
+    version too).  Where the kernels run it takes the guard all the same:
+    the MoE path's backward kernels are queued together."""
+    if kernels_active(expert_out.device):
+        _no_backward("moe_combine", expert_out, row_weight)
     return _ref.moe_combine_ref(expert_out, row_token, row_weight,
                                 num_tokens,
                                 max_rows_per_token=max_rows_per_token)

@@ -2,8 +2,9 @@
 
 The keyed plane's four (segment sum, scatter-add, the two table lookups),
 the serving path's two (flash attention for prefill, decode attention
-against the KV cache), the Mamba-2 chunked SSD scan and the MoE gather,
-plus the MoE combine, which has no kernel.  Each function computes what its
+against the KV cache), the flash backward of the training path (with the
+forward's row log-sum-exp), the Mamba-2 chunked SSD scan and the MoE
+gather, plus the MoE combine, which has no kernel.  Each function computes what its
 CUDA kernel computes, on tensors of any device.  The wrappers take these for CPU
 tensors; on the card only ``chip_smoke.py``, the GPU tests and ``ops``
 mode ``"ref"`` use them.
@@ -167,18 +168,13 @@ def _masked_softmax_pv(s, mask, vf, out_dtype):
     return (p @ vf).to(out_dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        prefix_len=0):
-    """q ``[B, Hq, Sq, hd]``; k, v ``[B, Hkv, Skv, hd]`` -> like q.
-
-    Float32 math; GQA maps q head ``h`` to kv head ``h // (Hq // Hkv)``;
-    the mask keeps ``k <= q or k < prefix_len`` (causal; the prefix-LM
-    mask when ``prefix_len > 0``) and ``k > q - window`` (window), with
-    query and key positions both counted from 0."""
+def _flash_scores(q, k, causal, window, softcap, prefix_len):
+    """Float32 scores ``[B, Hq, Sq, Skv]`` (scaled, soft-capped), k with its
+    heads repeated to q's, and the mask ``[Sq, Skv]`` of the admitted
+    pairs."""
     hq, hkv, sq, skv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
     g = hq // hkv
     kf = k.float().repeat_interleave(g, dim=1)
-    vf = v.float().repeat_interleave(g, dim=1)
     s = (q.float() @ kf.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if softcap:
         s = softcap * torch.tanh(s / softcap)
@@ -189,7 +185,62 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
         mask &= (k_pos <= q_pos) | (k_pos < prefix_len)
     if window:
         mask &= k_pos > q_pos - window
+    return s, kf, mask
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        prefix_len=0):
+    """q ``[B, Hq, Sq, hd]``; k, v ``[B, Hkv, Skv, hd]`` -> like q.
+
+    Float32 math; GQA maps q head ``h`` to kv head ``h // (Hq // Hkv)``;
+    the mask keeps ``k <= q or k < prefix_len`` (causal; the prefix-LM
+    mask when ``prefix_len > 0``) and ``k > q - window`` (window), with
+    query and key positions both counted from 0.  A row that admits no key
+    gets the mean of V over all keys (its scores are all -2e38)."""
+    s, _, mask = _flash_scores(q, k, causal, window, softcap, prefix_len)
+    vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     return _masked_softmax_pv(s, mask, vf, q.dtype)
+
+
+def flash_attention_lse_ref(q, k, *, causal=True, window=0, softcap=0.0,
+                            prefix_len=0):
+    """Each row's log-sum-exp ``[B, Hq, Sq]`` float32 of its admitted
+    scores (natural log), +inf for a row that admits no key: what the
+    forward kernel writes into ``lse``."""
+    s, _, mask = _flash_scores(q, k, causal, window, softcap, prefix_len)
+    lse = torch.logsumexp(s.masked_fill(~mask, -math.inf), dim=-1)
+    return torch.where(mask.any(dim=-1), lse,
+                       torch.full((), math.inf, device=q.device))
+
+
+def flash_attention_backward_ref(q, k, v, o, lse, dout, *, causal=True,
+                                 window=0, softcap=0.0, prefix_len=0):
+    """The plain version of the backward kernels, written out from their
+    formulas on dense float32 scores: ``P = exp(s - lse)`` on admitted
+    pairs (0 elsewhere and on rows with ``lse = +inf``), ``D =
+    rowsum(dO o O)``, ``dS = P o (dO.V^T - D)`` times ``1 - (s / c)^2``
+    under a softcap ``c``, ``dV = P^T.dO``, ``dK = dS^T.Q / sqrt(hd)``,
+    ``dQ = dS.K / sqrt(hd)``; a kv head's dK, dV sum over its group's q
+    heads.  Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    b, hq, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(hd)
+    s, kf, mask = _flash_scores(q, k, causal, window, softcap, prefix_len)
+    vf = v.float().repeat_interleave(g, dim=1)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros((), device=q.device))
+    dof = dout.float()
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    if softcap:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ q.float()) * scale
+    dv = p.transpose(-1, -2) @ dof
+    dk = dk.reshape(b, hkv, g, skv, hd).sum(dim=2)
+    dv = dv.reshape(b, hkv, g, skv, hd).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q, cache_k, cache_v, valid_len, *, softcap=0.0,

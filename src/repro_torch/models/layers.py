@@ -1,4 +1,5 @@
-"""Shared layer primitives: RMSNorm, embedding, RoPE, the gated MLP.
+"""Shared layer primitives: RMSNorm, embedding, RoPE, the gated MLP, the
+cross-entropy loss.
 
 Port of ``repro/models/layers.py``.  Weights keep the reference's layouts
 (``wi_gate [d, ff]``, embedding table ``[vocab, d]``) so parameters carry
@@ -140,3 +141,21 @@ class MLP(nn.Module):
         gate = self.act(x @ self.wi_gate.to(dt))
         up = x @ self.wi_up.to(dt)
         return (gate * up) @ self.wo.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """Mean token NLL in float32 over the labels that are not
+    ``ignore_id`` (0 when every label is ignored): the reference's
+    ``cross_entropy_loss``, step for step."""
+    logits = logits.float()
+    mask = labels != ignore_id
+    safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1)

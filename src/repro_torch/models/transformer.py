@@ -1,6 +1,6 @@
 """The language model: parameters, caches, prefill and decode.
 
-Port of ``repro/models/transformer.py`` for serving: attention mixers
+Port of ``repro/models/transformer.py``: attention mixers
 (full and sliding) or Mamba-2 mixers, with dense, MoE or no MLPs, optional
 post-norms, tied or untied embeddings; the prefix-LM VLM (stub patch
 embeddings projected by ``frontend_proj`` and put ahead of the tokens,
@@ -23,7 +23,11 @@ Entry points (the reference's names):
   last position's logits;
 * :func:`decode_forward` -- one token per slot at per-slot positions
   ``cache_index`` (ragged continuous batching), updating the caches in
-  place; returns the logits.
+  place; returns the logits;
+* :func:`train_forward` -- the training loss (mean token NLL plus the MoE
+  load-balance loss), differentiable, with per-layer remat; and the
+  reference's accounting, :func:`count_params` and
+  :func:`model_flops_per_token`.
 
 Their batch keys are the reference's: ``tokens``; ``prefix_embeds``
 ``[B, P, frontend_dim]`` (prefill of a VLM: the cache then holds ``P +
@@ -42,6 +46,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -119,9 +124,11 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, cache: Optional[dict], cache_index=None, *,
                 mode: str = attn.CAUSAL, prefix_len: int = 0, enc_out=None):
-        """``mode`` and ``prefix_len`` are a full-attention layer's mask (a
-        sliding layer's is always ``SLIDING``); ``enc_out`` drives the
-        cross attention, when the layer has one."""
+        """-> ``(x, aux)``: ``aux`` is an MoE layer's load-balance loss
+        (float32, 0-d), None for other layers.  ``mode`` and ``prefix_len``
+        are a full-attention layer's mask (a sliding layer's is always
+        ``SLIDING``); ``enc_out`` drives the cross attention, when the layer
+        has one."""
         rs = self.residual_scale
         if self.spec.mixer == MAMBA:
             h, _ = mamba2.mamba_block(self.ln1(x), self.mixer, self.cfg.ssm,
@@ -139,15 +146,16 @@ class DecoderLayer(nn.Module):
                 self.ln_cross(x), self.cross,
                 attn.encode_cross_kv(enc_out, self.cross))
             x = x + rs * h if rs != 1.0 else x + h
+        aux = None
         if self.spec.mlp == NONE:
-            return x
+            return x, aux
         if self.spec.mlp == MOE:
-            h, _ = moe.moe_ffn(self.ln2(x), self.mlp, self.cfg.moe)
+            h, aux = moe.moe_ffn(self.ln2(x), self.mlp, self.cfg.moe)
         else:
             h = self.mlp(self.ln2(x))
         if self.post_norms:
             h = self.post_ln2(h)
-        return x + rs * h if rs != 1.0 else x + h
+        return (x + rs * h if rs != 1.0 else x + h), aux
 
 
 class FrontendProj(nn.Module):
@@ -210,13 +218,28 @@ class Transformer(nn.Module):
         return layers.unembed(self.final_norm(x), table,
                               softcap=self.cfg.final_logit_softcap)
 
-    def run(self, x, caches: Optional[Caches], cache_index=None, **kw):
-        """The decoder layers over embeddings ``x``; ``kw`` goes to each
-        layer (mask mode, prefix length, encoder output)."""
+    def run(self, x, caches: Optional[Caches], cache_index=None, *,
+            remat: bool = False, **kw):
+        """The decoder layers over embeddings ``x`` -> ``(x, aux)``, ``aux``
+        the sum of the MoE layers' load-balance losses (float32, 0-d; None
+        without MoE layers); ``kw`` goes to each layer (mask mode, prefix
+        length, encoder output).  ``remat`` (training, no caches) runs each
+        layer under ``torch.utils.checkpoint``: its activations are dropped
+        after the forward and recomputed in the backward, as the
+        reference's ``jax.checkpoint`` of a unit."""
+        aux = None
         for i, layer in enumerate(self.layers):
-            x = layer(x, caches[i] if caches is not None else None,
-                      cache_index, **kw)
-        return x
+            cache = caches[i] if caches is not None else None
+            if remat:
+                # the layers draw no random numbers: no RNG state to keep
+                x, a = checkpoint(layer, x, cache, cache_index,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False, **kw)
+            else:
+                x, a = layer(x, cache, cache_index, **kw)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
 
 
 @torch.no_grad()
@@ -281,14 +304,15 @@ def zero_recurrent_(caches: Caches) -> Caches:
     return caches
 
 
-@torch.no_grad()
 def _encode(params: Transformer, src_embeds, cfg: ModelConfig):
     """The bidirectional encoder over stub frontend embeddings ``[B, S_src,
     frontend_dim]`` -> its output ``[B, S_src, d]`` (after
-    ``enc_final_norm``), in the compute dtype."""
+    ``enc_final_norm``), in the compute dtype.  Differentiable (training
+    reaches the encoder through it); the serving entry points call it under
+    their own ``torch.no_grad``."""
     x = params.frontend_proj(src_embeds, cfg.cdtype)
     for layer in params.encoder:
-        x = layer(x, None, mode=attn.BIDIR)
+        x, _ = layer(x, None, mode=attn.BIDIR)
     return params.enc_final_norm(x)
 
 
@@ -317,8 +341,9 @@ def prefill_forward(params: Transformer, batch: dict, cfg: ModelConfig,
     enc_out = None
     if cfg.encoder_layers and "src_embeds" in batch:
         enc_out = _encode(params, batch["src_embeds"], cfg)
-    x = params.run(x, caches, mode=attn.PREFIX if prefix_len else attn.CAUSAL,
-                   prefix_len=prefix_len, enc_out=enc_out)
+    x, _ = params.run(x, caches,
+                      mode=attn.PREFIX if prefix_len else attn.CAUSAL,
+                      prefix_len=prefix_len, enc_out=enc_out)
     return params.logits(x[:, -1:]), caches
 
 
@@ -330,9 +355,66 @@ def decode_forward(params: Transformer, batch: dict, cfg: ModelConfig,
     with ``enc_out`` every decoder layer attends it.  Returns (logits
     ``[B, 1, V]`` float32, caches)."""
     enc_out = batch.get("enc_out") if cfg.encoder_layers else None
-    x = params.run(params.embed_tokens(batch["tokens"]), caches, cache_index,
-                   enc_out=enc_out)
+    x, _ = params.run(params.embed_tokens(batch["tokens"]), caches,
+                      cache_index, enc_out=enc_out)
     return params.logits(x), caches
+
+
+def train_forward(params: Transformer, batch: dict, cfg: ModelConfig, *,
+                  aux_weight: float = 0.01):
+    """The training loss of ``batch`` (``tokens``, ``labels`` ``[B, S]``,
+    and a VLM's ``prefix_embeds`` or an encoder-decoder's ``src_embeds``)
+    -> ``(loss, {"nll", "aux"})``: the mean token NLL of the logits at the
+    token positions (the prefix's are cut, as in the reference) plus
+    ``aux_weight`` times the MoE layers' load-balance losses (float32, 0
+    without MoE layers).  Differentiable: the caller takes the gradients
+    (``loss.backward()`` or ``torch.autograd.grad``) of the parameters
+    that require grad.  With ``cfg.remat`` every decoder layer runs under
+    ``torch.utils.checkpoint``.  The reference's scan over a unit of
+    several layers adds only the unit's last layer's aux
+    (``repro/models/transformer.py``, ``unit_body``); the port adds every
+    layer's, as its unrolled paths do (equal for every configuration whose
+    unit is one layer)."""
+    x, prefix_len = _embed_inputs(params, batch, cfg)
+    enc_out = None
+    if cfg.encoder_layers and "src_embeds" in batch:
+        enc_out = _encode(params, batch["src_embeds"], cfg)
+    x, aux = params.run(x, None, remat=cfg.remat,
+                        mode=attn.PREFIX if prefix_len else attn.CAUSAL,
+                        prefix_len=prefix_len, enc_out=enc_out)
+    logits = params.logits(x)
+    if prefix_len:
+        logits = logits[:, prefix_len:]
+    nll = layers.cross_entropy_loss(logits, batch["labels"])
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
+
+
+def count_params(params: Transformer) -> int:
+    """Parameters, each counted once (a tied embedding is one table)."""
+    return sum(p.numel() for p in params.parameters())
+
+
+def model_flops_per_token(cfg: ModelConfig, params: Optional[Transformer] =
+                          None) -> float:
+    """``6 * N`` (dense) or ``6 * N_active`` (MoE): the reference's model
+    FLOPs per trained token.  The embedding and ``lm_head`` tables are left
+    out (a lookup is not a product), and an MoE layer's expert weights
+    count ``top_k / num_experts`` of their size.  Without ``params`` the
+    model is built on the ``meta`` device (no memory)."""
+    if params is None:
+        params = Transformer(cfg, device="meta")
+    active = 0
+    for name, p in params.named_parameters():
+        if name in ("embed", "lm_head"):
+            continue
+        n = p.numel()
+        if cfg.moe and name.rsplit(".", 1)[-1] in ("w_gate", "w_up",
+                                                   "w_down"):
+            n = int(n * (cfg.moe.top_k / cfg.moe.num_experts))
+        active += n
+    return 6.0 * active
 
 
 def param_bytes(params: Transformer) -> int:

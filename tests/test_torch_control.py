@@ -5,8 +5,8 @@
   dtypes, and both packages write the same files and ``manifest.json``;
   the restored state continues the stream bit-exactly.  Tensor leaves come
   back on their template's device in their dtype, an asynchronous save keeps
-  the values of the call, bfloat16 is refused, and ``latest_step`` ignores
-  incomplete steps.
+  the values of the call, bfloat16 leaves round-trip in the reference's
+  format, and ``latest_step`` ignores incomplete steps.
 * **Supervisor.** The same stream with ``FailurePlan(fail_at=3,
   recover_after=2)``, ``ckpt_every=2`` at degree 3, on both backends:
   emissions, early and late channels, the final rows and the
@@ -202,11 +202,21 @@ def test_tensor_leaves_round_trip_and_async_save(tmp_path):
 
 
 def test_bfloat16_leaf_is_refused(tmp_path):
-    tree = {"w": torch.zeros(2, dtype=torch.bfloat16), "n": np.int64(1)}
-    for blocking in (True, False):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            tckpt.save(str(tmp_path), 0, tree, blocking=blocking)
-    assert not os.listdir(tmp_path)
+    """No longer refused (training checkpoints): a bfloat16 leaf is written
+    as the reference writes it (descr '<V2', manifest dtype "bfloat16") and
+    read back bit for bit, in both writing modes."""
+    w = torch.tensor([1.5, -2.25, 3e-3], dtype=torch.bfloat16)
+    tree = {"w": w, "n": np.int64(1)}
+    for step, blocking in ((0, True), (1, False)):
+        writer = tckpt.save(str(tmp_path), step, tree, blocking=blocking)
+        if writer is not None:
+            writer.join()
+        head = open(tmp_path / f"step_{step}" / "w.npy", "rb").read(80)
+        assert b"'descr': '<V2'" in head
+        back, _ = tckpt.restore(str(tmp_path), step,
+                                {"w": torch.empty(0), "n": np.int64(0)})
+        assert back["w"].dtype == torch.bfloat16
+        assert torch.equal(back["w"], w)
 
 
 def test_latest_step_ignores_incomplete_steps(tmp_path):

@@ -13,8 +13,11 @@ kernels are held to 3e-5 in float32 and 2e-2 in bfloat16, the SSD scan to
 (``tests/test_kernels.py``); bfloat16 flash also to one bfloat16 rounding
 step of each value, and the bfloat16 scan to one step past its float32
 tolerance, as ``chip_smoke.py`` holds them; the MoE gather, a copy, must be
-bit-exact.  The distributed keyed plane's workers run on the card too
-(``test_dist_plane_*``), held to the in-process plane bit for bit.
+bit-exact.  The flash backward is held to its plain version at 1e-4 of
+each gradient's largest magnitude in float32 and 2e-2 and one rounding
+step in bfloat16, two calls bit-identical; the kernels without a backward
+raise under grad.  The distributed keyed plane's workers run on the card
+too (``test_dist_plane_*``), held to the in-process plane bit for bit.
 """
 
 import dataclasses
@@ -1063,6 +1066,206 @@ def test_partitioned_state_stays_on_the_card(dev):
     syncs = [str(w.message) for w in got
              if "synchronizing CUDA operation" in str(w.message)]
     assert len(syncs) == 3, syncs
+
+
+# ---------------------------------------------------------------------------
+# training: the flash backward, lse, the guard, a train step
+# ---------------------------------------------------------------------------
+
+#: (B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap, prefix_len), one case
+#: per mask mode; the last has rows that admit no key (from row 40 on)
+BWD_CASES = {
+    "causal": (2, 4, 4, 130, 130, 64, True, 0, 0.0, 0),
+    "sliding softcap GQA": (1, 8, 2, 200, 200, 128, True, 50, 30.0, 0),
+    "prefix-LM hd 256": (1, 4, 1, 150, 150, 256, True, 0, 0.0, 37),
+    "bidirectional": (1, 4, 4, 97, 97, 64, False, 0, 10.0, 0),
+    "cross": (2, 4, 2, 70, 150, 128, False, 0, 0.0, 0),
+    "rows without keys": (1, 2, 1, 60, 30, 64, True, 11, 0.0, 0),
+}
+#: float32 gradients within this share of each one's largest magnitude
+#: (sums of up to Sq or Skv products in another order), bfloat16 within
+#: 2e-2 of it and one rounding step of each value (chip_smoke.py's limits)
+GRAD_REL = 1e-4
+
+
+def _bwd_inputs(dev, dtype, case, seed=0):
+    b, hq, hkv, sq, skv, hd = case[:6]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=dev).to(dtype)
+    return r(b, hq, sq, hd), r(b, hkv, skv, hd), r(b, hkv, skv, hd), \
+        r(b, hq, sq, hd)
+
+
+def _mask_kw(case):
+    return dict(zip(("causal", "window", "softcap", "prefix_len"), case[6:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", list(BWD_CASES))
+def test_flash_backward_vs_plain(dev, dtype, mode):
+    case, kw = BWD_CASES[mode], _mask_kw(BWD_CASES[mode])
+    q, k, v, do = _bwd_inputs(dev, dtype, case)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    o = tfa.flash_attention(q, k, v, lse=lse, **kw)
+    before = ops.launch_counts()["flash_attention_backward"]
+    got = tfa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    assert ops.launch_counts()["flash_attention_backward"] == before + 1
+    again = tfa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    want = tref.flash_attention_backward_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)                 # no atomics: same bits
+        assert g.dtype == dtype
+        gf, wf = g.float(), w.float()
+        scale = float(wf.abs().max())
+        err = (gf - wf).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= GRAD_REL * scale
+        else:
+            assert float(err.max()) <= 2e-2 * scale
+            assert bool((err <= GRAD_REL * scale
+                         + 2.0 ** -7 * wf.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", list(BWD_CASES))
+def test_flash_lse_vs_plain_logsumexp(dev, dtype, mode):
+    case, kw = BWD_CASES[mode], _mask_kw(BWD_CASES[mode])
+    q, k, v, _ = _bwd_inputs(dev, dtype, case, seed=1)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    o = tfa.flash_attention(q, k, v, lse=lse, **kw)
+    want = tref.flash_attention_lse_ref(q, k, **kw)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isinf(lse), ~finite)
+    torch.testing.assert_close(lse[finite], want[finite], atol=1e-4,
+                               rtol=1e-6)
+    plain = tref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), plain.float(),
+                               **(F32 if dtype == torch.float32 else BF16))
+    if mode == "rows without keys":
+        assert bool((~finite[..., 40:]).all())   # the mean of V there
+
+
+def test_flash_attention_autograd_uses_the_backward_kernel(dev):
+    """``ops.flash_attention`` under grad: one forward with lse, and the
+    gradient by the backward kernel, equal to autograd through the plain
+    version; without grad the forward launches with no lse."""
+    case = BWD_CASES["sliding softcap GQA"]
+    kw = _mask_kw(case)
+    q, k, v, do = _bwd_inputs(dev, torch.float32, case, seed=2)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    c0 = ops.launch_counts()
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, **kw), (q, k, v),
+                              do)
+    c1 = ops.launch_counts()
+    assert c1["flash_attention"] - c0["flash_attention"] == 1
+    assert c1["flash_attention_backward"] \
+        - c0["flash_attention_backward"] == 1
+    ops.use_kernels("ref")
+    try:
+        want = torch.autograd.grad(ops.flash_attention(q, k, v, **kw),
+                                   (q, k, v), do)
+    finally:
+        ops.use_kernels("auto")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, **kw)
+    assert out.grad_fn is None
+    assert ops.launch_counts()["flash_attention_backward"] \
+        == c1["flash_attention_backward"]
+
+
+def test_kernels_without_backward_raise_under_grad(dev):
+    """The guard: on the card, with grad on and an input that requires
+    grad, the kernels that have no backward raise rather than return an
+    output without a gradient; under no_grad they run."""
+    x = torch.randn(6, 64, device=dev, requires_grad=True)
+    rows = torch.tensor([0, 6, 3], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        ops.moe_gather(x, rows)
+    out = torch.randn(4, 64, device=dev, requires_grad=True)
+    tok = torch.tensor([0, 1, 1, 2], device=dev)
+    with pytest.raises(NotImplementedError, match="moe_combine"):
+        ops.moe_combine(out, tok, torch.ones(4, device=dev), 3,
+                        max_rows_per_token=2)
+    q = torch.randn(2, 2, 64, device=dev, requires_grad=True)
+    cache = torch.randn(2, 1, 16, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="decode_attention"):
+        ops.decode_attention(q, cache, cache, 3)
+    xs = torch.randn(1, 2, 70, 64, device=dev, requires_grad=True)
+    args = (torch.rand(1, 2, 70, device=dev), -torch.rand(2, device=dev),
+            torch.randn(1, 2, 70, 16, device=dev),
+            torch.randn(1, 2, 70, 16, device=dev))
+    with pytest.raises(NotImplementedError, match="ssd_scan"):
+        ops.ssd_scan(xs, *args)
+    with torch.no_grad():
+        assert ops.moe_gather(x, rows).shape == (3, 64)
+        ops.decode_attention(q, cache, cache, 3)
+        ops.ssd_scan(xs, *args)
+    ops.moe_gather(x.detach(), rows)     # nothing requires grad
+
+
+def test_serving_launches_unchanged_by_lse(dev):
+    """Serving passes no lse: a prefill of a small float32 model launches
+    one flash forward per layer and no backward."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as TT
+
+    cfg = dataclasses.replace(
+        configs.get("paper-synthetic").reduced(), d_model=128, num_heads=2,
+        num_kv_heads=2, head_dim=64)
+    model = TT.init_params(cfg, 0, device=dev)
+    caches = TT.init_caches(cfg, 1, 64, device=dev)
+    ops.reset_launch_counts()
+    TT.prefill_forward(model, {"tokens": torch.arange(
+        40, device=dev)[None] % cfg.vocab_size}, cfg, caches)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == cfg.num_layers
+    assert counts["flash_attention_backward"] == 0
+
+
+def test_train_step_kernel_mode_equals_ref_mode(dev):
+    """A 2-layer float32 MiniCPM-2B at full width, one train step on a
+    short batch: ops mode ``kernel`` against ``ref`` on the same weights
+    (chip_smoke.py's check (ii) for training, at 512 tokens): the loss to
+    1e-5, each gradient leaf to 1e-4 of its largest magnitude, the
+    parameters after the AdamW step to its learning rate."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import accumulate_grads
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(configs.get("minicpm-2b"), num_layers=2,
+                              param_dtype="float32", compute_dtype="float32",
+                              remat=True)
+    batch = SyntheticLM(vocab=cfg.padded_vocab, seq_len=256, batch=1,
+                        microbatches=2, seed=0, device=dev).batch_at(0)
+    opt_cfg = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=8)
+    got = {}
+    for mode in ("kernel", "ref"):
+        ops.use_kernels(mode)
+        try:
+            ops.reset_launch_counts()
+            p = TT.init_params(cfg, 0, device=dev)
+            loss, grads = accumulate_grads(p, batch, cfg)
+            adamw.apply_updates(p, grads, adamw.init_state(p), opt_cfg)
+            got[mode] = (float(loss), grads, dict(p.named_parameters()),
+                         ops.launch_counts())
+        finally:
+            ops.use_kernels("auto")
+    (lk, gk, pk, ck), (lr_, gr, pr, cr) = got["kernel"], got["ref"]
+    assert ck["flash_attention"] == 2 * 2 * 2      # layers x mb x remat
+    assert ck["flash_attention_backward"] == 2 * 2
+    assert cr["flash_attention"] == cr["flash_attention_backward"] == 0
+    assert abs(lk - lr_) <= 1e-5 * abs(lr_)
+    for n in gk:
+        assert float((gk[n] - gr[n]).abs().max()) \
+            <= 1e-4 * float(gr[n].abs().max()), n
+        assert float((pk[n] - pr[n]).abs().max()) <= 1e-3, n
 
 
 # The distributed plane's tests come last: their worker processes make CUDA

@@ -360,8 +360,9 @@ class TestDispatch:
         tops.moe_gather(qkv[0, 0], t(np.arange(4, dtype=np.int32)))
         assert tops.launch_counts() == dict.fromkeys(
             ("segment_sum", "scatter_add", "table_lookup",
-             "batched_table_lookup", "flash_attention", "decode_attention",
-             "ssd_scan", "moe_gather"), 0)
+             "batched_table_lookup", "flash_attention",
+             "flash_attention_backward", "decode_attention", "ssd_scan",
+             "moe_gather"), 0)
         assert not tops.kernels_active("cpu")
 
     def test_kernel_mode_refuses_cpu_tensors(self):
