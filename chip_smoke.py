@@ -85,9 +85,12 @@ Phases, each printed on its own line; any failure exits non-zero:
                that admit no key): float32 gradients within 1e-4 of each
                one's largest magnitude, bfloat16 within 2e-2 of it and one
                rounding step of each value, a second call bit-identical; at
-               MiniCPM's shape its time beside the plain version's, the
-               bound and SDPA's backward (``--train-only`` runs this part
-               and phase 16 after the build);
+               MiniCPM's shape and Gemma2's local layer's (bf16: the wgmma
+               kernels) its time beside the plain version's, the bound and
+               SDPA's backward, ptxas's registers and spills of its kernels
+               and the HGMMA instructions of the two bf16 ones, which must
+               have some (``--train-only`` runs this part and phase 16
+               after the build);
 7. gemma2-serve -- ``ServingEngine`` over Gemma2-27B at full width (16 of
                46 layers, random weights from the seed, bfloat16), 8 slots
                of 8,192 positions, 16 requests of 256-6,144 prompt tokens and
@@ -1420,24 +1423,25 @@ def sass_opcode_counts(library, opcode):
     return counts
 
 
-def flash_build_report():
-    """The flash kernels as built: ptxas's registers, spills and static
-    shared memory, and the HGMMA (wgmma) instructions in each kernel's
-    machine code; the bf16 kernel must have some where ``cuobjdump`` can
-    tell."""
+def wgmma_build_report(source, kernels):
+    """The kernels of one source as built: ptxas's registers, spills and
+    static shared memory, and the HGMMA (wgmma) instructions in each
+    kernel's machine code; both instances (hd 64 and 128) of each of
+    ``kernels`` must have some where ``cuobjdump`` can tell."""
     from repro_torch.kernels import _build
 
-    text = _build.BUILD_INFO["ptxas"].get("flash_attention.cu")
+    text = _build.BUILD_INFO["ptxas"].get(source)
     report = {"ptxas": (ptxas_entries(text) if text
                         else "not compiled in this run")}
-    hgmma = sass_opcode_counts(
-        _build.BUILD_INFO["libraries"]["flash_attention.cu"], "HGMMA")
+    hgmma = sass_opcode_counts(_build.BUILD_INFO["libraries"][source],
+                               "HGMMA")
     report["hgmma_instructions"] = (hgmma if hgmma is not None
                                     else "no cuobjdump in the toolkit")
     if hgmma is not None:
-        wg = {k: n for k, n in hgmma.items() if "flash_forward_wgmma" in k}
-        check(len(wg) == 2 and min(wg.values()) > 0,
-              f"flash_forward_wgmma without HGMMA instructions: {hgmma}")
+        for kernel in kernels:
+            wg = {k: n for k, n in hgmma.items() if kernel in k}
+            check(len(wg) == 2 and min(wg.values()) > 0,
+                  f"{kernel} without HGMMA instructions: {hgmma}")
     return report
 
 
@@ -1570,7 +1574,8 @@ def phase_attention(torch):
                      for c, t in pair_ms.items()},
         first_version_ms=FLASH_FIRST_VERSION_MS,
         speedup_over_first_version=FLASH_FIRST_VERSION_MS / pair_ms[50.0],
-        build=flash_build_report(),
+        build=wgmma_build_report("flash_attention.cu",
+                                 ("flash_forward_wgmma",)),
         per_layer={f"window {w}": dict(
             kernel_ms=times[("kernel", w, 50.0)],
             kernel_softcap0_ms=times[("kernel", w, 0.0)],
@@ -3681,12 +3686,12 @@ def phase_flash_backward(torch):
     """The training path's flash backward (three kernels a call) and the
     forward's row log-sum-exp against their plain versions on the card, at
     each of ``BWD_SHAPES`` in bfloat16 and float32, with a second call
-    bit-identical (no atomics); at MiniCPM-2B's shape (bf16) its time
-    beside the plain version's, the bound and the backward of SDPA at
-    softcap 0 (``torch.autograd.grad`` of SDPA timed, minus SDPA's
-    forward).  Returns the ``flash_attention_backward`` record."""
-    import torch.nn.functional as F
-
+    bit-identical (no atomics); at MiniCPM-2B's shape and Gemma2's local
+    layer's (bf16) its time beside the plain version's, the bound and the
+    backward of SDPA at softcap 0 (:func:`time_flash_backward`); ptxas's
+    report of its kernels and the HGMMA instructions of the bf16 ones.
+    Returns the ``flash_attention_backward`` record (MiniCPM-2B's numbers
+    at its top level)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -3738,49 +3743,79 @@ def phase_flash_backward(torch):
             del q, k, v, o, do, lse, got, want, lse_want
             torch.cuda.empty_cache()
 
-    # -- time at MiniCPM-2B's shape, bf16 -------------------------------------
-    label, b, hq, hkv, sq, skv, hd, causal, window, cap, prefix = \
-        BWD_SHAPES[0]
+    # -- time at MiniCPM-2B's and Gemma2's local layer's shapes, bf16 --------
+    timed = {shape[0]: time_flash_backward(torch, randn, shape)
+             for shape in BWD_SHAPES[:2]}
+    # MiniCPM-2B's (phase 16's) numbers stand for the kernel in the
+    # kernels line
+    rec = dict(timed[BWD_SHAPES[0][0]])
+    rec.update(
+        max_abs_err=max(abs_errs), errors=errs, lse_errors=lse_errs,
+        bf16_rounding_steps=steps, bit_identical=identical,
+        gemma2_local=timed[BWD_SHAPES[1][0]],
+        build=wgmma_build_report("flash_attention_backward.cu",
+                                 ("flash_bwd_dkdv_wgmma",
+                                  "flash_bwd_dq_wgmma")),
+        seconds=time.perf_counter() - t_phase)
+    say("attention", kernel="flash_attention_backward", **rec)
+    return rec
+
+
+def time_flash_backward(torch, randn, shape):
+    """The bf16 flash backward at one of ``BWD_SHAPES`` by events, beside
+    the plain version's time, the bound, its device time by kernel and the
+    library yardstick: SDPA's backward at softcap 0 on the same inputs
+    (``torch.autograd.grad`` of SDPA timed, minus SDPA's forward; the kv
+    heads expanded to the q heads beforehand, not timed; a window as
+    SDPA's boolean mask).  The port never calls SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    label, b, hq, hkv, sq, skv, hd, causal, window, cap, prefix = shape
+    kw = dict(causal=causal, window=window, softcap=cap, prefix_len=prefix)
     q, do = randn(b, hq, sq, hd), randn(b, hq, sq, hd)
     k, v = randn(b, hkv, skv, hd), randn(b, hkv, skv, hd)
-    lse = torch.empty((b, hq, sq), dtype=f32, device=dev)
-    o = fa.flash_attention(q, k, v, lse=lse)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    o = fa.flash_attention(q, k, v, lse=lse, **kw)
     ms = cuda_ms(torch, lambda: fa.flash_attention_backward(
-        q, k, v, o, lse, do), 5)
-    fwd_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, lse=lse), 5)
+        q, k, v, o, lse, do, **kw), 5)
+    fwd_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, lse=lse,
+                                                       **kw), 5)
     plain = cuda_ms(torch, lambda: ref.flash_attention_backward_ref(
-        q, k, v, o, lse, do), 2)
+        q, k, v, o, lse, do, **kw), 2)
     dev_ms = device_ms_by_kernel(torch, lambda: fa.flash_attention_backward(
-        q, k, v, o, lse, do), 3)
-    # the library yardstick: SDPA's backward at softcap 0 on the same
-    # inputs, by torch.autograd.grad (forward and backward) minus the
-    # forward; the port never calls it
-    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        q, k, v, o, lse, do, **kw), 3)
+    sdpa_kw = {"is_causal": causal}
+    if window:
+        pos = torch.arange(sq, device=q.device)
+        sdpa_kw = {"attn_mask": (pos[None, :] <= pos[:, None])
+                   & (pos[None, :] > pos[:, None] - window)}
+    qg = q.detach().requires_grad_(True)
+    kg, vg = (x.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
+              for x in (k, v))
     with torch.enable_grad():
         sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qg, kg, vg, is_causal=True), 5)
+            qg, kg, vg, **sdpa_kw), 5)
         sdpa_both = cuda_ms(torch, lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+            F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw),
             (qg, kg, vg), do), 5)
     pairs = admitted_pairs(sq, skv, causal, window, prefix)
     b_ms, b_by = flash_backward_bound(pairs, hq, hkv, sq, skv, hd, 2)
     fma_ms = pairs * hq * 7 * hd * 2 / PEAK_OPS_S * 1e3
     rec = dict(
-        max_abs_err=max(abs_errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=sdpa_both - sdpa_fwd,
-        library_fwd_bwd_ms=sdpa_both, library_fwd_ms=sdpa_fwd,
-        forward_with_lse_ms=fwd_ms, device_ms_by_kernel=dev_ms,
-        bound_share=b_ms / ms,
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=sdpa_both - sdpa_fwd, library_fwd_bwd_ms=sdpa_both,
+        library_fwd_ms=sdpa_fwd, forward_with_lse_ms=fwd_ms,
+        device_ms_by_kernel=dev_ms, bound_share=b_ms / ms,
         float32_fma_bound_ms=fma_ms, float32_fma_share=fma_ms / ms,
         tflops=pairs * hq * 10 * hd / (ms * 1e-3) / 1e12,
-        admitted_pairs=pairs * hq, errors=errs, lse_errors=lse_errs,
-        bf16_rounding_steps=steps, bit_identical=identical,
-        build=build_report("flash_attention_backward.cu"),
-        seconds=time.perf_counter() - t_phase,
-        shape=f"q, o, dO [1,{hq},{sq},{hd}] bf16, k/v {hkv} heads, causal")
+        admitted_pairs=pairs * hq,
+        shape=(f"{label}: q, o, dO [{b},{hq},{sq},{hd}] bf16, k/v {hkv} "
+               f"heads, causal {causal}, window {window}, softcap {cap}"))
     del q, k, v, o, do, lse, qg, kg, vg
     torch.cuda.empty_cache()
-    say("attention", kernel="flash_attention_backward", **rec)
     return rec
 
 

@@ -86,4 +86,17 @@ __device__ __forceinline__ Range q_range(int k0, int k_last, int Sq,
   return r;
 }
 
+// Whether admitted() holds for every pair of query rows [q0, q_last] and
+// keys [k0, k_last], all of them below Sq and Skv: such a tile needs no
+// per-element mask (the backward's wgmma kernels test each tile with it).
+__device__ __forceinline__ bool tile_admitted(int q0, int q_last, int k0,
+                                              int k_last, int Sq, int Skv,
+                                              int causal, int window,
+                                              int prefix) {
+  bool all = q_last < Sq && k_last < Skv;
+  if (causal) all = all && (k_last <= q0 || k_last < prefix);
+  if (window > 0) all = all && k0 > q_last - window;
+  return all;
+}
+
 }  // namespace attn

@@ -83,7 +83,6 @@
 // float32 and the output rounded once.  At hd 256 it runs at the CUDA
 // cores' rate, far below the tensor cores' bound.
 
-#include <cuda.h>  // CUtensorMap and its enums; no libcuda link
 #include <cmath>
 
 #include "attention_common.cuh"
@@ -342,25 +341,6 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
-// P = P_hi + P_lo, bf16(p) and bf16(p - bf16(p)), each packed as wgmma's A
-// registers: columns 16c..16c+15 of the tile are sc[8c..8c+7]
-__device__ __forceinline__ void split_p(const float (&sc)[kWgBK / 2],
-                                        uint32_t (&p_hi)[kWgBK / 16][4],
-                                        uint32_t (&p_lo)[kWgBK / 16][4]) {
-#pragma unroll
-  for (int c = 0; c < kWgBK / 16; ++c) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float x0 = sc[8 * c + 2 * i], x1 = sc[8 * c + 2 * i + 1];
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(
-          x0 - __low2float(hi), x1 - __high2float(hi));
-      p_hi[c][i] = *reinterpret_cast<const uint32_t*>(&hi);
-      p_lo[c][i] = *reinterpret_cast<const uint32_t*>(&lo);
-    }
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -507,7 +487,7 @@ flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(sc);
     softmax_tile(sc, k_lo, edge(k_lo), r0, cq, Skv, causal, window, prefix,
                  softcap, inv_cap, scale, m, l, alpha);
-    split_p(sc, p_hi, p_lo);
+    split_bf16(sc, p_hi, p_lo);
     // tile j: S_j is issued, then the tile before's O += P.V, so the tensor
     // cores run that P.V while the CUDA cores run S_j's softmax; O is
     // rescaled and P_j packed once that P.V is complete, so no register of
@@ -536,7 +516,7 @@ flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
       free_stage(sp);
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-      split_p(sc, p_hi, p_lo);
+      split_bf16(sc, p_hi, p_lo);
     }
     // the last tile's P.V
     const int sl = (n_tiles - 1) % ST;
@@ -577,49 +557,6 @@ flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found at run time (once)
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a bf16 [heads, rows, hd] tensor as boxes of `box_rows` x 64 columns,
-// 128-byte swizzled, zero fill past `rows`
-static bool encode_map(CUtensorMap* map, const void* ptr, int heads, int rows,
-                       int hd, int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {cuuint64_t(hd), cuuint64_t(rows),
-                              cuuint64_t(heads)};
-  const cuuint64_t strides[2] = {cuuint64_t(hd) * 2,
-                                 cuuint64_t(rows) * hd * 2};
-  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
@@ -629,9 +566,9 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
   if (Skv <= 0 || n_qt > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode_map(&tm_q, q, B * Hq, Sq, HD, kWgBQ)
-      || !encode_map(&tm_k, k, B * Hkv, Skv, HD, kWgBK)
-      || !encode_map(&tm_v, v, B * Hkv, Skv, HD, kWgBK))
+  if (!hopper::encode_map(&tm_q, q, B * Hq, Sq, HD, kWgBQ)
+      || !hopper::encode_map(&tm_k, k, B * Hkv, Skv, HD, kWgBK)
+      || !hopper::encode_map(&tm_v, v, B * Hkv, Skv, HD, kWgBK))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = WgSmem<HD>::kAlloc;
   const cudaError_t err = cudaFuncSetAttribute(

@@ -22,7 +22,7 @@
 // Hkv == 0); hd 64, 128, 256; float32 or bfloat16, the gradients in the
 // inputs' dtype.
 //
-// Design (FlashAttention-2's split, float32 math on the CUDA cores):
+// Design (FlashAttention-2's split in two kernels after D, every route):
 // - dK/dV: one block per (kv tile, kv head, batch).  It keeps its K and V
 //   tiles in shared memory and dK, dV in registers, and walks the q heads
 //   of its group and, for each, the q tiles q_range() admits, recomputing
@@ -35,24 +35,73 @@
 //   restart of training is bit-exact only if its gradients are).
 // - The mask predicate and both ranges are attention_common.cuh's, shared
 //   with the forward, so the two masks cannot drift apart.
-// - Every product is a small float32 GEMM out of shared memory (mm below),
-//   each thread owning a (rows / 16) x (columns / 16) piece of the output
-//   on rows ty + 16 i and columns tx + 16 j.  Tiles are stored row-major
-//   with one float of padding (an odd row stride), so reading a tile along
-//   its rows or its columns hits distinct banks.
-// - bfloat16 inputs are widened on load; each gradient is rounded once.
 //
 // What bounds it on an H100: operations.  Per admitted (q, k) pair and head
 // it does 4 * hd (dK/dV: S, dP, dV, dK) + 3 * hd (dQ: S, dP, dQ) multiply-
 // adds, 2.5x the forward's 2 * 2 * hd flops counted as products at the bf16
 // tensor-core rate (the same products as the reference's differentiated
-// attention); here they run as float32 FMAs at the CUDA cores' 67 TFLOP/s,
-// far below that bound.  The tensor-core redesign (wgmma, TMA) is queued
-// (ROADMAP Queue 2).
+// attention); each pair also takes an exp (and a tanh under a softcap) in
+// both kernels, on the special-function units.
+//
+// bfloat16 at hd 64 and 128 (the training dtype): flash_bwd_dkdv_wgmma and
+// flash_bwd_dq_wgmma.  Every product runs on the tensor cores as wgmma
+// with float32 sums, fed by TMA, in the forward's plan (flash_attention.cu):
+// - A block: 128 own rows (kv rows in dK/dV, q rows in dQ) as two consumer
+//   warpgroups of 64, and a producer warpgroup whose registers go to the
+//   consumers (setmaxnreg 40 / 232).  The own rows' two tiles (K and V, or
+//   Q and dO) arrive once by TMA; the streamed tiles of 64 rows (Q and dO,
+//   or K and V) through a ring of three stages with mbarriers, all in the
+//   128-byte swizzle, through 3-D [B*H, S, hd] maps whose zero fill never
+//   reads the next head's rows.  In dK/dV, the producer warp's lanes also
+//   copy the stage's 64 lse and D values into shared memory (the rows past
+//   Sq as lse +inf, D 0), since a q tile's stats need not lie on 16 bytes
+//   for a bulk copy.
+// - dK/dV, per q tile and warpgroup: S^T = K.Q^T and dP^T = V.dO^T with
+//   both operands K-major; P^T = exp(softcap(scale S^T) - lse) and dS^T =
+//   P^T o (dP^T - D) o (1 - (s/c)^2) in float32 registers; dV += P^T.dO and
+//   dK += dS^T.Q with the A operand the packed accumulator (as the forward
+//   packs P) and dO, Q MN-major through the transpose bit.  dK, dV stay in
+//   registers (64 + 64 a thread at hd 128) until the epilogue scales dK by
+//   1/sqrt(hd) and rounds each once to bf16.
+// - dQ, per kv tile: S = Q.K^T, dP = dO.V^T, dS in registers, dQ += dS.K
+//   with K MN-major; each thread's two rows' lse and D in registers.
+// - Precision: P and dS are the only values the products round; Q, K, V
+//   and dO are bf16 already and the sums float32.  Each of the three
+//   products that read P or dS takes it split, x = bf16(x) + bf16(x -
+//   bf16(x)), two products (about 16 bits of x, as the forward splits P):
+//   one bf16 rounding (2^-9) moves a gradient of a row with few admitted
+//   keys by up to a rounding step of bf16 (tests/test_torch_flash_backward.py
+//   holds a CPU model of this arithmetic, split and not, to the limits).
+//   10 products of hd multiply-adds a pair instead of 7: the bound stays
+//   the function's.
+// - Each warpgroup skips the streamed tiles its own rows' range does not
+//   reach (it still waits for and frees each stage); the per-element mask
+//   runs only on tiles tile_admitted() does not pass whole, and rows past
+//   Sq (TMA's zero fill) are masked there, never read through exp(x - 0).
+// - The blocks with the most tiles launch first: low kv tiles in dK/dV,
+//   high q tiles in dQ (the causal mask's long ranges).
+// - After each pair of products the warpgroup waits for them, and every
+//   product opens with its own wgmma.fence (or ptxas serializes them, see
+//   flash_attention.cu); S and dP are zeroed before each tile's products,
+//   so the previous tile's values are dead while dK and dV are live.
+//
+// float32 (flash_bwd_dkdv, flash_bwd_dq): float32 FMAs on the CUDA cores.
+// TF32 (10-bit mantissa) could not hold float32 gradients to 1e-4 of their
+// largest.  hd 256, both dtypes, takes them too: a 64-row warpgroup's dK and
+// dV accumulators would need 128 registers a thread each.  Each product is
+// a small float32 GEMM out of shared memory (mm below), each thread owning a
+// (rows / 16) x (columns / 16) piece of the output on rows ty + 16 i and
+// columns tx + 16 j; tiles are stored row-major with one float of padding
+// (an odd row stride), so reading a tile along its rows or its columns hits
+// distinct banks; bf16 inputs are widened on load and each gradient is
+// rounded once.  They run at the CUDA cores' 67 TFLOP/s, far below the
+// tensor cores' bound.
 
 #include <cmath>
+#include <type_traits>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace attn {
 namespace bwd {
@@ -337,6 +386,505 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- bfloat16 at hd 64 and 128: wgmma products fed by TMA --------------------
+
+constexpr int kWgOwn = 128;   // a block's own rows: two warpgroups of 64
+constexpr int kWgTile = 64;   // rows of a streamed tile
+constexpr int kWgStages = 3;
+constexpr int kWgConsumers = 2;
+// + a producer warpgroup (registers are granted per 128 threads, so it
+// hands its share to the consumers)
+constexpr int kWgThreads = (kWgConsumers + 1) * 128;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kSwRow = 128;   // bytes of a swizzled row: 64 bf16
+
+template <int HD>
+struct WgSmem {
+  static constexpr int kOwn = kWgOwn * HD * 2;    // K or V; Q or dO
+  static constexpr int kTile = kWgTile * HD * 2;  // one streamed tile
+  static constexpr int kAlloc = 2 * kOwn + kWgStages * 2 * kTile + 1024;
+};
+
+// the swizzle atoms need 1,024-byte aligned shared addresses
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
+}
+
+// D[64 x 64] = A.B^T over the head dim, issued (not waited for): A the
+// warpgroup's 64 rows at a_addr in column blocks of a_rows rows, B 64 rows
+// at b_addr in column blocks of b_rows rows, both K-major
+template <int HD>
+__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a_addr,
+                                           int a_rows, uint32_t b_addr,
+                                           int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;  // 16 columns
+    hopper::wgmma_ss_n64(
+        d, hopper::sw128_desc(a_addr + (kk / 4) * a_rows * kSwRow + off, 16,
+                              1024),
+        hopper::sw128_desc(b_addr + (kk / 4) * b_rows * kSwRow + off, 16,
+                           1024),
+        kk > 0);
+  }
+}
+
+// acc[64 x HD] += X.B, issued: X's 64 columns as bf16 hi and lo parts in
+// registers, B a streamed 64-row tile at b_addr, MN-major (a k step is 16
+// rows, 2,048 bytes; its 64-column blocks lie kWgTile * 128 bytes apart)
+template <int HD>
+__device__ __forceinline__ void product_rs(float (&acc)[HD / 2],
+                                           const uint32_t (&hi)[4][4],
+                                           const uint32_t (&lo)[4][4],
+                                           uint32_t b_addr) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint64_t db = hopper::sw128_desc(b_addr + c * 16 * kSwRow,
+                                           kWgTile * kSwRow, 1024);
+    if constexpr (HD == 128) {
+      hopper::wgmma_rs_n128(acc, hi[c], db);
+      hopper::wgmma_rs_n128(acc, lo[c], db);
+    } else {
+      hopper::wgmma_rs_n64(acc, hi[c], db);
+      hopper::wgmma_rs_n64(acc, lo[c], db);
+    }
+  }
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One score's P and dS in place: s holds q.k (unscaled), dp holds dO.v,
+// lse2 and d its q row's lse * log2(e) and D; P = exp2(x log2(e) - lse2)
+// with x the scaled (CAP: soft-capped) score; scale2 = scale * log2(e)
+template <bool CAP>
+__device__ __forceinline__ void p_and_ds(float& s, float& dp, float lse2,
+                                         float d, float scale, float scale2,
+                                         float softcap, float inv_cap) {
+  if constexpr (CAP) {
+    const float t = tanhf(s * scale * inv_cap);
+    const float p = exp2f(fmaf(softcap * t, kLog2e, -lse2));
+    s = p;
+    dp = p * (dp - d) * (1.f - t * t);
+  } else {
+    const float p = exp2f(fmaf(s, scale2, -lse2));
+    s = p;
+    dp = p * (dp - d);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int Hq, int Hkv, int Sq,
+                     int Skv, int causal, int window, float softcap,
+                     int prefix, float scale) {
+  using namespace hopper;
+  using L = WgSmem<HD>;
+  constexpr int BK = kWgOwn, BQ = kWgTile, ST = kWgStages;
+  constexpr int NCB = HD / 64;  // 64-column blocks of a row
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_kv, bar_full[ST], bar_free[ST];
+  // lse * log2(e) and D of each stage's q rows
+  __shared__ float stats[ST][2][BQ];
+  uint8_t* Ks = align_1024(smem_raw);
+  uint8_t* Vs = Ks + L::kOwn;
+  uint8_t* Qs = Vs + L::kOwn;         // stage s at Qs + s * L::kTile
+  uint8_t* dOs = Qs + ST * L::kTile;
+
+  // the low kv tiles, which the causal mask gives the most q tiles, first:
+  // blockIdx.z runs slowest
+  const int k0 = blockIdx.z * BK;
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int group = Hq / Hkv;
+  // the q rows the mask admits for keys [k0, k_last]; the stream is every
+  // q head of the group times these q tiles
+  const Range qr = q_range(k0, min(k0 + BK, Skv) - 1, Sq, causal, window,
+                           prefix);
+  const int q_lo = (qr.lo / BQ) * BQ;
+  const int n_qt = qr.hi > q_lo ? (qr.hi - q_lo + BQ - 1) / BQ : 0;
+  const int n_tiles = group * n_qt;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&bar_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&bar_full[s], 32);  // the producer warp's lanes
+      mbar_init(&bar_free[s], kWgConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  if (warp >= kWgConsumers * 4) {
+    // producer: one warp; tile j goes to stage j % ST once both warpgroups
+    // have freed tile j - ST there.  Its lanes copy the tile's lse and D,
+    // lane 0 issues the loads.
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kWgConsumers * 4) {
+      if (lane == 0) {
+        const int zk = b * Hkv + hk;
+        mbar_expect_tx(&bar_kv, 2 * L::kOwn);
+        for (int c = 0; c < NCB; ++c) {
+          tma_load_3d(Ks + c * BK * kSwRow, &tm_k, &bar_kv, c * 64, k0, zk);
+          tma_load_3d(Vs + c * BK * kSwRow, &tm_v, &bar_kv, c * 64, k0, zk);
+        }
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        if (j >= ST) mbar_wait(&bar_free[s], ((j / ST) - 1) & 1);
+        const int h = hk * group + j / n_qt;
+        const int q0 = q_lo + (j % n_qt) * BQ;
+        const int64_t row0 = (int64_t(b) * Hq + h) * Sq;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool in = q0 + r < Sq;
+          stats[s][0][r] = in ? lse[row0 + q0 + r] * kLog2e : pos_inf();
+          stats[s][1][r] = in ? delta[row0 + q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          const int zq = b * Hq + h;
+          uint8_t* qd = Qs + s * L::kTile;
+          uint8_t* dd = dOs + s * L::kTile;
+          mbar_expect_tx(&bar_full[s], 2 * L::kTile);
+          for (int c = 0; c < NCB; ++c) {
+            tma_load_3d(qd + c * BQ * kSwRow, &tm_q, &bar_full[s], c * 64,
+                        q0, zq);
+            tma_load_3d(dd + c * BQ * kSwRow, &tm_do, &bar_full[s], c * 64,
+                        q0, zq);
+          }
+        } else {
+          mbar_arrive(&bar_full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: kv rows ka..ka+63; this thread holds rows r0 and
+  // r0 + 8 at columns 8i + cq + {0, 1} of every accumulator (q columns of
+  // S^T and dP^T, head-dim columns of dK and dV)
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4;
+  const int ka = k0 + wg * 64;
+  const int r0 = ka + (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const uint32_t k_addr = smem_u32(Ks) + wg * 64 * kSwRow;
+  const uint32_t v_addr = smem_u32(Vs) + wg * 64 * kSwRow;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+  const float scale2 = scale * kLog2e;
+  // the q rows this warpgroup's own keys admit (none past Skv)
+  const Range wr = ka < Skv ? q_range(ka, min(ka + 63, Skv - 1), Sq, causal,
+                                      window, prefix)
+                            : Range{0, 0};
+
+  float dk_acc[HD / 2], dv_acc[HD / 2];
+  zero_regs(dk_acc);
+  zero_regs(dv_acc);
+  float sc[32], dp[32];
+  uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+
+  mbar_wait(&bar_kv, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % ST;
+    const int q0 = q_lo + (j % n_qt) * BQ;
+    mbar_wait(&bar_full[s], (j / ST) & 1);
+    if (q0 < wr.hi && q0 + BQ > wr.lo) {
+      const uint32_t q_addr = smem_u32(Qs + s * L::kTile);
+      const uint32_t do_addr = smem_u32(dOs + s * L::kTile);
+      // S^T = K.Q^T, dP^T = V.dO^T
+      zero_regs(sc);
+      zero_regs(dp);
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      product_ss<HD>(sc, k_addr, BK, q_addr, BQ);
+      wgmma_fence();
+      product_ss<HD>(dp, v_addr, BK, do_addr, BQ);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      // P^T and dS^T; the mask only on a tile that crosses an edge
+      const float* lse_s = stats[s][0];
+      const float* d_s = stats[s][1];
+      auto scores = [&](auto cap) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int c = (e / 4) * 8 + cq + (e & 1);  // q row q0 + c
+          p_and_ds<decltype(cap)::value>(sc[e], dp[e], lse_s[c], d_s[c],
+                                         scale, scale2, softcap, inv_cap);
+        }
+      };
+      if (softcap > 0.f) scores(std::true_type{});
+      else scores(std::false_type{});
+      if (!tile_admitted(q0, q0 + BQ - 1, ka, ka + 63, Sq, Skv, causal,
+                         window, prefix)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int qi = q0 + (e / 4) * 8 + cq + (e & 1);
+          const int kj = r0 + ((e & 2) ? 8 : 0);
+          if (!(qi < Sq && admitted(qi, kj, Skv, causal, window, prefix))) {
+            sc[e] = 0.f;
+            dp[e] = 0.f;
+          }
+        }
+      }
+      // dV += P^T.dO, then (its operand packed while dV runs) dK += dS^T.Q
+      split_bf16(sc, p_hi, p_lo);
+      fence_regs(dv_acc);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      wgmma_fence();
+      product_rs<HD>(dv_acc, p_hi, p_lo, do_addr);
+      wgmma_commit();
+      split_bf16(dp, ds_hi, ds_lo);
+      fence_regs(dk_acc);
+      fence_regs(ds_hi);
+      fence_regs(ds_lo);
+      wgmma_fence();  // a fence per product, or ptxas serializes them
+      product_rs<HD>(dk_acc, ds_hi, ds_lo, q_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      fence_regs(ds_hi);
+      fence_regs(ds_lo);
+    }
+    // this warpgroup's products of the stage are complete (a product
+    // starts only once all four warps have issued it, after their reads of
+    // the stage's stats): its thread 0 frees the stage
+    if ((warp % 4) == 0 && lane == 0) mbar_arrive(&bar_free[s]);
+  }
+
+  // epilogue: dK scaled by 1/sqrt(hd), each gradient rounded once
+  const int64_t kv_base = (int64_t(b) * Hkv + hk) * Skv;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = r0 + 8 * r;
+    if (kj < Skv) {
+      __nv_bfloat16* krow = dk + (kv_base + kj) * HD + cq;
+      __nv_bfloat16* vrow = dv + (kv_base + kj) * HD + cq;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        *reinterpret_cast<__nv_bfloat162*>(krow + 8 * i) =
+            __floats2bfloat162_rn(dk_acc[4 * i + 2 * r] * scale,
+                                  dk_acc[4 * i + 2 * r + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * i) =
+            __floats2bfloat162_rn(dv_acc[4 * i + 2 * r],
+                                  dv_acc[4 * i + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int Hq, int Hkv, int Sq,
+                   int Skv, int causal, int window, float softcap, int prefix,
+                   float scale) {
+  using namespace hopper;
+  using L = WgSmem<HD>;
+  constexpr int BQ = kWgOwn, BK = kWgTile, ST = kWgStages;
+  constexpr int NCB = HD / 64;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_q, bar_full[ST], bar_free[ST];
+  uint8_t* Qs = align_1024(smem_raw);
+  uint8_t* dOs = Qs + L::kOwn;
+  uint8_t* Ks = dOs + L::kOwn;        // stage s at Ks + s * L::kTile
+  uint8_t* Vs = Ks + ST * L::kTile;
+
+  // the q tiles with the most kv tiles (the last, under the causal mask)
+  // first: blockIdx.z runs slowest
+  const int q0 = int(gridDim.z - 1 - blockIdx.z) * BQ;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const Range kr = kv_range(q0, min(q0 + BQ, Sq) - 1, Skv, causal, window,
+                            prefix);
+  const int k_lo = (kr.lo / BK) * BK;
+  const int n_tiles = kr.hi > k_lo ? (kr.hi - k_lo + BK - 1) / BK : 0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_free[s], kWgConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  if (warp >= kWgConsumers * 4) {
+    // producer: one thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kWgConsumers * 4 && lane == 0) {
+      const int zq = b * Hq + h, zk = b * Hkv + hk;
+      mbar_expect_tx(&bar_q, 2 * L::kOwn);
+      for (int c = 0; c < NCB; ++c) {
+        tma_load_3d(Qs + c * BQ * kSwRow, &tm_q, &bar_q, c * 64, q0, zq);
+        tma_load_3d(dOs + c * BQ * kSwRow, &tm_do, &bar_q, c * 64, q0, zq);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        if (j >= ST) mbar_wait(&bar_free[s], ((j / ST) - 1) & 1);
+        const int kt = k_lo + j * BK;
+        uint8_t* kd = Ks + s * L::kTile;
+        uint8_t* vd = Vs + s * L::kTile;
+        mbar_expect_tx(&bar_full[s], 2 * L::kTile);
+        for (int c = 0; c < NCB; ++c) {
+          tma_load_3d(kd + c * BK * kSwRow, &tm_k, &bar_full[s], c * 64, kt,
+                      zk);
+          tma_load_3d(vd + c * BK * kSwRow, &tm_v, &bar_full[s], c * 64, kt,
+                      zk);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: q rows qa..qa+63; this thread holds rows r0 and
+  // r0 + 8 (kv columns of S and dP, head-dim columns of dQ)
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4;
+  const int qa = q0 + wg * 64;
+  const int r0 = qa + (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const uint32_t q_addr = smem_u32(Qs) + wg * 64 * kSwRow;
+  const uint32_t do_addr = smem_u32(dOs) + wg * 64 * kSwRow;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+  const float scale2 = scale * kLog2e;
+  const int64_t row0 = (int64_t(b) * Hq + h) * Sq;
+  // this thread's rows' lse * log2(e) and D; a row past Sq gets lse +inf
+  // (P = 0)
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    lse_r[r] = qi < Sq ? lse[row0 + qi] * kLog2e : pos_inf();
+    d_r[r] = qi < Sq ? delta[row0 + qi] : 0.f;
+  }
+  // the keys this warpgroup's own rows admit (none past Sq)
+  const Range wr = qa < Sq ? kv_range(qa, min(qa + 63, Sq - 1), Skv, causal,
+                                      window, prefix)
+                           : Range{0, 0};
+
+  float dq_acc[HD / 2];
+  zero_regs(dq_acc);
+  float sc[32], dp[32];
+  uint32_t ds_hi[4][4], ds_lo[4][4];
+
+  mbar_wait(&bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % ST;
+    const int kt = k_lo + j * BK;
+    mbar_wait(&bar_full[s], (j / ST) & 1);
+    if (kt < wr.hi && kt + BK > wr.lo) {
+      const uint32_t k_addr = smem_u32(Ks + s * L::kTile);
+      const uint32_t v_addr = smem_u32(Vs + s * L::kTile);
+      // S = Q.K^T, dP = dO.V^T
+      zero_regs(sc);
+      zero_regs(dp);
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      product_ss<HD>(sc, q_addr, BQ, k_addr, BK);
+      wgmma_fence();
+      product_ss<HD>(dp, do_addr, BQ, v_addr, BK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      // P and dS; the mask only on a tile that crosses an edge
+      auto scores = [&](auto cap) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int r = (e >> 1) & 1;
+          p_and_ds<decltype(cap)::value>(sc[e], dp[e], lse_r[r], d_r[r],
+                                         scale, scale2, softcap, inv_cap);
+        }
+      };
+      if (softcap > 0.f) scores(std::true_type{});
+      else scores(std::false_type{});
+      if (!tile_admitted(qa, qa + 63, kt, kt + BK - 1, Sq, Skv, causal,
+                         window, prefix)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int qi = r0 + ((e & 2) ? 8 : 0);
+          const int kj = kt + (e / 4) * 8 + cq + (e & 1);
+          if (!(qi < Sq && admitted(qi, kj, Skv, causal, window, prefix))) {
+            sc[e] = 0.f;
+            dp[e] = 0.f;
+          }
+        }
+      }
+      // dQ += dS.K
+      split_bf16(dp, ds_hi, ds_lo);
+      fence_regs(dq_acc);
+      fence_regs(ds_hi);
+      fence_regs(ds_lo);
+      wgmma_fence();
+      product_rs<HD>(dq_acc, ds_hi, ds_lo, k_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      fence_regs(ds_hi);
+      fence_regs(ds_lo);
+    }
+    if ((warp % 4) == 0 && lane == 0) mbar_arrive(&bar_free[s]);
+  }
+
+  // epilogue: scaled by 1/sqrt(hd), rounded once
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    if (qi < Sq) {
+      __nv_bfloat16* qrow = dq + (row0 + qi) * HD + cq;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * i) =
+            __floats2bfloat162_rn(dq_acc[4 * i + 2 * r] * scale,
+                                  dq_acc[4 * i + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// D = rowsum(dO o O) for every row, launched first on either route
+template <typename T, int HD>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta,
+                         int64_t rows, cudaStream_t stream) {
+  const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  flash_bwd_delta<T, HD><<<unsigned(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD>
 int launch_backward(const void* q, const void* k, const void* v,
                     const void* o, const float* lse, const void* dout,
@@ -354,13 +902,8 @@ int launch_backward(const void* q, const void* k, const void* v,
   const T* V = static_cast<const T*>(v);
   const T* dO = static_cast<const T*>(dout);
 
-  const int64_t rows = int64_t(B) * Hq * Sq;
-  const int64_t delta_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (delta_blocks > 2147483647LL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_delta<T, HD><<<unsigned(delta_blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(o), dO, delta, rows);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<T, HD>(o, dout, delta,
+                                        int64_t(B) * Hq * Sq, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // above 48 KB of dynamic shared memory needs the opt-in (per device, so
@@ -387,6 +930,57 @@ int launch_backward(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_backward_wgmma(const void* q, const void* k, const void* v,
+                          const void* o, const float* lse, const void* dout,
+                          void* dq, void* dk, void* dv, float* delta, int B,
+                          int Hq, int Hkv, int Sq, int Skv, int causal,
+                          int window, float softcap, int prefix,
+                          cudaStream_t stream) {
+  using hopper::encode_map;
+  const int n_kt = (Skv + kWgOwn - 1) / kWgOwn;
+  const int n_qt = (Sq + kWgOwn - 1) / kWgOwn;
+  if (n_kt > 65535 || n_qt > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the streamed tiles' maps (64-row boxes) and the own tiles' (128 rows)
+  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
+  if (!encode_map(&q64, q, B * Hq, Sq, HD, kWgTile)
+      || !encode_map(&do64, dout, B * Hq, Sq, HD, kWgTile)
+      || !encode_map(&k128, k, B * Hkv, Skv, HD, kWgOwn)
+      || !encode_map(&v128, v, B * Hkv, Skv, HD, kWgOwn)
+      || !encode_map(&q128, q, B * Hq, Sq, HD, kWgOwn)
+      || !encode_map(&do128, dout, B * Hq, Sq, HD, kWgOwn)
+      || !encode_map(&k64, k, B * Hkv, Skv, HD, kWgTile)
+      || !encode_map(&v64, v, B * Hkv, Skv, HD, kWgTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = static_cast<float>(1.0 / std::sqrt(double(HD)));
+  constexpr int smem = WgSmem<HD>::kAlloc;
+
+  cudaError_t err = launch_delta<__nv_bfloat16, HD>(
+      o, dout, delta, int64_t(B) * Hq * Sq, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_wgmma<HD><<<dim3(Hkv, B, n_kt), kWgThreads, smem, stream>>>(
+      q64, do64, k128, v128, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Hq, Hkv, Sq, Skv, causal, window,
+      softcap, prefix, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_wgmma<HD><<<dim3(Hq, B, n_qt), kWgThreads, smem, stream>>>(
+      q128, do128, k64, v64, lse, delta, static_cast<__nv_bfloat16*>(dq), Hq,
+      Hkv, Sq, Skv, causal, window, softcap, prefix, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace bwd
 }  // namespace attn
 
@@ -395,7 +989,8 @@ extern "C" {
 // q, k, v, o, dout as the forward's (o its output, dout the gradient of o),
 // lse the forward's float32 [B, Hq, Sq]; dq, dk, dv the gradients, written
 // in full; delta float32 [B, Hq, Sq] scratch.  dtype: 0 = float32, 1 =
-// bfloat16; hd: 64, 128 or 256; the mask options as attn_flash_forward's.
+// bfloat16 (flash_bwd_*_wgmma at hd 64 and 128, the float32-FMA kernels at
+// hd 256); hd: 64, 128 or 256; the mask options as attn_flash_forward's.
 // Three launches on `stream` (D, dK/dV, dQ).  Returns the first nonzero
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernels do
 // not take (the wrapper refuses most before calling).
@@ -420,10 +1015,18 @@ int attn_flash_backward(const void* q, const void* k, const void* v,
   if (dtype == 0 && hd == 64) ATTN_BWD(float, 64);
   if (dtype == 0 && hd == 128) ATTN_BWD(float, 128);
   if (dtype == 0 && hd == 256) ATTN_BWD(float, 256);
-  if (dtype == 1 && hd == 64) ATTN_BWD(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) ATTN_BWD(__nv_bfloat16, 128);
   if (dtype == 1 && hd == 256) ATTN_BWD(__nv_bfloat16, 256);
 #undef ATTN_BWD
+  if (dtype == 1 && hd == 64)
+    return attn::bwd::launch_backward_wgmma<64>(q, k, v, o, L, dout, dq, dk,
+                                                dv, D, B, Hq, Hkv, Sq, Skv,
+                                                causal, window, softcap, P,
+                                                st);
+  if (dtype == 1 && hd == 128)
+    return attn::bwd::launch_backward_wgmma<128>(q, k, v, o, L, dout, dq, dk,
+                                                 dv, D, B, Hq, Hkv, Sq, Skv,
+                                                 causal, window, softcap, P,
+                                                 st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

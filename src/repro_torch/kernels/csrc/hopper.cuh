@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives in inline PTX: mbarriers, TMA tile loads, bulk
 // copies and warpgroup matrix products (wgmma) on bf16 operands with
-// float32 sums.
+// float32 sums; on the host, the TMA tensor maps the attention kernels
+// load their bf16 tiles through (encode_map).
 //
 // Operand layouts.  A shared-memory operand is stored as TMA writes it with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), 16-byte chunks
@@ -20,6 +21,9 @@
 // register A operand of a m64nNk16 product.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda link
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <cstdint>
 
 namespace hopper {
@@ -217,6 +221,72 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// x = hi + lo, hi = bf16(x) and lo = bf16(x - hi), each packed as wgmma's A
+// registers: columns 16c..16c+15 of a 64-column accumulator are
+// x[8c..8c+7].  A product that takes both parts keeps about 16 bits of x,
+// where one bf16 rounding keeps 8.
+__device__ __forceinline__ void split_bf16(const float (&x)[32],
+                                           uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x0 = x[8 * c + 2 * i], x1 = x[8 * c + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h),
+                                                     x1 - __high2float(h));
+      hi[c][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[c][i] = *reinterpret_cast<const uint32_t*>(&l);
+    }
+  }
+}
+
+// -- TMA tensor maps (host) ---------------------------------------------------
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found at run time (once)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 [heads, rows, hd] tensor as boxes of `box_rows` x 64 columns,
+// 128-byte swizzled, zero fill past `rows` (never the next head's rows)
+inline bool encode_map(CUtensorMap* map, const void* ptr, int heads, int rows,
+                       int hd, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(hd), cuuint64_t(rows),
+                              cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(hd) * 2,
+                                 cuuint64_t(rows) * hd * 2};
+  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

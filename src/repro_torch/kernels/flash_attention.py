@@ -13,7 +13,11 @@ in either dtype, to ``flash_forward`` (float32 FMAs on the CUDA cores);
 there is no other route.  For training, :func:`flash_attention` also
 writes each row's log-sum-exp when given ``lse``, and
 :func:`flash_attention_backward` launches the backward kernels
-(``csrc/flash_attention_backward.cu``, float32 FMAs, no atomics), which
+(``csrc/flash_attention_backward.cu``, no atomics: D, then dK/dV and dQ
+as ``flash_bwd_dkdv_wgmma`` / ``flash_bwd_dq_wgmma`` for bfloat16 at
+head_dim 64 and 128, tensor-core products fed by TMA with P and dS split
+into two bf16 parts, and as the float32-FMA ``flash_bwd_dkdv`` /
+``flash_bwd_dq`` for float32 and head_dim 256), which
 :class:`FlashAttentionFunction` ties to the forward for autograd.  The
 wrappers take CUDA tensors only: each checks
 device, dtype, shape and contiguity, allocates the output, launches on the
@@ -173,7 +177,8 @@ def flash_attention_backward(q, k, v, o, lse, dout, *, causal: bool = True,
     forward's ``lse``; the same options as the forward's.  Each in its
     input's dtype, accumulated in float32 and rounded once; a row whose lse
     is +inf contributes nothing.  Three kernels a call
-    (``csrc/flash_attention_backward.cu``: D, dK/dV, dQ), counted as one
+    (``csrc/flash_attention_backward.cu``: D, dK/dV, dQ; the dK/dV and dQ
+    kernels routed by dtype and head_dim as the forward's), counted as one
     launch; no atomics, so a call's result is the same bits every time."""
     what = "flash_attention_backward"
     dev = check_cuda(("q", "k", "v", "o", "lse", "dout"), q, k, v, o, lse,

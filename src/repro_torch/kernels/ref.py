@@ -21,6 +21,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 #: masked attention score, as in the reference's kernels
 NEG_INF = -2.0e38
@@ -241,6 +242,167 @@ def flash_attention_backward_ref(q, k, v, o, lse, dout, *, causal=True,
     dk = dk.reshape(b, hkv, g, skv, hd).sum(dim=2)
     dv = dv.reshape(b, hkv, g, skv, hd).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# The bf16 backward kernels' tile plan (csrc/flash_attention_backward.cu):
+# blocks of 128 own rows as two warpgroups of 64, streamed tiles of 64 rows.
+_WG_OWN, _WG_ROWS, _WG_TILE = 128, 64, 64
+_LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
+def _kv_range(q0, q_last, skv, causal, window, prefix):
+    """attention_common.cuh's kv_range: the keys some row of ``[q0,
+    q_last]`` admits, ``[lo, hi)``."""
+    hi = min(skv, max(q_last + 1, prefix)) if causal else skv
+    return (max(0, q0 - window + 1) if window > 0 else 0), hi
+
+
+def _q_range(k0, k_last, sq, causal, window, prefix):
+    """attention_common.cuh's q_range: the query rows some key of ``[k0,
+    k_last]`` is admitted by, ``[lo, hi)``."""
+    lo = min(k0, sq) if causal and k0 >= prefix else 0
+    return lo, (min(sq, k_last + window) if window > 0 else sq)
+
+
+def _tile_admitted(q0, q_last, k0, k_last, sq, skv, causal, window, prefix):
+    """attention_common.cuh's tile_admitted: every pair of the tile is
+    admitted, inside Sq and Skv."""
+    whole = q_last < sq and k_last < skv
+    if causal:
+        whole = whole and (k_last <= q0 or k_last < prefix)
+    if window > 0:
+        whole = whole and k0 > q_last - window
+    return whole
+
+
+def _bf16_parts(x, split):
+    """The bf16 operands a kernel's product takes for float32 ``x``:
+    ``[bf16(x), bf16(x - bf16(x))]`` split, ``[bf16(x)]`` not, as float32."""
+    hi = x.to(torch.bfloat16).float()
+    return [hi, (x - hi).to(torch.bfloat16).float()] if split else [hi]
+
+
+def flash_attention_backward_wgmma_model(q, k, v, o, lse, dout, *,
+                                         causal=True, window=0, softcap=0.0,
+                                         prefix_len=0, split_p=True,
+                                         split_ds=True):
+    """A CPU model of the bf16 backward kernels' arithmetic
+    (``flash_bwd_dkdv_wgmma``, ``flash_bwd_dq_wgmma``): their tile plan,
+    ranges, skipped tiles and per-element mask on the tiles that cross an
+    edge; bf16 operands (the inputs are rounded to bf16 first); P and dS
+    rounded to bf16 for the products that read them, each split into
+    ``bf16(x) + bf16(x - bf16(x))`` (two products) when ``split_p`` /
+    ``split_ds``; float32 scores and sums; each gradient rounded once to
+    bf16.  Returns ``(dq, dk, dv)`` in bf16.  Not on any path: the tests
+    hold it against :func:`flash_attention_backward_ref` and the JAX
+    package to show what the roundings cost."""
+    b, hq, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    mask_args = (causal, window, prefix_len)
+    qf, kf, vf, of, dof = (t.to(torch.bfloat16).float()
+                           for t in (q, k, v, o, dout))
+    # the streamed and own tiles read TMA's zero fill past Sq and Skv
+    pad_q = (-sq) % _WG_OWN + _WG_OWN
+    pad_k = (-skv) % _WG_OWN + _WG_OWN
+    qp, dop = (F.pad(t, (0, 0, 0, pad_q)) for t in (qf, dof))
+    kp, vp = (F.pad(t, (0, 0, 0, pad_k)) for t in (kf, vf))
+    lse_p = F.pad(lse.float(), (0, pad_q), value=math.inf)
+    delta = F.pad((dof * of).sum(dim=-1), (0, pad_q))
+
+    def p_and_ds(s, dp, lse_t, d_t, ok):
+        """P and dS of a tile whose rows hold lse_t, d_t (broadcast), as
+        the kernels take them: P = exp2(x log2(e) - lse log2(e))."""
+        lse2 = lse_t * _LOG2E
+        if softcap:
+            t = torch.tanh(s * scale * (1.0 / softcap))
+            p = torch.exp2(softcap * t * _LOG2E - lse2)
+            ds = p * (dp - d_t) * (1.0 - t * t)
+        else:
+            p = torch.exp2(s * (scale * _LOG2E) - lse2)
+            ds = p * (dp - d_t)
+        return torch.where(ok, p, 0.0), torch.where(ok, ds, 0.0)
+
+    def tile_mask(q0, k0, whole):
+        """[64 q rows, 64 keys]: the per-element mask, or all of it on a
+        tile that tile_admitted passes whole."""
+        if whole:
+            return torch.ones((_WG_TILE, _WG_ROWS), dtype=torch.bool)
+        qi = torch.arange(q0, q0 + _WG_TILE)[:, None]
+        kj = torch.arange(k0, k0 + _WG_ROWS)[None, :]
+        ok = (qi < sq) & (kj < skv)
+        if causal:
+            ok &= (kj <= qi) | (kj < prefix_len)
+        if window > 0:
+            ok &= kj > qi - window
+        return ok
+
+    def product(x, split, b_op):
+        return sum(part @ b_op for part in _bf16_parts(x, split))
+
+    dq = torch.zeros((b, hq, sq + pad_q, hd))
+    dk = torch.zeros((b, hkv, skv + pad_k, hd))
+    dv = torch.zeros_like(dk)
+    for bi in range(b):
+        for hk in range(hkv):
+            # dK/dV: a block of 128 kv rows streams every q head of the
+            # group times the q tiles its rows admit; a warpgroup skips the
+            # tiles its own 64 rows' range does not reach
+            for k0 in range(0, skv, _WG_OWN):
+                lo, hi = _q_range(k0, min(k0 + _WG_OWN, skv) - 1, sq,
+                                  *mask_args)
+                q_tiles = range(lo // _WG_TILE * _WG_TILE, hi, _WG_TILE)
+                for ka in (k0, k0 + _WG_ROWS):
+                    if ka >= skv:
+                        continue
+                    wlo, whi = _q_range(ka, min(ka + 63, skv - 1), sq,
+                                        *mask_args)
+                    kt, vt = kp[bi, hk, ka:ka + 64], vp[bi, hk, ka:ka + 64]
+                    for h in range(hk * g, hk * g + g):
+                        for q0 in q_tiles:
+                            if not (q0 < whi and q0 + 64 > wlo):
+                                continue
+                            qt = qp[bi, h, q0:q0 + 64]
+                            dot = dop[bi, h, q0:q0 + 64]
+                            whole = _tile_admitted(q0, q0 + 63, ka, ka + 63,
+                                                   sq, skv, *mask_args)
+                            p, ds = p_and_ds(
+                                kt @ qt.T, vt @ dot.T,
+                                lse_p[bi, h, q0:q0 + 64][None, :],
+                                delta[bi, h, q0:q0 + 64][None, :],
+                                tile_mask(q0, ka, whole).T)
+                            dv[bi, hk, ka:ka + 64] += product(p, split_p, dot)
+                            dk[bi, hk, ka:ka + 64] += product(ds, split_ds,
+                                                              qt)
+        for h in range(hq):
+            hk = h // g
+            # dQ: a block of 128 q rows streams the kv tiles its rows admit
+            for q0 in range(0, sq, _WG_OWN):
+                lo, hi = _kv_range(q0, min(q0 + _WG_OWN, sq) - 1, skv,
+                                   *mask_args)
+                k_tiles = range(lo // _WG_TILE * _WG_TILE, hi, _WG_TILE)
+                for qa in (q0, q0 + _WG_ROWS):
+                    if qa >= sq:
+                        continue
+                    wlo, whi = _kv_range(qa, min(qa + 63, sq - 1), skv,
+                                         *mask_args)
+                    qt, dot = qp[bi, h, qa:qa + 64], dop[bi, h, qa:qa + 64]
+                    for k0 in k_tiles:
+                        if not (k0 < whi and k0 + 64 > wlo):
+                            continue
+                        kt, vt = kp[bi, hk, k0:k0 + 64], vp[bi, hk, k0:k0 + 64]
+                        whole = _tile_admitted(qa, qa + 63, k0, k0 + 63, sq,
+                                               skv, *mask_args)
+                        _, ds = p_and_ds(
+                            qt @ kt.T, dot @ vt.T,
+                            lse_p[bi, h, qa:qa + 64][:, None],
+                            delta[bi, h, qa:qa + 64][:, None],
+                            tile_mask(qa, k0, whole))
+                        dq[bi, h, qa:qa + 64] += product(ds, split_ds, kt)
+    bf = torch.bfloat16
+    return ((dq[:, :, :sq] * scale).to(bf), (dk[:, :, :skv] * scale).to(bf),
+            dv[:, :, :skv].to(bf))
 
 
 def decode_attention_ref(q, cache_k, cache_v, valid_len, *, softcap=0.0,

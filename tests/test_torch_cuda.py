@@ -1073,7 +1073,8 @@ def test_partitioned_state_stays_on_the_card(dev):
 # ---------------------------------------------------------------------------
 
 #: (B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap, prefix_len), one case
-#: per mask mode; the last has rows that admit no key (from row 40 on)
+#: per mask mode; "rows without keys" has rows that admit no key (from row
+#: 40 on)
 BWD_CASES = {
     "causal": (2, 4, 4, 130, 130, 64, True, 0, 0.0, 0),
     "sliding softcap GQA": (1, 8, 2, 200, 200, 128, True, 50, 30.0, 0),
@@ -1081,6 +1082,8 @@ BWD_CASES = {
     "bidirectional": (1, 4, 4, 97, 97, 64, False, 0, 10.0, 0),
     "cross": (2, 4, 2, 70, 150, 128, False, 0, 0.0, 0),
     "rows without keys": (1, 2, 1, 60, 30, 64, True, 11, 0.0, 0),
+    # bf16: three 128-row kv blocks of the wgmma plan, GQA 4, a ragged Sq
+    "GQA ragged prefix-LM": (1, 8, 2, 333, 333, 64, True, 0, 0.0, 100),
 }
 #: float32 gradients within this share of each one's largest magnitude
 #: (sums of up to Sq or Skv products in another order), bfloat16 within
@@ -1127,6 +1130,47 @@ def test_flash_backward_vs_plain(dev, dtype, mode):
             assert float(err.max()) <= 2e-2 * scale
             assert bool((err <= GRAD_REL * scale
                          + 2.0 ** -7 * wf.abs()).all())
+
+
+@pytest.mark.parametrize("dtype,hd,kernels", [
+    (torch.bfloat16, 64, ("flash_bwd_dkdv_wgmma<", "flash_bwd_dq_wgmma<")),
+    (torch.bfloat16, 128, ("flash_bwd_dkdv_wgmma<", "flash_bwd_dq_wgmma<")),
+    (torch.float32, 128, ("flash_bwd_dkdv<", "flash_bwd_dq<")),
+    (torch.bfloat16, 256, ("flash_bwd_dkdv<", "flash_bwd_dq<")),
+])
+def test_flash_backward_routes_by_dtype(dev, dtype, hd, kernels):
+    """bfloat16 at head_dim 64 and 128 runs the two wgmma kernels; float32,
+    and head_dim 256 in either dtype, the float32-FMA kernels; each call
+    launches D and those two, counted once.  The profile window holds one
+    warm call (the build, the first launch and a first profiler session
+    come before it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _flash_inputs(dev, dtype, 1, 8, 2, 300, 300, hd, 9)
+    do = torch.randn_like(q)
+    kw = dict(causal=True, window=100, softcap=50.0)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    o = tfa.flash_attention(q, k, v, lse=lse, **kw)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        tfa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+    before = ops.launch_counts()["flash_attention_backward"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tfa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_backward"] == before + 1
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    bwd = sorted(n for n in names if "flash_bwd" in n)
+    assert len(bwd) == 3, names
+    assert any("flash_bwd_delta<" in n for n in bwd), bwd
+    for kernel in kernels:
+        assert sum(kernel in n for n in bwd) == 1, (kernel, bwd)
+    want = tref.flash_attention_backward_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= (GRAD_REL if dtype == torch.float32 else 2e-2) \
+            * float(w.float().abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
