@@ -120,7 +120,20 @@ Phases, each printed on its own line; any failure exits non-zero:
                8-slot decode step, a sequence of only dummy rows and rows of
                12 and 10 bytes; times (by events and by device time),
                bounds, and ``index_select`` on the zero-padded input as the
-               gather's yardstick, at both shapes;
+               gather's yardstick, at both shapes; then the training path's
+               two backward kernels: the scan's (five launches a call) against
+               ``ssd_scan_backward_ref`` at Mamba2-780M's layer at 4,096 and
+               8,192 tokens, one token, a ragged tail, B/C per head, a
+               trained model's small dt and a final-state gradient, float32
+               within 2e-4 of each gradient's largest magnitude, bfloat16
+               within 5e-2 of it and one rounding step of each value, two
+               calls bit-identical, its time beside the plain version's and
+               the bound (device time per launch, ptxas's registers and
+               spills); the gather's at DeepSeekMoE-16B's dispatch of a
+               4,096-token row bit-exact against its plain version, within
+               one rounding step of a float32 ``index_add_``, on only dummy
+               rows, its time beside the bound and ``index_add_``'s
+               (``--train-only`` runs this part too);
 9. mamba2-serve -- phase 7's run over Mamba2-780M at full width and
                depth (48 layers, ``dt_bias`` as a trained model's), 8 slots,
                ``s_max`` 16,384, one prompt of 5-16 tokens and 15 of
@@ -257,6 +270,27 @@ Phases, each printed on its own line; any failure exits non-zero:
                uninterrupted run's, every bfloat16 leaf written with descr
                ``'<V2'``, a checkpoint's bytes and the save and restore
                seconds (on tmpfs when it has room).
+17. train-ssm-moe -- in phase 16's child: (a) Mamba2-780M at full width and
+               depth (48 layers, Mamba-2's published ``dt_bias`` init) and
+               DeepSeekMoE-16B at full width cut to its dense first layer
+               and 3 MoE layers, each trained 8 steps as phase 16 (4
+               microbatches of one 4,096-token row, remat, float32
+               accumulation): finite losses, the first batch's loss lower
+               after the 8 steps, and (Mamba2, whose stream loss falls in 8
+               steps) the last 3 averaging below the first; per step the
+               scan's forward and backward launches =
+               Mamba layers x microbatches x 2 and x 1, the same for the
+               gather per MoE layer and flash per attention layer; step ms,
+               tokens/s, model FLOP/s and its share, peak memory and one
+               profiled step's device time by kernel class (the two new
+               backward kernels named); (b) check (ii): a float32 2-layer
+               model, one step kernel against ref (loss 1e-5, gradients 1e-4,
+               a Mamba mixer's 2e-4, parameters), then bf16 at (a)'s depth
+               the first step's loss and gradient norm against ref mode
+               (limits calibrated with ``--plant-fault``; MoE routes pinned
+               to the kernel run's); (c) Jamba-1.5-Large's first 4 layers at
+               d_model 1,024, one float32 step kernel against ref: the scan,
+               the gather and flash backward in one model.
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -349,6 +383,12 @@ KERNEL_META = {
     "flash_attention_backward": (
         "src/repro_torch/kernels/csrc/flash_attention_backward.cu",
         "src/repro/models/attention.py:171"),
+    # no Pallas site either: the reference trains through its jnp chunked
+    # scan and take_along_axis, which jax.grad differentiates
+    "ssd_scan_backward": ("src/repro_torch/kernels/csrc/ssd_scan_backward.cu",
+                          "src/repro/models/mamba2.py:79"),
+    "moe_gather_backward": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
+                            "src/repro/models/moe.py:140"),
 }
 
 # the attention kernels' phase-6 shapes: the Gemma2-27B serve phase's, and
@@ -2074,6 +2114,220 @@ def phase_ssm_moe(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 8 (training): the scan's and the gather's backward vs plain
+# ---------------------------------------------------------------------------
+
+#: the scan's backward cases at Mamba2-780M's layer (48 heads of 64, state
+#: 128): (label, B, S, dt shift, B/C per head, with a final-state gradient);
+#: phase 17's training length, the serve phase's longest prompt, and edges
+SCAN_BWD_SHAPES = (
+    ("train 4096", 1, 4096, 0.0, False, False),
+    ("long 8192", 1, 8192, 0.0, False, False),
+    ("one token", 1, 1, 0.0, False, True),
+    ("ragged", 2, 4097, 0.0, False, True),
+    ("per-head B/C", 1, 1000, SMALL_DT_SHIFT, True, True),
+    ("small dt", 1, 4096, SMALL_DT_SHIFT, False, True),
+)
+#: DeepSeekMoE-16B's dispatch of one training row: 64 experts, top 6,
+#: capacity 480 at 4,096 tokens
+GATHER_BWD_TOKENS = 4096
+
+
+def scan_backward_bound(b, h, s, p, n, groups, elem):
+    """The scan backward's least time: its bytes (x, dy, dx and B, C, dB,
+    dC of the groups in ``elem`` bytes, dt and ddt float32, each once) at
+    the memory rate, or its least operations, the recurrence's backward (per
+    position and head the state recomputed, its gradient passed back and
+    dx, dB, dC: 5 N P multiply-adds) at the bf16 tensor-core rate."""
+    nbytes = elem * (3 * b * h * s * p + 4 * b * groups * s * n) \
+        + 4 * (2 * b * h * s + 2 * h)
+    ops_n = 10 * b * h * s * n * p
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops_n / PEAK_BF16_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, ops_n
+
+
+def phase_ssm_moe_backward(torch):
+    """The training path's two new kernels against their plain versions on
+    the card: the scan's backward at Mamba2-780M's layer in both dtypes
+    (float32 within 2e-4 of each gradient's largest magnitude; bfloat16
+    within 5e-2 of it and one rounding step of each value), on edges, a
+    second call bit-identical, and its time beside the plain version's and
+    the bound at 4,096 and 8,192 tokens (device time per launch under the
+    profiler, ptxas's registers and spills); the gather's backward at
+    DeepSeekMoE-16B's dispatch of a 4,096-token row bit-exact against its
+    plain version and within one rounding step of a float32
+    ``index_add_``, on a sequence of only dummy rows, and its time beside
+    the bound and ``index_add_``'s.  Returns the two records."""
+    from repro_torch import configs
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import moe as tmoe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bf16, f32 = torch.bfloat16, torch.float32
+    t_phase = time.perf_counter()
+    H, P, N = 48, 64, 128
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def inputs(b, s, dtype, shift, per_head, with_dh):
+        g = H if per_head else 1
+        x = randn(b, s, H, P, scale=0.5).to(dtype).transpose(1, 2)
+        dt = torch.nn.functional.softplus(randn(b, s, H) - shift) \
+            .transpose(1, 2)
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        Bm = randn(b, s, g, N, scale=0.3).to(dtype).transpose(1, 2)
+        Cm = randn(b, s, g, N, scale=0.3).to(dtype).transpose(1, 2)
+        dy = randn(b, s, H, P).to(dtype).transpose(1, 2)
+        dh = randn(b, H, N, P) if with_dh else None
+        return (x, dt, A, Bm, Cm), dy, dh
+
+    def states_of(args):
+        return ss.ssd_scan(*args[:3], ss.heads_view(args[3], H),
+                           ss.heads_view(args[4], H), keep_states=True)[2]
+
+    errs, abs_errs, steps, identical = {}, [], {}, {}
+    for label, b, s, shift, per_head, with_dh in SCAN_BWD_SHAPES:
+        for dtype in (bf16, f32):
+            what = f"scan backward {label} {dtype}"
+            args, dy, dh = inputs(b, s, dtype, shift, per_head, with_dh)
+            st = states_of(args)
+            got = ss.ssd_scan_backward(*args, dy, dh, states=st)
+            again = ss.ssd_scan_backward(*args, dy, dh, states=st)
+            identical[what] = all(torch.equal(x, y)
+                                  for x, y in zip(got, again))
+            check(identical[what], f"{what}: two calls differ")
+            want = ref.ssd_scan_backward_ref(*args, dy, dh,
+                                             chunk=ss.CHUNK[dtype])
+            shares = []
+            for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                                  want):
+                check(g.shape == w.shape and g.dtype == w.dtype,
+                      f"{what} {name}: {g.shape} {g.dtype} against "
+                      f"{w.shape} {w.dtype}")
+                share, err = _grad_close(torch, g, w, f"{what} {name}", steps,
+                                         f32_rel=SSD_F32_TOL,
+                                         bf16_rel=SSD_BF16_TOL)
+                shares.append(share)
+                abs_errs.append(err)
+            errs[what] = max(shares)
+            del args, dy, dh, st, got, again, want
+            torch.cuda.empty_cache()
+
+    # -- time at 4,096 and 8,192 tokens, bf16 --------------------------------
+    timed = {}
+    for s in (4096, 8192):
+        args, dy, _ = inputs(1, s, bf16, 0.0, False, False)
+        st = states_of(args)
+        ms = cuda_ms(torch, lambda: ss.ssd_scan_backward(*args, dy,
+                                                         states=st), 10)
+        plain = cuda_ms(torch, lambda: ref.ssd_scan_backward_ref(
+            *args, dy, chunk=ss.CHUNK[bf16]), 2)
+        fwd = cuda_ms(torch, lambda: ss.ssd_scan(
+            *args[:3], ss.heads_view(args[3], H), ss.heads_view(args[4], H),
+            keep_states=True), 10)
+        by_kernel = device_ms_by_kernel(
+            torch, lambda: ss.ssd_scan_backward(*args, dy, states=st), 5)
+        b_ms, b_by, nbytes, ops_n = scan_backward_bound(1, H, s, P, N, 1, 2)
+        timed[s] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                        bound_bytes=nbytes, bound_ops=ops_n,
+                        bound_share=b_ms / ms, forward_with_states_ms=fwd,
+                        device_ms_by_kernel=by_kernel,
+                        device_ms=sum(by_kernel.values()),
+                        states_kept_bytes=st.numel())
+        del args, dy, st
+        torch.cuda.empty_cache()
+    scan = dict(timed[4096])
+    scan.update(
+        library_ms=None, max_abs_err=max(abs_errs), errors=errs,
+        bf16_rounding_steps=steps, bit_identical=identical,
+        long_8192=timed[8192], ptxas=build_report("ssd_scan_backward.cu"),
+        tolerance={"float32": SSD_F32_TOL, "bfloat16": SSD_BF16_TOL},
+        library="none: no single PyTorch call computes the scan's gradient",
+        shape=f"Mamba2-780M layer: x, dy [1,{H},4096,{P}] bf16 ([1,4096,"
+              f"{H},{P}] views), B/C one group [1,1,4096,{N}]")
+    say("ssm-moe kernels", kernel="ssd_scan_backward", **scan)
+
+    # -- the gather's backward: DeepSeekMoE-16B's dispatch of a row ---------
+    moe_cfg = configs.get("deepseek-moe-16b").moe
+    d, t = 2048, GATHER_BWD_TOKENS
+    logits = torch.randn((1, t, moe_cfg.num_experts), generator=gen,
+                         device=dev)
+    ids = torch.topk(logits, moe_cfg.top_k, dim=-1).indices
+    cap = tmoe.capacity(t, moe_cfg)
+    tok, _ = tmoe.dispatch_indices(ids, torch.ones_like(ids).float(),
+                                   moe_cfg, cap)
+    rows = tok.reshape(-1)
+    k = moe_cfg.top_k
+    g_errs, g_steps = {}, {}
+    for dtype in (bf16, f32):
+        dout = torch.randn((rows.numel(), d), generator=gen,
+                           device=dev).to(dtype)
+        got = md.moe_gather_backward(dout, rows, t, max_rows_per_token=k)
+        again = md.moe_gather_backward(dout, rows, t, max_rows_per_token=k)
+        check(torch.equal(got, again), f"gather backward {dtype}: two calls "
+              f"differ")
+        check(torch.equal(got, ref.moe_gather_backward_ref(
+            dout, rows, t, max_rows_per_token=k)),
+              f"gather backward {dtype}: differs from its plain version")
+        live = rows < t
+        yard = torch.zeros((t, d), device=dev).index_add_(
+            0, rows[live].long(), dout[live].float())
+        g_steps[str(dtype)] = float(((got.float() - yard).abs()
+                                     / (F32_TOL + BF16_STEP * yard.abs()))
+                                    .max())
+        check(g_steps[str(dtype)] <= 1.0, f"gather backward {dtype}: "
+              f"{g_steps[str(dtype)]} of a rounding step from a float32 "
+              f"index_add_")
+        g_errs[str(dtype)] = float((got.float() - yard).abs().max())
+        dummies = torch.full((4 * moe_cfg.num_experts,), t, dtype=torch.int32,
+                             device=dev)
+        check(not md.moe_gather_backward(dout[:dummies.numel()], dummies, t,
+                                         max_rows_per_token=k).any(),
+              f"gather backward {dtype}: dummy rows")
+    dout = dout.to(bf16)
+    live = int((rows < t).sum())
+    idx = rows.clamp(max=t).long()
+
+    def kernel_fn():
+        return md.moe_gather_backward(dout, rows, t, max_rows_per_token=k)
+
+    def library_fn():   # the dummy rows land in a spare row t
+        return torch.zeros((t + 1, d), dtype=bf16, device=dev).index_add_(
+            0, idx, dout)
+
+    nbytes = live * d * 2 + rows.numel() * 4 + t * d * 2
+    dev_k = device_ms_by_kernel(torch, kernel_fn, 20)
+    dev_l = device_ms_by_kernel(torch, library_fn, 20)
+    gather = dict(
+        max_abs_err=0.0, index_add_f32_abs_err=g_errs,
+        index_add_f32_rounding_steps=g_steps,
+        ms=cuda_ms(torch, kernel_fn, 50),
+        plain_ms=cuda_ms(torch, lambda: ref.moe_gather_backward_ref(
+            dout, rows, t, max_rows_per_token=k), 10),
+        library_ms=cuda_ms(torch, library_fn, 50),
+        bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+        bound_bytes=nbytes, device_ms=sum(dev_k.values()),
+        library_device_ms=sum(dev_l.values()),
+        device_kernels={**dev_k, **dev_l}, rows=rows.numel(),
+        live_rows=live, capacity=cap,
+        ptxas=build_report("moe_dispatch.cu"),
+        shape=f"dout [{rows.numel()},{d}] bf16 (64 experts x capacity "
+              f"{cap}) onto x [{t},{d}]; library: zeros + index_add_ "
+              f"(bf16, atomics' order)",
+        seconds=time.perf_counter() - t_phase)
+    say("ssm-moe kernels", kernel="moe_gather_backward", **gather)
+    del dout, logits
+    torch.cuda.empty_cache()
+    return {"ssd_scan_backward": scan, "moe_gather_backward": gather}
+
+
+# ---------------------------------------------------------------------------
 # phase 7: serving Gemma2-27B at full width
 # ---------------------------------------------------------------------------
 
@@ -2156,7 +2410,8 @@ class _PinnedRoutes:
     """Pins the MoE routing of check (i)'s replay to the kernel run's:
     :meth:`record` keeps the expert ids of every ``route`` call of one run,
     and :meth:`replay` makes the next run, on the same schedule, take them,
-    with weights from its own router probabilities.  The two runs then
+    with weights and load-balance loss from its own router probabilities
+    (phase 17 pins a training step's routes the same way).  The two runs then
     differ only in how the kernels' functions are computed, and not in a
     top-k choice that a rounding step flipped; ``rerouted`` counts the
     tokens whose own choice was another set."""
@@ -2186,8 +2441,13 @@ class _PinnedRoutes:
             self.rerouted = self.rerouted + (
                 own.sort(-1).values != ids.sort(-1).values).any(-1).sum()
             self.routed += own.shape[0] * own.shape[1]
-            w = torch.softmax(x.float() @ params.router, dim=-1).gather(-1,
-                                                                        ids)
+            probs = torch.softmax(x.float() @ params.router, dim=-1)
+            w = probs.gather(-1, ids)
+            # the load-balance loss of the pinned choice (training's aux)
+            e = probs.shape[-1]
+            frac = torch.nn.functional.one_hot(ids, e).float().sum(2) \
+                .mean(1)
+            aux = e * (frac * probs.mean(dim=1)).sum(-1).mean()
             return ids, w / w.sum(-1, keepdim=True).clamp_min(1e-9), aux
 
         self.tmoe.route = route
@@ -3647,26 +3907,27 @@ F32_GRAD_REL = 1e-4
 LSE_TOL = 1e-4
 
 
-def _grad_close(torch, got, want, what, steps):
+def _grad_close(torch, got, want, what, steps, f32_rel=F32_GRAD_REL,
+                bf16_rel=BF16_TOL):
     """The largest error as a share of ``want``'s largest magnitude, held to
-    ``F32_GRAD_REL`` (float32) or ``BF16_TOL`` (bfloat16); a bfloat16
-    gradient is also held to one rounding step of each value plus
-    ``F32_GRAD_REL`` of the largest (its share of that goes to
-    ``steps[what]``).  Returns (share, absolute error)."""
+    ``f32_rel`` (float32) or ``bf16_rel`` (bfloat16); a bfloat16 gradient
+    is also held to one rounding step of each value plus ``f32_rel`` of the
+    largest (its share of that goes to ``steps[what]``).  Returns (share,
+    absolute error)."""
     g, w = got.float(), want.float()
     scale = float(w.abs().max()) or 1.0
     err = float((g - w).abs().max())
     if got.dtype == torch.bfloat16:
-        check(err <= BF16_TOL * scale, f"{what}: error {err} exceeds "
-              f"{BF16_TOL} of the largest gradient {scale}")
+        check(err <= bf16_rel * scale, f"{what}: error {err} exceeds "
+              f"{bf16_rel} of the largest gradient {scale}")
         steps[what] = float(((g - w).abs()
-                             / (F32_GRAD_REL * scale + BF16_STEP * w.abs()))
+                             / (f32_rel * scale + BF16_STEP * w.abs()))
                             .max())
         check(steps[what] <= 1.0, f"{what}: a bfloat16 gradient differs by "
               f"{steps[what]} of a rounding step")
     else:
-        check(err <= F32_GRAD_REL * scale, f"{what}: error {err} exceeds "
-              f"{F32_GRAD_REL} of the largest gradient {scale}")
+        check(err <= f32_rel * scale, f"{what}: error {err} exceeds "
+              f"{f32_rel} of the largest gradient {scale}")
     return err / scale, err
 
 
@@ -3856,11 +4117,18 @@ TRAIN_BF16_GNORM_REL = 1e-3
 FT_LAYERS, FT_STEPS, FT_CKPT_EVERY, FT_FAIL_AT = 2, 6, 3, 4
 
 
+#: the port's kernels by class in a profiled step (checked in order)
+KERNEL_CLASSES = (("flash_bwd", "flash backward"),
+                  ("flash_forward", "flash forward"),
+                  ("ssdb::", "scan backward"), ("ssd::", "scan forward"),
+                  ("gather_rows_backward", "gather backward"),
+                  ("gather_rows", "gather forward"))
+
+
 def _kernel_class(name):
-    if "flash_bwd" in name:
-        return "flash backward"
-    if "flash_forward" in name:
-        return "flash forward"
+    for key, label in KERNEL_CLASSES:
+        if key in name:
+            return label
     if any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet",
                                "matmul", "sm90_")):
         return "products"
@@ -3891,12 +4159,12 @@ def _profiled_step(torch, accumulate, apply, batch):
             continue
         c = _kernel_class(e.key)
         by_class[c] = by_class.get(c, 0.0) + _device_us(e) / 1e3
-        if c.startswith("flash"):
+        if c not in ("products", "other"):
             launches[e.key[:60]] = e.count
     busy = sum(by_class.values())
     return dict(wall_ms=wall * 1e3,
                 device_ms=busy if busy else "not measured",
-                device_ms_by_class=by_class, flash_launches=launches,
+                device_ms_by_class=by_class, kernel_launches=launches,
                 adamw_ms_by_events=e0.elapsed_time(e1),
                 busy_share=busy / (wall * 1e3) if busy else "not measured")
 
@@ -3919,6 +4187,48 @@ def _npy_descr(path):
     return head.split("'descr': '")[1].split("'")[0]
 
 
+def _timed_train_run(torch, step, data, cfg, params, opt):
+    """``TrainLoop`` over ``TRAIN_STEPS`` steps of ``step`` on ``data``
+    (no checkpoint in the run), each step's wall ending in a synchronize and
+    its launches counted; every count is reset just before the run and read
+    just after it.  Returns (params, opt, {walls, metrics, per_step,
+    counts, best, logs})."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ft.driver import TrainLoop
+    from repro_torch.kernels import ops
+
+    walls, metrics, per_step, logs = [], [], [], []
+
+    def timed(p, o, batch):
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(p, o, batch)
+        m = {key: float(val) for key, val in out[2].items()}
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append(m)
+        after = ops.launch_counts()
+        per_step.append({key: after[key] - before[key] for key in after})
+        return out
+
+    ckpt_dir = tempfile.mkdtemp(prefix="repro_train_")
+    try:
+        loop = TrainLoop(train_step=timed, data=data, ckpt_dir=ckpt_dir,
+                         cfg=cfg, ckpt_every=TRAIN_STEPS + 1,
+                         metric_flush_every=1)
+        ops.reset_launch_counts()
+        params, opt, best = loop.run(params, opt, TRAIN_STEPS,
+                                     log=logs.append)
+        counts = ops.launch_counts()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return params, opt, dict(walls=walls, metrics=metrics, per_step=per_step,
+                             counts=counts, best=best, logs=logs)
+
+
 def phase_train(torch, seed, smi):
     """Phase 16: MiniCPM-2B trained on the card (a), check (ii) for
     training (b) and the fault-tolerant loop (c).  Runs in a child process
@@ -3926,7 +4236,6 @@ def phase_train(torch, seed, smi):
     with ``CUBLAS_WORKSPACE_CONFIG`` set.  Returns (a)'s launch counts."""
     import dataclasses
     import shutil
-    import tempfile
 
     from repro_torch import configs
     from repro_torch.data.pipeline import SyntheticLM
@@ -3957,30 +4266,10 @@ def phase_train(torch, seed, smi):
     params = T.init_params(base, seed)
     opt = adamw.init_state(params)
     step = build_train_step(base, knobs, opt_cfg)
-    walls, metrics, per_step = [], [], []
-
-    def timed(p, o, batch):
-        before = ops.launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = step(p, o, batch)
-        m = {key: float(val) for key, val in out[2].items()}
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        metrics.append(m)
-        after = ops.launch_counts()
-        per_step.append({key: after[key] - before[key] for key in after})
-        return out
-
-    ckpt_dir = tempfile.mkdtemp(prefix="repro_train_a_")
-    loop = TrainLoop(train_step=timed, data=data, ckpt_dir=ckpt_dir, cfg=base,
-                     ckpt_every=TRAIN_STEPS + 1, metric_flush_every=1)
-    logs = []
-    ops.reset_launch_counts()
-    params, opt, best = loop.run(params, opt, TRAIN_STEPS, log=logs.append)
-    counts = ops.launch_counts()
+    params, opt, run = _timed_train_run(torch, step, data, base, params, opt)
+    walls, metrics, per_step = run["walls"], run["metrics"], run["per_step"]
+    counts, best, logs = run["counts"], run["best"], run["logs"]
     peak = torch.cuda.max_memory_allocated()
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
     losses = [m["loss"] for m in metrics]
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
           f"train losses {losses}")
@@ -4033,7 +4322,7 @@ def phase_train(torch, seed, smi):
         cross_entropy_ms_per_microbatch=ce_ms, logs=logs,
         nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
     first = metrics[0]
-    del params, opt, step, loop
+    del params, opt, step
     torch.cuda.empty_cache()
 
     # -- (b) check (ii) for training --------------------------------------------
@@ -4177,24 +4466,388 @@ def phase_train(torch, seed, smi):
     return counts
 
 
-def phase_train_child(torch, seed, smi):
-    """Phase 16 in a child process with a deterministic cuBLAS workspace
-    (set before the child's first cuBLAS call); the child prints its lines
-    and, last, its launch counts, which are returned."""
+# ---------------------------------------------------------------------------
+# phase 17: training the SSM and MoE families on the card
+# ---------------------------------------------------------------------------
+
+#: phase 17's models at full width: Mamba2-780M at its full depth,
+#: DeepSeekMoE-16B cut to its dense first layer and 3 MoE layers (4 of 28:
+#: about 2.3B parameters, with AdamW's float32 moments and the float32
+#: accumulation near 40 GB)
+SSM_MOE_TRAIN = {"mamba2-780m": 48, "deepseek-moe-16b": 4}
+#: phase 16's microbatches (knobs_for gives 2 for both models)
+SSM_MOE_MICROBATCHES = 4
+#: (a)'s loss checks: every model's first batch, evaluated again after the 8
+#: steps, below its first-step loss (the run fits what it trained on); and
+#: where the stream's next batches fall too, the last 3 steps' average
+#: below the first.  DeepSeekMoE-16B's cut does not lower the stream's loss
+#: in 8 steps at any peak rate tried (1e-4 to 1e-3, in ops mode ref alike:
+#: its untied 102,400-row head fits each batch's own window of tokens, which
+#: the next batch's window pays for), so it takes the first check only
+STREAM_LOSS_FALLS = {"mamba2-780m": True, "deepseek-moe-16b": False}
+#: check (ii)'s bf16 limits at (a)'s depth, the first step's loss and
+#: gradient norm in kernel mode against ref mode (relative; the MoE routes
+#: of the ref run pinned to the kernel run's), calibrated with one fault
+#: planted in each new kernel's route (``--plant-fault``; PERF.md, H100):
+#: the gradient norm reads 1.54e-5 sound and 3.94e-5 with the scan's fault
+#: (Mamba2), 2.69e-5 sound and 1.06e-3 with the gather's (DeepSeekMoE), and
+#: each limit lies between; the loss is the forward's, which neither fault
+#: moves (2.29e-5 and 7.74e-6 either way), and keeps phase 16's limit.  The
+#: float32 part reads the two faults at 2,787x and 635x its limits
+SSM_MOE_BF16_LIMITS = {"mamba2-780m": (5e-5, 2.5e-5),
+                       "deepseek-moe-16b": (5e-5, 3e-4)}
+#: the faults ``--plant-fault`` plants (calibration only): the scan's
+#: backward reads zero states entering the chunks (the carry-in's share of
+#: dC and of d total dropped); the gather's backward drops each token's
+#: last row
+FAULT_MODEL = {"scan": "mamba2-780m", "gather": "deepseek-moe-16b"}
+#: (c): Jamba-1.5-Large's first 4 layers (Mamba + dense, Mamba + MoE,
+#: Mamba + dense, attention + MoE) at a width cut to fit beside the rest
+JAMBA_CUT = dict(d_model=1024, num_heads=8, num_kv_heads=1, d_ff=4096)
+JAMBA_EXPERT_FF = 4096
+JAMBA_SEQ = 2048
+
+
+def _plant_fault(torch, kind):
+    """A fault in a new backward kernel's route, planted at run time for
+    the calibration of check (ii) (nothing on disk changes); returns the
+    function that removes it."""
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ssd_scan as ss
+
+    if kind == "scan":
+        orig = ss.ssd_scan_backward
+
+        def faulty(x, dt, A, Bm, Cm, dy, dh_final=None, *, states):
+            b, h, s, p = x.shape
+            hprev_at, decay_at, _ = ss._layout(
+                b, h, s, p, Bm.shape[-1], x.dtype, Bm.shape[1] == 1)
+            states = states.clone()
+            states[hprev_at:decay_at].zero_()
+            return orig(x, dt, A, Bm, Cm, dy, dh_final, states=states)
+
+        ss.ssd_scan_backward = faulty
+        return lambda: setattr(ss, "ssd_scan_backward", orig)
+    orig = md.moe_gather_backward
+
+    def faulty(dout, row_token, num_tokens, *, max_rows_per_token):
+        return orig(dout, row_token, num_tokens,
+                    max_rows_per_token=max_rows_per_token - 1)
+
+    md.moe_gather_backward = faulty
+    return lambda: setattr(md, "moe_gather_backward", orig)
+
+
+def _ssm_moe_expected(cfg, k):
+    """Phase 17's launches per step: the scan per Mamba layer, flash per
+    attention layer, the gather per MoE layer, each forward twice (remat)
+    and backward once per microbatch."""
+    from repro_torch.models.config import FULL, MAMBA, MOE
+
+    specs = cfg.layer_specs()
+    out = {}
+    for key, n in (("ssd_scan", sum(x.mixer == MAMBA for x in specs)),
+                   ("flash_attention", sum(x.mixer == FULL for x in specs)),
+                   ("moe_gather", sum(x.mlp == MOE for x in specs))):
+        if n:
+            out[key] = n * k * 2
+            out[key + "_backward"] = n * k
+    return out
+
+
+def _train_step_pair(torch, cfg, batch, seed, init, modes=("kernel", "ref"),
+                     opt_cfg=None, fault=None):
+    """One step's loss and gradients (and, with ``opt_cfg``, the parameters
+    after AdamW) in each ops mode from the same weights; the MoE routes of
+    the later modes pinned to the first mode's; ``fault`` planted in the
+    first mode only.  Returns {mode: (loss, grads, params, launches)}."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import accumulate_grads
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    pins, got = _PinnedRoutes(tmoe), {}
+    try:
+        for i, mode in enumerate(modes):
+            ops.use_kernels(mode)
+            ops.reset_launch_counts()
+            p = T.init_params(cfg, seed)
+            init(p)
+            undo = _plant_fault(torch, fault) if fault and i == 0 else None
+            (pins.record if i == 0 else pins.replay)()
+            try:
+                loss, grads = accumulate_grads(p, batch, cfg)
+            finally:
+                pins.restore()
+                if undo:
+                    undo()
+            params = None
+            if opt_cfg is not None:
+                adamw.apply_updates(p, grads, adamw.init_state(p), opt_cfg)
+                params = {n: t.detach() for n, t in p.named_parameters()}
+            got[mode] = (float(loss), grads, params, ops.launch_counts())
+            del p
+    finally:
+        ops.use_kernels("auto")
+    return got, pins
+
+
+def _f32_check(torch, got, what, cfg, enforce=True):
+    """Check (ii) in float32: kernel mode against ref mode, the loss, each
+    gradient leaf (a Mamba mixer's at the scan's tolerance) and the
+    parameters after the step, as phase 16 holds them (with ``enforce``
+    False only read: a planted fault's calibration)."""
+    def check(cond, msg):
+        if enforce and not cond:
+            raise SmokeFailure(msg)
+
+    from repro_torch.models.config import MAMBA
+
+    mixers = tuple(f"layers.{i}.mixer." for i, x in
+                   enumerate(cfg.layer_specs()) if x.mixer == MAMBA)
+    (lk, gk, pk, _), (lr_, gr, pr, _) = got["kernel"], got["ref"]
+    loss_rel = abs(lk - lr_) / abs(lr_)
+    check(loss_rel <= TRAIN_F32_LOSS_REL,
+          f"{what}: loss {lk} vs ref {lr_} ({loss_rel})")
+    rel = {n: float((gk[n] - gr[n]).abs().max()
+                    / gr[n].abs().max().clamp_min(1e-30)) for n in gk}
+    worst = {}
+    for n, r in rel.items():
+        limit = SSD_F32_TOL if n.startswith(mixers) else TRAIN_F32_GRAD_REL
+        check(r <= limit, f"{what}: gradient {n} differs by {r} of its "
+              f"largest magnitude (limit {limit})")
+        if r > worst.get("rel", -1):
+            worst = dict(rel=r, leaf=n, limit=limit)
+    diffs = torch.cat([(pk[n] - pr[n]).abs().flatten() for n in pk])
+    param_max = float(diffs.max())
+    loose = float((diffs > 1e-6).float().mean())
+    check(param_max <= TRAIN_F32_PARAM_ATOL and loose <= TRAIN_F32_LOOSE,
+          f"{what}: parameters after the step differ by {param_max} "
+          f"({loose} of them by more than 1e-6)")
+    return dict(loss=(lk, lr_), loss_rel=loss_rel, grad_worst=worst,
+                param_max_diff=param_max, params_off_by_1e6_share=loose)
+
+
+def phase_train_ssm_moe(torch, seed, smi, fault=None):
+    """Phase 17: Mamba2-780M (full width and depth) and DeepSeekMoE-16B
+    (full width, 4 layers) trained 8 steps each as phase 16 trains
+    MiniCPM-2B (a), check (ii) for each (b), and Jamba's first 4 layers at a
+    reduced width, one float32 step kernel against ref (c).  With
+    ``fault`` (calibration) only (b)'s bf16 comparison of the model the
+    fault touches runs, reading (not enforcing) its limits.  Returns
+    (a)'s launch counts, summed."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.cells import knobs_for
+    from repro_torch.launch.steps import accumulate_grads, build_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    total = {}
+    for name, layers in SSM_MOE_TRAIN.items():
+        if fault and FAULT_MODEL[fault] != name:
+            continue
+        t_model = time.perf_counter()
+        cfg = family_config(configs, name, layers)
+        knobs = knobs_for(cfg, microbatches=SSM_MOE_MICROBATCHES)
+        k = knobs.microbatches
+        data = SyntheticLM(vocab=cfg.padded_vocab, seq_len=TRAIN_SEQ,
+                           batch=TRAIN_ROWS, microbatches=k, seed=seed)
+        expected = _ssm_moe_expected(cfg, k)
+        run_cfg = dataclasses.replace(cfg, remat=knobs.remat)
+        tokens_per_step = TRAIN_SEQ * TRAIN_ROWS * k
+
+        def init(p):
+            if cfg.ssm is not None:
+                trained_dt_bias_(torch, p, seed)
+
+        if not fault:
+            # -- (a) the run --------------------------------------------------
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params = T.init_params(cfg, seed)
+            init(params)
+            opt = adamw.init_state(params)
+            step = build_train_step(cfg, knobs, opt_cfg)
+            params, opt, run = _timed_train_run(torch, step, data, cfg,
+                                                params, opt)
+            walls, metrics = run["walls"], run["metrics"]
+            per_step, counts = run["per_step"], run["counts"]
+            peak = torch.cuda.max_memory_allocated()
+            for key, v in counts.items():
+                total[key] = total.get(key, 0) + v
+            losses = [m["loss"] for m in metrics]
+            check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+                  f"{name}: train losses {losses}")
+            first = data.batch_at(0)
+            with torch.no_grad():
+                refit = float(sum(T.train_forward(
+                    params, {key: v[i] for key, v in first.items()},
+                    run_cfg)[0] for i in range(k))) / k
+            check(refit < losses[0], f"{name}: the first batch's loss "
+                  f"{losses[0]} did not fall after training ({refit})")
+            check(not STREAM_LOSS_FALLS[name]
+                  or np.mean(losses[-3:]) < losses[0],
+                  f"{name}: the loss did not decrease: {losses}")
+            for i, c in enumerate(per_step):
+                got_c = {key: v for key, v in c.items() if v}
+                check(got_c == expected, f"{name} step {i}: launches "
+                      f"{got_c}, expected {expected}")
+            step_ms = float(np.median(walls[1:])) * 1e3
+            flops_tok = T.model_flops_per_token(cfg, params)
+            mflops = flops_tok * tokens_per_step / (step_ms * 1e-3)
+            prof = _profiled_step(
+                torch, lambda batch: accumulate_grads(params, batch,
+                                                      run_cfg)[1],
+                lambda grads: adamw.apply_updates(params, grads, opt,
+                                                  opt_cfg),
+                data.batch_at(TRAIN_STEPS))
+            for cls in ("scan backward", "gather backward"):
+                kind = "ssd_scan_backward" if "scan" in cls \
+                    else "moe_gather_backward"
+                if kind in expected:
+                    check(prof["device_ms_by_class"].get(cls),
+                          f"{name}: the profiled step names no {cls}")
+            cut = ("all 48 layers kept" if name == "mamba2-780m" else
+                   f"{layers} of {configs.get(name).num_layers} layers: the "
+                   f"dense first layer and {layers - 1} MoE layers (one card "
+                   f"with AdamW's moments)")
+            say("train-ssm-moe", part="a", model=name, layers=layers,
+                d_model=cfg.d_model, params=T.count_params(params),
+                reduced=dict(depth=cut, global_batch=f"{TRAIN_ROWS * k} rows "
+                             f"of {TRAIN_SEQ} (one card, a smoke run's time)",
+                             microbatches=f"knobs_for gives "
+                             f"{knobs_for(cfg).microbatches}; phase 16's "
+                             f"{k} taken"),
+                trained_dt_bias=cfg.ssm is not None, seq_len=TRAIN_SEQ,
+                microbatches=k, tokens_per_step=tokens_per_step,
+                remat=knobs.remat, opt=TRAIN_OPT, losses=losses,
+                first_batch_loss_after=refit,
+                stream_loss_checked=STREAM_LOSS_FALLS[name],
+                grad_norms=[m["grad_norm"] for m in metrics],
+                step_ms=[w * 1e3 for w in walls], step_ms_median=step_ms,
+                tokens_per_s=tokens_per_step / (step_ms * 1e-3),
+                model_flops_per_token=flops_tok, model_flops_per_s=mflops,
+                mfu_bf16_dense=mflops / PEAK_BF16_S,
+                max_memory_allocated=peak, launches=counts,
+                launches_per_step=per_step[0], profiled_step=prof,
+                nvidia_smi=smi, seconds=time.perf_counter() - t_model)
+            del params, opt, step
+            torch.cuda.empty_cache()
+
+        # -- (b) check (ii) ---------------------------------------------------
+        t_b = time.perf_counter()
+        batch = data.batch_at(0)
+        f32cfg = dataclasses.replace(
+            family_config(configs, name, 2), param_dtype="float32",
+            compute_dtype="float32", remat=True)
+        got, _ = _train_step_pair(torch, f32cfg, batch, seed, init,
+                                  opt_cfg=opt_cfg, fault=fault)
+        launched = {key: v for key, v in got["kernel"][3].items() if v}
+        check(launched == _ssm_moe_expected(f32cfg, k)
+              and not any(got["ref"][3].values()),
+              f"{name} check (ii): launches kernel {launched} ref "
+              f"{got['ref'][3]}")
+        f32 = _f32_check(torch, got, f"{name} check (ii)", f32cfg,
+                         enforce=not fault)
+        del got
+        torch.cuda.empty_cache()
+        got, pins = _train_step_pair(torch, run_cfg, batch, seed, init,
+                                     fault=fault)
+        (lk, gk, _, _), (lr_, gr, _, _) = got["kernel"], got["ref"]
+        gnorm_k = float(adamw.global_norm(gk))
+        gnorm_r = float(adamw.global_norm(gr))
+        del got, gk, gr
+        torch.cuda.empty_cache()
+        loss_lim, gnorm_lim = SSM_MOE_BF16_LIMITS[name]
+        bf16 = dict(loss_kernel=lk, loss_ref=lr_,
+                    loss_rel=abs(lk - lr_) / abs(lr_),
+                    grad_norm_kernel=gnorm_k, grad_norm_ref=gnorm_r,
+                    grad_norm_rel=abs(gnorm_k - gnorm_r) / gnorm_r,
+                    rerouted_tokens=int(pins.rerouted),
+                    routed_tokens=pins.routed,
+                    limits=dict(loss_rel=loss_lim, grad_norm_rel=gnorm_lim))
+        say("train-ssm-moe", part="b", model=name, fault=fault,
+            f32_layers=2, f32=f32, bf16_depth=layers,
+            bf16=bf16, seconds=time.perf_counter() - t_b)
+        if not fault:
+            check(bf16["loss_rel"] <= loss_lim,
+                  f"{name} bf16 first step: loss {lk} vs ref {lr_}")
+            check(bf16["grad_norm_rel"] <= gnorm_lim,
+                  f"{name} bf16 first step: grad norm {gnorm_k} vs ref "
+                  f"{gnorm_r}")
+
+    if fault:
+        return total
+    # -- (c) Jamba's first 4 layers: the scan, the gather and flash -----------
+    t_c = time.perf_counter()
+    name = "jamba-1.5-large-398b"
+    base = configs.get(name)
+    jcfg = family_config(
+        configs, name, 4, param_dtype="float32", compute_dtype="float32",
+        remat=True, moe=dataclasses.replace(base.moe,
+                                            d_ff_expert=JAMBA_EXPERT_FF),
+        **JAMBA_CUT)
+    jdata = SyntheticLM(vocab=jcfg.padded_vocab, seq_len=JAMBA_SEQ, batch=1,
+                        microbatches=2, seed=seed)
+
+    def jinit(p):
+        trained_dt_bias_(torch, p, seed)
+
+    got, pins = _train_step_pair(torch, jcfg, jdata.batch_at(0), seed, jinit,
+                                 opt_cfg=opt_cfg)
+    want = _ssm_moe_expected(jcfg, 2)
+    launched = {key: v for key, v in got["kernel"][3].items() if v}
+    check(launched == want, f"jamba (c): launches {launched}, expected {want}")
+    jamba = _f32_check(torch, got, "jamba (c)", jcfg)
+    del got
+    torch.cuda.empty_cache()
+    say("train-ssm-moe", part="c", model=name,
+        cut=dict(layers="the first 4 of its unit: Mamba + dense, Mamba + "
+                 "MoE, Mamba + dense, attention + MoE", width=JAMBA_CUT,
+                 d_ff_expert=JAMBA_EXPERT_FF, seq_len=JAMBA_SEQ,
+                 microbatches=2, dtype="float32"),
+        launches=launched, rerouted_tokens=int(pins.rerouted), **jamba,
+        seconds=time.perf_counter() - t_c)
+    say("train-ssm-moe", phase_seconds=time.perf_counter() - t_phase)
+    return total
+
+
+def phase_train_child(torch, seed, smi, fault=None):
+    """Phases 16 and 17 in a child process with a deterministic cuBLAS
+    workspace (set before the child's first cuBLAS call); the child prints
+    its lines and, last, its main paths' launch counts, summed, which are
+    returned.  With ``fault`` only phase 17's calibration part runs."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     torch.cuda.empty_cache()
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--train-child",
-         "--seed", str(seed)], env=env, cwd=ROOT, capture_output=True,
-        text=True, timeout=900)
+         "--seed", str(seed)] + (["--plant-fault", fault] if fault else []),
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=900)
     lines = proc.stdout.splitlines()
     if proc.returncode or not lines:
         print("\n".join(lines), flush=True)
         sys.stderr.write(proc.stderr[-20000:])
-        raise SmokeFailure(f"phase 16 (train) failed with code "
+        raise SmokeFailure(f"phases 16-17 (train) failed with code "
                            f"{proc.returncode}")
     print("\n".join(lines[:-1]), flush=True)
     return json.loads(lines[-1])["launches"]
+
+
+def train_child(torch, seed, smi, fault):
+    """The child's work: phase 16 then phase 17 under deterministic
+    algorithms (with ``fault``, phase 17's calibration part alone); returns
+    the main paths' launch counts, summed."""
+    torch.use_deterministic_algorithms(True)
+    if fault:
+        return phase_train_ssm_moe(torch, seed, smi, fault)
+    counts = phase_train(torch, seed, smi)
+    for key, v in phase_train_ssm_moe(torch, seed, smi).items():
+        counts[key] = counts.get(key, 0) + v
+    return counts
 
 
 def kernels_line(records, path_counts):
@@ -4229,11 +4882,19 @@ def main(argv=None):
                         help="build, then run only phase 15 (the other "
                              "architectures at full width) and stop")
     parser.add_argument("--train-only", action="store_true",
-                        help="build, then run only the flash backward's "
-                             "part of phase 6 and phase 16 (training "
-                             "MiniCPM-2B) and stop")
+                        help="build, then run only the training "
+                             "kernels' checks (the flash backward's part of "
+                             "phase 6, the scan's and the gather's backward "
+                             "in phase 8) and phases 16-17 (training "
+                             "MiniCPM-2B, Mamba2-780M, DeepSeekMoE-16B, "
+                             "Jamba's cut) and stop")
     parser.add_argument("--train-child", action="store_true",
-                        help=argparse.SUPPRESS)  # phase 16's own process
+                        help=argparse.SUPPRESS)  # phases 16-17's process
+    parser.add_argument("--plant-fault", choices=sorted(FAULT_MODEL),
+                        help="calibration only: build, then run phase 17's "
+                             "bf16 check (ii) for the model the fault "
+                             "touches, with the fault planted in the new "
+                             "backward kernel's route, and stop")
     args = parser.parse_args(argv)
 
     import torch
@@ -4278,11 +4939,16 @@ def main(argv=None):
             print(smi)
             return 0
         if args.train_child:
-            counts = phase_train(torch, args.seed, smi)
+            counts = train_child(torch, args.seed, smi, args.plant_fault)
             print(json.dumps({"launches": counts}))
+            return 0
+        if args.plant_fault:
+            phase_train_child(torch, args.seed, smi, args.plant_fault)
+            print(smi)
             return 0
         if args.train_only:
             phase_flash_backward(torch)
+            phase_ssm_moe_backward(torch)
             phase_train_child(torch, args.seed, smi)
             print(smi)
             return 0
@@ -4301,6 +4967,7 @@ def main(argv=None):
         paths.append(phase_serve(torch, args.seed, "gemma2-serve",
                                  SERVES["gemma2-serve"]))
         records.update(phase_ssm_moe(torch))
+        records.update(phase_ssm_moe_backward(torch))
         for label in ("mamba2-serve", "moe-serve"):
             paths.append(phase_serve(torch, args.seed, label, SERVES[label]))
         paths += phase_supervised(torch, items, main, smi)

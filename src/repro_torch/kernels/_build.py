@@ -90,10 +90,21 @@ _SIGNATURES = {
         [_P, _STRIDES, _P, _STRIDES, _P, _P, _STRIDES, _P, _STRIDES, _P,
          _STRIDES, _P, _P, ctypes.c_longlong]
         + [ctypes.c_int] * 6 + [_P],
+    # x, sx, dt, sdt, A, Bm, sb, Cm, sc, dy, sdy, dh_final (or null), the
+    # forward's hprev and decay, dx, sdx, ddt, sddt, dA, dB, dC, g-state,
+    # dB / dC / dA partials, B, H, S, P, N, groups, dtype, stream
+    "ssd_scan_backward":
+        [_P, _STRIDES, _P, _STRIDES, _P, _P, _STRIDES, _P, _STRIDES, _P,
+         _STRIDES, _P, _P, _P, _P, _STRIDES, _P, _STRIDES]
+        + [_P] * 7 + [ctypes.c_int] * 7 + [_P],
     # x, row_token, out, R, T, row bytes, unit bytes, stream
     "moe_gather_forward":
         [_P] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_int, _P],
+    # dout, table, dx, T, k, R, d, dtype, 16-byte units, stream
+    "moe_gather_backward":
+        [_P] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
 }
 
 _LOCK = threading.Lock()

@@ -18,11 +18,13 @@ exception.  The wrappers count their launches (:func:`launch_counts`).
 
 Gradients (training): on the CPU, and in mode ``"ref"``, every function is
 plain PyTorch, which autograd differentiates.  Where the kernels run,
-:func:`flash_attention` is a ``torch.autograd.Function`` whose backward is
-the hand-written backward kernel; the other kernels have no backward yet,
-so :func:`decode_attention`, :func:`ssd_scan`, :func:`moe_gather` and
-:func:`moe_combine` raise ``NotImplementedError`` when grad mode is on and
-an input requires grad, rather than return an output without a gradient.
+:func:`flash_attention`, :func:`ssd_scan` and :func:`moe_gather` are
+``torch.autograd.Function`` classes whose backwards are hand-written backward
+kernels; :func:`moe_combine` is plain PyTorch in every mode (as the
+reference's jnp combine), which autograd differentiates.  Only
+:func:`decode_attention`, which serving alone calls, has no backward: it
+raises ``NotImplementedError`` when grad mode is on and an input requires
+grad, rather than return an output without a gradient.
 """
 
 from __future__ import annotations
@@ -76,11 +78,6 @@ def reset_launch_counts() -> None:
             counts[k] = 0
 
 
-#: where the backward kernels that the guard asks for are queued
-BACKWARD_QUEUE = ("ROADMAP Queue 1 item 16: the backward kernels of "
-                  "ssd_scan, moe_gather and moe_combine")
-
-
 def _requires_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
@@ -90,10 +87,10 @@ def _no_backward(name: str, *tensors) -> None:
     """Raise when a kernel without a backward would cut a gradient."""
     if _requires_grad(*tensors):
         raise NotImplementedError(
-            f"ops.{name} has no backward kernel yet ({BACKWARD_QUEUE}); with "
-            f"grad enabled on an input that requires grad its output would "
-            f"silently carry no gradient.  Train this path on the CPU or in "
-            f"ops mode 'ref', or run it under torch.no_grad()")
+            f"ops.{name} has no backward kernel (it serves decoding, which "
+            f"needs none); with grad enabled on an input that requires grad "
+            f"its output would silently carry no gradient.  Run it under "
+            f"torch.no_grad(), on the CPU or in ops mode 'ref'")
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -216,22 +213,41 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap=0.0,
 
 
 def ssd_scan(x, dt, A, Bm, Cm):
-    """x ``[B, H, S, P]``; dt ``[B, H, S]``; A ``[H]``; Bm, Cm ``[B, H, S,
-    N]`` (strided views allowed) -> (y ``[B, H, S, P]``, final h ``[B, H,
-    N, P]`` float32): the chunked SSD scan from a zero state, any S."""
+    """x ``[B, H, S, P]``; dt ``[B, H, S]``; A ``[H]``; Bm, Cm ``[B, G, S,
+    N]`` with ``G = 1`` (one group read by every head) or H (strided views
+    allowed) -> (y ``[B, H, S, P]``, final h ``[B, H, N, P]`` float32): the
+    chunked SSD scan from a zero state, any S.  Differentiable in every
+    mode: with grad on and an input that requires grad, the kernel route
+    runs :class:`~repro_torch.kernels.ssd_scan.SsdScanFunction` (a shared
+    group's gradient summed over the heads by the backward kernel)."""
+    heads = x.shape[1]
     if kernels_active(x.device):
-        _no_backward("ssd_scan", x, dt, A, Bm, Cm)
-        return _sk.ssd_scan(x, dt.float(), A.float(), Bm.to(x.dtype),
-                            Cm.to(x.dtype))
-    return _ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+        args = (x, dt.float(), A.float(), Bm.to(x.dtype), Cm.to(x.dtype))
+        if _requires_grad(*args):
+            return _sk.SsdScanFunction.apply(*args)
+        return _sk.ssd_scan(*args[:3], _sk.heads_view(args[3], heads),
+                            _sk.heads_view(args[4], heads))
+    return _ref.ssd_scan_ref(x, dt, A, _sk.heads_view(Bm, heads),
+                             _sk.heads_view(Cm, heads))
 
 
-def moe_gather(x, row_token) -> torch.Tensor:
+def moe_gather(x, row_token, *, max_rows_per_token=None) -> torch.Tensor:
     """x ``[T, d]``; row_token ``[R]`` -> ``[R, d]``: ``x[row_token[r]]``,
-    zeros for a token outside ``[0, T)`` (the dummy ``T``)."""
+    zeros for a token outside ``[0, T)`` (the dummy ``T``).  Differentiable
+    in every mode: with grad on and x requiring grad, the kernel route runs
+    :class:`~repro_torch.kernels.moe_dispatch.MoeGatherFunction`, whose
+    backward sums each token's at most ``max_rows_per_token`` rows (``top_k``
+    in the model), which it then needs."""
     if kernels_active(x.device):
-        _no_backward("moe_gather", x)
-        return _mk.moe_gather(x.contiguous(), _i32(row_token))
+        x, row_token = x.contiguous(), _i32(row_token)
+        if _requires_grad(x):
+            if max_rows_per_token is None:
+                raise ValueError("ops.moe_gather under grad needs "
+                                 "max_rows_per_token (the bound of a "
+                                 "token's rows)")
+            return _mk.MoeGatherFunction.apply(x, row_token,
+                                               max_rows_per_token)
+        return _mk.moe_gather(x, row_token)
     return _ref.moe_gather_ref(x, row_token)
 
 
@@ -240,10 +256,9 @@ def moe_combine(expert_out, row_token, row_weight, num_tokens: int, *,
     """``y[t] = sum_{r: row_token[r] == t} w_r expert_out[r]``, float32
     accumulation in a fixed order, rounded once to expert_out's dtype.  No
     kernel, in every mode (the reference's ``ops.moe_combine`` is its jnp
-    version too).  Where the kernels run it takes the guard all the same:
-    the MoE path's backward kernels are queued together."""
-    if kernels_active(expert_out.device):
-        _no_backward("moe_combine", expert_out, row_weight)
+    version too), so autograd differentiates it everywhere; its gradient is
+    deterministic (each row of ``expert_out`` sits in one cell of the
+    token table)."""
     return _ref.moe_combine_ref(expert_out, row_token, row_weight,
                                 num_tokens,
                                 max_rows_per_token=max_rows_per_token)

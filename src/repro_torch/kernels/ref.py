@@ -504,6 +504,111 @@ def ssd_scan_sequential(x, dt, A, Bm, Cm):
     return torch.stack(ys, dim=2).to(x.dtype), hs
 
 
+def _clip_grad_mask(t: torch.Tensor) -> torch.Tensor:
+    """Where the clip to ``[-60, 0]`` passes a gradient (autograd's clamp:
+    both ends included)."""
+    return (t >= SSD_CLIP) & (t <= 0.0)
+
+
+def ssd_scan_backward_ref(x, dt, A, Bm, Cm, dy, dh_final=None, *,
+                          chunk: int = 256):
+    """The gradients ``(dx, ddt, dA, dB, dC)`` of :func:`ssd_scan_ref`'s
+    outputs ``(y, h)`` for their gradients ``dy`` ``[B, H, S, P]`` and
+    ``dh_final`` ``[B, H, N, P]`` (None: zero), by explicit formulas in
+    float32, chunk by chunk (no autograd).  Bm, Cm ``[B, G, S, N]`` with
+    ``G = 1`` (one group read by every head) or ``G = H``; dB and dC come
+    back in that layout, a group's heads summed.  dx, dB, dC take their
+    input's dtype; ddt ``[B, H, S]`` and dA ``[H]`` are float32.
+
+    Per chunk (positions i, j; ``u = x dt``; ``cum`` the running sum of
+    ``dt A``; ``e_i = exp(cum_i)``, ``w_j = exp(total - cum_j)``, ``L_ij =
+    exp(cum_i - cum_j)`` for ``j <= i``, each clipped to ``[-60, 0]``):
+
+    * the state's gradient passes backwards from the last chunk:
+      ``g_{k-1} = exp(total_k) g_k + sum_i e_i C_i dy_i^T``, ``g_last =
+      dh_final``;
+    * ``du_j = sum_i (C_i . B_j) L_ij dy_i + w_j g_k^T B_j``; ``dC_i =
+      sum_j L_ij (dy_i . u_j) B_j + e_i h_{k-1} dy_i``; ``dB_j = sum_i
+      L_ij (dy_i . u_j) C_i + w_j g_k u_j``, with ``h_{k-1}`` the state
+      entering the chunk;
+    * the gradient of ``cum`` collects the decays' (each zero where its
+      clip is active), the last position taking ``total``'s; a reverse
+      running sum inside the chunk turns it into that of ``dt A``, whence
+      ``ddt`` (with ``du . x``) and ``dA``."""
+    b, h, s, p = x.shape
+    n = Bm.shape[-1]
+    c = min(chunk, s)
+    pad = (-s) % c
+    nc = (s + pad) // c
+
+    def chunks(t, last):
+        t = t.float()
+        if pad:
+            t = F.pad(t, (0, 0, 0, pad) if last else (0, pad))
+        return t.reshape(b, h, nc, c, *((t.shape[-1],) if last else ()))
+
+    xc, dtc, dyc = chunks(x, True), chunks(dt, False), chunks(dy, True)
+    Bc = chunks(Bm.expand(b, h, s, n), True)
+    Cc = chunks(Cm.expand(b, h, s, n), True)
+    Af = A.float()[None, :, None, None]
+    uc = xc * dtc[..., None]
+    cum = torch.cumsum(dtc * Af, dim=-1)                   # [b, h, nc, c]
+    total = cum[..., -1]                                   # [b, h, nc]
+    e, w, dec = _clip_exp(cum), _clip_exp(total[..., None] - cum), \
+        _clip_exp(total)
+    # the states entering each chunk, as the forward passes them
+    states = (Bc * w[..., None]).transpose(-1, -2) @ uc    # [b, h, nc, n, p]
+    hs = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    h_prev = []
+    for k in range(nc):
+        h_prev.append(hs)
+        hs = hs * dec[..., k, None, None] + states[:, :, k]
+    h_prev = torch.stack(h_prev, dim=2)
+    # the state's gradient, from the last chunk back
+    q = (Cc * e[..., None]).transpose(-1, -2) @ dyc        # [b, h, nc, n, p]
+    g = torch.zeros_like(hs) if dh_final is None else dh_final.float()
+    g_out = [None] * nc
+    for k in reversed(range(nc)):
+        g_out[k] = g
+        g = g * dec[..., k, None, None] + q[:, :, k]
+    g_out = torch.stack(g_out, dim=2)
+    # inside each chunk
+    v = cum[..., :, None] - cum[..., None, :]              # [.., i, j]
+    tril = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
+    zero = torch.zeros((), device=x.device)
+    L = torch.where(tril, _clip_exp(v), zero)
+    Lg = torch.where(tril & _clip_grad_mask(v), L, zero)
+    G = Cc @ Bc.transpose(-1, -2)                          # C_i . B_j
+    dyu = dyc @ uc.transpose(-1, -2)                       # dy_i . u_j
+    bg = Bc @ g_out                                        # [.., c, p]
+    du = (G * L).transpose(-1, -2) @ dyc + w[..., None] * bg
+    dyh = dyc @ h_prev.transpose(-1, -2)                   # [.., c, n]
+    dC = (L * dyu) @ Bc + e[..., None] * dyh
+    dB = (L * dyu).transpose(-1, -2) @ Cc \
+        + w[..., None] * (uc @ g_out.transpose(-1, -2))
+    M = G * dyu * Lg
+    dw = (bg * uc).sum(-1)
+    wg = torch.where(_clip_grad_mask(total[..., None] - cum), w, zero) * dw
+    dcum = M.sum(-1) - M.sum(-2) - wg + torch.where(
+        _clip_grad_mask(cum), e, zero) * (Cc * dyh).sum(-1)
+    dcum[..., -1] += wg.sum(-1) + torch.where(
+        _clip_grad_mask(total), dec, zero) * (h_prev * g_out).sum((-1, -2))
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    dx = du * dtc[..., None]
+    ddt = (du * xc).sum(-1) + da * Af
+    dA = (da * dtc).sum((0, 2, 3))
+
+    def unchunk(t, dtype, groups=h):
+        t = t.reshape(b, h, nc * c, *t.shape[4:])[:, :, :s]
+        if groups == 1:
+            t = t.sum(1, keepdim=True)
+        return t.to(dtype)
+
+    return (unchunk(dx, x.dtype), unchunk(ddt, torch.float32), dA,
+            unchunk(dB, Bm.dtype, Bm.shape[1]),
+            unchunk(dC, Cm.dtype, Cm.shape[1]))
+
+
 # ---------------------------------------------------------------------------
 # MoE dispatch
 # ---------------------------------------------------------------------------
@@ -521,6 +626,31 @@ def moe_gather_ref(x, row_token) -> torch.Tensor:
                                                       device=x.device))
 
 
+def token_rows_table(row_token, num_tokens: int,
+                     max_rows_per_token: int) -> torch.Tensor:
+    """``[num_tokens, max(k, 1)]`` int64: ``table[t, j]`` is the buffer
+    index of token ``t``'s ``j``-th row in buffer order, or ``R`` (no row);
+    ``k = max_rows_per_token`` bounds a token's rows and drops the rest.
+    Rows of a token outside ``[0, num_tokens)`` appear nowhere.  Index
+    preparation (a stable sort by token, then positions), shared by the
+    combine and the gather's backward."""
+    r = row_token.shape[0]
+    dev = row_token.device
+    tok = row_token.to(torch.int64)
+    tok = torch.where((tok >= 0) & (tok < num_tokens), tok, num_tokens)
+    order = torch.sort(tok, stable=True).indices
+    t_sorted = tok[order]
+    counts = torch.bincount(t_sorted, minlength=num_tokens + 1)
+    start = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(r, device=dev) - start[t_sorted]
+    # the dummy token's row and a spare last column take what the bound
+    # drops
+    table = torch.full((num_tokens + 1, max(max_rows_per_token, 1) + 1), r,
+                       dtype=torch.int64, device=dev)
+    table[t_sorted, pos.clamp(max=table.shape[1] - 1)] = order
+    return table[:num_tokens, :-1]
+
+
 def moe_combine_ref(expert_out, row_token, row_weight, num_tokens: int, *,
                     max_rows_per_token: int) -> torch.Tensor:
     """expert_out ``[R, d]``; ``y[t] = sum_{r: row_token[r] == t} w_r *
@@ -532,24 +662,26 @@ def moe_combine_ref(expert_out, row_token, row_weight, num_tokens: int, *,
     same bits on any device (a bfloat16 ``index_add_`` on the card adds in
     the atomics' order).  ``max_rows_per_token`` bounds the rows of one
     token (``top_k`` in the model)."""
-    r, d = expert_out.shape
-    dev = expert_out.device
-    tok = row_token.to(torch.int64)
-    tok = torch.where((tok >= 0) & (tok < num_tokens), tok, num_tokens)
-    order = torch.sort(tok, stable=True).indices
-    t_sorted = tok[order]
-    counts = torch.bincount(t_sorted, minlength=num_tokens + 1)
-    start = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(r, device=dev) - start[t_sorted]
-    # table[t, j]: the j-th row of token t, or r (a zero row); the dummy
-    # token's row and a spare last column take what the bound drops
-    table = torch.full((num_tokens + 1, max(max_rows_per_token, 1) + 1), r,
-                       dtype=torch.int64, device=dev)
-    table[t_sorted, pos.clamp(max=table.shape[1] - 1)] = order
-    table = table[:num_tokens, :-1]
+    d = expert_out.shape[1]
+    table = token_rows_table(row_token, num_tokens, max_rows_per_token)
     rows = torch.cat([expert_out.float() * row_weight.float()[:, None],
                       expert_out.new_zeros((1, d), dtype=torch.float32)])
-    y = torch.zeros((num_tokens, d), dtype=torch.float32, device=dev)
+    y = torch.zeros((num_tokens, d), dtype=torch.float32,
+                    device=expert_out.device)
     for j in range(table.shape[1]):
         y += rows[table[:, j]]
     return y.to(expert_out.dtype)
+
+
+def moe_gather_backward_ref(dout, row_token, num_tokens: int, *,
+                            max_rows_per_token: int) -> torch.Tensor:
+    """The gradient of :func:`moe_gather_ref` for its output's gradient
+    ``dout`` ``[R, d]``: ``dx[t] = sum_{r: row_token[r] == t} dout[r]``
+    for ``t < num_tokens`` -> ``[num_tokens, d]`` of dout's dtype, each
+    token's at most ``max_rows_per_token`` rows summed in buffer order in
+    float32 and rounded once (the combine with unit weights); dummy rows
+    give nothing."""
+    return moe_combine_ref(dout, row_token,
+                           torch.ones((), device=dout.device)
+                           .expand(dout.shape[0]), num_tokens,
+                           max_rows_per_token=max_rows_per_token)

@@ -49,7 +49,10 @@ def accumulate_grads(params, batch, run_cfg: ModelConfig,
         mb = {key: val[i] for key, val in batch.items()}
         with torch.enable_grad():
             loss, _ = T.train_forward(params, mb, run_cfg)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf outside the graph (a router bias only picks experts)
+            # gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         if acc is None:
             acc = [g.to(accum_dtype) for g in grads]
         else:

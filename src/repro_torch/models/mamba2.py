@@ -15,9 +15,13 @@ A step of :func:`mamba_block`:
   reference (it has no kernel);
 * any other call: the chunked scan through ``ops.ssd_scan`` from a zero
   SSM state, with the causal convolutions continuing from the state's conv
-  history when a state is given.  The reference sends a call of 2-4 tokens
-  with a state to its one-step recurrence, which reads only the first
-  token; the port scans every ``S > 1`` (ROADMAP Queue 3).
+  history when a state is given.  Under grad on the card the scan's
+  gradient (x, dt, A, B, C) is the backward kernel's
+  (``csrc/ssd_scan_backward.cu``, through ``SsdScanFunction``); the rest
+  of the block is plain PyTorch, which autograd differentiates.  The
+  reference sends a call of 2-4 tokens with a state to its one-step
+  recurrence, which reads only the first token; the port scans every
+  ``S > 1`` (ROADMAP Queue 3).
 
 The recurrent state of a layer is ``{"h", "conv_x", "conv_B", "conv_C"}``:
 ``h [B, H, N, P]`` float32 and the last ``W - 1`` conv inputs ``[B, W-1,
@@ -123,14 +127,16 @@ def ssd_decode_step(xh, dt, A, Bvec, Cvec, h):
 def _scan(xh, dt, A, Bmat, Cmat):
     """The chunked scan on the model's layouts: xh ``[B, S, H, P]``, dt
     ``[B, S, H]``, Bmat, Cmat ``[B, S, G, N]`` -> (y ``[B, S, H, P]``, h).
-    The kernel reads transposed views; one shared B/C group is expanded
-    over the heads with stride 0 (no copy)."""
-    b, s, n_heads, _ = xh.shape
-    g, n = Bmat.shape[2], Bmat.shape[3]
+    The kernel reads transposed views; one shared B/C group goes in its
+    group layout ``[B, 1, S, N]`` (no copy), which the scan expands over
+    the heads with stride 0 and whose gradient the backward kernel sums
+    over the heads; several groups are repeated to one per head."""
+    g = Bmat.shape[2]
+    n_heads = xh.shape[2]
 
     def per_head(m):
         if g == 1:
-            return m[:, :, 0][:, None].expand(b, n_heads, s, n)
+            return m.transpose(1, 2)
         return m.repeat_interleave(n_heads // g, dim=2).transpose(1, 2)
 
     y, h = ops.ssd_scan(xh.transpose(1, 2), dt.transpose(1, 2), A,

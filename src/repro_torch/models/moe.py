@@ -16,6 +16,11 @@ sequence:
    for the whole batch), the experts' gated MLPs as batched products, and
    the weighted combine back to the tokens through ``ops.moe_combine``.
 
+Gradients under grad on the card: the gather's is the backward kernel's
+(``moe_gather_backward``, through ``MoeGatherFunction``: each token's at
+most ``k`` rows summed in buffer order); the combine's, the router's and
+the experts' are autograd's of plain PyTorch.
+
 What differs from the reference: the combine accumulates in float32, each
 token summing its at most ``k`` rows in buffer order, and rounds once; the
 reference scatter-adds in the activations' dtype, which on the card in
@@ -134,7 +139,8 @@ def moe_ffn(x, params: MoE, moe: MoEConfig) -> Tuple[torch.Tensor,
     # the flattened x, and every "none" row points past its end
     base = torch.arange(b, dtype=torch.int32, device=x.device)[:, None] * s
     rows = torch.where(buf_token < s, buf_token + base, b * s).reshape(-1)
-    buf = ops.moe_gather(x.reshape(b * s, d), rows).reshape(b, e, cap, d)
+    buf = ops.moe_gather(x.reshape(b * s, d), rows,
+                         max_rows_per_token=k).reshape(b, e, cap, d)
 
     dt = x.dtype
     gate = params.act(torch.einsum("becd,edf->becf", buf,

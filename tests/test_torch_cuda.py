@@ -15,9 +15,11 @@ step of each value, and the bfloat16 scan to one step past its float32
 tolerance, as ``chip_smoke.py`` holds them; the MoE gather, a copy, must be
 bit-exact.  The flash backward is held to its plain version at 1e-4 of
 each gradient's largest magnitude in float32 and 2e-2 and one rounding
-step in bfloat16, two calls bit-identical; the kernels without a backward
-raise under grad.  The distributed keyed plane's workers run on the card
-too (``test_dist_plane_*``), held to the in-process plane bit for bit.
+step in bfloat16, the scan's backward at 2e-4 and 5e-2 and one rounding
+step, the gather's backward bit for bit, each with two calls
+bit-identical; only decode attention raises under grad.  The distributed
+keyed plane's workers run on the card too (``test_dist_plane_*``), held to
+the in-process plane bit for bit.
 """
 
 import dataclasses
@@ -1224,32 +1226,32 @@ def test_flash_attention_autograd_uses_the_backward_kernel(dev):
 
 def test_kernels_without_backward_raise_under_grad(dev):
     """The guard: on the card, with grad on and an input that requires
-    grad, the kernels that have no backward raise rather than return an
-    output without a gradient; under no_grad they run."""
-    x = torch.randn(6, 64, device=dev, requires_grad=True)
-    rows = torch.tensor([0, 6, 3], dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        ops.moe_gather(x, rows)
-    out = torch.randn(4, 64, device=dev, requires_grad=True)
-    tok = torch.tensor([0, 1, 1, 2], device=dev)
-    with pytest.raises(NotImplementedError, match="moe_combine"):
-        ops.moe_combine(out, tok, torch.ones(4, device=dev), 3,
-                        max_rows_per_token=2)
+    grad, only decode attention (serving's kernel, which has no backward)
+    raises rather than return an output without a gradient, and runs under
+    no_grad; the scan, the gather and the combine carry gradients."""
     q = torch.randn(2, 2, 64, device=dev, requires_grad=True)
     cache = torch.randn(2, 1, 16, 64, device=dev)
     with pytest.raises(NotImplementedError, match="decode_attention"):
         ops.decode_attention(q, cache, cache, 3)
+    with torch.no_grad():
+        ops.decode_attention(q, cache, cache, 3)
+    x = torch.randn(6, 64, device=dev, requires_grad=True)
+    rows = torch.tensor([0, 6, 3], dtype=torch.int32, device=dev)
+    assert ops.moe_gather(x, rows, max_rows_per_token=1).grad_fn is not None
+    out = torch.randn(4, 64, device=dev, requires_grad=True)
+    tok = torch.tensor([0, 1, 1, 2], device=dev)
+    assert ops.moe_combine(out, tok, torch.ones(4, device=dev), 3,
+                           max_rows_per_token=2).grad_fn is not None
     xs = torch.randn(1, 2, 70, 64, device=dev, requires_grad=True)
     args = (torch.rand(1, 2, 70, device=dev), -torch.rand(2, device=dev),
             torch.randn(1, 2, 70, 16, device=dev),
             torch.randn(1, 2, 70, 16, device=dev))
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        ops.ssd_scan(xs, *args)
+    y, _ = ops.ssd_scan(xs, *args)
+    assert y.grad_fn is not None
     with torch.no_grad():
         assert ops.moe_gather(x, rows).shape == (3, 64)
-        ops.decode_attention(q, cache, cache, 3)
         ops.ssd_scan(xs, *args)
-    ops.moe_gather(x.detach(), rows)     # nothing requires grad
+    assert ops.moe_gather(x.detach(), rows).grad_fn is None
 
 
 def test_serving_launches_unchanged_by_lse(dev):
@@ -1310,6 +1312,239 @@ def test_train_step_kernel_mode_equals_ref_mode(dev):
         assert float((gk[n] - gr[n]).abs().max()) \
             <= 1e-4 * float(gr[n].abs().max()), n
         assert float((pk[n] - pr[n]).abs().max()) <= 1e-3, n
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels of the scan and the gather
+# ---------------------------------------------------------------------------
+
+#: (B, H, S, P, N, per-head B/C, dt shift, with dh_final): Mamba2-780M's
+#: layer, one token, tails no chunk divides, B/C per head, a trained
+#: model's small dt (the carry decides), a final-state gradient, a small N
+#: and P, and the largest state
+SCAN_BWD_CASES = {
+    "mamba2 layer": (1, 48, 1024, 64, 128, False, 0.0, False),
+    "one token": (1, 48, 1, 64, 128, False, 0.0, True),
+    "ragged tail": (2, 5, 300, 64, 128, False, 0.0, True),
+    "per-head B/C": (1, 6, 257, 64, 128, True, 5.0, True),
+    "small dt": (1, 9, 2049, 64, 128, False, 5.0, False),
+    "narrow": (2, 3, 70, 8, 16, False, 0.0, True),
+    "largest state": (1, 2, 200, 40, 256, True, 0.0, True),
+}
+
+
+def _scan_bwd_inputs(dev, dtype, case, seed=0):
+    """The scan's inputs in the model's layouts, B/C in their group layout
+    [B, 1 or H, S, N], and the output gradients."""
+    b, h, s, p, n, per_head, shift, with_dh = case
+    gen = torch.Generator(device=dev).manual_seed(seed + s)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = randn(b, s, h, p, scale=0.5).to(dtype).transpose(1, 2)
+    dt = torch.nn.functional.softplus(randn(b, s, h) - shift).transpose(1, 2)
+    A = -torch.exp(randn(h, scale=0.3))
+    g = h if per_head else 1
+    Bm = randn(b, s, g, n, scale=0.3).to(dtype).transpose(1, 2)
+    Cm = randn(b, s, g, n, scale=0.3).to(dtype).transpose(1, 2)
+    dy = randn(b, s, h, p).to(dtype).transpose(1, 2)
+    dh = randn(b, h, n, p) if with_dh else None
+    return (x, dt, A, Bm, Cm), dy, dh
+
+
+def _grads_close(got, want, dtype, rel):
+    """Each gradient within ``rel`` (float32) or 5e-2 and one bfloat16
+    rounding step (bfloat16) of its largest magnitude."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        gf, wf = g.float(), w.float()
+        scale = float(wf.abs().max()) or 1.0
+        err = (gf - wf).abs()
+        if g.dtype == torch.bfloat16:
+            assert float(err.max()) <= 5e-2 * scale
+            assert bool((err <= rel * scale + 2.0 ** -7 * wf.abs()).all())
+        else:
+            assert float(err.max()) <= rel * scale, (float(err.max()), scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(SCAN_BWD_CASES))
+def test_ssd_scan_backward_vs_plain(dev, dtype, case):
+    """The backward kernels against ``ref.ssd_scan_backward_ref`` at the
+    kernel's chunk: float32 within 2e-4 of each gradient's largest
+    magnitude, bfloat16 within 5e-2 of it and one rounding step of each
+    value; a second call gives the same bits; one launch a call."""
+    args, dy, dh = _scan_bwd_inputs(dev, dtype, SCAN_BWD_CASES[case])
+    heads = args[0].shape[1]
+    states = tss.ssd_scan(*args[:3], tss.heads_view(args[3], heads),
+                          tss.heads_view(args[4], heads),
+                          keep_states=True)[2]
+    before = ops.launch_counts()["ssd_scan_backward"]
+    got = tss.ssd_scan_backward(*args, dy, dh, states=states)
+    again = tss.ssd_scan_backward(*args, dy, dh, states=states)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan_backward"] == before + 2
+    want = tref.ssd_scan_backward_ref(*args, dy, dh, chunk=tss.CHUNK[dtype])
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    _grads_close(got, want, dtype, 2e-4)
+
+
+def test_ssd_scan_backward_refuses_what_it_does_not_take(dev):
+    """A head wider than 64, a group count other than 1 or H, dy unlike x,
+    states of other inputs, and the gather's bound missing under grad:
+    refused before any launch."""
+    args, dy, dh = _scan_bwd_inputs(dev, torch.float32,
+                                    SCAN_BWD_CASES["narrow"])
+    x, dt, A, Bm, Cm = args
+    heads = x.shape[1]
+    states = tss.ssd_scan(x, dt, A, tss.heads_view(Bm, heads),
+                          tss.heads_view(Cm, heads), keep_states=True)[2]
+    counts = ops.launch_counts()
+    wide = torch.zeros((1, 2, 8, 96), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        tss.ssd_scan_backward(wide, dt[:1, :2, :8], A[:2], Bm[:1, :, :8],
+                              Cm[:1, :, :8], wide, states=states)
+    two = torch.zeros((2, 2, 70, 16), device=dev)
+    with pytest.raises(ValueError, match="1 or H"):
+        tss.ssd_scan_backward(x, dt, A, two, two, dy, states=states)
+    with pytest.raises(ValueError, match="dy must be like x"):
+        tss.ssd_scan_backward(x, dt, A, Bm, Cm, dy.bfloat16(), states=states)
+    with pytest.raises(ValueError, match="states"):
+        tss.ssd_scan_backward(x, dt, A, Bm, Cm, dy, states=states[:-256])
+    xg = torch.randn(6, 64, device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="max_rows_per_token"):
+        ops.moe_gather(xg, torch.zeros(3, dtype=torch.int32, device=dev))
+    assert ops.launch_counts() == counts
+
+
+def test_scan_and_gather_autograd_use_the_backward_kernels(dev):
+    """``ops.ssd_scan`` and ``ops.moe_gather`` under grad: the forward
+    kernel once, the backward kernel once, and the gradients of ops mode
+    ``ref`` (a shared group's summed over the heads)."""
+    args, dy, dh = _scan_bwd_inputs(dev, torch.float32,
+                                    SCAN_BWD_CASES["ragged tail"])
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    tok = torch.randint(0, 41, (120,), device=dev, dtype=torch.int32)
+    xg = torch.randn(40, 24, device=dev, requires_grad=True)
+    dout = torch.randn(120, 24, device=dev)
+    got = {}
+    for mode in ("auto", "ref"):
+        ops.use_kernels(mode)
+        try:
+            c0 = ops.launch_counts()
+            y, hf = ops.ssd_scan(*leaves)
+            gs = torch.autograd.grad((y * dy).sum() + (hf * dh).sum(),
+                                     leaves)
+            gg = torch.autograd.grad(ops.moe_gather(
+                xg, tok, max_rows_per_token=120), xg, dout)
+            c1 = ops.launch_counts()
+        finally:
+            ops.use_kernels("auto")
+        got[mode] = (gs, gg, {k: c1[k] - c0[k] for k in c1})
+    counts = got["auto"][2]
+    for k in ("ssd_scan", "ssd_scan_backward", "moe_gather",
+              "moe_gather_backward"):
+        assert counts[k] == 1 and got["ref"][2][k] == 0, (k, counts)
+    assert got["auto"][0][3].shape == args[3].shape   # [B, 1, S, N]
+    _grads_close(got["auto"][0], got["ref"][0], torch.float32, 2e-4)
+    torch.testing.assert_close(got["auto"][1][0], got["ref"][1][0],
+                               rtol=1e-6, atol=1e-6)
+
+
+def _gather_case(dev, tokens, rows, k, dummies, seed):
+    """A buffer of rows naming each token at most k times, ``dummies`` of
+    them the dummy ``tokens``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    picks = torch.arange(tokens, device=dev).repeat_interleave(k)[
+        torch.randperm(tokens * k, generator=gen, device=dev)]
+    tok = torch.full((rows,), tokens, dtype=torch.int32, device=dev)
+    live = torch.randperm(rows, generator=gen, device=dev)[:rows - dummies]
+    tok[live] = picks[:rows - dummies].to(torch.int32)
+    return tok
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 2048),
+                                     (torch.float32, 2048),
+                                     (torch.float32, 3), (torch.bfloat16, 5)])
+def test_moe_gather_backward_bit_exact(dev, dtype, d):
+    """16-byte units and single elements: bit-exact against the plain
+    version (the same float32 additions in the same order), within one
+    rounding step of a float32 ``index_add_``, a second call the same
+    bits; a sequence of only dummy rows gives zeros."""
+    tokens, k = 300, 6
+    tok = _gather_case(dev, tokens, 2000, k, 300, d)
+    gen = torch.Generator(device=dev).manual_seed(d + 1)
+    dout = torch.randn((2000, d), generator=gen, device=dev).to(dtype)
+    before = ops.launch_counts()["moe_gather_backward"]
+    got = tmd.moe_gather_backward(dout, tok, tokens, max_rows_per_token=k)
+    again = tmd.moe_gather_backward(dout, tok, tokens, max_rows_per_token=k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["moe_gather_backward"] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, tref.moe_gather_backward_ref(
+        dout, tok, tokens, max_rows_per_token=k))
+    live = tok < tokens
+    yard = torch.zeros((tokens, d), device=dev).index_add_(
+        0, tok[live].long(), dout[live].float())
+    err = (got.float() - yard).abs()
+    assert bool((err <= 1e-5 + 2.0 ** -7 * yard.abs()).all())
+    dummies = torch.full((64,), tokens, dtype=torch.int32, device=dev)
+    assert not tmd.moe_gather_backward(dout[:64], dummies, tokens,
+                                       max_rows_per_token=k).any()
+
+
+def test_ssm_and_moe_train_step_kernel_mode_equals_ref_mode(dev):
+    """Reduced float32 Mamba2-780M and DeepSeekMoE-16B at d_model 128 (the
+    scan at head_dim 64), one train step of two microbatches: ops mode
+    ``kernel`` against ``ref`` on the same weights; the scan's and the
+    gather's backward kernels launch once per layer and microbatch (the
+    forward twice, remat); loss 1e-5, each gradient leaf 2e-4 (the scan's
+    leaves) or 1e-4 of its largest magnitude, the parameters after the
+    step to the learning rate."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import accumulate_grads
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.config import MAMBA, MOE
+    from repro_torch.optim import adamw
+
+    opt_cfg = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=8)
+    for name in ("mamba2-780m", "deepseek-moe-16b"):
+        cfg = dataclasses.replace(configs.get(name).reduced(), head_dim=64,
+                                  d_model=128, remat=True)
+        specs = cfg.layer_specs()
+        n_mamba = sum(s.mixer == MAMBA for s in specs)
+        n_moe = sum(s.mlp == MOE for s in specs)
+        batch = SyntheticLM(vocab=cfg.padded_vocab, seq_len=200, batch=1,
+                            microbatches=2, seed=0, device=dev).batch_at(0)
+        got = {}
+        for mode in ("kernel", "ref"):
+            ops.use_kernels(mode)
+            try:
+                ops.reset_launch_counts()
+                p = TT.init_params(cfg, 0, device=dev)
+                loss, grads = accumulate_grads(p, batch, cfg)
+                adamw.apply_updates(p, grads, adamw.init_state(p), opt_cfg)
+                got[mode] = (float(loss), grads,
+                             {n: t.detach() for n, t in p.named_parameters()},
+                             ops.launch_counts())
+            finally:
+                ops.use_kernels("auto")
+        (lk, gk, pk, ck), (lr_, gr, pr, cr) = got["kernel"], got["ref"]
+        assert ck["ssd_scan"] == n_mamba * 2 * 2
+        assert ck["ssd_scan_backward"] == n_mamba * 2
+        assert ck["moe_gather"] == n_moe * 2 * 2
+        assert ck["moe_gather_backward"] == n_moe * 2
+        assert n_mamba + n_moe > 0
+        assert all(v == 0 for v in cr.values())
+        assert abs(lk - lr_) <= 1e-5 * abs(lr_)
+        for n in gk:
+            rel = 2e-4 if ".mixer." in n and n_mamba else 1e-4
+            assert float((gk[n] - gr[n]).abs().max()) \
+                <= rel * float(gr[n].abs().max()), n
+            assert float((pk[n] - pr[n]).abs().max()) <= 2e-3, n
 
 
 # The distributed plane's tests come last: their worker processes make CUDA

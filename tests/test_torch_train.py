@@ -8,18 +8,28 @@ on the CPU.
   the same numpy batch, in float32 for the reduced configurations of
   paper-synthetic, MiniCPM-2B, Gemma2-27B (softcap, sliding window,
   post-norms), PaliGemma-3B (``prefix_embeds``), SeamlessM4T-medium
-  (``src_embeds``: gradients reach the encoder) and DeepSeekMoE-16B (the
-  load-balance loss).  The losses agree to 1e-5 relative and each gradient
-  leaf to ``GRAD_REL`` of its largest magnitude: both sides sum the same
-  float32 products in another order, which moves a gradient by a few ulps
-  of the leaf's largest entries (the measured worst is 2.3e-6).
+  (``src_embeds``: gradients reach the encoder), DeepSeekMoE-16B (the
+  load-balance loss), Mamba2-780M (the scan), Kimi-K2 (a router bias,
+  outside the graph: a zero gradient, as ``jax.grad`` gives it) and Jamba
+  (Mamba, attention and MoE layers; at aux weight 0 on both sides, which
+  leaves out the reference's known per-unit aux sum).  The losses agree to
+  1e-5 relative and each gradient leaf to ``GRAD_REL`` of its largest
+  magnitude: both sides sum the same float32 products in another order,
+  which moves a gradient by a few ulps of the leaf's largest entries (the
+  measured worst is 2.3e-6).
+* One training step on reduced Kimi-K2 (``accumulate_grads`` and
+  ``apply_updates``) against ``jax.grad`` of the reference's
+  ``train_forward`` and its AdamW: the loss, every gradient leaf (the
+  router bias's zero) and the parameters after the step (the router bias
+  moved by weight decay alone).
 * Remat (``torch.utils.checkpoint`` per layer) changes no bit.
 * The plain version of the flash backward against ``torch.autograd``
   through ``flash_attention_ref`` for every mask mode, softcap and GQA;
   its ``lse`` against ``logsumexp``; a row that admits no key takes the
   ``lse = +inf`` convention.
-* The guard: on the CPU the kernels without a backward stay plain and
-  differentiable (their card version raises; ``test_torch_cuda.py``).
+* The guard: on the CPU every kernel's plain version is differentiable,
+  decode attention's too (only its card version raises;
+  ``test_torch_cuda.py``).
 * ``count_params`` and ``model_flops_per_token`` equal the reference's.
 * Pinned: the reference's scan over a unit of several layers keeps only
   the unit's last load-balance loss (reduced Jamba); the port adds all.
@@ -37,19 +47,32 @@ import torch
 import repro.configs as jconfigs
 from repro.models import layers as jlayers
 from repro.models import transformer as JT
+from repro.optim import adamw as jadamw
 import repro_torch.configs as tconfigs
 from repro_torch.interop import params_from_reference, reference_tree
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.launch.steps import accumulate_grads
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as TT
+from repro_torch.optim import adamw as tadamw
 
 from _torch_model_parity import reference_tree as jax_tree
 
 #: a gradient leaf's largest error as a share of its largest magnitude
 GRAD_REL = 2e-5
+#: the same for a Mamba mixer's ``A_log``, at the scan's tolerance: its
+#: gradient sums cancelling terms over every position, chunked at the
+#: reference's 16 positions and the port's plain 256 (reduced Jamba reads
+#: up to 4.0e-5 of it, reduced Mamba2-780M under 2e-5)
+A_LOG_GRAD_REL = 2e-4
 LOSS_REL = 1e-5
 B, S = 2, 12
+
+
+def _grad_rel(path):
+    return A_LOG_GRAD_REL if "A_log" in jax.tree_util.keystr(path) \
+        else GRAD_REL
 
 
 def _batch(cfg, seed):
@@ -71,36 +94,50 @@ def _batch(cfg, seed):
     return batch
 
 
-def _port_grads(model, tcfg, batch, remat=False):
+def _port_grads(model, tcfg, batch, remat=False, aux_weight=0.01):
     """The port's loss, metrics and gradients, the gradients as the
-    reference's tree of numpy leaves."""
+    reference's tree of numpy leaves (a leaf outside the graph, a router
+    bias, gets zeros)."""
     run_cfg = dataclasses.replace(tcfg, remat=remat)
     named = dict(model.named_parameters())
     for p in named.values():
         p.requires_grad_(True)
     loss, metrics = TT.train_forward(
-        model, {k: torch.as_tensor(v) for k, v in batch.items()}, run_cfg)
-    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        model, {k: torch.as_tensor(v) for k, v in batch.items()}, run_cfg,
+        aux_weight=aux_weight)
+    grads = dict(zip(named, torch.autograd.grad(
+        loss, list(named.values()), allow_unused=True,
+        materialize_grads=True)))
     tree = reference_tree(model, tcfg, lambda n: grads[n].numpy(), np.stack)
     return loss.detach(), metrics, tree
 
 
+#: the aux loss's weight: 0 for Jamba, whose reference keeps only each
+#: unit's last aux (pinned below)
+AUX_WEIGHT = {"jamba-1.5-large-398b": 0.0}
+
+
 @pytest.mark.parametrize("name", [
     "paper-synthetic", "minicpm-2b", "gemma2-27b", "paligemma-3b",
-    "seamless-m4t-medium", "deepseek-moe-16b"])
+    "seamless-m4t-medium", "deepseek-moe-16b", "mamba2-780m",
+    "kimi-k2-1t-a32b", "jamba-1.5-large-398b"])
 def test_train_forward_and_grads_match_reference(name):
     cfg = jconfigs.get(name).reduced()
     tcfg = tconfigs.get(name).reduced()
+    aux_weight = AUX_WEIGHT.get(name, 0.01)
     tree = jax_tree(cfg, 0)
     model = params_from_reference(tree, tcfg, device="cpu")
     batch = _batch(cfg, 1)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     (jloss, jm), jgrads = jax.value_and_grad(
-        lambda p: JT.train_forward(p, jb, cfg), has_aux=True)(
-        jax.tree.map(jnp.asarray, tree))
-    loss, metrics, grads = _port_grads(model, tcfg, batch)
-    for got, want in ((loss, jloss), (metrics["nll"], jm["nll"]),
-                      (metrics["aux"], jm["aux"])):
+        lambda p: JT.train_forward(p, jb, cfg, aux_weight=aux_weight),
+        has_aux=True)(jax.tree.map(jnp.asarray, tree))
+    loss, metrics, grads = _port_grads(model, tcfg, batch,
+                                       aux_weight=aux_weight)
+    pairs = [(loss, jloss), (metrics["nll"], jm["nll"])]
+    if aux_weight:
+        pairs.append((metrics["aux"], jm["aux"]))
+    for got, want in pairs:
         assert float(got.detach()) == pytest.approx(
             float(want), rel=LOSS_REL, abs=1e-7)
     if cfg.moe is not None:
@@ -111,7 +148,8 @@ def test_train_forward_and_grads_match_reference(name):
     for path, leaf in want:
         leaf = np.asarray(leaf)
         err = np.abs(got[path] - leaf).max()
-        assert err <= GRAD_REL * max(np.abs(leaf).max(), 1e-30), (path, err)
+        assert err <= _grad_rel(path) * max(np.abs(leaf).max(), 1e-30), \
+            (path, err)
     if cfg.encoder_layers:  # the encoder is trained through _encode
         assert np.abs(got[next(p for p, _ in want
                                if "enc_units" in str(p))]).max() > 0
@@ -231,12 +269,67 @@ def test_flash_backward_ref_row_without_keys():
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
 
 
+def test_router_bias_config_takes_a_step_as_the_reference():
+    """Reduced Kimi-K2 with a drawn router bias, one microbatch: the
+    port's ``accumulate_grads`` (a leaf outside the graph gets zeros) and
+    ``apply_updates`` against ``jax.grad`` of the reference's
+    ``train_forward`` and its AdamW.  The loss and every gradient leaf as in
+    the parity test above, the router bias's gradient zero; after the step
+    every parameter within float32 rounding of the reference's (an element
+    whose gradient is within the two sides' noise of zero may differ by up
+    to twice the learning rate, AdamW's first step being its sign), the
+    router bias moved by weight decay alone."""
+    name = "kimi-k2-1t-a32b"
+    cfg, tcfg = jconfigs.get(name).reduced(), tconfigs.get(name).reduced()
+    tree = jax_tree(cfg, 5, router_bias=True)
+    model = params_from_reference(tree, tcfg, device="cpu")
+    batch = _batch(cfg, 3)
+    kw = dict(peak_lr=1e-3, warmup_steps=0, schedule="constant",
+              weight_decay=0.1)
+    jtree = jax.tree.map(jnp.asarray, tree)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: JT.train_forward(p, jb, cfg)[0])(jtree)
+    jparams, _, _ = jadamw.apply_updates(jtree, jgrads,
+                                         jadamw.init_state(jtree),
+                                         jadamw.AdamWConfig(**kw))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss, grads = accumulate_grads(
+        model, {k: torch.as_tensor(v) for k, v in batch.items()}, tcfg)
+    assert float(loss) == pytest.approx(float(jloss), rel=LOSS_REL)
+    bias = [n for n in grads if n.endswith("router_bias")]
+    assert bias and all(not grads[n].any() for n in bias)
+    tadamw.apply_updates(model, grads, tadamw.init_state(model),
+                         tadamw.AdamWConfig(**kw))
+    for n in bias:   # zero gradient: weight decay alone moves the leaf
+        torch.testing.assert_close(model.get_parameter(n).detach(),
+                                   before[n] * (1 - kw["peak_lr"] * 0.1),
+                                   rtol=1e-6, atol=1e-7)
+    as_tree = {}
+    for key, src in (("grads", grads),
+                     ("params", dict(model.named_parameters()))):
+        as_tree[key] = dict(jax.tree_util.tree_leaves_with_path(
+            reference_tree(model, tcfg, lambda n, d=src: d[n].detach()
+                           .numpy(), np.stack)))
+    jg = dict(jax.tree_util.tree_leaves_with_path(jgrads))
+    for path, want in jax.tree_util.tree_leaves_with_path(jparams):
+        want, g_ref = np.asarray(want), np.asarray(jg[path])
+        got, g = as_tree["params"][path], as_tree["grads"][path]
+        scale = max(np.abs(g_ref).max(), 1e-30)
+        assert np.abs(g - g_ref).max() <= GRAD_REL * scale, path
+        clear = np.abs(g_ref) > 1e-3 * scale   # outside the gradients' noise
+        diff = np.abs(got - want)
+        assert diff.max() <= 2 * kw["peak_lr"] + 1e-6, path
+        assert diff[clear].max(initial=0.0) <= 1e-6, path
+
+
 def test_guard_does_not_raise_on_the_cpu():
-    """The kernels without a backward take their plain versions on the
-    CPU, which autograd differentiates: no guard there."""
+    """Every kernel takes its plain version on the CPU, which autograd
+    differentiates: no guard there (on the card only decode attention
+    keeps one)."""
     x = torch.randn(6, 4, requires_grad=True)
-    tops.moe_gather(x, torch.tensor([0, 6, 3], dtype=torch.int32)).sum() \
-        .backward()
+    tops.moe_gather(x, torch.tensor([0, 6, 3], dtype=torch.int32),
+                    max_rows_per_token=1).sum().backward()
     assert x.grad is not None
     out = torch.randn(4, 4, requires_grad=True)
     tops.moe_combine(out, torch.tensor([0, 1, 1, 2]), torch.ones(4), 3,
@@ -248,9 +341,13 @@ def test_guard_does_not_raise_on_the_cpu():
     assert q.grad is not None
     xs = torch.randn(1, 2, 5, 4, requires_grad=True)
     y, _ = tops.ssd_scan(xs, torch.rand(1, 2, 5), -torch.rand(2),
-                         torch.randn(1, 2, 5, 3), torch.randn(1, 2, 5, 3))
+                         torch.randn(1, 2, 5, 4), torch.randn(1, 2, 5, 4))
     y.sum().backward()
     assert xs.grad is not None
+    bg = torch.randn(1, 1, 5, 4, requires_grad=True)   # one shared group
+    y, _ = tops.ssd_scan(xs, torch.rand(1, 2, 5), -torch.rand(2), bg, bg)
+    y.sum().backward()
+    assert bg.grad.shape == (1, 1, 5, 4)
 
 
 def test_reference_keeps_only_each_units_last_aux():
