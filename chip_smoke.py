@@ -127,13 +127,21 @@ Phases, each printed on its own line; any failure exits non-zero:
                trained model's small dt and a final-state gradient, float32
                within 2e-4 of each gradient's largest magnitude, bfloat16
                within 5e-2 of it and one rounding step of each value, two
-               calls bit-identical, its time beside the plain version's and
-               the bound (device time per launch, ptxas's registers and
-               spills); the gather's at DeepSeekMoE-16B's dispatch of a
-               4,096-token row bit-exact against its plain version, within
-               one rounding step of a float32 ``index_add_``, on only dummy
-               rows, its time beside the bound and ``index_add_``'s
-               (``--train-only`` runs this part too);
+               calls bit-identical, the bf16 layer on the tensor-core
+               route, its time (beside the ``mma.sync`` route's, in turns)
+               beside the plain version's and the bound (device time per
+               pass, ptxas's registers and spills, none allowed in its
+               passes, and the HGMMA instructions of the tensor-core ones);
+               the MoE token table bit-identical to its plain version at
+               the dispatch, with an over-full token and with only dummy
+               rows, and timed; the gather's backward at DeepSeekMoE-16B's
+               dispatch of a 4,096-token row bit-exact against its plain
+               version, within one rounding step of a float32
+               ``index_add_``, on only dummy rows, its time (table built
+               in the call) beside the bound and ``index_add_``'s, in
+               turns, and not slower; the gather's backward and an MoE
+               layer's forward at that width free of host
+               synchronisation (``--train-only`` runs this part too);
 9. mamba2-serve -- phase 7's run over Mamba2-780M at full width and
                depth (48 layers, ``dt_bias`` as a trained model's), 8 slots,
                ``s_max`` 16,384, one prompt of 5-16 tokens and 15 of
@@ -300,6 +308,7 @@ result.
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -389,6 +398,10 @@ KERNEL_META = {
                           "src/repro/models/mamba2.py:79"),
     "moe_gather_backward": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
                             "src/repro/models/moe.py:140"),
+    # no Pallas site: the token table indexes the reference's scatter-add
+    # combine (and the gather's backward), which XLA lowers itself
+    "token_rows_table": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
+                         "src/repro/models/moe.py:154"),
 }
 
 # the attention kernels' phase-6 shapes: the Gemma2-27B serve phase's, and
@@ -1463,11 +1476,12 @@ def sass_opcode_counts(library, opcode):
     return counts
 
 
-def wgmma_build_report(source, kernels):
+def wgmma_build_report(source, kernels, instances=2):
     """The kernels of one source as built: ptxas's registers, spills and
     static shared memory, and the HGMMA (wgmma) instructions in each
-    kernel's machine code; both instances (hd 64 and 128) of each of
-    ``kernels`` must have some where ``cuobjdump`` can tell."""
+    kernel's machine code; each of the ``instances`` instances (flash: hd
+    64 and 128) of each of ``kernels`` must have some where ``cuobjdump``
+    can tell."""
     from repro_torch.kernels import _build
 
     text = _build.BUILD_INFO["ptxas"].get(source)
@@ -1480,7 +1494,7 @@ def wgmma_build_report(source, kernels):
     if hgmma is not None:
         for kernel in kernels:
             wg = {k: n for k, n in hgmma.items() if kernel in k}
-            check(len(wg) == 2 and min(wg.values()) > 0,
+            check(len(wg) == instances and min(wg.values()) > 0,
                   f"{kernel} without HGMMA instructions: {hgmma}")
     return report
 
@@ -2148,18 +2162,39 @@ def scan_backward_bound(b, h, s, p, n, groups, elem):
                                  else "operations"), nbytes, ops_n
 
 
+def scan_route_bytes(b, h, s, p, n, chunk):
+    """Bytes the scan backward's tensor-core route moves at least: the
+    function's own (x, dy, dx, B, C, dB, dC in bf16; dt, ddt float32), the
+    forward's states entering each chunk (bf16 hi and lo) read by passes
+    (b) and (c), Q_k (float32) and g_k (bf16 hi and lo) each written once
+    and read once, the score tiles (float32) read once per chunk, and the
+    per-head float32 dB and dC planes written once and read once."""
+    nc = -(-s // chunk)
+    own = 2 * (3 * b * h * s * p + 4 * b * s * n) + 4 * 2 * b * h * s
+    states = b * h * nc * n * p * 4
+    scores = b * nc * chunk * chunk * 4
+    planes = 2 * b * h * s * n * 4
+    return own + 2 * states + 2 * states + 2 * states + scores + 2 * planes
+
+
 def phase_ssm_moe_backward(torch):
-    """The training path's two new kernels against their plain versions on
-    the card: the scan's backward at Mamba2-780M's layer in both dtypes
+    """The training path's new kernels against their plain versions on the
+    card: the scan's backward at Mamba2-780M's layer in both dtypes
     (float32 within 2e-4 of each gradient's largest magnitude; bfloat16
     within 5e-2 of it and one rounding step of each value), on edges, a
-    second call bit-identical, and its time beside the plain version's and
-    the bound at 4,096 and 8,192 tokens (device time per launch under the
-    profiler, ptxas's registers and spills); the gather's backward at
-    DeepSeekMoE-16B's dispatch of a 4,096-token row bit-exact against its
-    plain version and within one rounding step of a float32
-    ``index_add_``, on a sequence of only dummy rows, and its time beside
-    the bound and ``index_add_``'s.  Returns the two records."""
+    second call bit-identical, and its time (the tensor-core route beside
+    the ``mma.sync`` route, in turns) beside the plain version's and the
+    bound at 4,096 and 8,192 tokens (device time per pass under the
+    profiler, ptxas's registers and spills, the HGMMA instructions of the
+    tensor-core passes); the MoE token table bit-identical to its plain
+    version (at the dispatch, with over-full tokens, with only dummy rows)
+    and timed; the gather's backward at DeepSeekMoE-16B's dispatch of a
+    4,096-token row bit-exact against its plain version and within one
+    rounding step of a float32 ``index_add_``, on a sequence of only dummy
+    rows, its time beside the bound and ``index_add_``'s, and with an MoE
+    layer's forward free of host synchronisation
+    (``torch.cuda.set_sync_debug_mode("error")``).  Returns the three
+    records."""
     from repro_torch import configs
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ref
@@ -2191,12 +2226,15 @@ def phase_ssm_moe_backward(torch):
         return ss.ssd_scan(*args[:3], ss.heads_view(args[3], H),
                            ss.heads_view(args[4], H), keep_states=True)[2]
 
-    errs, abs_errs, steps, identical = {}, [], {}, {}
+    errs, abs_errs, steps, identical, routes = {}, [], {}, {}, {}
     for label, b, s, shift, per_head, with_dh in SCAN_BWD_SHAPES:
         for dtype in (bf16, f32):
             what = f"scan backward {label} {dtype}"
             args, dy, dh = inputs(b, s, dtype, shift, per_head, with_dh)
             st = states_of(args)
+            routes[what] = "wgmma" if ss.wgmma_route_applies(
+                args[0], dy, ss.heads_view(args[3], H),
+                ss.heads_view(args[4], H), args[3].shape[1]) else "mma"
             got = ss.ssd_scan_backward(*args, dy, dh, states=st)
             again = ss.ssd_scan_backward(*args, dy, dh, states=st)
             identical[what] = all(torch.equal(x, y)
@@ -2219,41 +2257,71 @@ def phase_ssm_moe_backward(torch):
             del args, dy, dh, st, got, again, want
             torch.cuda.empty_cache()
 
-    # -- time at 4,096 and 8,192 tokens, bf16 --------------------------------
+    check(routes["scan backward train 4096 torch.bfloat16"] == "wgmma",
+          f"Mamba2's bf16 layer does not take the tensor-core route: "
+          f"{routes}")
+
+    # -- time at 4,096 and 8,192 tokens, bf16: the two routes in turns -----
     timed = {}
     for s in (4096, 8192):
         args, dy, _ = inputs(1, s, bf16, 0.0, False, False)
         st = states_of(args)
-        ms = cuda_ms(torch, lambda: ss.ssd_scan_backward(*args, dy,
-                                                         states=st), 10)
+        by_route = in_turns(
+            lambda fn: cuda_ms(torch, fn, 10),
+            {r: functools.partial(ss.ssd_scan_backward, *args, dy, states=st,
+                                  route=r) for r in ss.ROUTES}, 2)
+        check(by_route["wgmma"] < by_route["mma"],
+              f"scan backward {s}: the tensor-core route {by_route} is not "
+              f"the faster")
+        ms = by_route["wgmma"]
         plain = cuda_ms(torch, lambda: ref.ssd_scan_backward_ref(
             *args, dy, chunk=ss.CHUNK[bf16]), 2)
         fwd = cuda_ms(torch, lambda: ss.ssd_scan(
             *args[:3], ss.heads_view(args[3], H), ss.heads_view(args[4], H),
             keep_states=True), 10)
-        by_kernel = device_ms_by_kernel(
-            torch, lambda: ss.ssd_scan_backward(*args, dy, states=st), 5)
+        by_kernel = {r: device_ms_by_kernel(
+            torch, functools.partial(ss.ssd_scan_backward, *args, dy,
+                                     states=st, route=r), 5)
+            for r in ss.ROUTES}
         b_ms, b_by, nbytes, ops_n = scan_backward_bound(1, H, s, P, N, 1, 2)
-        timed[s] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                        bound_bytes=nbytes, bound_ops=ops_n,
-                        bound_share=b_ms / ms, forward_with_states_ms=fwd,
-                        device_ms_by_kernel=by_kernel,
-                        device_ms=sum(by_kernel.values()),
+        route_bytes = scan_route_bytes(1, H, s, P, N, ss.CHUNK[bf16])
+        timed[s] = dict(ms=ms, mma_route_ms=by_route["mma"], plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                        bound_ops=ops_n, bound_share=b_ms / ms,
+                        route_bytes=route_bytes,
+                        route_bytes_ms=route_bytes / PEAK_BYTES_S * 1e3,
+                        forward_with_states_ms=fwd,
+                        device_ms_by_kernel=by_kernel["wgmma"],
+                        device_ms=sum(by_kernel["wgmma"].values()),
+                        mma_route_device_ms_by_kernel=by_kernel["mma"],
+                        mma_route_device_ms=sum(by_kernel["mma"].values()),
+                        heads_per_block=ss.heads_per_block(
+                            1, -(-s // ss.CHUNK[bf16]), H, dev),
                         states_kept_bytes=st.numel())
         del args, dy, st
         torch.cuda.empty_cache()
+    report = wgmma_build_report("ssd_scan_backward.cu",
+                                ("ssd_bwd_chunk_wgmma",
+                                 "ssd_bwd_dstate_wgmma"), instances=1)
+    for name, entry in report["ptxas"].items():
+        if "ssd_bwd" in name:
+            check(entry.get("spill_store_bytes", 0) == 0
+                  and entry.get("spill_load_bytes", 0) == 0,
+                  f"scan backward: {name} spills: {entry}")
     scan = dict(timed[4096])
     scan.update(
         library_ms=None, max_abs_err=max(abs_errs), errors=errs,
-        bf16_rounding_steps=steps, bit_identical=identical,
-        long_8192=timed[8192], ptxas=build_report("ssd_scan_backward.cu"),
+        bf16_rounding_steps=steps, bit_identical=identical, routes=routes,
+        long_8192=timed[8192], ptxas=report["ptxas"],
+        hgmma_instructions=report["hgmma_instructions"],
         tolerance={"float32": SSD_F32_TOL, "bfloat16": SSD_BF16_TOL},
         library="none: no single PyTorch call computes the scan's gradient",
         shape=f"Mamba2-780M layer: x, dy [1,{H},4096,{P}] bf16 ([1,4096,"
               f"{H},{P}] views), B/C one group [1,1,4096,{N}]")
     say("ssm-moe kernels", kernel="ssd_scan_backward", **scan)
 
-    # -- the gather's backward: DeepSeekMoE-16B's dispatch of a row ---------
+    # -- the token table and the gather's backward: DeepSeekMoE-16B's
+    # dispatch of a row -------------------------------------------------
     moe_cfg = configs.get("deepseek-moe-16b").moe
     d, t = 2048, GATHER_BWD_TOKENS
     logits = torch.randn((1, t, moe_cfg.num_experts), generator=gen,
@@ -2264,6 +2332,35 @@ def phase_ssm_moe_backward(torch):
                                    moe_cfg, cap)
     rows = tok.reshape(-1)
     k = moe_cfg.top_k
+    table = md.token_rows_table(rows, t, k)
+    check(torch.equal(table.long(), ref.token_rows_table(rows, t, k)),
+          "token table: differs from its plain version at the dispatch")
+    crowd = rows.clone()
+    crowd[:5 * k] = 7  # token 7 over-full: its first k rows stay
+    check(torch.equal(md.token_rows_table(crowd, t, k).long(),
+                      ref.token_rows_table(crowd, t, k)),
+          "token table: differs from its plain version with an over-full "
+          "token")
+    none = torch.full_like(rows, t)
+    check(bool((md.token_rows_table(none, t, k) == rows.numel()).all()),
+          "token table: a token of only dummy rows has a row")
+    t_nbytes = rows.numel() * 4 + t * k * 4
+    dev_t = device_ms_by_kernel(torch, lambda: md.token_rows_table(
+        rows, t, k), 20)
+    tab = dict(
+        max_abs_err=0.0, ms=cuda_ms(torch, lambda: md.token_rows_table(
+            rows, t, k), 50),
+        plain_ms=cuda_ms(torch, lambda: ref.token_rows_table(rows, t, k), 20),
+        library_ms=None, bound_ms=t_nbytes / PEAK_BYTES_S * 1e3,
+        bound_by="bytes", bound_bytes=t_nbytes,
+        device_ms=sum(dev_t.values()), device_kernels=dev_t,
+        launches_per_call=k + 1,
+        library="none: no single PyTorch call builds the table (the plain "
+                "version sorts, counts with bincount and scatters)",
+        shape=f"row_token [{rows.numel()}] (64 experts x capacity {cap}) "
+              f"onto {t} tokens, k {k}")
+    say("ssm-moe kernels", kernel="token_rows_table", **tab)
+
     g_errs, g_steps = {}, {}
     for dtype in (bf16, f32):
         dout = torch.randn((rows.numel(), d), generator=gen,
@@ -2275,6 +2372,9 @@ def phase_ssm_moe_backward(torch):
         check(torch.equal(got, ref.moe_gather_backward_ref(
             dout, rows, t, max_rows_per_token=k)),
               f"gather backward {dtype}: differs from its plain version")
+        check(torch.equal(got, md.moe_gather_backward(
+            dout, rows, t, max_rows_per_token=k, table=table)),
+              f"gather backward {dtype}: a given table changes the result")
         live = rows < t
         yard = torch.zeros((t, d), device=dev).index_add_(
             0, rows[live].long(), dout[live].float())
@@ -2294,37 +2394,68 @@ def phase_ssm_moe_backward(torch):
     live = int((rows < t).sum())
     idx = rows.clamp(max=t).long()
 
+    # no host synchronisation: the gather's backward (its table built on the
+    # card) and an MoE layer's forward (the table once, the gather, the
+    # combine) at DeepSeekMoE-16B's width
+    layer = tmoe.MoE(d, moe_cfg, "silu", dtype=bf16, device=dev)
+    layer.init_weights(gen)
+    xs = torch.randn((1, t, d), generator=gen, device=dev).to(bf16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        md.moe_gather_backward(dout, rows, t, max_rows_per_token=k)
+        with torch.no_grad():
+            tmoe.moe_ffn(xs, layer, moe_cfg)
+        synced = None
+    except RuntimeError as e:
+        synced = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(synced is None, f"a host synchronisation in the gather's backward "
+          f"or an MoE layer's forward: {synced}")
+    del layer, xs
+
     def kernel_fn():
         return md.moe_gather_backward(dout, rows, t, max_rows_per_token=k)
+
+    def with_table_fn():
+        return md.moe_gather_backward(dout, rows, t, max_rows_per_token=k,
+                                      table=table)
 
     def library_fn():   # the dummy rows land in a spare row t
         return torch.zeros((t + 1, d), dtype=bf16, device=dev).index_add_(
             0, idx, dout)
 
     nbytes = live * d * 2 + rows.numel() * 4 + t * d * 2
+    timed_g = in_turns(lambda fn: cuda_ms(torch, fn, 50),
+                       {"kernel": kernel_fn, "library": library_fn,
+                        "with_table": with_table_fn}, 2)
+    check(timed_g["kernel"] <= timed_g["library"],
+          f"gather backward: slower than zeros + index_add_: {timed_g}")
     dev_k = device_ms_by_kernel(torch, kernel_fn, 20)
     dev_l = device_ms_by_kernel(torch, library_fn, 20)
     gather = dict(
         max_abs_err=0.0, index_add_f32_abs_err=g_errs,
         index_add_f32_rounding_steps=g_steps,
-        ms=cuda_ms(torch, kernel_fn, 50),
+        ms=timed_g["kernel"], ms_given_table=timed_g["with_table"],
         plain_ms=cuda_ms(torch, lambda: ref.moe_gather_backward_ref(
             dout, rows, t, max_rows_per_token=k), 10),
-        library_ms=cuda_ms(torch, library_fn, 50),
+        library_ms=timed_g["library"],
         bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
         bound_bytes=nbytes, device_ms=sum(dev_k.values()),
         library_device_ms=sum(dev_l.values()),
         device_kernels={**dev_k, **dev_l}, rows=rows.numel(),
-        live_rows=live, capacity=cap,
+        live_rows=live, capacity=cap, host_syncs="none (sync debug mode)",
         ptxas=build_report("moe_dispatch.cu"),
         shape=f"dout [{rows.numel()},{d}] bf16 (64 experts x capacity "
-              f"{cap}) onto x [{t},{d}]; library: zeros + index_add_ "
-              f"(bf16, atomics' order)",
+              f"{cap}) onto x [{t},{d}], its token table built in the call; "
+              f"library: zeros + index_add_ (bf16, atomics' order)",
         seconds=time.perf_counter() - t_phase)
     say("ssm-moe kernels", kernel="moe_gather_backward", **gather)
     del dout, logits
     torch.cuda.empty_cache()
-    return {"ssd_scan_backward": scan, "moe_gather_backward": gather}
+    return {"ssd_scan_backward": scan, "moe_gather_backward": gather,
+            "token_rows_table": tab}
 
 
 # ---------------------------------------------------------------------------
@@ -2509,8 +2640,8 @@ def expected_launches(cfg, prefills, steps):
     """Launches of each model kernel in a run of ``prefills`` prefills and
     ``steps`` decode steps: flash once per attention layer per prefill,
     decode attention once per attention layer per step, the scan once per
-    Mamba layer per prefill, the gather once per MoE layer per prefill and
-    per step."""
+    Mamba layer per prefill, the gather and the token table once per MoE
+    layer per prefill and per step."""
     from repro_torch.models.config import MAMBA, MOE
 
     specs = cfg.layer_specs()
@@ -2520,7 +2651,8 @@ def expected_launches(cfg, prefills, steps):
     return {"flash_attention": n_attn * prefills,
             "decode_attention": n_attn * steps,
             "ssd_scan": n_mamba * prefills,
-            "moe_gather": n_moe * (prefills + steps)}
+            "moe_gather": n_moe * (prefills + steps),
+            "token_rows_table": n_moe * (prefills + steps)}
 
 
 def phase_serve(torch, seed, label, spec):
@@ -4518,21 +4650,26 @@ def _plant_fault(torch, kind):
     if kind == "scan":
         orig = ss.ssd_scan_backward
 
-        def faulty(x, dt, A, Bm, Cm, dy, dh_final=None, *, states):
+        def faulty(x, dt, A, Bm, Cm, dy, dh_final=None, *, states,
+                   route=None):
             b, h, s, p = x.shape
-            hprev_at, decay_at, _ = ss._layout(
+            hprev_at, decay_at, _, _ = ss._layout(
                 b, h, s, p, Bm.shape[-1], x.dtype, Bm.shape[1] == 1)
             states = states.clone()
             states[hprev_at:decay_at].zero_()
-            return orig(x, dt, A, Bm, Cm, dy, dh_final, states=states)
+            return orig(x, dt, A, Bm, Cm, dy, dh_final, states=states,
+                        route=route)
 
         ss.ssd_scan_backward = faulty
         return lambda: setattr(ss, "ssd_scan_backward", orig)
     orig = md.moe_gather_backward
 
-    def faulty(dout, row_token, num_tokens, *, max_rows_per_token):
+    def faulty(dout, row_token, num_tokens, *, max_rows_per_token,
+               table=None):
         return orig(dout, row_token, num_tokens,
-                    max_rows_per_token=max_rows_per_token - 1)
+                    max_rows_per_token=max_rows_per_token - 1,
+                    table=None if table is None
+                    else table[:, :-1].contiguous())
 
     md.moe_gather_backward = faulty
     return lambda: setattr(md, "moe_gather_backward", orig)
@@ -4541,7 +4678,8 @@ def _plant_fault(torch, kind):
 def _ssm_moe_expected(cfg, k):
     """Phase 17's launches per step: the scan per Mamba layer, flash per
     attention layer, the gather per MoE layer, each forward twice (remat)
-    and backward once per microbatch."""
+    and backward once per microbatch; the token table with each MoE
+    forward."""
     from repro_torch.models.config import FULL, MAMBA, MOE
 
     specs = cfg.layer_specs()
@@ -4552,6 +4690,8 @@ def _ssm_moe_expected(cfg, k):
         if n:
             out[key] = n * k * 2
             out[key + "_backward"] = n * k
+    if "moe_gather" in out:
+        out["token_rows_table"] = out["moe_gather"]
     return out
 
 

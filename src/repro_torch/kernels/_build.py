@@ -97,6 +97,13 @@ _SIGNATURES = {
         [_P, _STRIDES, _P, _STRIDES, _P, _P, _STRIDES, _P, _STRIDES, _P,
          _STRIDES, _P, _P, _P, _P, _STRIDES, _P, _STRIDES]
         + [_P] * 7 + [ctypes.c_int] * 7 + [_P],
+    # as ssd_scan_backward without groups and dtype, then the forward's
+    # score tiles, g's bf16 planes, the h . g partials, heads per block; B,
+    # H, S, P, N, stream
+    "ssd_scan_backward_wgmma":
+        [_P, _STRIDES, _P, _STRIDES, _P, _P, _STRIDES, _P, _STRIDES, _P,
+         _STRIDES, _P, _P, _P, _P, _STRIDES, _P, _STRIDES]
+        + [_P] * 10 + [ctypes.c_int] * 6 + [_P],
     # x, row_token, out, R, T, row bytes, unit bytes, stream
     "moe_gather_forward":
         [_P] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
@@ -105,6 +112,8 @@ _SIGNATURES = {
     "moe_gather_backward":
         [_P] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+    # row_token, table, R, T, k, stream
+    "moe_token_table": [_P] * 2 + [ctypes.c_int] * 3 + [_P],
 }
 
 _LOCK = threading.Lock()

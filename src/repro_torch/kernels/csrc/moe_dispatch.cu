@@ -23,14 +23,31 @@
 // gives nothing.  The reference has no kernel for it: jax.grad
 // differentiates its take_along_axis (src/repro/models/moe.py:140-144).
 // One warp per token reads the token's at most k rows, named by a table
-// [T, k] of buffer indices in buffer order (R = no row; index preparation
-// by a stable sort, shared with the combine's plain version), and sums
+// [T, k] of buffer indices in buffer order (R = no row; token_table below,
+// built once per MoE layer and read by the combine too), and sums
 // them in float32 in that order, rounding once: the plain version's
 // additions in the plain version's order, so the two agree bit for bit,
 // and a second call gives the same bits (no atomics).  Lanes take 16-byte
 // units of the row where it and both base addresses allow, else single
 // elements.  What bounds it: bytes (each live row of the gradient read
 // once, dx written once, the table read once).
+//
+// The token table (token_table_fill, token_table_round; moe_token_table):
+// table[t, j] = the buffer index of token t's j-th row in buffer order, R
+// for none; a token's rows past the k-th drop, and rows of a token outside
+// [0, T) appear nowhere -- ref.token_rows_table's function, which the
+// reference leaves to XLA's scatter (it replaces no TPU kernel).  The plain
+// version sorts the rows by token and counts them with bincount, which on
+// the card reads the largest token back to the host.  Here: the table
+// filled with R, then k rounds over the rows; in round j each row r of a
+// live token t with r > table[t, j - 1] offers itself to table[t, j] by
+// atomicMin, so table[t, j] ends as the least row past the (j-1)-th: the
+// j-th in buffer order.  An integer minimum does not depend on the order
+// of the atomics, so the table is deterministic and bit-identical to the
+// plain version's, over-full tokens included.  No sort, no count, nothing
+// read back to the host.  What bounds it: bytes (row_token read k times,
+// the table written once and read back by the rounds), a few microseconds
+// a launch at a MoE layer's sizes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,6 +151,28 @@ int launch_backward(const void* dout, const void* table, void* dx, int T_,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kTableThreads = 256;
+
+__global__ void __launch_bounds__(kTableThreads)
+token_table_fill(int32_t* __restrict__ table, int64_t n, int32_t none) {
+  const int64_t i = int64_t(blockIdx.x) * kTableThreads + threadIdx.x;
+  if (i < n) table[i] = none;
+}
+
+// round j: every row r of a live token t with r > table[t, j - 1] offers
+// itself to table[t, j] (round 0: every row of a live token)
+__global__ void __launch_bounds__(kTableThreads)
+token_table_round(const int32_t* __restrict__ row_token,
+                  int32_t* __restrict__ table, int R, int T, int k, int j) {
+  const int r = blockIdx.x * kTableThreads + threadIdx.x;
+  if (r >= R) return;
+  const int t = row_token[r];
+  if (t < 0 || t >= T) return;
+  int32_t* row = table + int64_t(t) * k;
+  if (j > 0 && r <= row[j - 1]) return;  // R (no (j-1)-th row) stops all
+  atomicMin(row + j, r);
+}
+
 }  // namespace moe
 
 extern "C" {
@@ -176,6 +215,32 @@ int moe_gather_backward(const void* dout, const void* table, void* dx, int T,
     return moe::launch_backward<__nv_bfloat16>(dout, table, dx, T, k, R, d,
                                                vec != 0, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// row_token int32 [R]; table int32 [T, k] (k >= 1), written whole: each
+// token's rows in buffer order, R past its last.  k + 1 launches on the
+// stream.  Returns cudaGetLastError() after them, or cudaErrorInvalidValue
+// for arguments the kernels do not take (the wrapper refuses those first).
+int moe_token_table(const void* row_token, void* table, int R, int T, int k,
+                    void* stream) {
+  if (R < 0 || T <= 0 || k <= 0 ||
+      int64_t(T) * k / moe::kTableThreads >= 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n = int64_t(T) * k;
+  int32_t* tab = static_cast<int32_t*>(table);
+  moe::token_table_fill<<<unsigned((n + moe::kTableThreads - 1) /
+                                   moe::kTableThreads),
+                          moe::kTableThreads, 0, s>>>(tab, n, R);
+  cudaError_t err = cudaGetLastError();
+  const unsigned blocks = unsigned((int64_t(R) + moe::kTableThreads - 1) /
+                                   moe::kTableThreads);
+  for (int j = 0; j < k && R > 0 && err == cudaSuccess; ++j) {
+    moe::token_table_round<<<blocks, moe::kTableThreads, 0, s>>>(
+        static_cast<const int32_t*>(row_token), tab, R, T, k, j);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -66,18 +66,46 @@
 // configuration has head_dim 64), N a multiple of 4 up to 256, any S (a
 // tail chunk is zero rows, dt = 0).
 //
+// The tensor-core route (ssd_scan_backward_wgmma; bfloat16 with one B/C
+// group, P and N multiples of 8, P <= 64, N <= 128, N P a multiple of 128:
+// Mamba2's layers; the wrapper sends other shapes to the route above).  The
+// same function and split operands in five launches of their own, designed
+// for the H100 rather than carried over:
+// (a) ssd_bwd_dstate_wgmma: C by TMA once per block, dy through two TMA
+//     stages, e dy split into bf16 planes by the block, Q_k = C^T (e dy) as
+//     wgmma with both operands transposed; two blocks an SM.
+// (b) ssd_bwd_state_pass_split: g_k written as bf16 hi/lo planes (the
+//     layout TMA loads in (c)), the loads of U chunks ahead of the chain,
+//     and d total's h_{k-1} . g_k by warps.
+// (c) ssd_bwd_chunk_wgmma: one block of two warpgroups per (chunk, group of
+//     heads), one wave of blocks on the card's SMs.  The score tile C B^T is
+//     the forward's, already in its workspace for a shared group: it is
+//     built once per chunk and group, copied to shared memory once per
+//     block, and read by every head in both layouts.  Every product is
+//     wgmma (m64n128 / m64n64, k16) fed by TMA: B, C once per block; x and
+//     dy through two stages, so the next head's arrive while this head's
+//     products run; h_{k-1} and then g_k through one buffer.  dB and dC go
+//     to one float32 plane per head (stores only), summed by (d).
+// (d) as above.  Each output is written once by one thread and every sum
+//     runs in a fixed order: no atomics, the same bits from call to call.
+//
 // What bounds it on an H100: bytes.  The function reads x, dt, B, C, dy
 // and writes dx, ddt, dB and dC (for one Mamba2-780M layer of 4,096 bf16
 // tokens 81 MB, 24 us at 3.35 TB/s); its least operations, the
 // recurrence's backward at the tensor cores' rate, take less.  The chunked
 // form adds the forward's states entering each chunk (read), Q/g (written
 // and read twice, the size of the forward's chunk states) and the dB/dC
-// partials, and its c x c tiles' exps and products run four times a chunk
-// and head (two layouts, two tiles each).  Times are in PERF.md.
+// partials; at that layer the tensor-core route moves about 0.78 GB (h_{k-1}
+// 50 MB read twice, Q and g_k 50 MB each written and read, the per-head
+// dB/dC planes 201 MB written and read), about 0.23 ms at the memory rate.
+// Its c x c tiles' exps run in both layouts for every head.  Times are in
+// PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace ssdb {
 
@@ -133,6 +161,8 @@ struct Params {
   float* dB_part;  // [B, planes, S, N]
   float* dC_part;
   float* dA_part;  // [B, H, nc]
+  const float* scores;  // tensor-core route: the forward's C B^T tiles
+  int hpb;              // tensor-core route: heads per block of (c)
   int H, S, P, N, nc, head_groups, n_slices, planes;
   bool one_group;  // dB, dC per group of all heads (else per head)
 };
@@ -400,17 +430,13 @@ struct Plan {
 
 // dt of head h for the chunk (zeros past S) into sDt and its running sum of
 // dt A into sCum; every thread takes part, warp 0 scans
-template <typename T>
-__device__ void load_cum(const Params& p, int b, int h, int t0, int len,
-                         float* sDt, float* sCum) {
-  constexpr int C = Plan<T>::C, E = C / 32;
-  for (int j = threadIdx.x; j < C; j += blockDim.x)
-    sDt[j] = j < len ? p.dt[b * p.sdt.b + h * p.sdt.h + (t0 + j) * p.sdt.s]
-                     : 0.f;
-  __syncthreads();
+// the running sum of dt A over a chunk's sDt into sCum, by warp 0
+template <int C>
+__device__ __forceinline__ void scan_cum(float a, const float* sDt,
+                                         float* sCum) {
+  constexpr int E = C / 32;
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
-    const float a = p.A[h];
     float v[E];
     float run = 0.f;
 #pragma unroll
@@ -428,6 +454,17 @@ __device__ void load_cum(const Params& p, int b, int h, int t0, int len,
 #pragma unroll
     for (int e = 0; e < E; ++e) sCum[lane * E + e] = v[e] + before;
   }
+}
+
+template <typename T>
+__device__ void load_cum(const Params& p, int b, int h, int t0, int len,
+                         float* sDt, float* sCum) {
+  constexpr int C = Plan<T>::C;
+  for (int j = threadIdx.x; j < C; j += blockDim.x)
+    sDt[j] = j < len ? p.dt[b * p.sdt.b + h * p.sdt.h + (t0 + j) * p.sdt.s]
+                     : 0.f;
+  __syncthreads();
+  scan_cum<C>(p.A[h], sDt, sCum);
   __syncthreads();
 }
 
@@ -841,6 +878,737 @@ ssd_bwd_chunk(Params p) {
   }
 }
 
+// -- the tensor-core route: (b) and (c) for bfloat16, one B/C group --------
+
+// (b) as ssd_bwd_state_pass, four state elements a thread, each g_k written
+// as bf16 hi and lo planes [B, H, nc, 2, N, P] (the layout of the forward's
+// h_{k-1}, which TMA loads whole) instead of over Q_k; the Q_k and decays
+// of a group of U chunks are loaded before the group's chain, so the walk
+// does not wait on each load in turn.  It also takes d total's h_{k-1} .
+// g_k, per warp (32 x 4 state elements of one batch and head, N P a
+// multiple of 128) into hg_part [B H, nc, N P / 128], which pass (c) sums in
+// a fixed order.
+__global__ void __launch_bounds__(kPassThreads)
+ssd_bwd_state_pass_split(const float* __restrict__ qstate,
+                         bf16* __restrict__ gsplit,
+                         const float* __restrict__ decay,
+                         const float* __restrict__ dh_final,
+                         const bf16* __restrict__ hprev,
+                         float* __restrict__ hg_part, int64_t total4,
+                         int64_t np4, int nc) {
+  const int64_t e = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= total4) return;  // whole warps: total4 is a multiple of 32
+  const int64_t bh = e / np4, r = e - bh * np4, plane = 4 * np4;
+  const int64_t warps = np4 / 32, w = r / 32;
+  float4 gv = dh_final ? reinterpret_cast<const float4*>(dh_final)[e]
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4* q = reinterpret_cast<const float4*>(qstate) + bh * nc * np4 +
+                    r;
+  bf16* o = gsplit + bh * nc * 2 * plane + 4 * r;
+  const bf16* hp = hprev + bh * nc * 2 * plane + 4 * r;
+  const float* d = decay + bh * nc;
+  float* hg = hg_part + bh * nc * warps + w;
+  constexpr int U = 8;
+  float4 v[U];
+  float f[U];
+  for (int k0 = nc - 1; k0 >= 0; k0 -= U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (k0 - u >= 0) {
+        v[u] = q[int64_t(k0 - u) * np4];
+        f[u] = d[k0 - u];
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 - u;
+      if (k < 0) break;
+      const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
+      const int64_t at = int64_t(k) * 2 * plane;
+      const uint2 h_hi = *reinterpret_cast<const uint2*>(hp + at);
+      const uint2 h_lo = *reinterpret_cast<const uint2*>(hp + at + plane);
+      const bf16* hh = reinterpret_cast<const bf16*>(&h_hi);
+      const bf16* hl = reinterpret_cast<const bf16*>(&h_lo);
+      __align__(8) bf16 hi[4], lo[4];
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hi[i] = __float2bfloat16(g4[i]);
+        lo[i] = __float2bfloat16(g4[i] - __bfloat162float(hi[i]));
+        dot = fmaf(__bfloat162float(hh[i]) + __bfloat162float(hl[i]),
+                   g4[i], dot);
+      }
+      *reinterpret_cast<uint2*>(o + at) = *reinterpret_cast<const uint2*>(hi);
+      *reinterpret_cast<uint2*>(o + at + plane) =
+          *reinterpret_cast<const uint2*>(lo);
+      dot = warp_sum(dot);
+      if ((threadIdx.x & 31) == 0) hg[int64_t(k) * warps] = dot;
+      gv = make_float4(fmaf(f[u], gv.x, v[u].x), fmaf(f[u], gv.y, v[u].y),
+                       fmaf(f[u], gv.z, v[u].z), fmaf(f[u], gv.w, v[u].w));
+    }
+  }
+}
+
+namespace wg {
+
+constexpr int C = 128;          // the bf16 chunk
+constexpr int kThreads = 256;   // two warpgroups of 64 rows
+constexpr int kTile = C * 128;  // 128 rows of 128 bytes (64 bf16)
+// the forward's score tiles a block keeps: row block rb's column tiles nt <
+// 2 rb + 2 (those up to the diagonal), 512 bytes each, rb after rb
+constexpr int kScoreTiles = 72;
+__host__ __device__ constexpr int tiles_before(int rb) { return rb * (rb + 1); }
+// shared memory, 1,024-byte aligned regions: B and C (two 64-column blocks
+// each), x and dy (two stages), one state (h_{k-1}, then g_k: hi and lo
+// planes), then the score tiles
+constexpr int kB = 0, kC = 2 * kTile, kX = 4 * kTile, kDY = 6 * kTile,
+              kSt = 8 * kTile, kScores = 10 * kTile,
+              kBytes = kScores + kScoreTiles * 512;
+constexpr int kAlloc = kBytes + 1024;
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
+}
+
+// element (row, col) of a 128-byte swizzled tile of 64-column blocks
+// `block` bytes apart (TMA's CU_TENSOR_MAP_SWIZZLE_128B)
+__device__ __forceinline__ float sw_at(const uint8_t* tile, int block,
+                                       int row, int col) {
+  const int c = col & 63;
+  const int off = (col >> 6) * block + row * 128 +
+                  ((((c >> 3) ^ (row & 7)) << 4) | ((c & 7) << 1));
+  return __bfloat162float(*reinterpret_cast<const bf16*>(tile + off));
+}
+
+// K-major operand: rows from `addr` (a multiple of 8 rows in), 16 columns
+// at k step kk of a 64-column block
+__device__ __forceinline__ uint64_t kdesc(uint32_t addr, int kk) {
+  return hopper::sw128_desc(addr + (kk & 3) * 32, 16, 1024);
+}
+// MN-major (transposed) B operand: k step t is rows 16t.. of a tile whose
+// 64-column blocks lie kTile bytes apart
+__device__ __forceinline__ uint64_t tdesc(uint32_t addr, int t) {
+  return hopper::sw128_desc(addr + t * 2048, kTile, 1024);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// a 64 x 128 accumulator as eight k steps of wgmma's register A operand,
+// each value split into bf16 hi and lo (x = hi + lo to about 2^-17)
+__device__ __forceinline__ void split(const float (&x)[64],
+                                      uint32_t (&hi)[8][4],
+                                      uint32_t (&lo)[8][4]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x0 = x[8 * c + 2 * i], x1 = x[8 * c + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h),
+                                                     x1 - __high2float(h));
+      hi[c][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[c][i] = *reinterpret_cast<const uint32_t*>(&l);
+    }
+}
+
+// a 64 x 128 accumulator's rows r0 and r0 + 8 (columns 8c + 2tq + {0, 1})
+// into a float32 [rows][N]
+__device__ __forceinline__ void store_part(float* out, int N, int len, int r0,
+                                           int tq, const float (&acc)[64]) {
+#pragma unroll
+  for (int e = 0; e < 64; e += 2) {
+    const int i = (e & 2) ? r0 + 8 : r0;
+    const int n = 8 * (e >> 2) + 2 * tq;
+    if (i < len && n < N)
+      *reinterpret_cast<float2*>(out + int64_t(i) * N + n) =
+          make_float2(acc[e], acc[e + 1]);
+  }
+}
+
+}  // namespace wg
+
+// (a) on the tensor cores: one block per (chunk, group of heads, batch), two
+// warpgroups (warpgroup w owns state rows 64w..64w+63); C arrives once per
+// block by TMA, each head's dy through two stages.  Per head the block
+// writes e_i dy_i split into bf16 hi and lo planes in the swizzled layout
+// the dy tile arrived in (a 16-byte chunk's row, so its e_i, follows from
+// its offset), and Q_k = C^T (e dy) runs as wgmma with both operands
+// transposed (C^T from the C tile, e dy as [chunk rows x P]).
+__global__ void __launch_bounds__(wg::kThreads, 2)
+ssd_bwd_dstate_wgmma(const __grid_constant__ CUtensorMap tm_c,
+                     const __grid_constant__ CUtensorMap tm_dy, int hpb,
+                     Params p) {
+  using namespace wg;
+  using hopper::fence_regs;
+  using hopper::mbar_wait;
+  using hopper::smem_u32;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_c, bar_dy[2];
+  __shared__ float sDt[C], sCum[C];
+  uint8_t* base = align_1024(smem_raw);
+  uint8_t* sC = base;                 // 2 column blocks
+  uint8_t* sDY = base + 2 * kTile;    // 2 stages
+  uint8_t* sE = base + 4 * kTile;     // hi, lo planes
+  const uint32_t c_addr = smem_u32(sC), e_addr = smem_u32(sE);
+  const int k = blockIdx.x, b = blockIdx.z;
+  const int h0 = blockIdx.y * hpb, hn = min(hpb, p.H - h0);
+  const int t0 = k * C, len = min(C, p.S - t0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wgi = warp >> 2, g = lane >> 2, tq = lane & 3;
+  const int n0 = 16 * warp + g;  // this thread's state rows n0, n0 + 8
+  const int64_t np = int64_t(p.N) * p.P;
+
+  if (tid == 0) {
+    hopper::mbar_init(&bar_c, 1);
+    hopper::mbar_init(&bar_dy[0], 1);
+    hopper::mbar_init(&bar_dy[1], 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  auto load_dy = [&](int hh) {
+    const int st = hh & 1;
+    hopper::mbar_expect_tx(&bar_dy[st], kTile);
+    hopper::tma_load_4d(sDY + st * kTile, &tm_dy, &bar_dy[st], 0, t0,
+                        h0 + hh, b);
+  };
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bar_c, 2 * kTile);
+    hopper::tma_load_3d(sC, &tm_c, &bar_c, 0, t0, b);
+    hopper::tma_load_3d(sC + kTile, &tm_c, &bar_c, 64, t0, b);
+    load_dy(0);
+    if (hn > 1) load_dy(1);
+  }
+  const float* dtb = p.dt + b * p.sdt.b + t0 * p.sdt.s;
+  float dt_next = tid < len ? dtb[h0 * p.sdt.h + tid * p.sdt.s] : 0.f;
+  mbar_wait(&bar_c, 0);
+
+  for (int hh = 0; hh < hn; ++hh) {
+    const int h = h0 + hh, st = hh & 1;
+    if (tid < C) sDt[tid] = dt_next;
+    if (hh + 1 < hn)
+      dt_next = tid < len ? dtb[(h + 1) * p.sdt.h + tid * p.sdt.s] : 0.f;
+    __syncthreads();
+    scan_cum<C>(p.A[h], sDt, sCum);
+    __syncthreads();
+    mbar_wait(&bar_dy[st], (hh >> 1) & 1);
+    // e_i dy_i, split, chunk by chunk of 8 values (zeros past S and P
+    // stay zero)
+    const uint8_t* dy = sDY + st * kTile;
+#pragma unroll
+    for (int u = 0; u < kTile / 16 / kThreads; ++u) {
+      const int off = (tid + u * kThreads) * 16;
+      const float e = clip_exp(sCum[off >> 7]);
+      const uint4 raw = *reinterpret_cast<const uint4*>(dy + off);
+      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      uint4 hi4, lo4;
+      uint32_t* hw = reinterpret_cast<uint32_t*>(&hi4);
+      uint32_t* lw = reinterpret_cast<uint32_t*>(&lo4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(v2[i]);
+        const float x0 = e * f.x, x1 = e * f.y;
+        const __nv_bfloat162 hv = __floats2bfloat162_rn(x0, x1);
+        const __nv_bfloat162 lv = __floats2bfloat162_rn(
+            x0 - __low2float(hv), x1 - __high2float(hv));
+        hw[i] = *reinterpret_cast<const uint32_t*>(&hv);
+        lw[i] = *reinterpret_cast<const uint32_t*>(&lv);
+      }
+      *reinterpret_cast<uint4*>(sE + off) = hi4;
+      *reinterpret_cast<uint4*>(sE + kTile + off) = lo4;
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();  // e dy written; this stage's dy read
+    if (tid == 0 && hh + 2 < hn) load_dy(hh + 2);
+    float acc[32];
+    zero(acc);
+    fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        hopper::wgmma_ss_n64_tt(acc, tdesc(c_addr + wgi * kTile, t),
+                                tdesc(e_addr + pl * kTile, t), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_regs(acc);
+    float* dst = p.gstate + ((int64_t(b) * p.H + h) * p.nc + k) * np;
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int n = (e & 2) ? n0 + 8 : n0;
+      const int col = 8 * (e >> 2) + 2 * tq;
+      if (n < p.N && col < p.P)
+        *reinterpret_cast<float2*>(dst + int64_t(n) * p.P + col) =
+            make_float2(acc[e], acc[e + 1]);
+    }
+    __syncthreads();  // the products read e dy before the next head's
+  }
+}
+
+// (c) on the tensor cores: one block per (chunk, group of hpb heads, batch),
+// two consumer warpgroups (warpgroup w owns rows 64w..64w+63 of the chunk,
+// warp v of the block rows 16v..16v+15, the row block of the forward's
+// score tiles) and no producer: thread 0 issues the TMA loads.  Once per
+// block: B and C, and the forward's score tiles C B^T of the chunk up to
+// the diagonal (bulk copies of the forward's workspace, in the layout its
+// warps wrote: row block, column tile, lane), which every head reads from
+// shared memory in both layouts.  Per head: x and dy through two stages
+// (the next head's while this head's products run), and one state buffer
+// that holds h_{k-1} until the first product has read it, then g_k (loaded
+// while the rest of the rows-as-outputs half runs), then the next head's
+// h_{k-1}.  Every product is a wgmma m64nN k16 chain with float32 sums: x,
+// dy, B, C as they are, the float32 operands split into bf16 hi and lo
+// (h_{k-1} and g_k as planes, the register tiles L o (dy u^T) and L o C B^T
+// in registers).  dB and dC go to one float32 plane per head (stores only).
+__global__ void __launch_bounds__(wg::kThreads, 1)
+ssd_bwd_chunk_wgmma(const __grid_constant__ CUtensorMap tm_b,
+                    const __grid_constant__ CUtensorMap tm_c,
+                    const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_dy,
+                    const __grid_constant__ CUtensorMap tm_h,
+                    const __grid_constant__ CUtensorMap tm_g,
+                    const float* __restrict__ hg_part, int hg_parts,
+                    Params p) {
+  using namespace wg;
+  using hopper::fence_regs;
+  using hopper::mbar_wait;
+  using hopper::smem_u32;
+  using hopper::wgmma_commit;
+  using hopper::wgmma_fence;
+  using hopper::wgmma_wait;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_bc, bar_xd[2], bar_st;
+  __shared__ float sDt[C], sCum[C], sDcum[C], sDdt[C], sRed[8];
+  uint8_t* base = align_1024(smem_raw);
+  uint8_t* sB = base + kB;
+  uint8_t* sC = base + kC;
+  uint8_t* sSt = base + kSt;
+  const float* sS = reinterpret_cast<const float*>(base + kScores);
+  const uint32_t b_addr = smem_u32(sB), c_addr = smem_u32(sC),
+                 st_addr = smem_u32(sSt);
+
+  const int k = blockIdx.x, b = blockIdx.z;
+  const int h0 = blockIdx.y * p.hpb, hn = min(p.hpb, p.H - h0);
+  const int t0 = k * C, len = min(C, p.S - t0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wgi = warp >> 2;  // warpgroup
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;  // this thread's rows
+  const uint32_t own = wgi * 64 * 128;        // the warpgroup's rows
+
+  if (tid == 0) {
+    hopper::mbar_init(&bar_bc, 1);
+    hopper::mbar_init(&bar_xd[0], 1);
+    hopper::mbar_init(&bar_xd[1], 1);
+    hopper::mbar_init(&bar_st, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  // thread 0's loads: x and dy of head hh into stage hh % 2; a state's
+  // (h_{k-1} or g_k) two planes.  The state buffer completes its phases in
+  // the order h(0), g(0), h(1), ...: h at parity 0, g at parity 1.
+  auto load_xd = [&](int hh) {
+    const int st = hh & 1;
+    hopper::mbar_expect_tx(&bar_xd[st], 2 * kTile);
+    hopper::tma_load_4d(base + kX + st * kTile, &tm_x, &bar_xd[st], 0, t0,
+                        h0 + hh, b);
+    hopper::tma_load_4d(base + kDY + st * kTile, &tm_dy, &bar_xd[st], 0, t0,
+                        h0 + hh, b);
+  };
+  auto load_state = [&](const CUtensorMap* m, int hh) {
+    const int z = int(2 * ((int64_t(b) * p.H + h0 + hh) * p.nc + k));
+    hopper::mbar_expect_tx(&bar_st, 2 * kTile);
+    hopper::tma_load_3d(sSt, m, &bar_st, 0, 0, z);
+    hopper::tma_load_3d(sSt + kTile, m, &bar_st, 0, 0, z + 1);
+  };
+  if (tid == 0) {
+    const uint8_t* tiles = reinterpret_cast<const uint8_t*>(p.scores) +
+                           (int64_t(b) * p.nc + k) * 8 * 16 * 512;
+    hopper::mbar_expect_tx(&bar_bc, 4 * kTile + kScoreTiles * 512);
+    hopper::tma_load_3d(sB, &tm_b, &bar_bc, 0, t0, b);
+    hopper::tma_load_3d(sB + kTile, &tm_b, &bar_bc, 64, t0, b);
+    hopper::tma_load_3d(sC, &tm_c, &bar_bc, 0, t0, b);
+    hopper::tma_load_3d(sC + kTile, &tm_c, &bar_bc, 64, t0, b);
+    for (int rb = 0; rb < 8; ++rb)
+      hopper::bulk_load(base + kScores + tiles_before(rb) * 512,
+                        tiles + rb * 16 * 512, (2 * rb + 2) * 512, &bar_bc);
+    load_xd(0);
+    if (hn > 1) load_xd(1);
+    load_state(&tm_h, 0);
+  }
+  // S[i][j] for rows j = r0, r1 (q / 2) and column tile t of i (t >= 2
+  // warp): row block i / 16, column tile j / 8, lane 4 (i % 8) + (j % 8) /
+  // 2, element 2 ((i / 8) % 2) + j % 2
+  auto score_t = [&](int t, int q) {
+    return sS[(tiles_before(t >> 1) + 2 * warp + (q >> 1)) * 128 +
+              (4 * (2 * tq + (q & 1)) + (g >> 1)) * 4 + 2 * (t & 1) +
+              (g & 1)];
+  };
+  const float4* my_scores =
+      reinterpret_cast<const float4*>(sS) + tiles_before(warp) * 32 + lane;
+  const float* dtb = p.dt + b * p.sdt.b + t0 * p.sdt.s;
+  float dt_next = tid < len ? dtb[h0 * p.sdt.h + tid * p.sdt.s] : 0.f;
+  mbar_wait(&bar_bc, 0);
+
+  for (int hh = 0; hh < hn; ++hh) {
+    const int h = h0 + hh, st = hh & 1;
+    const int64_t bhk = (int64_t(b) * p.H + h) * p.nc + k;
+    uint8_t* sX = base + kX + st * kTile;
+    const uint32_t x_addr = smem_u32(sX);
+    const uint32_t dy_addr = smem_u32(base + kDY + st * kTile);
+    // this head's dB and dC, each in a plane of its own (stores only: an
+    // update of one plane per block over its heads made every head wait
+    // on its loads)
+    float* dCb = p.dC_part + (int64_t(b) * p.H + h) * p.S * p.N +
+                 int64_t(t0) * p.N;
+    float* dBb = p.dB_part + (int64_t(b) * p.H + h) * p.S * p.N +
+                 int64_t(t0) * p.N;
+    // this head's dt (loaded during the last head) and running sum; the
+    // next head's dt on its way
+    if (tid < C) sDt[tid] = dt_next;
+    if (hh + 1 < hn)
+      dt_next = tid < len ? dtb[(h + 1) * p.sdt.h + tid * p.sdt.s] : 0.f;
+    __syncthreads();
+    scan_cum<C>(p.A[h], sDt, sCum);
+    __syncthreads();
+    const float total = sCum[C - 1];
+    const float c0 = sCum[r0], c1 = sCum[r1];
+    const float dt0 = sDt[r0], dt1 = sDt[r1];
+    float dcum0 = 0.f, dcum1 = 0.f;  // d cum of rows r0, r1
+    // h_{k-1} . g_k from pass (b)'s partials, warp 0's lanes each summing
+    // theirs in a fixed order (loaded now, added up in the tail)
+    float hg_lane = 0.f;
+    if (warp == 0)
+      for (int i = lane; i < hg_parts; i += 32)
+        hg_lane += hg_part[bhk * hg_parts + i];
+    mbar_wait(&bar_xd[st], (hh >> 1) & 1);
+    mbar_wait(&bar_st, 0);  // h_{k-1}
+
+    // -- rows as outputs i: dC, the carry-in's and L's share of d cum ----
+    {
+      const float e0 = clip_exp(c0), e1 = clip_exp(c1);
+      float acc[64];  // dy h^T, then dC
+      float d[64];    // dy_i . x_j, then L o (dy u^T)
+      zero(acc);
+      zero(d);
+      fence_regs(acc);
+      fence_regs(d);
+      wgmma_fence();
+#pragma unroll
+      for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_ss_n128(acc, kdesc(dy_addr + own, kk),
+                                kdesc(st_addr + pl * kTile, kk), 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_ss_n128(d, kdesc(dy_addr + own, kk),
+                              kdesc(x_addr, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(d);
+      __syncthreads();  // every product that reads h_{k-1} is done
+      if (tid == 0) load_state(&tm_g, hh);
+      float de0 = 0.f, de1 = 0.f;  // C_i . (h dy_i)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int n = 8 * (e >> 2) + 2 * tq + (e & 1);
+        const float cv = sw_at(sC, kTile, (e & 2) ? r1 : r0, n);  // 0 past N
+        if (e & 2)
+          de1 = fmaf(cv, acc[e], de1);
+        else
+          de0 = fmaf(cv, acc[e], de0);
+        acc[e] *= (e & 2) ? e1 : e0;
+      }
+      de0 = quad_sum(de0);
+      de1 = quad_sum(de1);
+      if (clip_live(c0)) dcum0 += e0 * de0;
+      if (clip_live(c1)) dcum1 += e1 * de1;
+
+      float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        if (t < 2 * warp + 2) {  // the column tiles j <= i
+          const float4 sv = my_scores[t * 32];
+          const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int e = 4 * t + q;
+            const int i = (q & 2) ? r1 : r0;
+            const int j = 8 * t + 2 * tq + (q & 1);
+            const float v = ((q & 2) ? c1 : c0) - sCum[j];
+            const float dyu = sDt[j] * d[e];
+            const bool live = j <= i;
+            const float L = live ? clip_exp(v) : 0.f;
+            const float m = live && clip_live(v) ? s4[q] * dyu * L : 0.f;
+            if (q & 2)
+              m1 += m;
+            else
+              m0 += m;
+            d[e] = L * dyu;
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) d[4 * t + q] = 0.f;
+        }
+      }
+      dcum0 += quad_sum(m0);
+      dcum1 += quad_sum(m1);
+      uint32_t hi[8][4], lo[8][4];
+      split(d, hi, lo);
+      // dC = e (h dy) + (L o dy u^T) B; every column step, those past the
+      // warpgroup's rows adding zeros (a step skipped in one warpgroup only
+      // would make ptxas serialize the products)
+      fence_regs(acc);
+      hopper::fence_regs(hi);
+      hopper::fence_regs(lo);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        hopper::wgmma_rs_n128(acc, hi[t], tdesc(b_addr, t));
+        hopper::wgmma_rs_n128(acc, lo[t], tdesc(b_addr, t));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      hopper::fence_regs(hi);
+      hopper::fence_regs(lo);
+      store_part(dCb, p.N, len, r0, tq, acc);
+    }
+
+    // -- rows as inputs j: dB, du, the carry-out's and L's share of d cum --
+    // (dB first, then du with L o C B^T built again from the score tiles, so
+    // that no two 64 x 128 register tiles of this half are live at once)
+    const float w0 = clip_exp(total - c0), w1 = clip_exp(total - c1);
+    float dx0 = 0.f, dx1 = 0.f, dw0 = 0.f, dw1 = 0.f;
+    mbar_wait(&bar_st, 1);  // g_k
+    {
+      float d[64];    // x_j . dy_i, then L o (dy u^T) transposed
+      float acc[64];  // x_j . g_k^T, then dB
+      zero(d);
+      zero(acc);
+      fence_regs(d);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_ss_n128(d, kdesc(x_addr + own, kk),
+                              kdesc(dy_addr, kk), 1);
+      wgmma_fence();
+#pragma unroll
+      for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_ss_n128(acc, kdesc(x_addr + own, kk),
+                                kdesc(st_addr + pl * kTile, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
+      fence_regs(acc);
+      float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        if (t >= 2 * warp) {  // the column tiles i >= j
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int e = 4 * t + q;
+            const int j = (q & 2) ? r1 : r0;
+            const int i = 8 * t + 2 * tq + (q & 1);
+            const float v = sCum[i] - ((q & 2) ? c1 : c0);
+            const float dyu = ((q & 2) ? dt1 : dt0) * d[e];
+            const bool live = i >= j;
+            const float L = live ? clip_exp(v) : 0.f;
+            const float m =
+                live && clip_live(v) ? score_t(t, q) * dyu * L : 0.f;
+            if (q & 2)
+              m1 += m;
+            else
+              m0 += m;
+            d[e] = L * dyu;
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) d[4 * t + q] = 0.f;
+        }
+      }
+      dcum0 -= quad_sum(m0);
+      dcum1 -= quad_sum(m1);
+      uint32_t hi[8][4], lo[8][4];
+      split(d, hi, lo);
+
+      // dB = w dt (x g^T) + (L o dy u^T)^T C (zeros in the row steps i < j)
+      const float s0 = w0 * dt0, s1 = w1 * dt1;
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] *= (e & 2) ? s1 : s0;
+      fence_regs(acc);
+      hopper::fence_regs(hi);
+      hopper::fence_regs(lo);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        hopper::wgmma_rs_n128(acc, hi[t], tdesc(c_addr, t));
+        hopper::wgmma_rs_n128(acc, lo[t], tdesc(c_addr, t));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      hopper::fence_regs(hi);
+      hopper::fence_regs(lo);
+      store_part(dBb, p.N, len, r0, tq, acc);
+    }
+    {
+      float du[32];
+      float bg[32];  // B_j . g_k[:, p]
+      {
+        // L o C B^T transposed (rows j, columns i), split
+        uint32_t hi[8][4], lo[8][4];
+#pragma unroll
+        for (int t = 0; t < 16; ++t)
+#pragma unroll
+          for (int q = 0; q < 4; q += 2) {
+            float v2[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int qq = q + c;
+              const int j = (qq & 2) ? r1 : r0;
+              const int i = 8 * t + 2 * tq + c;
+              const bool live = t >= 2 * warp && i >= j;
+              v2[c] = live ? score_t(t, qq) *
+                                 clip_exp(sCum[i] - ((qq & 2) ? c1 : c0))
+                           : 0.f;
+            }
+            // element e = 4t + q of the tile: k step t / 2, pair
+            // (t % 2) * 2 + q / 2
+            const __nv_bfloat162 hv = __floats2bfloat162_rn(v2[0], v2[1]);
+            const __nv_bfloat162 lv = __floats2bfloat162_rn(
+                v2[0] - __low2float(hv), v2[1] - __high2float(hv));
+            hi[t >> 1][(t & 1) * 2 + (q >> 1)] =
+                *reinterpret_cast<const uint32_t*>(&hv);
+            lo[t >> 1][(t & 1) * 2 + (q >> 1)] =
+                *reinterpret_cast<const uint32_t*>(&lv);
+          }
+        zero(du);
+        zero(bg);
+        fence_regs(du);
+        fence_regs(bg);
+        hopper::fence_regs(hi);
+        hopper::fence_regs(lo);
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {  // zeros in the row steps i < j
+          hopper::wgmma_rs_n64(du, hi[t], tdesc(dy_addr, t));
+          hopper::wgmma_rs_n64(du, lo[t], tdesc(dy_addr, t));
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)
+            hopper::wgmma_ss_n64_tb(
+                bg, kdesc(b_addr + (kk >> 2) * kTile + own, kk),
+                tdesc(st_addr + pl * kTile, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(du);
+        fence_regs(bg);
+        hopper::fence_regs(hi);
+        hopper::fence_regs(lo);
+      }
+      // du += w B g; dw_j = (g^T B_j) . u_j; dx = du dt; ddt's du . x
+      bf16* dxb = static_cast<bf16*>(p.dx) + b * p.sdx.b + h * p.sdx.h +
+                  t0 * p.sdx.s;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int j = (e & 2) ? r1 : r0;
+        const int col = 8 * (e >> 2) + 2 * tq + (e & 1);
+        const float xv = sw_at(sX, kTile, j, col);  // 0 past P
+        du[e] = fmaf((e & 2) ? w1 : w0, bg[e], du[e]);
+        if (e & 2) {
+          dw1 = fmaf(bg[e], xv, dw1);
+          dx1 = fmaf(du[e], xv, dx1);
+        } else {
+          dw0 = fmaf(bg[e], xv, dw0);
+          dx0 = fmaf(du[e], xv, dx0);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int j = (e & 2) ? r1 : r0;
+        const int col = 8 * (e >> 2) + 2 * tq;
+        const float dtj = (e & 2) ? dt1 : dt0;
+        if (j < len && col < p.P)
+          *reinterpret_cast<__nv_bfloat162*>(dxb + j * p.sdx.s + col) =
+              __floats2bfloat162_rn(du[e] * dtj, du[e + 1] * dtj);
+      }
+      // dw_j's share goes to d cum_j and to total
+      dw0 = quad_sum(dw0) * dt0;
+      dw1 = quad_sum(dw1) * dt1;
+      dw0 = clip_live(total - c0) ? w0 * dw0 : 0.f;
+      dw1 = clip_live(total - c1) ? w1 * dw1 : 0.f;
+      dcum0 -= dw0;
+      dcum1 -= dw1;
+    }
+
+    // the rows' d cum and du . x into shared memory; d total; ddt and dA
+    dx0 = quad_sum(dx0);
+    dx1 = quad_sum(dx1);
+    const float wsum = warp_sum(tq == 0 ? dw0 + dw1 : 0.f);
+    if (tq == 0) {
+      sDcum[r0] = dcum0;
+      sDcum[r1] = dcum1;
+      sDdt[r0] = dx0;
+      sDdt[r1] = dx1;
+    }
+    if (lane == 0) sRed[warp] = wsum;
+    __syncthreads();  // this head's x, dy and g_k are read
+    if (tid == 0) {
+      if (hh + 1 < hn) load_state(&tm_h, hh + 1);
+      if (hh + 2 < hn) load_xd(hh + 2);
+    }
+    if (warp == 0) {
+      constexpr int E = C / 32;
+      const float ddec = warp_sum(hg_lane);  // h_{k-1} . g_k
+      float tot = 0.f;
+      for (int w = 0; w < 8; ++w) tot += sRed[w];
+      if (clip_live(total)) tot += clip_exp(total) * ddec;
+      float v[E];
+      float run = 0.f;
+#pragma unroll
+      for (int e = E - 1; e >= 0; --e) {
+        float dc = sDcum[lane * E + e];
+        if (lane * E + e == C - 1) dc += tot;
+        run += dc;
+        v[e] = run;
+      }
+      float incl = run;  // suffix sums over the lanes above
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u = __shfl_down_sync(0xffffffffu, incl, off);
+        if (lane + off < 32) incl += u;
+      }
+      const float after = incl - run;
+      const float a = p.A[h];
+      float dA = 0.f;
+      float* ddtb = p.ddt + b * p.sddt.b + h * p.sddt.h + t0 * p.sddt.s;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int j = lane * E + e;
+        const float da = v[e] + after;
+        dA = fmaf(da, sDt[j], dA);
+        if (j < len) ddtb[j * p.sddt.s] = fmaf(da, a, sDdt[j]);
+      }
+      dA = warp_sum(dA);
+      if (lane == 0) p.dA_part[bhk] = dA;
+    }
+    __syncthreads();  // this head's scalars are read
+  }
+}
+
 // -- (d) the partial sums, in a fixed order ----------------------------------
 
 template <typename T>
@@ -920,6 +1688,79 @@ int launch(Params p, const float* dh_final, void* dB, void* dC, float* dA,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the tensor-core route (bfloat16, one group, P and N multiples of 8, P <=
+// 64, N <= 128): (a) as above, (b) with g_k split into planes, (c) on wgmma
+// fed by TMA, (d) as above over the planes of hpb heads
+int launch_wgmma(Params p, const float* dh_final, const int64_t* x_dims,
+                 const int64_t* dy_dims, void* gsplit, float* hg_part,
+                 void* dB, void* dC, float* dA, int B, void* stream) {
+  constexpr int C = wg::C;
+  p.nc = (p.S + C - 1) / C;
+  const int wg_groups = (p.H + p.hpb - 1) / p.hpb;
+  p.planes = p.H;  // (c) writes one dB / dC plane per head
+  const int64_t np = int64_t(p.N) * p.P;
+  // TMA maps: B and C [B, S, N] (the group's strides), x and dy [B, H, S,
+  // P] through their strides, h_{k-1} and g_k [B H nc 2, N, P]
+  const uint64_t bc_dims[3] = {uint64_t(p.N), uint64_t(p.S), uint64_t(B)};
+  const uint64_t b_str[2] = {uint64_t(p.sb.s) * 2, uint64_t(p.sb.b) * 2};
+  const uint64_t c_str[2] = {uint64_t(p.sc.s) * 2, uint64_t(p.sc.b) * 2};
+  const uint64_t xd_dims[4] = {uint64_t(p.P), uint64_t(p.S), uint64_t(p.H),
+                               uint64_t(B)};
+  const uint64_t x_str[3] = {uint64_t(x_dims[0]) * 2, uint64_t(x_dims[1]) * 2,
+                             uint64_t(x_dims[2]) * 2};
+  const uint64_t dy_str[3] = {uint64_t(dy_dims[0]) * 2,
+                              uint64_t(dy_dims[1]) * 2,
+                              uint64_t(dy_dims[2]) * 2};
+  const uint64_t st_dims[3] = {uint64_t(p.P), uint64_t(p.N),
+                               uint64_t(B) * p.H * p.nc * 2};
+  const uint64_t st_str[2] = {uint64_t(p.P) * 2, uint64_t(np) * 2};
+  CUtensorMap tm_b, tm_c, tm_x, tm_dy, tm_h, tm_g;
+  using hopper::encode_map_strided;
+  if (!encode_map_strided(&tm_b, p.Bm, 3, bc_dims, b_str, C) ||
+      !encode_map_strided(&tm_c, p.Cm, 3, bc_dims, c_str, C) ||
+      !encode_map_strided(&tm_x, p.x, 4, xd_dims, x_str, C) ||
+      !encode_map_strided(&tm_dy, p.dy, 4, xd_dims, dy_str, C) ||
+      !encode_map_strided(&tm_h, p.hprev, 3, st_dims, st_str, C) ||
+      !encode_map_strided(&tm_g, gsplit, 3, st_dims, st_str, C))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  // (a) in blocks of half as many heads as (c): two blocks an SM
+  const int hpb_a = (p.hpb + 1) / 2;
+  const int smem_a = 6 * wg::kTile + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_dstate_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_a);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_wgmma,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               wg::kAlloc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ssd_bwd_dstate_wgmma<<<dim3(p.nc, (p.H + hpb_a - 1) / hpb_a, B),
+                         wg::kThreads, smem_a, s>>>(tm_c, tm_dy, hpb_a, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int64_t states4 = int64_t(B) * p.H * np / 4;
+  ssd_bwd_state_pass_split<<<unsigned((states4 + kPassThreads - 1) /
+                                      kPassThreads),
+                             kPassThreads, 0, s>>>(
+      p.gstate, static_cast<bf16*>(gsplit), p.decay, dh_final,
+      static_cast<const bf16*>(p.hprev), hg_part, states4, np / 4, p.nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_chunk_wgmma<<<dim3(p.nc, wg_groups, B), wg::kThreads, wg::kAlloc,
+                        s>>>(tm_b, tm_c, tm_x, tm_dy, tm_h, tm_g, hg_part,
+                             int(np / 128), p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int64_t outs = int64_t(B) * p.S * p.N;
+  ssd_bwd_reduce<bf16><<<unsigned((outs + kPassThreads - 1) / kPassThreads),
+                         kPassThreads, 0, s>>>(
+      p.dB_part, p.dC_part, static_cast<bf16*>(dB), static_cast<bf16*>(dC),
+      int64_t(p.S) * p.N, outs, p.planes);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_reduce_dA<<<(p.H + 127) / 128, 128, 0, s>>>(p.dA_part, dA, B, p.H,
+                                                     p.nc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ssdb
 
 extern "C" {
@@ -986,6 +1827,69 @@ int ssd_scan_backward(const void* x, const int64_t* sx, const void* dt,
     return ssdb::launch<ssdb::bf16>(p, dh, dB, dC, static_cast<float*>(dA), B,
                                     groups, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core route's entry: the arguments of ssd_scan_backward for
+// bfloat16 and one group (groups = 1, dtype 1), and besides: scores, the
+// forward's score tiles (its workspace's last region, of the same inputs);
+// gsplit, bf16 scratch [B, H, nc, 2, N, P] (g_k's planes); hg_part,
+// float32 scratch [B, H, nc, N P / 128] (h_{k-1} . g_k by warps); hpb,
+// heads per block of the chunk pass; dB_part, dC_part [B, H, S, N].  P and
+// N multiples of 8 with N P a multiple of 128, P <= 64, N <= 128; x, dy,
+// Bm, Cm with 16-byte
+// aligned addresses and strides (the wrapper checks, and takes the
+// mma.sync route otherwise).  Five launches.  Returns cudaGetLastError()
+// after them, or cudaErrorInvalidValue for a shape it does not take or a
+// TMA map that does not encode.
+int ssd_scan_backward_wgmma(
+    const void* x, const int64_t* sx, const void* dt, const int64_t* sdt,
+    const void* A, const void* Bm, const int64_t* sb, const void* Cm,
+    const int64_t* sc, const void* dy, const int64_t* sdy,
+    const void* dh_final, const void* hprev, const void* decay, void* dx,
+    const int64_t* sdx, void* ddt, const int64_t* sddt, void* dA, void* dB,
+    void* dC, void* gstate, void* dB_part, void* dC_part, void* dA_part,
+    const void* scores, void* gsplit, void* hg_part, int hpb, int B, int H,
+    int S, int P, int N, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 || P <= 0 ||
+      P > 64 || P % 8 || N <= 0 || N > 128 || N % 8 || (N * P) % 128 ||
+      hpb <= 0 ||
+      (H > 1 && (sb[1] != 0 || sc[1] != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = [](const int64_t* s) { return ssdb::Strides{s[0], s[1], s[2]}; };
+  ssdb::Params p;
+  p.x = x;
+  p.sx = st(sx);
+  p.dt = static_cast<const float*>(dt);
+  p.sdt = st(sdt);
+  p.A = static_cast<const float*>(A);
+  p.Bm = Bm;
+  p.sb = st(sb);
+  p.Cm = Cm;
+  p.sc = st(sc);
+  p.dy = dy;
+  p.sdy = st(sdy);
+  p.hprev = hprev;
+  p.decay = static_cast<const float*>(decay);
+  p.dx = dx;
+  p.sdx = st(sdx);
+  p.ddt = static_cast<float*>(ddt);
+  p.sddt = st(sddt);
+  p.gstate = static_cast<float*>(gstate);
+  p.dB_part = static_cast<float*>(dB_part);
+  p.dC_part = static_cast<float*>(dC_part);
+  p.dA_part = static_cast<float*>(dA_part);
+  p.scores = static_cast<const float*>(scores);
+  p.hpb = hpb;
+  p.H = H;
+  p.S = S;
+  p.P = P;
+  p.N = N;
+  // x and dy strides as the maps take them: seq, head, batch
+  const int64_t x_dims[3] = {sx[2], sx[1], sx[0]};
+  const int64_t dy_dims[3] = {sdy[2], sdy[1], sdy[0]};
+  return ssdb::launch_wgmma(p, static_cast<const float*>(dh_final), x_dims,
+                            dy_dims, gsplit, static_cast<float*>(hg_part), dB,
+                            dC, static_cast<float*>(dA), B, stream);
 }
 
 }  // extern "C"

@@ -2,8 +2,9 @@
 
 Port of ``repro/kernels/ops.py``: the keyed plane's four kernels, the
 serving path's two attention kernels, the Mamba-2 SSD scan and the MoE
-gather; the MoE combine has no kernel and takes its plain version on every
-device, as in the reference.
+gather, with the MoE token table that the gather's backward and the
+combine read; the MoE combine has no kernel and takes its plain version
+(over that table) on every device, as in the reference.
 ``use_kernels(mode)`` sets the dispatch globally:
 
 * ``"auto"`` (default): a CUDA tensor launches the kernel, a CPU tensor
@@ -231,13 +232,28 @@ def ssd_scan(x, dt, A, Bm, Cm):
                              _sk.heads_view(Cm, heads))
 
 
-def moe_gather(x, row_token, *, max_rows_per_token=None) -> torch.Tensor:
+def token_rows_table(row_token, num_tokens: int,
+                     max_rows_per_token: int) -> torch.Tensor:
+    """``[num_tokens, max(k, 1)]``: ``table[t, j]`` the buffer index of
+    token ``t``'s ``j``-th row in buffer order, ``R`` for none (a token's
+    rows past ``k = max_rows_per_token`` dropped).  CUDA tensors take the
+    ``moe_token_table`` kernel (int32; no sort, no host synchronisation),
+    CPU tensors its plain version (int64), the same entries."""
+    if kernels_active(row_token.device):
+        return _mk.token_rows_table(_i32(row_token), num_tokens,
+                                    max_rows_per_token)
+    return _ref.token_rows_table(row_token, num_tokens, max_rows_per_token)
+
+
+def moe_gather(x, row_token, *, max_rows_per_token=None,
+               table=None) -> torch.Tensor:
     """x ``[T, d]``; row_token ``[R]`` -> ``[R, d]``: ``x[row_token[r]]``,
     zeros for a token outside ``[0, T)`` (the dummy ``T``).  Differentiable
     in every mode: with grad on and x requiring grad, the kernel route runs
     :class:`~repro_torch.kernels.moe_dispatch.MoeGatherFunction`, whose
     backward sums each token's at most ``max_rows_per_token`` rows (``top_k``
-    in the model), which it then needs."""
+    in the model), which it then needs, through ``table`` (the rows'
+    :func:`token_rows_table`; built in the backward when None)."""
     if kernels_active(x.device):
         x, row_token = x.contiguous(), _i32(row_token)
         if _requires_grad(x):
@@ -245,20 +261,27 @@ def moe_gather(x, row_token, *, max_rows_per_token=None) -> torch.Tensor:
                 raise ValueError("ops.moe_gather under grad needs "
                                  "max_rows_per_token (the bound of a "
                                  "token's rows)")
+            if table is not None:
+                table = _i32(table)
             return _mk.MoeGatherFunction.apply(x, row_token,
-                                               max_rows_per_token)
+                                               max_rows_per_token, table)
         return _mk.moe_gather(x, row_token)
     return _ref.moe_gather_ref(x, row_token)
 
 
 def moe_combine(expert_out, row_token, row_weight, num_tokens: int, *,
-                max_rows_per_token: int) -> torch.Tensor:
+                max_rows_per_token: int, table=None) -> torch.Tensor:
     """``y[t] = sum_{r: row_token[r] == t} w_r expert_out[r]``, float32
-    accumulation in a fixed order, rounded once to expert_out's dtype.  No
-    kernel, in every mode (the reference's ``ops.moe_combine`` is its jnp
-    version too), so autograd differentiates it everywhere; its gradient is
-    deterministic (each row of ``expert_out`` sits in one cell of the
-    token table)."""
+    accumulation in a fixed order, rounded once to expert_out's dtype:
+    each token's rows summed in buffer order through ``table``, the rows'
+    :func:`token_rows_table` (built here by its plain version when None;
+    the model passes the one it built for the gather, so a layer builds one
+    table).  Plain PyTorch over the table in every mode (the reference's
+    ``ops.moe_combine`` is its jnp version too), so autograd differentiates
+    it everywhere, and with or without a given table the result is the
+    same bits; its gradient is deterministic (each row of ``expert_out``
+    sits in one cell of the table)."""
     return _ref.moe_combine_ref(expert_out, row_token, row_weight,
                                 num_tokens,
-                                max_rows_per_token=max_rows_per_token)
+                                max_rows_per_token=max_rows_per_token,
+                                table=table)

@@ -633,7 +633,8 @@ def token_rows_table(row_token, num_tokens: int,
     ``k = max_rows_per_token`` bounds a token's rows and drops the rest.
     Rows of a token outside ``[0, num_tokens)`` appear nowhere.  Index
     preparation (a stable sort by token, then positions), shared by the
-    combine and the gather's backward."""
+    combine and the gather's backward; the plain version of the
+    ``moe_token_table`` kernel (``moe_dispatch.token_rows_table``)."""
     r = row_token.shape[0]
     dev = row_token.device
     tok = row_token.to(torch.int64)
@@ -652,7 +653,7 @@ def token_rows_table(row_token, num_tokens: int,
 
 
 def moe_combine_ref(expert_out, row_token, row_weight, num_tokens: int, *,
-                    max_rows_per_token: int) -> torch.Tensor:
+                    max_rows_per_token: int, table=None) -> torch.Tensor:
     """expert_out ``[R, d]``; ``y[t] = sum_{r: row_token[r] == t} w_r *
     expert_out[r]`` for ``t < num_tokens`` (rows of other tokens drop) ->
     ``[num_tokens, d]`` in expert_out's dtype.
@@ -661,9 +662,11 @@ def moe_combine_ref(expert_out, row_token, row_weight, num_tokens: int, *,
     sums its rows in the order of their buffer index, so two runs give the
     same bits on any device (a bfloat16 ``index_add_`` on the card adds in
     the atomics' order).  ``max_rows_per_token`` bounds the rows of one
-    token (``top_k`` in the model)."""
+    token (``top_k`` in the model).  ``table``: the rows'
+    :func:`token_rows_table` (int64 or int32), built here when None."""
     d = expert_out.shape[1]
-    table = token_rows_table(row_token, num_tokens, max_rows_per_token)
+    if table is None:
+        table = token_rows_table(row_token, num_tokens, max_rows_per_token)
     rows = torch.cat([expert_out.float() * row_weight.float()[:, None],
                       expert_out.new_zeros((1, d), dtype=torch.float32)])
     y = torch.zeros((num_tokens, d), dtype=torch.float32,
@@ -674,14 +677,15 @@ def moe_combine_ref(expert_out, row_token, row_weight, num_tokens: int, *,
 
 
 def moe_gather_backward_ref(dout, row_token, num_tokens: int, *,
-                            max_rows_per_token: int) -> torch.Tensor:
+                            max_rows_per_token: int,
+                            table=None) -> torch.Tensor:
     """The gradient of :func:`moe_gather_ref` for its output's gradient
     ``dout`` ``[R, d]``: ``dx[t] = sum_{r: row_token[r] == t} dout[r]``
     for ``t < num_tokens`` -> ``[num_tokens, d]`` of dout's dtype, each
     token's at most ``max_rows_per_token`` rows summed in buffer order in
     float32 and rounded once (the combine with unit weights); dummy rows
-    give nothing."""
+    give nothing.  ``table`` as for :func:`moe_combine_ref`."""
     return moe_combine_ref(dout, row_token,
                            torch.ones((), device=dout.device)
                            .expand(dout.shape[0]), num_tokens,
-                           max_rows_per_token=max_rows_per_token)
+                           max_rows_per_token=max_rows_per_token, table=table)

@@ -27,9 +27,15 @@ on a refused launch and counts one launch per call in :data:`LAUNCHES`.
 
 The gradient (training) is :func:`ssd_scan_backward`, the kernels of
 ``csrc/ssd_scan_backward.cu`` (five launches a call, counted as one in
-``LAUNCHES["ssd_scan_backward"]``), behind :class:`SsdScanFunction`.  The
+``LAUNCHES["ssd_scan_backward"]``), behind :class:`SsdScanFunction`.  Two
+routes (:data:`ROUTES`): "wgmma" for bfloat16 with one B/C group at the
+shapes :func:`wgmma_route_applies` names (Mamba2's layers): products on
+wgmma fed by TMA, the forward's score tiles read by every head, one
+float32 dB/dC plane per head; "mma" (``mma.sync``, or float32 FMAs) for
+every other input.  The
 forward of the Function keeps its workspace, whose states entering each
-chunk (and chunk decays) the backward reads instead of recomputing them:
+chunk (and chunk decays and score tiles) the backward reads instead of
+recomputing them:
 :func:`workspace_bytes` of the layer (about 100 MB for a Mamba2-780M layer
 of 4,096 bf16 tokens), held from the forward to the backward of one layer
 under remat.
@@ -44,8 +50,9 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["CHUNK", "LAUNCHES", "MAX_HEAD_DIM_BACKWARD", "MAX_STATE",
-           "SsdScanFunction", "heads_view", "shared_group", "ssd_scan",
-           "ssd_scan_backward", "workspace_bytes"]
+           "ROUTES", "SsdScanFunction", "heads_per_block", "heads_view",
+           "shared_group", "ssd_scan", "ssd_scan_backward",
+           "wgmma_route_applies", "workspace_bytes"]
 
 #: kernel launches (reset with ``ops.reset_launch_counts``)
 LAUNCHES = {"ssd_scan": 0, "ssd_scan_backward": 0}
@@ -68,14 +75,15 @@ def _align256(n: int) -> int:
 
 
 def _layout(b, h, s, p, n, dtype, shared):
-    """(hprev offset, decay offset, bytes) of the forward's workspace."""
+    """(hprev offset, decay offset, scores offset, bytes) of the forward's
+    workspace."""
     c = CHUNK[dtype]
     nc = -(-s // c)
     states = b * h * nc * n * p * 4
     hprev_at = _align256(states)
     decay_at = _align256(hprev_at + states)
     scores_at = _align256(decay_at + b * h * nc * 4)
-    return hprev_at, decay_at, \
+    return hprev_at, decay_at, scores_at, \
         scores_at + b * (1 if shared else h) * nc * c * c * 4
 
 
@@ -86,7 +94,7 @@ def workspace_bytes(b: int, h: int, s: int, p: int, n: int, dtype,
     ``[b, h, nc]`` and the score tiles ``[b, 1 or h, nc, chunk, chunk]``
     (one per chunk for a shared group, else one per head), each 256-byte
     aligned (csrc/ssd_scan.cu ``workspace``)."""
-    return _layout(b, h, s, p, n, dtype, shared)[2]
+    return _layout(b, h, s, p, n, dtype, shared)[3]
 
 
 def shared_group(Bm: torch.Tensor, Cm: torch.Tensor) -> bool:
@@ -171,7 +179,46 @@ def heads_view(m: torch.Tensor, heads: int) -> torch.Tensor:
     return m.expand(m.shape[0], heads, *m.shape[2:])
 
 
-def ssd_scan_backward(x, dt, A, Bm, Cm, dy, dh_final=None, *, states):
+#: the backward's two bf16 routes: "wgmma" (tensor-core products fed by
+#: TMA, the forward's score tiles shared by every head) where it applies
+#: (:func:`wgmma_route_applies`), else "mma" (``mma.sync``, chunk pass per
+#: head group of :data:`BACKWARD_HEADS`); float32 takes "mma"'s FMA kernels
+ROUTES = ("wgmma", "mma")
+_SM_COUNT: dict = {}
+
+
+def _aligned(t: torch.Tensor, dims: int) -> bool:
+    """16-byte aligned address and (batch, head, seq) strides of a bf16
+    view, as a TMA map needs (a head stride of 0 passes)."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 and st < 2 ** 36 for st in t.stride()[:dims - 1])
+
+
+def wgmma_route_applies(x, dy, Bh, Ch, groups: int) -> bool:
+    """True when the backward takes its tensor-core route: bfloat16, one
+    B/C group, P and N multiples of 8 with P <= 64, N <= 128 and N P a
+    multiple of 128, and x, dy, B, C TMA-aligned (16-byte addresses and
+    strides)."""
+    p, n = x.shape[-1], Bh.shape[-1]
+    return (x.dtype == torch.bfloat16 and groups == 1 and p % 8 == 0
+            and p <= 64 and n % 8 == 0 and n <= 128 and (n * p) % 128 == 0
+            and all(_aligned(t, 4) for t in (x, dy, Bh, Ch)))
+
+
+def heads_per_block(b: int, nc: int, h: int, device) -> int:
+    """Heads a block of the tensor-core chunk pass walks: as few as fill
+    the card's SMs with one wave of (chunk, head group, batch) blocks."""
+    idx = torch.device(device).index or 0
+    sms = _SM_COUNT.get(idx)
+    if sms is None:
+        sms = _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    groups = max(1, min(h, sms // max(1, b * nc)))
+    return -(-h // groups)
+
+
+def ssd_scan_backward(x, dt, A, Bm, Cm, dy, dh_final=None, *, states,
+                      route=None):
     """The gradients ``(dx, ddt, dA, dB, dC)`` of :func:`ssd_scan`'s ``(y,
     h)`` for their gradients ``dy`` ``[B, H, S, P]`` (strided, last axis
     contiguous) and ``dh_final`` ``[B, H, N, P]`` (None: zero).  x, dt, A as
@@ -182,7 +229,10 @@ def ssd_scan_backward(x, dt, A, Bm, Cm, dy, dh_final=None, *, states):
     P]`` (a view of a ``[B, S, H, P]`` buffer) and dB, dC ``[B, G, S, N]``
     of x's dtype; ddt ``[B, H, S]`` (a view of ``[B, S, H]``) and dA
     ``[H]`` float32.  Five kernels a call, counted as one launch; no
-    atomics, so a second call gives the same bits."""
+    atomics, so a second call gives the same bits.  ``route``: None picks
+    "wgmma" where :func:`wgmma_route_applies`, else "mma"; a name forces
+    that route (to time one against the other; "wgmma" raises where it does
+    not apply)."""
     b, h, s, p = x.shape
     if Bm.dim() != 4 or Bm.shape[1] not in (1, h) or Cm.shape != Bm.shape:
         raise ValueError(f"ssd_scan_backward: B and C must be [B, 1 or H, "
@@ -204,8 +254,8 @@ def ssd_scan_backward(x, dt, A, Bm, Cm, dy, dh_final=None, *, states):
         if dh_final.shape != (b, h, n, p) or dh_final.get_device() != dev:
             raise ValueError(f"ssd_scan_backward: dh_final must be [{b}, {h},"
                              f" {n}, {p}] on the card")
-    hprev_at, decay_at, nbytes = _layout(b, h, s, p, n, x.dtype,
-                                         shared_group(Bh, Ch))
+    hprev_at, decay_at, scores_at, nbytes = _layout(
+        b, h, s, p, n, x.dtype, shared_group(Bh, Ch))
     if states.numel() != nbytes:
         raise ValueError("ssd_scan_backward: states are not the forward's "
                          "workspace for these inputs")
@@ -219,26 +269,45 @@ def ssd_scan_backward(x, dt, A, Bm, Cm, dy, dh_final=None, *, states):
     dC = torch.empty_like(dB)
     if x.numel() == 0:
         return dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_()
+    if route not in (None,) + ROUTES:
+        raise ValueError(f"ssd_scan_backward: route must be one of {ROUTES}")
+    applies = wgmma_route_applies(x, dy, Bh, Ch, groups)
+    if route == "wgmma" and not applies:
+        raise ValueError("ssd_scan_backward: the wgmma route takes bfloat16, "
+                         "one B/C group, P, N multiples of 8 (P <= 64, N <= "
+                         "128, N P a multiple of 128) and 16-byte aligned "
+                         "views")
+    wgmma = applies if route is None else route == "wgmma"
     nc = -(-s // CHUNK[x.dtype])
-    planes = -(-h // BACKWARD_HEADS) if groups == 1 else h
+    hpb = heads_per_block(b, nc, h, x.device) if wgmma else BACKWARD_HEADS
+    planes = h if wgmma or groups != 1 else -(-h // hpb)
     f32 = dict(dtype=torch.float32, device=x.device)
     gstate = torch.empty((b, h, nc, n, p), **f32)
     dB_part = torch.empty((b, planes, s, n), **f32)
     dC_part = torch.empty_like(dB_part)
     dA_part = torch.empty((b, h, nc), **f32)
     base = states.data_ptr()
-    _build.launch("ssd_scan_backward", dev, x.data_ptr(),
-                  _strides("x", x, 4), dt.data_ptr(), _strides("dt", dt, 3),
-                  A.data_ptr(), Bh.data_ptr(), _strides("Bm", Bh, 4),
-                  Ch.data_ptr(), _strides("Cm", Ch, 4), dy.data_ptr(),
-                  _strides("dy", dy, 4),
-                  None if dh_final is None else dh_final.data_ptr(),
-                  base + hprev_at, base + decay_at, dx.data_ptr(),
-                  _strides("dx", dx, 4), ddt.data_ptr(),
-                  _strides("ddt", ddt, 3), dA.data_ptr(), dB.data_ptr(),
-                  dC.data_ptr(), gstate.data_ptr(), dB_part.data_ptr(),
-                  dC_part.data_ptr(), dA_part.data_ptr(), b, h, s, p, n,
-                  groups, DTYPE_CODES[x.dtype])
+    args = (x.data_ptr(), _strides("x", x, 4), dt.data_ptr(),
+            _strides("dt", dt, 3), A.data_ptr(), Bh.data_ptr(),
+            _strides("Bm", Bh, 4), Ch.data_ptr(), _strides("Cm", Ch, 4),
+            dy.data_ptr(), _strides("dy", dy, 4),
+            None if dh_final is None else dh_final.data_ptr(),
+            base + hprev_at, base + decay_at, dx.data_ptr(),
+            _strides("dx", dx, 4), ddt.data_ptr(), _strides("ddt", ddt, 3),
+            dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), gstate.data_ptr(),
+            dB_part.data_ptr(), dC_part.data_ptr(), dA_part.data_ptr())
+    if wgmma:
+        # g_k's bf16 hi and lo planes, loaded by TMA; h_{k-1} . g_k by
+        # warps of the state pass
+        gsplit = torch.empty((b, h, nc, 2, n, p), dtype=x.dtype,
+                             device=x.device)
+        hg_part = torch.empty((b, h, nc, n * p // 128), **f32)
+        _build.launch("ssd_scan_backward_wgmma", dev, *args,
+                      base + scores_at, gsplit.data_ptr(), hg_part.data_ptr(),
+                      hpb, b, h, s, p, n)
+    else:
+        _build.launch("ssd_scan_backward", dev, *args, b, h, s, p, n, groups,
+                      DTYPE_CODES[x.dtype])
     LAUNCHES["ssd_scan_backward"] += 1
     return dx, ddt, dA, dB, dC
 

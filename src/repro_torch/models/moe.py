@@ -12,14 +12,19 @@ sequence:
    expert, each pick's position within its expert's run, picks beyond the
    capacity dropped (redirected out of range); the result is a buffer of
    ``E * cap`` rows naming a source token each (``S`` = none);
-3. the gather ``buf = x[buf_token]`` through ``ops.moe_gather`` (one launch
+3. the token table (``ops.token_rows_table``: each token's at most ``k``
+   buffer rows in buffer order; on the card one kernel call, no sort, no
+   host synchronisation), built once and read by both the gather's
+   backward and the combine;
+4. the gather ``buf = x[buf_token]`` through ``ops.moe_gather`` (one launch
    for the whole batch), the experts' gated MLPs as batched products, and
    the weighted combine back to the tokens through ``ops.moe_combine``.
 
 Gradients under grad on the card: the gather's is the backward kernel's
-(``moe_gather_backward``, through ``MoeGatherFunction``: each token's at
-most ``k`` rows summed in buffer order); the combine's, the router's and
-the experts' are autograd's of plain PyTorch.
+(``moe_gather_backward``, through ``MoeGatherFunction``, which keeps the
+layer's table: each token's at most ``k`` rows summed in buffer order);
+the combine's, the router's and the experts' are autograd's of plain
+PyTorch.
 
 What differs from the reference: the combine accumulates in float32, each
 token summing its at most ``k`` rows in buffer order, and rounds once; the
@@ -139,8 +144,9 @@ def moe_ffn(x, params: MoE, moe: MoEConfig) -> Tuple[torch.Tensor,
     # the flattened x, and every "none" row points past its end
     base = torch.arange(b, dtype=torch.int32, device=x.device)[:, None] * s
     rows = torch.where(buf_token < s, buf_token + base, b * s).reshape(-1)
-    buf = ops.moe_gather(x.reshape(b * s, d), rows,
-                         max_rows_per_token=k).reshape(b, e, cap, d)
+    table = ops.token_rows_table(rows, b * s, k)
+    buf = ops.moe_gather(x.reshape(b * s, d), rows, max_rows_per_token=k,
+                         table=table).reshape(b, e, cap, d)
 
     dt = x.dtype
     gate = params.act(torch.einsum("becd,edf->becf", buf,
@@ -150,7 +156,7 @@ def moe_ffn(x, params: MoE, moe: MoEConfig) -> Tuple[torch.Tensor,
 
     out = ops.moe_combine(out_buf.reshape(b * e * cap, d), rows,
                           buf_weight.reshape(-1), b * s,
-                          max_rows_per_token=k).reshape(b, s, d)
+                          max_rows_per_token=k, table=table).reshape(b, s, d)
     if params.shared is not None:
         out = out + params.shared(x)
     return out, aux

@@ -17,7 +17,9 @@ bit-exact.  The flash backward is held to its plain version at 1e-4 of
 each gradient's largest magnitude in float32 and 2e-2 and one rounding
 step in bfloat16, the scan's backward at 2e-4 and 5e-2 and one rounding
 step, the gather's backward bit for bit, each with two calls
-bit-identical; only decode attention raises under grad.  The distributed
+bit-identical; only decode attention raises under grad.  The MoE token
+table kernel must equal its plain version bit for bit, and the gather's
+backward and an MoE layer's forward must not synchronise with the host.  The distributed
 keyed plane's workers run on the card too (``test_dist_plane_*``), held to
 the in-process plane bit for bit.
 """
@@ -1493,6 +1495,122 @@ def test_moe_gather_backward_bit_exact(dev, dtype, d):
     dummies = torch.full((64,), tokens, dtype=torch.int32, device=dev)
     assert not tmd.moe_gather_backward(dout[:64], dummies, tokens,
                                        max_rows_per_token=k).any()
+
+
+#: chip_smoke.py's SCAN_BWD_SHAPES at Mamba2-780M's 48 heads of 64, state
+#: 128: (B, S, dt shift, per-head B/C, with dh_final)
+SMOKE_SCAN_SHAPES = {
+    "train 4096": (1, 4096, 0.0, False, False),
+    "long 8192": (1, 8192, 0.0, False, False),
+    "one token": (1, 1, 0.0, False, True),
+    "ragged": (2, 4097, 0.0, False, True),
+    "per-head B/C": (1, 1000, 5.0, True, True),
+    "small dt": (1, 4096, 5.0, False, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(SMOKE_SCAN_SHAPES))
+def test_ssd_scan_backward_routes_at_the_smoke_shapes(dev, dtype, shape):
+    """At every shape the smoke run checks: bfloat16 with one B/C group
+    takes the tensor-core route (and forcing it gives the same bits),
+    per-head B/C and float32 the ``mma.sync`` / FMA route; each within
+    2e-4 (float32) or 5e-2 and one rounding step (bfloat16) of
+    ``ref.ssd_scan_backward_ref``, a second call bit-identical."""
+    b, s, shift, per_head, with_dh = SMOKE_SCAN_SHAPES[shape]
+    args, dy, dh = _scan_bwd_inputs(
+        dev, dtype, (b, 48, s, 64, 128, per_head, shift, with_dh))
+    heads = args[0].shape[1]
+    Bh, Ch = tss.heads_view(args[3], heads), tss.heads_view(args[4], heads)
+    states = tss.ssd_scan(*args[:3], Bh, Ch, keep_states=True)[2]
+    applies = tss.wgmma_route_applies(args[0], dy, Bh, Ch, args[3].shape[1])
+    assert applies == (dtype == torch.bfloat16 and not per_head)
+    got = tss.ssd_scan_backward(*args, dy, dh, states=states)
+    again = tss.ssd_scan_backward(*args, dy, dh, states=states)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    if applies:
+        forced = tss.ssd_scan_backward(*args, dy, dh, states=states,
+                                       route="wgmma")
+        for g, f in zip(got, forced):
+            assert torch.equal(g, f)
+    else:
+        with pytest.raises(ValueError, match="wgmma route"):
+            tss.ssd_scan_backward(*args, dy, dh, states=states,
+                                  route="wgmma")
+    want = tref.ssd_scan_backward_ref(*args, dy, dh, chunk=tss.CHUNK[dtype])
+    _grads_close(got, want, dtype, 2e-4)
+
+
+def _table_case(dev, case):
+    """(row_token, tokens, k) of a token-table case."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    if case == "dispatch":
+        return _gather_case(dev, 300, 2000, 6, 300, 5), 300, 6
+    if case == "over-full":
+        tok = torch.randint(-2, 52, (3000,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        tok[100:140] = 7   # token 7 has some 40 rows: its first 4 stay
+        return tok, 50, 4
+    if case == "dummies":
+        return torch.full((640,), 40, dtype=torch.int32, device=dev), 40, 6
+    if case == "no rows":
+        return torch.zeros((0,), dtype=torch.int32, device=dev), 9, 3
+    return torch.full((500,), 3, dtype=torch.int32, device=dev), 8, 0
+
+
+@pytest.mark.parametrize("case", ["dispatch", "over-full", "dummies",
+                                  "no rows", "one token, k 0"])
+def test_token_rows_table_bit_identical(dev, case):
+    """The table kernel against ``ref.token_rows_table``: bit-identical
+    (over-full tokens keep their first k rows in buffer order), twice the
+    same, int32, one count a call; ``ops.token_rows_table`` takes it."""
+    tok, tokens, k = _table_case(dev, case)
+    before = ops.launch_counts()["token_rows_table"]
+    got = tmd.token_rows_table(tok, tokens, k)
+    again = ops.token_rows_table(tok, tokens, k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["token_rows_table"] == before + 2
+    assert got.dtype == torch.int32 and got.shape == (tokens, max(k, 1))
+    assert torch.equal(got, again)
+    assert torch.equal(got.long(), tref.token_rows_table(tok, tokens, k))
+
+
+def test_gather_backward_and_moe_forward_do_not_synchronise(dev):
+    """Under ``torch.cuda.set_sync_debug_mode("error")``: the gather's
+    backward building its table on the card, and a reduced DeepSeekMoE
+    layer's forward (the table once, the gather, the combine over the
+    table) raise nothing; the forward equals ops mode ``ref``'s bit for
+    bit."""
+    from repro_torch import configs
+    from repro_torch.models import moe as tmoe
+
+    cfg = configs.get("deepseek-moe-16b").reduced()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    layer = tmoe.MoE(cfg.d_model, cfg.moe, "silu", dtype=torch.bfloat16,
+                     device=dev)
+    layer.init_weights(gen)
+    x = torch.randn((2, 40, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    tok = _gather_case(dev, 300, 2000, 6, 300, 9)
+    dout = torch.randn((2000, 64), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dx = tmd.moe_gather_backward(dout, tok, 300, max_rows_per_token=6)
+        with torch.no_grad():
+            out, _ = tmoe.moe_ffn(x, layer, cfg.moe)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(dx, tref.moe_gather_backward_ref(
+        dout, tok, 300, max_rows_per_token=6))
+    ops.use_kernels("ref")
+    try:
+        with torch.no_grad():
+            want, _ = tmoe.moe_ffn(x, layer, cfg.moe)
+    finally:
+        ops.use_kernels("auto")
+    assert torch.equal(out, want)
 
 
 def test_ssm_and_moe_train_step_kernel_mode_equals_ref_mode(dev):

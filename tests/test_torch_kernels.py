@@ -362,7 +362,8 @@ class TestDispatch:
             ("segment_sum", "scatter_add", "table_lookup",
              "batched_table_lookup", "flash_attention",
              "flash_attention_backward", "decode_attention", "ssd_scan",
-             "ssd_scan_backward", "moe_gather", "moe_gather_backward"), 0)
+             "ssd_scan_backward", "moe_gather", "moe_gather_backward",
+             "token_rows_table"), 0)
         assert not tops.kernels_active("cpu")
 
     def test_kernel_mode_refuses_cpu_tensors(self):
