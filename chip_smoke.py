@@ -299,6 +299,32 @@ Phases, each printed on its own line; any failure exits non-zero:
                to the kernel run's); (c) Jamba-1.5-Large's first 4 layers at
                d_model 1,024, one float32 step kernel against ref: the scan,
                the gather and flash backward in one model.
+18. launch-cells -- the reference's serve shapes through ``launch/``:
+               ``build_cell`` on the one-card layout (``make_host_mesh``),
+               then ``build_prefill_step`` / ``build_serve_step`` at full
+               width and depth, bf16, random weights from the seed: (a)
+               MiniCPM-2B at ``PREFILL_32K`` (two prompts of 32,768 tokens)
+               and ``DECODE_32K`` (two prompts of 32,752 into 32,768-row
+               caches, then 16 serve steps), the global batches 32 and 128
+               cut to 2; (b) Mamba2-780M (the published ``dt_bias`` init) at
+               ``LONG_500K``: one prefill of 524,272 tokens, 16 serve steps
+               to position 524,288.  Checks: (1) each step's tokens and
+               caches bit-identical to ``prefill_forward`` /
+               ``decode_forward`` and argmax; (2) the dry-run's bytes of
+               the cell (params + caches + batch) equal to the bytes the
+               caching allocator was asked for, and ``memory_allocated``'s
+               growth within its block rounding; (3) the 524,272-token
+               prefill against the same prompt in 63 pieces of 8,192 and
+               one of 8,176, the SSM state carried (last logits and the 48
+               final states, RMS limits); (4) the flash, decode and scan
+               kernels alone at these shapes against their plain versions
+               with phases 6 and 8's tolerances (flash one row and head at
+               a time over all 32,768 keys, decode over the whole cache and
+               a ragged pair of lengths, the scan over all 524,272 tokens
+               in float32, eight heads at a time); prefill ms per prompt
+               token, decode ms a step, peak memory, launches, and the
+               three kernels by events beside their bounds
+               (``--only-launch`` runs this phase alone after the build).
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -4376,12 +4402,13 @@ def phase_train(torch, seed, smi):
     from repro_torch.launch.cells import knobs_for
     from repro_torch.launch.steps import accumulate_grads, build_train_step
     from repro_torch.models import transformer as T
+    from repro_torch.models.config import TRAIN_4K
     from repro_torch.optim import adamw
 
     torch.use_deterministic_algorithms(True)
     t_phase = time.perf_counter()
     base = configs.get(TRAIN_MODEL)
-    knobs = knobs_for(base)
+    knobs = knobs_for(base, TRAIN_4K)
     check(knobs.microbatches == 4 and knobs.remat
           and knobs.grad_accum_dtype == "float32",
           f"knobs_for({TRAIN_MODEL}) gave {knobs}")
@@ -4782,6 +4809,7 @@ def phase_train_ssm_moe(torch, seed, smi, fault=None):
     from repro_torch.launch.cells import knobs_for
     from repro_torch.launch.steps import accumulate_grads, build_train_step
     from repro_torch.models import transformer as T
+    from repro_torch.models.config import TRAIN_4K
     from repro_torch.optim import adamw
 
     t_phase = time.perf_counter()
@@ -4792,7 +4820,8 @@ def phase_train_ssm_moe(torch, seed, smi, fault=None):
             continue
         t_model = time.perf_counter()
         cfg = family_config(configs, name, layers)
-        knobs = knobs_for(cfg, microbatches=SSM_MOE_MICROBATCHES)
+        knobs = knobs_for(cfg, TRAIN_4K,
+                          microbatches=SSM_MOE_MICROBATCHES)
         k = knobs.microbatches
         data = SyntheticLM(vocab=cfg.padded_vocab, seq_len=TRAIN_SEQ,
                            batch=TRAIN_ROWS, microbatches=k, seed=seed)
@@ -4860,7 +4889,8 @@ def phase_train_ssm_moe(torch, seed, smi, fault=None):
                 reduced=dict(depth=cut, global_batch=f"{TRAIN_ROWS * k} rows "
                              f"of {TRAIN_SEQ} (one card, a smoke run's time)",
                              microbatches=f"knobs_for gives "
-                             f"{knobs_for(cfg).microbatches}; phase 16's "
+                             f"{knobs_for(cfg, TRAIN_4K).microbatches}; "
+                             f"phase 16's "
                              f"{k} taken"),
                 trained_dt_bias=cfg.ssm is not None, seq_len=TRAIN_SEQ,
                 microbatches=k, tokens_per_step=tokens_per_step,
@@ -4990,6 +5020,601 @@ def train_child(torch, seed, smi, fault):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the reference's serve shapes through launch/'s cell builders
+# ---------------------------------------------------------------------------
+
+#: (a)'s cells: PREFILL_32K's and DECODE_32K's global batches (32 and 128)
+#: cut to this many rows, which one card holds (a row's 32,768-row caches
+#: are 12.08 GB at MiniCPM-2B's 40 layers of 36 kv heads)
+LAUNCH_ROWS = 2
+#: serve steps after each decode cell's prefill (the prompt is the cache
+#: less these rows)
+LAUNCH_STEPS = 16
+#: check 3: the 524,272-token prompt prefilled in pieces of this many
+#: tokens (63 and a last one of 8,176), each piece's scan continued from
+#: the state the one before left
+LONG_PIECE = 8192
+#: check 3's limits, the one-call prefill against the pieces: the last
+#: logits' RMS difference over their RMS, and the largest RMS difference of
+#: a layer's final SSM state over that state's RMS.  48 bfloat16 layers
+#: spread the two paths' roundings (the pieces round y once more where the
+#: carried state's share is added) to 0.0284 and 0.0489 (PERF.md, H100);
+#: the planted fault (the carry into the one-call scan's last chunk
+#: dropped) reads 0.0460 and 0.141.  The scan kernel itself is held at this
+#: length by check 4, which is sharper: y within 0.90 of a bfloat16
+#: rounding step of the float32 plain scan, the final states within 1.2e-6
+LONG_LOGIT_RMS = 0.037
+LONG_STATE_RMS = 0.08
+#: heads of the 524,272-token scan held against its plain version at once:
+#: the plain version's float32 chunk decays and score tiles are 0.54 GB a
+#: head each, a few alive at a time
+LONG_REF_HEADS = 8
+#: the most the caching allocator adds to a tensor's bytes in
+#: ``memory_allocated``: a large tensor's block keeps the tail of its
+#: segment when that is under 1 MiB (kSmallSize); a small one is rounded
+#: up to 512 bytes
+ALLOC_TAIL = 1 << 20
+
+
+def _tensors(torch, tree):
+    """The tensors of a parameter module, a cache list or a batch dict."""
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(torch, v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(torch, v)]
+    return [tree]
+
+
+def _grown(torch, make):
+    """(``make()``, the growth it caused of ``memory_allocated`` and of
+    the allocator's requested bytes)."""
+    def read():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+    a0, r0 = read()
+    out = make()
+    a1, r1 = read()
+    return out, (a1 - a0, r1 - r0)
+
+
+def _bytes_check(cell_name, dry, grown, tensors):
+    """Check 2: the dry-run's bytes of the one-card layout (params +
+    caches + batch) against the card: the bytes the caching allocator was
+    asked for, for the same tensors, exactly; ``memory_allocated``, which
+    counts each block as the allocator cut it, within ``ALLOC_TAIL`` a
+    tensor."""
+    allocated, requested = grown
+    exact = sum(t.numel() * t.element_size() for t in tensors)
+    check(dry["total"] == exact == requested,
+          f"{cell_name}: dry-run bytes {dry['total']}, the card tensors' "
+          f"{exact}, requested from the allocator {requested}")
+    check(0 <= allocated - exact <= ALLOC_TAIL * len(tensors),
+          f"{cell_name}: memory_allocated grew {allocated} bytes for "
+          f"{exact} ({len(tensors)} tensors)")
+    return dict(dryrun_bytes=dry, requested_growth=requested,
+                allocated_growth=allocated, tensors=len(tensors),
+                allocated_minus_dryrun=allocated - exact)
+
+
+def _plus(a, b):
+    return tuple(x + y for x, y in zip(a, b))
+
+
+def _caches_equal(torch, a, b):
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+def _clone_caches(caches):
+    return [{k: v.clone() for k, v in c.items()} for c in caches]
+
+
+def _step_timed(torch, fn):
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _serve_steps(torch, step, params, caches, batch, tok, first):
+    """``LAUNCH_STEPS`` serve steps from token ``tok`` at position
+    ``first``: the tokens (each step's input, then the last output) and
+    each step's ms by events."""
+    toks, ms = [tok], []
+    for i in range(LAUNCH_STEPS):
+        batch["tokens"].copy_(toks[-1][:, None])
+        batch["index"].fill_(first + i)
+        (tok, caches), t = _step_timed(
+            torch, lambda: step(params, caches, batch))
+        toks.append(tok)
+        ms.append(t)
+    return toks, ms
+
+
+def _direct_decode(torch, T, cfg, params, caches, toks, first):
+    """Check 1's replay of the serve steps: ``decode_forward`` and argmax
+    on the step run's input tokens -> each step's token."""
+    out = []
+    rows = toks[0].shape[0]
+    for i in range(LAUNCH_STEPS):
+        index = torch.full((rows,), first + i, dtype=torch.int64,
+                           device=toks[0].device)
+        logits, caches = T.decode_forward(
+            params, {"tokens": toks[i][:, None]}, cfg, caches, index)
+        out.append(logits[:, -1].float().argmax(dim=-1).to(torch.int32))
+    return out
+
+
+def _flash_vs_plain(torch, q, k, v, out):
+    """Phase 6's check of the flash kernel's causal ``out`` at 32,768
+    tokens: against ``ref.flash_attention_ref`` one (row, head) at a time
+    (a head's float32 scores are 4.3 GB), within ``BF16_TOL`` and one
+    bfloat16 rounding step -> (largest absolute error, largest share of a
+    step)."""
+    from repro_torch.kernels import ref
+
+    g = q.shape[1] // k.shape[1]
+    err, steps = 0.0, {}
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            kv = slice(h // g, h // g + 1)
+            err = max(err, _close(
+                torch, out[b:b + 1, h:h + 1],
+                ref.flash_attention_ref(q[b:b + 1, h:h + 1], k[b:b + 1, kv],
+                                        v[b:b + 1, kv], causal=True),
+                BF16_TOL, f"prefill_32k flash row {b} head {h}", steps))
+    return err, max(steps.values())
+
+
+def _scan_vs_plain(torch, args, y, h):
+    """Phase 8's check of the scan at the 524,272-token prompt: y and the
+    final state against ``ref.ssd_scan_ref`` (float32 on the card) within
+    ``SSD_BF16_TOL``, and y within one bfloat16 rounding step, in groups of
+    ``LONG_REF_HEADS`` heads -> ({"y": err, "h": err}, largest share of a
+    step)."""
+    from repro_torch.kernels import ref
+
+    x, dt, A, bm, cm = args
+    errs, step = {"y": 0.0, "h": 0.0}, 0.0
+    for h0 in range(0, x.shape[1], LONG_REF_HEADS):
+        hs = slice(h0, h0 + LONG_REF_HEADS)
+        want_y, want_h = ref.ssd_scan_ref(x[:, hs], dt[:, hs], A[hs],
+                                          bm[:, hs], cm[:, hs])
+        for what, got, want in (("y", y[:, hs], want_y),
+                                ("h", h[:, hs], want_h)):
+            got, want = got.float(), want.float()
+            err = float((got - want).abs().max())
+            check(torch.allclose(got, want, atol=SSD_BF16_TOL,
+                                 rtol=SSD_BF16_TOL),
+                  f"long_500k ssd_scan heads {h0}-{hs.stop - 1} {what}: max "
+                  f"abs error {err} exceeds {SSD_BF16_TOL}")
+            errs[what] = max(errs[what], err)
+        want = want_y.float()
+        step = max(step, float(((y[:, hs].float() - want).abs()
+                                / (SSD_F32_TOL + BF16_STEP * want.abs()))
+                               .max()))
+        del want_y, want_h, want
+    check(step <= 1.0, f"long_500k ssd_scan: y differs by {step} of a "
+          f"bfloat16 rounding step")
+    return errs, step
+
+
+def _launch_dense(torch, seed, layout):
+    """(a): MiniCPM-2B's PREFILL_32K and DECODE_32K cells at full width and
+    depth, each cut to ``LAUNCH_ROWS`` rows."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as St
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import DECODE_32K, PREFILL_32K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    cfg = configs.get("minicpm-2b")
+    n_layers = cfg.num_layers
+    torch.cuda.empty_cache()
+    params, params_grown = _grown(torch, lambda: T.init_params(cfg, seed))
+    paths = []
+
+    # -- the prefill cell -------------------------------------------------
+    shape = dataclasses.replace(PREFILL_32K, global_batch=LAUNCH_ROWS)
+    s = shape.seq_len
+    cell = St.build_cell(cfg, shape, layout)
+    check(cell.device.type == "cuda", f"build_cell's device {cell.device}")
+
+    def prefill_inputs():
+        return (T.init_caches(cfg, LAUNCH_ROWS, s),
+                {"tokens": torch.randint(0, cfg.vocab_size, (LAUNCH_ROWS, s),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32)})
+
+    (caches, batch), grown = _grown(torch, prefill_inputs)
+    mem = _bytes_check("prefill_32k", dryrun.cell_bytes(cell, layout),
+                       _plus(params_grown, grown),
+                       _tensors(torch, (params, caches, batch)))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (tok, caches), ms = _step_timed(
+        torch, lambda: cell.step(params, caches, batch))
+    counts = ops.launch_counts()
+    paths.append(counts)
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["flash_attention"] == n_layers,
+          f"prefill_32k: {counts['flash_attention']} flash launches, "
+          f"expected {n_layers}")
+    # check 1: the same prompt through prefill_forward and argmax
+    caches_d = T.init_caches(cfg, LAUNCH_ROWS, s)
+    logits, caches_d = T.prefill_forward(params, batch, cfg, caches_d)
+    check(bool(torch.isfinite(logits).all()), "prefill_32k: logits not "
+          "finite")
+    check(tok.dtype == torch.int32 and tuple(tok.shape) == (LAUNCH_ROWS,)
+          and bool(((tok >= 0) & (tok < cfg.padded_vocab)).all()),
+          f"prefill_32k: next tokens {tok}")
+    check(torch.equal(tok, St.next_token(logits))
+          and _caches_equal(torch, caches, caches_d),
+          "prefill_32k: build_prefill_step differs from prefill_forward")
+    del caches_d, logits, caches, batch, cell
+    torch.cuda.empty_cache()
+    # the flash kernel alone at this cell's layer shape, timed and held
+    # against its plain version
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q = torch.randn((LAUNCH_ROWS, hq, s, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.randn((LAUNCH_ROWS, hkv, s, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    flash_ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v), 3)
+    flash_err, flash_step = _flash_vs_plain(
+        torch, q, k, v, ops.flash_attention(q, k, v))
+    pairs = LAUNCH_ROWS * admitted_pairs(s, s, True, 0)
+    f_bound, f_by = attention_bound(
+        pairs, hq, hd, 2 * LAUNCH_ROWS * s * hd * (2 * hq + 2 * hkv))
+    del q, k, v
+    say("launch-cells", part="a", cell="minicpm-2b x prefill_32k",
+        layers=n_layers, d_model=cfg.d_model, heads=f"{hq}/{hkv} of {hd}",
+        vocab=cfg.vocab_size, params=T.count_params(params),
+        reduced=dict(global_batch=f"{PREFILL_32K.global_batch} -> "
+                     f"{LAUNCH_ROWS} rows (one card)"),
+        prompt_tokens=LAUNCH_ROWS * s, step_ms=ms,
+        prefill_ms_per_prompt_token=ms / (LAUNCH_ROWS * s),
+        launches=counts, check1="bit-identical to prefill_forward + argmax",
+        check2=mem, peak_bytes=peak,
+        flash=dict(kernel_ms=flash_ms, bound_ms=f_bound, bound_by=f_by,
+                   bound_share=f_bound / flash_ms, launches_in_step=n_layers,
+                   max_abs_err=flash_err, bf16_rounding_steps=flash_step,
+                   tolerance=BF16_TOL,
+                   shape=f"q [{LAUNCH_ROWS},{hq},{s},{hd}] bf16 causal"))
+
+    # -- the decode cell --------------------------------------------------
+    shape = dataclasses.replace(DECODE_32K, global_batch=LAUNCH_ROWS)
+    s = shape.seq_len
+    prompt = s - LAUNCH_STEPS
+    cell = St.build_cell(cfg, shape, layout)
+
+    def decode_inputs():
+        return (T.init_caches(cfg, LAUNCH_ROWS, s),
+                {"tokens": torch.zeros((LAUNCH_ROWS, 1), dtype=torch.int32,
+                                       device=dev),
+                 "index": torch.zeros((), dtype=torch.int32, device=dev)})
+
+    (caches, batch), grown = _grown(torch, decode_inputs)
+    mem = _bytes_check("decode_32k", dryrun.cell_bytes(cell, layout),
+                       _plus(params_grown, grown),
+                       _tensors(torch, (params, caches, batch)))
+    tokens = torch.randint(0, cfg.vocab_size, (LAUNCH_ROWS, prompt),
+                           generator=gen, device=dev, dtype=torch.int32)
+    prefill = St.build_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (tok, caches), pre_ms = _step_timed(
+        torch, lambda: prefill(params, caches, {"tokens": tokens}))
+    after_prefill = _clone_caches(caches)
+    toks, step_ms = _serve_steps(torch, cell.step, params, caches, batch,
+                                 tok, prompt)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    paths.append(counts)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": n_layers,
+            "decode_attention": n_layers * LAUNCH_STEPS}
+    check(all(counts[k] == n for k, n in want.items()),
+          f"decode_32k: launches {counts}, expected {want}")
+    direct = _direct_decode(torch, T, cfg, params, after_prefill, toks,
+                            prompt)
+    check(all(torch.equal(a, b) for a, b in zip(direct, toks[1:]))
+          and _caches_equal(torch, caches, after_prefill),
+          "decode_32k: build_serve_step differs from decode_forward")
+    del after_prefill
+    # the decode kernel alone over layer 0's full cache
+    qd = torch.randn((LAUNCH_ROWS, hq, hd), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    valid = torch.full((LAUNCH_ROWS,), s, dtype=torch.int32, device=dev)
+    ck, cv = caches[0]["k"], caches[0]["v"]
+    dec_ms = cuda_ms(torch, lambda: ops.decode_attention(qd, ck, cv, valid),
+                     20)
+    # held against its plain version over the whole cache and over a
+    # ragged pair of lengths (one slot at the cache's middle)
+    dec_errs, dec_steps = {}, {}
+    for lens in (valid, torch.tensor([s, s // 2 + 1], dtype=torch.int32,
+                                     device=dev)):
+        what = f"decode_32k decode_attention valid {lens.tolist()}"
+        dec_errs[what] = _close(
+            torch, ops.decode_attention(qd, ck, cv, lens),
+            ref.decode_attention_ref(qd, ck, cv, lens), BF16_TOL, what,
+            dec_steps)
+    rows = decode_rows(np.full(LAUNCH_ROWS, s), 0, s)
+    d_bound, d_by = attention_bound(
+        rows, hq, hd, rows * hkv * hd * 2 * 2 + 2 * LAUNCH_ROWS * hq * hd * 2)
+    say("launch-cells", part="a", cell="minicpm-2b x decode_32k",
+        reduced=dict(global_batch=f"{DECODE_32K.global_batch} -> "
+                     f"{LAUNCH_ROWS} rows (one card)"),
+        prompt_tokens=LAUNCH_ROWS * prompt, prefill_ms=pre_ms,
+        prefill_ms_per_prompt_token=pre_ms / (LAUNCH_ROWS * prompt),
+        serve_steps=LAUNCH_STEPS, decode_ms_per_step=float(np.median(
+            step_ms)), decode_ms_steps=step_ms, launches=counts,
+        check1=f"{LAUNCH_STEPS} steps bit-identical to decode_forward + "
+               "argmax",
+        check2=mem, peak_bytes=peak,
+        decode=dict(kernel_ms=dec_ms, bound_ms=d_bound, bound_by=d_by,
+                    bound_share=d_bound / dec_ms,
+                    launches_in_run=n_layers * LAUNCH_STEPS,
+                    max_abs_err=max(dec_errs.values()),
+                    bf16_rounding_steps=max(dec_steps.values()),
+                    tolerance=BF16_TOL,
+                    shape=f"q [{LAUNCH_ROWS},{hq},{hd}] bf16 over "
+                          f"{LAUNCH_ROWS} x {hkv} x {s} rows"))
+    del caches, batch, params, cell, qd, ck, cv
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _carried_prefill(torch, params, cfg, tokens, caches, piece):
+    """Check 3's reference: the prompt through ``prefill_forward`` in
+    pieces of ``piece`` tokens, each layer's conv continuing from its state
+    (``prefill_forward``'s contract) and its scan continued from the SSM
+    state the piece before left.  ``prefill_forward`` scans from a zero
+    state, as the reference does, so the carried state's share is added
+    here in plain float32 around the kernel's scan (``mamba2._scan``,
+    called once a layer in the layers' order): ``C_t exp(cum_t) h0`` to y
+    and ``exp(total) h0`` to the final state.  Returns the last position's
+    logits."""
+    from repro_torch.kernels.ref import SSD_CLIP
+    from repro_torch.models import mamba2
+    from repro_torch.models import transformer as T
+
+    orig = mamba2._scan
+    entering = {"h": iter(())}
+
+    def scan_from_state(xh, dt, A, Bmat, Cmat):
+        y, h = orig(xh, dt, A, Bmat, Cmat)
+        h0 = next(entering["h"])
+        decay = torch.exp(torch.cumsum(dt * A, dim=1).clamp(SSD_CLIP, 0.0))
+        carry = torch.einsum("bsn,bhnp->bshp", Cmat[:, :, 0].float(), h0)
+        y = (y.float() + carry * decay[..., None]).to(y.dtype)
+        return y, h + decay[:, -1, :, None, None] * h0
+
+    mamba2._scan = scan_from_state
+    try:
+        for start in range(0, tokens.shape[1], piece):
+            entering["h"] = iter([c["h"].clone() for c in caches])
+            logits, caches = T.prefill_forward(
+                params, {"tokens": tokens[:, start:start + piece]}, cfg,
+                caches)
+            check(next(entering["h"], None) is None,
+                  "check 3: a layer's scan did not run in a piece")
+        return logits
+    finally:
+        mamba2._scan = orig
+
+
+def _last_chunk_alone(torch):
+    """``--plant-fault scan`` in phase 18: the forward scan drops the carry
+    into its last chunk (the tail scanned from a zero state), planted only
+    around check 3's one-call prefill; returns the function that removes
+    it."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    orig = ss.ssd_scan
+
+    def faulty(x, dt, A, Bm, Cm, **kw):
+        cut = (x.shape[2] - 1) // ss.CHUNK[x.dtype] * ss.CHUNK[x.dtype]
+        if cut == 0:
+            return orig(x, dt, A, Bm, Cm, **kw)
+        head, _ = orig(x[:, :, :cut], dt[:, :, :cut], A, Bm[:, :, :cut],
+                       Cm[:, :, :cut])
+        tail, h = orig(x[:, :, cut:], dt[:, :, cut:], A, Bm[:, :, cut:],
+                       Cm[:, :, cut:])
+        return torch.cat([head, tail], dim=2), h
+
+    ss.ssd_scan = faulty
+    return lambda: setattr(ss, "ssd_scan", orig)
+
+
+def _rms_share(torch, got, want):
+    diff = (got.float() - want.float()).pow(2).mean().sqrt()
+    return float(diff / want.float().pow(2).mean().sqrt())
+
+
+def _launch_long(torch, seed, layout, fault=None):
+    """(b): Mamba2-780M's LONG_500K cell at full width and depth (the
+    published ``dt_bias`` init), its own batch of 1: one prefill of
+    524,272 tokens, then ``LAUNCH_STEPS`` serve steps to position 524,288;
+    checks 1-3.  With ``fault`` (calibration) only check 3 is read, with
+    the fault planted in the one-call prefill."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as St
+    from repro_torch.models import mamba2
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import LONG_500K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    cfg = configs.get("mamba2-780m")
+    n_layers = cfg.num_layers
+    torch.cuda.empty_cache()
+    params, params_grown = _grown(torch, lambda: T.init_params(cfg, seed))
+    trained_dt_bias_(torch, params, seed)
+    cell = St.build_cell(cfg, LONG_500K, layout)
+    s = LONG_500K.seq_len
+    prompt = s - LAUNCH_STEPS
+
+    def inputs():
+        return (T.init_caches(cfg, 1, s),
+                {"tokens": torch.zeros((1, 1), dtype=torch.int32, device=dev),
+                 "index": torch.zeros((), dtype=torch.int32, device=dev)})
+
+    (caches, batch), grown = _grown(torch, inputs)
+    mem = _bytes_check("long_500k", dryrun.cell_bytes(cell, layout),
+                       _plus(params_grown, grown),
+                       _tensors(torch, (params, caches, batch)))
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                           device=dev, dtype=torch.int32)
+    prefill = St.build_prefill_step(cfg)
+    out = {}
+    if fault is None:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        (tok, caches), pre_ms = _step_timed(
+            torch, lambda: prefill(params, caches, {"tokens": tokens}))
+        pre_peak = torch.cuda.max_memory_allocated()
+        after_prefill = _clone_caches(caches)
+        toks, step_ms = _serve_steps(torch, cell.step, params, caches,
+                                     batch, tok, prompt)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts["ssd_scan"] == n_layers,
+              f"long_500k: {counts['ssd_scan']} scan launches, expected "
+              f"{n_layers}")
+        replay = _clone_caches(after_prefill)
+        direct = _direct_decode(torch, T, cfg, params, replay, toks, prompt)
+        check(all(torch.equal(a, b) for a, b in zip(direct, toks[1:]))
+              and _caches_equal(torch, caches, replay)
+              and bool(((toks[-1] >= 0)
+                        & (toks[-1] < cfg.padded_vocab)).all()),
+              "long_500k: build_serve_step differs from decode_forward")
+        out.update(prefill_ms=pre_ms,
+                   prefill_ms_per_prompt_token=pre_ms / prompt,
+                   prefill_peak_bytes=pre_peak, serve_steps=LAUNCH_STEPS,
+                   decode_ms_per_step=float(np.median(step_ms)),
+                   decode_ms_steps=step_ms, launches=counts)
+        del caches, replay
+    # check 1's prefill half and check 3's one-call side: prefill_forward
+    caches_d = T.init_caches(cfg, 1, s)
+    remove = _last_chunk_alone(torch) if fault else None
+    try:
+        logits, caches_d = T.prefill_forward(params, {"tokens": tokens}, cfg,
+                                             caches_d)
+    finally:
+        if remove:
+            remove()
+    check(bool(torch.isfinite(logits).all()), "long_500k: logits not finite")
+    if fault is None:
+        check(torch.equal(tok, St.next_token(logits))
+              and _caches_equal(torch, after_prefill, caches_d),
+              "long_500k: build_prefill_step differs from prefill_forward")
+        del after_prefill
+    # check 3: the same prompt in pieces, the state carried
+    caches_c = T.init_caches(cfg, 1, s)
+    logits_c, piece_ms = _step_timed(torch, lambda: _carried_prefill(
+        torch, params, cfg, tokens, caches_c, LONG_PIECE))
+    logit_rms = _rms_share(torch, logits_c, logits)
+    state_rms = max(_rms_share(torch, c["h"], d["h"])
+                    for c, d in zip(caches_c, caches_d))
+    n_pieces = -(-prompt // LONG_PIECE)
+    check3 = dict(pieces=f"{n_pieces - 1} x {LONG_PIECE} + "
+                  f"{prompt - (n_pieces - 1) * LONG_PIECE}",
+                  logit_rms_share=logit_rms, logit_limit=LONG_LOGIT_RMS,
+                  state_rms_share_max=state_rms, state_limit=LONG_STATE_RMS,
+                  pieces_ms=piece_ms, planted_fault=fault)
+    if fault is None:
+        check(logit_rms <= LONG_LOGIT_RMS and state_rms <= LONG_STATE_RMS,
+              f"long_500k: check 3 {check3}")
+    del caches_c, caches_d, logits, logits_c
+    torch.cuda.empty_cache()
+    if fault is None:
+        # the scan kernel alone at this prompt's layer shape (phase 8's
+        # layout: x a [1, S, H, P] view, one B/C group)
+        h, p, n = mamba2.dims(cfg.d_model, cfg.ssm)[1], cfg.ssm.headdim, \
+            cfg.ssm.d_state
+        x = (torch.randn((1, prompt, h, p), generator=gen, device=dev) * 0.5
+             ).to(torch.bfloat16).transpose(1, 2)
+        dt = torch.nn.functional.softplus(torch.randn(
+            (1, prompt, h), generator=gen, device=dev) - SMALL_DT_SHIFT
+        ).transpose(1, 2)
+        A = -torch.linspace(1.0, 16.0, h, device=dev)
+        bm = (torch.randn((1, prompt, n), generator=gen, device=dev) * 0.3
+              ).to(torch.bfloat16)[:, None].expand(1, h, prompt, n)
+        cm = (torch.randn((1, prompt, n), generator=gen, device=dev) * 0.3
+              ).to(torch.bfloat16)[:, None].expand(1, h, prompt, n)
+        scan_ms = cuda_ms(torch, lambda: ss.ssd_scan(x, dt, A, bm, cm), 3)
+        y, h_fin = ss.ssd_scan(x, dt, A, bm, cm)
+        scan_errs, scan_step = _scan_vs_plain(torch, (x, dt, A, bm, cm), y,
+                                              h_fin)
+        del y, h_fin
+        nbytes = (2 * prompt * h * p * 2 + 2 * prompt * n * 2
+                  + prompt * h * 4 + h * 4 + h * n * p * 4)
+        ops_n = 4 * h * prompt * n * p
+        t_ops, t_bytes = ops_n / PEAK_BF16_S * 1e3, nbytes / PEAK_BYTES_S * 1e3
+        out["scan"] = dict(
+            kernel_ms=scan_ms, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_share=max(t_ops, t_bytes) / scan_ms,
+            launches_in_run=n_layers, max_abs_err=scan_errs,
+            bf16_rounding_steps=scan_step, tolerance=SSD_BF16_TOL,
+            workspace_bytes=ss.workspace_bytes(1, h, prompt, p, n,
+                                               torch.bfloat16, True),
+            shape=f"x [1,{h},{prompt},{p}] bf16 (a [1,{prompt},{h},{p}] "
+                  f"view), B/C one group")
+        del x, dt, bm, cm
+    say("launch-cells", part="b", cell="mamba2-780m x long_500k",
+        layers=n_layers, d_model=cfg.d_model, params=T.count_params(params),
+        trained_dt_bias=True, reduced="none (the shape's own batch of 1)",
+        prompt_tokens=prompt, check2=mem, check3=check3, **out,
+        **({} if fault else {"check1": f"prefill and {LAUNCH_STEPS} steps "
+                             "bit-identical to prefill_forward / "
+                             "decode_forward + argmax"}))
+    del params, cell, batch, tokens
+    torch.cuda.empty_cache()
+    return out.get("launches", {})
+
+
+def phase_launch(torch, seed, smi, fault=None):
+    """Phase 18: the reference's PREFILL_32K and DECODE_32K cells on
+    MiniCPM-2B and its LONG_500K cell on Mamba2-780M, built by
+    ``build_cell`` on the one-card layout and driven through
+    ``build_prefill_step`` / ``build_serve_step`` at full width and depth
+    (bf16, random weights from the seed).  Checks: (1) the steps' tokens
+    and caches bit-identical to ``prefill_forward`` / ``decode_forward``
+    and argmax; (2) the dry-run's per-chip bytes equal to the card's
+    allocator's requested bytes (``memory_allocated`` within its block
+    rounding); (3) the 524,272-token prefill against the same prompt in
+    pieces of 8,192 with the state carried; (4) the flash, decode and scan
+    kernels at these shapes against their plain versions.  Returns the
+    main runs' launch counts.  With
+    ``fault`` (``scan``) only (b)'s check 3 runs, read and not enforced,
+    with the fault planted."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    layout = make_host_mesh()
+    paths = [] if fault else _launch_dense(torch, seed, layout)
+    paths.append(_launch_long(torch, seed, layout, fault))
+    say("launch-cells", part="done", seconds=time.perf_counter() - t_phase,
+        layout=dict(zip(layout.axis_names, layout.sizes)), nvidia_smi=smi)
+    return paths
+
+
 def kernels_line(records, path_counts):
     """The ``kernels`` object: each kernel's measured numbers and its
     launches summed over the main paths' runs (``path_counts``: one count
@@ -5028,6 +5653,13 @@ def main(argv=None):
                              "in phase 8) and phases 16-17 (training "
                              "MiniCPM-2B, Mamba2-780M, DeepSeekMoE-16B, "
                              "Jamba's cut) and stop")
+    parser.add_argument("--only-launch", action="store_true",
+                        help="build, then run only phase 18 (the launch "
+                             "cells: MiniCPM-2B at PREFILL_32K and "
+                             "DECODE_32K, Mamba2-780M at LONG_500K) and "
+                             "stop; with --plant-fault scan, only the "
+                             "524K prefill's check 3 with the fault "
+                             "planted")
     parser.add_argument("--train-child", action="store_true",
                         help=argparse.SUPPRESS)  # phases 16-17's process
     parser.add_argument("--plant-fault", choices=sorted(FAULT_MODEL),
@@ -5036,6 +5668,8 @@ def main(argv=None):
                              "touches, with the fault planted in the new "
                              "backward kernel's route, and stop")
     args = parser.parse_args(argv)
+    if args.only_launch and args.plant_fault not in (None, "scan"):
+        parser.error("phase 18 plants only the scan's fault")
 
     import torch
 
@@ -5078,6 +5712,10 @@ def main(argv=None):
             phase_families(torch, args.seed, smi)
             print(smi)
             return 0
+        if args.only_launch:
+            phase_launch(torch, args.seed, smi, args.plant_fault)
+            print(smi)
+            return 0
         if args.train_child:
             counts = train_child(torch, args.seed, smi, args.plant_fault)
             print(json.dumps({"launches": counts}))
@@ -5117,6 +5755,7 @@ def main(argv=None):
         phase_patterns(torch, args.seed, smi)
         paths += phase_families(torch, args.seed, smi)
         paths.append(phase_train_child(torch, args.seed, smi))
+        paths += phase_launch(torch, args.seed, smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

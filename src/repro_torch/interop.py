@@ -249,6 +249,35 @@ def reference_tree(model, cfg, leaf, stack):
     return tree
 
 
+class _Stacked(tuple):
+    """A stacked reference leaf's port names, one per unit (a marker)."""
+
+
+def reference_param_paths(model, cfg) -> Dict[str, tuple]:
+    """``{port parameter name: (reference leaf path, stacked)}``: the
+    reference's path as its tree flattens (``"embed/table"``,
+    ``"prefix_layers/0/mixer/wq"``, ``"units/l0/mlp/wo"``), and whether
+    that leaf stacks the port's parameter over units (``units``,
+    ``enc_units``) with the others of its entry."""
+    out: Dict[str, tuple] = {}
+
+    def walk(node, path):
+        if isinstance(node, _Stacked):
+            for name in node:
+                out[name] = (path, True)
+        elif isinstance(node, str):
+            out[node] = (path, False)
+        elif isinstance(node, dict):
+            for key, sub in node.items():
+                walk(sub, f"{path}/{key}" if path else key)
+        else:  # the tuple of prefix layers
+            for i, sub in enumerate(node):
+                walk(sub, f"{path}/{i}")
+
+    walk(reference_tree(model, cfg, lambda n: n, _Stacked), "")
+    return out
+
+
 def _numpy_f32(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 

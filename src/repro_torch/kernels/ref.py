@@ -637,6 +637,11 @@ def token_rows_table(row_token, num_tokens: int,
     ``moe_token_table`` kernel (``moe_dispatch.token_rows_table``)."""
     r = row_token.shape[0]
     dev = row_token.device
+    if dev.type == "meta":
+        # the table's shape is static; bincount has no meta kernel, and a
+        # meta tensor (the dry-run's) holds no entries to compute
+        return torch.empty((num_tokens, max(max_rows_per_token, 1)),
+                           dtype=torch.int64, device=dev)
     tok = row_token.to(torch.int64)
     tok = torch.where((tok >= 0) & (tok < num_tokens), tok, num_tokens)
     order = torch.sort(tok, stable=True).indices

@@ -1,20 +1,23 @@
-"""Per-architecture training knobs.
+"""Per-(arch x shape) runtime knobs.
 
-Port of the part of ``repro/launch/cells.py`` that one card uses:
-``microbatches``, the gradient-accumulation factor (the paper's S3 flush
-period: gradients are summed locally over ``k`` microbatches before the
-optimizer commits them), ``remat`` (activation checkpointing of every
-layer) and ``grad_accum_dtype`` (the accumulator's dtype).  The
-reference's sharding knobs (``fsdp``, ``shard_kv_heads``, ``pure_dp``,
-``moe_a2a``, ``zero1``) and ``decode_unroll`` belong to its meshes and are
-not ported (ROADMAP Queue 1 item 15).
+Port of ``repro/launch/cells.py``.  ``microbatches`` is the gradient
+accumulation factor of a training cell, the paper's S3 flush period:
+gradients are summed locally over ``k`` microbatches before the optimizer
+commits them.  ``remat`` checkpoints every layer, ``grad_accum_dtype`` is
+the accumulator's dtype.  The sharding knobs (``fsdp``,
+``shard_kv_heads``, ``pure_dp``, ``moe_a2a``, ``zero1``) choose the
+sharding rules of :func:`repro_torch.launch.steps.make_rules`, which the
+dry-run reads; they act on execution with the multi-card mesh (ROADMAP).
+``decode_unroll`` unrolls the reference's scanned decode layers for XLA;
+the port's layers are a Python loop already, so the knob is carried for
+the rules and the dry-run's record and changes nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 
 __all__ = ["CellKnobs", "knobs_for"]
 
@@ -24,6 +27,12 @@ class CellKnobs:
     microbatches: int = 1              # S3 flush period (train only)
     remat: bool = True                 # activation checkpointing per layer
     grad_accum_dtype: str = "float32"  # "bfloat16" = compressed S3
+    fsdp: bool = True                  # ZeRO sharding of params/opt over "data"
+    shard_kv_heads: bool = True
+    pure_dp: bool = False              # the model axis joins data parallelism
+    moe_a2a: bool = False              # expert-parallel all_to_all MoE (S2)
+    decode_unroll: bool = False        # recorded only (see the docstring)
+    zero1: bool = False                # per-layer weight gather
 
 
 _TRAIN_MICROBATCHES = {
@@ -41,12 +50,11 @@ _TRAIN_MICROBATCHES = {
 }
 
 
-def knobs_for(cfg: ModelConfig, kind: str = "train",
+def knobs_for(cfg: ModelConfig, shape: ShapeConfig,
               **overrides) -> CellKnobs:
-    """The reference's knobs for ``cfg`` in a cell of ``kind`` (its
-    ``ShapeConfig.kind``: ``"train"``, or a serving kind): a training cell
-    takes the model's microbatches and remat."""
-    train = kind == "train"
+    """The reference's knobs for ``cfg`` in the cell of ``shape``: a
+    training cell takes the model's microbatches and remat."""
+    train = shape.kind == "train"
     base = CellKnobs(
         microbatches=_TRAIN_MICROBATCHES.get(cfg.name, 1) if train else 1,
         remat=train,

@@ -1,25 +1,231 @@
-"""The training step: microbatch gradients accumulated, then AdamW.
+"""Step builders and input specs for every (arch x shape) cell.
 
-Port of ``build_train_step`` (``repro/launch/steps.py``) without the
-sharding rules: one card.  The step is the paper's S3 and S5 at the
-training level: the ``k`` microbatches' gradients are summed locally in
-``grad_accum_dtype`` (an accumulator whose flush period is ``k``), and the
-optimizer's update commits them (the separate state section).
+Port of ``repro/launch/steps.py``.  The training step is the paper's S3
+and S5 at the training level: the ``k`` microbatches' gradients are summed
+locally in ``grad_accum_dtype`` (an accumulator whose flush period is
+``k``), and the optimizer's update commits them (the separate state
+section).  The serve steps are S2: each data shard owns its requests'
+caches.
+
+The spec functions return trees of ``torch.empty(..., device="meta")``
+tensors, the reference's ``jax.ShapeDtypeStruct`` stand-ins (no memory),
+beside trees of specs (:mod:`repro_torch.launch.sharding`): the batch
+(:func:`batch_specs`), the parameters (:func:`model_specs`: a
+:class:`~repro_torch.models.transformer.Transformer` on ``meta`` and
+``{parameter name: spec}``), the AdamW state (:func:`opt_specs`) and the
+caches (:func:`cache_specs`, :func:`cache_pspecs`).  Leaf names, shapes and
+dtypes are the reference's, with two differences of layout: the port keeps
+one tensor per layer where the reference stacks a unit's layers
+(:func:`repro_torch.interop.reference_param_paths`,
+:func:`cache_reference_paths`), and a KV cache leaf is ``[B, Hkv, S, hd]``
+(the decode kernel's layout), the reference's ``[B, S, Hkv, hd]`` with its
+dimensions in the order :data:`KV_REFERENCE_DIMS`; its spec is permuted
+the same way.
+
+:func:`build_prefill_step` and :func:`build_serve_step` run on one card;
+:func:`build_cell` is the eager counterpart of the reference's
+``lower_cell``: there is no lowering in eager PyTorch, so it returns the
+step with its input specs and the reference's ``meta`` record.  The
+dry-run (:mod:`repro_torch.launch.dryrun`) runs that step on ``meta``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.launch.cells import CellKnobs
+from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.cells import CellKnobs, knobs_for
+from repro_torch.launch.sharding import ShardingRules, param_pspecs
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba2
 from repro_torch.models import transformer as T
-from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.models.config import (
+    MAMBA, ModelConfig, ShapeConfig, torch_dtype,
+)
 from repro_torch.optim import adamw
 
-__all__ = ["accumulate_grads", "build_train_step", "default_opt_config"]
+__all__ = ["Cell", "KV_REFERENCE_DIMS", "accumulate_grads", "batch_specs",
+           "build_cell", "build_prefill_step", "build_serve_step",
+           "build_train_step", "cache_pspecs", "cache_reference_paths",
+           "cache_specs", "default_opt_config", "make_rules", "model_specs",
+           "next_token", "opt_specs"]
+
+#: a KV cache leaf's dims in the reference's order: the port's ``[B, Hkv,
+#: S, hd]`` is the reference's ``[B, S, Hkv, hd]`` permuted by this
+KV_REFERENCE_DIMS = (0, 2, 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# rules
+# ---------------------------------------------------------------------------
+
+def make_rules(layout: mesh_lib.MeshLayout, cfg: ModelConfig,
+               knobs: CellKnobs) -> ShardingRules:
+    """The reference's rules of a cell on ``layout``."""
+    if knobs.pure_dp:
+        dp = mesh_lib.dp_axes(layout) + ("model",)
+        return ShardingRules(mesh=layout, dp_axes=dp, tp_axis="model",
+                             tp_enabled=False,
+                             fsdp_axis=dp if knobs.fsdp else None,
+                             shard_kv_heads=False, zero1=knobs.zero1)
+    return ShardingRules(mesh=layout, dp_axes=mesh_lib.dp_axes(layout),
+                         tp_axis="model",
+                         fsdp_axis="data" if knobs.fsdp else None,
+                         shard_kv_heads=knobs.shard_kv_heads,
+                         moe_a2a=knobs.moe_a2a, zero1=knobs.zero1)
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors + specs)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, rules: ShardingRules,
+                knobs: CellKnobs) -> Tuple[dict, dict]:
+    """(meta tensors, specs) of the data batch: ``tokens`` / ``labels``
+    ``[k, mb, S]`` int32 for training, ``tokens [B, S]`` for prefill,
+    ``tokens [B, 1]`` and a scalar ``index`` for decode, with a VLM's
+    ``prefix_embeds`` and an encoder-decoder's ``src_embeds`` (``enc_out``
+    at decode)."""
+    dp = rules.dp
+    b, s = shape.global_batch, shape.seq_len
+    fd = cfg.frontend_dim or cfg.d_model
+    i32, f32 = torch.int32, torch.float32
+    if shape.kind == "train":
+        k = knobs.microbatches
+        if b % k:
+            raise ValueError(f"global batch {b} does not split into {k} "
+                             f"microbatches")
+        mb = b // k
+        specs = {"tokens": _meta((k, mb, s), i32),
+                 "labels": _meta((k, mb, s), i32)}
+        pspecs = {"tokens": (None, dp, None), "labels": (None, dp, None)}
+        if cfg.num_prefix_embeds:
+            specs["prefix_embeds"] = _meta((k, mb, cfg.num_prefix_embeds,
+                                            fd), f32)
+            pspecs["prefix_embeds"] = (None, dp, None, None)
+        if cfg.encoder_layers:
+            specs["src_embeds"] = _meta((k, mb, s // 4, fd), f32)
+            pspecs["src_embeds"] = (None, dp, None, None)
+        return specs, pspecs
+    if shape.kind == "prefill":
+        specs = {"tokens": _meta((b, s), i32)}
+        pspecs = {"tokens": (dp, None)}
+        if cfg.num_prefix_embeds:
+            specs["prefix_embeds"] = _meta((b, cfg.num_prefix_embeds, fd),
+                                           f32)
+            pspecs["prefix_embeds"] = (dp, None, None)
+        if cfg.encoder_layers:
+            specs["src_embeds"] = _meta((b, s // 4, fd), f32)
+            pspecs["src_embeds"] = (dp, None, None)
+        return specs, pspecs
+    specs = {"tokens": _meta((b, 1), i32), "index": _meta((), i32)}
+    bdp = dp if b % rules.dp_size() == 0 else None
+    pspecs = {"tokens": (bdp, None), "index": ()}
+    if cfg.encoder_layers:
+        specs["enc_out"] = _meta((b, s // 4, cfg.d_model), cfg.cdtype)
+        pspecs["enc_out"] = (bdp, None, None)
+    return specs, pspecs
+
+
+def _kv_heads(cfg: ModelConfig, tp: int) -> int:
+    """The KV caches' heads after the TP head padding.  A model with no
+    attention layer has none to pad (the reference pads its head counts
+    anyway, and a reduced Mamba2, 4 q heads over 0 kv heads, divides by
+    zero there)."""
+    if all(spec.mixer == MAMBA for spec in cfg.layer_specs()):
+        return cfg.num_kv_heads
+    return attn_lib.padded_head_counts(cfg.num_heads, cfg.num_kv_heads,
+                                       tp)[1]
+
+
+def cache_reference_paths(cfg: ModelConfig) -> List[Tuple[str, bool]]:
+    """Per port layer, the reference's path of its cache (``"prefix/0"``
+    or ``"units/l0"``) and whether that leaf stacks the unit's layers."""
+    prefix, unit, n_units = cfg.layout()
+    return ([(f"prefix/{j}", False) for j in range(len(prefix))]
+            + [(f"units/l{i}", True) for _ in range(n_units)
+               for i in range(len(unit))])
+
+
+def cache_pspecs(cfg: ModelConfig, shape: ShapeConfig,
+                 rules: ShardingRules) -> List[dict]:
+    """Per port layer, the specs of its cache's leaves (the reference's,
+    a KV leaf's permuted to the port's ``[B, Hkv, S, hd]``): the batch over
+    the data axes when it divides them, else (long-context decode) the
+    sequence; kv heads over the model axis when they divide it (after the
+    TP head padding); a Mamba state's heads over every axis they divide."""
+    dp, tp = rules.dp, rules.tp_axis
+    batch_shardable = shape.global_batch % rules.dp_size() == 0
+    kv_heads = _kv_heads(cfg, rules.tp_size())
+    kv_tp = tp if (rules.shard_kv_heads and kv_heads
+                   and kv_heads % rules.tp_size() == 0) else None
+    # the reference's [B, S, Hkv, hd] specs, in the port's order
+    kv_ref = (dp, None, kv_tp, None) if batch_shardable \
+        else (None, dp, kv_tp, None)
+    kv = tuple(kv_ref[d] for d in KV_REFERENCE_DIMS)
+
+    def mamba_spec():
+        d_inner, h = mamba2.dims(cfg.d_model, cfg.ssm)
+        inner = tp if d_inner % rules.tp_size() == 0 else None
+        if batch_shardable:
+            h_spec = (dp, tp if h % rules.tp_size() == 0 else None, None,
+                      None)
+            return {"h": h_spec, "conv_x": (dp, None, inner),
+                    "conv_B": (dp, None, None), "conv_C": (dp, None, None)}
+        # long-context decode, batch 1: heads over every axis they divide
+        flat = []
+        for a in (dp, tp):
+            flat.extend(a if isinstance(a, tuple) else (a,))
+        if h % (rules.dp_size() * rules.tp_size()) == 0:
+            h_spec = (None, tuple(flat), None, None)
+        elif h % rules.tp_size() == 0:
+            h_spec = (None, tp, None, None)
+        else:
+            h_spec = (None,) * 4
+        return {"h": h_spec, "conv_x": (None, None, inner),
+                "conv_B": (None,) * 3, "conv_C": (None,) * 3}
+
+    return [mamba_spec() if spec.mixer == MAMBA else {"k": kv, "v": kv}
+            for spec in cfg.layer_specs()]
+
+
+def model_specs(cfg: ModelConfig, rules: ShardingRules):
+    """(the parameters: a Transformer on ``meta``, ``{name: spec}``)."""
+    params = T.Transformer(cfg, device="meta")
+    return params, param_pspecs(cfg, params, rules)
+
+
+def opt_specs(params, params_pspecs):
+    """(AdamW state of meta tensors, its specs): float32 ``m`` and ``v``
+    per parameter with the parameter's spec, an int32 scalar ``step``."""
+    m = {name: _meta(tuple(p.shape), torch.float32)
+         for name, p in params.named_parameters()}
+    v = {name: _meta(t.shape, t.dtype) for name, t in m.items()}
+    state = {"m": m, "v": v, "step": _meta((), torch.int32)}
+    return state, {"m": params_pspecs, "v": params_pspecs, "step": ()}
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig, tp: int = 1):
+    """The caches of a cell on ``meta``: rows ``s_max = seq_len +
+    num_prefix_embeds`` (a VLM prompt puts its patch embeddings ahead),
+    kv heads after the TP head padding of a model axis of ``tp``."""
+    b = shape.global_batch
+    s_max = shape.seq_len + (cfg.num_prefix_embeds or 0)
+    kv_heads = _kv_heads(cfg, tp)
+    dev = torch.device("meta")
+    return [mamba2.init_mamba_state(b, cfg.d_model, cfg.ssm, cfg.cdtype, dev)
+            if spec.mixer == MAMBA else
+            attn_lib.init_kv_cache(b, s_max, kv_heads, cfg.head_dim_,
+                                   cfg.cdtype, dev)
+            for spec in cfg.layer_specs()]
 
 
 def default_opt_config(cfg: ModelConfig) -> adamw.AdamWConfig:
@@ -90,3 +296,95 @@ def build_train_step(cfg: ModelConfig, knobs: CellKnobs,
         return params, opt_state, {"loss": loss, **om}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
+
+def next_token(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy token of each row: argmax over the last position's
+    float32 logits -> int32 ``[B]``."""
+    return logits[:, -1].float().argmax(dim=-1).to(torch.int32)
+
+
+def build_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, caches, batch) -> (next_tok int32 [B],
+    caches)``: ``prefill_forward`` over the batch (the reference's keys),
+    the caches written in place."""
+    def prefill_step(params, caches, batch):
+        logits, caches = T.prefill_forward(params, batch, cfg, caches)
+        return next_token(logits), caches
+
+    return prefill_step
+
+
+def build_serve_step(cfg: ModelConfig):
+    """``serve_step(params, caches, batch) -> (next_tok int32 [B],
+    caches)``: one decode step of ``tokens [B, 1]`` at the reference's
+    scalar ``index`` (the position every slot's token takes), with an
+    encoder-decoder's ``enc_out`` passed through.  The reference attends
+    the cache below ``index`` plus the token's own k/v and commits them
+    after; the port writes them at ``index`` first and attends ``index +
+    1`` rows, so the scalar becomes one position per slot."""
+    def serve_step(params, caches, batch):
+        tokens = batch["tokens"]
+        index = torch.as_tensor(batch["index"], device=tokens.device)
+        index = index.to(torch.int64).reshape(-1).expand(tokens.shape[0])
+        dec = {"tokens": tokens}
+        if "enc_out" in batch:
+            dec["enc_out"] = batch["enc_out"]
+        logits, caches = T.decode_forward(params, dec, cfg, caches, index)
+        return next_token(logits), caches
+
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# one (arch x shape x mesh) cell
+# ---------------------------------------------------------------------------
+
+class Cell(NamedTuple):
+    """A cell built eagerly: ``step`` called as ``step(*specs.values())``
+    on tensors of ``specs``' shapes (the specs are on ``meta``); ``specs``
+    and ``pspecs`` hold ``params`` (a Transformer / ``{name: spec}``),
+    ``opt_state`` (training) or ``caches``, and ``batch``, in the step's
+    argument order; ``meta`` is the reference's record of the cell."""
+    step: Callable
+    specs: Dict[str, Any]
+    pspecs: Dict[str, Any]
+    meta: Dict[str, Any]
+    device: torch.device
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeConfig,
+               layout: mesh_lib.MeshLayout, *, device=None,
+               **knob_overrides) -> Cell:
+    """The eager counterpart of the reference's ``lower_cell``: the cell's
+    step (``build_train_step``, ``build_prefill_step`` or
+    ``build_serve_step``) for ``device`` (None: the CUDA card; ``"meta"``
+    for a dry-run), its inputs' meta tensors and specs on ``layout``, and
+    the reference's ``meta`` (arch, shape, mesh sizes, knobs)."""
+    dev = resolve_device(device)
+    knobs = knobs_for(cfg, shape, **knob_overrides)
+    rules = make_rules(layout, cfg, knobs)
+    params, params_ps = model_specs(cfg, rules)
+    batch, batch_ps = batch_specs(cfg, shape, rules, knobs)
+    meta = {"arch": cfg.name, "shape": shape.name, "mesh": layout.shape,
+            "knobs": dataclasses.asdict(knobs)}
+    if shape.kind == "train":
+        opt, opt_ps = opt_specs(params, params_ps)
+        return Cell(build_train_step(cfg, knobs),
+                    {"params": params, "opt_state": opt, "batch": batch},
+                    {"params": params_ps, "opt_state": opt_ps,
+                     "batch": batch_ps}, meta, dev)
+    serve_cfg = dataclasses.replace(cfg, decode_unroll=knobs.decode_unroll)
+    build = build_prefill_step if shape.kind == "prefill" \
+        else build_serve_step
+    return Cell(build(serve_cfg),
+                {"params": params,
+                 "caches": cache_specs(cfg, shape, tp=rules.tp_size()),
+                 "batch": batch},
+                {"params": params_ps,
+                 "caches": cache_pspecs(cfg, shape, rules),
+                 "batch": batch_ps}, meta, dev)

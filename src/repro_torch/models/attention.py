@@ -2,8 +2,11 @@
 cross attention, with prefill (cache write) and decode (cache read), through
 the flash and decode attention kernels.
 
-Port of ``repro/models/attention.py`` for one card, without the
-tensor-parallel head padding (``launch/`` is not ported).  The mask modes are the reference's: ``CAUSAL``, ``SLIDING``, ``PREFIX``
+Port of ``repro/models/attention.py`` for one card: the layers run
+unpadded heads.  :func:`padded_head_counts` is the reference's
+tensor-parallel head padding, which ``launch/steps.py`` reads to size the
+caches of a mesh layout; the padding itself runs with the multi-card
+mesh (ROADMAP).  The mask modes are the reference's: ``CAUSAL``, ``SLIDING``, ``PREFIX``
 (bidirectional over the first ``prefix_len`` positions, causal after:
 ``k <= q or k < prefix_len``, which is what the reference's rule reduces
 to) and ``BIDIR`` (the encoder).  Cross attention
@@ -47,6 +50,22 @@ SLIDING = "sliding"
 PREFIX = "prefix"   # bidirectional over [0, prefix_len), causal after
 BIDIR = "bidir"
 MODES = (CAUSAL, SLIDING, PREFIX, BIDIR)
+
+
+def padded_head_counts(n_heads: int, n_kv: int, tp: int):
+    """TP head padding, the reference's arithmetic: when the q heads do not
+    divide over ``tp``, pad them (zeros) to the next multiple of ``tp`` and
+    the kv heads by the same group ratio.  Returns ``(Hq_pad, Hkv_pad)``,
+    unchanged when padding cannot help (attention then stays
+    TP-replicated)."""
+    if tp <= 1 or n_heads == 0 or n_heads % tp == 0:
+        return n_heads, n_kv
+    g = n_heads // n_kv
+    hq_pad = -(-n_heads // tp) * tp
+    kv_pad = hq_pad // g
+    if hq_pad % g or kv_pad % tp:
+        return n_heads, n_kv
+    return hq_pad, kv_pad
 
 
 class Attention(nn.Module):

@@ -4,7 +4,8 @@
 reference's fields and defaults unchanged, so a configuration built in
 either package describes the same model (the tests compare them field by
 field).  The dtype names stay strings; :attr:`ModelConfig.pdtype` and
-:attr:`ModelConfig.cdtype` map them to torch dtypes.
+:attr:`ModelConfig.cdtype` map them to torch dtypes.  ``ShapeConfig``, the
+four shapes and :func:`shape_applicable` are the reference's input cells.
 """
 
 from __future__ import annotations
@@ -133,6 +134,14 @@ class ModelConfig:
             )
         return self.prefix, self.unit, rem // len(self.unit)
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """``long_500k`` eligibility, the reference's rule: SSM and hybrid
+        architectures carry a compressed recurrent state, while a pure
+        full-attention one would need a 524k-row KV cache in every
+        layer."""
+        return self.family in ("ssm", "hybrid")
+
     def layer_specs(self) -> Tuple[LayerSpec, ...]:
         """Every layer's spec in order: the prefix, then the unit repeated."""
         prefix, unit, n_units = self.layout()
@@ -177,3 +186,27 @@ class ModelConfig:
             param_dtype="float32",
             compute_dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (the reference's four, by name)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(applicable, reason-if-not), the reference's rule and words."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, "full-attention layers are quadratic at 524k context"
+    return True, ""

@@ -53,6 +53,7 @@ from repro_torch.interop import (opt_state_to_reference,
                                  params_from_reference, params_to_reference)
 from repro_torch.launch.cells import CellKnobs, knobs_for
 from repro_torch.launch.steps import build_train_step
+from repro_torch.models.config import DECODE_32K, TRAIN_4K
 from repro_torch.optim import adamw
 
 PARAM_ATOL = 3e-4
@@ -164,10 +165,10 @@ def test_best_tracker_and_elastic_resize(tmp_path):
                                   model.embed.detach().numpy())
     assert int(otree["step"]) == 5
     assert issubclass(InjectedFailure, RuntimeError)
-    assert knobs_for(loop.cfg).microbatches == 1
-    assert knobs_for(tconfigs.get("minicpm-2b")) == CellKnobs(
+    assert knobs_for(loop.cfg, TRAIN_4K).microbatches == 1
+    assert knobs_for(tconfigs.get("minicpm-2b"), TRAIN_4K) == CellKnobs(
         microbatches=4, remat=True, grad_accum_dtype="float32")
-    assert not knobs_for(loop.cfg, kind="decode").remat
+    assert not knobs_for(loop.cfg, DECODE_32K).remat
 
 
 # ---------------------------------------------------------------------------
