@@ -325,6 +325,33 @@ Phases, each printed on its own line; any failure exits non-zero:
                token, decode ms a step, peak memory, launches, and the
                three kernels by events beside their bounds
                (``--only-launch`` runs this phase alone after the build).
+19. sharded -- the steps under the sharding rules on a live
+               ``DeviceMesh`` (``launch/mesh.py``, ``launch/sharding.py``):
+               (a) one rank over NCCL, layout (1, 1), the rules of
+               ``moe_a2a`` and ``zero1``: DeepSeekMoE-16B at full width,
+               its dense first layer and 3 MoE layers (the all-to-all
+               route), bf16, 2 prompts of 4,096 tokens and 16 serve steps
+               through ``build_prefill_step`` / ``build_serve_step``;
+               launches, wire bytes (none at one rank), check (i) against
+               ops mode ref with the routes pinned (0.03 RMS share, lead
+               1.0) and check (ii) in float32 at 2 layers; (b) two ranks
+               on the one card over gloo (NCCL refuses two ranks on one
+               device; gloo runs the four single-tensor collectives on CUDA
+               tensors, so nothing is staged through host memory), child
+               processes of this script: DeepSeekMoE-16B on (2, 1) with
+               ``moe_a2a`` and ``zero1`` (32 experts a rank), MiniCPM-2B
+               and Mamba2-780M on (1, 2), each 4 layers at full width; in
+               float32 (through the forwards) the tokens of a prefill and 8
+               serve steps and the last logits (``1e-4 + 1e-4 |x|``) equal
+               to one rank's run of the same weights; in bf16 the steps
+               (the main path: launches, times); each rank's allocator
+               bytes for its
+               parameters and caches equal to the dry-run's, the wire bytes
+               by family equal to their closed form (``sharded_wire``), one
+               float32 train step of DeepSeekMoE at (2, 1), 2 layers,
+               against one rank's (loss 1e-5, parameters 1e-3); bf16 times
+               of the same layouts (``--only-sharded`` runs this phase
+               alone after the build).
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -1694,6 +1721,21 @@ def phase_attention(torch):
             ref.decode_attention_ref(qm, km, vm, valid, **kw), tol,
             f"decode_attention moe-serve {dtype}", steps)
         del qm, km, vm
+    # a TP rank's read of a replicated cache: kv heads 4..11 of 16 narrowed
+    # out of it (their q heads 8..23), read in place, against the plain
+    # version on the same view and the kernel on a contiguous copy
+    kb, vb = ck.narrow(1, 4, HKV // 2), cv.narrow(1, 4, HKV // 2)
+    qb = qd[:, 8:8 + HQ // 2].contiguous()
+    kw = dict(softcap=50.0, window=0)
+    got = da.decode_attention(qb, kb, vb, valid, **kw)
+    errs["narrowed kv heads bfloat16"] = _close(
+        torch, got, ref.decode_attention_ref(qb, kb, vb, valid, **kw),
+        BF16_TOL, "decode_attention narrowed kv heads bfloat16", steps)
+    check(torch.equal(got, da.decode_attention(
+        qb, kb.contiguous(), vb.contiguous(), valid, **kw)),
+        "decode_attention: a narrowed cache read in place differs from the "
+        "kernel on its contiguous copy")
+    del kb, vb, qb, got
     times = {}
     pos = torch.arange(SERVE_SMAX, device=dev)
     for window in (4097, 0):             # qd, ck, cv are the bf16 ones
@@ -5615,6 +5657,615 @@ def phase_launch(torch, seed, smi, fault=None):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the sharded steps on a live mesh
+# ---------------------------------------------------------------------------
+
+#: (a) one rank over NCCL: DeepSeekMoE-16B at full width, its dense first
+#: layer and 3 MoE layers, 2 prompts of 4,096 tokens, 16 serve steps
+SHARD_MODEL = "deepseek-moe-16b"
+SHARD_LAYERS = 4
+SHARD_ROWS, SHARD_PROMPT, SHARD_NEW = 2, 4096, 16
+#: (a)'s check (i): phase 15's DeepSeekMoE-class limits (RMS share of the
+#: logits' standard deviation, the replay's lead over the tolerance)
+SHARD_RMS, SHARD_LEAD = 0.03, 1.0
+#: (a)'s check (ii): float32 at 2 layers, shorter prompts
+SHARD_F32_LAYERS, SHARD_F32_PROMPT, SHARD_F32_NEW = 2, 512, 8
+#: (b) two ranks on the one card over gloo, each layout at full width cut
+#: to 4 layers: (label, model, (data, model) sizes, knob overrides); its
+#: float32 run goes through the forwards (tokens and last logits against
+#: one rank), its bf16 run through the steps (the main path, timed), then
+#: the forwards replay the steps' tokens with the kernels and in ops mode
+#: ref, the routes pinned, for (a)'s check (i) on the ranks' shards
+SHARD_TWO = (("deepseek-dp2", "deepseek-moe-16b", (2, 1),
+              dict(moe_a2a=True, zero1=True)),
+             ("minicpm-tp2", "minicpm-2b", (1, 2), {}),
+             ("mamba2-tp2", "mamba2-780m", (1, 2), {}))
+#: (b)'s float32 run (prompt, serve steps) and its bf16 run's (4 steps:
+#: a DeepSeekMoE step gathers the ZeRO shards through gloo, about 1.2 s on
+#: the card, and the bf16 run is served three times)
+SHARD_TWO_F32 = (256, 8)
+SHARD_TWO_BF16 = (2048, 4)
+#: (b)'s check (i) RMS limits, each about the geometric mean of the sound
+#: reading and that with three faults planted in the kernel routes of a
+#: throwaway copy (decode one key short, every 64th gathered row off by
+#: one, the scan's last dt zeroed; PERF.md, H100): DeepSeekMoE (2, 1)
+#: 0.0083 sound, 0.0365 planted; MiniCPM-2B (1, 2) 0.0095, 0.0191;
+#: Mamba2-780M (1, 2) 0.0061, 0.0178.  (a)'s 0.03 and MiniCPM's phase 15
+#: 0.02 passed the last two faults.  The lead limit is (a)'s.
+SHARD_TWO_RMS = {"deepseek-dp2": 0.017, "minicpm-tp2": 0.0135,
+                 "mamba2-tp2": 0.0105}
+#: (b)'s train step: DeepSeekMoE at (2, 1), 2 layers, float32
+SHARD_TRAIN_LAYERS, SHARD_TRAIN_SEQ = 2, 512
+#: the phase's aim in seconds (read, not enforced)
+SHARD_SECONDS = 90
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def shard_run(torch, cfg, params, caches, tokens, new, rules, script=None,
+              forwards=False):
+    """A prefill of ``tokens`` (this rank's rows) and ``new`` serve steps.
+    By default the main path, through ``build_prefill_step`` and
+    ``build_serve_step`` under ``rules``; returns each step's tokens and
+    wall.  With ``forwards`` or a ``script`` (the tokens of another run):
+    the forwards under the rules, serving the script's tokens (their own
+    without one); returns the run's own argmax at each step, the last
+    logits (this rank's block) and, where its own argmax is another token,
+    that token's lead over the script's and the script token's logit (a
+    vocabulary split over the model axis gathered for it first)."""
+    from repro_torch.launch import mesh as ml
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.sharding import use_rules
+    from repro_torch.models import transformer as TT
+
+    prompt, vocab = tokens.shape[1], cfg.padded_vocab
+    index = functools.partial(torch.full, (tokens.shape[0],),
+                              device=tokens.device)
+    if script is None and not forwards:
+        prefill = St.build_prefill_step(cfg, rules)
+        serve = St.build_serve_step(cfg, rules)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = prefill(params, caches, {"tokens": tokens})
+        torch.cuda.synchronize()
+        toks, times = [tok], [time.perf_counter() - t0]
+        for i in range(new):
+            t0 = time.perf_counter()
+            tok, caches = serve(params, caches, {"tokens": toks[-1][:, None],
+                                                 "index": prompt + i})
+            torch.cuda.synchronize()
+            toks.append(tok)
+            times.append(time.perf_counter() - t0)
+        return dict(tokens=toks, times=times)
+    own, leads = [], []
+    with use_rules(rules):
+        logits, caches = TT.prefill_forward(params, {"tokens": tokens}, cfg,
+                                            caches)
+        for i in range(new + 1):
+            mine = St.next_token(logits, vocab)
+            own.append(mine)
+            want = mine if script is None else script[i]
+            if script is not None:
+                row = logits[:, -1]
+                if row.shape[-1] != vocab:
+                    row = ml.all_gather(row, rules.live, "model", 1)
+                for r in torch.nonzero(mine != want).flatten().tolist():
+                    leads.append((float(row[r, mine[r]] - row[r, want[r]]),
+                                  float(row[r, want[r]])))
+            if i == new:
+                break
+            logits, caches = TT.decode_forward(
+                params, {"tokens": want[:, None]}, cfg, caches,
+                index(prompt + i))
+    return dict(tokens=own, last=logits[:, -1], leads=leads)
+
+
+def sharded_wire(cfg, cell, rows, prompt, new):
+    """The closed form of one rank's wire bytes by family for a prefill of
+    ``rows`` x ``prompt`` tokens (the rank's rows) and ``new`` serve steps
+    under ``cell.rules`` (the ring formulas of ``launch/mesh.py``): each
+    forward all-gathers every weight whose storage spec splits what its
+    compute spec keeps whole (the embedding twice when tied), all-reduces
+    over the model axis the embeddings and each row-parallel output
+    (attention, dense MLP, Mamba's ``w_out`` and its norm's sum of squares
+    in float32, an MoE layer's combine), sends two all-to-alls of ``E cap
+    d`` per MoE layer over ``data`` and all-reduces its float32 aux over
+    the data-parallel axes, and all-gathers the argmax's ``[n, rows, 2]``
+    float64 candidates over the model axis."""
+    import torch
+    from repro_torch.launch.mesh import FAMILIES
+    from repro_torch.launch.sharding import param_pspecs, spec_divisor
+    from repro_torch.models.config import MAMBA, MOE
+
+    rules = cell.rules
+    live = rules.live
+    n_tp, n_ep, n_dp = (live.size("model"), live.size("data"),
+                        live.size(rules.dp_axes))
+    elem = torch.empty((), dtype=cfg.cdtype).element_size()
+    out = dict.fromkeys(FAMILIES, 0.0)
+
+    def ring(family, nbytes, n):
+        if n > 1:
+            out[family] += (2 if family == "all_reduce" else 1) * nbytes \
+                * (n - 1) / n
+
+    gather = 0.0
+    meta = cell.specs["params"]
+    compute = param_pspecs(cfg, meta, rules, fsdp_override=None)
+    for name, p in meta.named_parameters():
+        store = cell.pspecs["params"][name]
+        diff = [s for s, c in zip(store, compute[name]) if s != c]
+        if not diff:
+            continue
+        check(len(diff) == 1, f"{name}: gathered over two dimensions")
+        n = live.size(diff[0])
+        nbytes = p.numel() * p.element_size() // spec_divisor(
+            compute[name], live.layout)
+        uses = 2 if name == "embed" and cfg.tie_embeddings else 1
+        gather += uses * nbytes * (n - 1) / n if n > 1 else 0.0
+    specs = cfg.layer_specs()
+    for r in [rows * prompt] + [rows] * new:
+        out["all_gather"] += gather
+        ring("all_reduce", r * cfg.d_model * elem, n_tp)       # embeddings
+        for sp in specs:
+            if sp.mixer == MAMBA:
+                ring("all_reduce", r * 4, n_tp)
+            ring("all_reduce", r * cfg.d_model * elem, n_tp)   # the mixer
+            if sp.mlp == MOE:
+                e, k = cfg.moe.num_experts, cfg.moe.top_k
+                cap = max(4, -(-int(r * k * cfg.moe.capacity_factor / e)
+                               // 4) * 4)
+                if rules.moe_a2a:
+                    ring("all_to_all", 2 * e * cap * cfg.d_model * elem,
+                         n_ep)
+                ring("all_reduce", 4, n_dp)
+                ring("all_reduce", r * cfg.d_model * elem, n_tp)
+            elif sp.mlp != "none":
+                ring("all_reduce", r * cfg.d_model * elem, n_tp)
+        ring("all_gather", n_tp * rows * 2 * 8, n_tp)
+    return out
+
+
+def _sharded_one_rank(torch, seed):
+    """Phase 19 (a): one rank over NCCL, layout (1, 1), the rules of
+    ``moe_a2a`` and ``zero1`` active.  Returns the main run's launch
+    counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as ml
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as St
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.config import ShapeConfig
+
+    dev = torch.device("cuda")
+    layout = ml.MeshLayout(("data", "model"), (1, 1))
+    live = ml.live_mesh(layout, "cuda")
+    knobs = dict(moe_a2a=True, zero1=True)
+
+    def build(cfg, prompt, new, seed_):
+        shape = ShapeConfig("sharded", prompt + new, SHARD_ROWS, "prefill")
+        cell = St.build_cell(cfg, shape, layout, mesh=live, **knobs)
+        full = TT.init_params(cfg, seed_, device=dev)
+        params, grown = _grown(torch, lambda: sh.distribute_params(
+            full, cell.pspecs["params"], cell.rules))
+        del full
+        torch.cuda.empty_cache()
+        want = dryrun.cell_bytes(cell, layout)
+        check(grown[1] == want["params"], f"sharded (a): parameters asked "
+              f"the allocator for {grown[1]} bytes, the dry-run counts "
+              f"{want['params']}")
+        rng = np.random.default_rng(seed_)
+        tokens = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (SHARD_ROWS, prompt)), device=dev)
+
+        def caches():
+            return St.local_zeros(cell.specs["caches"], cell.pspecs["caches"],
+                                  cell.rules, dev)
+        return cell, params, tokens, caches
+
+    cfg = family_config(configs, SHARD_MODEL, SHARD_LAYERS)
+    cell, params, tokens, caches = build(cfg, SHARD_PROMPT, SHARD_NEW, seed)
+    ops.use_kernels("auto")
+    # a warm-up (first use of the kernels and the libraries) off the clock
+    shard_run(torch, cfg, params, caches(), tokens[:, :256], 1, cell.rules)
+    ml.reset_wire_bytes()
+    ops.reset_launch_counts()
+    run = shard_run(torch, cfg, params, caches(), tokens, SHARD_NEW,
+                    cell.rules)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    wire = ml.wire_bytes()
+    want = expected_launches(cfg, 1, SHARD_NEW)
+    main_counts = {k: counts[k] for k, n in want.items() if n}
+    for k, n in want.items():
+        check(counts[k] == n, f"sharded (a): {k} launched {counts[k]} times, "
+              f"expected {n}")
+    check(not any(wire.values()), f"sharded (a): one rank moved {wire}")
+    # check (i): the kernel forwards on the steps' tokens (the routes
+    # recorded), then ops mode ref on them with the routes pinned
+    pins = _PinnedRoutes(tmoe)
+    pins.record()
+    try:
+        kern = shard_run(torch, cfg, params, caches(), tokens, SHARD_NEW,
+                         cell.rules, script=run["tokens"])
+    finally:
+        pins.restore()
+    check(all(torch.equal(a, b) for a, b in zip(kern["tokens"],
+                                                run["tokens"])),
+          "sharded (a): the steps' tokens differ from the forwards' argmax")
+    ops.use_kernels("ref")
+    pins.replay()
+    try:
+        ref = shard_run(torch, cfg, params, caches(), tokens, SHARD_NEW,
+                        cell.rules, script=run["tokens"])
+    finally:
+        ops.use_kernels("auto")
+        pins.restore()
+    errs = [_logit_errs(a, b, BF16_TOL) for a, b in zip(kern["last"].cpu(),
+                                                        ref["last"].cpu())]
+    rms = max(e["rms_over_std"] for e in errs)
+    lead = max((ld / (BF16_TOL * (1 + abs(lg))) for ld, lg in ref["leads"]),
+               default=0.0)
+    times = run["times"]
+    say("sharded", part="a", layout="(1, 1) over NCCL", model=cfg.name,
+        layers=cfg.num_layers, d_model=cfg.d_model,
+        experts=cfg.moe.num_experts, rules=knobs, rows=SHARD_ROWS,
+        prompt=SHARD_PROMPT, serve_steps=SHARD_NEW,
+        prefill_ms_per_token=times[0] / (SHARD_ROWS * SHARD_PROMPT) * 1e3,
+        serve_step_ms_median=float(np.median(times[1:]) * 1e3),
+        wire_bytes=wire, launches=main_counts,
+        check_i=dict(max_rms_err_over_logit_std=rms, rms_limit=SHARD_RMS,
+                     argmax_differs=len(ref["leads"]),
+                     max_lead_over_tolerance=lead, lead_limit=SHARD_LEAD,
+                     moe_tokens_routed=pins.routed,
+                     moe_tokens_rerouted_unpinned=int(pins.rerouted)))
+    check(rms <= SHARD_RMS, f"sharded (a): logits differ from ops mode ref "
+          f"by {rms} of their standard deviation")
+    check(lead <= SHARD_LEAD, f"sharded (a): the ref run's argmax leads by "
+          f"{lead} of the tolerance")
+    del params, run, kern, ref, pins
+    torch.cuda.empty_cache()
+
+    # check (ii): float32 at 2 layers, kernels against ops mode ref
+    cfg32 = family_config(configs, SHARD_MODEL, SHARD_F32_LAYERS,
+                          param_dtype="float32", compute_dtype="float32")
+    cell, params, tokens, caches = build(cfg32, SHARD_F32_PROMPT,
+                                         SHARD_F32_NEW, seed + 1)
+    run = shard_run(torch, cfg32, params, caches(), tokens, SHARD_F32_NEW,
+                    cell.rules)
+    kern = shard_run(torch, cfg32, params, caches(), tokens, SHARD_F32_NEW,
+                     cell.rules, script=run["tokens"])
+    ops.use_kernels("ref")
+    try:
+        ref = shard_run(torch, cfg32, params, caches(), tokens,
+                        SHARD_F32_NEW, cell.rules, script=run["tokens"])
+    finally:
+        ops.use_kernels("auto")
+    errs = [_logit_errs(a, b, F32_MODEL_TOL)
+            for a, b in zip(kern["last"].cpu(), ref["last"].cpu())]
+    worst = max(e["over_tol"] for e in errs)
+    same = all(torch.equal(a, b) for a, b in zip(ref["tokens"],
+                                                 run["tokens"]))
+    say("sharded", part="a", check="(ii) float32, 2 layers, kernels against "
+        "ops mode ref", prompt=SHARD_F32_PROMPT, serve_steps=SHARD_F32_NEW,
+        tokens_equal=same, max_abs_logit_err=max(e["max_abs"] for e in errs),
+        max_err_over_tolerance=worst,
+        tolerance=f"{F32_MODEL_TOL} + {F32_MODEL_TOL} x |ref logit|")
+    check(same, "sharded (a) float32: kernels and ref mode give other tokens")
+    check(worst <= 1.0, "sharded (a) float32: last logits beyond tolerance")
+    del params, run, kern, ref
+    torch.cuda.empty_cache()
+    return main_counts
+
+
+def _gather_full(torch, ml, live, t, spec):
+    for dim, entry in enumerate(spec):
+        t = ml.all_gather(t, live, entry, dim)
+    return t
+
+
+def _sharded_check_i(torch, dist, ml, ops, tmoe, St, cfg, cell, params,
+                     tokens, new, run, rank, label, flags):
+    """(a)'s check (i) on two ranks for the bf16 main ``run`` of ``cell``:
+    the forwards serve the steps' tokens on this rank's shards with the
+    kernels (their own argmax must be the steps' tokens), the routes
+    recorded, then in ops mode ref with the routes pinned; the whole last
+    logits (gathered over the ranks' rows and vocabulary blocks) held to
+    ``SHARD_TWO_RMS`` and the ref run's argmax leads to ``SHARD_LEAD``.
+    Sets
+    ``flags`` and returns the readings (rank 0's are the whole ones)."""
+    rules, live, dev = cell.rules, cell.rules.live, tokens.device
+
+    def replay():
+        caches = St.local_zeros(cell.specs["caches"], cell.pspecs["caches"],
+                                rules, dev)
+        return shard_run(torch, cfg, params, caches, tokens, new, rules,
+                         script=run["tokens"])
+
+    pins = _PinnedRoutes(tmoe)
+    pins.record()
+    try:
+        kern = replay()
+    finally:
+        pins.restore()
+    flags[f"{label}/steps_equal_forwards"] = all(
+        torch.equal(a, b) for a, b in zip(kern["tokens"], run["tokens"]))
+    ops.use_kernels("ref")
+    pins.replay()
+    try:
+        ref = replay()
+    finally:
+        ops.use_kernels("auto")
+        pins.restore()
+    split = kern["last"].shape[-1] != cfg.padded_vocab
+    spec = (rules.dp_axes, "model" if split else None)
+    last = [_gather_full(torch, ml, live, r["last"], spec).float().cpu()
+            for r in (kern, ref)]
+    every = [None, None]
+    dist.all_gather_object(every, dict(
+        first=live.index("model") == 0, leads=ref["leads"],
+        routed=pins.routed, rerouted=int(pins.rerouted)))
+    # a row's leads once: from the ranks first along the model axis
+    leads = [x for part in every if part["first"] for x in part["leads"]]
+    errs = [_logit_errs(a, b, BF16_TOL) for a, b in zip(*last)]
+    rms = max(e["rms_over_std"] for e in errs)
+    lead = max((ld / (BF16_TOL * (1 + abs(lg))) for ld, lg in leads),
+               default=0.0)
+    limit = SHARD_TWO_RMS[label]
+    flags[f"{label}/check_i_rms"] = rms <= limit
+    flags[f"{label}/check_i_lead"] = lead <= SHARD_LEAD
+    return dict(max_rms_err_over_logit_std=rms, rms_limit=limit,
+                argmax_differs=len(leads), max_lead_over_tolerance=lead,
+                lead_limit=SHARD_LEAD,
+                steps_equal_forwards=flags[f"{label}/steps_equal_forwards"],
+                moe_tokens_routed=sum(p["routed"] for p in every
+                                      if p["first"]),
+                moe_tokens_rerouted_unpinned=sum(p["rerouted"] for p in every
+                                                 if p["first"]))
+
+
+def sharded_rank(torch, rank, port, out_dir, seed):
+    """One rank of phase 19 (b): two ranks on the one card over gloo.
+    Writes ``rank{rank}.json`` (rank 0's holds every check's reading and
+    both ranks' launch counts)."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as ml
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.cells import CellKnobs
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    meshes = {sizes: ml.live_mesh(ml.MeshLayout(("data", "model"), sizes),
+                                  "cuda") for sizes in ((2, 1), (1, 2))}
+    report, flags, counts = {}, {}, []
+
+    for i, (label, name, sizes, knobs) in enumerate(SHARD_TWO):
+        live = meshes[sizes]
+        layout = live.layout
+        dp = ("data",)
+        rec = report.setdefault(label, {})
+        for dtype, (prompt, new) in (("float32", SHARD_TWO_F32),
+                                     ("bfloat16", SHARD_TWO_BF16)):
+            cfg = family_config(configs, name, SHARD_LAYERS,
+                                param_dtype=dtype, compute_dtype=dtype)
+            shape = ShapeConfig("sharded", prompt + new, SHARD_ROWS,
+                                "prefill")
+            cell = St.build_cell(cfg, shape, layout, mesh=live, **knobs)
+            rules = cell.rules
+            full = TT.init_params(cfg, seed + i, device=dev)
+            params, g_p = _grown(torch, lambda: sh.distribute_params(
+                full, cell.pspecs["params"], rules))
+            caches, g_c = _grown(torch, lambda: St.local_zeros(
+                cell.specs["caches"], cell.pspecs["caches"], rules, dev))
+            want = dryrun.cell_bytes(cell, layout)
+            flags[f"{label}/{dtype}/bytes"] = (
+                g_p[1] == want["params"] and g_c[1] == want["caches"])
+            rec[f"{dtype}_requested_bytes"] = dict(params=g_p[1],
+                                                   caches=g_c[1])
+            rec[f"{dtype}_dryrun_bytes"] = {k: want[k]
+                                            for k in ("params", "caches")}
+            rng = np.random.default_rng(seed + 10 + i)
+            whole = torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, (SHARD_ROWS, prompt)), device=dev)
+            tokens = sh.distribute({"tokens": whole}, cell.pspecs["batch"],
+                                   rules)["tokens"]
+            rows = tokens.shape[0]
+            main = dtype == "bfloat16"
+            ml.reset_wire_bytes()
+            ops.reset_launch_counts()
+            run = shard_run(torch, cfg, params, caches, tokens, new, rules,
+                            forwards=not main)
+            torch.cuda.synchronize()
+            if main:
+                counts.append(ops.launch_counts())
+                want_n = expected_launches(cfg, 1, new)
+                flags[f"{label}/launches"] = all(
+                    counts[-1][k] == n for k, n in want_n.items())
+                rec["launches"] = {k: counts[-1][k] for k, n in
+                                   want_n.items() if n}
+                rec["prefill_ms_per_token"] = \
+                    run["times"][0] / (SHARD_ROWS * prompt) * 1e3
+                rec["serve_step_ms_median"] = \
+                    float(np.median(run["times"][1:]) * 1e3)
+            wire = ml.wire_bytes()
+            closed = sharded_wire(cfg, cell, rows, prompt, new)
+            flags[f"{label}/{dtype}/wire"] = wire == closed
+            rec[f"{dtype}_wire_bytes"] = wire
+            rec[f"{dtype}_wire_closed_form"] = closed
+            if main:
+                rec["bf16_vs_ops_ref"] = _sharded_check_i(
+                    torch, dist, ml, ops, tmoe, St, cfg, cell, params, tokens,
+                    new, run, rank, label, flags)
+            else:
+                got_toks = _gather_full(torch, ml, live, torch.stack(
+                    run["tokens"]), (None, dp))
+                vocab_split = run["last"].shape[-1] != cfg.padded_vocab
+                last = _gather_full(torch, ml, live, run["last"],
+                                    (dp, "model" if vocab_split else None))
+                if rank == 0:
+                    one = shard_run(torch, cfg, full, TT.init_caches(
+                        cfg, SHARD_ROWS, prompt + new, device=dev), whole,
+                        new, None, forwards=True)
+                    same = torch.equal(torch.stack(one["tokens"]), got_toks)
+                    errs = [_logit_errs(a, b, F32_MODEL_TOL) for a, b in
+                            zip(last.cpu(), one["last"].cpu())]
+                    worst = max(e["over_tol"] for e in errs)
+                    flags[f"{label}/tokens_equal_one_rank"] = same
+                    flags[f"{label}/logits_equal_one_rank"] = worst <= 1.0
+                    rec["float32_vs_one_rank"] = dict(
+                        prompt=prompt, serve_steps=new, tokens_equal=same,
+                        max_err_over_tolerance=worst,
+                        max_abs_logit_err=max(e["max_abs"] for e in errs),
+                        tolerance=f"{F32_MODEL_TOL} + {F32_MODEL_TOL} x "
+                                  f"|one-rank logit|")
+            del full, params, caches, run
+            torch.cuda.empty_cache()
+            dist.barrier()
+
+    # one float32 train step of DeepSeekMoE at (2, 1), 2 layers
+    live = meshes[(2, 1)]
+    knobs = dict(moe_a2a=True, zero1=True)
+    cfg = family_config(configs, "deepseek-moe-16b", SHARD_TRAIN_LAYERS,
+                        param_dtype="float32", compute_dtype="float32")
+    tshape = ShapeConfig("sharded-train", SHARD_TRAIN_SEQ, SHARD_ROWS,
+                         "train")
+    tcell = St.build_cell(cfg, tshape, live.layout, mesh=live,
+                          microbatches=1, remat=False, **knobs)
+    step_knobs = CellKnobs(microbatches=1, remat=False, **knobs)
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    full = TT.init_params(cfg, seed + 20, device=dev)
+    rng = np.random.default_rng(seed + 21)
+    batch = {k: torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, SHARD_ROWS, SHARD_TRAIN_SEQ)), device=dev)
+        for k in ("tokens", "labels")}
+    params = sh.distribute_params(full, tcell.pspecs["params"], tcell.rules)
+    opt = adamw.init_state(params)
+    step = St.build_train_step(cfg, step_knobs, opt_cfg, rules=tcell.rules)
+    ops.reset_launch_counts()
+    params, opt, metrics = step(params, opt, sh.distribute(
+        batch, tcell.pspecs["batch"], tcell.rules))
+    torch.cuda.synchronize()
+    counts.append(ops.launch_counts())
+    flags["train/launches"] = all(counts[-1][k] > 0 for k in (
+        "flash_attention", "flash_attention_backward", "moe_gather",
+        "moe_gather_backward", "token_rows_table"))
+    got = {n: _gather_full(torch, ml, live, p.detach(), p.mesh_spec)
+           for n, p in params.named_parameters()}
+    if rank == 0:
+        one = St.build_train_step(cfg, step_knobs, opt_cfg)
+        full, _, m1 = one(full, adamw.init_state(full), batch)
+        loss, loss1 = float(metrics["loss"]), float(m1["loss"])
+        errs = torch.cat([(got[n].float() - p.detach().float()).abs()
+                          .flatten() for n, p in full.named_parameters()])
+        loose = float((errs > 1e-6).float().mean())
+        flags["train/loss"] = abs(loss - loss1) <= TRAIN_F32_LOSS_REL \
+            * abs(loss1)
+        flags["train/params"] = (float(errs.max()) <= TRAIN_F32_PARAM_ATOL
+                                 and loose <= TRAIN_F32_LOOSE)
+        report["train-deepseek-dp2"] = dict(
+            layers=SHARD_TRAIN_LAYERS, rows=SHARD_ROWS, seq=SHARD_TRAIN_SEQ,
+            launches={k: v for k, v in counts[-1].items() if v},
+            loss=loss, loss_one_rank=loss1,
+            param_max_abs_err=float(errs.max()), share_beyond_1e6=loose,
+            limits=dict(loss_rel=TRAIN_F32_LOSS_REL,
+                        param_atol=TRAIN_F32_PARAM_ATOL,
+                        loose_share=TRAIN_F32_LOOSE))
+    every = [None, None]
+    dist.all_gather_object(every, dict(flags=flags, counts=counts))
+    if rank == 0:
+        merged = {}
+        for part in every:
+            for k, v in part["flags"].items():
+                merged[k] = merged.get(k, True) and v
+        with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+            json.dump(dict(report=report, flags=merged,
+                           counts=[c for part in every
+                                   for c in part["counts"]]), f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _sharded_two_ranks(torch, seed):
+    """Phase 19 (b): two ranks on the one card (``sharded_rank``), their
+    readings checked here.  Returns the ranks' launch counts, one dict per
+    rank and run."""
+    import tempfile
+
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+             str(r), "--sharded-port", str(port), "--sharded-out", out,
+             "--seed", str(seed)], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            for r, log in enumerate(logs):
+                print(f"[sharded] rank {r} output:\n{log[-6000:]}",
+                      flush=True)
+            raise SmokeFailure(f"sharded (b): ranks exited with "
+                               f"{[p.returncode for p in procs]}")
+        with open(os.path.join(out, "rank0.json")) as f:
+            res = json.load(f)
+    for label, rec in res["report"].items():
+        say("sharded", part="b", run=label, **rec)
+    failed = sorted(k for k, v in res["flags"].items() if not v)
+    say("sharded", part="b", checks=len(res["flags"]), failed=failed,
+        host_staged_bytes=0)
+    check(not failed, f"sharded (b): checks failed: {failed}")
+    return res["counts"]
+
+
+def phase_sharded(torch, seed, smi):
+    """Phase 19: the sharded steps on a live ``DeviceMesh`` (see the module
+    docstring).  Returns the main runs' launch counts."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        paths = [_sharded_one_rank(torch, seed)]
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    paths += _sharded_two_ranks(torch, seed)
+    seconds = time.perf_counter() - t_phase
+    say("sharded", part="done", seconds=seconds, aim_seconds=SHARD_SECONDS,
+        nvidia_smi=smi)
+    return paths
+
+
 def kernels_line(records, path_counts):
     """The ``kernels`` object: each kernel's measured numbers and its
     launches summed over the main paths' runs (``path_counts``: one count
@@ -5660,8 +6311,16 @@ def main(argv=None):
                              "stop; with --plant-fault scan, only the "
                              "524K prefill's check 3 with the fault "
                              "planted")
+    parser.add_argument("--only-sharded", action="store_true",
+                        help="build, then run only phase 19 (the sharded "
+                             "steps: one rank over NCCL, two ranks on the "
+                             "card over gloo) and stop")
     parser.add_argument("--train-child", action="store_true",
                         help=argparse.SUPPRESS)  # phases 16-17's process
+    # phase 19 (b)'s ranks
+    parser.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--sharded-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--sharded-out", help=argparse.SUPPRESS)
     parser.add_argument("--plant-fault", choices=sorted(FAULT_MODEL),
                         help="calibration only: build, then run phase 17's "
                              "bf16 check (ii) for the model the fault "
@@ -5686,6 +6345,14 @@ def main(argv=None):
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.sharded_rank is not None:
+        try:
+            sharded_rank(torch, args.sharded_rank, args.sharded_port,
+                         args.sharded_out, args.seed)
+        except SmokeFailure as e:
+            print(f"FAIL: {e}", file=sys.stderr)
+            return 1
+        return 0
     try:
         smi = nvidia_smi_line()
         name = torch.cuda.get_device_name(0)
@@ -5714,6 +6381,10 @@ def main(argv=None):
             return 0
         if args.only_launch:
             phase_launch(torch, args.seed, smi, args.plant_fault)
+            print(smi)
+            return 0
+        if args.only_sharded:
+            phase_sharded(torch, args.seed, smi)
             print(smi)
             return 0
         if args.train_child:
@@ -5756,6 +6427,7 @@ def main(argv=None):
         paths += phase_families(torch, args.seed, smi)
         paths.append(phase_train_child(torch, args.seed, smi))
         paths += phase_launch(torch, args.seed, smi)
+        paths += phase_sharded(torch, args.seed, smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -6,7 +6,9 @@
 // p < valid_len and, for window > 0, p > valid_len - window; scores
 // q.k / sqrt(hd) in float32, optional softcap, online softmax, output
 // acc / max(l, 1e-37) in q's dtype.  Layouts: q, o [B, Hq, hd];
-// cache k, v [B, Hkv, S, hd]; valid_len int32 [B], one length per slot (the
+// cache k, v [B, Hkv, S, hd], each slot's [Hkv, S, hd] dense and slots
+// kv_slot >= Hkv heads apart (a block of kv heads read in place from a
+// cache that holds more); valid_len int32 [B], one length per slot (the
 // TPU kernel took one scalar for the whole batch; the engine's slots are
 // ragged); hd 64, 128 or 256; any number g = Hq / Hkv of q heads per kv
 // head.  valid_len > S reads S rows.  A row with no admitted position
@@ -114,8 +116,8 @@ __global__ void __launch_bounds__(kDecThreads)
 decode_split(const T* __restrict__ q, const T* __restrict__ ck,
              const T* __restrict__ cv, const int32_t* __restrict__ valid_len,
              T* __restrict__ o, float* __restrict__ ws,
-             int* __restrict__ counters, int Hq, int Hkv, int S, int window,
-             float softcap, float scale) {
+             int* __restrict__ counters, int Hq, int Hkv, int kv_slot, int S,
+             int window, float softcap, float scale) {
   using Sh = DecodeShape<T, HD, G>;
   constexpr int E = Sh::kPerLane;
   constexpr int L = Sh::kLanes;
@@ -164,7 +166,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
   __shared__ uint64_t full[kDecStages];
   __shared__ int merges;
   T* ring = reinterpret_cast<T*>(smem);   // [stage][K, V][TILE * HD]
-  const int64_t kv = (int64_t(b) * Hkv + hk) * S * HD;
+  const int64_t kv = (int64_t(b) * kv_slot + hk) * S * HD;
 
   if (tid == 0) {
 #pragma unroll
@@ -361,8 +363,8 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
 template <typename T, int HD, int G>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* valid_len, void* o, void* ws, void* counters,
-                  int B, int Hq, int Hkv, int S, int n_splits, int window,
-                  float softcap, void* stream) {
+                  int B, int Hq, int Hkv, int kv_slot, int S, int n_splits,
+                  int window, float softcap, void* stream) {
   const int n_chunks = (Hq / Hkv + kMaxGroup - 1) / kMaxGroup;
   const dim3 grid(n_splits, Hkv * n_chunks, B);
   decode_split<T, HD, G><<<grid, kDecThreads, DecodeShape<T, HD, G>::kSmem,
@@ -370,7 +372,7 @@ int launch_decode(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(valid_len),
       static_cast<T*>(o), static_cast<float*>(ws),
-      static_cast<int*>(counters), Hq, Hkv, S, window, softcap,
+      static_cast<int*>(counters), Hq, Hkv, kv_slot, S, window, softcap,
       static_cast<float>(1.0 / std::sqrt(double(HD))));
   return static_cast<int>(cudaGetLastError());
 }
@@ -378,13 +380,13 @@ int launch_decode(const void* q, const void* k, const void* v,
 template <typename T, int HD>
 int launch_decode_group(const void* q, const void* k, const void* v,
                         const void* valid_len, void* o, void* ws,
-                        void* counters, int B, int Hq, int Hkv, int S,
-                        int n_splits, int window, float softcap,
+                        void* counters, int B, int Hq, int Hkv, int kv_slot,
+                        int S, int n_splits, int window, float softcap,
                         void* stream) {
   const int g = Hq / Hkv;
 #define ATTN_DECODE_ARGS \
-  q, k, v, valid_len, o, ws, counters, B, Hq, Hkv, S, n_splits, window, \
-      softcap, stream
+  q, k, v, valid_len, o, ws, counters, B, Hq, Hkv, kv_slot, S, n_splits, \
+      window, softcap, stream
   if (g == 1) return launch_decode<T, HD, 1>(ATTN_DECODE_ARGS);
   if (g == 2) return launch_decode<T, HD, 2>(ATTN_DECODE_ARGS);
   if (g <= 4) return launch_decode<T, HD, 4>(ATTN_DECODE_ARGS);
@@ -397,24 +399,26 @@ int launch_decode_group(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; hd: 64, 128 or 256; any Hq / Hkv, in
-// chunks = ceil(Hq / Hkv / 8) blocks per kv head.  ws: float32 [B, Hq,
-// n_splits, hd + 2]; counters: int32 [B, Hkv * chunks], zero before the
-// launch and zero after it; n_splits in [1, 64].  Returns
+// chunks = ceil(Hq / Hkv / 8) blocks per kv head; kv_slot: the heads
+// between two slots' caches (Hkv for a contiguous cache).  ws: float32
+// [B, Hq, n_splits, hd + 2]; counters: int32 [B, Hkv * chunks], zero before
+// the launch and zero after it; n_splits in [1, 64].  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
 // shape the kernel does not take (the wrapper refuses those first).
 int attn_decode_forward(const void* q, const void* k, const void* v,
                         const void* valid_len, void* o, void* ws,
-                        void* counters, int B, int Hq, int Hkv, int S, int hd,
-                        int dtype, int window, float softcap, int n_splits,
-                        void* stream) {
+                        void* counters, int B, int Hq, int Hkv, int kv_slot,
+                        int S, int hd, int dtype, int window, float softcap,
+                        int n_splits, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || Hq <= 0 ||
+      kv_slot < Hkv ||
       int64_t(Hkv) * ((Hq / Hkv + attn::kMaxGroup - 1) / attn::kMaxGroup) >
           65535 ||
       S <= 0 || n_splits <= 0 || n_splits > attn::kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
 #define ATTN_DECODE_ARGS \
-  q, k, v, valid_len, o, ws, counters, B, Hq, Hkv, S, n_splits, window, \
-      softcap, stream
+  q, k, v, valid_len, o, ws, counters, B, Hq, Hkv, kv_slot, S, n_splits, \
+      window, softcap, stream
   if (dtype == 0 && hd == 256)
     return attn::launch_decode_group<float, 256>(ATTN_DECODE_ARGS);
   if (dtype == 0 && hd == 128)

@@ -7,7 +7,10 @@ with softcap and GQA, float32 math for float32 or bfloat16 inputs,
 head_dim 64, 128 or 256, any number of q heads per kv head (a block serves
 at most :data:`MAX_GROUP` of them; a larger group takes :func:`chunks`
 blocks per kv head).  ``valid_len`` is one length per slot (int32
-``[B]``); a scalar broadcasts.  A slot with no admitted position
+``[B]``); a scalar broadcasts.  The cache may be a block of kv heads
+narrowed out of a cache that holds more (:func:`slot_heads`), which the
+kernel reads in place; any other layout is copied to a contiguous one
+first.  A slot with no admitted position
 (``valid_len`` 0) gets the mean of V over all S rows, as the reference's
 finite mask gives.
 
@@ -37,7 +40,7 @@ from repro_torch.kernels.flash_attention import (
 )
 
 __all__ = ["LAUNCHES", "MAX_GROUP", "chunks", "decode_attention",
-           "num_splits", "split_length", "tile_rows"]
+           "num_splits", "slot_heads", "split_length", "tile_rows"]
 
 #: kernel launches (reset with ``ops.reset_launch_counts``)
 LAUNCHES = {"decode_attention": 0}
@@ -81,6 +84,23 @@ def num_splits(b: int, hkv: int, s_len: int, head_dim: int,
                       MAX_SPLITS))
 
 
+def slot_heads(cache: torch.Tensor):
+    """The heads between two slots of ``cache [B, Hkv, S, hd]`` when each
+    slot's ``[Hkv, S, hd]`` is dense and the slots lie whole heads apart (a
+    contiguous cache, or a block of its kv heads from ``narrow``), the
+    layout the kernel reads; None for any other."""
+    b, h, s_len, hd = cache.shape
+    st = cache.stride()
+    if ((hd > 1 and st[3] != 1) or (s_len > 1 and st[2] != hd)
+            or (h > 1 and st[1] != s_len * hd)):
+        return None
+    if b == 1:
+        return h
+    if st[0] % (s_len * hd) or st[0] < h * s_len * hd:
+        return None
+    return st[0] // (s_len * hd)
+
+
 def split_length(rows: int, splits: int, tile: int) -> int:
     """Positions per split of a slot with ``rows`` admitted positions, as
     the kernel cuts them: ``ceil(rows / splits)`` rounded up to whole
@@ -106,7 +126,8 @@ def _scratch(dev: int, n_ws: int, n_counters: int):
 
 def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
                      window: int = 0) -> torch.Tensor:
-    """q ``[B, Hq, hd]``; cache ``[B, Hkv, S, hd]``; ``valid_len`` int32
+    """q ``[B, Hq, hd]``; cache ``[B, Hkv, S, hd]`` (k and v in one layout
+    that :func:`slot_heads` takes, else copied); ``valid_len`` int32
     ``[B]`` (or a scalar) -> ``[B, Hq, hd]``.
 
     A row with no admitted position (``valid_len`` 0) gets the mean of V
@@ -115,8 +136,11 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
     if not isinstance(valid_len, torch.Tensor) or valid_len.dim() == 0:
         valid_len = torch.full((b,), int(valid_len), dtype=torch.int32,
                                device=q.device)
-    dev = check_cuda(("q", "cache_k", "cache_v", "valid_len"), q, cache_k,
-                     cache_v, valid_len)
+    dev = check_cuda(("q", "valid_len"), q, valid_len)
+    if check_cuda(("cache_k", "cache_v"), cache_k, cache_v,
+                  contiguous=False) != dev:
+        raise ValueError(f"decode_attention: the cache is on "
+                         f"{cache_k.device}, q on {q.device}")
     if q.dim() != 3 or cache_k.dim() != 4:
         raise ValueError(f"decode_attention: need q [B,Hq,hd] and cache "
                          f"[B,Hkv,S,hd], got {tuple(q.shape)} and "
@@ -139,12 +163,16 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    kv_slot = slot_heads(cache_k)
+    if kv_slot is None or cache_k.stride() != cache_v.stride():
+        cache_k, cache_v = cache_k.contiguous(), cache_v.contiguous()
+        kv_slot = hkv
     splits = num_splits(b, blocks, s_len, hd, q.element_size())
     ws, counters = _scratch(dev, b * hq * splits * (hd + 2), b * blocks)
     _build.launch("attn_decode_forward", dev, q.data_ptr(),
                   cache_k.data_ptr(), cache_v.data_ptr(),
                   valid_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                  counters.data_ptr(), b, hq, hkv, s_len, hd,
+                  counters.data_ptr(), b, hq, hkv, kv_slot, s_len, hd,
                   DTYPE_CODES[q.dtype], int(window), float(softcap), splits)
     LAUNCHES["decode_attention"] += 1
     return out

@@ -201,14 +201,14 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap=0.0,
     """q ``[B, Hq, hd]`` against the cache ``[B, Hkv, S, hd]`` at positions
     ``p < valid_len`` (``> valid_len - window``); ``valid_len`` a scalar or
     one length per slot ``[B]``; a slot with no admitted position gets the
-    mean of V over all S rows, as the reference gives."""
+    mean of V over all S rows, as the reference gives.  The kernel reads a
+    block of kv heads narrowed out of a larger cache in place."""
     if kernels_active(q.device):
         _no_backward("decode_attention", q, cache_k, cache_v)
         if isinstance(valid_len, torch.Tensor):
             valid_len = _i32(valid_len.to(q.device))
-        return _dk.decode_attention(q.contiguous(), cache_k.contiguous(),
-                                    cache_v.contiguous(), valid_len,
-                                    softcap=softcap, window=window)
+        return _dk.decode_attention(q.contiguous(), cache_k, cache_v,
+                                    valid_len, softcap=softcap, window=window)
     return _ref.decode_attention_ref(q, cache_k, cache_v, valid_len,
                                      softcap=softcap, window=window)
 

@@ -7,7 +7,8 @@ commits them.  ``remat`` checkpoints every layer, ``grad_accum_dtype`` is
 the accumulator's dtype.  The sharding knobs (``fsdp``,
 ``shard_kv_heads``, ``pure_dp``, ``moe_a2a``, ``zero1``) choose the
 sharding rules of :func:`repro_torch.launch.steps.make_rules`, which the
-dry-run reads; they act on execution with the multi-card mesh (ROADMAP).
+dry-run reads and the steps run under on a live mesh (``zero1`` changes
+nothing there: the port always gathers ZeRO shards at use).
 ``decode_unroll`` unrolls the reference's scanned decode layers for XLA;
 the port's layers are a Python loop already, so the knob is carried for
 the rules and the dry-run's record and changes nothing.

@@ -1,25 +1,65 @@
-"""Mesh layouts: axis names and sizes, touching no device.
+"""Mesh layouts, a live mesh over ``torch.distributed``, and the
+collectives the sharded steps run.
 
-Port of ``repro/launch/mesh.py``'s intent.  The reference builds a
-``jax.sharding.Mesh`` over placeholder devices; here a layout is data, the
-axes the sharding rules (:mod:`repro_torch.launch.sharding`) map leaves
-onto and the dry-run divides bytes and FLOPs by.  Single pod: ``(16, 16)``
-= 256 chips, axes ``("data", "model")``; multi-pod: ``(2, 16, 16)`` = 512
-chips, ``("pod", "data", "model")``, the pod axis pure data parallelism.
-Building a live ``torch.distributed`` ``DeviceMesh`` from a layout comes
-with the execution half of the sharding (ROADMAP): one card runs the
-one-rank layout of :func:`make_host_mesh`.
+Port of ``repro/launch/mesh.py``.  A :class:`MeshLayout` is data: axis
+names and sizes, the axes the sharding rules
+(:mod:`repro_torch.launch.sharding`) map leaves onto and the dry-run
+divides bytes and FLOPs by.  Single pod: ``(16, 16)`` = 256 chips, axes
+``("data", "model")``; multi-pod: ``(2, 16, 16)`` = 512 chips, ``("pod",
+"data", "model")``, the pod axis pure data parallelism.
+
+:func:`live_mesh` makes a layout live over the ranks of an initialised
+process group: a ``DeviceMesh`` (``init_device_mesh`` with the layout's
+axis names) and one process group for every set of axes a collective can
+run over.  Rank ``r`` sits at the row-major coordinates of ``r`` in the
+layout's sizes, the ``DeviceMesh`` convention.
+
+The collectives (:func:`all_reduce`, :func:`reduce_out`,
+:func:`copy_in`, :func:`all_gather`, :func:`reduce_scatter`,
+:func:`all_to_all`) take an axis name or a tuple of names and do nothing
+over an axis of size 1.  Each is autograd-aware: the backward of an
+``all_gather`` is a ``reduce_scatter`` and the other way round, the
+backward of an ``all_to_all`` the reverse ``all_to_all``.  Three kinds of
+all-reduce keep the sharded steps' gradients exact:
+
+* :func:`reduce_out` -- all-reduce forward, identity backward: a partial
+  sum whose total every rank then uses alike (a row-parallel product's
+  output, the loss's share of each data shard);
+* :func:`copy_in` -- identity forward, all-reduce backward: a value every
+  rank holds alike that the ranks then use for different parts (the input
+  of a column-parallel product);
+* :func:`all_reduce` -- all-reduce both ways: a sum that every rank uses
+  for its own part (the sum of squares of a norm over a sharded width).
+
+Every collective adds its per-rank wire bytes to :data:`WIRE_BYTES` by
+family, by the ring formulas of the reference's ``hlo_analysis.py``
+(``b`` the bytes of the tensor named, ``n`` the ranks of the group):
+all-reduce ``2 b (n-1)/n`` (b its input), all-gather and all-to-all
+``b (n-1)/n`` (b their result), reduce-scatter ``b (n-1)/n`` (b its
+input).  Gloo runs all four single-tensor collectives on CUDA tensors
+(the card's ``torch`` 2.11, probed at two ranks on one card), so no
+collective is staged through host memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["MeshLayout", "dp_axes", "make_host_mesh", "make_production_mesh"]
+__all__ = ["FAMILIES", "LiveMesh", "MeshLayout", "WIRE_BYTES", "all_gather",
+           "all_reduce", "all_to_all", "copy_in", "dp_axes", "live_mesh",
+           "make_host_mesh", "make_production_mesh", "reduce_out",
+           "reduce_scatter", "reset_wire_bytes", "wire_bytes"]
+
+#: the collective families the wire-byte counter keeps apart
+FAMILIES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
+#: per-rank wire bytes by family since the last reset (this process's)
+WIRE_BYTES: Dict[str, float] = dict.fromkeys(FAMILIES, 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +96,6 @@ def make_host_mesh(tp: int = 1) -> MeshLayout:
     """``(ranks // tp, tp)`` over ``("data", "model")``, the ranks being
     ``torch.distributed``'s world size, or 1 when it is not initialised
     (one card)."""
-    dist = torch.distributed
     n = dist.get_world_size() if dist.is_available() \
         and dist.is_initialized() else 1
     if tp < 1 or n % tp:
@@ -67,3 +106,258 @@ def make_host_mesh(tp: int = 1) -> MeshLayout:
 def dp_axes(layout: MeshLayout) -> Tuple[str, ...]:
     """The data-parallel axes: ``("pod", "data")`` or ``("data",)``."""
     return ("pod", "data") if "pod" in layout.axis_names else ("data",)
+
+
+# ---------------------------------------------------------------------------
+# the live mesh
+# ---------------------------------------------------------------------------
+
+class LiveMesh:
+    """A :class:`MeshLayout` over the live ranks: ``device_mesh`` (the
+    ``DeviceMesh``), this rank's ``coords`` ``{axis: index}``, and a process
+    group per set of axes (:meth:`group`)."""
+
+    def __init__(self, layout: MeshLayout, device_mesh, groups):
+        self.layout = layout
+        self.device_mesh = device_mesh
+        self._groups = groups
+        rank = dist.get_rank()
+        coords, rest = {}, rank
+        for name, size in reversed(list(zip(layout.axis_names,
+                                            layout.sizes))):
+            coords[name] = rest % size
+            rest //= size
+        self.coords = {name: coords[name] for name in layout.axis_names}
+
+    def __repr__(self):
+        return f"LiveMesh({self.layout.shape}, coords={self.coords})"
+
+    def names(self, axis) -> Tuple[str, ...]:
+        """``axis`` (None, a name or a tuple of names) as a tuple of the
+        names whose size is above 1, in the layout's order."""
+        if axis is None:
+            return ()
+        names = axis if isinstance(axis, tuple) else (axis,)
+        unknown = [a for a in names if a not in self.layout.shape]
+        if unknown:
+            raise ValueError(f"axes {unknown} are not in {self.layout}")
+        order = [self.layout.axis_names.index(a) for a in names]
+        if order != sorted(order):
+            raise ValueError(f"axes {names} are not in the mesh's order "
+                             f"{self.layout.axis_names}")
+        return tuple(a for a in names if self.layout.shape[a] > 1)
+
+    def size(self, axis) -> int:
+        """The ranks spanned by ``axis``."""
+        return math.prod(self.layout.shape[a] for a in self.names(axis))
+
+    def index(self, axis) -> int:
+        """This rank's position along ``axis`` (the first name outermost):
+        which shard of a dimension split over ``axis`` it holds."""
+        i = 0
+        for a in self.names(axis):
+            i = i * self.layout.shape[a] + self.coords[a]
+        return i
+
+    def group(self, axis):
+        """The process group of this rank's ranks along ``axis`` (ordered as
+        :meth:`index`), or None for a single rank."""
+        names = self.names(axis)
+        return self._groups[names] if names else None
+
+
+def live_mesh(layout: MeshLayout, device_type: str = "cuda") -> LiveMesh:
+    """``layout`` over the ranks of the initialised default process group,
+    whose world size must equal ``layout.size``.  Every rank must call it
+    (it creates process groups collectively)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("live_mesh needs torch.distributed initialised "
+                           "(init_process_group with this layout's size)")
+    world = dist.get_world_size()
+    if world != layout.size:
+        raise ValueError(f"{world} ranks for a layout of {layout.size} "
+                         f"({layout.shape})")
+    device_mesh = init_device_mesh(device_type, layout.sizes,
+                                   mesh_dim_names=layout.axis_names)
+    ranks = torch.arange(world).reshape(layout.sizes)
+    live = [i for i, n in enumerate(layout.sizes) if n > 1]
+    groups = {}
+    for k in range(1, len(live) + 1):
+        for dims in itertools.combinations(live, k):
+            names = tuple(layout.axis_names[i] for i in dims)
+            if k == 1:
+                groups[names] = device_mesh.get_group(names[0])
+                continue
+            # the ranks that differ only along ``dims``, one list each
+            others = [i for i in range(len(layout.sizes)) if i not in dims]
+            moved = ranks.permute(*others, *dims).reshape(
+                -1, math.prod(layout.sizes[i] for i in dims))
+            groups[names], _ = dist.new_subgroups_by_enumeration(
+                [row.tolist() for row in moved])
+    return LiveMesh(layout, device_mesh, groups)
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+def reset_wire_bytes() -> None:
+    for k in FAMILIES:
+        WIRE_BYTES[k] = 0.0
+
+
+def wire_bytes() -> Dict[str, float]:
+    """A copy of :data:`WIRE_BYTES`."""
+    return dict(WIRE_BYTES)
+
+
+def _count(family: str, nbytes: int, n: int) -> None:
+    scale = 2 if family == "all_reduce" else 1
+    WIRE_BYTES[family] += scale * nbytes * (n - 1) / n
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _raw_all_reduce(x, mesh, axis, op="sum"):
+    out = x.contiguous().clone()
+    _count("all_reduce", _nbytes(out), mesh.size(axis))
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=mesh.group(axis))
+    return out
+
+
+def _raw_all_gather(x, mesh, axis, dim):
+    n = mesh.size(axis)
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + x.shape[1:])
+    _count("all_gather", _nbytes(out), n)
+    dist.all_gather_into_tensor(out, x, group=mesh.group(axis))
+    return out.movedim(0, dim)
+
+
+def _raw_reduce_scatter(x, mesh, axis, dim):
+    n = mesh.size(axis)
+    x = x.movedim(dim, 0).contiguous()
+    if x.shape[0] % n:
+        raise ValueError(f"reduce_scatter of {x.shape[0]} rows over {n} "
+                         f"ranks")
+    out = x.new_empty((x.shape[0] // n,) + x.shape[1:])
+    _count("reduce_scatter", _nbytes(x), n)
+    dist.reduce_scatter_tensor(out, x, group=mesh.group(axis))
+    return out.movedim(0, dim)
+
+
+def _raw_all_to_all(x, mesh, axis):
+    n = mesh.size(axis)
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all of {x.shape[0]} slices over {n} ranks")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _count("all_to_all", _nbytes(out), n)
+    dist.all_to_all_single(out, x, group=mesh.group(axis))
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, fwd, bwd):
+        ctx.mesh, ctx.axis, ctx.bwd = mesh, axis, bwd
+        return _raw_all_reduce(x, mesh, axis) if fwd else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.bwd:
+            g = _raw_all_reduce(g, ctx.mesh, ctx.axis)
+        return g, None, None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _raw_all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_raw_reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None,
+                None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _raw_reduce_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_raw_all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None,
+                None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _raw_all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _raw_all_to_all(g, ctx.mesh, ctx.axis), None, None
+
+
+def all_reduce(x, mesh: LiveMesh, axis, op: str = "sum"):
+    """The sum (or, with ``op="max"``, the maximum, which has no gradient)
+    of ``x`` over ``axis``; its gradient is the sum of the gradients over
+    ``axis`` (each rank uses the total for its own part)."""
+    if mesh.size(axis) == 1:
+        return x
+    if op == "max":
+        return _raw_all_reduce(x.detach(), mesh, axis, op="max")
+    return _AllReduce.apply(x, mesh, axis, True, True)
+
+
+def reduce_out(x, mesh: LiveMesh, axis):
+    """The sum of the partial sums ``x`` over ``axis``; the gradient passes
+    unchanged (every rank uses the total alike)."""
+    if mesh.size(axis) == 1:
+        return x
+    return _AllReduce.apply(x, mesh, axis, True, False)
+
+
+def copy_in(x, mesh: LiveMesh, axis):
+    """``x`` unchanged; its gradient is the sum of the gradients over
+    ``axis`` (the ranks use the value for different parts)."""
+    if mesh.size(axis) == 1:
+        return x
+    return _AllReduce.apply(x, mesh, axis, False, True)
+
+
+def all_gather(x, mesh: LiveMesh, axis, dim: int):
+    """The shards ``x`` of a tensor split along ``dim`` over ``axis``,
+    concatenated in :meth:`LiveMesh.index` order; the gradient is
+    reduce-scattered back."""
+    if mesh.size(axis) == 1:
+        return x
+    return _AllGather.apply(x, mesh, axis, dim)
+
+
+def reduce_scatter(x, mesh: LiveMesh, axis, dim: int):
+    """The sum of ``x`` over ``axis``, this rank's shard of it along
+    ``dim``; the gradient is all-gathered back."""
+    if mesh.size(axis) == 1:
+        return x
+    return _ReduceScatter.apply(x, mesh, axis, dim)
+
+
+def all_to_all(x, mesh: LiveMesh, axis):
+    """``x [n, ...]``: slice ``j`` goes to the rank at index ``j`` along
+    ``axis``, and slice ``j`` of the result came from it; the gradient
+    travels back the same way."""
+    if mesh.size(axis) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis)

@@ -22,11 +22,25 @@ one tensor per layer where the reference stacks a unit's layers
 dimensions in the order :data:`KV_REFERENCE_DIMS`; its spec is permuted
 the same way.
 
-:func:`build_prefill_step` and :func:`build_serve_step` run on one card;
+The step builders take the reference's ``rules`` (None: one rank, every
+leaf whole) and run their bodies under :func:`~repro_torch.launch.
+sharding.use_rules`.  With rules that carry a live mesh, every argument is
+the rank's shard (:func:`~repro_torch.launch.sharding.distribute_params`,
+:func:`local_zeros`, :func:`~repro_torch.launch.sharding.distribute`) and
+the steps run the layers on the shards, as the reference's run under
+``jax.jit`` with ``in_shardings``.  The training step then computes the
+loss of the rank's batch shard (its share of the global batch's mean),
+sums every gradient over the data-parallel axes its leaf is not split over
+(the fsdp leaves' sum over ``data`` is their gather's reduce-scatter), so
+each rank holds its shard of the global batch's gradient, clips by the
+norm over all shards and applies AdamW to the shards.
+
 :func:`build_cell` is the eager counterpart of the reference's
 ``lower_cell``: there is no lowering in eager PyTorch, so it returns the
-step with its input specs and the reference's ``meta`` record.  The
-dry-run (:mod:`repro_torch.launch.dryrun`) runs that step on ``meta``.
+step with its input specs and the reference's ``meta`` record; given a
+live mesh, the step runs on real placements.  The dry-run
+(:mod:`repro_torch.launch.dryrun`) runs a cell's step on ``meta``, with
+no rules.
 """
 
 from __future__ import annotations
@@ -39,7 +53,10 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.cells import CellKnobs, knobs_for
-from repro_torch.launch.sharding import ShardingRules, param_pspecs
+from repro_torch.launch.sharding import (
+    ShardingRules, local_shape, param_pspecs, spec_divisor, tp_group,
+    use_rules,
+)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2
 from repro_torch.models import transformer as T
@@ -51,8 +68,9 @@ from repro_torch.optim import adamw
 __all__ = ["Cell", "KV_REFERENCE_DIMS", "accumulate_grads", "batch_specs",
            "build_cell", "build_prefill_step", "build_serve_step",
            "build_train_step", "cache_pspecs", "cache_reference_paths",
-           "cache_specs", "default_opt_config", "make_rules", "model_specs",
-           "next_token", "opt_specs"]
+           "cache_specs", "default_opt_config", "local_zeros", "make_rules",
+           "model_specs", "next_token", "opt_specs", "reduce_grads",
+           "sharded_grad_norm"]
 
 #: a KV cache leaf's dims in the reference's order: the port's ``[B, Hkv,
 #: S, hd]`` is the reference's ``[B, S, Hkv, hd]`` permuted by this
@@ -269,8 +287,40 @@ def accumulate_grads(params, batch, run_cfg: ModelConfig,
     return loss_sum / k, {name: a.div_(k) for name, a in zip(named, acc)}
 
 
+def reduce_grads(params, grads: Dict[str, torch.Tensor],
+                 rules: ShardingRules) -> Dict[str, torch.Tensor]:
+    """Each rank's gradient shards -> the global batch's: every leaf summed
+    over the data-parallel axes its storage spec does not split it over
+    (one all-reduce a leaf; a leaf split over ``data`` got its sum over
+    ``data`` from its gather's reduce-scatter, an expert-parallel one from
+    the all-to-all's backward)."""
+    live = rules.live
+    out = {}
+    for name, p in adamw.named_params(params).items():
+        named = {a for entry in p.mesh_spec
+                 for a in (entry if isinstance(entry, tuple) else (entry,))}
+        axes = tuple(a for a in rules.dp_axes if a not in named)
+        out[name] = mesh_lib.all_reduce(grads[name], live, axes)
+    return out
+
+
+def sharded_grad_norm(params, grads: Dict[str, torch.Tensor],
+                      rules: ShardingRules) -> torch.Tensor:
+    """The global norm of the whole gradient from the shards: each leaf's
+    sum of squares over its copies (the ranks that hold the same shard),
+    summed over every axis."""
+    live, layout = rules.live, rules.live.layout
+    total = None
+    for name, p in adamw.named_params(params).items():
+        copies = layout.size // spec_divisor(p.mesh_spec, layout)
+        sq = (grads[name].float() ** 2).sum() / copies
+        total = sq if total is None else total + sq
+    return torch.sqrt(mesh_lib.all_reduce(total, live, layout.axis_names))
+
+
 def build_train_step(cfg: ModelConfig, knobs: CellKnobs,
-                     opt_cfg: Optional[adamw.AdamWConfig] = None):
+                     opt_cfg: Optional[adamw.AdamWConfig] = None,
+                     rules: Optional[ShardingRules] = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", "lr"})``.
 
@@ -283,16 +333,25 @@ def build_train_step(cfg: ModelConfig, knobs: CellKnobs,
     :func:`~repro_torch.optim.adamw.apply_updates`.  The parameters
     (marked as requiring grad) and the optimizer state are updated in
     place and returned.  ``loss`` is the mean of the microbatches' losses;
-    all three metrics are float32 0-d tensors."""
+    all three metrics are float32 0-d tensors.  Under ``rules`` with a
+    live mesh the arguments are the rank's shards (module docstring): the
+    gradients are reduced by :func:`reduce_grads`, the clip's norm is
+    :func:`sharded_grad_norm`, and every rank reports the global loss."""
     run_cfg = dataclasses.replace(cfg, remat=knobs.remat)
     accum_dtype = torch_dtype(knobs.grad_accum_dtype)
     if opt_cfg is None:
         opt_cfg = default_opt_config(cfg)
 
     def train_step(params, opt_state, batch):
-        loss, grads = accumulate_grads(params, batch, run_cfg, accum_dtype)
+        with use_rules(rules):
+            loss, grads = accumulate_grads(params, batch, run_cfg,
+                                           accum_dtype)
+        gnorm = None
+        if rules is not None:
+            grads = reduce_grads(params, grads, rules)
+            gnorm = sharded_grad_norm(params, grads, rules)
         params, opt_state, om = adamw.apply_updates(params, grads, opt_state,
-                                                    opt_cfg)
+                                                    opt_cfg, grad_norm=gnorm)
         return params, opt_state, {"loss": loss, **om}
 
     return train_step
@@ -302,31 +361,49 @@ def build_train_step(cfg: ModelConfig, knobs: CellKnobs,
 # serving steps
 # ---------------------------------------------------------------------------
 
-def next_token(logits: torch.Tensor) -> torch.Tensor:
+def next_token(logits: torch.Tensor,
+               vocab: Optional[int] = None) -> torch.Tensor:
     """The greedy token of each row: argmax over the last position's
-    float32 logits -> int32 ``[B]``."""
-    return logits[:, -1].float().argmax(dim=-1).to(torch.int32)
+    float32 logits -> int32 ``[B]``.  Logits with fewer than ``vocab``
+    columns are this rank's block of the model axis (active rules): the
+    block's maximum and index, then over the blocks the largest, the
+    lowest index on ties, as a global argmax gives."""
+    last = logits[:, -1].float()
+    if vocab is None or last.shape[-1] == vocab:
+        return last.argmax(dim=-1).to(torch.int32)
+    live, axis, _, r = tp_group()
+    idx = last.argmax(dim=-1)
+    val = last.gather(-1, idx[:, None])[:, 0]
+    mine = torch.stack([val.double(), (idx + r * last.shape[-1]).double()],
+                       dim=-1)
+    every = mesh_lib.all_gather(mine[None], live, axis, 0)  # [n, B, 2]
+    best = every[..., 0].argmax(dim=0)          # the first block on ties
+    return every[..., 1].gather(0, best[None])[0].to(torch.int32)
 
 
-def build_prefill_step(cfg: ModelConfig):
+def build_prefill_step(cfg: ModelConfig,
+                       rules: Optional[ShardingRules] = None):
     """``prefill_step(params, caches, batch) -> (next_tok int32 [B],
     caches)``: ``prefill_forward`` over the batch (the reference's keys),
-    the caches written in place."""
+    the caches written in place; under ``rules``, on the rank's shards."""
     def prefill_step(params, caches, batch):
-        logits, caches = T.prefill_forward(params, batch, cfg, caches)
-        return next_token(logits), caches
+        with use_rules(rules):
+            logits, caches = T.prefill_forward(params, batch, cfg, caches)
+            return next_token(logits, cfg.padded_vocab), caches
 
     return prefill_step
 
 
-def build_serve_step(cfg: ModelConfig):
+def build_serve_step(cfg: ModelConfig,
+                     rules: Optional[ShardingRules] = None):
     """``serve_step(params, caches, batch) -> (next_tok int32 [B],
     caches)``: one decode step of ``tokens [B, 1]`` at the reference's
     scalar ``index`` (the position every slot's token takes), with an
     encoder-decoder's ``enc_out`` passed through.  The reference attends
     the cache below ``index`` plus the token's own k/v and commits them
     after; the port writes them at ``index`` first and attends ``index +
-    1`` rows, so the scalar becomes one position per slot."""
+    1`` rows, so the scalar becomes one position per slot.  Under
+    ``rules``, on the rank's shards."""
     def serve_step(params, caches, batch):
         tokens = batch["tokens"]
         index = torch.as_tensor(batch["index"], device=tokens.device)
@@ -334,8 +411,10 @@ def build_serve_step(cfg: ModelConfig):
         dec = {"tokens": tokens}
         if "enc_out" in batch:
             dec["enc_out"] = batch["enc_out"]
-        logits, caches = T.decode_forward(params, dec, cfg, caches, index)
-        return next_token(logits), caches
+        with use_rules(rules):
+            logits, caches = T.decode_forward(params, dec, cfg, caches,
+                                              index)
+            return next_token(logits, cfg.padded_vocab), caches
 
     return serve_step
 
@@ -349,42 +428,73 @@ class Cell(NamedTuple):
     on tensors of ``specs``' shapes (the specs are on ``meta``); ``specs``
     and ``pspecs`` hold ``params`` (a Transformer / ``{name: spec}``),
     ``opt_state`` (training) or ``caches``, and ``batch``, in the step's
-    argument order; ``meta`` is the reference's record of the cell."""
+    argument order; ``meta`` is the reference's record of the cell;
+    ``rules`` the rules the step runs under (None without a live mesh)."""
     step: Callable
     specs: Dict[str, Any]
     pspecs: Dict[str, Any]
     meta: Dict[str, Any]
     device: torch.device
+    rules: Optional[ShardingRules] = None
+
+
+def local_zeros(tree, specs, rules: ShardingRules, device):
+    """Zeros of each rank's shard of a tree of meta tensors (the caches of
+    :func:`cache_specs`) with matching ``specs``."""
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros(local_shape(tree.shape, specs, rules.live),
+                           dtype=tree.dtype, device=device)
+    if isinstance(tree, dict):
+        return {k: local_zeros(v, specs[k], rules, device)
+                for k, v in tree.items()}
+    return type(tree)(local_zeros(v, s, rules, device)
+                      for v, s in zip(tree, specs))
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig,
-               layout: mesh_lib.MeshLayout, *, device=None,
+               layout: mesh_lib.MeshLayout, *, device=None, mesh=None,
                **knob_overrides) -> Cell:
     """The eager counterpart of the reference's ``lower_cell``: the cell's
     step (``build_train_step``, ``build_prefill_step`` or
     ``build_serve_step``) for ``device`` (None: the CUDA card; ``"meta"``
     for a dry-run), its inputs' meta tensors and specs on ``layout``, and
-    the reference's ``meta`` (arch, shape, mesh sizes, knobs)."""
+    the reference's ``meta`` (arch, shape, mesh sizes, knobs).  With a
+    live ``mesh`` (:func:`~repro_torch.launch.mesh.live_mesh` of
+    ``layout``) the step runs under the cell's rules on the rank's shards
+    (``cell.rules``; the specs stay the whole leaves')."""
     dev = resolve_device(device)
     knobs = knobs_for(cfg, shape, **knob_overrides)
     rules = make_rules(layout, cfg, knobs)
+    run = None
+    if mesh is not None:
+        if mesh.layout != layout:
+            raise ValueError(f"the live mesh is {mesh.layout}, the cell's "
+                             f"layout {layout}")
+        run = dataclasses.replace(rules, live=mesh)
+        if shape.kind != "train" and shape.global_batch % rules.dp_size():
+            # the reference's long-context decode splits the caches'
+            # sequence over the data axes, which the layers here do not run
+            raise NotImplementedError(
+                f"{shape.name}: a batch of {shape.global_batch} over "
+                f"{rules.dp_size()} data-parallel ranks shards the caches' "
+                f"sequence, which runs on one data-parallel rank only")
     params, params_ps = model_specs(cfg, rules)
     batch, batch_ps = batch_specs(cfg, shape, rules, knobs)
     meta = {"arch": cfg.name, "shape": shape.name, "mesh": layout.shape,
             "knobs": dataclasses.asdict(knobs)}
     if shape.kind == "train":
         opt, opt_ps = opt_specs(params, params_ps)
-        return Cell(build_train_step(cfg, knobs),
+        return Cell(build_train_step(cfg, knobs, rules=run),
                     {"params": params, "opt_state": opt, "batch": batch},
                     {"params": params_ps, "opt_state": opt_ps,
-                     "batch": batch_ps}, meta, dev)
+                     "batch": batch_ps}, meta, dev, run)
     serve_cfg = dataclasses.replace(cfg, decode_unroll=knobs.decode_unroll)
     build = build_prefill_step if shape.kind == "prefill" \
         else build_serve_step
-    return Cell(build(serve_cfg),
+    return Cell(build(serve_cfg, run),
                 {"params": params,
                  "caches": cache_specs(cfg, shape, tp=rules.tp_size()),
                  "batch": batch},
                 {"params": params_ps,
                  "caches": cache_pspecs(cfg, shape, rules),
-                 "batch": batch_ps}, meta, dev)
+                 "batch": batch_ps}, meta, dev, run)

@@ -2,11 +2,18 @@
 cross attention, with prefill (cache write) and decode (cache read), through
 the flash and decode attention kernels.
 
-Port of ``repro/models/attention.py`` for one card: the layers run
-unpadded heads.  :func:`padded_head_counts` is the reference's
-tensor-parallel head padding, which ``launch/steps.py`` reads to size the
-caches of a mesh layout; the padding itself runs with the multi-card
-mesh (ROADMAP).  The mask modes are the reference's: ``CAUSAL``, ``SLIDING``, ``PREFIX``
+Port of ``repro/models/attention.py``.  Under sharding rules with a live
+mesh (:mod:`repro_torch.launch.sharding`) whose model axis has ``n > 1``
+ranks, a layer runs this rank's heads: the reference's TP head padding
+(:func:`padded_head_counts`: q heads padded with zeros to a multiple of
+``n``, kv heads by the group ratio), q, k and v for the rank's block of
+the padded heads (projected by its shard of ``wq``/``wk``/``wv``, or
+projected whole, padded and sliced when the weights are replicated), flash
+or decode on those heads, and ``wo`` row-parallel: the rows of the rank's
+real heads, the partial sum all-reduced (the reference's next
+``constrain``).  Heads that do not divide and cannot be padded stay
+TP-replicated, as in the reference.  Without rules the layers run every
+head.  The mask modes are the reference's: ``CAUSAL``, ``SLIDING``, ``PREFIX``
 (bidirectional over the first ``prefix_len`` positions, causal after:
 ``k <= q or k < prefix_len``, which is what the reference's rule reduces
 to) and ``BIDIR`` (the encoder).  Cross attention
@@ -40,6 +47,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.sharding import active_rules, constrain
 from repro_torch.models import layers
 
 NEG_INF = -2.0e38
@@ -81,6 +90,7 @@ class Attention(nn.Module):
         def param(*shape):
             return layers.zeros_param(shape, dtype, device)
 
+        self.n_heads, self.n_kv = n_heads, n_kv
         self.wq = param(d_model, n_heads, head_dim)
         self.wk = param(d_model, n_kv, head_dim)
         self.wv = param(d_model, n_kv, head_dim)
@@ -149,6 +159,113 @@ def _positions(cache_index, b: int, s: int, device) -> torch.Tensor:
     return base[:, None].to(torch.int64) + torch.arange(s, device=device)
 
 
+def kv_block(q_lo: int, hq: int, group: int):
+    """(first kv head, count) when q heads ``[q_lo, q_lo + hq)`` of GQA
+    groups of ``group`` read a block of kv heads in equal shares (each kv
+    head of the block by ``hq / count`` of them), the layout of a ``narrow``
+    view; None otherwise."""
+    ids = [(q_lo + j) // group for j in range(hq)]
+    first, count = ids[0], ids[-1] - ids[0] + 1
+    if hq % count == 0 and ids == [first + j // (hq // count)
+                                   for j in range(hq)]:
+        return first, count
+    return None
+
+
+class _Heads:
+    """One rank's heads under active rules whose model axis has ``n > 1``
+    ranks and pads or divides the q heads (:func:`_heads` gives None
+    otherwise).  Head indices below are global, over the padded heads:
+    the rank's q heads are ``[lo, lo + hq)``."""
+
+    def __init__(self, rules, n: int, params: "Attention"):
+        self.live, self.axis = rules.live, rules.tp
+        self.n_heads = params.n_heads
+        self.hq_pad, self.kv_pad = padded_head_counts(params.n_heads,
+                                                      params.n_kv, n)
+        self.group = self.hq_pad // self.kv_pad
+        self.hq = self.hq_pad // n
+        self.lo = self.live.index(self.axis) * self.hq
+        # whether a projection holds every head (replicated over the model
+        # axis) rather than this rank's shard, which holds 1/n of them
+        self.q_full = params.wq.shape[1] == params.n_heads
+        self.kv_full = params.wk.shape[1] == params.n_kv
+
+    def enter(self, x, params: "Attention"):
+        """The block's input and weights as this rank uses them: x and
+        every replicated weight through ``copy_in``, so their gradients sum
+        over the ranks' heads."""
+        live, axis = self.live, self.axis
+
+        def use(t, full):
+            return mesh_lib.copy_in(t, live, axis) if full else t
+
+        return (mesh_lib.copy_in(x, live, axis), use(params.wq, self.q_full),
+                use(params.wk, self.kv_full), use(params.wv, self.kv_full),
+                use(params.wo, self.q_full))
+
+    def q_local(self, q):
+        """q ``[B, S, H, hd]`` of every (unpadded) head or of this rank's
+        block -> this rank's padded block."""
+        if not self.q_full:
+            return q
+        return constrain(_pad_heads(q, self.hq_pad), "batch", None, "tp",
+                         None, have=("batch", None, None, None))
+
+    def kv_heads(self, t):
+        """k or v ``[B, S, Hkv, hd]`` of every kv head or of this rank's
+        shard -> (padded tensor, global index of its first head)."""
+        if not self.kv_full:
+            return t, self.live.index(self.axis) * t.shape[2]
+        return _pad_heads(t, self.kv_pad), 0
+
+    def cache_lo(self, cache) -> int:
+        """The global index of the cache's first kv head (the cache holds
+        the rank's block of the padded kv heads, or all of them)."""
+        c = cache["k"].shape[1]
+        return 0 if c == self.kv_pad else self.live.index(self.axis) * c
+
+    def for_q(self, t, lo: int, dim: int):
+        """The kv heads this rank's q heads read, from ``t`` holding heads
+        ``[lo, ...)`` along ``dim``: a block of whole GQA groups as a view
+        (the decode kernel reads a cache's block in place), or one kv head
+        per q head, copied, where the rank's q heads take unequal shares of
+        their groups."""
+        block = kv_block(self.lo, self.hq, self.group)
+        if block is not None:
+            return t.narrow(dim, block[0] - lo, block[1])
+        ids = [(self.lo + j) // self.group - lo for j in range(self.hq)]
+        return t.index_select(dim, torch.tensor(ids, device=t.device))
+
+    def out(self, o, wo, dtype):
+        """o ``[B, S, hq, hd]`` of this rank's padded heads -> the block's
+        output: its real heads through their ``wo`` rows, the partial sums
+        all-reduced."""
+        if self.q_full:                       # wo replicated: the real rows
+            real = max(0, min(self.hq, self.n_heads - self.lo))
+            o, wo = o[:, :, :real], wo[self.lo:self.lo + real]
+        return constrain(_out(o, wo, dtype), "batch", None, None,
+                         partial="tp")
+
+
+def _heads(params: "Attention"):
+    rules = active_rules()
+    if rules is None or rules.tp is None:
+        return None
+    n = rules.live.size(rules.tp)
+    if n == 1 or padded_head_counts(params.n_heads, params.n_kv, n)[0] % n:
+        return None
+    return _Heads(rules, n, params)
+
+
+def _pad_heads(t, n_pad: int):
+    """``[B, S, H, hd]`` with zero heads appended up to ``n_pad``."""
+    h = t.shape[2]
+    if n_pad == h:
+        return t
+    return torch.nn.functional.pad(t, (0, 0, 0, n_pad - h))
+
+
 def attention_block(x, params: Attention, *, mode: str, rope_theta: float,
                     window: int = 0, prefix_len: int = 0,
                     softcap: float = 0.0, cache: Optional[dict] = None,
@@ -163,17 +280,35 @@ def attention_block(x, params: Attention, *, mode: str, rope_theta: float,
       decode; the token's k/v land in the cache in place at those positions
       (each must be ``< S_max``) and the step attends positions
       ``[0, index]`` (the last ``window`` of them for a sliding layer).
-    The cache is updated in place and returned."""
+    The cache is updated in place and returned.  Under active rules the
+    rank's heads run (module docstring); its cache holds the kv heads its
+    spec gives it."""
     if mode not in MODES:
         raise ValueError(f"attention mode {mode!r}; known: {MODES}")
     b, s, _ = x.shape
-    q = _project(x, params.wq)
-    k = _project(x, params.wk)
-    v = _project(x, params.wv)
+    tp = _heads(params)
+    if tp is None:
+        wq, wk, wv, wo = params.wq, params.wk, params.wv, params.wo
+    else:
+        x, wq, wk, wv, wo = tp.enter(x, params)
+    q = _project(x, wq)
+    k = _project(x, wk)
+    v = _project(x, wv)
+    k_lo = 0
+    if tp is not None:
+        q = tp.q_local(q)
+        (k, k_lo), (v, _) = tp.kv_heads(k), tp.kv_heads(v)
     positions = _positions(cache_index, b, s, x.device)
     q = layers.rope(q, positions, rope_theta)
     k = layers.rope(k, positions, rope_theta)
     win = window if mode == SLIDING else 0
+
+    def cache_heads(t):
+        """The heads of k or v the cache holds."""
+        if tp is None:
+            return t
+        c_lo = tp.cache_lo(cache)
+        return t.narrow(2, c_lo - k_lo, cache["k"].shape[1])
 
     if cache_index is not None:
         if cache is None or s != 1:
@@ -181,22 +316,31 @@ def attention_block(x, params: Attention, *, mode: str, rope_theta: float,
         idx = positions[:, 0]
         slots = torch.arange(b, device=x.device)
         ck, cv = cache["k"], cache["v"]
-        ck[slots, :, idx] = k[:, 0].to(ck.dtype)
-        cv[slots, :, idx] = v[:, 0].to(cv.dtype)
+        ck[slots, :, idx] = cache_heads(k)[:, 0].to(ck.dtype)
+        cv[slots, :, idx] = cache_heads(v)[:, 0].to(cv.dtype)
+        if tp is not None:
+            c_lo = tp.cache_lo(cache)
+            ck, cv = tp.for_q(ck, c_lo, 1), tp.for_q(cv, c_lo, 1)
         o = ops.decode_attention(
             q[:, 0], ck, cv, (idx + 1).to(torch.int32),
             softcap=softcap, window=win + 1 if win else 0,
         )[:, None]                                        # [B, 1, Hq, hd]
     else:
         if cache is not None:
-            cache["k"][:, :, :s] = k.transpose(1, 2).to(cache["k"].dtype)
-            cache["v"][:, :, :s] = v.transpose(1, 2).to(cache["v"].dtype)
+            cache["k"][:, :, :s] = cache_heads(k).transpose(1, 2).to(
+                cache["k"].dtype)
+            cache["v"][:, :, :s] = cache_heads(v).transpose(1, 2).to(
+                cache["v"].dtype)
+        if tp is not None:
+            k, v = tp.for_q(k, k_lo, 2), tp.for_q(v, k_lo, 2)
         o = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=mode != BIDIR, window=win, softcap=softcap,
             prefix_len=prefix_len if mode == PREFIX else 0,
         ).transpose(1, 2)                                 # [B, S, Hq, hd]
-    return _out(o, params.wo, x.dtype), cache
+    if tp is not None:
+        return tp.out(o, wo, x.dtype), cache
+    return _out(o, wo, x.dtype), cache
 
 
 def _out(o, wo, dtype):
@@ -210,9 +354,19 @@ def encode_cross_kv(enc_out, params: Attention) -> dict:
     """The encoder output ``[B, S_src, d]`` through a cross layer's ``wk``,
     ``wv`` (no rope) -> ``{"k", "v"}``, each ``[B, Hkv, S_src, hd]``: the
     flash and decode kernels' layout (the reference's is ``[B, S_src, Hkv,
-    hd]``)."""
-    return {"k": _project(enc_out, params.wk).transpose(1, 2).contiguous(),
-            "v": _project(enc_out, params.wv).transpose(1, 2).contiguous()}
+    hd]``).  Under active rules, the kv heads this rank's q heads read."""
+    tp = _heads(params)
+    if tp is None:
+        return {"k": _project(enc_out, params.wk).transpose(1, 2)
+                .contiguous(),
+                "v": _project(enc_out, params.wv).transpose(1, 2)
+                .contiguous()}
+    enc_out, _, wk, wv, _ = tp.enter(enc_out, params)
+    out = {}
+    for name, w in (("k", wk), ("v", wv)):
+        t, lo = tp.kv_heads(_project(enc_out, w))
+        out[name] = tp.for_q(t, lo, 2).transpose(1, 2).contiguous()
+    return out
 
 
 def cross_attention_block(x, params: Attention,
@@ -222,14 +376,23 @@ def cross_attention_block(x, params: Attention,
     admitted, no rope.  ``S`` queries run ``ops.flash_attention`` with no
     causal mask (against ``S_src`` keys); one query a slot (a decode step)
     runs ``ops.decode_attention`` with ``valid_len = S_src``."""
-    q = _project(x, params.wq)                            # [B, S, Hq, hd]
+    tp = _heads(params)
+    if tp is None:
+        wq, wo = params.wq, params.wo
+    else:
+        x, wq, _, _, wo = tp.enter(x, params)
+    q = _project(x, wq)                                   # [B, S, Hq, hd]
+    if tp is not None:
+        q = tp.q_local(q)
     k, v = enc_kv["k"], enc_kv["v"]
     if x.shape[1] == 1:
         o = ops.decode_attention(q[:, 0], k, v, k.shape[2])[:, None]
     else:
         o = ops.flash_attention(q.transpose(1, 2), k, v,
                                 causal=False).transpose(1, 2)
-    return _out(o, params.wo, x.dtype)
+    if tp is not None:
+        return tp.out(o, wo, x.dtype)
+    return _out(o, wo, x.dtype)
 
 
 def init_kv_cache(batch: int, s_max: int, n_kv: int, head_dim: int, dtype,

@@ -23,6 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.sharding import constrain, tp_group
+
 
 def truncated_normal_(t: torch.Tensor, stddev: float,
                       generator: Optional[torch.Generator] = None,
@@ -50,10 +53,19 @@ def zeros_param(shape, dtype, device) -> nn.Parameter:
 # RMSNorm
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+            tp=None) -> torch.Tensor:
+    """``x / rms(x) * (1 + scale)`` over the last dimension.  With ``tp``
+    (a :class:`~repro_torch.launch.sharding.TPGroup`) ``x`` and ``scale``
+    are this rank's block of a width split evenly over the model axis, and
+    the sum of squares is all-reduced over it."""
     dt = x.dtype
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if tp is None:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        var = mesh_lib.all_reduce((xf * xf).sum(dim=-1, keepdim=True),
+                                  tp.live, tp.axis) / (x.shape[-1] * tp.size)
     xf = xf * torch.rsqrt(var + eps)
     return (xf * (1.0 + scale.float())).to(dt)
 
@@ -75,8 +87,19 @@ class RMSNorm(nn.Module):
 # ---------------------------------------------------------------------------
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, *, scale: bool,
-          d_model: int, compute_dtype: torch.dtype) -> torch.Tensor:
-    x = table[tokens].to(compute_dtype)
+          d_model: int, compute_dtype: torch.dtype,
+          offset: Optional[int] = None) -> torch.Tensor:
+    """The rows of ``tokens``; with an ``offset``, ``table`` is the block of
+    the vocabulary starting there and a token outside it reads zeros (the
+    rank's part of a vocab-parallel lookup, summed over the model axis
+    after)."""
+    if offset is not None:
+        local = tokens - offset
+        inside = (local >= 0) & (local < table.shape[0])
+        x = table[local.clamp(0, table.shape[0] - 1)] * inside[..., None]
+        x = x.to(compute_dtype)
+    else:
+        x = table[tokens].to(compute_dtype)
     if scale:
         root = torch.tensor(math.sqrt(d_model), dtype=torch.float32)
         x = x * root.to(compute_dtype).to(x.device)
@@ -121,10 +144,14 @@ def activation(name: str):
 
 
 class MLP(nn.Module):
-    """``wo(act(x wi_gate) * (x wi_up))`` with the reference's layouts."""
+    """``wo(act(x wi_gate) * (x wi_up))`` with the reference's layouts.
+    Under sharding rules whose model axis shards ``ff`` (the weights hold
+    ``ff / n`` columns), each rank computes its columns and the partial
+    sums are all-reduced (:meth:`partial` leaves them unreduced)."""
 
     def __init__(self, d: int, ff: int, act: str, *, dtype, device):
         super().__init__()
+        self.ff = ff
         self.act = activation(act)
         self.wi_gate = zeros_param((d, ff), dtype, device)
         self.wi_up = zeros_param((d, ff), dtype, device)
@@ -136,7 +163,20 @@ class MLP(nn.Module):
         truncated_normal_(self.wi_up.data, d ** -0.5, generator)
         truncated_normal_(self.wo.data, ff ** -0.5, generator)
 
+    def sharded(self) -> bool:
+        """Whether this rank holds a block of the ``ff`` columns."""
+        return self.wi_gate.shape[1] != self.ff
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = tp_group() if self.sharded() else None
+        if tp is None:
+            return self.partial(x)
+        out = self.partial(mesh_lib.copy_in(x, tp.live, tp.axis))
+        return constrain(out, "batch", None, None, partial="tp")
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The product over this rank's ``ff`` columns (the whole MLP
+        unsharded); ``x`` as the rank uses it."""
         dt = x.dtype
         gate = self.act(x @ self.wi_gate.to(dt))
         up = x @ self.wi_up.to(dt)
@@ -159,3 +199,26 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     gold = logits.gather(-1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / mask.sum().clamp_min(1)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, offset: int,
+                       tp, *, ignore_id: int = -1):
+    """Per-token NLL ``[...]`` (0 at ignored labels) from this rank's block
+    of the vocabulary, ``logits [..., V_l]`` starting at ``offset``: the
+    maximum, the sum of exponentials and the target's logit each reduced
+    over the model axis (``tp`` from :func:`~repro_torch.launch.sharding.
+    tp_group`).  Every rank gets the same result; the gradient reaches each
+    rank's block of the logits."""
+    live, axis = tp.live, tp.axis
+    logits = logits.float()
+    mask = labels != ignore_id
+    m = mesh_lib.all_reduce(logits.detach().amax(dim=-1), live, axis,
+                            op="max")
+    sumexp = mesh_lib.reduce_out(torch.exp(logits - m[..., None]).sum(-1),
+                                 live, axis)
+    local = labels.long() - offset
+    inside = mask & (local >= 0) & (local < logits.shape[-1])
+    gold = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])
+    gold = mesh_lib.reduce_out(torch.where(inside, gold[..., 0], 0.0), live,
+                               axis)
+    return (m + torch.log(sumexp) - gold) * mask

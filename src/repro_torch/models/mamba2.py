@@ -23,6 +23,15 @@ A step of :func:`mamba_block`:
   recurrence, which reads only the first token; the port scans every
   ``S > 1`` (ROADMAP Queue 3).
 
+Under sharding rules whose model axis shards ``d_inner`` (``w_z``,
+``w_x``, ``conv_x`` and ``w_out`` hold the rank's block; ``w_B``, ``w_C``,
+``w_dt`` and the per-head vectors stay whole), each rank runs its block
+of the heads: ``dt``, ``A`` and ``D`` for its heads only, the scan on its
+heads, the gated RMSNorm over the WHOLE ``d_inner`` (the sum of squares
+all-reduced over the model axis), and ``w_out`` row-parallel, its partial
+sum all-reduced.  The replicated weights pass through ``copy_in``, so
+their gradients sum over the ranks' heads.
+
 The recurrent state of a layer is ``{"h", "conv_x", "conv_B", "conv_C"}``:
 ``h [B, H, N, P]`` float32 and the last ``W - 1`` conv inputs ``[B, W-1,
 D]``.  Given a state, the block writes the new one into it in place.
@@ -38,6 +47,8 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import SSD_CLIP
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.sharding import constrain, tp_group
 from repro_torch.models import layers
 from repro_torch.models.config import SSMConfig
 
@@ -153,32 +164,55 @@ def mamba_block(x, params: Mamba, ssm: SSMConfig, *, norm_eps: float,
     d_inner, n_heads = dims(d_model, ssm)
     g, n, p = ssm.ngroups, ssm.d_state, ssm.headdim
     cd = x.dtype
+    w = {k: getattr(params, k) for k in ("w_B", "w_C", "w_dt", "conv_B",
+                                         "conv_C", "dt_bias", "A_log", "D")}
+    scale = params.norm.scale
+    tp = tp_group() if params.w_x.shape[1] != d_inner else None
+    if tp is not None:
+        live, axis, tp_n, r = tp
+        if n_heads % tp_n or g != 1:
+            raise NotImplementedError(f"Mamba TP needs the heads ({n_heads}) "
+                                      f"to divide over {tp_n} ranks and one "
+                                      f"B/C group ({g})")
+        x = mesh_lib.copy_in(x, live, axis)
+        w = {k: mesh_lib.copy_in(t, live, axis) for k, t in w.items()}
+        scale = mesh_lib.copy_in(scale, live, axis)
+        d_inner, n_heads = d_inner // tp_n, n_heads // tp_n
+        heads = slice(r * n_heads, (r + 1) * n_heads)
+        w["w_dt"] = w["w_dt"][:, heads]
+        for k in ("dt_bias", "A_log", "D"):
+            w[k] = w[k][heads]
+        scale = scale[r * d_inner:(r + 1) * d_inner]
     z = x @ params.w_z.to(cd)
     xr = x @ params.w_x.to(cd)
-    Bm = x @ params.w_B.to(cd)
-    Cm = x @ params.w_C.to(cd)
-    dt_raw = x @ params.w_dt.to(cd)
+    Bm = x @ w["w_B"].to(cd)
+    Cm = x @ w["w_C"].to(cd)
+    dt_raw = x @ w["w_dt"].to(cd)
 
     cs = state if state is not None else {}
     xr, new_cx = _causal_conv(xr, params.conv_x, cs.get("conv_x"))
-    Bm, new_cb = _causal_conv(Bm, params.conv_B, cs.get("conv_B"))
-    Cm, new_cc = _causal_conv(Cm, params.conv_C, cs.get("conv_C"))
+    Bm, new_cb = _causal_conv(Bm, w["conv_B"], cs.get("conv_B"))
+    Cm, new_cc = _causal_conv(Cm, w["conv_C"], cs.get("conv_C"))
 
     xh = xr.reshape(b, s, n_heads, p)
     Bmat = Bm.reshape(b, s, g, n)
     Cmat = Cm.reshape(b, s, g, n)
-    dt = F.softplus(dt_raw.float() + params.dt_bias[None, None, :])
-    A = -torch.exp(params.A_log)
+    dt = F.softplus(dt_raw.float() + w["dt_bias"][None, None, :])
+    A = -torch.exp(w["A_log"])
 
     if state is not None and s == 1:
         y, h_new = ssd_decode_step(xh, dt, A, Bmat, Cmat, state["h"])
     else:
         y, h_new = _scan(xh, dt, A, Bmat, Cmat)
 
-    y = y + xh * params.D[None, None, :, None].to(cd)
+    y = y + xh * w["D"][None, None, :, None].to(cd)
     y = y.reshape(b, s, d_inner) * F.silu(z)
-    y = layers.rmsnorm(y, params.norm.scale, norm_eps)
+    # the gated norm over the whole d_inner: under TP the squares summed
+    # over the ranks' blocks, each rank scaling its own
+    y = layers.rmsnorm(y, scale, norm_eps, tp)
     out = y @ params.w_out.to(cd)
+    if tp is not None:
+        out = constrain(out, "batch", None, None, partial="tp")
 
     if state is not None:
         state["h"].copy_(h_new)

@@ -26,11 +26,28 @@ layer's table: each token's at most ``k`` rows summed in buffer order);
 the combine's, the router's and the experts' are autograd's of plain
 PyTorch.
 
+Under sharding rules with a live mesh (:mod:`repro_torch.launch.sharding`):
+
+* with ``rules.moe_a2a``, :func:`moe_ffn_a2a`, the reference's
+  expert-parallel route (the paper's S2 dispatch at production scale):
+  each data shard routes its tokens and packs them per destination
+  (:func:`_flat_dispatch`), one ``all_to_all`` over ``data`` sends them to
+  the experts' owners, each rank runs its ``E / n_ep`` experts with ``ff``
+  over the model axis, one ``all_to_all`` brings the rows back, the
+  combine, then a single all-reduce of the ``[T, d]`` partial sums over the
+  model axis (the shared experts' partial sums added before it);
+* otherwise, with the experts split over the model axis, each rank
+  gathers and runs the buffer rows of its experts and the partial outputs
+  are all-reduced (the reference's GSPMD partial sum).
+
+Both take the load-balance loss averaged over the data-parallel axes, and
+both run the gather and the combine through ``ops.token_rows_table``,
+``ops.moe_gather`` and ``ops.moe_combine`` on the rank's own table.
+
 What differs from the reference: the combine accumulates in float32, each
 token summing its at most ``k`` rows in buffer order, and rounds once; the
 reference scatter-adds in the activations' dtype, which on the card in
-bfloat16 would add in the atomics' order.  The all-to-all expert-parallel
-path (``moe_ffn_a2a``) is not ported (it needs the mesh of ``launch/``).
+bfloat16 would add in the atomics' order.
 """
 
 from __future__ import annotations
@@ -42,6 +59,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.sharding import active_rules, tp_group
 from repro_torch.models import layers
 from repro_torch.models.config import MoEConfig
 
@@ -131,21 +150,59 @@ def dispatch_indices(expert_ids, weights, moe: MoEConfig, cap: int):
     return buf_token[:, :e * cap], buf_weight[:, :e * cap]
 
 
+def _dp_mean(aux, rules):
+    """A loss averaged over the data-parallel axes of ``rules``."""
+    live = rules.live
+    n = live.size(rules.dp_axes)
+    return mesh_lib.reduce_out(aux, live, rules.dp_axes) / n
+
+
+def _with_shared(out, x, xin, params: MoE, tp):
+    """The experts' output plus the shared experts', reduced over the model
+    axis when either is a partial sum there (``tp``; ``xin`` is ``x``
+    through ``copy_in``)."""
+    shared = params.shared
+    if tp is None:
+        return out if shared is None else out + shared(x)
+    if shared is not None and shared.sharded():
+        out = out + shared.partial(xin)
+    out = mesh_lib.reduce_out(out, tp.live, tp.axis)
+    if shared is not None and not shared.sharded():
+        out = out + shared(x)
+    return out
+
+
 def moe_ffn(x, params: MoE, moe: MoEConfig) -> Tuple[torch.Tensor,
                                                        torch.Tensor]:
-    """x ``[B, S, d]`` -> (out ``[B, S, d]`` of x's dtype, aux loss)."""
+    """x ``[B, S, d]`` -> (out ``[B, S, d]`` of x's dtype, aux loss).  Under
+    rules with ``moe_a2a`` it is :func:`moe_ffn_a2a`."""
+    rules = active_rules()
+    if rules is not None and rules.moe_a2a:
+        return moe_ffn_a2a(x, params, moe, rules)
     b, s, d = x.shape
     e, k = moe.num_experts, moe.top_k
     cap = capacity(s, moe)
     expert_ids, weights, aux = route(x, params, moe)
     buf_token, buf_weight = dispatch_indices(expert_ids, weights, moe, cap)
+    tp, xin = None, x
+    if rules is not None:
+        aux = _dp_mean(aux, rules)
+        if params.w_gate.shape[0] != e:       # this rank's experts
+            tp = tp_group()
+            e = params.w_gate.shape[0]
+            lo = tp.index * e * cap
+            # the tokens and the routing weights enter the rank's own part
+            buf_weight = mesh_lib.copy_in(buf_weight, tp.live, tp.axis)
+            buf_token = buf_token[:, lo:lo + e * cap]
+            buf_weight = buf_weight[:, lo:lo + e * cap]
+            xin = mesh_lib.copy_in(x, tp.live, tp.axis)
 
     # one gather for the batch: sequence b's token t is row b * S + t of
     # the flattened x, and every "none" row points past its end
     base = torch.arange(b, dtype=torch.int32, device=x.device)[:, None] * s
     rows = torch.where(buf_token < s, buf_token + base, b * s).reshape(-1)
     table = ops.token_rows_table(rows, b * s, k)
-    buf = ops.moe_gather(x.reshape(b * s, d), rows, max_rows_per_token=k,
+    buf = ops.moe_gather(xin.reshape(b * s, d), rows, max_rows_per_token=k,
                          table=table).reshape(b, e, cap, d)
 
     dt = x.dtype
@@ -157,9 +214,74 @@ def moe_ffn(x, params: MoE, moe: MoEConfig) -> Tuple[torch.Tensor,
     out = ops.moe_combine(out_buf.reshape(b * e * cap, d), rows,
                           buf_weight.reshape(-1), b * s,
                           max_rows_per_token=k, table=table).reshape(b, s, d)
-    if params.shared is not None:
-        out = out + params.shared(x)
-    return out, aux
+    return _with_shared(out, x, xin, params, tp), aux
+
+
+def _flat_dispatch(flat_e, flat_w, e: int, cap: int, k: int = 1):
+    """The reference's 1-D sort-based capacity packing: the picks ``[T
+    k]`` (token ``i // k``) -> (buf_token ``[E cap]`` int32, the source
+    token of each row or ``T`` for none; buf_weight ``[E cap]`` float32),
+    :func:`dispatch_indices` on one sequence of ``T`` tokens."""
+    ids = flat_e.reshape(1, -1, k)
+    w = flat_w.reshape(1, -1, k)
+    buf_token, buf_weight = dispatch_indices(
+        ids, w, MoEConfig(num_experts=e, top_k=k), cap)
+    return buf_token[0], buf_weight[0]
+
+
+def moe_ffn_a2a(x, params: MoE, moe: MoEConfig, rules) -> Tuple[
+        torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE with all-to-all token routing, the reference's
+    ``moe_ffn_a2a``: this rank's tokens ``x [B_l, S, d]`` (its data shard)
+    -> (out ``[B_l, S, d]``, aux averaged over the data-parallel axes).
+
+    The experts are split over ``data`` (the partition owners: ``w_gate``,
+    ``w_up [E / n_ep, d, ff / tp]``, ``w_down [E / n_ep, ff / tp, d]``) and
+    replicated over ``pod``; the router is whole.  The shard's ``T = B_l
+    S`` tokens are routed and packed per destination into ``[n_ep, E_l
+    cap, d]`` rows (capacity ``cap`` over the shard's tokens), one
+    ``all_to_all`` over ``data`` each way carries them to the owners and
+    back, and the combine's partial sums (the expert FFN's ``ff`` is over
+    the model axis) are all-reduced once over the model axis."""
+    live = rules.live
+    ep, tp = "data", tp_group()
+    n_ep = live.size(ep)
+    e, k = moe.num_experts, moe.top_k
+    e_l = e // n_ep
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    # the shard's tokens routed as one sequence (the reference's body)
+    ids, w, aux = route(xf[None], params, moe)
+    aux = _dp_mean(aux, rules)
+
+    cap = max(4, -(-int(t * k * moe.capacity_factor / e) // 4) * 4)
+    buf_token, buf_w = _flat_dispatch(ids.reshape(t * k), w.reshape(t * k),
+                                      e, cap, k)
+    xin = xf
+    if tp is not None:
+        # the combine weights partial rows of ff: the tokens and the routing
+        # weights enter the rank's own part
+        xin = mesh_lib.copy_in(xf, tp.live, tp.axis)
+        buf_w = mesh_lib.copy_in(buf_w, tp.live, tp.axis)
+    table = ops.token_rows_table(buf_token, t, k)
+    send = ops.moe_gather(xin, buf_token, max_rows_per_token=k, table=table)
+    recv = mesh_lib.all_to_all(send.reshape(n_ep, e_l * cap, d), live, ep)
+    # [n_ep (source), E_l cap, d] -> [E_l, n_ep cap, d]
+    recv = recv.reshape(n_ep, e_l, cap, d).transpose(0, 1).reshape(
+        e_l, n_ep * cap, d)
+    dt = x.dtype
+    gate = params.act(torch.einsum("erd,edf->erf", recv,
+                                   params.w_gate.to(dt)))
+    up = torch.einsum("erd,edf->erf", recv, params.w_up.to(dt))
+    out = torch.einsum("erf,efd->erd", gate * up, params.w_down.to(dt))
+    back = out.reshape(e_l, n_ep, cap, d).transpose(0, 1).reshape(
+        n_ep, e_l * cap, d)
+    rows = mesh_lib.all_to_all(back, live, ep).reshape(e * cap, d)
+    y = ops.moe_combine(rows, buf_token, buf_w, t, max_rows_per_token=k,
+                        table=table)
+    y = _with_shared(y, xf, xin, params, tp)
+    return y.reshape(b, s, d), aux
 
 
 def moe_ffn_dense_oracle(x, params: MoE, moe: MoEConfig):

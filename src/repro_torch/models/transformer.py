@@ -49,6 +49,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.sharding import (
+    active_rules, constrain, gather_params_for_compute, gathered, tp_group,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, mamba2, moe
 from repro_torch.models.config import (
@@ -128,7 +132,14 @@ class DecoderLayer(nn.Module):
         (float32, 0-d), None for other layers.  ``mode`` and ``prefix_len``
         are a full-attention layer's mask (a sliding layer's is always
         ``SLIDING``); ``enc_out`` drives the cross attention, when the layer
-        has one."""
+        has one.  Under sharding rules the layer computes with its weights
+        gathered at use (ZeRO's gather; the reference's per-layer
+        ``gather_params_for_compute``)."""
+        return gather_params_for_compute(self)._apply(
+            x, cache, cache_index, mode=mode, prefix_len=prefix_len,
+            enc_out=enc_out)
+
+    def _apply(self, x, cache, cache_index, *, mode, prefix_len, enc_out):
         rs = self.residual_scale
         if self.spec.mixer == MAMBA:
             h, _ = mamba2.mamba_block(self.ln1(x), self.mixer, self.cfg.ssm,
@@ -167,7 +178,7 @@ class FrontendProj(nn.Module):
         self.w = layers.zeros_param((fd, d), dtype, device)
 
     def forward(self, e, compute_dtype):
-        return e.to(compute_dtype) @ self.w.to(compute_dtype)
+        return e.to(compute_dtype) @ gathered(self.w).to(compute_dtype)
 
 
 class Transformer(nn.Module):
@@ -208,15 +219,39 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def _table(self, table):
+        """A vocabulary table as computed with (fsdp shards gathered) and
+        the offset of its block when the model axis splits the vocabulary
+        (None when it holds it all)."""
+        table = gathered(table)
+        if table.shape[0] == self.cfg.padded_vocab:
+            return table, None
+        return table, tp_group().index * table.shape[0]
+
     def embed_tokens(self, tokens):
+        """Token embeddings in the compute dtype.  Under rules that split
+        the vocabulary over the model axis: each rank's rows of its block
+        (zeros elsewhere), summed over the axis."""
         cfg = self.cfg
-        return layers.embed(tokens, self.embed, scale=cfg.embed_scale,
-                            d_model=cfg.d_model, compute_dtype=cfg.cdtype)
+        table, offset = self._table(self.embed)
+        x = layers.embed(tokens, table, scale=cfg.embed_scale,
+                         d_model=cfg.d_model, compute_dtype=cfg.cdtype,
+                         offset=offset)
+        if offset is None:
+            return x
+        return constrain(x, "batch", None, None, partial="tp")
 
     def logits(self, x):
-        table = self.embed if self.lm_head is None else self.lm_head
-        return layers.unembed(self.final_norm(x), table,
-                              softcap=self.cfg.final_logit_softcap)
+        """Float32 logits of the final-normed ``x``; under rules that split
+        the vocabulary over the model axis, this rank's block of them (the
+        reference's ``constrain(logits, "batch", None, "tp")``)."""
+        table, offset = self._table(self.embed if self.lm_head is None
+                                    else self.lm_head)
+        x = self.final_norm(x)
+        if offset is not None:
+            tp = tp_group()
+            x = mesh_lib.copy_in(x, tp.live, tp.axis)
+        return layers.unembed(x, table, softcap=self.cfg.final_logit_softcap)
 
     def run(self, x, caches: Optional[Caches], cache_index=None, *,
             remat: bool = False, **kw):
@@ -385,10 +420,37 @@ def train_forward(params: Transformer, batch: dict, cfg: ModelConfig, *,
     logits = params.logits(x)
     if prefix_len:
         logits = logits[:, prefix_len:]
-    nll = layers.cross_entropy_loss(logits, batch["labels"])
+    rules = active_rules()
+    if rules is None:
+        nll = layers.cross_entropy_loss(logits, batch["labels"])
+    else:
+        nll = _sharded_nll(logits, batch["labels"], cfg, rules)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=nll.device)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
+
+
+def _sharded_nll(logits, labels, cfg: ModelConfig, rules):
+    """The global batch's mean token NLL from this rank's batch shard (and
+    block of the vocabulary, when ``logits`` hold fewer than
+    ``padded_vocab`` columns): each shard's sum over the global count of
+    counted labels, summed over the data-parallel axes by ``reduce_out``.
+    Every rank gets the global value; its gradient is this shard's share,
+    and the step sums the shares' parameter gradients over those axes."""
+    live = rules.live
+    mask = labels != -1
+    if logits.shape[-1] == cfg.padded_vocab:
+        safe = torch.where(mask, labels, 0).long()
+        logits = logits.float()
+        tok = (torch.logsumexp(logits, dim=-1)
+               - logits.gather(-1, safe[..., None])[..., 0]) * mask
+    else:
+        tp = tp_group()
+        tok = layers.vocab_parallel_nll(logits, labels,
+                                        tp.index * logits.shape[-1], tp)
+    count = mesh_lib.all_reduce(mask.sum().float(), live, rules.dp_axes)
+    return mesh_lib.reduce_out(tok.sum() / count.clamp_min(1), live,
+                               rules.dp_axes)
 
 
 def count_params(params: Transformer) -> int:

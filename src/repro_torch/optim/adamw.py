@@ -105,16 +105,20 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(params: Params, grads: Mapping[str, torch.Tensor],
-                  state: dict, cfg: AdamWConfig):
+                  state: dict, cfg: AdamWConfig, *, grad_norm=None):
     """One AdamW step -> ``(params, new_state, {"grad_norm", "lr"})``.
 
     ``grads`` has a leaf for every parameter (any float dtype).  The
     parameters, ``state["m"]`` and ``state["v"]`` are updated in place and
-    returned; ``new_state["step"]`` is ``state["step"] + 1``."""
+    returned; ``new_state["step"]`` is ``state["step"] + 1``.  ``grad_norm``
+    is the clip's global norm when the caller computes it (a sharded step,
+    whose leaves are shards); by default :func:`global_norm` of
+    ``grads``."""
     named = named_params(params)
     step = state["step"] + 1
     lr = schedule(cfg, step).to(step.device)
-    gnorm = global_norm(grads).to(step.device)
+    gnorm = (global_norm(grads) if grad_norm is None
+             else grad_norm).to(step.device)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2

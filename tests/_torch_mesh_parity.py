@@ -1,0 +1,566 @@
+"""The runner of the multi-rank parity tests (``test_torch_mesh_*.py``).
+
+One layout runs once: ``run_layout`` starts, side by side, a child that
+runs the JAX package's steps under ``make_rules`` on a mesh of as many
+placeholder host devices as the layout has ranks (the JAX package's own
+``tests/spmd_checks.py`` way), and one process per rank that runs the
+port's steps on a live ``torch.distributed`` mesh over gloo, on the CPU.
+Both build the same weights (``init_params`` of the port from a seed,
+carried to the JAX package by ``params_to_reference``) and tokens (numpy
+from a seed).  ``run_layout`` then returns ``{check: (passed, detail)}``
+for every name of ``checks(layout)``, which the test files parametrise
+over.
+
+Run by hand: ``python tests/_torch_mesh_parity.py jax dp2 out.npz`` (the
+reference side) or ``... rank dp2 <rank> <port> <dir>`` (one rank).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+
+#: layout key -> (axis names, sizes, knob overrides)
+LAYOUTS = {
+    "dp2": (("data", "model"), (2, 1), dict(moe_a2a=True, zero1=True)),
+    "tp2": (("data", "model"), (1, 2), {}),
+    "dp2tp2": (("data", "model"), (2, 2), dict(moe_a2a=True)),
+    "pod": (("pod", "data", "model"), (2, 2, 1),
+            dict(moe_a2a=True, zero1=True)),
+}
+#: the reduced models each layout serves; ``-pad`` is MiniCPM with 3 q and
+#: 3 kv heads, which a model axis of 2 pads to 4 and 4
+MODELS = {
+    "dp2": ("deepseek-moe-16b", "gemma2-27b", "mamba2-780m"),
+    "tp2": ("gemma2-27b", "mamba2-780m", "minicpm-2b-pad",
+            "deepseek-moe-16b"),
+    "dp2tp2": ("deepseek-moe-16b", "gemma2-27b", "minicpm-2b-pad",
+               "mamba2-780m"),
+    "pod": ("deepseek-moe-16b", "minicpm-2b"),
+}
+#: the models each layout trains one step
+TRAIN = {"dp2": ("deepseek-moe-16b",),
+         "tp2": ("gemma2-27b", "mamba2-780m", "deepseek-moe-16b")}
+#: the layouts whose rules take the all-to-all MoE route
+A2A = tuple(k for k, v in LAYOUTS.items() if v[2].get("moe_a2a"))
+#: the layouts that check a dense TP model's wire bytes (Gemma2; no fsdp
+#: gathers there: the data axis has one rank)
+WIRE_DENSE = ("tp2",)
+
+SEED = 7
+BATCH, PROMPT, STEPS = 4, 12, 8
+S_MAX = PROMPT + STEPS
+MOE_TOKENS = 8           # per sequence of the moe_ffn_a2a check
+MOE_CF = 8.0             # a capacity factor that drops nothing
+LOGIT_TOL = 1e-4         # the serving parity tests' tolerance
+MOE_TOL = 2e-5           # tests/spmd_checks.py's moe_ffn_a2a tolerance
+LOSS_RTOL = 1e-5
+PARAM_ATOL = 3e-4        # a tenth of OPT's peak learning rate
+LOOSE_SHARE = 1e-3       # elements allowed beyond 1e-6 (test_torch_ft)
+OPT = dict(peak_lr=3e-3, warmup_steps=2, total_steps=1000)
+
+
+def placements(spec, device_mesh) -> tuple:
+    """The ``DTensor`` placements of a leaf of ``spec`` on ``device_mesh``:
+    ``Shard(d)`` on every mesh dimension that dimension ``d``'s entry
+    names, ``Replicate()`` on the others (the port's local shards are
+    ``DTensor.from_local`` of these)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = device_mesh.mesh_dim_names
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        order = [names.index(a) for a in axes if a is not None]
+        if order != sorted(order):
+            raise ValueError(f"spec entry {entry} is not in the mesh's "
+                             f"order {names}")
+        for i in order:
+            if out[i] != Replicate():
+                raise ValueError(f"mesh axis {names[i]} shards two "
+                                 f"dimensions of {spec}")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def checks(key):
+    """The check names of layout ``key``, in a fixed order."""
+    out = []
+    for name in MODELS[key]:
+        out += [f"serve/{name}/tokens", f"serve/{name}/logits",
+                f"bytes/{name}/serve", f"placements/{name}"]
+    if key in A2A:
+        out += ["a2a/vs_reference", "a2a/vs_oracle", "a2a/grad",
+                "a2a/wire_bytes"]
+    for name in TRAIN.get(key, ()):
+        out += [f"train/{name}/loss", f"train/{name}/params",
+                f"bytes/{name}/train"]
+    if key in WIRE_DENSE:
+        out.append("wire/gemma2-27b/prefill")
+    return out
+
+
+def configs(name, pkg):
+    """The reduced float32 configuration ``name`` of ``pkg`` (either
+    package's ``configs`` module)."""
+    cfg = pkg.get(name.removesuffix("-pad")).reduced()
+    if name.endswith("-pad"):
+        cfg = dataclasses.replace(cfg, name=cfg.name + "-pad", num_heads=3,
+                                  num_kv_heads=3)
+    return cfg
+
+
+def tokens(vocab):
+    rng = np.random.default_rng(SEED)
+    return rng.integers(0, vocab, (BATCH, PROMPT), dtype=np.int32)
+
+
+def train_batch(vocab):
+    rng = np.random.default_rng(SEED + 1)
+    t = rng.integers(0, vocab, (1, BATCH, PROMPT), dtype=np.int32)
+    lab = rng.integers(0, vocab, (1, BATCH, PROMPT), dtype=np.int32)
+    return {"tokens": t, "labels": lab}
+
+
+def moe_input(d):
+    rng = np.random.default_rng(SEED + 2)
+    return rng.standard_normal((BATCH, MOE_TOKENS, d)).astype(np.float32)
+
+
+def _path(kp):
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp)
+
+
+# ---------------------------------------------------------------------------
+# the reference side
+# ---------------------------------------------------------------------------
+
+def jax_main(key, out):
+    names, sizes, knobs = LAYOUTS[key]
+    os.environ["XLA_FLAGS"] = (
+        f"--xla_force_host_platform_device_count={math.prod(sizes)} "
+        + os.environ.get("XLA_FLAGS", ""))
+    import jax
+    import jax.numpy as jnp
+
+    import repro.configs as jconfigs
+    from repro.launch import steps as jsteps
+    from repro.launch.cells import CellKnobs as JKnobs
+    from repro.launch.sharding import use_rules
+    from repro.models import moe as jmoe
+    from repro.models import transformer as JT
+    from repro.optim import adamw as jadamw
+    import repro_torch.configs as tconfigs
+    from repro_torch.interop import params_to_reference
+    from repro_torch.models import transformer as TT
+
+    mesh = jax.make_mesh(sizes, names,
+                         axis_types=(jax.sharding.AxisType.Auto,) * len(sizes))
+    res = {}
+
+    def under(rules, fn):
+        def run(*args):
+            with use_rules(rules):
+                return fn(*args)
+        return jax.jit(run)
+
+    for name in MODELS[key]:
+        jcfg, tcfg = configs(name, jconfigs), configs(name, tconfigs)
+        tree = params_to_reference(TT.init_params(tcfg, SEED, device="cpu"),
+                                   tcfg)
+        rules = jsteps.make_rules(mesh, jcfg, JKnobs(**knobs))
+        prefill = under(rules, lambda p, c, b: JT.prefill_forward(
+            p, b, jcfg, c))
+        decode = under(rules, lambda p, c, t, i: JT.decode_forward(
+            p, {"tokens": t}, jcfg, c, i))
+        caches = JT.init_caches(jcfg, BATCH, S_MAX, tp=rules.tp_size())
+        logits, caches = prefill(tree, caches,
+                                 {"tokens": tokens(jcfg.vocab_size)})
+        toks = [np.asarray(jnp.argmax(logits[:, -1], -1), np.int32)]
+        for i in range(STEPS):
+            logits, caches = decode(tree, caches, toks[-1][:, None],
+                                    jnp.int32(PROMPT + i))
+            toks.append(np.asarray(jnp.argmax(logits[:, -1], -1), np.int32))
+        res[f"{name}/tokens"] = np.stack(toks)
+        res[f"{name}/logits"] = np.asarray(logits[:, -1])
+
+        if name == "deepseek-moe-16b" and key in A2A:
+            moe = dataclasses.replace(jcfg.moe, capacity_factor=MOE_CF)
+            layer = jax.tree.map(lambda a: a[0], tree["units"]["l0"]["mlp"])
+            x = jnp.asarray(moe_input(jcfg.d_model))
+            act = jcfg.mlp_activation
+
+            def a2a(p):
+                return jmoe.moe_ffn_a2a(x, p, moe, activation=act,
+                                        rules=rules)
+            y, aux = jax.jit(a2a)(layer)
+            res["a2a/out"], res["a2a/aux"] = np.asarray(y), np.asarray(aux)
+            res["a2a/oracle"] = np.asarray(jax.jit(
+                lambda p: jmoe.moe_ffn_dense_oracle(x, p, moe,
+                                                    activation=act)[0])(layer))
+            grads = jax.jit(jax.grad(
+                lambda p: jnp.sum(a2a(p)[0] ** 2)))(layer)
+            for kp, g in jax.tree_util.tree_flatten_with_path(grads)[0]:
+                res[f"a2a/grad/{_path(kp)}"] = np.asarray(g)
+
+        if name in TRAIN.get(key, ()):
+            jk = JKnobs(microbatches=1, remat=False, **knobs)
+            trules = jsteps.make_rules(mesh, jcfg, jk)
+            step = jax.jit(jsteps.build_train_step(
+                jcfg, trules, jk, opt_cfg=jadamw.AdamWConfig(**OPT)))
+            new, _, metrics = step(tree, jadamw.init_state(tree),
+                                   train_batch(jcfg.vocab_size))
+            res[f"train/{name}/loss"] = np.asarray(metrics["loss"])
+            for kp, leaf in jax.tree_util.tree_flatten_with_path(new)[0]:
+                res[f"train/{name}/param/{_path(kp)}"] = np.asarray(leaf)
+    np.savez(out, **res)
+
+
+# ---------------------------------------------------------------------------
+# the port's side: one rank
+# ---------------------------------------------------------------------------
+
+def rank_main(key, rank, port, out_dir):
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    import repro_torch.configs as tconfigs
+    from repro_torch.interop import params_to_reference
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.cells import CellKnobs
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+
+    torch.set_num_threads(1)
+    names, sizes, knobs = LAYOUTS[key]
+    layout = mesh_lib.MeshLayout(names, sizes)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=layout.size)
+    live = mesh_lib.live_mesh(layout, "cpu")
+    res, flags = {}, {}
+
+    def gather_full(t, spec):
+        for dim, entry in enumerate(spec):
+            t = mesh_lib.all_gather(t, live, entry, dim)
+        return t
+
+    def tensors(tree):
+        if isinstance(tree, torch.nn.Module):
+            return list(tree.parameters())
+        if isinstance(tree, dict):
+            return [t for v in tree.values() for t in tensors(v)]
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in tensors(v)]
+        return [tree]
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tensors(tree))
+
+    dp, tp = ("pod", "data") if "pod" in names else ("data",), "model"
+    for name in MODELS[key]:
+        cfg = configs(name, tconfigs)
+        full = TT.init_params(cfg, SEED, device="cpu")
+        shape = ShapeConfig("mesh", S_MAX, BATCH, "prefill")
+        cell = steps.build_cell(cfg, shape, layout, device="cpu", mesh=live,
+                                **knobs)
+        rules = cell.rules
+        params = sh.distribute_params(full, cell.pspecs["params"], rules)
+        flags[f"placements/{name}"] = all(
+            torch.equal(DTensor.from_local(
+                p, live.device_mesh, placements(p.mesh_spec,
+                                                live.device_mesh),
+                run_check=False, shape=f.shape, stride=f.stride())
+                .full_tensor(), f)
+            for p, f in zip(params.parameters(), full.parameters()))
+        batch = sh.distribute({"tokens": torch.from_numpy(
+            tokens(cfg.vocab_size))}, cell.pspecs["batch"], rules)
+
+        def caches():
+            return steps.local_zeros(cell.specs["caches"],
+                                     cell.pspecs["caches"], rules, "cpu")
+
+        got = {"params": nbytes(params), "caches": nbytes(caches())}
+        want = dryrun.cell_bytes(cell, layout)
+        flags[f"bytes/{name}/serve"] = all(got[k] == want[k] for k in got)
+        res[f"{name}/bytes"] = json.dumps([got, want])
+
+        # the steps (tokens), then the same run through the forwards (logits)
+        mesh_lib.reset_wire_bytes()
+        serve = steps.build_serve_step(cfg, rules)
+        tok, c = cell.step(params, caches(), batch)
+        toks = [tok]
+        for i in range(STEPS):
+            tok, c = serve(params, c, {"tokens": toks[-1][:, None],
+                                       "index": PROMPT + i})
+            toks.append(tok)
+        if name == "gemma2-27b":
+            res["wire/prefill"] = json.dumps(mesh_lib.wire_bytes())
+        toks = gather_full(torch.stack(toks), (None, dp))
+        res[f"{name}/tokens"] = toks.numpy()
+
+        c = caches()
+        with sh.use_rules(rules):
+            logits, c = TT.prefill_forward(params, batch, cfg, c)
+            nxt = steps.next_token(logits, cfg.padded_vocab)
+            for i in range(STEPS):
+                logits, c = TT.decode_forward(
+                    params, {"tokens": nxt[:, None]}, cfg, c,
+                    torch.full((nxt.shape[0],), PROMPT + i))
+                nxt = steps.next_token(logits, cfg.padded_vocab)
+            spec = (dp, None, tp if logits.shape[-1] != cfg.padded_vocab
+                    else None)
+            res[f"{name}/logits"] = gather_full(logits, spec)[:, -1].numpy()
+        res[f"{name}/forward_tokens"] = gather_full(nxt, (dp,)).numpy()
+
+        if name == "deepseek-moe-16b" and key in A2A:
+            moe = dataclasses.replace(cfg.moe, capacity_factor=MOE_CF)
+            layer = params.layers[1].mlp
+            x = sh.distribute(torch.from_numpy(moe_input(cfg.d_model)),
+                              (dp, None, None), rules)
+            with sh.use_rules(rules):
+                names_ = [n for n, _ in layer.named_parameters()]
+                leaves = [p for _, p in layer.named_parameters()]
+                for p in leaves:
+                    p.requires_grad_(True)
+                with torch.enable_grad():
+                    whole = sh.gather_params_for_compute(layer)
+                    mesh_lib.reset_wire_bytes()
+                    out, aux = tmoe.moe_ffn_a2a(x, whole, moe, rules)
+                    res["a2a/wire"] = json.dumps(mesh_lib.wire_bytes())
+                    grads = torch.autograd.grad((out ** 2).sum(), leaves,
+                                                allow_unused=True,
+                                                materialize_grads=True)
+                for p in leaves:
+                    p.requires_grad_(False)
+            res["a2a/out"] = gather_full(out.detach(), (dp,)).numpy()
+            res["a2a/aux"] = aux.detach().numpy()
+            for n_, p, g in zip(names_, leaves, grads):
+                used = {a for e in p.mesh_spec
+                        for a in (e if isinstance(e, tuple) else (e,))}
+                g = mesh_lib.all_reduce(g, live, tuple(
+                    a for a in dp if a not in used))
+                res[f"a2a/grad/{n_}"] = gather_full(g, p.mesh_spec).numpy()
+            t_local = x.shape[0] * x.shape[1]
+            res["a2a/geometry"] = json.dumps(dict(
+                t_local=t_local, d=cfg.d_model, e=moe.num_experts,
+                k=moe.top_k, cap=max(4, -(-int(t_local * moe.top_k * MOE_CF
+                                                / moe.num_experts) // 4) * 4),
+                n_ep=live.size("data"), tp=live.size(tp),
+                n_dp=live.size(dp)))
+
+        if name in TRAIN.get(key, ()):
+            tshape = ShapeConfig("mesh-train", PROMPT, BATCH, "train")
+            tcell = steps.build_cell(cfg, tshape, layout, device="cpu",
+                                     mesh=live, microbatches=1, remat=False,
+                                     **knobs)
+            params = sh.distribute_params(full, tcell.pspecs["params"],
+                                          tcell.rules)
+            opt = adamw.init_state(params)
+            tb = sh.distribute({k: torch.from_numpy(v) for k, v in
+                                train_batch(cfg.vocab_size).items()},
+                               tcell.pspecs["batch"], tcell.rules)
+            got = {"params": nbytes(params), "opt_state": nbytes(opt),
+                   "batch": nbytes(tb)}
+            want = dryrun.cell_bytes(tcell, layout)
+            flags[f"bytes/{name}/train"] = all(got[k] == want[k]
+                                               for k in got)
+            res[f"train/{name}/bytes"] = json.dumps([got, want])
+            step = steps.build_train_step(
+                cfg, CellKnobs(microbatches=1, remat=False, **knobs),
+                adamw.AdamWConfig(**OPT), rules=tcell.rules)
+            params, opt, metrics = step(params, opt, tb)
+            res[f"train/{name}/loss"] = metrics["loss"].detach().numpy()
+            whole = TT.init_params(cfg, SEED, device="cpu")
+            for (n_, p), w in zip(params.named_parameters(),
+                                  whole.parameters()):
+                w.data.copy_(gather_full(p.detach(), p.mesh_spec))
+            for path, leaf in _flat_tree(params_to_reference(whole, cfg)):
+                res[f"train/{name}/param/{path}"] = leaf
+
+    all_flags = [None] * layout.size
+    dist.all_gather_object(all_flags, flags)
+    if rank == 0:
+        merged = {k: all(f[k] for f in all_flags) for k in flags}
+        res["flags"] = json.dumps(merged)
+        np.savez(os.path.join(out_dir, "port.npz"), **res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _flat_tree(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_tree(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat_tree(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], np.asarray(tree)
+
+
+# ---------------------------------------------------------------------------
+# running a layout
+# ---------------------------------------------------------------------------
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_layout(key, tmp, timeout=400):
+    """Runs layout ``key`` (both sides) in ``tmp`` -> ``{check: (passed,
+    detail)}``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep \
+        + env.get("PYTHONPATH", "")
+    env["JAX_PLATFORMS"] = "cpu"
+    env["OMP_NUM_THREADS"] = "1"
+    me = os.path.abspath(__file__)
+    ref_out = os.path.join(tmp, "jax.npz")
+    world = math.prod(LAYOUTS[key][1])
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, me, "jax", key, ref_out],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)]
+    procs += [subprocess.Popen([sys.executable, me, "rank", key, str(r),
+                                str(port), str(tmp)], env=env,
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+              for r in range(world)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1, deadline - time.monotonic()))
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tail = "\n".join(logs[i][-3000:] for i in failed)
+        raise RuntimeError(f"layout {key}: processes {failed} failed\n{tail}")
+    return compare(key, np.load(ref_out), np.load(os.path.join(
+        tmp, "port.npz")))
+
+
+def _close(got, want, tol):
+    err = float(np.max(np.abs(np.asarray(got, np.float64)
+                              - np.asarray(want, np.float64))))
+    return err <= tol, f"max abs err {err:.3g} (limit {tol:.3g})"
+
+
+def compare(key, ref, port):
+    flags = json.loads(str(port["flags"]))
+    out = {}
+    for name in MODELS[key]:
+        eq = np.array_equal(port[f"{name}/tokens"], ref[f"{name}/tokens"]) \
+            and np.array_equal(port[f"{name}/forward_tokens"],
+                               ref[f"{name}/tokens"][-1])
+        out[f"serve/{name}/tokens"] = (eq, f"port {port[f'{name}/tokens']}"
+                                       f" reference {ref[f'{name}/tokens']}")
+        out[f"serve/{name}/logits"] = _close(port[f"{name}/logits"],
+                                             ref[f"{name}/logits"], LOGIT_TOL)
+        out[f"bytes/{name}/serve"] = (flags[f"bytes/{name}/serve"],
+                                      str(port[f"{name}/bytes"]))
+        out[f"placements/{name}"] = (flags[f"placements/{name}"], name)
+    if key in A2A:
+        out["a2a/vs_reference"] = _close(port["a2a/out"], ref["a2a/out"],
+                                         MOE_TOL)
+        ok, msg = _close(port["a2a/out"], ref["a2a/oracle"], MOE_TOL)
+        aux_ok, aux_msg = _close(port["a2a/aux"], ref["a2a/aux"], MOE_TOL)
+        out["a2a/vs_oracle"] = (ok and aux_ok, f"{msg}; aux {aux_msg}")
+        worst, msgs = True, []
+        for leaf, port_name in (("router", "router"), ("w_gate", "w_gate"),
+                                ("w_up", "w_up"), ("w_down", "w_down"),
+                                ("shared/wi_gate", "shared.wi_gate"),
+                                ("shared/wi_up", "shared.wi_up"),
+                                ("shared/wo", "shared.wo")):
+            want = ref[f"a2a/grad/{leaf}"]
+            ok, msg = _close(port[f"a2a/grad/{port_name}"], want,
+                             MOE_TOL * float(np.max(np.abs(want))))
+            worst &= ok
+            msgs.append(f"{leaf}: {msg}")
+        out["a2a/grad"] = (worst, "; ".join(msgs))
+        g = json.loads(str(port["a2a/geometry"]))
+        got = json.loads(str(port["a2a/wire"]))
+        n_ep, tp, n_dp = g["n_ep"], g["tp"], g["n_dp"]
+        want = {"all_to_all": 2 * g["e"] * g["cap"] * g["d"] * 4
+                * (n_ep - 1) / n_ep,
+                "all_reduce": 2 * g["t_local"] * g["d"] * 4 * (tp - 1) / tp
+                + 2 * 4 * (n_dp - 1) / n_dp,
+                "all_gather": 0.0, "reduce_scatter": 0.0}
+        out["a2a/wire_bytes"] = (got == want, f"counted {got}, closed form "
+                                 f"{want}")
+    for name in TRAIN.get(key, ()):
+        out[f"train/{name}/loss"] = (
+            abs(float(port[f"train/{name}/loss"])
+                - float(ref[f"train/{name}/loss"]))
+            <= LOSS_RTOL * abs(float(ref[f"train/{name}/loss"])),
+            f"port {float(port[f'train/{name}/loss'])!r} reference "
+            f"{float(ref[f'train/{name}/loss'])!r}")
+        prefix = f"train/{name}/param/"
+        keys = sorted(k for k in ref.files if k.startswith(prefix))
+        missing = [k for k in keys if k not in port.files]
+        errs = np.concatenate([np.abs(port[k].astype(np.float64)
+                                      - ref[k]).ravel() for k in keys
+                               if k not in missing])
+        out[f"train/{name}/params"] = (
+            not missing and errs.max() <= PARAM_ATOL
+            and (errs > 1e-6).mean() <= LOOSE_SHARE,
+            f"missing {missing[:3]}, max err {errs.max():.3g}, share beyond "
+            f"1e-6 {(errs > 1e-6).mean():.3g}")
+        out[f"bytes/{name}/train"] = (flags[f"bytes/{name}/train"],
+                                      str(port[f"train/{name}/bytes"]))
+    if key in WIRE_DENSE:
+        got = json.loads(str(port["wire/prefill"]))
+        out["wire/gemma2-27b/prefill"] = _dense_wire(key, got)
+    return out
+
+
+def _dense_wire(key, got):
+    """The closed form of reduced Gemma2's prefill and serve steps at
+    ``key``: per step one all-reduce of the embeddings, and per layer two
+    (the attention's and the MLP's row-parallel outputs), each of ``[B_l,
+    S, d]`` float32; one all-gather of the argmax's ``[n, B_l, 2]``
+    float64 candidates."""
+    import repro.configs as jconfigs
+
+    cfg = configs("gemma2-27b", jconfigs)
+    names, sizes, _ = LAYOUTS[key]
+    shape = dict(zip(names, sizes))
+    tp, b_l, d = shape["model"], BATCH // shape["data"], cfg.d_model
+    reduce_rows = b_l * PROMPT + STEPS * b_l       # prefill, then 1 a step
+    n_reduce = 1 + 2 * cfg.num_layers
+    want = {"all_reduce": n_reduce * 2 * reduce_rows * d * 4 * (tp - 1) / tp,
+            "all_gather": (1 + STEPS) * tp * b_l * 2 * 8 * (tp - 1) / tp,
+            "reduce_scatter": 0.0, "all_to_all": 0.0}
+    return got == want, f"counted {got}, closed form {want}"
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "jax":
+        jax_main(sys.argv[2], sys.argv[3])
+    else:
+        rank_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5])

@@ -388,6 +388,33 @@ class TestSplitKvDecode:
                 and s_len <= tda.MAX_SPLITS * tda.SPLIT_ROWS:
             assert run == tda.SPLIT_ROWS
 
+    @pytest.mark.parametrize("view", ["whole", "narrowed_heads", "one_slot",
+                                      "transposed", "sliced_rows"])
+    def test_slot_heads(self, view):
+        """The cache layouts the kernel reads in place (each slot's ``[Hkv,
+        S, hd]`` dense, slots ``slot_heads`` heads apart), where the
+        kernel's address of slot b, kv head h, ``(b * slot + h) * S * hd``
+        past the view's first element, finds the view's rows; other layouts
+        give None (the wrapper copies them)."""
+        from repro_torch.kernels import decode_attention as tda
+
+        base = torch.arange(3 * 8 * 5 * 4, dtype=torch.float32).reshape(
+            3, 8, 5, 4)
+        t, want = {"whole": (base, 8),
+                   "narrowed_heads": (base.narrow(1, 2, 4), 8),
+                   "one_slot": (base[1:2, 3:5], 2),
+                   "transposed": (base.transpose(2, 3), None),
+                   "sliced_rows": (base[:, :, :3], None)}[view]
+        assert tda.slot_heads(t) == want
+        if want is not None:
+            b, h, s_len, hd = t.shape
+            rows = (torch.arange(b)[:, None] * want + torch.arange(h)) \
+                * s_len * hd
+            idx = t.storage_offset() + rows[..., None] \
+                + torch.arange(s_len * hd)
+            assert torch.equal(base.flatten()[idx].reshape(t.shape), t)
+
+
 
 # ---------------------------------------------------------------------------
 # layers

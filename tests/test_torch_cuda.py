@@ -644,6 +644,24 @@ def test_split_decode_at_the_serving_split(dev, dtype, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_reads_a_narrowed_cache_in_place(dev, dtype):
+    """A block of kv heads narrowed out of a larger cache (a TP rank's
+    heads of a replicated cache) is read where it lies: within the
+    tolerance of the plain version on the same view, and bit-identical to
+    the kernel on a contiguous copy."""
+    q, ck, cv = _decode_inputs(dev, dtype, 4, 16, 8, 700, 128, 3)
+    kb, vb = ck.narrow(1, 2, 4), cv.narrow(1, 2, 4)
+    assert tda.slot_heads(kb) == 8
+    qb = q[:, 4:12].contiguous()
+    _split_decode_holds(dev, qb, kb, vb, [1, 300, 700, 64], softcap=30.0,
+                        window=0)
+    valid = torch.tensor([1, 300, 700, 64], dtype=torch.int32, device=dev)
+    got = tda.decode_attention(qb, kb, vb, valid, softcap=30.0)
+    assert torch.equal(got, tda.decode_attention(
+        qb, kb.contiguous(), vb.contiguous(), valid, softcap=30.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,window", [(64, 0), (128, 0), (256, 40)])
 def test_decode_valid_len_zero_is_the_mean_of_v(dev, dtype, hd, window):
     """A slot with no admitted row (valid_len 0, or with a window one whose
@@ -671,8 +689,8 @@ def test_launch_helper_raises_on_a_refused_launch(dev):
                                            "failed: CUDA error 1"):
         _build.launch("attn_decode_forward", 0, q.data_ptr(), ck.data_ptr(),
                       cv.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                      out.data_ptr(), valid.data_ptr(), 1, 2, 1, 64, 64, 0,
-                      0, 0.0, 0)
+                      out.data_ptr(), valid.data_ptr(), 1, 2, 1, 1, 64, 64,
+                      0, 0, 0.0, 0)
 
 
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
