@@ -352,6 +352,31 @@ Phases, each printed on its own line; any failure exits non-zero:
                against one rank's (loss 1e-5, parameters 1e-3); bf16 times
                of the same layouts (``--only-sharded`` runs this phase
                alone after the build).
+20. ranks   -- phase 13's patterns with their workers over
+               ``torch.distributed`` ranks (``RankMesh`` through
+               ``RankMeshFactory``: at degree n over R ranks the first g
+               ranks, g the largest divisor of n not above R, each holding
+               n/g workers; the others idle, handed the outputs by rank 0),
+               at phase 13's sizes: S2 block over 1,048,576 int64 slots
+               (8 -> 4 -> 2 -> 8, and 8 -> 1 -> 8, whose handoff moves the
+               slots that change rank), S2 slot map (3 -> 5 -> 7), S3 at
+               flush_every 16 (8 -> 4 -> 8), S4 at sync_every 64 (8 -> 2 ->
+               8), S5 (4 -> 8), 65,536 tasks in chunks of 8,192 (S2: 16,384
+               in 2,048, slot map 2,100).  (a) one rank over NCCL: every
+               output and state bit-equal to phase 13's one-card runs and
+               the CPU oracle, no wire byte; (b) two gloo ranks on the one
+               card, child processes of this script (``--ranks-rank``):
+               each rank's outputs equal to (a)'s and the oracle's, S3
+               under ``Supervisor`` equal to the unfailed run both with a
+               failure on every rank and with one on rank 1 alone (its
+               chunk source), each chunk's wire bytes by family and the bytes an idle
+               rank receives at their closed forms (``rank_wire``), the
+               handoff's bytes the int64 slots whose owning rank changes
+               (``rank_handoff``), each rank holding its S2 block only;
+               the microseconds per scan step and the wire bytes (gloo's
+               times: one card's host path, bounding nothing NVLink will
+               see) (``--only-ranks`` runs this phase alone after the
+               build).
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -3297,13 +3322,46 @@ def pattern_profile(torch, process, chunk, steps):
         device_busy_share=dev_us / 1e6 / wall if dev_us else "not measured")
 
 
+def pattern_inputs(seed):
+    """Phase 13's streams: 65,536 int64 tasks, the 1,048,576 int64 slots'
+    initial values (8 MiB) and S4's float32 fitness stream, drawn as the
+    simulator draws it."""
+    rng = np.random.default_rng(seed + 13)
+    tasks = rng.integers(0, 1 << 40, PAT_TASKS)
+    v0 = rng.integers(-1000, 1000, PAT_SLOTS)
+    fitness = np.random.default_rng(seed).random(PAT_TASKS).astype(np.float32)
+    return tasks, v0, fitness
+
+
+def pattern_defs(torch):
+    """Phase 13's pattern instances (phase 20 runs the same ones):
+    ``s2(ownership)``, S3, S4 and S5."""
+    from repro_torch.core import patterns as P
+
+    def s2(ownership):
+        return P.PartitionedState(
+            f=lambda x, s: x - s, ns=lambda x, s: s * 3 + x,
+            h=lambda x: (x * 2654435761) % PAT_SLOTS, num_slots=PAT_SLOTS,
+            ownership=ownership)
+
+    i64 = functools.partial(torch.tensor, dtype=torch.int64)
+    s3 = P.AccumulatorState(f=lambda x, view: view - x, g=lambda x: x,
+                            combine=lambda a, b: a + b, zero=lambda: i64(0))
+    s4 = P.SuccessiveApproximationState(
+        c=lambda x, s: x < s, s_prime=lambda x, s: torch.minimum(x, s))
+    s5 = P.SeparateTaskState(f=lambda x: x * x, s=lambda y, s: s * 31 + y)
+    return s2, s3, s4, s5
+
+
 def phase_patterns(torch, seed, smi):
     """S1-S5 on the card through their entry points (S1: ``SerialState.run``
     on a card mesh; S2-S5: ``StreamExecutor`` with the SPMD adapters, online
     resizes, the default mesh factory: the card), each held to the port's
     CPU oracle (``core.semantics``) and the schedule-dependent outputs to
     the same batched run on the CPU; then S3 under ``Supervisor`` with a
-    failure, equal to the unfailed run with the same degrees."""
+    failure, equal to the unfailed run with the same degrees.  Returns
+    the runs phase 20 repeats over ranks: ``{run: {what: CPU tensor}}``,
+    each run's outputs and state on the card and the oracle's."""
     import functools
     import shutil
     import tempfile
@@ -3322,11 +3380,8 @@ def phase_patterns(torch, seed, smi):
 
     t_phase = time.perf_counter()
     cpu_factory = functools.partial(default_mesh_factory, device="cpu")
-    rng = np.random.default_rng(seed + 13)
-    tasks = rng.integers(0, 1 << 40, PAT_TASKS)              # int64
-    v0 = rng.integers(-1000, 1000, PAT_SLOTS)                # int64, 8 MiB
-    # S4's fitness stream, drawn as the simulator draws it
-    fitness = np.random.default_rng(seed).random(PAT_TASKS).astype(np.float32)
+    tasks, v0, fitness = pattern_inputs(seed)
+    s2, s3, s4, s5 = pattern_defs(torch)
     i64 = functools.partial(torch.tensor, dtype=torch.int64)
 
     def same(a, b):
@@ -3370,8 +3425,6 @@ def phase_patterns(torch, seed, smi):
                 for r in ex.metrics.resizes], **prof)
         return dict(outs=outs, state=ex.state, record=record)
 
-    records = []
-
     def timed(fn, *args, **kw):
         """``fn``'s result and its seconds (the CPU checks' cost)."""
         t = time.perf_counter()
@@ -3382,7 +3435,6 @@ def phase_patterns(torch, seed, smi):
         for what, ok in checks.items():
             check(ok, f"patterns {res['record']['run']}: {what} differs")
         res["record"]["cpu_check_s"] = cpu_s
-        records.append(res["record"])
         say("patterns", **res["record"], bit_exact=sorted(checks), card=smi)
 
     # -- S1: the serial fold on a card mesh --------------------------------
@@ -3400,16 +3452,9 @@ def phase_patterns(torch, seed, smi):
                           torch.cuda.synchronize()), xs1[:512], 512)
     rec = dict(run="S1 serial", wall_s=wall, steps=PAT_S1_TASKS,
                step_us=wall / PAT_S1_TASKS * 1e6, **prof, cpu_check_s=cpu_s)
-    records.append(rec)
     say("patterns", **rec, bit_exact=["ys", "state"], card=smi)
 
     # -- S2 block: 1,048,576 int64 slots, degrees 8 -> 4 -> 2 -> 8 --------
-    def s2(ownership):
-        return P.PartitionedState(
-            f=lambda x, s: x - s, ns=lambda x, s: s * 3 + x,
-            h=lambda x: (x * 2654435761) % PAT_SLOTS, num_slots=PAT_SLOTS,
-            ownership=ownership)
-
     xs2 = torch.as_tensor(tasks[:PAT_S2_TASKS])
     (ys_ref, v_ref), cpu_s = timed(S.partitioned, s2("block").f,
                                    s2("block").ns, s2("block").h, xs2,
@@ -3423,6 +3468,8 @@ def phase_patterns(torch, seed, smi):
           f"copy to the card)")
     report(res, cpu_s, ys=same(cat(res["outs"]), ys_ref),
            v=same(res["state"], v_ref))
+    ones = {"S2 block": dict(ys=cat(res["outs"]), v=res["state"].cpu(),
+                             oracle_ys=ys_ref, oracle_v=v_ref)}
 
     # -- S2 slotmap: the same slots replicated [n, N], degrees 3 -> 5 -> 7 --
     xs2m = torch.as_tensor(tasks[:8 * PAT_SLOTMAP_CHUNK])
@@ -3434,11 +3481,11 @@ def phase_patterns(torch, seed, smi):
                 steps=lambda m, n: m, label="S2 slotmap")
     report(res, cpu_s, ys=same(cat(res["outs"]), ys_ref),
            v=same(res["state"], v_ref))
+    ones["S2 slotmap"] = dict(ys=cat(res["outs"]), v=res["state"].cpu(),
+                              oracle_ys=ys_ref, oracle_v=v_ref)
     del ys_ref, v_ref
 
     # -- S3: flush_every 1, 16, 256 at degree 8; 8 -> 4 -> 8 at 16 ----------
-    s3 = P.AccumulatorState(f=lambda x, view: view - x, g=lambda x: x,
-                            combine=lambda a, b: a + b, zero=lambda: i64(0))
     xs3 = torch.as_tensor(tasks)
     (_, s3_ref), oracle_s = timed(S.accumulator, s3.f, s3.g, s3.combine, xs3,
                                   i64(0))
@@ -3456,10 +3503,10 @@ def phase_patterns(torch, seed, smi):
                ys_vs_cpu_run=same(cat(res["outs"]), cat(cpu["outs"])))
         if schedule:
             s3_resized = cat(res["outs"]), res["state"]
+            ones["S3"] = dict(ys=s3_resized[0], s=res["state"].cpu(),
+                              oracle_s=s3_ref)
 
     # -- S4: a float32 fitness stream, sync_every 1 and 64, 8 -> 2 -> 8 -----
-    s4 = P.SuccessiveApproximationState(
-        c=lambda x, s: x < s, s_prime=lambda x, s: torch.minimum(x, s))
     xs4 = torch.as_tensor(fitness)
     inf = torch.tensor(np.inf, dtype=torch.float32)
     (_, s4_ref), oracle_s = timed(S.successive_approximation, s4.c,
@@ -3476,9 +3523,11 @@ def phase_patterns(torch, seed, smi):
         report(res, cpu_s + oracle_s / 2, state=same(res["state"], s4_ref),
                trace_vs_cpu_run=same(cat(res["outs"], "trace"),
                                      cat(cpu["outs"], "trace")))
+        if se == RANK_S4_SYNC:
+            ones["S4"] = dict(trace=cat(res["outs"], "trace"),
+                              s=res["state"].cpu(), oracle_s=s4_ref)
 
     # -- S5: 65,536 int64 tasks, degrees 4 -> 8 -----------------------------
-    s5 = P.SeparateTaskState(f=lambda x: x * x, s=lambda y, s: s * 31 + y)
     (ys_ref, tr_ref, s5_ref), cpu_s = timed(S.separate_task_state, s5.f,
                                             s5.s, xs3, i64(1))
     res = drive(lambda: SeparateAdapter(s5, i64(1)), xs3, PAT_CHUNK, 4,
@@ -3486,6 +3535,10 @@ def phase_patterns(torch, seed, smi):
     report(res, cpu_s, ys=same(cat(res["outs"], "ys"), ys_ref),
            trace=same(cat(res["outs"], "trace"), tr_ref),
            state=same(res["state"], s5_ref))
+    ones["S5"] = dict(ys=cat(res["outs"], "ys"),
+                      trace=cat(res["outs"], "trace"), s=res["state"].cpu(),
+                      oracle_ys=ys_ref, oracle_trace=tr_ref,
+                      oracle_s=s5_ref)
 
     # -- S3 under Supervisor: a failure before chunk 3 ----------------------
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_patterns_")
@@ -3514,10 +3567,9 @@ def phase_patterns(torch, seed, smi):
     rec = dict(run="S3 flush_every=16 supervised", wall_s=wall,
                events=events, mttr_s=sup.mttr_s,
                degrees=[c.n_workers for c in ex.metrics.chunks])
-    records.append(rec)
     say("patterns", **rec, bit_exact=["ys", "state"], card=smi)
     say("patterns", seconds=time.perf_counter() - t_phase, card=smi)
-    return records
+    return ones
 
 
 # ---------------------------------------------------------------------------
@@ -6266,6 +6318,391 @@ def phase_sharded(torch, seed, smi):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the patterns with their workers over ranks
+# ---------------------------------------------------------------------------
+
+#: phase 20's runs of phase 13's patterns: S3 at flush_every 16 (8 -> 4 ->
+#: 8), S4 at sync_every 64 (8 -> 2 -> 8), and an S2 block run 8 -> 1 -> 8
+#: whose layout over two ranks changes (degree 1 takes one rank), so its
+#: handoff moves half the slots each way
+RANK_S3_FLUSH = 16
+RANK_S4_SYNC = 64
+RANK_HANDOFF_SCHEDULE = {3: 1, 5: 8}
+#: the phase's aim in seconds (read, not enforced)
+RANKS_SECONDS = 90
+RANKS_WORLD = 2
+
+
+def rank_runs(torch, seed, factory, record=True, handoff=True):
+    """Phase 13's five runs (and, with ``handoff``, the handoff run)
+    through ``StreamExecutor`` with ``factory``'s meshes, the chunks as
+    numpy (each rank copies its workers' rows).  Returns ``{run: {...}}``: the outputs and final state
+    as CPU tensors, the wall and the scan steps; with ``record`` each
+    chunk's wire bytes by family and idle bytes, each resize's handoff
+    bytes and the resident S2 block's bytes after each chunk."""
+    from repro_torch.core.mesh import IDLE_BYTES
+    from repro_torch.launch.mesh import WIRE_BYTES
+    from repro_torch.runtime import (AccumulatorAdapter, PartitionedAdapter,
+                                     SeparateAdapter, StreamExecutor,
+                                     SuccessiveAdapter)
+
+    tasks, v0, fitness = pattern_inputs(seed)
+    s2, s3, s4, s5 = pattern_defs(torch)
+    i64 = functools.partial(torch.tensor, dtype=torch.int64)
+    inf = torch.tensor(np.inf, dtype=torch.float32)
+    runs = {
+        "S2 block": (lambda: PartitionedAdapter(s2("block"), v0),
+                     tasks[:PAT_S2_TASKS], PAT_S2_CHUNK, 8,
+                     {2: 4, 4: 2, 6: 8}, lambda m, n: m),
+        "S2 block handoff": (lambda: PartitionedAdapter(s2("block"), v0),
+                             tasks[:PAT_S2_TASKS], PAT_S2_CHUNK, 8,
+                             RANK_HANDOFF_SCHEDULE, lambda m, n: m),
+        "S2 slotmap": (lambda: PartitionedAdapter(s2("slotmap"), v0),
+                       tasks[:8 * PAT_SLOTMAP_CHUNK], PAT_SLOTMAP_CHUNK, 3,
+                       {3: 5, 6: 7}, lambda m, n: m),
+        "S3": (lambda: AccumulatorAdapter(s3, flush_every=RANK_S3_FLUSH),
+               tasks, PAT_CHUNK, 8, {2: 4, 4: 8}, lambda m, n: m // n),
+        "S4": (lambda: SuccessiveAdapter(s4, inf, sync_every=RANK_S4_SYNC),
+               fitness, PAT_CHUNK, 8, {3: 2, 5: 8}, lambda m, n: m // n),
+        "S5": (lambda: SeparateAdapter(s5, i64(1)), tasks, PAT_CHUNK, 4,
+               {4: 8}, lambda m, n: m),
+    }
+
+    def counted():
+        return dict(WIRE_BYTES, idle=IDLE_BYTES["broadcast"])
+
+    def delta(before):
+        now = counted()
+        return {k: now[k] - before[k] for k in now}
+
+    if not handoff:
+        del runs["S2 block handoff"]
+    out = {}
+    for name, (make, xs, chunk, degree, schedule, steps) in runs.items():
+        ex = StreamExecutor(make(), degree=degree, chunk_size=chunk,
+                            mesh_factory=factory)
+        rec = dict(chunks=[], handoff={}, resident=[], steps=0)
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(len(xs) // chunk):
+            if i in schedule:
+                before = counted()
+                ex.set_degree(schedule[i])
+                rec["handoff"][i] = delta(before)["all_to_all"]
+            before = counted()
+            outs.append(ex.process(xs[i * chunk:(i + 1) * chunk]))
+            rec["steps"] += steps(chunk, ex.degree)
+            if record:
+                rec["chunks"].append(dict(degree=ex.degree, **delta(before)))
+                data = getattr(ex._state, "data", None)
+                if data is not None:
+                    rec["resident"].append(data.numel() * data.element_size())
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["step_us"] = rec["wall_s"] / rec["steps"] * 1e6
+        state = ex.state
+        if isinstance(outs[0], dict):
+            res = {k: torch.cat([o[k].cpu() for o in outs])
+                   for k in outs[0] if k != "committed"}
+        else:
+            res = {"ys": torch.cat([o.cpu() for o in outs])}
+        res["state"] = state.cpu()
+        out[name] = dict(res=res, rec=rec,
+                         degrees=[c.n_workers for c in ex.metrics.chunks])
+        del ex, outs, state
+    return out
+
+
+def rank_wire(name, degree, rank, world):
+    """One chunk's closed form on one rank of ``world`` at ``degree``:
+    ``{family: bytes}`` by the ring formulas (an all-reduce ``2 b
+    (g-1)/g``, an all-gather ``b (g-1)/g`` of its result; ``g`` the ranks
+    the degree spans, the largest divisor of it not above the world), and
+    ``idle``: the bytes an idle rank (``rank >= g``) receives from rank 0.
+    Tasks and slots are int64, S4's fitness float32."""
+    g = max(d for d in range(1, min(degree, world) + 1) if degree % d == 0)
+    share = (g - 1) / g
+    fams = dict(all_reduce=0.0, all_gather=0.0, reduce_scatter=0.0,
+                all_to_all=0.0)
+    if name.startswith("S2 block"):
+        m = PAT_S2_CHUNK * 8
+        fams.update(all_gather=m * share, all_reduce=2 * m * share)
+        idle = m
+    elif name == "S2 slotmap":
+        m, v = PAT_SLOTMAP_CHUNK * 8, PAT_SLOTS * 8
+        fams.update(all_gather=m * share, all_reduce=2 * (m + v) * share)
+        idle = m + v
+    elif name == "S3":
+        m, blocks = PAT_CHUNK * 8, PAT_CHUNK // degree // RANK_S3_FLUSH
+        fams.update(all_reduce=2 * 8 * blocks * share, all_gather=m * share)
+        idle = m + 8
+    elif name == "S4":
+        m, blocks = PAT_CHUNK * 4, PAT_CHUNK // degree // RANK_S4_SYNC
+        fams.update(all_reduce=2 * 4 * blocks * share, all_gather=m * share)
+        idle = m + 4
+    else:  # S5: ys all-gathered; an idle rank gets ys, trace and state
+        m = PAT_CHUNK * 8
+        fams.update(all_gather=m * share)
+        idle = 2 * m + 8
+    if rank >= g:
+        return dict(dict.fromkeys(fams, 0.0), idle=idle)
+    return dict(fams, idle=0.0)
+
+
+def rank_handoff(rank, world, n_old, n_new):
+    """The bytes ``rank`` receives in the S2 block handoff: the int64
+    slots it owns at ``n_new`` whose owning rank at ``n_old`` was another
+    (a rank owns the slots of its block of the first ``g`` ranks)."""
+    def span(n):
+        g = max(d for d in range(1, min(n, world) + 1) if n % d == 0)
+        size = PAT_SLOTS // g
+        return (rank * size, (rank + 1) * size) if rank < g else (0, 0)
+
+    (a, b), (c, d) = span(n_old), span(n_new)
+    kept = max(0, min(b, d) - max(a, c))
+    return ((d - c) - kept) * 8
+
+
+def rank_checks(runs, rank, world, ones, oracle=True):
+    """``{check: passed}`` for one rank's ``runs``: outputs and states
+    bit-equal to ``ones`` (phase 13's one-card runs) and, with
+    ``oracle``, to the CPU oracle; per chunk the wire and idle bytes at
+    their closed forms; the handoff bytes; the resident S2 block."""
+    out = {}
+
+    def same(a, b):
+        return a.dtype == b.dtype and a.equal(b)
+
+    for name, run in runs.items():
+        one = ones["S2 block" if name.startswith("S2 block") else name]
+        res, rec = run["res"], run["rec"]
+        pairs = {"ys": "ys", "trace": "trace", "state": "v" if "v" in one
+                 else "s"}
+        for k, ref in pairs.items():
+            if k in res:
+                out[f"{name}/{k}==one-card"] = same(res[k], one[ref])
+                if oracle and f"oracle_{ref}" in one:
+                    out[f"{name}/{k}==oracle"] = same(res[k],
+                                                      one[f"oracle_{ref}"])
+        bad = []
+        for i, c in enumerate(rec["chunks"]):
+            want = rank_wire(name, c["degree"], rank, world)
+            bad += [(i, k, c[k], want[k]) for k in want if c[k] != want[k]]
+        out[f"{name}/wire+idle bytes==closed form"] = not bad
+        if bad:
+            print(f"[ranks] rank {rank} {name}: bytes {bad[:4]}", flush=True)
+        degrees = run["degrees"]
+        for i, got in rec["handoff"].items():
+            i = int(i)
+            want = rank_handoff(rank, world, degrees[i - 1], degrees[i])
+            out[f"{name}/handoff@{i}=={want}"] = got == want
+        if name.startswith("S2 block"):
+            want = [PAT_SLOTS * 8 // g if rank < g else 0 for g in (
+                max(d for d in range(1, min(n, world) + 1) if n % d == 0)
+                for n in degrees)]
+            out[f"{name}/resident==block"] = rec["resident"] == want
+    return out
+
+
+def _supervised_s3(torch, seed, factory, ckpt_dir, fail_rank=None):
+    """Phase 13's supervised S3 (a failure before chunk 3, ``Supervisor``
+    with checkpoints every 2 chunks) over ``factory``'s meshes.  With
+    ``fail_rank`` the failure is that rank's alone: its chunk source
+    raises once before chunk 3, and the plan, which never fires, only sets
+    the recovery's pace."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import (AccumulatorAdapter, FailurePlan,
+                                     StreamExecutor, Supervisor,
+                                     WorkerFailure)
+
+    tasks, _, _ = pattern_inputs(seed)
+    _, s3, _, _ = pattern_defs(torch)
+    ex = StreamExecutor(AccumulatorAdapter(s3, flush_every=RANK_S3_FLUSH),
+                        degree=8, chunk_size=PAT_CHUNK, mesh_factory=factory)
+    chunks = PAT_TASKS // PAT_CHUNK
+    failing = [fail_rank == dist.get_rank()]
+
+    def source(i):
+        if i == 3 and failing[0]:
+            failing[0] = False
+            raise WorkerFailure(f"chunk source lost before chunk {i}")
+        return tasks[i * PAT_CHUNK:(i + 1) * PAT_CHUNK]
+
+    plan = FailurePlan(fail_at=3 if fail_rank is None else chunks,
+                       recover_after=2)
+    sup = Supervisor(ex, source, chunks, ckpt_dir=ckpt_dir, ckpt_every=2,
+                     failure_plan=plan)
+    t0 = time.perf_counter()
+    outs = sup.run()
+    wall = time.perf_counter() - t0
+    return dict(ys=torch.cat([outs[i].cpu() for i in range(len(outs))]),
+                state=ex.state.cpu(), wall_s=wall,
+                kinds=sorted({e.kind for e in sup.events}))
+
+
+def ranks_rank(torch, rank, port, out_dir, seed):
+    """Phase 20 (b)'s rank ``rank`` of two on the one card (gloo): the runs,
+    the supervised S3, its results to ``out_dir``."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import RankMeshFactory
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=RANKS_WORLD)
+    try:
+        factory = RankMeshFactory(degrees=(1, 2, 3, 4, 5, 7, 8))
+        runs = rank_runs(torch, seed, factory)
+        sup = {label: _supervised_s3(torch, seed, factory,
+                                     os.path.join(out_dir, f"ckpt-{r}"),
+                                     fail_rank=r)
+               for label, r in (("S3 supervised", None),
+                                ("S3 supervised, rank 1 fails", 1))}
+        torch.save(dict(runs=runs, sup=sup),
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _ranks_two(torch, seed):
+    """Phase 20 (b): two gloo ranks on the one card, child processes of
+    this script; returns each rank's results."""
+    import tempfile
+
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ranks-rank",
+             str(r), "--ranks-port", str(port), "--ranks-out", out,
+             "--seed", str(seed)], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(RANKS_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            for r, log in enumerate(logs):
+                print(f"[ranks] rank {r} output:\n{log[-6000:]}", flush=True)
+            raise SmokeFailure(f"ranks (b): ranks exited with "
+                               f"{[p.returncode for p in procs]}")
+        return [torch.load(os.path.join(out, f"rank{r}.pt"))
+                for r in range(RANKS_WORLD)]
+
+
+def _ranks_say(part, runs, smi, rank=0, path=""):
+    for name, run in runs.items():
+        rec = run["rec"]
+        wire = {k: sum(c[k] for c in rec["chunks"]) for k in
+                ("all_reduce", "all_gather", "all_to_all", "idle")}
+        say("ranks", part=part, rank=rank, run=name, degrees=run["degrees"],
+            wall_s=rec["wall_s"], steps=rec["steps"], step_us=rec["step_us"],
+            wire_bytes=wire, handoff_bytes=rec["handoff"], path=path,
+            nvidia_smi=smi)
+
+
+def phase_ranks(torch, seed, smi, ones=None):
+    """Phase 20: the patterns with their workers over ranks (see the
+    module docstring).  ``ones``: phase 13's one-card runs and oracles
+    (made here when the phase runs alone)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import reset_wire_bytes
+    from repro_torch.runtime import RankMeshFactory
+
+    t_phase = time.perf_counter()
+    if ones is None:
+        ones = _ranks_one_card(torch, seed, smi)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        reset_wire_bytes()
+        # the handoff run moves nothing at one rank: (b) alone runs it
+        one_rank = rank_runs(torch, seed, RankMeshFactory(
+            degrees=(1, 2, 3, 4, 5, 7, 8)), handoff=False)
+    finally:
+        dist.destroy_process_group()
+    _ranks_say("a", one_rank, smi, path="one NCCL rank")
+    flags = rank_checks(one_rank, 0, 1, ones)
+    failed = sorted(k for k, v in flags.items() if not v)
+    say("ranks", part="a", checks=len(flags), failed=failed)
+    check(not failed, f"ranks (a): checks failed: {failed}")
+
+    ranks = _ranks_two(torch, seed)
+    flags = {}
+    for r, got in enumerate(ranks):
+        _ranks_say("b", got["runs"], smi, rank=r,
+                   path="two gloo ranks on one card: the host path, which "
+                        "bounds nothing NVLink will see")
+        for k, v in rank_checks(got["runs"], r, RANKS_WORLD, ones).items():
+            flags[f"rank {r}: {k}"] = v
+        for name, run in got["runs"].items():
+            ref = "S2 block" if name.startswith("S2 block") else name
+            for k, t in run["res"].items():
+                flags[f"rank {r}: {name}/{k}==(a)"] = t.equal(
+                    one_rank[ref]["res"][k])
+        for label, sup in got["sup"].items():
+            say("ranks", part="b", rank=r, run=label, wall_s=sup["wall_s"],
+                events=sup["kinds"], nvidia_smi=smi)
+            flags[f"rank {r}: {label}==unfailed"] = sup["ys"].equal(
+                ones["S3"]["ys"]) and sup["state"].equal(ones["S3"]["s"])
+            flags[f"rank {r}: {label} events"] = {
+                "failure", "restore", "shrink", "grow"} <= set(sup["kinds"])
+    failed = sorted(k for k, v in flags.items() if not v)
+    say("ranks", part="b", checks=len(flags), failed=failed)
+    check(not failed, f"ranks (b): checks failed: {failed}")
+    say("ranks", part="done", seconds=time.perf_counter() - t_phase,
+        aim_seconds=RANKS_SECONDS, nvidia_smi=smi)
+
+
+def _ranks_one_card(torch, seed, smi):
+    """Phase 13's one-card runs of the phase, and their oracles, when phase
+    13 did not run (``--only-ranks``); their µs a step are printed, taken
+    as (a)'s are."""
+    from repro_torch.core import semantics as S
+    from repro_torch.runtime import default_mesh_factory
+
+    tasks, v0, fitness = pattern_inputs(seed)
+    s2, s3, s4, s5 = pattern_defs(torch)
+    runs = rank_runs(torch, seed, default_mesh_factory, record=False,
+                     handoff=False)
+    _ranks_say("one-card", runs, smi, path="WorkerMesh on the card, the "
+               "harness of (a)")
+    i64 = functools.partial(torch.tensor, dtype=torch.int64)
+    ones = {}
+    for own, m in (("block", PAT_S2_TASKS), ("slotmap",
+                                             8 * PAT_SLOTMAP_CHUNK)):
+        p = s2(own)
+        ys, v = S.partitioned(p.f, p.ns, p.h, torch.as_tensor(tasks[:m]),
+                              torch.as_tensor(v0))
+        res = runs[f"S2 {own}"]["res"]
+        ones[f"S2 {own}"] = dict(ys=res["ys"], v=res["state"],
+                                 oracle_ys=ys, oracle_v=v)
+    _, s = S.accumulator(s3.f, s3.g, s3.combine, torch.as_tensor(tasks),
+                         i64(0))
+    ones["S3"] = dict(ys=runs["S3"]["res"]["ys"], s=runs["S3"]["res"]["state"],
+                      oracle_s=s)
+    _, s = S.successive_approximation(s4.c, s4.s_prime,
+                                      torch.as_tensor(fitness),
+                                      torch.tensor(np.inf,
+                                                   dtype=torch.float32))
+    ones["S4"] = dict(trace=runs["S4"]["res"]["trace"],
+                      s=runs["S4"]["res"]["state"], oracle_s=s)
+    ys, tr, s = S.separate_task_state(s5.f, s5.s, torch.as_tensor(tasks),
+                                      i64(1))
+    res = runs["S5"]["res"]
+    ones["S5"] = dict(ys=res["ys"], trace=res["trace"], s=res["state"],
+                      oracle_ys=ys, oracle_trace=tr, oracle_s=s)
+    return ones
+
+
 def kernels_line(records, path_counts):
     """The ``kernels`` object: each kernel's measured numbers and its
     launches summed over the main paths' runs (``path_counts``: one count
@@ -6315,12 +6752,20 @@ def main(argv=None):
                         help="build, then run only phase 19 (the sharded "
                              "steps: one rank over NCCL, two ranks on the "
                              "card over gloo) and stop")
+    parser.add_argument("--only-ranks", action="store_true",
+                        help="build, then run only phase 20 (the patterns "
+                             "over ranks: one rank over NCCL, two ranks on "
+                             "the card over gloo) and stop")
     parser.add_argument("--train-child", action="store_true",
                         help=argparse.SUPPRESS)  # phases 16-17's process
     # phase 19 (b)'s ranks
     parser.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--sharded-port", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--sharded-out", help=argparse.SUPPRESS)
+    # phase 20 (b)'s ranks
+    parser.add_argument("--ranks-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--ranks-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--ranks-out", help=argparse.SUPPRESS)
     parser.add_argument("--plant-fault", choices=sorted(FAULT_MODEL),
                         help="calibration only: build, then run phase 17's "
                              "bf16 check (ii) for the model the fault "
@@ -6352,6 +6797,10 @@ def main(argv=None):
         except SmokeFailure as e:
             print(f"FAIL: {e}", file=sys.stderr)
             return 1
+        return 0
+    if args.ranks_rank is not None:
+        ranks_rank(torch, args.ranks_rank, args.ranks_port, args.ranks_out,
+                   args.seed)
         return 0
     try:
         smi = nvidia_smi_line()
@@ -6385,6 +6834,10 @@ def main(argv=None):
             return 0
         if args.only_sharded:
             phase_sharded(torch, args.seed, smi)
+            print(smi)
+            return 0
+        if args.only_ranks:
+            phase_ranks(torch, args.seed, smi)
             print(smi)
             return 0
         if args.train_child:
@@ -6423,11 +6876,13 @@ def main(argv=None):
         paths += phase_dist(torch, items, main, smi)
         del items, main
         paths += phase_serving_runtime(torch, args.seed, smi)
-        phase_patterns(torch, args.seed, smi)
+        ones = phase_patterns(torch, args.seed, smi)
         paths += phase_families(torch, args.seed, smi)
         paths.append(phase_train_child(torch, args.seed, smi))
         paths += phase_launch(torch, args.seed, smi)
         paths += phase_sharded(torch, args.seed, smi)
+        # no kernel of ours runs in phase 20: it adds no launch count
+        phase_ranks(torch, args.seed, smi, ones)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -13,7 +13,7 @@ from repro_torch.core.analytics import (
     stable_flush_period,
 )
 from repro_torch.core.farm import TaskFarm, pipeline_stages
-from repro_torch.core.mesh import WorkerMesh
+from repro_torch.core.mesh import RankMesh, WorkerMesh
 from repro_torch.core.patterns import (
     AccumulatorState,
     PartitionedState,
@@ -28,6 +28,7 @@ __all__ = [
     "SeparateTaskState",
     "SerialState",
     "SuccessiveApproximationState",
+    "RankMesh",
     "TaskFarm",
     "WorkerMesh",
     "pipeline_stages",

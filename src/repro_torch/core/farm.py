@@ -1,10 +1,11 @@
 """Task-farm and pipeline runners over a worker mesh (paper §2).
 
 Port of ``repro/core/farm.py``.  The farm maps the paper's emitter /
-workers / collector onto a :class:`~repro_torch.core.mesh.WorkerMesh`: a
-stream chunk arrives sharded over the worker axis (emitter = the
-``view(n_w, m // n_w)``), each worker applies the worker function, and
-(optionally) a collector collective merges results.  A gpipe-style pipeline
+workers / collector onto a :class:`~repro_torch.core.mesh.WorkerMesh` or a
+:class:`~repro_torch.core.mesh.RankMesh`: a stream chunk arrives sharded
+over the worker axis (emitter = the mesh's ``shard``, ``[n_local, m //
+n_w]``), each worker applies the worker function, and (optionally) a
+collector collective merges results.  A gpipe-style pipeline
 runner is included for completeness (the paper's other canonical stream
 pattern) and exercised at smoke scale.
 """
@@ -17,7 +18,7 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch.func import vmap
 
-from repro_torch.core.mesh import WorkerMesh, shard, unshard
+from repro_torch.core.mesh import WorkerMesh
 from repro_torch.core.tree import tree_map
 
 
@@ -41,19 +42,24 @@ class TaskFarm:
         collector the ys come back in stream order.
 
         ``collector(ys_local, mesh)`` differs from the reference's
-        ``collector(ys_local, axis)``: it is called once with every
-        worker's ys stacked (``[n_w, m // n_w, ...]``), not once per worker,
-        and merges them with the mesh's collectives
-        (:mod:`repro_torch.core.mesh`, which reduce over dim 0); it returns
-        a worker-stacked value whose rows agree, and ``map`` returns its
-        first row (the reference's replicated ``P()`` output).  E.g. the
-        reference's ``lambda y, ax: lax.psum(jnp.sum(y), ax)`` is
-        ``lambda y, mesh: psum(y.sum(1))``.
+        ``collector(ys_local, axis)``: it is called once with this
+        process's workers' ys stacked (``[n_local, m // n_w, ...]``), not
+        once per worker, and merges them with the mesh's collective methods
+        (``mesh.psum``, ``mesh.pmin``, ``mesh.pmax``, ``mesh.all_gather``,
+        which reduce over dim 0 and, on a rank mesh, across ranks); it
+        returns a worker-stacked value whose rows agree, and ``map``
+        returns its first row (the reference's replicated ``P()`` output),
+        on every rank.  E.g. the reference's ``lambda y, ax:
+        lax.psum(jnp.sum(y), ax)`` is ``lambda y, mesh: mesh.psum(y.sum(1))``.
         """
-        ys_local = vmap(vmap(f))(shard(self.mesh.put(xs), self.n_workers))
+        mesh = self.mesh
+        if not mesh.active:
+            return mesh.receive()
+        ys_local = vmap(vmap(f))(mesh.shard(xs))
         if collector is None:
-            return unshard(ys_local)
-        return tree_map(lambda leaf: leaf[0], collector(ys_local, self.mesh))
+            return mesh.deliver(mesh.unshard(ys_local))
+        return mesh.deliver(tree_map(lambda leaf: leaf[0],
+                                     collector(ys_local, mesh)))
 
     def run_stream(self, step: Callable, stream: Sequence, state, *run_args):
         """Drive a stateful pattern over successive stream chunks.

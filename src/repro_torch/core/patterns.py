@@ -4,14 +4,19 @@ Port of ``repro/core/patterns.py``.  Each pattern is a small, composable
 object with three faces:
 
 * ``run(mesh, axis, ...)`` — an SPMD execution of a stream chunk over the
-  worker axis of a :class:`~repro_torch.core.mesh.WorkerMesh`.  Where the
+  worker axis of a :class:`~repro_torch.core.mesh.WorkerMesh` (every
+  worker on one card) or a :class:`~repro_torch.core.mesh.RankMesh` (the
+  workers in blocks over ``torch.distributed`` ranks).  Where the
   reference's ``shard_map`` runs the worker program once per device, here
-  the ``n_w`` workers share one card as the leading tensor dimension: the
-  farm's *emitter* is the chunk's ``view(n_w, m // n_w)``, the *workers*
-  are the rows of that dimension, stepped together, with every per-item
-  user function ``torch.func.vmap``-ed over them, and the *collector* (the
-  paper's mutually-exclusive global-state commit) is a reduction over it
-  (:func:`~repro_torch.core.mesh.psum`, ``pmin``, ``all_gather``).
+  each process steps its workers together as the leading tensor dimension,
+  with every per-item user function ``torch.func.vmap``-ed over them: the
+  farm's *emitter* is the mesh's ``shard`` of the chunk (``[n_local, m //
+  n_w]``), and the *collector* (the paper's mutually-exclusive
+  global-state commit) is the mesh's collective (``psum``, ``pmin``,
+  ``all_gather``), over dim 0 and then, on a rank mesh, across ranks.
+  Outputs leave ``run`` as the reference's global arrays, on every rank
+  (an out_spec ``P(axis)`` is the mesh's ``unshard``); the ranks a rank
+  mesh leaves idle get them from rank 0 (``deliver`` / ``receive``).
 * ``reference(...)`` — the serial oracle (delegates to
   :mod:`repro_torch.core.semantics`).
 * adaptivity helpers — the paper's §4.x "Adaptivity" protocols: repartition /
@@ -35,16 +40,7 @@ import torch
 from torch.func import vmap
 
 from repro_torch.core import semantics
-from repro_torch.core.mesh import (
-    WorkerMesh,
-    all_gather,
-    pmax,
-    pmin,
-    psum,
-    replicate,
-    shard,
-    unshard,
-)
+from repro_torch.core.mesh import WorkerMesh
 from repro_torch.core.tree import scan, tree_leaves, tree_map
 
 # The reference's ``_pvary`` / ``_unvary`` re-type values for JAX's
@@ -68,12 +64,11 @@ def _by_step(tree):
     return tree_map(lambda leaf: leaf.movedim(1, 0), tree)
 
 
-def _stream_order(tree, scan_dims: int):
-    """A scanned worker-stacked output ``[s_1, ..., s_d, n, ...]`` as the
-    workers' outputs concatenated in worker order (an out_spec ``P(axis)``):
-    ``[n * s_1 * ... * s_d, ...]``."""
+def _by_worker(tree, scan_dims: int):
+    """A scanned worker-stacked output ``[s_1, ..., s_d, n, ...]`` as each
+    worker's outputs in its stream order: ``[n, s_1 * ... * s_d, ...]``."""
     return tree_map(lambda leaf: leaf.movedim(scan_dims, 0).reshape(
-        (-1,) + leaf.shape[scan_dims + 1:]), tree)
+        (leaf.shape[scan_dims], -1) + leaf.shape[scan_dims + 1:]), tree)
 
 
 def _mask(cond, leaf):
@@ -199,46 +194,76 @@ class PartitionedState:
     # -- SPMD execution -------------------------------------------------------
     def run(self, mesh: WorkerMesh, axis: str, xs, v0):
         """xs sharded over ``axis`` (emitter); v0 the flat state vector
-        (block mode: each worker's block is a view of it; slotmap mode:
-        replicated).  Returns ``(ys, v_final)``: the workers' ys in stream
-        order and the flat final vector.  ``v0`` is not modified."""
+        (block mode: each rank's workers start from their block of it;
+        slotmap mode: replicated).  Returns ``(ys, v_final)``: the workers'
+        ys in stream order and the flat final vector, on every rank.
+        ``v0`` is not modified."""
         if self.ownership == "slotmap":
             return self._run_slotmap(mesh, axis, xs, v0)
+        if not mesh.active:
+            return mesh.receive()
+        lo, hi = mesh.block(self.num_slots)
+        ys, v_block = self._scan_block(
+            mesh, axis, xs, tree_map(lambda leaf: leaf[lo:hi], v0))
+        spw = self.slots_per_worker(mesh.shape[axis])
+        # out_spec P(axis): the workers' blocks gathered in worker order
+        v_final = mesh.unshard(tree_map(
+            lambda leaf: leaf.view((-1, spw) + leaf.shape[1:]), v_block))
+        return mesh.deliver((ys, v_final))
+
+    def run_block(self, mesh: WorkerMesh, axis: str, xs, v_block):
+        """Block mode on this rank's block of the state, ``v_block`` (the
+        slots ``mesh.block(num_slots)``: every slot on one card, the rank's
+        workers' slots on a rank mesh).  Returns ``(ys, v_block_final)``:
+        the ys in stream order on every rank (an idle rank receives them
+        and keeps its empty block); ``v_block`` is not modified.  The
+        executor keeps the state partitioned between chunks this way."""
+        if not mesh.active:
+            return mesh.receive(), v_block
+        ys, v_block = self._scan_block(mesh, axis, xs, v_block)
+        return mesh.deliver(ys), v_block
+
+    def _scan_block(self, mesh, axis, xs, v_block):
         n_w = _axis_size(mesh, axis)
         spw = self.slots_per_worker(n_w)
         f, ns, h = self.f, self.ns, self.h
         per_worker_f = vmap(f, in_dims=(None, 0))
         per_worker_ns = vmap(ns, in_dims=(None, 0))
         w = mesh.axis_index(axis)
+        rows = torch.arange(mesh.n_local, device=mesh.device)
         base = w * spw
-        v_flat = tree_map(torch.clone, mesh.put(v0))
         v_local = tree_map(
-            lambda leaf: leaf.view((n_w, spw) + leaf.shape[1:]), v_flat)
+            lambda leaf: leaf.view((mesh.n_local, spw) + leaf.shape[1:]),
+            tree_map(torch.clone, mesh.put(v_block)))
         # all_gather(tiled) of the emitter's shards gives every worker the
         # whole chunk, in stream order; the copies are identical, so one
-        # serves all workers, and so does the slot h computes from it
-        xs_all = mesh.put(xs)
+        # serves all of a process's workers, and so does the slot h
+        # computes from it
+        xs_all = tree_map(lambda leaf: leaf[0],
+                          mesh.all_gather(mesh.shard(xs)))
 
         def step(v, x):
             slot = h(x)
             mine = (slot // spw) == w
             local_slot = torch.where(mine, slot - base, 0).long()
-            sp = tree_map(lambda leaf: leaf[w, local_slot], v)
+            sp = tree_map(lambda leaf: leaf[rows, local_slot], v)
             y = per_worker_f(x, sp)
             new_sp = per_worker_ns(x, sp)
             tree_map(lambda leaf, nl, old: leaf.index_put_(
-                (w, local_slot), semantics.select(mine, nl, old)),
+                (rows, local_slot), semantics.select(mine, nl, old)),
                 v, new_sp, sp)
             y = tree_map(lambda leaf: torch.where(_mask(mine, leaf), leaf, 0),
                          y)
             return v, y
 
-        _, ys_all = scan(step, v_local, xs_all)
+        v_local, ys_all = scan(step, v_local, xs_all)
         # each y computed by exactly one worker -> psum reassembles stream;
         # worker w hands back its emitter slice ys[w*c:(w+1)*c], and the
         # slices in worker order are the whole reassembled stream
-        ys_all = psum(tree_map(lambda leaf: leaf.movedim(1, 0), ys_all))
-        return tree_map(lambda leaf: leaf[0], ys_all), v_flat
+        ys_all = mesh.psum(tree_map(lambda leaf: leaf.movedim(1, 0), ys_all))
+        return (tree_map(lambda leaf: leaf[0], ys_all),
+                tree_map(lambda leaf: leaf.reshape((-1,) + leaf.shape[2:]),
+                         v_local))
 
     def _run_slotmap(self, mesh: WorkerMesh, axis: str, xs, v0):
         """Slot-map ownership run: the state vector is replicated, each
@@ -246,14 +271,18 @@ class PartitionedState:
         final vector is reassembled slot-by-slot from the owners (exactly
         one worker contributes each slot, so `psum` of the masked vectors
         is exact)."""
+        if not mesh.active:
+            return mesh.receive()
         n_w = _axis_size(mesh, axis)
         table = torch.as_tensor(self.owner_table(n_w), device=mesh.device)
         f, ns, h = self.f, self.ns, self.h
         per_worker_f = vmap(f, in_dims=(None, 0))
         per_worker_ns = vmap(ns, in_dims=(None, 0))
         w = mesh.axis_index(axis)
-        v_rep = tree_map(torch.clone, replicate(mesh.put(v0), n_w))
-        xs_all = mesh.put(xs)  # the gathered chunk, as in block mode
+        v_rep = tree_map(torch.clone, mesh.replicate(mesh.put(v0)))
+        # the gathered chunk, as in block mode
+        xs_all = tree_map(lambda leaf: leaf[0],
+                          mesh.all_gather(mesh.shard(xs)))
 
         def step(v, x):
             slot = h(x).reshape(1).long()
@@ -270,12 +299,12 @@ class PartitionedState:
             return v, y
 
         v_scanned, ys_all = scan(step, v_rep, xs_all)
-        ys_all = psum(tree_map(lambda leaf: leaf.movedim(1, 0), ys_all))
+        ys_all = mesh.psum(tree_map(lambda leaf: leaf.movedim(1, 0), ys_all))
         own = table.unsqueeze(0) == w.unsqueeze(1)
-        v_final = psum(tree_map(
+        v_final = mesh.psum(tree_map(
             lambda leaf: torch.where(_mask(own, leaf), leaf, 0), v_scanned))
-        return (tree_map(lambda leaf: leaf[0], ys_all),
-                tree_map(lambda leaf: leaf[0], v_final))
+        return mesh.deliver((tree_map(lambda leaf: leaf[0], ys_all),
+                             tree_map(lambda leaf: leaf[0], v_final)))
 
     # -- adaptivity (paper §4.2): repartition slots over a new worker count ---
     @staticmethod
@@ -366,15 +395,16 @@ class AccumulatorState:
         N+1's views include chunk N's flushes.  Defaults to the identity (a
         single-chunk run).
         """
-        n_w = _axis_size(mesh, axis)
+        if not mesh.active:
+            return mesh.receive()
         combine = vmap(self.combine)
         f, g = vmap(self.f), vmap(self.g)
-        xs_local = shard(mesh.put(xs), n_w)
+        xs_local = mesh.shard(xs)
         m_local = tree_leaves(xs_local)[0].shape[1]
         if m_local % flush_every:
             raise ValueError("flush_every must divide the local chunk size")
         zero = mesh.put(self.zero())  # once: every block starts from it
-        acc0 = replicate(zero, n_w)
+        acc0 = mesh.replicate(zero)
 
         def flush_block(s_global_view, x_block):
             def one(acc, x):
@@ -384,12 +414,12 @@ class AccumulatorState:
 
             acc, ys = scan(one, acc0, _by_step(x_block))
             # collector commit: exact because (+) is assoc+comm
-            return combine(psum(acc), s_global_view), ys
+            return combine(mesh.psum(acc), s_global_view), ys
 
-        s_init = replicate(zero if s0 is None else mesh.put(s0), n_w)
+        s_init = mesh.replicate(zero if s0 is None else mesh.put(s0))
         s_final, ys = scan(flush_block, s_init, _blocks(xs_local, flush_every))
-        return (_stream_order(ys, 2),
-                tree_map(lambda leaf: leaf[0], s_final))
+        return mesh.deliver((mesh.unshard(_by_worker(ys, 2)),
+                             tree_map(lambda leaf: leaf[0], s_final)))
 
     # -- adaptivity (paper §4.3) ----------------------------------------------
     def merge_workers(self, s_i, s_j):
@@ -420,8 +450,8 @@ class SuccessiveApproximationState:
     s_prime: Callable  # s' : alpha x gamma -> gamma, monotone w.r.t. `better`
     direction: str = "min"  # "min": s' <= s ; "max": s' >= s
 
-    def _commit(self, s):
-        return (pmin if self.direction == "min" else pmax)(s)
+    def _commit(self, mesh, s):
+        return (mesh.pmin if self.direction == "min" else mesh.pmax)(s)
 
     def _merge(self, a, b):
         op = torch.minimum if self.direction == "min" else torch.maximum
@@ -433,9 +463,10 @@ class SuccessiveApproximationState:
     def run(self, mesh: WorkerMesh, axis: str, xs, s_init, sync_every: int):
         """xs sharded over ``axis``; returns (the workers' local traces in
         stream order, s_global)."""
-        n_w = _axis_size(mesh, axis)
+        if not mesh.active:
+            return mesh.receive()
         c, s_prime = vmap(self.c), vmap(self.s_prime)
-        xs_local = shard(mesh.put(xs), n_w)
+        xs_local = mesh.shard(xs)
         m_local = tree_leaves(xs_local)[0].shape[1]
         if m_local % sync_every:
             raise ValueError("sync_every must divide the local chunk size")
@@ -448,12 +479,12 @@ class SuccessiveApproximationState:
         def sync_block(ls, x_block):
             ls, trace = scan(one, ls, _by_step(x_block))
             # collector: monotone commit + feedback broadcast in one collective
-            return self._commit(ls), trace
+            return self._commit(mesh, ls), trace
 
-        s_final, trace = scan(sync_block, replicate(mesh.put(s_init), n_w),
+        s_final, trace = scan(sync_block, mesh.replicate(mesh.put(s_init)),
                               _blocks(xs_local, sync_every))
-        return (_stream_order(trace, 2),
-                tree_map(lambda leaf: leaf[0], s_final))
+        return mesh.deliver((mesh.unshard(_by_worker(trace, 2)),
+                             tree_map(lambda leaf: leaf[0], s_final)))
 
     # -- adaptivity (paper §4.4) ----------------------------------------------
     def new_worker_state(self, s_global):
@@ -474,8 +505,8 @@ class SeparateTaskState:
     The "mutex section" becomes a collective fold: worker-local ys are
     all-gathered and the commit fold is replayed in canonical stream order,
     yielding a replicated state.  The reference replays it on every shard
-    (bit-identical by construction); the workers here share one device, so
-    it runs once and every worker reads that one result.
+    (bit-identical by construction); here each process replays it once,
+    and its workers read that one result.
 
     The speedup bound eq.(1) ``t_f/t_s + 1`` governs this pattern.
     """
@@ -487,10 +518,12 @@ class SeparateTaskState:
         return semantics.separate_task_state(self.f, self.s, xs, s0)
 
     def run(self, mesh: WorkerMesh, axis: str, xs, s0):
-        n_w = _axis_size(mesh, axis)
+        if not mesh.active:
+            return mesh.receive()
         # each worker: vmap(f) over its local items (no state access)
-        ys_local = vmap(vmap(self.f))(shard(mesh.put(xs), n_w))
-        ys_all = tree_map(lambda leaf: leaf[0], all_gather(ys_local))
+        ys_local = vmap(vmap(self.f))(mesh.shard(xs))
+        # every worker's ys in worker order: the stream's (out_spec P(axis))
+        ys_all = tree_map(lambda leaf: leaf[0], mesh.all_gather(ys_local))
 
         def commit(st, y):
             st_new = self.s(y, st)
@@ -499,7 +532,7 @@ class SeparateTaskState:
         s_final, trace = scan(commit, mesh.put(s0), ys_all)
         # worker w's trace slice is trace[w*c:(w+1)*c]: in worker order,
         # the whole trace
-        return unshard(ys_local), trace, s_final
+        return mesh.deliver((ys_all, trace, s_final))
 
     @staticmethod
     def speedup_bound(t_f: float, t_s: float) -> float:

@@ -31,14 +31,24 @@ all-reduce keep the sharded steps' gradients exact:
 * :func:`all_reduce` -- all-reduce both ways: a sum that every rank uses
   for its own part (the sum of squares of a norm over a sharded width).
 
+The patterns' rank meshes (:class:`repro_torch.core.mesh.RankMesh`) run
+over a process group of the first ``g`` ranks, not a layout's axes: for
+them :func:`prefix_groups` makes those groups (collectively, once);
+:func:`group_all_reduce` (sum, min or max) and :func:`group_all_gather`
+take a group and its size (the layout's collectives above run through
+them), and :func:`group_all_to_all_rows` moves uneven rows over the world
+(the S2 handoff).
+
 Every collective adds its per-rank wire bytes to :data:`WIRE_BYTES` by
 family, by the ring formulas of the reference's ``hlo_analysis.py``
 (``b`` the bytes of the tensor named, ``n`` the ranks of the group):
 all-reduce ``2 b (n-1)/n`` (b its input), all-gather and all-to-all
 ``b (n-1)/n`` (b their result), reduce-scatter ``b (n-1)/n`` (b its
-input).  Gloo runs all four single-tensor collectives on CUDA tensors
-(the card's ``torch`` 2.11, probed at two ranks on one card), so no
-collective is staged through host memory.
+input); an all-to-all of uneven rows counts the rows a rank receives from
+the others.  Gloo runs all four single-tensor collectives on CUDA tensors
+(the card's ``torch`` 2.11, probed at two ranks on one card; also the min
+and max all-reduces and ``all_to_all_single`` with uneven and zero
+splits), so no collective is staged through host memory.
 """
 
 from __future__ import annotations
@@ -52,9 +62,11 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["FAMILIES", "LiveMesh", "MeshLayout", "WIRE_BYTES", "all_gather",
-           "all_reduce", "all_to_all", "copy_in", "dp_axes", "live_mesh",
-           "make_host_mesh", "make_production_mesh", "reduce_out",
-           "reduce_scatter", "reset_wire_bytes", "wire_bytes"]
+           "all_reduce", "all_to_all", "copy_in", "dp_axes",
+           "group_all_gather", "group_all_reduce", "group_all_to_all_rows",
+           "live_mesh", "make_host_mesh", "make_production_mesh",
+           "prefix_groups", "reduce_out", "reduce_scatter",
+           "reset_wire_bytes", "wire_bytes"]
 
 #: the collective families the wire-byte counter keeps apart
 FAMILIES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
@@ -222,21 +234,49 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _raw_all_reduce(x, mesh, axis, op="sum"):
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+        "max": dist.ReduceOp.MAX}
+
+
+def group_all_reduce(x, group, n, op="sum"):
+    """The sum (or ``op`` ``"min"`` / ``"max"``) of ``x`` over the ``n``
+    ranks of ``group``, in a new tensor; counted as an all-reduce."""
     out = x.contiguous().clone()
-    _count("all_reduce", _nbytes(out), mesh.size(axis))
-    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
-                    else dist.ReduceOp.SUM, group=mesh.group(axis))
+    _count("all_reduce", _nbytes(out), n)
+    dist.all_reduce(out, op=_OPS[op], group=group)
     return out
 
 
-def _raw_all_gather(x, mesh, axis, dim):
-    n = mesh.size(axis)
+def group_all_gather(x, group, n, dim=0):
+    """The ``n`` ranks' ``x`` concatenated along ``dim`` in rank order."""
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((n * x.shape[0],) + x.shape[1:])
     _count("all_gather", _nbytes(out), n)
-    dist.all_gather_into_tensor(out, x, group=mesh.group(axis))
+    dist.all_gather_into_tensor(out, x, group=group)
     return out.movedim(0, dim)
+
+
+def group_all_to_all_rows(x, send_rows, recv_rows):
+    """``x``'s rows cut in ``send_rows[q]`` rows for each rank ``q`` of the
+    world, in rank order; returns the rows received, ``recv_rows[q]`` from
+    each rank ``q`` in rank order.  The rows a rank keeps are a local copy:
+    only those received from the other ranks are counted (as the
+    all-to-all's ``b (n-1)/n`` counts them)."""
+    me = dist.get_rank()
+    x = x.contiguous()
+    out = x.new_empty((sum(recv_rows),) + x.shape[1:])
+    row = _nbytes(x[:1]) if x.shape[0] else _nbytes(out[:1])
+    WIRE_BYTES["all_to_all"] += row * (sum(recv_rows) - recv_rows[me])
+    dist.all_to_all_single(out, x, list(recv_rows), list(send_rows))
+    return out
+
+
+def _raw_all_reduce(x, mesh, axis, op="sum"):
+    return group_all_reduce(x, mesh.group(axis), mesh.size(axis), op)
+
+
+def _raw_all_gather(x, mesh, axis, dim):
+    return group_all_gather(x, mesh.group(axis), mesh.size(axis), dim)
 
 
 def _raw_reduce_scatter(x, mesh, axis, dim):
@@ -259,6 +299,31 @@ def _raw_all_to_all(x, mesh, axis):
     out = torch.empty_like(x)
     _count("all_to_all", _nbytes(out), n)
     dist.all_to_all_single(out, x, group=mesh.group(axis))
+    return out
+
+
+def prefix_groups(sizes) -> Dict[int, tuple]:
+    """For each ``g`` of ``sizes`` (each in ``[1, world]``): the process
+    group of the first ``g`` ranks (None for one rank) and the group of
+    rank 0 and the ranks from ``g`` on (None when ``g`` is the world), by
+    which rank 0 hands the ranks outside the first ``g`` their results.
+    Collective: every rank calls it with the same ``sizes``, since
+    ``new_group`` is (a group made later on some ranks only would hang)."""
+    world = dist.get_world_size()
+    out = {}
+    for g in sorted(set(sizes)):
+        if not 1 <= g <= world:
+            raise ValueError(f"a group of {g} ranks in a world of {world}")
+        head = tail = None
+        if g == world:
+            head = dist.group.WORLD
+        elif g > 1:
+            head = dist.new_group(list(range(g)))
+        if g == 1 and world > 1:
+            tail = dist.group.WORLD
+        elif 1 < g < world:
+            tail = dist.new_group([0] + list(range(g, world)))
+        out[g] = (head, tail)
     return out
 
 

@@ -24,6 +24,7 @@ from repro_torch.runtime.executor import (
     AccumulatorAdapter,
     PartitionedAdapter,
     PatternAdapter,
+    RankMeshFactory,
     ResizeInfo,
     SeparateAdapter,
     StreamExecutor,
@@ -69,6 +70,7 @@ __all__ = [
     "AccumulatorAdapter",
     "PartitionedAdapter",
     "PatternAdapter",
+    "RankMeshFactory",
     "ResizeInfo",
     "SeparateAdapter",
     "StreamExecutor",

@@ -324,47 +324,61 @@ class Autoscaler:
         plane whose respawn capability failed), the degree is **forced**
         down onto the surviving capacity — capacity loss is a hard
         constraint, not a load signal, so it bypasses cooldown and
-        hysteresis entirely."""
+        hysteresis entirely.
+
+        Over ranks (a rank mesh factory) the decision is rank 0's: each rank
+        consults its policy, and the degree every rank applies is the one
+        rank 0 reached (``executor.agree``), since a policy that reads wall
+        time or queue state can decide otherwise on another process."""
         bus = executor.metrics
         current = executor.degree
         cap = getattr(executor.adapter, "capacity_limit", None)
+        forced = None
         if cap is not None and current > cap:
             feas = executor.feasible_degrees(self.candidates)
             target = max([c for c in feas if c <= cap], default=None)
             if target is not None and target < current:
-                rec = executor.set_degree(
-                    target,
-                    reason=f"forced degrade: capacity limit {cap} "
-                           f"< degree {current}",
+                forced = target
+        target = None
+        if forced is None:
+            target = self.propose(
+                bus,
+                current,
+                queue=queue,
+                feasible=executor.feasible_degrees(self.candidates),
+            )
+            self.tick()
+        agree = getattr(executor, "agree", None)
+        if agree is not None:
+            forced, target = agree((forced, target))
+        if forced is not None:
+            target = forced
+            rec = executor.set_degree(
+                target,
+                reason=f"forced degrade: capacity limit {cap} "
+                       f"< degree {current}",
+            )
+            self.notify_resized()
+            d = Decision(
+                chunk_index=executor.chunks_done,
+                current=current,
+                proposed=target,
+                applied=rec is not None,
+                reason=rec.reason if rec else "noop",
+                handoff_slots=rec.handoff_items if rec else 0,
+                handoff_rows=rec.handoff_rows if rec else 0,
+                handoff_bytes=rec.handoff_bytes if rec else 0,
+                signal="capacity",
+            )
+            tracer = getattr(executor, "tracer", None)
+            if tracer is not None:
+                tracer.instant(
+                    "autoscale.decision", chunk=d.chunk_index,
+                    current=current, proposed=target, applied=d.applied,
+                    policy="capacity-guard", signal="forced degrade",
                 )
-                self.notify_resized()
-                d = Decision(
-                    chunk_index=executor.chunks_done,
-                    current=current,
-                    proposed=target,
-                    applied=rec is not None,
-                    reason=rec.reason if rec else "noop",
-                    handoff_slots=rec.handoff_items if rec else 0,
-                    handoff_rows=rec.handoff_rows if rec else 0,
-                    handoff_bytes=rec.handoff_bytes if rec else 0,
-                    signal="capacity",
-                )
-                tracer = getattr(executor, "tracer", None)
-                if tracer is not None:
-                    tracer.instant(
-                        "autoscale.decision", chunk=d.chunk_index,
-                        current=current, proposed=target, applied=d.applied,
-                        policy="capacity-guard", signal="forced degrade",
-                    )
-                self.decisions.append(d)
-                return d
-        target = self.propose(
-            bus,
-            current,
-            queue=queue,
-            feasible=executor.feasible_degrees(self.candidates),
-        )
-        self.tick()
+            self.decisions.append(d)
+            return d
         if target is None:
             return None
         rec = executor.set_degree(

@@ -5,8 +5,10 @@ state pattern behind a uniform interface the runtime drives over successive
 stream chunks:
 
 * ``step(state, chunk)`` — one execution of ``pattern.run`` over a
-  :class:`~repro_torch.core.mesh.WorkerMesh` at the current degree (the
-  SPMD adapters: S2 :class:`PartitionedAdapter`, S3
+  :class:`~repro_torch.core.mesh.WorkerMesh` (every worker on one card) or
+  a :class:`~repro_torch.core.mesh.RankMesh` (the workers in blocks over
+  ``torch.distributed`` ranks, :class:`RankMeshFactory`) at the current
+  degree (the SPMD adapters: S2 :class:`PartitionedAdapter`, S3
   :class:`AccumulatorAdapter`, S4 :class:`SuccessiveAdapter`, S5
   :class:`SeparateAdapter`), or host code that launches its own device work
   (``is_host`` adapters such as the keyed window plane, which get no mesh);
@@ -17,7 +19,13 @@ stream chunks:
 step cache, the live-state attach/detach lifecycle and the optional
 double-buffered chunk pipeline.  An SPMD adapter's state is placed on the
 mesh's device once (and after a resize) and stays there between chunks;
-each chunk is moved there once, as the emitter.
+each chunk is moved there once, as the emitter (on a rank mesh, each rank
+copies its workers' rows only).  S2's block state stays partitioned: each
+rank holds its block, a resize moves the slots whose owning rank changes
+(one ``all_to_all``), and reading :attr:`StreamExecutor.state` gathers the
+whole vector.  Over ranks, a degree change is decided on rank 0 and agreed
+at the chunk boundary (:meth:`StreamExecutor.agree`), and checkpoints are
+written by rank 0.
 
 Because every chunk is identical in shape and chunk boundaries are the only
 resize points, a run with any schedule of degree changes processes exactly
@@ -33,8 +41,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 
 from repro_torch.core import patterns
-from repro_torch.core.mesh import WorkerMesh
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.mesh import RankMesh, WorkerMesh, prefix_size
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime.metrics import ChunkRecord, MetricsBus, ResizeRecord
 
@@ -43,6 +51,55 @@ def default_mesh_factory(n: int, axis: str, device=None) -> WorkerMesh:
     """``n`` workers on one device; ``device=None`` is the CUDA card (bind
     ``device="cpu"`` with ``functools.partial`` to run on the host)."""
     return WorkerMesh(n, axis, device)
+
+
+class RankMeshFactory:
+    """Rank meshes over the initialised default process group for the
+    ``degrees`` the executor may reach, with every group they need made
+    here, collectively (``new_group`` is collective: a group made later, at
+    a resize on some ranks only, would hang); every rank builds it with the
+    same degrees.  ``device=None`` is each rank's card.
+
+    Besides the meshes it keeps the ranks to one decision:
+    :meth:`agree` hands every rank rank 0's value, :meth:`all_ranks` hands
+    every rank each rank's value, :attr:`writer` is rank 0
+    (it writes the checkpoints), :meth:`barrier` waits for every rank.
+    """
+
+    def __init__(self, degrees, device=None):
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import prefix_groups
+
+        world = dist.get_world_size()
+        self._ranks = prefix_groups({prefix_size(n, world) for n in degrees})
+        self.device = device
+        self.writer = dist.get_rank() == 0
+
+    def __call__(self, n: int, axis: str = "workers") -> RankMesh:
+        return RankMesh(n, axis, self.device, ranks=self._ranks)
+
+    def agree(self, value):
+        """Rank 0's ``value`` on every rank (``broadcast_object_list``)."""
+        import torch.distributed as dist
+
+        box = [value]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def all_ranks(self, value) -> list:
+        """Every rank's ``value``, in rank order, on every rank
+        (``all_gather_object``)."""
+        import torch.distributed as dist
+
+        values = [None] * dist.get_world_size()
+        dist.all_gather_object(values, value)
+        return values
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +181,10 @@ class PatternAdapter:
         adapters receive ``mesh=None`` and keep state as a host pytree."""
         return state
 
+    def canonical(self, state, mesh: Optional[WorkerMesh]):
+        """The placed ``state`` in its canonical form, on every rank."""
+        return state
+
     def resize(self, state, n_old: int, n_new: int) -> Tuple[Any, ResizeInfo]:
         """Run the pattern's §4.x protocol for a degree change."""
         raise NotImplementedError
@@ -157,10 +218,53 @@ class PatternAdapter:
         raise NotImplementedError
 
 
+@dataclasses.dataclass
+class _Block:
+    """S2 block state as placed: this process's block of the vector
+    (``data``, leaves ``[num_slots / g, ...]``; empty on an idle rank) in
+    the layout over the first ``g`` ranks."""
+
+    data: Any
+    g: int
+
+
+def _block_span(rank: int, g: int, num_slots: int) -> Tuple[int, int]:
+    if rank >= g:
+        return 0, 0
+    return rank * num_slots // g, (rank + 1) * num_slots // g
+
+
+def _block_handoff(data, g_old: int, g_new: int, num_slots: int):
+    """The §4.2 handoff over ranks: one ``all_to_all`` over the world that
+    moves exactly the slots whose owning rank changes from the layout over
+    ``g_old`` ranks to that over ``g_new`` (slots that only change worker
+    within a rank stay put); counted in ``launch.mesh.WIRE_BYTES``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import group_all_to_all_rows
+
+    world, me = dist.get_world_size(), dist.get_rank()
+
+    def overlap(a, b):
+        return max(0, min(a[1], b[1]) - max(a[0], b[0]))
+
+    old = [_block_span(r, g_old, num_slots) for r in range(world)]
+    new = [_block_span(r, g_new, num_slots) for r in range(world)]
+    send = [overlap(old[me], new[q]) for q in range(world)]
+    recv = [overlap(old[q], new[me]) for q in range(world)]
+    return tree_map(lambda leaf: group_all_to_all_rows(leaf, send, recv),
+                    data)
+
+
 class PartitionedAdapter(PatternAdapter):
     """S2 fully-partitioned state: resize = repartitioning (block handoff,
     or slot-map handoff when the pattern uses slot-map ownership — every
-    degree feasible, replicated state vector)."""
+    degree feasible, replicated state vector).
+
+    Block state is placed as each process's block (:class:`_Block`: the
+    whole vector on one card, a rank's workers' slots on a rank mesh) and
+    stays so between chunks; placing it for a degree over another number
+    of ranks is the handoff (:func:`_block_handoff`)."""
 
     def __init__(self, pattern: patterns.PartitionedState, v0):
         self.pattern = pattern
@@ -174,16 +278,44 @@ class PartitionedAdapter(PatternAdapter):
         self.pattern.validate_degree(n_w)  # mode-appropriate ownership check
 
     def make_step(self, mesh: WorkerMesh, axis: str) -> Callable:
-        def step(v, chunk):
-            ys, v = self.pattern.run(mesh, axis, chunk, v)
-            return v, ys
+        if self.pattern.ownership == "slotmap":
+            def step(v, chunk):
+                ys, v = self.pattern.run(mesh, axis, chunk, v)
+                return v, ys
 
-        return step
+            return step
+
+        def block_step(v, chunk):
+            v = self.place(v, mesh, axis)
+            ys, data = self.pattern.run_block(mesh, axis, chunk, v.data)
+            return _Block(data, v.g), ys
+
+        return block_step
 
     def place(self, v, mesh: WorkerMesh, axis: str):
-        # block mode's P(axis) and slotmap's P() are both the flat vector on
-        # the card: ``run`` views it per worker (block) or replicates it
-        return mesh.put(v)
+        # slotmap's P() is the flat vector on every rank's device
+        if self.pattern.ownership == "slotmap":
+            return mesh.put(v)
+        # block mode's P(axis): this process's block; the whole vector
+        # (the initial state, a restore) is cut, a block of another
+        # layout handed off
+        if not isinstance(v, _Block):
+            lo, hi = mesh.block(self.pattern.num_slots)
+            return _Block(mesh.put(tree_map(lambda leaf: leaf[lo:hi], v)),
+                          mesh.g)
+        if v.g == mesh.g:
+            return v
+        return _Block(_block_handoff(v.data, v.g, mesh.g,
+                                     self.pattern.num_slots), mesh.g)
+
+    def canonical(self, v, mesh: WorkerMesh):
+        if not isinstance(v, _Block):
+            return v
+        if not mesh.active:
+            return mesh.receive()
+        # out_spec P(axis): the blocks gathered in rank order
+        return mesh.deliver(mesh.unshard(tree_map(
+            lambda leaf: leaf.unsqueeze(0), v.data)))
 
     def resize(self, v, n_old: int, n_new: int) -> Tuple[Any, ResizeInfo]:
         moved = self.pattern.transition_volume(n_old, n_new)
@@ -330,7 +462,10 @@ class StreamExecutor:
     quiescent points of the paper's protocols: all in-flight tasks of the
     old degree have committed).  Steps are cached per degree, so a degree
     revisited after further resizes reuses its step.  The meshes come from
-    ``mesh_factory(n, axis)``, by default ``n`` workers on the CUDA card.
+    ``mesh_factory(n, axis)``, by default ``n`` workers on the CUDA card;
+    with a :class:`RankMeshFactory` every rank runs its own executor over
+    the same chunks and schedule, and after each chunk every rank's
+    executor holds the same outputs and (canonical) state.
     """
 
     def __init__(
@@ -372,10 +507,14 @@ class StreamExecutor:
     @property
     def state(self):
         """The adapter state in canonical serialized form.  While a
-        live-state adapter is attached, reading this IS a snapshot barrier."""
+        live-state adapter is attached, reading this IS a snapshot barrier;
+        over ranks it is collective (S2's blocks are gathered), so every
+        rank reads it at the same point."""
         if self._attached:
             return self.adapter.snapshot_barrier()
-        return self._state
+        if self.adapter.is_host:
+            return self._state
+        return self.adapter.canonical(self._state, self._mesh(self.degree))
 
     @state.setter
     def state(self, value):
@@ -399,6 +538,32 @@ class StreamExecutor:
         with self.tracer.span("barrier"):
             self._drain_pipeline()
             return self.state
+
+    # -- one decision over ranks ----------------------------------------------
+    def agree(self, value):
+        """Rank 0's ``value`` on every rank when the meshes are over ranks
+        (a degree change, read from policies that may see other clocks and
+        queues on other processes, is rank 0's); ``value`` otherwise."""
+        agree = getattr(self.mesh_factory, "agree", None)
+        return value if agree is None else agree(value)
+
+    def all_ranks(self, value) -> list:
+        """Every rank's ``value`` in rank order when the meshes are over
+        ranks (what each rank saw before a chunk, so that one rank's
+        failure is every rank's); ``[value]`` otherwise."""
+        all_ranks = getattr(self.mesh_factory, "all_ranks", None)
+        return [value] if all_ranks is None else all_ranks(value)
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes checkpoints: rank 0 over ranks."""
+        return getattr(self.mesh_factory, "writer", True)
+
+    def barrier(self) -> None:
+        """Wait for every rank (a no-op in one process)."""
+        barrier = getattr(self.mesh_factory, "barrier", None)
+        if barrier is not None:
+            barrier()
 
     # -- degree / step cache --------------------------------------------------
     def _mesh(self, n: int) -> WorkerMesh:
@@ -485,7 +650,7 @@ class StreamExecutor:
             self._fit_degree_for(m)
         mesh = None if self.adapter.is_host else self._mesh(self.degree)
         if mesh is not None:
-            chunk = mesh.put(chunk)
+            chunk = mesh.ingest(chunk)
         t0 = self.metrics.clock.now()
         with self.tracer.span(
             "chunk", m=m, degree=self.degree, queue_depth=queue_depth

@@ -24,6 +24,18 @@ reference's: from catching the failure to the degraded degree's
 lazily, when the next chunk attaches it, so that work is not in ``mttr_s``:
 the first replayed chunk pays for it (its record on the executor's metrics
 bus).
+
+Over ranks (an executor built with a ``RankMeshFactory``) every rank runs
+its own supervisor over the same chunks: the snapshot is gathered on every
+rank, rank 0 writes the checkpoint and the ranks wait for it
+(``executor.barrier``) before going on, every rank restores from the same
+files, and each degree change is rank 0's (``executor.agree``).  A failure
+raised on one rank while its chunk is made (``chunk_fn``) is every rank's:
+before any collective of the chunk the ranks tell each other what they saw
+(``executor.all_ranks``), and all of them take the recovery path together.
+A :class:`FailurePlan` fires on every rank alike.  A failure raised inside
+a chunk must fire on every rank alike too: a rank that stops within the
+chunk's collectives leaves the others waiting in them.
 """
 
 from __future__ import annotations
@@ -137,12 +149,15 @@ class Supervisor:
         # serialize to the canonical merged form HERE and nowhere else —
         # checkpoint cadence, not chunk cadence, bounds serialization cost
         with self.executor.tracer.span("ckpt", chunk=i):
-            ckpt_lib.save(
-                self.ckpt_dir,
-                i,
-                self.executor.snapshot_barrier(),
-                metadata={"cursor": i, "degree": self.executor.degree},
-            )
+            state = self.executor.snapshot_barrier()
+            if self.executor.writer:
+                ckpt_lib.save(
+                    self.ckpt_dir,
+                    i,
+                    state,
+                    metadata={"cursor": i, "degree": self.executor.degree},
+                )
+            self.executor.barrier()
         self._log(i, "ckpt", f"state at chunk {i} (snapshot barrier)")
 
     def _restore_latest(self) -> int:
@@ -193,6 +208,26 @@ class Supervisor:
             target = min(target, max(1, capacity))
         return max(1, target)
 
+    def _chunk(self, i: int):
+        """``chunk_fn(i)``; over ranks, before any collective of the chunk,
+        the ranks' agreement on whether any of them failed making it.  Then
+        every rank raises, with the first failed rank's cause and the least
+        capacity reported (the shrink itself is rank 0's decision)."""
+        chunk = failure = None
+        try:
+            chunk = self.chunk_fn(i)
+        except WorkerFailure as e:
+            failure = e
+        seen = None if failure is None else (failure.cause, failure.capacity)
+        failed = [f for f in self.executor.all_ranks(seen) if f is not None]
+        if not failed:
+            return chunk
+        caps = [cap for _, cap in failed if cap is not None]
+        raise WorkerFailure(
+            str(failure) if failure is not None
+            else f"a worker on another rank failed before chunk {i}",
+            cause=failed[0][0], capacity=min(caps, default=None)) from failure
+
     def run(self) -> Dict[int, Any]:
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self._checkpoint(0)  # chunk-0 baseline so rollback is always defined
@@ -220,14 +255,15 @@ class Supervisor:
                 ):
                     # recovery: capacity is back — grow to the healthy degree
                     rec = self.executor.set_degree(
-                        healthy, reason="recovery: capacity restored"
+                        self.executor.agree(healthy),
+                        reason="recovery: capacity restored",
                     )
                     if rec:
                         self._log(i, "grow", f"{rec.n_old}->{rec.n_new}")
                     degraded_since = None
                 # keyed by chunk index: a replayed chunk overwrites its own
                 # slot, so failures never duplicate or reorder outputs
-                self.outputs[i] = self.executor.process(self.chunk_fn(i))
+                self.outputs[i] = self.executor.process(self._chunk(i))
                 i += 1
                 if i % self.ckpt_every == 0:
                     self._checkpoint(i)
@@ -246,8 +282,8 @@ class Supervisor:
                     healthy, capacity=getattr(e, "capacity", None)
                 )
                 rec = self.executor.set_degree(
-                    target, reason=f"failure ({cause}): lost capacity "
-                                   f"at chunk {i}"
+                    self.executor.agree(target),
+                    reason=f"failure ({cause}): lost capacity at chunk {i}",
                 )
                 if rec:
                     self._log(i, "shrink", f"{rec.n_old}->{rec.n_new}")

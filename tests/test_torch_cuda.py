@@ -1048,6 +1048,65 @@ def test_pattern_on_the_card_equals_the_cpu(dev, case):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("case", ["S2 block", "S2 slotmap", "S3", "S4",
+                                  "S5"])
+def test_one_nccl_rank_mesh_equals_the_worker_mesh(dev, case):
+    """A rank mesh over one NCCL rank (``RankMeshFactory``) equals
+    ``WorkerMesh`` on the card bit for bit: outputs, final state, resizes;
+    no byte crosses a wire."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as ml
+    from repro_torch.runtime import RankMeshFactory, default_mesh_factory
+
+    def run(factory):
+        adapter, xs = _pattern_adapter(case)
+        ex = StreamExecutor(adapter, degree=2, chunk_size=16,
+                            mesh_factory=factory)
+        outs = [_flat(o) for o in ex.run(
+            [xs[i * 16:(i + 1) * 16] for i in range(8)],
+            schedule={2: 4, 4: 8, 6: 2})]
+        return outs, ex.state.cpu().numpy(), [
+            (r.protocol, r.handoff_items) for r in ex.metrics.resizes]
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        ml.reset_wire_bytes()
+        ranked = run(RankMeshFactory(degrees=(2, 4, 8)))
+        assert ml.wire_bytes() == dict.fromkeys(ml.FAMILIES, 0.0)
+    finally:
+        dist.destroy_process_group()
+    card = run(default_mesh_factory)
+    assert ranked[2] == card[2]
+    np.testing.assert_array_equal(ranked[1], card[1])
+    for a, b in zip(ranked[0], card[0]):
+        for k in (b if isinstance(b, dict) else [None]):
+            got, want = (a, b) if k is None else (a[k], b[k])
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+
+
+def test_rank_mesh_device_none_needs_a_card(monkeypatch):
+    """``RankMesh(device=None)`` is this rank's card: on a host without one
+    (here also made so on a host with one) it raises, and so does a named
+    card."""
+    from repro_torch.core import RankMesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RankMesh(2)
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        RankMesh(2, device="cuda")
+
+
 def test_serial_run_on_the_card_equals_the_cpu(dev):
     """S1's ``run`` on a card mesh: the fold on the card, equal to the CPU's
     bit for bit, int32 wrapping alike."""
