@@ -74,7 +74,16 @@ Phases, each printed on its own line; any failure exits non-zero:
                SeamlessM4T-medium's bidirectional encoder (16/16 heads, hd
                64, 1,024 frames) and cross prefill (4,096 queries x 1,024
                frames), each in both dtypes, timed beside SDPA on the same
-               boolean mask; then the training path's flash backward (three
+               boolean mask; then the decode over a block of global
+               positions (``decode_attention_partial``, phase 21's) at
+               Jamba-1.5-Large's attention layer (64/8 heads of 128) over
+               two blocks of 262,144 rows at pos0 0 and 262,144, both
+               dtypes: phase 21's four positions, a window of 4,097 across
+               the boundary, softcap 50, a block with no admitted row (o 0,
+               lse -inf), the blocks merged by their log-sum-exp against
+               the whole-cache kernel; timed over one whole bf16 block
+               beside its bound and SDPA over the same rows (which gives no
+               log-sum-exp); then the training path's flash backward (three
                kernels a call: D, dK/dV, dQ) and the forward's row
                log-sum-exp against their plain versions in both dtypes at
                MiniCPM-2B's layer (36/36 heads, 4,096 tokens, hd 64),
@@ -377,6 +386,35 @@ Phases, each printed on its own line; any failure exits non-zero:
                times: one card's host path, bounding nothing NVLink will
                see) (``--only-ranks`` runs this phase alone after the
                build).
+21. long-decode -- the reference's long-context decode (``LONG_500K``:
+               batch 1, the KV caches' sequence over the data axes, a Mamba
+               state's heads over every axis they divide) through
+               ``build_cell`` on a live mesh, under ``knobs_for``'s knobs:
+               two worlds of gloo ranks on the one card, (2, 1) and (2, 2)
+               over ("data", "model"), child processes of this script
+               (``--long-rank``) started together.  (a) Mamba2-780M at full
+               width and depth from a random state: 16 bf16 serve steps
+               (the main path) and float32 ones (16 at (2, 2), 4 at (2,
+               1)), the last through the
+               forwards for its logits (each step gathers the fsdp shards
+               of every weight through gloo); float32 tokens and last
+               logits (``1e-4 + 1e-4 |x|``) equal to one rank's steps
+               without a mesh, bf16 check (i) against one rank's serving
+               the same tokens (RMS limit calibrated with a state block's
+               owner stepping it with another block's decay rates,
+               ``--plant-fault state``); at (2, 2) each rank's
+               state block lies outside its TP block, and the step moves
+               the recurrence's inputs to it.  (b) Jamba-1.5-Large's
+               attention layer at full width over a 524,288-row cache from
+               the seed, bf16 and float32, at positions 100,000, 262,143,
+               262,144 and 524,287: the sharded decode (each rank's block
+               through ``decode_attention_partial``, merged) against
+               ``ops.decode_attention`` over the whole cache (phase 6's
+               tolerances; float32 1e-5), then ``attention_block`` under
+               the rules (its launches counted) against one rank's layer
+               (the same tolerances);
+               serve step ms and wire bytes a step (``--only-long-decode``
+               runs this phase alone after the build).
 
 The last lines are a ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
@@ -461,6 +499,12 @@ KERNEL_META = {
                         "src/repro/kernels/flash_attention.py:125"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:99"),
+    # the same Pallas kernel's function over a block of global positions,
+    # with its log-sum-exp: the reference's sequence-sharded decode runs
+    # it under GSPMD (attend_decode over the caches' shards)
+    "decode_attention_partial": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:99"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:98"),
     "moe_gather": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
@@ -1837,9 +1881,157 @@ def phase_attention(torch):
         torch, randn)
     records["decode_attention"]["head_dim_256"] = wide["decode"]
     records["decode_attention"]["group_16"] = wide["group_16"]
+    records["decode_attention_partial"] = phase_decode_partial(torch)
     for name, rec in records.items():
         say("attention", kernel=name, **rec)
     return records
+
+
+def phase_decode_partial(torch):
+    """The decode over a block of global positions (phase 21's kernel) at
+    Jamba-1.5-Large's attention layer (64 q / 8 kv heads of 128, batch 1)
+    over a 524,288-row cache cut into two blocks of 262,144 rows (pos0 0 and
+    262,144), bf16 and float32, against its plain version: at the phase's
+    four positions (block 1 then admits no row: o 0, lse -inf), a window of
+    4,097 across the blocks' boundary and softcap 50; the two blocks merged
+    by their log-sum-exp against the whole-cache kernel.  Timed over one
+    whole block (a rank's share at (2, 1)) beside its bound (the block read
+    once), the whole-cache entry, the plain version and SDPA over the same
+    rows (which gives no log-sum-exp)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    hq, hkv, hd, _ = LONG_ATTN
+    half = LONG_INDICES[2]
+    errs, steps = {}, {}
+    cases = [(i, 0, 50.0) for i in LONG_INDICES] + [(half + 1000, 4097,
+                                                      50.0)]
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        blocks = [[torch.randn((1, hkv, half, hd), generator=gen, device=dev)
+                   .to(dtype) for _ in range(2)] for _ in range(2)]
+        whole = [torch.cat([b[j] for b in blocks], dim=2) for j in range(2)]
+        for index, window, softcap in cases:
+            q = torch.randn((1, hq, hd), generator=gen, device=dev).to(dtype)
+            valid = torch.full((1,), index + 1, dtype=torch.int32,
+                               device=dev)
+            kw = dict(softcap=softcap, window=window)
+            parts = []
+            for b, (k, v) in enumerate(blocks):
+                o, lse = da.decode_attention_partial(q, k, v, valid, b * half,
+                                                     **kw)
+                po, plse = ref.decode_attention_partial_ref(q, k, v, valid,
+                                                            b * half, **kw)
+                what = f"partial {dtype} index {index} window {window} " \
+                       f"block {b}"
+                check(torch.equal(torch.isinf(lse), torch.isinf(plse)),
+                      f"{what}: lse -inf on other rows than the plain "
+                      f"version's")
+                # o and lse are float32 in both dtypes, computed from the
+                # same inputs as the plain version's: float32's tolerance
+                errs[what] = _close(torch, o, po, F32_TOL, what, steps)
+                _close(torch, torch.nan_to_num(lse, neginf=0.0),
+                       torch.nan_to_num(plse, neginf=0.0), F32_TOL,
+                       what + " lse", steps)
+                parts.append((o, lse))
+                del po, plse
+                torch.cuda.empty_cache()
+            if index < half:
+                check(bool(torch.isinf(parts[1][1]).all()
+                           and (parts[1][0] == 0).all()),
+                      f"partial index {index}: block 1 admits no row but "
+                      f"its lse is not -inf or its o not 0")
+            lse = torch.stack([p[1] for p in parts])
+            total = torch.logsumexp(lse, dim=0)
+            merged = (torch.exp(lse - total)[..., None]
+                      * torch.stack([p[0] for p in parts])).sum(dim=0)
+            what = f"partial merged {dtype} index {index} window {window}"
+            errs[what] = _close(torch, merged.to(dtype), da.decode_attention(
+                q, whole[0], whole[1], valid, **kw), tol, what, steps)
+        del blocks, whole
+        torch.cuda.empty_cache()
+    # one whole block of bf16 rows admitted: a rank's share at (2, 1)
+    k, v = (torch.randn((1, hkv, half, hd), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((1, hq, hd), generator=gen, device=dev).to(torch.bfloat16)
+    valid = torch.full((1,), 2 * half, dtype=torch.int32, device=dev)
+    ms = cuda_ms(torch, lambda: da.decode_attention_partial(
+        q, k, v, valid, 0), 20)
+    # the whole-cache entry over the same rows: what the offset, the
+    # log-sum-exp store and the float32 o cost beside it
+    whole_ms = cuda_ms(torch, lambda: da.decode_attention(
+        q, k, v, torch.full_like(valid, half)), 20)
+    plain_ms = cuda_ms(torch, lambda: ref.decode_attention_partial_ref(
+        q, k, v, valid, 0), 3)
+    torch.cuda.empty_cache()
+    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, enable_gqa=True), 20)
+    nbytes = 2 * half * hkv * hd * 2 + hq * hd * 2 + hq * (hd + 1) * 4
+    bound_ms, bound_by = attention_bound(half, hq, hd, nbytes)
+    del k, v
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                bound_share=bound_ms / ms, bytes=nbytes,
+                whole_entry_ms=whole_ms,
+                splits=da.num_splits(1, hkv, half, hd, 2),
+                library="SDPA over the same rows, enable_gqa, no mask; it "
+                        "gives no log-sum-exp",
+                errors=errs, bf16_rounding_steps=steps,
+                shape=f"q [1,{hq},{hd}], cache blocks [1,{hkv},{half},{hd}] "
+                      f"at pos0 0 and {half}; timed: one bf16 block, every "
+                      f"row admitted")
+
+
+def phase_decode_whole(torch, smi):
+    """``--only-decode``: the whole-cache decode entry's times, each the
+    median of 5 readings of 20 calls, at phase 6's serve shapes (bf16, 8
+    slots of 8,192 rows at phase 6's ragged lengths, 32 q / 16 kv heads of
+    128; softcap 50 and 0, windows 4,097 and 0) and over one block of
+    Jamba-1.5-Large's layer (64 q / 8 kv heads of 128, 262,144 rows, all
+    admitted).  It calls only ``decode_attention``, so a copy of this
+    script beside an older tree times that tree's kernel: run the two trees
+    in turns in one call to compare them."""
+    from repro_torch.kernels import decode_attention as da
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def median_ms(fn):
+        return float(np.median([cuda_ms(torch, fn, 20) for _ in range(5)]))
+
+    rng = np.random.default_rng(6)
+    valid_np = np.sort(rng.integers(1, SERVE_SMAX + 1, SERVE_SLOTS))
+    valid_np[0] = 1
+    valid = torch.as_tensor(valid_np.astype(np.int32), device=dev)
+    q = randn(SERVE_SLOTS, 32, 128)
+    ck, cv = (randn(SERVE_SLOTS, 16, SERVE_SMAX, 128) for _ in range(2))
+    times = {}
+    for softcap in (50.0, 0.0):
+        for window in (4097, 0):
+            times[f"serve softcap {softcap:g} window {window}"] = median_ms(
+                lambda: da.decode_attention(q, ck, cv, valid,
+                                            softcap=softcap, window=window))
+    del q, ck, cv
+    hq, hkv, hd, _ = LONG_ATTN
+    rows = LONG_INDICES[2]
+    q = randn(1, hq, hd)
+    ck, cv = (randn(1, hkv, rows, hd) for _ in range(2))
+    full = torch.full((1,), rows, dtype=torch.int32, device=dev)
+    times["jamba block softcap 0"] = median_ms(
+        lambda: da.decode_attention(q, ck, cv, full))
+    del q, ck, cv
+    torch.cuda.empty_cache()
+    say("decode-whole", root=ROOT, ms=times,
+        serve_pair_softcap50_ms=times["serve softcap 50 window 4097"]
+        + times["serve softcap 50 window 0"], nvidia_smi=smi)
 
 
 def phase_attention_wide(torch, randn, valid, valid_np):
@@ -6093,6 +6285,7 @@ def sharded_rank(torch, rank, port, out_dir, seed):
     import torch.distributed as dist
 
     from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as ml
@@ -6207,16 +6400,19 @@ def sharded_rank(torch, rank, port, out_dir, seed):
     step_knobs = CellKnobs(microbatches=1, remat=False, **knobs)
     opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
     full = TT.init_params(cfg, seed + 20, device=dev)
-    rng = np.random.default_rng(seed + 21)
-    batch = {k: torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (1, SHARD_ROWS, SHARD_TRAIN_SEQ)), device=dev)
-        for k in ("tokens", "labels")}
+    # one microbatch [rows, seq]: whole for one rank, this rank's shard cut
+    # by the data pipeline's sharded branch (the spec without its k axis)
+    data = SyntheticLM(vocab=cfg.vocab_size, seq_len=SHARD_TRAIN_SEQ,
+                       batch=SHARD_ROWS, seed=seed + 21, device=dev)
+    batch = data.batch_at(0)
+    shard = dataclasses.replace(
+        data, mesh=live, pspec=tcell.pspecs["batch"]["tokens"][1:]
+    ).batch_at(0)
     params = sh.distribute_params(full, tcell.pspecs["params"], tcell.rules)
     opt = adamw.init_state(params)
     step = St.build_train_step(cfg, step_knobs, opt_cfg, rules=tcell.rules)
     ops.reset_launch_counts()
-    params, opt, metrics = step(params, opt, sh.distribute(
-        batch, tcell.pspecs["batch"], tcell.rules))
+    params, opt, metrics = step(params, opt, shard)
     torch.cuda.synchronize()
     counts.append(ops.launch_counts())
     flags["train/launches"] = all(counts[-1][k] > 0 for k in (
@@ -6703,6 +6899,396 @@ def _ranks_one_card(torch, seed, smi):
     return ones
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the long-context decode on a live mesh
+# ---------------------------------------------------------------------------
+
+#: the layouts over ("data", "model"), each its own world of gloo ranks on
+#: the one card (child processes of this script, both started together)
+LONG_LAYOUTS = ((2, 1), (2, 2))
+#: (a) Mamba2-780M's serve steps from a random state (the published
+#: ``dt_bias`` init), the positions before LONG_500K's end: bf16 (the main
+#: path) and float32, by layout.  Each step gathers the fsdp shards of
+#: every weight through gloo (half of the model a rank at (2, 1): 0.86 GB
+#: in bf16, 1.71 GB in float32, 3.5 s and 5.9 s a step on the card), so
+#: the float32 run, which holds the tokens to one rank's exactly, takes
+#: all 16 steps at (2, 2), where a state block lies outside its TP block,
+#: and 4 at (2, 1)
+LONG_STEPS = {"bfloat16": {(2, 1): 16, (2, 2): 16, (1, 2): 16},
+              "float32": {(2, 1): 4, (2, 2): 16, (1, 2): 4}}
+#: (a)'s bf16 check (i) limit on the RMS share of the last logits against
+#: one rank's (the lead limit is phase 19's): about the geometric mean of
+#: the larger sound reading (0.0521 at (2, 2), where Mamba's row-parallel
+#: outputs are reduced in bf16: at (1, 2), the model axis alone, it reads
+#: the same to every digit; 0 at (2, 1)) and the smaller one with a
+#: state block stepped with another block's decay rates (0.905 at (2, 2),
+#: ``--plant-fault state``; PERF.md, H100)
+LONG_RMS = 0.2
+#: (b) Jamba-1.5-Large's attention layer at full width: (q heads, kv heads,
+#: head dim, d_model) and the decode positions (in block 0, on its last
+#: row, on the first row of block 1, on the cache's last row)
+LONG_ATTN = (64, 8, 128, 8192)
+LONG_INDICES = (100_000, 262_143, 262_144, 524_287)
+#: (b)'s float32 tolerance of the decode and of the layer's output against
+#: one rank's over the whole cache
+LONG_F32_TOL = 1e-5
+#: the phase's aim in seconds (read, not enforced)
+LONG_SECONDS = 60
+
+
+def _long_mamba(torch, dev, live, rank, seed, flags, report, fault):
+    """(a): Mamba2-780M at full width and depth at LONG_500K on this
+    rank's world, float32 then bf16: ``LONG_STEPS`` serve steps of
+    ``build_cell``'s step from a random state (the main path), the last
+    through the step's body, the forwards under the cell's rules, for its
+    logits (phase 18 holds the two bit-identical); rank 0 runs one rank's
+    steps without a mesh on the whole model and state, its own tokens in
+    float32, the sharded run's in bf16 (check (i))."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as ml
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as St
+    from repro_torch.models import mamba2
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.config import LONG_500K
+
+    layout = live.layout
+    label = f"mamba2-{layout.sizes[0]}x{layout.sizes[1]}"
+    for dtype in ("float32", "bfloat16"):
+        n = LONG_STEPS[dtype][tuple(layout.sizes)]
+        first = LONG_500K.seq_len - n
+        cfg = dataclasses.replace(configs.get("mamba2-780m"),
+                                  param_dtype=dtype, compute_dtype=dtype)
+        cell = St.build_cell(cfg, LONG_500K, layout, mesh=live, device=dev)
+        rules = cell.rules
+        full = TT.init_params(cfg, seed, device=dev)
+        trained_dt_bias_(torch, full, seed)
+        gen = torch.Generator(device=dev).manual_seed(seed + 21)
+        whole = [{k: torch.randn(t.shape, generator=gen, device=dev)
+                  .to(t.dtype) for k, t in layer.items()}
+                 for layer in cell.specs["caches"]]
+        params = sh.distribute_params(full, cell.pspecs["params"], rules)
+        caches = sh.distribute(whole, cell.pspecs["caches"], rules)
+        heads = mamba2.dims(cfg.d_model, cfg.ssm)[1]
+        state_axes = mamba2.long_decode_heads(heads, rules)
+        tok = torch.full((1, 1), seed % cfg.vocab_size, dtype=torch.int32,
+                         device=dev)
+        toks, times = [], []
+        ml.reset_wire_bytes()
+        t_run = time.perf_counter()
+        for i in range(n - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nxt, caches = cell.step(params, caches, {"tokens": tok,
+                                                     "index": first + i})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            toks.append(nxt)
+            tok = nxt[:, None]
+        # the last step through the forwards under the rules: its logits
+        with sh.use_rules(rules):
+            logits, caches = TT.decode_forward(
+                params, {"tokens": tok}, cfg, caches,
+                torch.full((1,), first + n - 1, device=dev))
+            toks.append(St.next_token(logits, cfg.padded_vocab))
+            split = logits.shape[-1] != cfg.padded_vocab
+            last = _gather_full(torch, ml, live, logits[:, -1],
+                                (None, "model" if split else None))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_run
+        wire = ml.wire_bytes()
+        rec = report.setdefault(label, {})
+        rec[f"{dtype}_serve_step_ms_median"] = float(
+            np.median(times[1:]) * 1e3)
+        rec[f"{dtype}_steps"] = n
+        rec[f"{dtype}_run_seconds"] = seconds
+        rec[f"{dtype}_wire_bytes_per_step"] = {
+            k: v / n for k, v in wire.items()}
+        rec["state_heads_over"] = state_axes
+        if rank == 0:
+            one = _long_one_rank(torch, TT, cfg, full, whole, toks, first,
+                                 seed, dtype)
+            if dtype == "float32":
+                same = one["tokens_equal"]
+                errs = _logit_errs(last[0].float().cpu(),
+                                   one["last"].float().cpu(), F32_MODEL_TOL)
+                flags[f"{label}/float32/tokens_equal_one_rank"] = same
+                flags[f"{label}/float32/logits_equal_one_rank"] = (
+                    errs["over_tol"] <= 1.0)
+                rec["float32_vs_one_rank"] = dict(
+                    tokens_equal=same, max_err_over_tolerance=errs[
+                        "over_tol"], max_abs_logit_err=errs["max_abs"],
+                    tolerance=f"{F32_MODEL_TOL} + {F32_MODEL_TOL} x |x|")
+            else:
+                errs = _logit_errs(last[0].float().cpu(),
+                                   one["last"].float().cpu(), BF16_TOL)
+                lead = max((ld / (BF16_TOL * (1 + abs(lg)))
+                            for ld, lg in one["leads"]), default=0.0)
+                flags[f"{label}/bf16/check_i_rms"] = (
+                    errs["rms_over_std"] <= LONG_RMS or fault is not None)
+                flags[f"{label}/bf16/check_i_lead"] = (
+                    lead <= SHARD_LEAD or fault is not None)
+                rec["bf16_vs_one_rank"] = dict(
+                    max_rms_err_over_logit_std=errs["rms_over_std"],
+                    rms_limit=LONG_RMS, argmax_differs=len(one["leads"]),
+                    max_lead_over_tolerance=lead, lead_limit=SHARD_LEAD,
+                    planted_fault=fault)
+        del full, params, caches, whole
+        torch.cuda.empty_cache()
+
+
+def _long_one_rank(torch, TT, cfg, full, whole, script, first, seed, dtype):
+    """One rank's run of (a) without a mesh, the whole model and state: in
+    float32 its own tokens (``tokens_equal`` to the script's), in bf16 the
+    script's tokens, the argmax's lead where its own differs (check (i));
+    the last logits."""
+    caches = [{k: t.clone() for k, t in layer.items()} for layer in whole]
+    tok = script[0].new_full((1, 1), seed % cfg.vocab_size)
+    same, leads = True, []
+    for i in range(len(script)):
+        logits, caches = TT.decode_forward(
+            full, {"tokens": tok}, cfg, caches,
+            torch.full((1,), first + i, device=tok.device))
+        row = logits[0, -1].float()
+        own = int(row.argmax())
+        want = int(script[i][0])
+        if own != want:
+            same = False
+            leads.append((float(row[own] - row[want]), float(row[want])))
+        tok = (torch.full_like(tok, own) if dtype == "float32"
+               else script[i][:, None])
+    return dict(tokens_equal=same, leads=leads, last=logits[0, -1])
+
+
+def _long_attention(torch, dev, live, rank, seed, flags, report, counts):
+    """(b): Jamba-1.5-Large's attention layer at full width on this rank's
+    world, bf16 then float32, a 524,288-row cache from the seed: at each of
+    ``LONG_INDICES`` the layer's decode (``attention.decode_cache`` under
+    the cell's rules: this rank's heads and block of rows, the blocks
+    merged) against ``ops.decode_attention`` over the whole cache for the
+    same heads (phase 6's bf16 tolerance and one rounding step; float32
+    ``LONG_F32_TOL``); then at each position ``attention_block`` itself
+    under the rules (the main path: its launches counted), on rank 0
+    against one rank's layer over the whole cache (the same tolerances).
+    Only rank 0 keeps the whole cache past the decode checks."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as St
+    from repro_torch.models import attention as attn
+    from repro_torch.models.config import LONG_500K, MAMBA
+    from torch import nn
+
+    layout = live.layout
+    label = f"jamba-attention-{layout.sizes[0]}x{layout.sizes[1]}"
+    hq, hkv, hd, d = LONG_ATTN
+    rows = LONG_500K.seq_len
+    jamba = configs.get("jamba-1.5-large-398b")
+    cell = St.build_cell(jamba, LONG_500K, layout, mesh=live, device=dev)
+    rules = cell.rules
+    at = next(i for i, s in enumerate(jamba.layer_specs())
+              if s.mixer != MAMBA)
+    kv_spec = cell.pspecs["caches"][at]["k"]
+    compute = sh.param_pspecs(jamba, cell.specs["params"], rules,
+                              fsdp_override=None)
+    rec = report.setdefault(label, {})
+    steps = {}
+    t_part = time.perf_counter()
+    for dtype, tol in ((torch.bfloat16, BF16_TOL),
+                       (torch.float32, LONG_F32_TOL)):
+        name = str(dtype).removeprefix("torch.")
+        gen = torch.Generator(device=dev).manual_seed(seed + 22)
+        full = attn.Attention(d, hq, hkv, hd, dtype=dtype, device=dev)
+        full.init_weights(gen)
+        local = attn.Attention(d, hq, hkv, hd, dtype=dtype, device="meta")
+        for w in ("wq", "wk", "wv", "wo"):
+            spec = compute[f"layers.{at}.mixer.{w}"]
+            setattr(local, w, nn.Parameter(sh.distribute(
+                getattr(full, w).detach(), spec, rules),
+                requires_grad=False))
+        whole = {k: torch.randn((1, hkv, rows, hd), generator=gen,
+                                device=dev).to(dtype) for k in ("k", "v")}
+        qs = [torch.randn((1, hq, hd), generator=gen, device=dev).to(dtype)
+              for _ in LONG_INDICES]
+        xs = [torch.randn((1, 1, d), generator=gen, device=dev).to(dtype)
+              for _ in LONG_INDICES]
+        cache = sh.distribute(whole, {"k": kv_spec, "v": kv_spec}, rules)
+        n_kv = cache["k"].shape[1]
+        kv_lo = live.index(kv_spec[1]) * n_kv
+        q_lo, q_n = kv_lo * (hq // hkv), n_kv * (hq // hkv)
+        errs, outs = [], []
+        for index, q in zip(LONG_INDICES, qs):
+            valid = torch.full((1,), index + 1, dtype=torch.int32,
+                               device=dev)
+            mine = q[:, q_lo:q_lo + q_n].contiguous()
+            with sh.use_rules(rules):
+                got = attn.decode_cache(mine, cache["k"], cache["v"], valid)
+            want = ops.decode_attention(
+                mine, whole["k"].narrow(1, kv_lo, n_kv),
+                whole["v"].narrow(1, kv_lo, n_kv), valid)
+            errs.append(_close(torch, got, want, tol,
+                               f"{label} decode {name} index {index}",
+                               steps))
+        if rank:
+            del whole
+            torch.cuda.empty_cache()
+        for index, x in zip(LONG_INDICES, xs):
+            where = torch.full((1,), index, device=dev)
+            before = ops.launch_counts()["decode_attention_partial"]
+            with sh.use_rules(rules):
+                out, _ = attn.attention_block(
+                    x, local, mode=attn.CAUSAL, rope_theta=jamba.rope_theta,
+                    cache=cache, cache_index=where)
+            torch.cuda.synchronize()
+            counts["decode_attention_partial"] += (
+                ops.launch_counts()["decode_attention_partial"] - before)
+            ok = bool(torch.isfinite(out).all())
+            if rank == 0:
+                one, _ = attn.attention_block(
+                    x, full, mode=attn.CAUSAL, rope_theta=jamba.rope_theta,
+                    cache=whole, cache_index=where)
+                what = f"{label} layer {name} index {index}"
+                try:
+                    outs.append(_close(torch, out, one, tol, what, steps))
+                except SmokeFailure as e:
+                    print(f"FAIL: {e}", flush=True)
+                    outs.append(float((out.float() - one.float()).abs()
+                                      .max()))
+                    ok = False
+            flags[f"{label}/{name}/layer index {index}"] = ok
+        rec[f"{name}_decode_max_abs_err"] = max(errs)
+        if rank == 0:
+            rec[f"{name}_layer_max_abs_diff_one_rank"] = max(outs)
+            del whole
+        del full, local, cache
+        torch.cuda.empty_cache()
+    rec["bf16_rounding_steps"] = steps
+    rec.update(seconds=time.perf_counter() - t_part,
+               indices=list(LONG_INDICES), kv_heads_over=kv_spec[1],
+               rows_per_rank=rows // live.size(rules.seq_axis),
+               q_heads_per_rank=hq // live.size(kv_spec[1]))
+
+
+def long_rank(torch, rank, world, sizes, port, out_dir, seed, fault):
+    """One rank of phase 21: a world of ``prod(sizes)`` gloo ranks on the
+    one card, layout ``sizes`` over ("data", "model").  Writes
+    ``long{rank}.json`` (rank 0's holds the readings and every rank's flags
+    and launch counts)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as ml
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    live = ml.live_mesh(ml.MeshLayout(("data", "model"), tuple(sizes)),
+                        "cuda")
+    if fault:
+        _plant_state_fault()
+    flags, report = {}, {}
+    counts = {"decode_attention_partial": 0}
+    _long_mamba(torch, dev, live, rank, seed, flags, report, fault)
+    if not fault and tuple(sizes) in LONG_LAYOUTS:
+        _long_attention(torch, dev, live, rank, seed, flags, report, counts)
+    every = [None] * world
+    dist.all_gather_object(every, dict(flags=flags, counts=counts))
+    if rank == 0:
+        merged = {}
+        for part in every:
+            for k, v in part["flags"].items():
+                merged[k] = merged.get(k, True) and v
+        with open(os.path.join(out_dir, "long0.json"), "w") as f:
+            json.dump(dict(report=report, flags=merged,
+                           counts=[p["counts"] for p in every]), f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _plant_state_fault():
+    """Calibration only: the owner of a Mamba state block steps its heads
+    with the decay rates ``A`` of the first block of its TP block (the
+    indexing slip the exchange invites: on the ranks whose block is not
+    the first of its TP block, every head decays at another head's rate),
+    at run time in this process; nothing on disk changes."""
+    from repro_torch.models import mamba2
+
+    step = mamba2._StateBlock.step
+
+    def slipped(self, xh, dt, Bvec, Cvec, h, A_log):
+        first = self.k // self.n_dp * self.n_dp * self.hl
+        wrong = A_log.clone()
+        wrong[self.k * self.hl:(self.k + 1) * self.hl] = \
+            A_log[first:first + self.hl]
+        return step(self, xh, dt, Bvec, Cvec, h, wrong)
+
+    mamba2._StateBlock.step = slipped
+
+
+def phase_long_decode(torch, seed, smi, fault=None, layouts=LONG_LAYOUTS):
+    """Phase 21: the layouts' worlds of gloo ranks started together as
+    child processes (``--long-rank``); their readings checked here.
+    Returns the main path's launch counts, one dict per rank.  A layout
+    other than ``LONG_LAYOUTS``'s (calibration) runs (a) alone."""
+    import math
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    procs, outs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for sizes in layouts:
+            out = os.path.join(tmp, "x".join(map(str, sizes)))
+            os.makedirs(out)
+            outs.append((sizes, out))
+            port, world = _free_port(), math.prod(sizes)
+            procs += [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--long-rank",
+                 str(r), "--long-sizes", ",".join(map(str, sizes)),
+                 "--long-port", str(port), "--long-out", out, "--seed",
+                 str(seed)] + (["--plant-fault", fault] if fault else []),
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            for i, log in enumerate(logs):
+                print(f"[long-decode] process {i} output:\n{log[-6000:]}",
+                      flush=True)
+            raise SmokeFailure(f"long-decode: ranks exited with "
+                               f"{[p.returncode for p in procs]}")
+        results = []
+        for sizes, out in outs:
+            with open(os.path.join(out, "long0.json")) as f:
+                results.append((sizes, json.load(f)))
+    counts, failed, n_checks = [], [], 0
+    for sizes, res in results:
+        for label, rec in res["report"].items():
+            say("long-decode", run=label, **rec)
+        failed += [f"{sizes}: {k}" for k, v in res["flags"].items() if not v]
+        n_checks += len(res["flags"])
+        counts += res["counts"]
+    seconds = time.perf_counter() - t_phase
+    say("long-decode", part="done", checks=n_checks, failed=failed,
+        launches=sum(c["decode_attention_partial"] for c in counts),
+        seconds=seconds, aim_seconds=LONG_SECONDS, planted_fault=fault,
+        nvidia_smi=smi)
+    if not fault:
+        check(not failed, f"long-decode: checks failed: {failed}")
+    if not fault and layouts == LONG_LAYOUTS:
+        check(all(c["decode_attention_partial"] > 0 for c in counts),
+              f"long-decode: a rank launched no decode_attention_partial: "
+              f"{counts}")
+    return counts
+
+
 def kernels_line(records, path_counts):
     """The ``kernels`` object: each kernel's measured numbers and its
     launches summed over the main paths' runs (``path_counts``: one count
@@ -6756,6 +7342,22 @@ def main(argv=None):
                         help="build, then run only phase 20 (the patterns "
                              "over ranks: one rank over NCCL, two ranks on "
                              "the card over gloo) and stop")
+    parser.add_argument("--only-decode", action="store_true",
+                        help="build, then time only the whole-cache decode "
+                             "entry (phase 6's serve shapes and one block "
+                             "of phase 21's) and stop")
+    parser.add_argument("--long-layout", action="append",
+                        help="calibration only, with --only-long-decode: "
+                             "run phase 21's Mamba part on this layout "
+                             "D,M of (data, model) ranks instead of its "
+                             "own (repeatable)")
+    parser.add_argument("--only-long-decode", action="store_true",
+                        help="build, then run only phase 21 (the "
+                             "long-context decode on (2, 1) and (2, 2): "
+                             "gloo ranks on the card) and stop; with "
+                             "--plant-fault state, only its Mamba runs, "
+                             "a state block stepped with another block's "
+                             "decay rates, check (i) read")
     parser.add_argument("--train-child", action="store_true",
                         help=argparse.SUPPRESS)  # phases 16-17's process
     # phase 19 (b)'s ranks
@@ -6766,14 +7368,27 @@ def main(argv=None):
     parser.add_argument("--ranks-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--ranks-port", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--ranks-out", help=argparse.SUPPRESS)
-    parser.add_argument("--plant-fault", choices=sorted(FAULT_MODEL),
+    # phase 21's ranks
+    parser.add_argument("--long-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--long-sizes", help=argparse.SUPPRESS)
+    parser.add_argument("--long-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--long-out", help=argparse.SUPPRESS)
+    parser.add_argument("--plant-fault",
+                        choices=sorted(FAULT_MODEL) + ["state"],
                         help="calibration only: build, then run phase 17's "
                              "bf16 check (ii) for the model the fault "
                              "touches, with the fault planted in the new "
                              "backward kernel's route, and stop")
     args = parser.parse_args(argv)
+    if args.long_layout and not args.only_long_decode:
+        parser.error("--long-layout is phase 21's (--only-long-decode)")
     if args.only_launch and args.plant_fault not in (None, "scan"):
         parser.error("phase 18 plants only the scan's fault")
+    if (args.plant_fault == "state") != bool(
+            args.plant_fault and (args.only_long_decode
+                                  or args.long_rank is not None)):
+        parser.error("the state fault is phase 21's (--only-long-decode), "
+                     "and phase 21 plants no other")
 
     import torch
 
@@ -6801,6 +7416,11 @@ def main(argv=None):
     if args.ranks_rank is not None:
         ranks_rank(torch, args.ranks_rank, args.ranks_port, args.ranks_out,
                    args.seed)
+        return 0
+    if args.long_rank is not None:
+        sizes = tuple(int(n) for n in args.long_sizes.split(","))
+        long_rank(torch, args.long_rank, int(np.prod(sizes)), sizes,
+                  args.long_port, args.long_out, args.seed, args.plant_fault)
         return 0
     try:
         smi = nvidia_smi_line()
@@ -6838,6 +7458,17 @@ def main(argv=None):
             return 0
         if args.only_ranks:
             phase_ranks(torch, args.seed, smi)
+            print(smi)
+            return 0
+        if args.only_decode:
+            phase_decode_whole(torch, smi)
+            print(smi)
+            return 0
+        if args.only_long_decode:
+            layouts = tuple(tuple(map(int, lay.split(",")))
+                            for lay in args.long_layout or ())
+            phase_long_decode(torch, args.seed, smi, args.plant_fault,
+                              layouts or LONG_LAYOUTS)
             print(smi)
             return 0
         if args.train_child:
@@ -6883,6 +7514,7 @@ def main(argv=None):
         paths += phase_sharded(torch, args.seed, smi)
         # no kernel of ours runs in phase 20: it adds no launch count
         phase_ranks(torch, args.seed, smi, ones)
+        paths += phase_long_decode(torch, args.seed, smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

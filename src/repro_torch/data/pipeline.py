@@ -6,20 +6,26 @@ after a failure (:mod:`repro_torch.ft.driver`) needs no data movement, and
 the stream's state is one integer cursor, checkpointed with the model.
 :func:`_chunk` is the reference's, copied (numpy's PCG64 from the same
 seed), so :meth:`SyntheticLM.batch_at` gives the reference's tokens bit for
-bit.  The reference's sharded branch (``mesh``/``pspec``: global arrays
-built shard by shard) is not ported: the port trains on one card, and the
-batch is made on the host and copied to ``device`` whole.
+bit.  Without a mesh the batch is made on the host and copied to ``device``
+whole.  The reference's sharded branch builds each batch as a global array
+shard by shard (``mesh``/``pspec``); here ``mesh`` is a live mesh
+(:func:`repro_torch.launch.mesh.live_mesh`) and ``pspec`` a spec of the
+emitted arrays (:mod:`repro_torch.launch.sharding`, e.g. ``("data",
+None)``, or ``(None, "data", None)`` with microbatches): each rank gets
+its own shard of the same ``_chunk`` as a plain local tensor, the block
+the reference's shard on the same device holds, and copies only that.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import shard
 
 __all__ = ["StreamState", "SyntheticLM"]
 
@@ -54,7 +60,8 @@ def _chunk(seed: int, position: int, rows: int, seq: int,
 class SyntheticLM:
     """Infinite deterministic (tokens, labels) stream of int32 tensors on
     ``device`` (None: the CUDA card), ``[microbatches, batch, seq_len]``
-    (``[batch, seq_len]`` with one microbatch)."""
+    (``[batch, seq_len]`` with one microbatch); with ``mesh`` and
+    ``pspec``, this rank's shard of them."""
 
     vocab: int
     seq_len: int
@@ -62,6 +69,8 @@ class SyntheticLM:
     microbatches: int = 1           # leading accumulation dim (S3 flush period)
     seed: int = 0
     device: object = None
+    mesh: Optional[object] = None   # a live mesh (LiveMesh)
+    pspec: Optional[tuple] = None   # the arrays' spec on it
 
     def batch_at(self, position: int) -> dict:
         k, b = self.microbatches, self.batch
@@ -71,8 +80,15 @@ class SyntheticLM:
         if k == 1:
             tokens, labels = tokens[0], labels[0]
         dev = resolve_device(self.device)
-        return {"tokens": torch.from_numpy(np.ascontiguousarray(tokens)).to(dev),
-                "labels": torch.from_numpy(np.ascontiguousarray(labels)).to(dev)}
+        out = {}
+        for key, a in (("tokens", tokens), ("labels", labels)):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if self.mesh is not None and self.pspec is not None:
+                # this rank's block: each dimension cut over its entry's axes
+                for dim, entry in enumerate(self.pspec):
+                    t = shard(t, entry, self.mesh, dim)
+            out[key] = t.contiguous().to(dev)
+        return out
 
     def stream(self, state: StreamState) -> Iterator[Tuple[StreamState, dict]]:
         while True:

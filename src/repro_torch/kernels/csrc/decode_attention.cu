@@ -61,6 +61,18 @@
 // output and resets the counter to 0 for the next launch.  One launch, no
 // second kernel.
 //
+// A block of global positions (attn_decode_partial).  A cache whose
+// sequence is split over ranks (the reference's long-context decode, its
+// caches' sequence over the data axes) holds rows [pos0, pos0 + S) of the
+// whole cache.  The same kernel then admits local row r when pos0 + r <
+// valid_len and, with a window, pos0 + r > valid_len - window: the window's
+// lower bound stays on global positions (a length clamped to the local rows
+// first would move it).  It writes o = acc / l in float32, unrounded, and
+// lse = m + log l per (slot, q head), from which the ranks' blocks merge; a
+// block with no admitted row writes o = 0 and lse = -inf, a zero weight in
+// that merge, and reads no row (the whole-cache entry's mean of V over S
+// rows is its own rule).  The whole-cache entry passes pos0 = 0 and no lse.
+//
 // What bounds it on an H100: bytes (2 * hd * sizeof(T) per admitted row per
 // kv head).  The measured time and bound are in PERF.md.
 
@@ -115,9 +127,10 @@ template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kDecThreads)
 decode_split(const T* __restrict__ q, const T* __restrict__ ck,
              const T* __restrict__ cv, const int32_t* __restrict__ valid_len,
-             T* __restrict__ o, float* __restrict__ ws,
-             int* __restrict__ counters, int Hq, int Hkv, int kv_slot, int S,
-             int window, float softcap, float scale) {
+             void* __restrict__ o, float* __restrict__ lse,
+             float* __restrict__ ws, int* __restrict__ counters, int Hq,
+             int Hkv, int kv_slot, int S, int pos0, int window, float softcap,
+             float scale) {
   using Sh = DecodeShape<T, HD, G>;
   constexpr int E = Sh::kPerLane;
   constexpr int L = Sh::kLanes;
@@ -142,13 +155,32 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
   };
   const int64_t q_row =   // first q head
       int64_t(b) * Hq + int64_t(hk) * (Hq / Hkv) + h0;
+  // a block of positions (lse given) writes float32 o; the whole cache o in T
+  const bool partial = lse != nullptr;
+  auto store = [&](int64_t i, float val) {
+    if (partial)
+      static_cast<float*>(o)[i] = val;
+    else
+      static_cast<T*>(o)[i] = from_f32<T>(val);
+  };
 
+  // the admitted local rows [first, hi): global positions pos0 + r below
+  // valid_len and, with a window, above valid_len - window
   const int valid = valid_len[b];
-  int hi = min(valid, S);
-  int first = window > 0 ? max(0, valid - window + 1) : 0;
-  // nothing admitted: every row weighs alike, as under the reference's
-  // finite mask
+  int hi = min(valid - pos0, S);
+  int first = window > 0 ? max(0, valid - window + 1 - pos0) : 0;
   const bool uniform = hi <= first;
+  if (uniform && partial) {
+    // no admitted row: o = 0 and lse = -inf, the merge's zero weight
+    if (split == 0) {
+      for (int t = tid; t < g * HD; t += kDecThreads) store(q_row * HD + t, 0.f);
+      for (int h = tid; h < g; h += kDecThreads)
+        lse[q_row + h] = -__int_as_float(0x7f800000);
+    }
+    return;
+  }
+  // nothing admitted in the whole cache: every row weighs alike, as under
+  // the reference's finite mask
   if (uniform) {
     first = 0;
     hi = S;
@@ -293,7 +325,8 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
       num = fmaf(sm_acc[(r * G + h) * HD + d], f, num);
     }
     if (alone) {
-      o[(q_row + h) * HD + d] = from_f32<T>(num / fmaxf(den, kMinDenom));
+      store((q_row + h) * HD + d, num / fmaxf(den, kMinDenom));
+      if (partial && d == 0) lse[q_row + h] = mx + logf(den);
     } else {
       float* part = ws + ((q_row + h) * n_splits + split) * W;
       part[d] = num;
@@ -321,6 +354,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
   // warp per head, a lane per split (two rounds of 32)
   float* wt = reinterpret_cast<float*>(smem);   // [G][kMaxSplits]
   float* dens = wt + G * kMaxSplits;            // [G]
+  float* maxs = dens + G;                       // [G]
   for (int h = warp; h < g; h += kDecWarps) {
     const float* part = ws + (q_row + h) * n_splits * W;
     float ms[kMaxSplits / 32], ls[kMaxSplits / 32];
@@ -346,7 +380,10 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       den += __shfl_xor_sync(0xffffffffu, den, off);
-    if (lane == 0) dens[h] = den;
+    if (lane == 0) {
+      dens[h] = den;
+      maxs[h] = mx;
+    }
   }
   __syncthreads();
   for (int t = tid; t < g * HD; t += kDecThreads) {
@@ -356,37 +393,39 @@ decode_split(const T* __restrict__ q, const T* __restrict__ ck,
     float num = 0.f;
 #pragma unroll 4
     for (int s = 0; s < n_act; ++s) num = fmaf(__ldcg(part + s * W), f[s], num);
-    o[(q_row + h) * HD + d] = from_f32<T>(num / fmaxf(dens[h], kMinDenom));
+    store((q_row + h) * HD + d, num / fmaxf(dens[h], kMinDenom));
+    if (partial && d == 0) lse[q_row + h] = maxs[h] + logf(dens[h]);
   }
 }
 
 template <typename T, int HD, int G>
 int launch_decode(const void* q, const void* k, const void* v,
-                  const void* valid_len, void* o, void* ws, void* counters,
-                  int B, int Hq, int Hkv, int kv_slot, int S, int n_splits,
-                  int window, float softcap, void* stream) {
+                  const void* valid_len, void* o, float* lse, void* ws,
+                  void* counters, int B, int Hq, int Hkv, int kv_slot, int S,
+                  int pos0, int n_splits, int window, float softcap,
+                  void* stream) {
   const int n_chunks = (Hq / Hkv + kMaxGroup - 1) / kMaxGroup;
   const dim3 grid(n_splits, Hkv * n_chunks, B);
   decode_split<T, HD, G><<<grid, kDecThreads, DecodeShape<T, HD, G>::kSmem,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(valid_len),
-      static_cast<T*>(o), static_cast<float*>(ws),
-      static_cast<int*>(counters), Hq, Hkv, kv_slot, S, window, softcap,
+      static_cast<const T*>(v), static_cast<const int32_t*>(valid_len), o,
+      lse, static_cast<float*>(ws), static_cast<int*>(counters), Hq, Hkv,
+      kv_slot, S, pos0, window, softcap,
       static_cast<float>(1.0 / std::sqrt(double(HD))));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int launch_decode_group(const void* q, const void* k, const void* v,
-                        const void* valid_len, void* o, void* ws,
+                        const void* valid_len, void* o, float* lse, void* ws,
                         void* counters, int B, int Hq, int Hkv, int kv_slot,
-                        int S, int n_splits, int window, float softcap,
-                        void* stream) {
+                        int S, int pos0, int n_splits, int window,
+                        float softcap, void* stream) {
   const int g = Hq / Hkv;
 #define ATTN_DECODE_ARGS \
-  q, k, v, valid_len, o, ws, counters, B, Hq, Hkv, kv_slot, S, n_splits, \
-      window, softcap, stream
+  q, k, v, valid_len, o, lse, ws, counters, B, Hq, Hkv, kv_slot, S, pos0, \
+      n_splits, window, softcap, stream
   if (g == 1) return launch_decode<T, HD, 1>(ATTN_DECODE_ARGS);
   if (g == 2) return launch_decode<T, HD, 2>(ATTN_DECODE_ARGS);
   if (g <= 4) return launch_decode<T, HD, 4>(ATTN_DECODE_ARGS);
@@ -395,6 +434,40 @@ int launch_decode_group(const void* q, const void* k, const void* v,
 }
 
 }  // namespace attn
+
+namespace {
+
+int decode_entry(const void* q, const void* k, const void* v,
+                 const void* valid_len, void* o, float* lse, void* ws,
+                 void* counters, int B, int Hq, int Hkv, int kv_slot, int S,
+                 int pos0, int hd, int dtype, int window, float softcap,
+                 int n_splits, void* stream) {
+  if (B <= 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || Hq <= 0 ||
+      kv_slot < Hkv ||
+      int64_t(Hkv) * ((Hq / Hkv + attn::kMaxGroup - 1) / attn::kMaxGroup) >
+          65535 ||
+      S <= 0 || pos0 < 0 || n_splits <= 0 || n_splits > attn::kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define ATTN_DECODE_ARGS \
+  q, k, v, valid_len, o, lse, ws, counters, B, Hq, Hkv, kv_slot, S, pos0, \
+      n_splits, window, softcap, stream
+  if (dtype == 0 && hd == 256)
+    return attn::launch_decode_group<float, 256>(ATTN_DECODE_ARGS);
+  if (dtype == 0 && hd == 128)
+    return attn::launch_decode_group<float, 128>(ATTN_DECODE_ARGS);
+  if (dtype == 0 && hd == 64)
+    return attn::launch_decode_group<float, 64>(ATTN_DECODE_ARGS);
+  if (dtype == 1 && hd == 256)
+    return attn::launch_decode_group<__nv_bfloat16, 256>(ATTN_DECODE_ARGS);
+  if (dtype == 1 && hd == 128)
+    return attn::launch_decode_group<__nv_bfloat16, 128>(ATTN_DECODE_ARGS);
+  if (dtype == 1 && hd == 64)
+    return attn::launch_decode_group<__nv_bfloat16, 64>(ATTN_DECODE_ARGS);
+#undef ATTN_DECODE_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -410,29 +483,21 @@ int attn_decode_forward(const void* q, const void* k, const void* v,
                         void* counters, int B, int Hq, int Hkv, int kv_slot,
                         int S, int hd, int dtype, int window, float softcap,
                         int n_splits, void* stream) {
-  if (B <= 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || Hq <= 0 ||
-      kv_slot < Hkv ||
-      int64_t(Hkv) * ((Hq / Hkv + attn::kMaxGroup - 1) / attn::kMaxGroup) >
-          65535 ||
-      S <= 0 || n_splits <= 0 || n_splits > attn::kMaxSplits)
-    return static_cast<int>(cudaErrorInvalidValue);
-#define ATTN_DECODE_ARGS \
-  q, k, v, valid_len, o, ws, counters, B, Hq, Hkv, kv_slot, S, n_splits, \
-      window, softcap, stream
-  if (dtype == 0 && hd == 256)
-    return attn::launch_decode_group<float, 256>(ATTN_DECODE_ARGS);
-  if (dtype == 0 && hd == 128)
-    return attn::launch_decode_group<float, 128>(ATTN_DECODE_ARGS);
-  if (dtype == 0 && hd == 64)
-    return attn::launch_decode_group<float, 64>(ATTN_DECODE_ARGS);
-  if (dtype == 1 && hd == 256)
-    return attn::launch_decode_group<__nv_bfloat16, 256>(ATTN_DECODE_ARGS);
-  if (dtype == 1 && hd == 128)
-    return attn::launch_decode_group<__nv_bfloat16, 128>(ATTN_DECODE_ARGS);
-  if (dtype == 1 && hd == 64)
-    return attn::launch_decode_group<__nv_bfloat16, 64>(ATTN_DECODE_ARGS);
-#undef ATTN_DECODE_ARGS
-  return static_cast<int>(cudaErrorInvalidValue);
+  return decode_entry(q, k, v, valid_len, o, nullptr, ws, counters, B, Hq,
+                      Hkv, kv_slot, S, 0, hd, dtype, window, softcap,
+                      n_splits, stream);
+}
+
+// The same over the block of global positions [pos0, pos0 + S) that the
+// cache holds (pos0 >= 0): o float32 [B, Hq, hd], lse float32 [B, Hq].
+int attn_decode_partial(const void* q, const void* k, const void* v,
+                        const void* valid_len, void* o, void* lse, void* ws,
+                        void* counters, int B, int Hq, int Hkv, int kv_slot,
+                        int S, int pos0, int hd, int dtype, int window,
+                        float softcap, int n_splits, void* stream) {
+  return decode_entry(q, k, v, valid_len, o, static_cast<float*>(lse), ws,
+                      counters, B, Hq, Hkv, kv_slot, S, pos0, hd, dtype,
+                      window, softcap, n_splits, stream);
 }
 
 }  // extern "C"

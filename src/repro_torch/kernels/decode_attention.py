@@ -14,6 +14,11 @@ first.  A slot with no admitted position
 (``valid_len`` 0) gets the mean of V over all S rows, as the reference's
 finite mask gives.
 
+:func:`decode_attention_partial` is the same kernel over a block of global
+positions ``[pos0, pos0 + S)`` (a cache whose sequence is split over
+ranks): float32 ``o`` and the rows' log-sum-exp, from which the blocks
+merge, and ``o = 0``, ``lse = -inf`` where a block admits no row.
+
 The kernel cuts each slot's admitted positions into at most
 :func:`num_splits` runs of whole tiles (:func:`split_length`), one block
 per (run, kv head, slot), and merges the runs in the same launch
@@ -40,10 +45,11 @@ from repro_torch.kernels.flash_attention import (
 )
 
 __all__ = ["LAUNCHES", "MAX_GROUP", "chunks", "decode_attention",
-           "num_splits", "slot_heads", "split_length", "tile_rows"]
+           "decode_attention_partial", "num_splits", "slot_heads",
+           "split_length", "tile_rows"]
 
 #: kernel launches (reset with ``ops.reset_launch_counts``)
-LAUNCHES = {"decode_attention": 0}
+LAUNCHES = {"decode_attention": 0, "decode_attention_partial": 0}
 #: most q heads one block serves (``kMaxGroup`` in the kernel)
 MAX_GROUP = 8
 #: the kernel's constants (``csrc/decode_attention.cu``): bytes of K (and
@@ -124,6 +130,53 @@ def _scratch(dev: int, n_ws: int, n_counters: int):
     return ws, counters
 
 
+def _checked(name, q, cache_k, cache_v, valid_len, window):
+    """The checked inputs of one launch: ``(device, valid_len [B] int32,
+    cache_k, cache_v, kv_slot)``, the caches contiguous where
+    :func:`slot_heads` does not take their layout."""
+    b = q.shape[0]
+    if not isinstance(valid_len, torch.Tensor) or valid_len.dim() == 0:
+        valid_len = torch.full((b,), int(valid_len), dtype=torch.int32,
+                               device=q.device)
+    dev = check_cuda(("q", "valid_len"), q, valid_len)
+    if check_cuda(("cache_k", "cache_v"), cache_k, cache_v,
+                  contiguous=False) != dev:
+        raise ValueError(f"{name}: the cache is on {cache_k.device}, q on "
+                         f"{q.device}")
+    if q.dim() != 3 or cache_k.dim() != 4:
+        raise ValueError(f"{name}: need q [B,Hq,hd] and cache [B,Hkv,S,hd], "
+                         f"got {tuple(q.shape)} and {tuple(cache_k.shape)}")
+    check_attention_inputs(name, q, cache_k, cache_v)
+    hq = q.shape[1]
+    _, hkv, s_len, _ = cache_k.shape
+    if cache_k.shape[0] != b or hkv == 0 or hq % hkv or s_len == 0:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit the "
+                         f"cache {tuple(cache_k.shape)}")
+    if valid_len.dtype != torch.int32 or valid_len.shape != (b,):
+        raise ValueError(f"{name}: valid_len must be int32 [{b}], got "
+                         f"{valid_len.dtype} {tuple(valid_len.shape)}")
+    if window < 0:
+        raise ValueError(f"{name}: window must be >= 0, got {window}")
+    if b > 65535 or hkv * chunks(hq, hkv) > 65535:
+        raise ValueError(f"{name}: batch and kv heads times chunks must be "
+                         f"< 65536")
+    kv_slot = slot_heads(cache_k)
+    if kv_slot is None or cache_k.stride() != cache_v.stride():
+        cache_k, cache_v = cache_k.contiguous(), cache_v.contiguous()
+        kv_slot = hkv
+    return dev, valid_len, cache_k, cache_v, kv_slot
+
+
+def _grid(dev, q, cache_k):
+    """(splits, workspace, counters) of a launch over ``cache_k``."""
+    b, hq, hd = q.shape
+    _, hkv, s_len, _ = cache_k.shape
+    blocks = hkv * chunks(hq, hkv)   # per slot and split
+    splits = num_splits(b, blocks, s_len, hd, q.element_size())
+    ws, counters = _scratch(dev, b * hq * splits * (hd + 2), b * blocks)
+    return splits, ws, counters
+
+
 def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
                      window: int = 0) -> torch.Tensor:
     """q ``[B, Hq, hd]``; cache ``[B, Hkv, S, hd]`` (k and v in one layout
@@ -132,43 +185,14 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
 
     A row with no admitted position (``valid_len`` 0) gets the mean of V
     over all S rows, as the plain version and the reference give."""
-    b = q.shape[0]
-    if not isinstance(valid_len, torch.Tensor) or valid_len.dim() == 0:
-        valid_len = torch.full((b,), int(valid_len), dtype=torch.int32,
-                               device=q.device)
-    dev = check_cuda(("q", "valid_len"), q, valid_len)
-    if check_cuda(("cache_k", "cache_v"), cache_k, cache_v,
-                  contiguous=False) != dev:
-        raise ValueError(f"decode_attention: the cache is on "
-                         f"{cache_k.device}, q on {q.device}")
-    if q.dim() != 3 or cache_k.dim() != 4:
-        raise ValueError(f"decode_attention: need q [B,Hq,hd] and cache "
-                         f"[B,Hkv,S,hd], got {tuple(q.shape)} and "
-                         f"{tuple(cache_k.shape)}")
-    check_attention_inputs("decode_attention", q, cache_k, cache_v)
-    _, hq, hd = q.shape
-    _, hkv, s_len, _ = cache_k.shape
-    if cache_k.shape[0] != b or hkv == 0 or hq % hkv or s_len == 0:
-        raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit "
-                         f"the cache {tuple(cache_k.shape)}")
-    if valid_len.dtype != torch.int32 or valid_len.shape != (b,):
-        raise ValueError(f"decode_attention: valid_len must be int32 [{b}], "
-                         f"got {valid_len.dtype} {tuple(valid_len.shape)}")
-    if window < 0:
-        raise ValueError(f"decode_attention: window must be >= 0, got {window}")
-    blocks = hkv * chunks(hq, hkv)   # per slot and split
-    if b > 65535 or blocks > 65535:
-        raise ValueError("decode_attention: batch and kv heads times "
-                         "chunks must be < 65536")
+    dev, valid_len, cache_k, cache_v, kv_slot = _checked(
+        "decode_attention", q, cache_k, cache_v, valid_len, window)
     out = torch.empty_like(q)
-    if b == 0:
+    if q.shape[0] == 0:
         return out
-    kv_slot = slot_heads(cache_k)
-    if kv_slot is None or cache_k.stride() != cache_v.stride():
-        cache_k, cache_v = cache_k.contiguous(), cache_v.contiguous()
-        kv_slot = hkv
-    splits = num_splits(b, blocks, s_len, hd, q.element_size())
-    ws, counters = _scratch(dev, b * hq * splits * (hd + 2), b * blocks)
+    b, hq, hd = q.shape
+    _, hkv, s_len, _ = cache_k.shape
+    splits, ws, counters = _grid(dev, q, cache_k)
     _build.launch("attn_decode_forward", dev, q.data_ptr(),
                   cache_k.data_ptr(), cache_v.data_ptr(),
                   valid_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
@@ -176,3 +200,34 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
                   DTYPE_CODES[q.dtype], int(window), float(softcap), splits)
     LAUNCHES["decode_attention"] += 1
     return out
+
+
+def decode_attention_partial(q, cache_k, cache_v, valid_len, pos0: int, *,
+                             softcap: float = 0.0, window: int = 0):
+    """The decode over a block of global positions: the cache ``[B, Hkv,
+    S, hd]`` holds rows ``[pos0, pos0 + S)`` of the whole cache, and local
+    row ``r`` is admitted when ``pos0 + r < valid_len`` (and ``> valid_len
+    - window``), ``valid_len`` a global length.  Returns ``(o, lse)``:
+    float32 ``[B, Hq, hd]`` (unrounded) and float32 ``[B, Hq]``, the
+    log-sum-exp of the block's scaled (soft-capped) scores; a row with no
+    admitted position gets ``o = 0`` and ``lse = -inf``."""
+    if pos0 < 0:
+        raise ValueError(f"decode_attention_partial: pos0 must be >= 0, "
+                         f"got {pos0}")
+    dev, valid_len, cache_k, cache_v, kv_slot = _checked(
+        "decode_attention_partial", q, cache_k, cache_v, valid_len, window)
+    b, hq, hd = q.shape
+    out = torch.empty((b, hq, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    if b == 0:
+        return out, lse
+    _, hkv, s_len, _ = cache_k.shape
+    splits, ws, counters = _grid(dev, q, cache_k)
+    _build.launch("attn_decode_partial", dev, q.data_ptr(),
+                  cache_k.data_ptr(), cache_v.data_ptr(),
+                  valid_len.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  ws.data_ptr(), counters.data_ptr(), b, hq, hkv, kv_slot,
+                  s_len, int(pos0), hd, DTYPE_CODES[q.dtype], int(window),
+                  float(softcap), splits)
+    LAUNCHES["decode_attention_partial"] += 1
+    return out, lse

@@ -23,9 +23,10 @@ plain PyTorch, which autograd differentiates.  Where the kernels run,
 ``torch.autograd.Function`` classes whose backwards are hand-written backward
 kernels; :func:`moe_combine` is plain PyTorch in every mode (as the
 reference's jnp combine), which autograd differentiates.  Only
-:func:`decode_attention`, which serving alone calls, has no backward: it
-raises ``NotImplementedError`` when grad mode is on and an input requires
-grad, rather than return an output without a gradient.
+:func:`decode_attention` and :func:`decode_attention_partial`, which
+serving alone calls, have no backward: they raise
+``NotImplementedError`` when grad mode is on and an input requires grad,
+rather than return an output without a gradient.
 """
 
 from __future__ import annotations
@@ -211,6 +212,26 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap=0.0,
                                     valid_len, softcap=softcap, window=window)
     return _ref.decode_attention_ref(q, cache_k, cache_v, valid_len,
                                      softcap=softcap, window=window)
+
+
+def decode_attention_partial(q, cache_k, cache_v, valid_len, pos0: int, *,
+                             softcap=0.0, window=0):
+    """The decode over a block of global positions ``[pos0, pos0 + S)``
+    that the cache ``[B, Hkv, S, hd]`` holds (a cache whose sequence is
+    split over ranks): position ``p`` admitted when ``p < valid_len`` (``>
+    valid_len - window``), global lengths -> ``(o, lse)``, float32 ``[B,
+    Hq, hd]`` and ``[B, Hq]``; ``o = 0``, ``lse = -inf`` where no position
+    of the block is admitted."""
+    if kernels_active(q.device):
+        _no_backward("decode_attention_partial", q, cache_k, cache_v)
+        if isinstance(valid_len, torch.Tensor):
+            valid_len = _i32(valid_len.to(q.device))
+        return _dk.decode_attention_partial(q.contiguous(), cache_k, cache_v,
+                                            valid_len, pos0, softcap=softcap,
+                                            window=window)
+    return _ref.decode_attention_partial_ref(q, cache_k, cache_v, valid_len,
+                                             pos0, softcap=softcap,
+                                             window=window)
 
 
 def ssd_scan(x, dt, A, Bm, Cm):

@@ -405,6 +405,28 @@ def flash_attention_backward_wgmma_model(q, k, v, o, lse, dout, *,
             dv[:, :, :skv].to(bf))
 
 
+def _decode_scores(q, cache_k, cache_v, valid_len, pos0, softcap, window):
+    """A decode's float32 scores ``[B, Hq, S]`` (scaled, soft-capped), V
+    with its heads repeated to q's, and the admitted positions ``[B, Hq,
+    S]``: ``pos0 + r < valid_len`` and, with a window, ``> valid_len -
+    window``."""
+    b, hq, hd = q.shape
+    hkv, s_len = cache_k.shape[1], cache_k.shape[2]
+    g = hq // hkv
+    kf = cache_k.float().repeat_interleave(g, dim=1)
+    vf = cache_v.float().repeat_interleave(g, dim=1)
+    s = (q.float()[:, :, None, :] @ kf.transpose(-1, -2))[:, :, 0] \
+        / math.sqrt(hd)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    valid = torch.as_tensor(valid_len, device=q.device).reshape(-1, 1, 1)
+    pos = pos0 + torch.arange(s_len, device=q.device)[None, None, :]
+    mask = (pos < valid).expand(b, hq, s_len)
+    if window:
+        mask = mask & (pos > valid - window)
+    return s, vf, mask
+
+
 def decode_attention_ref(q, cache_k, cache_v, valid_len, *, softcap=0.0,
                          window=0):
     """q ``[B, Hq, hd]``; cache ``[B, Hkv, S, hd]``; ``valid_len`` a scalar
@@ -412,22 +434,30 @@ def decode_attention_ref(q, cache_k, cache_v, valid_len, *, softcap=0.0,
 
     Position ``p`` of row ``b`` is attended when ``p < valid_len[b]`` and,
     with a window, ``p > valid_len[b] - window``.  Float32 math."""
-    b, hq, hd = q.shape
-    hkv, s_len = cache_k.shape[1], cache_k.shape[2]
-    g = hq // hkv
-    kf = cache_k.float().repeat_interleave(g, dim=1)
-    vf = cache_v.float().repeat_interleave(g, dim=1)
-    s = (q.float()[:, :, None, :] @ kf.transpose(-1, -2))[:, :, 0] \
-        / math.sqrt(hd)                                   # [B, Hq, S]
-    if softcap:
-        s = softcap * torch.tanh(s / softcap)
-    valid = torch.as_tensor(valid_len, device=q.device).reshape(-1, 1, 1)
-    pos = torch.arange(s_len, device=q.device)[None, None, :]
-    mask = pos < valid
-    if window:
-        mask &= pos > valid - window
+    s, vf, mask = _decode_scores(q, cache_k, cache_v, valid_len, 0, softcap,
+                                 window)
     return _masked_softmax_pv(s[:, :, None, :], mask[:, :, None, :], vf,
                               q.dtype)[:, :, 0]
+
+
+def decode_attention_partial_ref(q, cache_k, cache_v, valid_len, pos0: int,
+                                 *, softcap=0.0, window=0):
+    """The decode over a block of global positions: cache ``[B, Hkv, S,
+    hd]`` holds positions ``[pos0, pos0 + S)``; position ``pos0 + r`` of
+    row ``b`` is attended when below ``valid_len[b]`` and, with a window,
+    above ``valid_len[b] - window`` -> ``(o, lse)``, float32 ``[B, Hq,
+    hd]`` and ``[B, Hq]``: the block's softmax-weighted V and the
+    log-sum-exp of its scaled (soft-capped) scores; a row with no admitted
+    position gets ``o = 0`` and ``lse = -inf``.  Blocks merge as ``lse =
+    logsumexp_r lse_r``, ``o = sum_r exp(lse_r - lse) o_r``."""
+    s, vf, mask = _decode_scores(q, cache_k, cache_v, valid_len, pos0,
+                                 softcap, window)
+    m = torch.where(mask, s, float("-inf")).amax(dim=-1)  # [B, Hq]
+    p = torch.where(mask, torch.exp(s - torch.where(
+        torch.isfinite(m), m, 0.0)[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = (p[:, :, None, :] @ vf)[:, :, 0] / l.clamp_min(1e-37)[..., None]
+    return o, m + torch.log(l)
 
 
 # ---------------------------------------------------------------------------

@@ -36,9 +36,12 @@ collectives where the reference's ``constrain`` and ``shard_map`` put them:
   The results are the same either way.
 
 ``named`` and ``tree_shardings`` wrap specs in jax shardings and have no
-counterpart; nor have ``logical`` (the identity) and ``seq_axis`` (the
-sequence-sharded decode, which the port does not run: ``build_cell``
-refuses sequence-sharded serve caches on a live mesh).
+counterpart.  ``seq_axis`` is the axis a long-context decode splits its
+caches' sequence over (the logical ``"seq"``): :func:`~repro_torch.launch.
+steps.make_rules` leaves it None, as the reference's does, and
+``build_cell`` sets it to the data-parallel axes on the live rules of a
+decode cell whose batch does not divide them (``cache_pspecs`` split the
+KV caches' sequence there); the attention and Mamba layers read it.
 """
 
 from __future__ import annotations
@@ -57,8 +60,8 @@ from repro_torch.launch.mesh import MeshLayout
 
 __all__ = ["ShardingRules", "TPGroup", "active_rules", "constrain",
            "distribute", "distribute_params", "gather_params_for_compute",
-           "gathered", "local_shape", "make_param_rule", "param_pspecs",
-           "shard", "spec_divisor", "tp_group", "use_rules"]
+           "gathered", "local_shape", "logical", "make_param_rule",
+           "param_pspecs", "shard", "spec_divisor", "tp_group", "use_rules"]
 
 _ACTIVE: contextvars.ContextVar[Optional["ShardingRules"]] = \
     contextvars.ContextVar("sharding_rules", default=None)
@@ -72,6 +75,7 @@ class ShardingRules:
     tp_enabled: bool = True             # False => pure DP (model joins dp)
     fsdp_axis: Optional[object] = "data"  # str | tuple | None (ZeRO axes)
     shard_kv_heads: bool = True
+    seq_axis: Optional[object] = None   # sequence sharding for long decode
     moe_a2a: bool = False               # expert-parallel all_to_all MoE (S2)
     zero1: bool = False                 # gather fsdp-sharded weights at use
     #: the ranks the layout runs on (None: rules as data, for the specs)
@@ -166,16 +170,24 @@ def spec_divisor(spec, layout: MeshLayout) -> int:
 # logical activation specs
 # ---------------------------------------------------------------------------
 
+def logical(*axes: Optional[str]) -> Tuple[Optional[str], ...]:
+    """Logical axes as a tuple, the form :func:`constrain` and
+    :func:`_resolve` read."""
+    return axes
+
+
 def _resolve(rules: ShardingRules, axes) -> tuple:
     """Logical axes -> a spec: ``"batch"`` the data-parallel axes, ``"tp"``
-    the model axis (None with TP off); any other entry is a mesh axis name
-    or tuple, kept."""
+    the model axis (None with TP off), ``"seq"`` the rules' ``seq_axis``;
+    any other entry is a mesh axis name or tuple, kept."""
     out = []
     for a in axes:
         if a == "batch":
             out.append(rules.dp)
         elif a == "tp":
             out.append(rules.tp)
+        elif a == "seq":
+            out.append(rules.seq_axis)
         else:
             out.append(a)
     return tuple(out)

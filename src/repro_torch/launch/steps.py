@@ -199,15 +199,7 @@ def cache_pspecs(cfg: ModelConfig, shape: ShapeConfig,
             return {"h": h_spec, "conv_x": (dp, None, inner),
                     "conv_B": (dp, None, None), "conv_C": (dp, None, None)}
         # long-context decode, batch 1: heads over every axis they divide
-        flat = []
-        for a in (dp, tp):
-            flat.extend(a if isinstance(a, tuple) else (a,))
-        if h % (rules.dp_size() * rules.tp_size()) == 0:
-            h_spec = (None, tuple(flat), None, None)
-        elif h % rules.tp_size() == 0:
-            h_spec = (None, tp, None, None)
-        else:
-            h_spec = (None,) * 4
+        h_spec = (None, mamba2.long_decode_heads(h, rules), None, None)
         return {"h": h_spec, "conv_x": (None, None, inner),
                 "conv_B": (None,) * 3, "conv_C": (None,) * 3}
 
@@ -461,7 +453,10 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig,
     the reference's ``meta`` (arch, shape, mesh sizes, knobs).  With a
     live ``mesh`` (:func:`~repro_torch.launch.mesh.live_mesh` of
     ``layout``) the step runs under the cell's rules on the rank's shards
-    (``cell.rules``; the specs stay the whole leaves')."""
+    (``cell.rules``; the specs stay the whole leaves').  A decode cell
+    whose batch does not divide the data axes is the long-context decode:
+    its live rules carry ``seq_axis``, the data axes its KV caches'
+    sequence is split over."""
     dev = resolve_device(device)
     knobs = knobs_for(cfg, shape, **knob_overrides)
     rules = make_rules(layout, cfg, knobs)
@@ -472,12 +467,14 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig,
                              f"layout {layout}")
         run = dataclasses.replace(rules, live=mesh)
         if shape.kind != "train" and shape.global_batch % rules.dp_size():
-            # the reference's long-context decode splits the caches'
-            # sequence over the data axes, which the layers here do not run
-            raise NotImplementedError(
-                f"{shape.name}: a batch of {shape.global_batch} over "
-                f"{rules.dp_size()} data-parallel ranks shards the caches' "
-                f"sequence, which runs on one data-parallel rank only")
+            if shape.kind == "prefill":
+                raise ValueError(
+                    f"{shape.name}: a prefill batch of {shape.global_batch} "
+                    f"does not split over {rules.dp_size()} data-parallel "
+                    f"ranks (its tokens' spec splits the batch)")
+            # the long-context decode: every rank serves the whole batch,
+            # the caches' sequence split over the data axes (cache_pspecs)
+            run = dataclasses.replace(run, seq_axis=rules.dp)
     params, params_ps = model_specs(cfg, rules)
     batch, batch_ps = batch_specs(cfg, shape, rules, knobs)
     meta = {"arch": cfg.name, "shape": shape.name, "mesh": layout.shape,

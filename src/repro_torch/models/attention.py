@@ -35,6 +35,16 @@ of ``attention_block``:
   the cache and ``valid_len = index + 1`` the same keys need the kernel's
   window to be ``window + 1``.
 
+The long-context decode (active rules with ``seq_axis``: the batch does
+not divide the data axes, so every data rank serves the whole batch and
+the KV caches' sequence is split over them, the rank at index ``i``
+holding rows ``[i S_local, (i + 1) S_local)``): only the rank that holds
+``index`` writes the token's k/v, every rank runs
+``ops.decode_attention_partial`` over its rows (global positions in its
+mask), and the blocks' float32 ``(o, lse)`` merge over the axis after one
+all-gather (:func:`_merge_blocks`), as GSPMD does the reference's.  The
+model axis's kv heads combine with it as above.
+
 :func:`attend_naive` is the plain, materializing oracle the tests use.
 """
 
@@ -314,17 +324,16 @@ def attention_block(x, params: Attention, *, mode: str, rope_theta: float,
         if cache is None or s != 1:
             raise ValueError("decode needs a cache and one token per slot")
         idx = positions[:, 0]
-        slots = torch.arange(b, device=x.device)
         ck, cv = cache["k"], cache["v"]
-        ck[slots, :, idx] = cache_heads(k)[:, 0].to(ck.dtype)
-        cv[slots, :, idx] = cache_heads(v)[:, 0].to(cv.dtype)
+        seq = _seq_block(ck.shape[2])
+        _write_token(ck, cv, cache_heads(k)[:, 0], cache_heads(v)[:, 0], idx,
+                     None if seq is None else seq[2])
         if tp is not None:
             c_lo = tp.cache_lo(cache)
             ck, cv = tp.for_q(ck, c_lo, 1), tp.for_q(cv, c_lo, 1)
-        o = ops.decode_attention(
-            q[:, 0], ck, cv, (idx + 1).to(torch.int32),
-            softcap=softcap, window=win + 1 if win else 0,
-        )[:, None]                                        # [B, 1, Hq, hd]
+        o = decode_cache(q[:, 0], ck, cv, (idx + 1).to(torch.int32),
+                         softcap=softcap, window=win + 1 if win else 0,
+                         seq=seq)[:, None]                # [B, 1, Hq, hd]
     else:
         if cache is not None:
             cache["k"][:, :, :s] = cache_heads(k).transpose(1, 2).to(
@@ -341,6 +350,71 @@ def attention_block(x, params: Attention, *, mode: str, rope_theta: float,
     if tp is not None:
         return tp.out(o, wo, x.dtype), cache
     return _out(o, wo, x.dtype), cache
+
+
+def decode_cache(q, ck, cv, valid_len, *, softcap=0.0, window=0, seq=None):
+    """One decode step's attention, q ``[B, Hq, hd]``, over the cache this
+    rank holds (``[B, Hkv, S_local, hd]``): ``ops.decode_attention`` over a
+    whole cache; in a long-context decode (``seq``, :func:`_seq_block`; by
+    default read from the active rules) the rank's block of global
+    positions through ``ops.decode_attention_partial``, the blocks merged
+    over the sequence axis (:func:`_merge_blocks`).  ``valid_len`` and
+    ``window`` are on global positions."""
+    if seq is None:
+        seq = _seq_block(ck.shape[2])
+    kw = dict(softcap=softcap, window=window)
+    if seq is None:
+        return ops.decode_attention(q, ck, cv, valid_len, **kw)
+    return _merge_blocks(*ops.decode_attention_partial(
+        q, ck, cv, valid_len, seq[2], **kw), seq, q.dtype)
+
+
+def _seq_block(s_local: int):
+    """Under active rules whose ``seq_axis`` splits the KV caches'
+    sequence (a long-context decode): ``(live mesh, axis, first global
+    position of this rank's rows)``, the rank at index ``i`` along the axis
+    holding rows ``[i S_local, (i + 1) S_local)``; None otherwise."""
+    rules = active_rules()
+    if rules is None or rules.seq_axis is None:
+        return None
+    live = rules.live
+    if live.size(rules.seq_axis) == 1:
+        return None
+    return live, rules.seq_axis, live.index(rules.seq_axis) * s_local
+
+
+def _write_token(ck, cv, k_tok, v_tok, idx, lo) -> None:
+    """The token's k/v ``[B, Hkv, hd]`` into the caches in place at
+    positions ``idx``.  With ``lo`` (a long-context decode) the caches hold
+    global rows ``[lo, lo + S_local)``: only the rank that holds a slot's
+    position writes it, at local row ``idx - lo``; the others write that
+    row's own values back (no host read of ``idx``)."""
+    slots = torch.arange(ck.shape[0], device=ck.device)
+    if lo is None:
+        ck[slots, :, idx] = k_tok.to(ck.dtype)
+        cv[slots, :, idx] = v_tok.to(cv.dtype)
+        return
+    s_local = ck.shape[2]
+    local = idx - lo
+    own = ((local >= 0) & (local < s_local))[:, None, None]
+    row = local.clamp(0, s_local - 1)
+    ck[slots, :, row] = torch.where(own, k_tok.to(ck.dtype), ck[slots, :, row])
+    cv[slots, :, row] = torch.where(own, v_tok.to(cv.dtype), cv[slots, :, row])
+
+
+def _merge_blocks(o, lse, seq, dtype):
+    """The ranks' blocks of one decode merged over the sequence axis, in
+    float32, rounded once to ``dtype``: one all-gather of each rank's ``(o,
+    lse)`` (``[B, Hq, hd]`` and ``[B, Hq]``), then ``lse = logsumexp_r
+    lse_r`` and ``o = sum_r exp(lse_r - lse) o_r`` in rank order (every
+    rank computes the same sum).  A block with no admitted row has ``lse =
+    -inf``: weight 0."""
+    live, axis, _ = seq
+    both = torch.cat([o, lse[..., None]], dim=-1)[None]   # [1, B, Hq, hd+1]
+    every = mesh_lib.all_gather(both, live, axis, 0)
+    o_r, lse_r = every[..., :-1], every[..., -1]
+    total = torch.logsumexp(lse_r, dim=0)
+    return (torch.exp(lse_r - total)[..., None] * o_r).sum(dim=0).to(dtype)
 
 
 def _out(o, wo, dtype):

@@ -23,6 +23,14 @@ A step of :func:`mamba_block`:
   recurrence, which reads only the first token; the port scans every
   ``S > 1`` (ROADMAP Queue 3).
 
+A long-context decode (rules with ``seq_axis``, batch 1) places the
+state's heads by :func:`long_decode_heads`: over the model axis, or
+replicated, the TP step below runs on every data rank alike; over every
+axis, each rank's state is one block of the heads, which lies outside its
+TP block when both axes have more than one rank, and the one-token step
+moves the recurrence's inputs and outputs to and from the block's owner
+(:class:`_StateBlock`).
+
 Under sharding rules whose model axis shards ``d_inner`` (``w_z``,
 ``w_x``, ``conv_x`` and ``w_out`` hold the rank's block; ``w_B``, ``w_C``,
 ``w_dt`` and the per-head vectors stay whole), each rank runs its block
@@ -48,7 +56,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import SSD_CLIP
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.sharding import constrain, tp_group
+from repro_torch.launch.sharding import active_rules, constrain, tp_group
 from repro_torch.models import layers
 from repro_torch.models.config import SSMConfig
 
@@ -56,6 +64,21 @@ from repro_torch.models.config import SSMConfig
 def dims(d_model: int, ssm: SSMConfig) -> Tuple[int, int]:
     d_inner = ssm.expand * d_model
     return d_inner, d_inner // ssm.headdim
+
+
+def long_decode_heads(n_heads: int, rules):
+    """The axes a Mamba state's heads are split over in a long-context
+    decode (batch 1; the reference's ``cache_pspecs``): every axis, the
+    data-parallel ones then the model axis, when the heads divide them all;
+    else the model axis when they divide it; else none."""
+    flat = []
+    for a in (rules.dp, rules.tp_axis):
+        flat.extend(a if isinstance(a, tuple) else (a,))
+    if n_heads % (rules.dp_size() * rules.tp_size()) == 0:
+        return tuple(flat)
+    if n_heads % rules.tp_size() == 0:
+        return rules.tp_axis
+    return None
 
 
 class Mamba(nn.Module):
@@ -135,6 +158,79 @@ def ssd_decode_step(xh, dt, A, Bvec, Cvec, h):
     return y[:, None].to(xh.dtype), h_new
 
 
+class _StateBlock:
+    """This rank's block of a Mamba state's heads in a long-context decode
+    whose heads lie over every axis (:func:`long_decode_heads`): block
+    ``k`` of ``n_dp n_tp`` of ``Hl`` heads each, ``k`` the rank's index
+    over the data-parallel axes and then the model axis (model minor),
+    which is its rank.  Rank ``(j, t)`` (data index ``j``, model index
+    ``t``) computes the inputs of TP block ``t``'s heads, and its own block
+    ``k = j n_tp + t`` lies in TP block ``k // n_dp``, which is another
+    one when both axes have more than one rank.  So the step moves the
+    recurrence's inputs to the state, not the state to the inputs: rank
+    ``(j, t)`` sends the x and dt of its TP block's ``j``-th block to that
+    block's owner ``t n_dp + j`` (one all-to-all over the world; a rank
+    that owns the block it sends keeps it), each owner runs
+    :func:`ssd_decode_step` on its heads and its state, which never moves,
+    and sends ``y`` to the ``n_dp`` ranks of its TP block (a second
+    all-to-all).  Each message is ``Hl`` heads of ``x dt`` inputs or
+    outputs, ``P`` values a head, where the state is ``N P``."""
+
+    def __init__(self, rules, n_heads: int):
+        live = rules.live
+        self.n_dp, self.n_tp = live.size(rules.dp), live.size(rules.tp_axis)
+        self.j, self.t = live.index(rules.dp), live.index(rules.tp_axis)
+        self.world = self.n_dp * self.n_tp
+        self.k = self.j * self.n_tp + self.t
+        self.hl = n_heads // self.world
+
+    @staticmethod
+    def of(rules, n_heads: int, state, s: int):
+        """The rank's block in a long-context decode step whose state's
+        heads lie over every axis; None for any other call."""
+        if (state is None or s != 1 or rules is None
+                or rules.seq_axis is None
+                or not isinstance(long_decode_heads(n_heads, rules), tuple)):
+            return None
+        return _StateBlock(rules, n_heads)
+
+    def _rows(self, to):
+        """``Hl`` rows for each rank of ``to``, none for the others."""
+        return [self.hl if r in to else 0 for r in range(self.world)]
+
+    def step(self, xh, dt, Bvec, Cvec, h, A_log):
+        """xh ``[B, 1, Ht, P]`` and dt ``[B, 1, Ht]`` of this rank's TP
+        block (``Ht = n_dp Hl`` heads), Bvec, Cvec ``[B, 1, G, N]``, h this
+        rank's block ``[B, Hl, N, P]``, A_log every head's -> (y ``[B, 1,
+        Ht, P]`` of the TP block, the new h of the rank's block)."""
+        if Bvec.shape[2] != 1:
+            raise NotImplementedError(f"a state's heads over every axis need "
+                                      f"one B/C group, not {Bvec.shape[2]}")
+        n_dp, n_tp, hl = self.n_dp, self.n_tp, self.hl
+        p = xh.shape[-1]
+        # the j-th block of this TP block to its owner, x and dt as float32
+        # rows [Hl, B, P + 1] (x's dtype converts back exactly)
+        mine = slice(self.j * hl, (self.j + 1) * hl)
+        send = torch.cat([xh[:, 0, mine].float(), dt[:, 0, mine, None]],
+                         dim=-1).transpose(0, 1)
+        owner = self.t * n_dp + self.j
+        src = (self.k % n_dp) * n_tp + self.k // n_dp
+        got = mesh_lib.group_all_to_all_rows(
+            send, self._rows({owner}), self._rows({src}))
+        x_k = got[..., :p].transpose(0, 1)[:, None].to(xh.dtype)
+        dt_k = got[..., p].transpose(0, 1)[:, None]
+        A = -torch.exp(A_log[self.k * hl:(self.k + 1) * hl])
+        y_k, h_new = ssd_decode_step(x_k, dt_k, A, Bvec, Cvec, h)
+        # y of the owned block to the ranks of its TP block
+        tp_block = self.k // n_dp
+        readers = {i * n_tp + tp_block for i in range(n_dp)}
+        owners = {self.t * n_dp + i for i in range(n_dp)}
+        y = mesh_lib.group_all_to_all_rows(
+            y_k[:, 0].transpose(0, 1).repeat(n_dp, 1, 1),
+            self._rows(readers), self._rows(owners))
+        return y.transpose(0, 1)[:, None], h_new
+
+
 def _scan(xh, dt, A, Bmat, Cmat):
     """The chunked scan on the model's layouts: xh ``[B, S, H, P]``, dt
     ``[B, S, H]``, Bmat, Cmat ``[B, S, G, N]`` -> (y ``[B, S, H, P]``, h).
@@ -167,6 +263,7 @@ def mamba_block(x, params: Mamba, ssm: SSMConfig, *, norm_eps: float,
     w = {k: getattr(params, k) for k in ("w_B", "w_C", "w_dt", "conv_B",
                                          "conv_C", "dt_bias", "A_log", "D")}
     scale = params.norm.scale
+    block = _StateBlock.of(active_rules(), n_heads, state, s)
     tp = tp_group() if params.w_x.shape[1] != d_inner else None
     if tp is not None:
         live, axis, tp_n, r = tp
@@ -200,7 +297,9 @@ def mamba_block(x, params: Mamba, ssm: SSMConfig, *, norm_eps: float,
     dt = F.softplus(dt_raw.float() + w["dt_bias"][None, None, :])
     A = -torch.exp(w["A_log"])
 
-    if state is not None and s == 1:
+    if block is not None:
+        y, h_new = block.step(xh, dt, Bmat, Cmat, state["h"], params.A_log)
+    elif state is not None and s == 1:
         y, h_new = ssd_decode_step(xh, dt, A, Bmat, Cmat, state["h"])
     else:
         y, h_new = _scan(xh, dt, A, Bmat, Cmat)

@@ -7,7 +7,13 @@ placeholder host devices as the layout has ranks (the JAX package's own
 port's steps on a live ``torch.distributed`` mesh over gloo, on the CPU.
 Both build the same weights (``init_params`` of the port from a seed,
 carried to the JAX package by ``params_to_reference``) and tokens (numpy
-from a seed).  ``run_layout`` then returns ``{check: (passed, detail)}``
+from a seed; a train batch from each package's ``SyntheticLM``, the port's
+cut on each rank by ``mesh``/``pspec``).  The long-context decode checks
+(``LONG_MODELS``) serve a batch of 1 from random caches (numpy from a seed)
+of ``LONG_S`` rows split over the data ranks, under each package's rules
+for the cell (``knobs_for``'s defaults), at ``long_indices(layout)``: in
+block 0, on its last row, on the first row of block 1 and on the cache's
+last row.  ``run_layout`` then returns ``{check: (passed, detail)}``
 for every name of ``checks(layout)``, which the test files parametrise
 over.
 
@@ -49,6 +55,21 @@ MODELS = {
                "mamba2-780m"),
     "pod": ("deepseek-moe-16b", "minicpm-2b"),
 }
+#: the reduced models of the long-context decode checks (batch 1, the
+#: caches' sequence over the data axes): Jamba (attention, Mamba, MoE),
+#: Mamba2 with 16 heads (over every axis) and with 6 (``-h6``: over the
+#: model axis only at (2, 2), replicated at (2, 2, 1)), and on dp2 Gemma2
+#: (a sliding window across the block boundary, softcap)
+LONG_MODELS = {
+    "dp2": ("jamba-1.5-large-398b", "mamba2-780m", "mamba2-780m-h6",
+            "gemma2-27b"),
+    "dp2tp2": ("jamba-1.5-large-398b", "mamba2-780m", "mamba2-780m-h6"),
+    "pod": ("jamba-1.5-large-398b", "mamba2-780m", "mamba2-780m-h6"),
+}
+#: the long-context decode's cache rows (a multiple of every layout's data
+#: ranks) and its logits' tolerance (Jamba's, the scan's, 2e-4)
+LONG_S = 64
+LONG_TOL = {"jamba-1.5-large-398b": 2e-4}
 #: the models each layout trains one step
 TRAIN = {"dp2": ("deepseek-moe-16b",),
          "tp2": ("gemma2-27b", "mamba2-780m", "deepseek-moe-16b")}
@@ -108,16 +129,26 @@ def checks(key):
                 f"bytes/{name}/train"]
     if key in WIRE_DENSE:
         out.append("wire/gemma2-27b/prefill")
+    for name in LONG_MODELS.get(key, ()):
+        out += [f"long/{name}/{c}" for c in ("tokens", "logits", "caches",
+                                              "bytes", "wire")]
+    if key in LONG_MODELS:
+        out.append("synthetic/shards")
     return out
 
 
 def configs(name, pkg):
     """The reduced float32 configuration ``name`` of ``pkg`` (either
-    package's ``configs`` module)."""
-    cfg = pkg.get(name.removesuffix("-pad")).reduced()
+    package's ``configs`` module); ``-h6`` is Mamba2 with 6 state heads
+    (d_model 48, head dim 16)."""
+    cfg = pkg.get(name.removesuffix("-pad").removesuffix("-h6")).reduced()
     if name.endswith("-pad"):
         cfg = dataclasses.replace(cfg, name=cfg.name + "-pad", num_heads=3,
                                   num_kv_heads=3)
+    if name.endswith("-h6"):
+        cfg = dataclasses.replace(cfg, name=cfg.name + "-h6", d_model=48,
+                                  ssm=dataclasses.replace(cfg.ssm,
+                                                          headdim=16))
     return cfg
 
 
@@ -126,11 +157,42 @@ def tokens(vocab):
     return rng.integers(0, vocab, (BATCH, PROMPT), dtype=np.int32)
 
 
-def train_batch(vocab):
-    rng = np.random.default_rng(SEED + 1)
-    t = rng.integers(0, vocab, (1, BATCH, PROMPT), dtype=np.int32)
-    lab = rng.integers(0, vocab, (1, BATCH, PROMPT), dtype=np.int32)
-    return {"tokens": t, "labels": lab}
+def synthetic(pkg, vocab, **sharded):
+    """Each package's ``SyntheticLM`` of the train step's batch (one
+    microbatch of ``BATCH`` rows of ``PROMPT`` tokens)."""
+    return pkg.SyntheticLM(vocab=vocab, seq_len=PROMPT, batch=BATCH,
+                           seed=SEED + 1, **sharded)
+
+
+def long_shape(pkg):
+    """The long-context decode's cell: ``LONG_S`` rows, batch 1."""
+    return pkg.ShapeConfig("long-mesh", LONG_S, 1, "decode")
+
+
+def long_indices(key):
+    """The decode positions: in block 0, on its last row, on the first row
+    of block 1, on the cache's last row (blocks of ``LONG_S / n_dp``)."""
+    names, sizes, _ = LAYOUTS[key]
+    shape = dict(zip(names, sizes))
+    block = LONG_S // (shape.get("pod", 1) * shape["data"])
+    return (block // 3, block - 1, block, LONG_S - 1)
+
+
+def long_caches(tcfg, tp):
+    """Random whole caches in the port's layout (one dict per layer, KV
+    leaves ``[1, Hkv, LONG_S, hd]``), numpy float32 from a seed."""
+    from repro_torch.launch import steps
+    from repro_torch.models import config as tconfig
+
+    rng = np.random.default_rng(SEED + 3)
+    return [{k: rng.standard_normal(tuple(t.shape)).astype(np.float32)
+             for k, t in layer.items()}
+            for layer in steps.cache_specs(tcfg, long_shape(tconfig), tp=tp)]
+
+
+def long_tokens(vocab):
+    return np.random.default_rng(SEED + 4).integers(0, vocab, (1, 1),
+                                                    dtype=np.int32)
 
 
 def moe_input(d):
@@ -155,6 +217,7 @@ def jax_main(key, out):
     import jax.numpy as jnp
 
     import repro.configs as jconfigs
+    from repro.data import pipeline as jpipeline
     from repro.launch import steps as jsteps
     from repro.launch.cells import CellKnobs as JKnobs
     from repro.launch.sharding import use_rules
@@ -175,6 +238,14 @@ def jax_main(key, out):
                 return fn(*args)
         return jax.jit(run)
 
+    jax_long(key, mesh, res)
+    synth = synthetic(jpipeline, 256, mesh=mesh, pspec=jax.sharding
+                      .PartitionSpec(names[:-1] if len(names) > 2
+                                     else names[0], None)).batch_at(0)
+    for r, d in enumerate(mesh.devices.flat):
+        for k, arr in synth.items():
+            res[f"synthetic/{r}/{k}"] = np.asarray(next(
+                sh.data for sh in arr.addressable_shards if sh.device == d))
     for name in MODELS[key]:
         jcfg, tcfg = configs(name, jconfigs), configs(name, tconfigs)
         tree = params_to_reference(TT.init_params(tcfg, SEED, device="cpu"),
@@ -219,12 +290,118 @@ def jax_main(key, out):
             trules = jsteps.make_rules(mesh, jcfg, jk)
             step = jax.jit(jsteps.build_train_step(
                 jcfg, trules, jk, opt_cfg=jadamw.AdamWConfig(**OPT)))
-            new, _, metrics = step(tree, jadamw.init_state(tree),
-                                   train_batch(jcfg.vocab_size))
+            batch = {k: np.asarray(v)[None] for k, v in synthetic(
+                jpipeline, jcfg.vocab_size).batch_at(0).items()}
+            new, _, metrics = step(tree, jadamw.init_state(tree), batch)
             res[f"train/{name}/loss"] = np.asarray(metrics["loss"])
             for kp, leaf in jax.tree_util.tree_flatten_with_path(new)[0]:
                 res[f"train/{name}/param/{_path(kp)}"] = np.asarray(leaf)
     np.savez(out, **res)
+
+
+def to_reference_caches(jcfg, tcfg, caches, jinit):
+    """Port-layout caches (numpy, one dict per layer) as the reference's
+    tree (``jinit``: the reference's ``init_caches`` of the same cell)."""
+    import jax
+
+    from repro_torch.launch import steps
+
+    flat = {}
+    for (path, stacked), layer in zip(steps.cache_reference_paths(tcfg),
+                                      caches):
+        for leaf, a in layer.items():
+            if leaf in ("k", "v"):
+                a = a.transpose(steps.KV_REFERENCE_DIMS)
+            flat.setdefault(f"{path}/{leaf}", []).append(a)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(jinit)
+    out = []
+    for kp, init in leaves:
+        got = flat[_path(kp)]
+        a = np.stack(got) if init.ndim == got[0].ndim + 1 else got[0]
+        out.append(a.astype(init.dtype))
+    return jax.tree_util.tree_unflatten(treedef, out)
+
+
+def from_reference_caches(tcfg, tree):
+    """The reference's cache tree -> port-layout numpy, one dict per
+    layer."""
+    import jax
+
+    from repro_torch.launch import steps
+
+    flat = {_path(kp): np.asarray(a) for kp, a in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+    n_pre, unit = len(tcfg.prefix), len(tcfg.unit)
+    out = []
+    for j, (path, stacked) in enumerate(steps.cache_reference_paths(tcfg)):
+        layer = {}
+        for key in flat:
+            if key.rsplit("/", 1)[0] != path:
+                continue
+            a = flat[key][(j - n_pre) // unit] if stacked else flat[key]
+            leaf = key.rsplit("/", 1)[1]
+            layer[leaf] = (a.transpose(steps.KV_REFERENCE_DIMS)
+                           if leaf in ("k", "v") else a)
+        out.append(layer)
+    return out
+
+
+def jax_long(key, mesh, res):
+    """The reference's long-context decode on ``mesh``: its serve step
+    under ``make_rules`` with ``knobs_for``'s knobs, the caches and
+    parameters placed by its ``cache_pspecs`` and ``model_specs``, at each
+    of ``long_indices``; the last logits of each step from
+    ``decode_forward`` under the same rules on the same inputs."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    import repro.configs as jconfigs
+    from repro.launch import steps as jsteps
+    from repro.launch.cells import knobs_for
+    from repro.launch.sharding import use_rules
+    from repro.models import config as jconfig
+    from repro.models import transformer as JT
+    import repro_torch.configs as tconfigs
+    from repro_torch.interop import params_to_reference
+    from repro_torch.models import transformer as TT
+
+    def place(tree, specs):
+        """``tree`` placed by ``specs``, whose one spec may cover a subtree
+        (a KV cache's ``k`` and ``v``)."""
+        return jax.tree.map(lambda s, sub: jax.tree.map(
+            lambda a: jax.device_put(a, NamedSharding(mesh, s)), sub),
+            specs, tree, is_leaf=lambda s: isinstance(s, P))
+
+    shape = long_shape(jconfig)
+    for name in LONG_MODELS.get(key, ()):
+        jcfg, tcfg = configs(name, jconfigs), configs(name, tconfigs)
+        rules = jsteps.make_rules(mesh, jcfg, knobs_for(jcfg, shape))
+        tree = params_to_reference(TT.init_params(tcfg, SEED, device="cpu"),
+                                   tcfg)
+        tree = place(tree, jsteps.model_specs(jcfg, rules)[1])
+        jinit = JT.init_caches(jcfg, 1, LONG_S, tp=rules.tp_size())
+        caches = place(to_reference_caches(
+            jcfg, tcfg, long_caches(tcfg, rules.tp_size()), jinit),
+            jsteps.cache_pspecs(jcfg, shape, rules))
+        serve = jax.jit(jsteps.build_serve_step(jcfg, rules))
+
+        def forward(p, c, t, i):
+            with use_rules(rules):
+                return JT.decode_forward(p, {"tokens": t}, jcfg, c, i)[0]
+        forward = jax.jit(forward)
+        tok = long_tokens(jcfg.vocab_size)
+        toks, logits = [], []
+        for index in long_indices(key):
+            i = np.int32(index)
+            logits.append(np.asarray(forward(tree, caches, tok, i))[:, -1])
+            nxt, caches = serve(tree, caches, {"tokens": tok, "index": i})
+            tok = np.asarray(nxt, np.int32)[:, None]
+            toks.append(tok[:, 0])
+        res[f"long/{name}/tokens"] = np.stack(toks)
+        res[f"long/{name}/logits"] = np.stack(logits)
+        for j, layer in enumerate(from_reference_caches(tcfg, caches)):
+            for leaf, a in layer.items():
+                res[f"long/{name}/cache/{j}/{leaf}"] = a
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +414,7 @@ def rank_main(key, rank, port, out_dir):
     from torch.distributed.tensor import DTensor
 
     import repro_torch.configs as tconfigs
+    from repro_torch.data import pipeline
     from repro_torch.interop import params_to_reference
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
@@ -373,9 +551,10 @@ def rank_main(key, rank, port, out_dir):
             params = sh.distribute_params(full, tcell.pspecs["params"],
                                           tcell.rules)
             opt = adamw.init_state(params)
-            tb = sh.distribute({k: torch.from_numpy(v) for k, v in
-                                train_batch(cfg.vocab_size).items()},
-                               tcell.pspecs["batch"], tcell.rules)
+            # one microbatch [mb, S]: the batch spec without its k axis
+            tb = synthetic(pipeline, cfg.vocab_size, device="cpu", mesh=live,
+                           pspec=tcell.pspecs["batch"]["tokens"][1:]
+                           ).batch_at(0)
             got = {"params": nbytes(params), "opt_state": nbytes(opt),
                    "batch": nbytes(tb)}
             want = dryrun.cell_bytes(tcell, layout)
@@ -394,6 +573,15 @@ def rank_main(key, rank, port, out_dir):
             for path, leaf in _flat_tree(params_to_reference(whole, cfg)):
                 res[f"train/{name}/param/{path}"] = leaf
 
+    rank_long(key, live, res, flags, gather_full, nbytes)
+    mine = synthetic(pipeline, 256, device="cpu", mesh=live,
+                     pspec=(dp, None)).batch_at(0)
+    every = [None] * layout.size
+    dist.all_gather_object(every, {k: v.numpy() for k, v in mine.items()})
+    for r, part in enumerate(every):
+        for k, v in part.items():
+            res[f"synthetic/{r}/{k}"] = v
+
     all_flags = [None] * layout.size
     dist.all_gather_object(all_flags, flags)
     if rank == 0:
@@ -402,6 +590,131 @@ def rank_main(key, rank, port, out_dir):
         np.savez(os.path.join(out_dir, "port.npz"), **res)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def long_wire(cfg, rules, spec):
+    """The closed forms of one rank's wire bytes of a long-context decode
+    step's layer of ``spec`` (batch 1, float32): an attention layer's merge
+    all-gathers ``(o, lse)``, ``Hq_r (hd + 1)`` floats from each of the
+    other ``n_dp - 1`` data ranks (``Hq_r`` the rank's q heads); a Mamba
+    layer whose state's heads lie over every axis sends its owner ``Hl (P
+    + 1)`` floats of inputs (from rank ``(k mod n_dp) n_tp + k // n_dp``,
+    nothing when that is itself) and gets back ``Hl P`` floats of ``y``
+    from each of the ``n_dp`` owners of its TP block but itself."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import mamba2
+    from repro_torch.models.config import MAMBA
+
+    live = rules.live
+    n_dp, n_tp = live.size(rules.dp), live.size(rules.tp_axis)
+    if spec.mixer != MAMBA:
+        hq = attn.padded_head_counts(cfg.num_heads, cfg.num_kv_heads,
+                                     n_tp)[0]
+        hq_r = hq // n_tp if hq % n_tp == 0 else cfg.num_heads
+        return {"all_gather": (n_dp - 1) * hq_r * (cfg.head_dim_ + 1) * 4.0}
+    _, h = mamba2.dims(cfg.d_model, cfg.ssm)
+    if not isinstance(mamba2.long_decode_heads(h, rules), tuple):
+        return {"all_to_all": 0.0}
+    p, hl = cfg.ssm.headdim, h // (n_dp * n_tp)
+    j, t = live.index(rules.dp), live.index(rules.tp_axis)
+    k = j * n_tp + t
+    fwd = 0 if (k % n_dp) * n_tp + k // n_dp == k else hl * (p + 1) * 4
+    back = (n_dp - (k // n_dp == t)) * hl * p * 4
+    return {"all_to_all": float(fwd + back)}
+
+
+def rank_long(key, live, res, flags, gather_full, nbytes):
+    """The port's long-context decode on this rank: ``build_cell``'s serve
+    step on the rank's shards of the random caches (tokens, the final
+    caches gathered), the same steps through ``decode_forward`` under the
+    cell's rules (each step's last logits), each rank's bytes against the
+    dry-run's, and one attention and one Mamba layer's decode alone under
+    the rules for their wire bytes (``long_wire``)."""
+    import torch
+
+    import repro_torch.configs as tconfigs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as attn
+    from repro_torch.models import config as tconfig
+    from repro_torch.models import mamba2
+    from repro_torch.models import transformer as TT
+
+    layout = live.layout
+    for name in LONG_MODELS.get(key, ()):
+        cfg = configs(name, tconfigs)
+        cell = steps.build_cell(cfg, long_shape(tconfig), layout,
+                                device="cpu", mesh=live)
+        rules = cell.rules
+        params = sh.distribute_params(TT.init_params(cfg, SEED, device="cpu"),
+                                      cell.pspecs["params"], rules)
+        whole = [{k: torch.from_numpy(a) for k, a in layer.items()}
+                 for layer in long_caches(cfg, rules.tp_size())]
+
+        def caches():
+            return sh.distribute(whole, cell.pspecs["caches"], rules)
+
+        got = {"params": nbytes(params), "caches": nbytes(caches())}
+        want = dryrun.cell_bytes(cell, layout)
+        flags[f"long/{name}/bytes"] = all(got[k] == want[k] for k in got)
+        res[f"long/{name}/bytes"] = json.dumps([got, want])
+
+        tok = torch.from_numpy(long_tokens(cfg.vocab_size))
+        c_step, c_fwd = caches(), caches()
+        toks, fwd_toks, logits = [], [], []
+        for index in long_indices(key):
+            with sh.use_rules(rules):
+                out, c_fwd = TT.decode_forward(
+                    params, {"tokens": tok}, cfg, c_fwd,
+                    torch.full((1,), index))
+                fwd_toks.append(steps.next_token(out, cfg.padded_vocab))
+            split = out.shape[-1] != cfg.padded_vocab
+            logits.append(gather_full(out, (None, None, "model" if split
+                                            else None))[:, -1])
+            nxt, c_step = cell.step(params, c_step, {"tokens": tok,
+                                                     "index": index})
+            toks.append(nxt)
+            tok = nxt[:, None]
+        res[f"long/{name}/tokens"] = torch.stack(toks).numpy()
+        res[f"long/{name}/forward_tokens"] = torch.stack(fwd_toks).numpy()
+        res[f"long/{name}/logits"] = torch.stack(logits).numpy()
+        for j, (layer, spec) in enumerate(zip(c_step,
+                                              cell.pspecs["caches"])):
+            for leaf, t in layer.items():
+                res[f"long/{name}/cache/{j}/{leaf}"] = gather_full(
+                    t, spec[leaf]).numpy()
+
+        # one layer of each mixer alone: its wire bytes
+        ok, readings = True, []
+        x = torch.from_numpy(np.random.default_rng(SEED + 5)
+                             .standard_normal((1, 1, cfg.d_model))
+                             .astype(np.float32))
+        seen = set()
+        for layer, cache in zip(params.layers, caches()):
+            if layer.spec.mixer in seen:
+                continue
+            seen.add(layer.spec.mixer)
+            with sh.use_rules(rules):
+                g = sh.gather_params_for_compute(layer)
+                mesh_lib.reset_wire_bytes()
+                if layer.spec.mixer == tconfig.MAMBA:
+                    mamba2.mamba_block(x, g.mixer, cfg.ssm,
+                                       norm_eps=cfg.norm_eps, state=cache)
+                else:
+                    attn.attention_block(
+                        x, g.mixer, cache=cache,
+                        cache_index=torch.full((1,), LONG_S // 2 - 1),
+                        mode=(attn.SLIDING if layer.spec.mixer
+                              == tconfig.SLIDING else attn.CAUSAL),
+                        **layer.attn_kwargs)
+            counted = mesh_lib.wire_bytes()
+            closed = long_wire(cfg, rules, layer.spec)
+            ok &= all(counted[k] == v for k, v in closed.items())
+            readings.append((layer.spec.mixer, counted, closed))
+        flags[f"long/{name}/wire"] = ok
+        res[f"long/{name}/wire"] = json.dumps(readings)
 
 
 def _flat_tree(tree, prefix=""):
@@ -535,6 +848,31 @@ def compare(key, ref, port):
     if key in WIRE_DENSE:
         got = json.loads(str(port["wire/prefill"]))
         out["wire/gemma2-27b/prefill"] = _dense_wire(key, got)
+    for name in LONG_MODELS.get(key, ()):
+        pre = f"long/{name}/"
+        want = ref[pre + "tokens"]
+        eq = (np.array_equal(port[pre + "tokens"], want)
+              and np.array_equal(port[pre + "forward_tokens"], want))
+        out[pre + "tokens"] = (eq, f"port {port[pre + 'tokens']} forwards "
+                               f"{port[pre + 'forward_tokens']} reference "
+                               f"{want}")
+        out[pre + "logits"] = _close(port[pre + "logits"], ref[pre + "logits"],
+                                     LONG_TOL.get(name, LOGIT_TOL))
+        keys = sorted(k for k in ref.files if k.startswith(pre + "cache/"))
+        missing = [k for k in keys if k not in port.files]
+        worst = max((float(np.max(np.abs(port[k] - ref[k]))) for k in keys
+                     if k not in missing), default=np.inf)
+        out[pre + "caches"] = (bool(keys) and not missing
+                               and worst <= LOGIT_TOL,
+                               f"missing {missing[:3]}, max abs err {worst}")
+        out[pre + "bytes"] = (flags[pre + "bytes"], str(port[pre + "bytes"]))
+        out[pre + "wire"] = (flags[pre + "wire"], str(port[pre + "wire"]))
+    if key in LONG_MODELS:
+        keys = sorted(k for k in ref.files if k.startswith("synthetic/"))
+        bad = [k for k in keys if k not in port.files
+               or not np.array_equal(port[k], ref[k])]
+        out["synthetic/shards"] = (bool(keys) and not bad,
+                                   f"{len(keys)} shards, differing {bad}")
     return out
 
 

@@ -677,6 +677,56 @@ def test_decode_valid_len_zero_is_the_mean_of_v(dev, dtype, hd, window):
     torch.testing.assert_close(got[0].float(), mean, **_tol(dtype))
 
 
+def _partial_holds(dev, q, ck, cv, valid, pos0, **kw):
+    """The decode over a block of global positions: one launch per call,
+    ``o`` and ``lse`` within the float32 tolerance of the plain version
+    (``o`` is float32 in both dtypes), a second call bit-identical, and
+    ``o = 0``, ``lse = -inf`` on the same rows as the plain version."""
+    valid = torch.tensor(valid, dtype=torch.int32, device=dev)
+    before = ops.launch_counts()["decode_attention_partial"]
+    got = tda.decode_attention_partial(q, ck, cv, valid, pos0, **kw)
+    again = tda.decode_attention_partial(q, ck, cv, valid, pos0, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention_partial"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    o, lse = tref.decode_attention_partial_ref(q, ck, cv, valid, pos0, **kw)
+    assert got[0].dtype == got[1].dtype == torch.float32
+    assert torch.equal(torch.isinf(got[1]), torch.isinf(lse))
+    torch.testing.assert_close(got[0], o, **F32)
+    torch.testing.assert_close(got[1], lse, **F32)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,group", [(64, 1), (128, 8), (256, 2),
+                                      (128, 16)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (700, 50.0)])
+def test_decode_partial_blocks_vs_plain(dev, dtype, hd, group, window,
+                                        softcap):
+    """A block at pos0 0 and one at pos0 S of a 2S-row cache: slots before
+    the block (nothing admitted: o 0, lse -inf), on its first and last
+    rows, past it, and with a window that crosses the blocks' boundary;
+    the two blocks merged equal the whole-cache kernel within the
+    tolerance."""
+    B, Hkv, S = 5, 2, 1500
+    q, ck, cv = _decode_inputs(dev, dtype, B, group * Hkv, Hkv, 2 * S, hd,
+                               hd + group)
+    valid = [1, S, S + 1, S + 300, 2 * S]
+    parts = [_partial_holds(dev, q, ck[:, :, i * S:(i + 1) * S].contiguous(),
+                            cv[:, :, i * S:(i + 1) * S].contiguous(), valid,
+                            i * S, softcap=softcap, window=window)
+             for i in range(2)]
+    assert torch.isinf(parts[1][1][:2]).all()
+    lse = torch.stack([p[1] for p in parts])
+    total = torch.logsumexp(lse, dim=0)
+    merged = (torch.exp(lse - total)[..., None]
+              * torch.stack([p[0] for p in parts])).sum(dim=0)
+    whole = tda.decode_attention(q, ck, cv, torch.tensor(
+        valid, dtype=torch.int32, device=dev), softcap=softcap, window=window)
+    torch.testing.assert_close(merged.to(dtype).float(), whole.float(),
+                               **_tol(dtype))
+
+
 def test_launch_helper_raises_on_a_refused_launch(dev):
     """The shared launch helper raises with the entry point's CUDA error
     (here the decode entry refusing 0 splits before it launches)."""

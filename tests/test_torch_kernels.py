@@ -356,14 +356,15 @@ class TestDispatch:
         qkv = torch.ones((1, 2, 3, 64))
         tops.flash_attention(qkv, qkv, qkv)
         tops.decode_attention(qkv[:, :, 0], qkv, qkv, 2)
+        tops.decode_attention_partial(qkv[:, :, 0], qkv, qkv, 5, 3)
         tops.ssd_scan(qkv, qkv[..., 0], torch.ones(2), qkv, qkv)
         tops.moe_gather(qkv[0, 0], t(np.arange(4, dtype=np.int32)))
         assert tops.launch_counts() == dict.fromkeys(
             ("segment_sum", "scatter_add", "table_lookup",
              "batched_table_lookup", "flash_attention",
-             "flash_attention_backward", "decode_attention", "ssd_scan",
-             "ssd_scan_backward", "moe_gather", "moe_gather_backward",
-             "token_rows_table"), 0)
+             "flash_attention_backward", "decode_attention",
+             "decode_attention_partial", "ssd_scan", "ssd_scan_backward",
+             "moe_gather", "moe_gather_backward", "token_rows_table"), 0)
         assert not tops.kernels_active("cpu")
 
     def test_kernel_mode_refuses_cpu_tensors(self):
