@@ -59,15 +59,20 @@ Phases, each printed on its own line; any failure exits non-zero:
                ``enable_gqa``); for flash also its TFLOP/s, its share of the
                bound, the first version's recorded time, ptxas's registers,
                spills and shared memory, and the HGMMA (``wgmma``)
-               instructions ``cuobjdump -sass`` finds in the bf16 kernel;
+               instructions ``cuobjdump -sass`` finds in each of the bf16
+               kernel's three instances (hd 64, 128, 256), which must have
+               some, with the hd-256 instance's registers and spills apart;
                for decode its share of the bound, the first version's
                recorded time, the split count, the blocks that hold rows,
                its device time at 6 short slots (the serve phases' profiled
                step) and ptxas's registers and spills of every instance;
                then head_dim 256 (PaliGemma-3B's 8 q heads over 1 kv head:
-               flash over 4,096 tokens, decode over the same slots) and
+               flash over 4,096 tokens, bf16 on the wgmma kernel and
+               float32 on the FMA one, decode over the same slots) and
                decode at 16 q heads per kv head, each against its plain
-               version in both dtypes, timed beside SDPA at softcap 0;
+               version in both dtypes, timed beside SDPA at softcap 0, the
+               hd-256 flash layer also with its share of the bound and its
+               rounding steps;
                then flash at phase 15's shapes: the prefix-LM mask at
                PaliGemma-3B's (8 q heads over 1, hd 256, 256 of 4,096
                positions) and on the wgmma route (hd 128, 200 of 1,000),
@@ -260,7 +265,8 @@ Phases, each printed on its own line; any failure exits non-zero:
                the two largest); printed per model: the cut, prefill ms per
                prompt position, decode step ms, generated tokens/s, weight
                bytes and ``max_memory_allocated``; one profiled PaliGemma
-               prefill names the flash kernel and its share of device time.
+               prefill names the flash kernel (the wgmma kernel's hd-256
+               instance) and its share of device time.
                ``--families-only`` runs it alone after the build.
 16. train   -- in a child process with ``CUBLAS_WORKSPACE_CONFIG`` set and
                ``torch.use_deterministic_algorithms(True)``: (a)
@@ -1621,6 +1627,21 @@ def wgmma_build_report(source, kernels, instances=2):
     return report
 
 
+def hd256_ptxas(entries):
+    """The wgmma flash kernel's hd-256 instance in a ``ptxas_entries``
+    report: its registers, spill bytes and a plain statement of whether it
+    spills."""
+    if not isinstance(entries, dict):
+        return entries
+    found = {k: v for k, v in entries.items()
+             if "flash_forward_wgmmaILi256E" in k}
+    check(len(found) == 1, f"ptxas reports no hd-256 wgmma flash kernel: "
+          f"{list(entries)}")
+    (e,) = found.values()
+    spills = e.get("spill_store_bytes", 0) + e.get("spill_load_bytes", 0)
+    return dict(e, spills="none" if spills == 0 else f"{spills} bytes")
+
+
 def build_report(source):
     """ptxas's registers, spills and static shared memory of every kernel
     instance of one source (for decode: dtype, head dim, q heads per kv
@@ -1751,7 +1772,7 @@ def phase_attention(torch):
         first_version_ms=FLASH_FIRST_VERSION_MS,
         speedup_over_first_version=FLASH_FIRST_VERSION_MS / pair_ms[50.0],
         build=wgmma_build_report("flash_attention.cu",
-                                 ("flash_forward_wgmma",)),
+                                 ("flash_forward_wgmma",), instances=3),
         per_layer={f"window {w}": dict(
             kernel_ms=times[("kernel", w, 50.0)],
             kernel_softcap0_ms=times[("kernel", w, 0.0)],
@@ -1876,6 +1897,8 @@ def phase_attention(torch):
     del qd, ck, cv
     torch.cuda.empty_cache()
     wide = phase_attention_wide(torch, randn, valid, valid_np)
+    wide["flash"]["ptxas"] = hd256_ptxas(
+        records["flash_attention"]["build"]["ptxas"])
     records["flash_attention"]["head_dim_256"] = wide["flash"]
     records["flash_attention"]["families"] = phase_attention_families(
         torch, randn)
@@ -2034,13 +2057,65 @@ def phase_decode_whole(torch, smi):
         + times["serve softcap 50 window 0"], nvidia_smi=smi)
 
 
+def phase_flash_times(torch, smi):
+    """``--only-flash``: the flash forward's bf16 times, each the median of
+    5 readings of 5 calls, at phase 6's serve pair (Gemma2-27B's 32/16 heads
+    of 128 over 6,144 tokens, windows 4,096 and 0, softcap 50 and 0) and at
+    PaliGemma-3B's hd-256 layer (8/1 heads, 4,096 tokens: causal, and
+    prefix-LM with 256 positions), beside ptxas's report and the HGMMA
+    counts of the flash source as this tree builds it.  It calls only
+    ``flash_attention``, so a copy of this script beside an older tree
+    times that tree's kernels: run the two trees in turns in one call to
+    compare them."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def median_ms(fn):
+        return float(np.median([cuda_ms(torch, fn, 5) for _ in range(5)]))
+
+    S, HQ, HKV, HD = SERVE_PROMPT[1], 32, 16, 128
+    q, k, v = randn(1, HQ, S, HD), randn(1, HKV, S, HD), randn(1, HKV, S, HD)
+    times = {}
+    for cap in (50.0, 0.0):
+        for window in (4096, 0):
+            times[f"serve softcap {cap:g} window {window}"] = median_ms(
+                lambda: fa.flash_attention(q, k, v, causal=True,
+                                           window=window, softcap=cap))
+    del q, k, v
+    S, HQ, HKV, HD = PALI_PROMPT, 8, 1, 256
+    q, k, v = randn(1, HQ, S, HD), randn(1, HKV, S, HD), randn(1, HKV, S, HD)
+    for label, prefix in (("causal", 0), ("prefix-LM", 256)):
+        times[f"hd 256 {label}"] = median_ms(
+            lambda: fa.flash_attention(q, k, v, causal=True,
+                                       prefix_len=prefix))
+    del q, k, v
+    torch.cuda.empty_cache()
+    text = _build.BUILD_INFO["ptxas"].get("flash_attention.cu")
+    entries = ptxas_entries(text) if text else "not compiled in this run"
+    say("flash-times", root=ROOT, ms=times,
+        serve_pair_softcap50_ms=times["serve softcap 50 window 4096"]
+        + times["serve softcap 50 window 0"],
+        serve_pair_softcap0_ms=times["serve softcap 0 window 4096"]
+        + times["serve softcap 0 window 0"],
+        ptxas=entries, hgmma_instructions=sass_opcode_counts(
+            _build.BUILD_INFO["libraries"]["flash_attention.cu"], "HGMMA"),
+        nvidia_smi=smi)
+
+
 def phase_attention_wide(torch, randn, valid, valid_np):
     """The instances this repository's other configurations need: head_dim
-    256 (PaliGemma-3B's 8 q heads over 1 kv head) in flash (the CUDA-core
-    kernel in both dtypes) and in decode, and decode at 16 q heads per kv
-    head; each against its plain version in float32 and bfloat16, with the
-    kernel's time beside the plain version's, SDPA's at softcap 0 and the
-    bound."""
+    256 (PaliGemma-3B's 8 q heads over 1 kv head) in flash (bf16 on the
+    wgmma kernel, float32 on the CUDA-core one) and in decode, and decode at
+    16 q heads per kv head; each against its plain version in float32 and
+    bfloat16, with the kernel's time beside the plain version's, SDPA's at
+    softcap 0 and the bound (for flash also its share of the bound)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
@@ -2072,6 +2147,7 @@ def phase_attention_wide(torch, randn, valid, valid_np):
                                  2 * (2 * HQ * S * HD + 2 * HKV * S * HD))
     out["flash"] = dict(
         ms=ms, plain_ms=plain, sdpa_ms=sdpa, bound_ms=b_ms, bound_by=b_by,
+        bound_share=b_ms / ms,
         tflops=pairs * HQ * 4 * HD / (ms * 1e-3) / 1e12, errors=errs,
         bf16_rounding_steps=steps,
         shape=f"q [1,{HQ},{S},{HD}] bf16, k/v {HKV} head, causal, "
@@ -2134,7 +2210,7 @@ FAMILY_FLASH = (
 
 def phase_attention_families(torch, randn):
     """Flash at phase 15's new shapes: the prefix-LM mask (PaliGemma's hd
-    256 on the float32-FMA kernel, and hd 128 on the wgmma one) and the
+    256 and hd 128, both on the wgmma kernel in bf16) and the
     encoder-decoder's bidirectional and cross attention, each against its
     plain version in bfloat16 and float32, with the kernel's time, the plain
     version's, the bound and SDPA's on the same boolean mask (bf16)."""
@@ -4232,10 +4308,12 @@ def phase_families(torch, seed, smi):
                 flash_share_of_device_time=(
                     flash / prof["device_ms_per_step"]
                     if prof["watched_kernels"] else "not measured"))
-            check(len(prof["watched_kernels"]) == 1,
+            check(len(prof["watched_kernels"]) == 1
+                  and all("flash_forward_wgmma<256>" in k
+                          for k in prof["watched_kernels"]),
                   f"{name}: the prefill profile names "
-                  f"{list(prof['watched_kernels'])}, expected the flash "
-                  f"kernel")
+                  f"{list(prof['watched_kernels'])}, expected the wgmma "
+                  f"flash kernel at hd 256")
             del one
 
         # -- check (i): the same schedule in ops mode ref ---------------------
@@ -7346,6 +7424,10 @@ def main(argv=None):
                         help="build, then time only the whole-cache decode "
                              "entry (phase 6's serve shapes and one block "
                              "of phase 21's) and stop")
+    parser.add_argument("--only-flash", action="store_true",
+                        help="build, then time only the flash forward "
+                             "(phase 6's serve pair and hd-256 layer) and "
+                             "stop")
     parser.add_argument("--long-layout", action="append",
                         help="calibration only, with --only-long-decode: "
                              "run phase 21's Mamba part on this layout "
@@ -7462,6 +7544,10 @@ def main(argv=None):
             return 0
         if args.only_decode:
             phase_decode_whole(torch, smi)
+            print(smi)
+            return 0
+        if args.only_flash:
+            phase_flash_times(torch, smi)
             print(smi)
             return 0
         if args.only_long_decode:

@@ -6,12 +6,13 @@ bidirectional attention with online softmax, softcap and GQA, head_dim 64,
 128 or 256.  The prefix-LM mask (``k <= q or k < prefix_len``) is the
 reference model's ``PREFIX`` mode (``repro/models/attention.py``), which
 its Pallas kernel does not take: the JAX model computes it outside the
-kernel, the port's prefill through it.  bfloat16 inputs
-at head_dim 64 and 128 go to ``flash_forward_wgmma`` (tensor-core products
-fed by TMA, float32 scores and softmax); float32 inputs, and head_dim 256
-in either dtype, to ``flash_forward`` (float32 FMAs on the CUDA cores);
-there is no other route.  For training, :func:`flash_attention` also
-writes each row's log-sum-exp when given ``lse``, and
+kernel, the port's prefill through it.  bfloat16 inputs go to
+``flash_forward_wgmma`` at every head_dim (tensor-core products fed by TMA,
+float32 scores and softmax; at 256 a ring of two K/V stages); float32
+inputs to ``flash_forward`` (float32 FMAs on the CUDA cores); there is no
+other route, and a launch the card refuses raises.  For training,
+:func:`flash_attention` also writes each row's log-sum-exp when given
+``lse``, and
 :func:`flash_attention_backward` launches the backward kernels
 (``csrc/flash_attention_backward.cu``, no atomics: D, then dK/dV and dQ
 as ``flash_bwd_dkdv_wgmma`` / ``flash_bwd_dq_wgmma`` for bfloat16 at

@@ -64,7 +64,11 @@ class TestFlashAttention:
         "B,Hq,Hkv,Sq,Skv,hd",
         [(1, 4, 4, 256, 256, 64), (2, 4, 2, 256, 512, 64),
          (1, 4, 1, 128, 384, 128), (1, 8, 8, 512, 512, 64),
-         (1, 8, 1, 128, 256, 256)],   # PaliGemma's head_dim and 8:1 group
+         (1, 8, 1, 128, 256, 256),    # PaliGemma's head_dim and 8:1 group
+         # hd 256 at the bf16 kernel's tile edges: one warpgroup's 64 rows
+         # over one kv tile (Hq / Hkv 1), three q tiles over six kv tiles
+         # (more than its two-stage ring, Hq / Hkv 2)
+         (1, 2, 2, 64, 64, 256), (1, 4, 2, 384, 384, 256)],
     )
     def test_causal_vs_interpret_kernel(self, B, Hq, Hkv, Sq, Skv, hd):
         q, k, v = _qkv(0, B, Hq, Hkv, Sq, Skv, hd)
@@ -88,7 +92,12 @@ class TestFlashAttention:
         np.testing.assert_allclose(
             got, np.asarray(jref.flash_attention_ref(q, k, v, **kw)), **F32)
 
-    @pytest.mark.parametrize("window,softcap", [(64, 0.0), (0, 30.0)])
+    @pytest.mark.parametrize("window,softcap", [
+        (64, 0.0), (0, 30.0),
+        # a window shorter than a 64-row kv tile with softcap 50, and one
+        # whose lower edge lies one row into a tile
+        (32, 50.0), (65, 0.0),
+    ])
     def test_head_dim_256_vs_interpret_kernel(self, window, softcap):
         """head_dim 256 (PaliGemma's) with a window or a softcap, 8 q heads
         over one kv head."""
@@ -166,9 +175,10 @@ def _rounding_steps(got, want):
 
 class TestBf16KernelPrecision:
     """Why the bf16 kernel splits P: at Gemma2's head ratio and softcap 50,
-    P kept to ~16 bits stays within one bf16 rounding step of the plain
-    version, and P rounded once to bf16 (2^-9) does not, on rows with few
-    admitted keys whose outputs lie near zero."""
+    and at PaliGemma's head_dim 256 over one kv head, P kept to ~16 bits
+    stays within one bf16 rounding step of the plain version, and P rounded
+    once to bf16 (2^-9) does not, on rows with few admitted keys whose
+    outputs lie near zero."""
 
     @staticmethod
     def _case(window):
@@ -187,6 +197,33 @@ class TestBf16KernelPrecision:
     @pytest.mark.parametrize("window", [0, 100])
     def test_p_rounded_once_exceeds_the_step(self, window):
         q, k, v, kw, want = self._case(window)
+        got = _bf16_kernel_emulation(q, k, v, split=False, **kw)
+        assert _rounding_steps(got, want) > 1.0
+
+    @staticmethod
+    def _case_hd256(sq, window, softcap):
+        """PaliGemma's head_dim and 8 q heads over one kv head."""
+        rng = np.random.default_rng(31)
+        q, k, v = (t(_normal(rng, *shape)).bfloat16() for shape in
+                   ((1, 8, sq, 256), (1, 1, sq, 256), (1, 1, sq, 256)))
+        kw = dict(causal=True, window=window, softcap=softcap)
+        return q, k, v, kw, tops.flash_attention(q, k, v, **kw)
+
+    # Sq off the 128-row q tile and 64-row kv tile, a window shorter than a
+    # kv tile with softcap 50; five q tiles, no window, softcap 0
+    HD256_CASES = [(193, 32, 50.0), (320, 0, 0.0)]
+
+    @pytest.mark.parametrize("sq,window,softcap", HD256_CASES)
+    def test_split_p_within_one_rounding_step_hd256(self, sq, window,
+                                                    softcap):
+        q, k, v, kw, want = self._case_hd256(sq, window, softcap)
+        got = _bf16_kernel_emulation(q, k, v, split=True, **kw)
+        assert _rounding_steps(got, want) <= 1.0
+
+    @pytest.mark.parametrize("sq,window,softcap", HD256_CASES)
+    def test_p_rounded_once_exceeds_the_step_hd256(self, sq, window,
+                                                   softcap):
+        q, k, v, kw, want = self._case_hd256(sq, window, softcap)
         got = _bf16_kernel_emulation(q, k, v, split=False, **kw)
         assert _rounding_steps(got, want) > 1.0
 

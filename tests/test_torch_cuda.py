@@ -467,11 +467,21 @@ def _flash_inputs(dev, dtype, B, Hq, Hkv, Sq, Skv, hd, seed):
     # B = 2, tiles that cross the end of one (b, h)'s rows
     (2, 4, 2, 200, 200, 128, 0, 30.0, True),
     (1, 32, 16, 1000, 1000, 128, 300, 50.0, True),  # Gemma2, 1,000 tokens
-    # head_dim 256 (the CUDA-core kernel in both dtypes): PaliGemma's 8 q
-    # heads over 1, a ragged tile with a window and a softcap
+    # head_dim 256 (bf16: the wgmma kernel's two-stage plan; float32: the
+    # CUDA-core kernel): PaliGemma's 8 q heads over 1, a ragged tile with a
+    # window and a softcap
     (1, 8, 1, 300, 300, 256, 0, 0.0, True),
     (2, 4, 2, 129, 129, 256, 64, 50.0, True),
     (1, 2, 1, 5, 70, 256, 0, 30.0, False),
+    # Sq one past a q tile and past three kv tiles; under one warpgroup's
+    # 64 rows; one head a kv head (Hq / Hkv = 1)
+    (1, 2, 2, 193, 193, 256, 0, 0.0, True),
+    (1, 4, 4, 63, 63, 256, 0, 50.0, True),
+    # a window shorter than a kv tile, softcap 50, two q heads a kv head
+    (1, 4, 2, 200, 200, 256, 32, 50.0, True),
+    # bidirectional with Sq != Skv both ways, more tiles than the ring
+    (1, 4, 4, 130, 300, 256, 0, 0.0, False),
+    (1, 8, 1, 300, 77, 256, 0, 50.0, False),
 ])
 def test_flash_attention_vs_plain(dev, dtype, B, Hq, Hkv, Sq, Skv, hd,
                                   window, softcap, causal):
@@ -497,14 +507,15 @@ def test_flash_attention_vs_plain(dev, dtype, B, Hq, Hkv, Sq, Skv, hd,
     (1, 2, 2, 300, 128, 280),     # kv tiles far above the diagonal
     (1, 8, 1, 600, 256, 256),     # PaliGemma's heads, P on a tile edge
     (1, 8, 1, 300, 256, 101),
+    (1, 4, 2, 200, 256, 64),      # hd 256, P = one kv tile, GQA 2
     (1, 4, 4, 77, 64, 1),
     (1, 4, 2, 150, 128, 150),     # P = S: no mask at all
 ])
 def test_flash_prefix_lm_vs_plain(dev, dtype, B, Hq, Hkv, S, hd,
                                   prefix_len):
-    """The prefix-LM mask ``k <= q or k < P`` on both routes (bfloat16 at
-    head_dim 64/128 is the wgmma kernel, the rest the float32-FMA one), one
-    launch, against the plain version."""
+    """The prefix-LM mask ``k <= q or k < P`` on both routes (bfloat16 is
+    the wgmma kernel, float32 the float32-FMA one), one launch, against the
+    plain version."""
     q, k, v = _flash_inputs(dev, dtype, B, Hq, Hkv, S, S, hd, prefix_len)
     kw = dict(causal=True, prefix_len=prefix_len, softcap=30.0 * (hd == 64))
     before = ops.launch_counts()["flash_attention"]
@@ -526,12 +537,13 @@ def test_flash_prefix_lm_vs_plain(dev, dtype, B, Hq, Hkv, S, hd,
 @pytest.mark.parametrize("dtype,hd,kernel", [
     (torch.bfloat16, 128, "flash_forward_wgmma"),
     (torch.float32, 128, "flash_forward"),
-    (torch.bfloat16, 256, "flash_forward"),
+    (torch.bfloat16, 256, "flash_forward_wgmma"),
+    (torch.float32, 256, "flash_forward"),
 ])
 def test_flash_attention_routes_by_dtype(dev, dtype, hd, kernel):
-    """bfloat16 runs the tensor-core kernel; float32 keeps the float32-FMA
-    kernel, one launch, within 3e-5 (TF32 could not hold that); head_dim
-    256 runs the float32-FMA kernel in bfloat16 too.  The profile window
+    """bfloat16 runs the tensor-core kernel at every head_dim (256 too);
+    float32 keeps the float32-FMA kernel, one launch, within 3e-5 (TF32
+    could not hold that).  The profile window
     holds one warm launch: the inputs are made, and the library's build or
     load, the kernel's first (lazily loading) launch and a first profiler
     session happen before it."""
@@ -1204,8 +1216,8 @@ def test_partitioned_state_stays_on_the_card(dev):
 # ---------------------------------------------------------------------------
 
 #: (B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap, prefix_len), one case
-#: per mask mode; "rows without keys" has rows that admit no key (from row
-#: 40 on)
+#: per mask mode; the "rows without keys" cases have rows that admit no
+#: key (from ``dead_rows_start`` on: rows 40 and 85)
 BWD_CASES = {
     "causal": (2, 4, 4, 130, 130, 64, True, 0, 0.0, 0),
     "sliding softcap GQA": (1, 8, 2, 200, 200, 128, True, 50, 30.0, 0),
@@ -1213,6 +1225,9 @@ BWD_CASES = {
     "bidirectional": (1, 4, 4, 97, 97, 64, False, 0, 10.0, 0),
     "cross": (2, 4, 2, 70, 150, 128, False, 0, 0.0, 0),
     "rows without keys": (1, 2, 1, 60, 30, 64, True, 11, 0.0, 0),
+    # hd 256 (bf16: the wgmma forward's lse, the FMA backward), 8 q heads a
+    # kv head, a window shorter than a tile, rows without keys from 85 on
+    "rows without keys hd 256": (1, 8, 1, 200, 70, 256, True, 16, 0.0, 0),
     # bf16: three 128-row kv blocks of the wgmma plan, GQA 4, a ragged Sq
     "GQA ragged prefix-LM": (1, 8, 2, 333, 333, 64, True, 0, 0.0, 100),
 }
@@ -1319,8 +1334,8 @@ def test_flash_lse_vs_plain_logsumexp(dev, dtype, mode):
     plain = tref.flash_attention_ref(q, k, v, **kw)
     torch.testing.assert_close(o.float(), plain.float(),
                                **(F32 if dtype == torch.float32 else BF16))
-    if mode == "rows without keys":
-        assert bool((~finite[..., 40:]).all())   # the mean of V there
+    dead = tfa.dead_rows_start(case[3], case[4], case[7])
+    assert bool((~finite[..., dead:]).all())   # the mean of V there
 
 
 def test_flash_attention_autograd_uses_the_backward_kernel(dev):
