@@ -75,10 +75,11 @@ _SIGNATURES = {
     # window, softcap, prefix_len, stream
     "attn_flash_forward":
         [_P] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, _P],
-    # q, k, v, o, lse, dout, dq, dk, dv, delta, B, Hq, Hkv, Sq, Skv, hd,
-    # dtype, causal, window, softcap, prefix_len, stream
+    # q, k, v, o, lse, dout, dq, dk, dv, workspace, B, Hq, Hkv, Sq, Skv,
+    # hd, dtype, causal, window, softcap, prefix_len, head_splits, stream
     "attn_flash_backward":
-        [_P] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, _P],
+        [_P] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
+                                          ctypes.c_int, _P],
     # q, k, v, valid_len, o, workspace, counters, B, Hq, Hkv, kv_slot, S,
     # hd, dtype, window, softcap, n_splits, stream
     "attn_decode_forward":

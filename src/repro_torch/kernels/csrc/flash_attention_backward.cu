@@ -43,12 +43,13 @@
 // attention); each pair also takes an exp (and a tanh under a softcap) in
 // both kernels, on the special-function units.
 //
-// bfloat16 at hd 64 and 128 (the training dtype): flash_bwd_dkdv_wgmma and
-// flash_bwd_dq_wgmma.  Every product runs on the tensor cores as wgmma
-// with float32 sums, fed by TMA, in the forward's plan (flash_attention.cu):
+// bfloat16 (the training dtype), hd 64, 128 and 256: flash_bwd_dkdv_wgmma
+// and flash_bwd_dq_wgmma.  Every product runs on the tensor cores as wgmma
+// with float32 sums, fed by TMA, in the forward's plan (flash_attention.cu);
+// BwdPlan below holds the tile plan by head_dim.
 // - A block: 128 own rows (kv rows in dK/dV, q rows in dQ) as two consumer
 //   warpgroups of 64, and a producer warpgroup whose registers go to the
-//   consumers (setmaxnreg 40 / 232).  The own rows' two tiles (K and V, or
+//   consumers (setmaxnreg 24 / 240).  The own rows' two tiles (K and V, or
 //   Q and dO) arrive once by TMA; the streamed tiles of 64 rows (Q and dO,
 //   or K and V) through a ring of three stages with mbarriers, all in the
 //   128-byte swizzle, through 3-D [B*H, S, hd] maps whose zero fill never
@@ -72,8 +73,8 @@
 //   one bf16 rounding (2^-9) moves a gradient of a row with few admitted
 //   keys by up to a rounding step of bf16 (tests/test_torch_flash_backward.py
 //   holds a CPU model of this arithmetic, split and not, to the limits).
-//   10 products of hd multiply-adds a pair instead of 7: the bound stays
-//   the function's.
+//   10 products of hd multiply-adds a pair instead of 7 (12 at hd 256,
+//   below): the bound stays the function's.
 // - Each warpgroup skips the streamed tiles its own rows' range does not
 //   reach (it still waits for and frees each stage); the per-element mask
 //   runs only on tiles tile_admitted() does not pass whole, and rows past
@@ -84,16 +85,34 @@
 //   product opens with its own wgmma.fence (or ptxas serializes them, see
 //   flash_attention.cu); S and dP are zeroed before each tile's products,
 //   so the previous tile's values are dead while dK and dV are live.
+// - hd 256 (BwdPlan<256>).  dK/dV: dK and dV of 64 rows x 256 columns take
+//   256 float32 registers a thread in one warpgroup, so a block owns 64 kv
+//   rows and each warpgroup 128 of their columns (64 + 64 registers, as at
+//   hd 128).  The S^T and dP^T products contract over all 256 columns:
+//   each warpgroup computes the whole 64 x 64 tile of both itself (no
+//   exchange through shared memory and no barrier between the warpgroups,
+//   at 1.33x the dK/dV tensor work of computing each once), then dV and dK
+//   over its columns (m64n128,
+//   the tile's column blocks 2 wg and 2 wg + 1).  K and V (64 KB) and two
+//   stages of Q and dO tiles (128 KB) fill 193 KB; three stages would take
+//   257 KB.  With 64-row kv tiles a kv head has ceil(Skv / 64) blocks,
+//   68 at PaliGemma-3B's 4,352 training positions with its one kv head,
+//   for 132 SMs: the group's q heads are split over head_splits blocks a kv
+//   tile (the wrapper picks the smallest divisor of the group that gives
+//   at least 1.5 blocks an SM: 4 there, 272 blocks), each writing float32
+//   partials of dK and dV, and flash_bwd_dkdv_sum adds them in split order
+//   (no atomics), scales dK and rounds each once.  dQ: 128 own q rows of Q
+//   and dO take 128 KB, so the kv tiles are 32 rows (m64n32 S and dP, two
+//   k steps of m64n256 for dQ) in three stages (96 KB; 225 KB in all); dQ
+//   is 128 float32 registers a thread, as the forward's O at hd 256.
 //
 // float32 (flash_bwd_dkdv, flash_bwd_dq): float32 FMAs on the CUDA cores.
 // TF32 (10-bit mantissa) could not hold float32 gradients to 1e-4 of their
-// largest.  hd 256, both dtypes, takes them too: a 64-row warpgroup's dK and
-// dV accumulators would need 128 registers a thread each.  Each product is
-// a small float32 GEMM out of shared memory (mm below), each thread owning a
-// (rows / 16) x (columns / 16) piece of the output on rows ty + 16 i and
-// columns tx + 16 j; tiles are stored row-major with one float of padding
-// (an odd row stride), so reading a tile along its rows or its columns hits
-// distinct banks; bf16 inputs are widened on load and each gradient is
+// largest.  Each product is a small float32 GEMM out of shared memory (mm
+// below), each thread owning a (rows / 16) x (columns / 16) piece of the
+// output on rows ty + 16 i and columns tx + 16 j; tiles are stored
+// row-major with one float of padding (an odd row stride), so reading a
+// tile along its rows or its columns hits distinct banks; each gradient is
 // rounded once.  They run at the CUDA cores' 67 TFLOP/s, far below the
 // tensor cores' bound.
 
@@ -158,16 +177,17 @@ __device__ __forceinline__ void zero(float (&acc)[M][N]) {
     for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
 }
 
-// rows [r0, r0 + R) of a [rows, HD] tensor into dst [R][HD + 1] as float32,
-// zeros past `rows`
-template <typename T, int R, int HD>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src, int r0,
+// rows [r0, r0 + R) of a [rows, HD] tensor into dst [R][HD + 1], zeros past
+// `rows`
+template <int R, int HD>
+__device__ __forceinline__ void load_rows(const float* __restrict__ src,
+                                          int r0,
                                           int rows, float* __restrict__ dst,
                                           int tid) {
   for (int e = tid * 4; e < R * HD; e += kThreads * 4) {
     const int r = e / HD, d = e % HD;
     float f[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < rows) load_f32<T, 4>(src + int64_t(r0 + r) * HD + d, f);
+    if (r0 + r < rows) load_f32<float, 4>(src + int64_t(r0 + r) * HD + d, f);
 #pragma unroll
     for (int i = 0; i < 4; ++i) dst[r * (HD + 1) + d + i] = f[i];
   }
@@ -241,12 +261,13 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = acc;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv,
+               float* __restrict__ dk, float* __restrict__ dv, int Hq,
+               int Hkv,
                int Sq, int Skv, int causal, int window, float softcap,
                int prefix, float scale) {
   constexpr int BQ = Tiles<HD>::kvBQ, BK = Tiles<HD>::kvBK;
@@ -267,8 +288,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int group = Hq / Hkv;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int64_t kv_row0 = (int64_t(b) * Hkv + hk) * Skv;
-  load_rows<T, BK, HD>(k + kv_row0 * HD, k0, Skv, Ks, tid);
-  load_rows<T, BK, HD>(v + kv_row0 * HD, k0, Skv, Vs, tid);
+  load_rows<BK, HD>(k + kv_row0 * HD, k0, Skv, Ks, tid);
+  load_rows<BK, HD>(v + kv_row0 * HD, k0, Skv, Vs, tid);
 
   float dk_acc[BK / 16][HD / 16], dv_acc[BK / 16][HD / 16];
   zero(dk_acc);
@@ -280,8 +301,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t row0 = (int64_t(b) * Hq + hk * group + g) * Sq;
     for (int q0 = (qr.lo / BQ) * BQ; q0 < qr.hi; q0 += BQ) {
       __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
-      load_rows<T, BQ, HD>(q + row0 * HD, q0, Sq, Qs, tid);
-      load_rows<T, BQ, HD>(dout + row0 * HD, q0, Sq, dOs, tid);
+      load_rows<BQ, HD>(q + row0 * HD, q0, Sq, Qs, tid);
+      load_rows<BQ, HD>(dout + row0 * HD, q0, Sq, dOs, tid);
       load_stats<BQ>(lse, delta, row0, q0, Sq, lse_s, d_s, tid);
       __syncthreads();
 
@@ -312,19 +333,20 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < HD / 16; ++j) {
         const int64_t at = (kv_row0 + kj) * HD + tx + 16 * j;
-        dk[at] = from_f32<T>(dk_acc[i][j] * scale);
-        dv[at] = from_f32<T>(dv_acc[i][j]);
+        dk[at] = dk_acc[i][j] * scale;
+        dv[at] = dv_acc[i][j];
       }
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv, int causal,
+             float* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv,
+             int causal,
              int window, float softcap, int prefix, float scale) {
   constexpr int BQ = Tiles<HD>::qBQ, BK = Tiles<HD>::qBK;
   constexpr int HS = HD + 1, PS = BK + 1;
@@ -344,8 +366,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int64_t row0 = (int64_t(b) * Hq + h) * Sq;
   const int64_t kv_row0 = (int64_t(b) * Hkv + hk) * Skv;
-  load_rows<T, BQ, HD>(q + row0 * HD, q0, Sq, Qs, tid);
-  load_rows<T, BQ, HD>(dout + row0 * HD, q0, Sq, dOs, tid);
+  load_rows<BQ, HD>(q + row0 * HD, q0, Sq, Qs, tid);
+  load_rows<BQ, HD>(dout + row0 * HD, q0, Sq, dOs, tid);
   load_stats<BQ>(lse, delta, row0, q0, Sq, lse_s, d_s, tid);
 
   float dq_acc[BQ / 16][HD / 16];
@@ -355,8 +377,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                             prefix);
   for (int k0 = (kr.lo / BK) * BK; k0 < kr.hi; k0 += BK) {
     __syncthreads();  // the previous tile's K, V and dS are consumed
-    load_rows<T, BK, HD>(k + kv_row0 * HD, k0, Skv, Ks, tid);
-    load_rows<T, BK, HD>(v + kv_row0 * HD, k0, Skv, Vs, tid);
+    load_rows<BK, HD>(k + kv_row0 * HD, k0, Skv, Ks, tid);
+    load_rows<BK, HD>(v + kv_row0 * HD, k0, Skv, Vs, tid);
     __syncthreads();
 
     float s[BQ / 16][BK / 16], dp[BQ / 16][BK / 16];
@@ -381,68 +403,100 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     if (qi < Sq) {
 #pragma unroll
       for (int j = 0; j < HD / 16; ++j)
-        dq[(row0 + qi) * HD + tx + 16 * j] = from_f32<T>(dq_acc[i][j] * scale);
+        dq[(row0 + qi) * HD + tx + 16 * j] = dq_acc[i][j] * scale;
     }
   }
 }
 
-// -- bfloat16 at hd 64 and 128: wgmma products fed by TMA --------------------
+// -- bfloat16: wgmma products fed by TMA -------------------------------------
 
-constexpr int kWgOwn = 128;   // a block's own rows: two warpgroups of 64
-constexpr int kWgTile = 64;   // rows of a streamed tile
-constexpr int kWgStages = 3;
 constexpr int kWgConsumers = 2;
 // + a producer warpgroup (registers are granted per 128 threads, so it
 // hands its share to the consumers)
 constexpr int kWgThreads = (kWgConsumers + 1) * 128;
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
 constexpr int kSwRow = 128;   // bytes of a swizzled row: 64 bf16
 
+// The tile plan by head_dim (the header's bf16 design).  dK/dV: a block's
+// own kv rows, the first own row and the first dK/dV column of warpgroup 1
+// (warpgroup 0 starts at 0), its dK/dV columns, the streamed q tile's rows
+// and the ring's stages.  dQ: a block's own q rows (two warpgroups of 64),
+// the streamed kv tile's rows and the stages.
 template <int HD>
-struct WgSmem {
-  static constexpr int kOwn = kWgOwn * HD * 2;    // K or V; Q or dO
-  static constexpr int kTile = kWgTile * HD * 2;  // one streamed tile
-  static constexpr int kAlloc = 2 * kOwn + kWgStages * 2 * kTile + 1024;
+struct BwdPlan {
+  static constexpr bool kWide = HD == 256;   // the hd-256 plan
+  static constexpr int kKvOwn = kWide ? 64 : 128;
+  static constexpr int kKvRowStep = kWide ? 0 : 64;
+  static constexpr int kKvColStep = kWide ? 128 : 0;
+  static constexpr int kKvCols = kWide ? 128 : HD;
+  static constexpr int kQTile = 64;
+  static constexpr int kKvStages = kWide ? 2 : 3;
+  static constexpr int kQOwn = 128;
+  static constexpr int kKvTile = kWide ? 32 : 64;
+  static constexpr int kQStages = 3;
+  static constexpr int kKvAlloc =
+      2 * kKvOwn * HD * 2 + kKvStages * 2 * kQTile * HD * 2 + 1024;
+  static constexpr int kQAlloc =
+      2 * kQOwn * HD * 2 + kQStages * 2 * kKvTile * HD * 2 + 1024;
+  // the extra 1,024 bytes align the ring to the swizzle atoms; a block's
+  // static shared memory (barriers, stats) is under 2 KB
+  static_assert(kKvAlloc + 2048 <= 232448 && kQAlloc + 2048 <= 232448,
+                "above a block's shared memory");
 };
+
+// Registers of a producer and a consumer thread, every head_dim: producer
+// * 128 + consumer * 256 must not exceed the 168 * 384 the block is
+// launched with.  At 40 / 232 the dK/dV kernel spilled 8-16 bytes at hd
+// 128 and 256 (ptxas); the producer's lse / D copy fits in 24.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+static_assert(kProducerRegs * 128 + kConsumerRegs * 256 <= 168 * 384,
+              "above the block's registers");
+
+// The float32 [B, Hq, Sq] D at the start of the workspace, rounded up to
+// 64 floats; the hd-256 dK/dV partials follow it (kernels/flash_attention.py
+// sizes the workspace by the same rule)
+inline int64_t delta_floats(int64_t rows) { return (rows + 63) / 64 * 64; }
 
 // the swizzle atoms need 1,024-byte aligned shared addresses
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
   return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
 }
 
-// D[64 x 64] = A.B^T over the head dim, issued (not waited for): A the
-// warpgroup's 64 rows at a_addr in column blocks of a_rows rows, B 64 rows
+// D[64 x N] = A.B^T over the head dim, issued (not waited for): A the
+// warpgroup's 64 rows at a_addr in column blocks of a_rows rows, B N rows
 // at b_addr in column blocks of b_rows rows, both K-major
-template <int HD>
-__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a_addr,
+template <int HD, int N>
+__device__ __forceinline__ void product_ss(float (&d)[N / 2], uint32_t a_addr,
                                            int a_rows, uint32_t b_addr,
                                            int b_rows) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;  // 16 columns
-    hopper::wgmma_ss_n64(
-        d, hopper::sw128_desc(a_addr + (kk / 4) * a_rows * kSwRow + off, 16,
-                              1024),
-        hopper::sw128_desc(b_addr + (kk / 4) * b_rows * kSwRow + off, 16,
-                           1024),
-        kk > 0);
+    const uint64_t da = hopper::sw128_desc(
+        a_addr + (kk / 4) * a_rows * kSwRow + off, 16, 1024);
+    const uint64_t db = hopper::sw128_desc(
+        b_addr + (kk / 4) * b_rows * kSwRow + off, 16, 1024);
+    if constexpr (N == 64) hopper::wgmma_ss_n64(d, da, db, kk > 0);
+    else hopper::wgmma_ss_n32(d, da, db, kk > 0);
   }
 }
 
-// acc[64 x HD] += X.B, issued: X's 64 columns as bf16 hi and lo parts in
-// registers, B a streamed 64-row tile at b_addr, MN-major (a k step is 16
-// rows, 2,048 bytes; its 64-column blocks lie kWgTile * 128 bytes apart)
-template <int HD>
-__device__ __forceinline__ void product_rs(float (&acc)[HD / 2],
-                                           const uint32_t (&hi)[4][4],
-                                           const uint32_t (&lo)[4][4],
-                                           uint32_t b_addr) {
+// acc[64 x N] += X.B, issued: X's 16 KS columns as bf16 hi and lo parts in
+// registers, B a streamed tile at b_addr, MN-major (a k step is 16 rows,
+// 2,048 bytes; its 64-column blocks lie lbo bytes apart)
+template <int N, int KS>
+__device__ __forceinline__ void product_rs(float (&acc)[N / 2],
+                                           const uint32_t (&hi)[KS][4],
+                                           const uint32_t (&lo)[KS][4],
+                                           uint32_t b_addr, uint32_t lbo) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const uint64_t db = hopper::sw128_desc(b_addr + c * 16 * kSwRow,
-                                           kWgTile * kSwRow, 1024);
-    if constexpr (HD == 128) {
+  for (int c = 0; c < KS; ++c) {
+    const uint64_t db = hopper::sw128_desc(b_addr + c * 16 * kSwRow, lbo,
+                                           1024);
+    if constexpr (N == 256) {
+      hopper::wgmma_rs_n256(acc, hi[c], db);
+      hopper::wgmma_rs_n256(acc, lo[c], db);
+    } else if constexpr (N == 128) {
       hopper::wgmma_rs_n128(acc, hi[c], db);
       hopper::wgmma_rs_n128(acc, lo[c], db);
     } else {
@@ -479,6 +533,8 @@ __device__ __forceinline__ void zero_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
+// part: null below hd 256; there float32 [2][splits][B * Hkv * Skv][HD],
+// dK's partials (unscaled) before dV's, one per head split
 template <int HD>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -488,35 +544,39 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int Hq, int Hkv, int Sq,
-                     int Skv, int causal, int window, float softcap,
-                     int prefix, float scale) {
+                     __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
+                     int Hq, int Hkv, int Sq, int Skv, int causal, int window,
+                     float softcap, int prefix, float scale, int splits) {
   using namespace hopper;
-  using L = WgSmem<HD>;
-  constexpr int BK = kWgOwn, BQ = kWgTile, ST = kWgStages;
+  using L = BwdPlan<HD>;
+  constexpr int BK = L::kKvOwn, BQ = L::kQTile, ST = L::kKvStages;
+  constexpr int NC = L::kKvCols;
   constexpr int NCB = HD / 64;  // 64-column blocks of a row
+  constexpr int kOwn = BK * HD * 2, kTile = BQ * HD * 2;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_kv, bar_full[ST], bar_free[ST];
   // lse * log2(e) and D of each stage's q rows
   __shared__ float stats[ST][2][BQ];
   uint8_t* Ks = align_1024(smem_raw);
-  uint8_t* Vs = Ks + L::kOwn;
-  uint8_t* Qs = Vs + L::kOwn;         // stage s at Qs + s * L::kTile
-  uint8_t* dOs = Qs + ST * L::kTile;
+  uint8_t* Vs = Ks + kOwn;
+  uint8_t* Qs = Vs + kOwn;            // stage s at Qs + s * kTile
+  uint8_t* dOs = Qs + ST * kTile;
 
   // the low kv tiles, which the causal mask gives the most q tiles, first:
   // blockIdx.z runs slowest
   const int k0 = blockIdx.z * BK;
-  const int hk = blockIdx.x;
+  const int hk = blockIdx.x / splits, split = blockIdx.x % splits;
   const int b = blockIdx.y;
-  const int group = Hq / Hkv;
-  // the q rows the mask admits for keys [k0, k_last]; the stream is every
-  // q head of the group times these q tiles
+  // this block's q heads: a 1 / splits share of the group
+  const int heads = Hq / Hkv / splits;
+  const int h0 = hk * (Hq / Hkv) + split * heads;
+  // the q rows the mask admits for keys [k0, k_last]; the stream is the
+  // block's q heads times these q tiles
   const Range qr = q_range(k0, min(k0 + BK, Skv) - 1, Sq, causal, window,
                            prefix);
   const int q_lo = (qr.lo / BQ) * BQ;
   const int n_qt = qr.hi > q_lo ? (qr.hi - q_lo + BQ - 1) / BQ : 0;
-  const int n_tiles = group * n_qt;
+  const int n_tiles = heads * n_qt;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -528,7 +588,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     mbar_init_fence();
   }
   __syncthreads();
-  const int warp = tid / 32;
+  // the warp index broadcast from lane 0, so that ptxas keeps it and every
+  // descriptor derived from it in uniform registers (flash_attention.cu)
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
   const int lane = tid % 32;
 
   if (warp >= kWgConsumers * 4) {
@@ -539,7 +601,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (warp == kWgConsumers * 4) {
       if (lane == 0) {
         const int zk = b * Hkv + hk;
-        mbar_expect_tx(&bar_kv, 2 * L::kOwn);
+        mbar_expect_tx(&bar_kv, 2 * kOwn);
         for (int c = 0; c < NCB; ++c) {
           tma_load_3d(Ks + c * BK * kSwRow, &tm_k, &bar_kv, c * 64, k0, zk);
           tma_load_3d(Vs + c * BK * kSwRow, &tm_v, &bar_kv, c * 64, k0, zk);
@@ -548,7 +610,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % ST;
         if (j >= ST) mbar_wait(&bar_free[s], ((j / ST) - 1) & 1);
-        const int h = hk * group + j / n_qt;
+        const int h = h0 + j / n_qt;
         const int q0 = q_lo + (j % n_qt) * BQ;
         const int64_t row0 = (int64_t(b) * Hq + h) * Sq;
         for (int r = lane; r < BQ; r += 32) {
@@ -558,9 +620,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
         }
         if (lane == 0) {
           const int zq = b * Hq + h;
-          uint8_t* qd = Qs + s * L::kTile;
-          uint8_t* dd = dOs + s * L::kTile;
-          mbar_expect_tx(&bar_full[s], 2 * L::kTile);
+          uint8_t* qd = Qs + s * kTile;
+          uint8_t* dd = dOs + s * kTile;
+          mbar_expect_tx(&bar_full[s], 2 * kTile);
           for (int c = 0; c < NCB; ++c) {
             tma_load_3d(qd + c * BQ * kSwRow, &tm_q, &bar_full[s], c * 64,
                         q0, zq);
@@ -575,16 +637,21 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
-  // consumer warpgroup wg: kv rows ka..ka+63; this thread holds rows r0 and
-  // r0 + 8 at columns 8i + cq + {0, 1} of every accumulator (q columns of
-  // S^T and dP^T, head-dim columns of dK and dV)
+  // consumer warpgroup wg: kv rows ka..ka+63 and dK/dV columns
+  // col0..col0+NC-1; this thread holds rows r0 and r0 + 8 at columns
+  // 8i + cq + {0, 1} of every accumulator (q columns of S^T and dP^T,
+  // head-dim columns of dK and dV)
   setmaxnreg_inc<kConsumerRegs>();
   const int wg = warp / 4;
-  const int ka = k0 + wg * 64;
+  const int ka = k0 + wg * L::kKvRowStep;
+  const int col0 = wg * L::kKvColStep;
   const int r0 = ka + (warp % 4) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
-  const uint32_t k_addr = smem_u32(Ks) + wg * 64 * kSwRow;
-  const uint32_t v_addr = smem_u32(Vs) + wg * 64 * kSwRow;
+  const uint32_t k_addr = smem_u32(Ks) + wg * L::kKvRowStep * kSwRow;
+  const uint32_t v_addr = smem_u32(Vs) + wg * L::kKvRowStep * kSwRow;
+  // this warpgroup's dK/dV columns in a streamed tile: their first
+  // 64-column block
+  const uint32_t col_off = (col0 / 64) * BQ * kSwRow;
   const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
   const float scale2 = scale * kLog2e;
   // the q rows this warpgroup's own keys admit (none past Skv)
@@ -592,11 +659,12 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                                       window, prefix)
                             : Range{0, 0};
 
-  float dk_acc[HD / 2], dv_acc[HD / 2];
+  float dk_acc[NC / 2], dv_acc[NC / 2];
   zero_regs(dk_acc);
   zero_regs(dv_acc);
-  float sc[32], dp[32];
-  uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+  float sc[BQ / 2], dp[BQ / 2];
+  uint32_t p_hi[BQ / 16][4], p_lo[BQ / 16][4], ds_hi[BQ / 16][4],
+      ds_lo[BQ / 16][4];
 
   mbar_wait(&bar_kv, 0);
   for (int j = 0; j < n_tiles; ++j) {
@@ -604,17 +672,18 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int q0 = q_lo + (j % n_qt) * BQ;
     mbar_wait(&bar_full[s], (j / ST) & 1);
     if (q0 < wr.hi && q0 + BQ > wr.lo) {
-      const uint32_t q_addr = smem_u32(Qs + s * L::kTile);
-      const uint32_t do_addr = smem_u32(dOs + s * L::kTile);
-      // S^T = K.Q^T, dP^T = V.dO^T
+      const uint32_t q_addr = smem_u32(Qs + s * kTile);
+      const uint32_t do_addr = smem_u32(dOs + s * kTile);
+      // S^T = K.Q^T, dP^T = V.dO^T (at hd 256 both warpgroups compute the
+      // whole tile: the contraction runs over every column)
       zero_regs(sc);
       zero_regs(dp);
       fence_regs(sc);
       fence_regs(dp);
       wgmma_fence();
-      product_ss<HD>(sc, k_addr, BK, q_addr, BQ);
+      product_ss<HD, BQ>(sc, k_addr, BK, q_addr, BQ);
       wgmma_fence();
-      product_ss<HD>(dp, v_addr, BK, do_addr, BQ);
+      product_ss<HD, BQ>(dp, v_addr, BK, do_addr, BQ);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -624,7 +693,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const float* d_s = stats[s][1];
       auto scores = [&](auto cap) {
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
+        for (int e = 0; e < BQ / 2; ++e) {
           const int c = (e / 4) * 8 + cq + (e & 1);  // q row q0 + c
           p_and_ds<decltype(cap)::value>(sc[e], dp[e], lse_s[c], d_s[c],
                                          scale, scale2, softcap, inv_cap);
@@ -635,7 +704,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
       if (!tile_admitted(q0, q0 + BQ - 1, ka, ka + 63, Sq, Skv, causal,
                          window, prefix)) {
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
+        for (int e = 0; e < BQ / 2; ++e) {
           const int qi = q0 + (e / 4) * 8 + cq + (e & 1);
           const int kj = r0 + ((e & 2) ? 8 : 0);
           if (!(qi < Sq && admitted(qi, kj, Skv, causal, window, prefix))) {
@@ -644,20 +713,23 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
           }
         }
       }
-      // dV += P^T.dO, then (its operand packed while dV runs) dK += dS^T.Q
+      // dV += P^T.dO, then (its operand packed while dV runs) dK += dS^T.Q,
+      // each over this warpgroup's columns
       split_bf16(sc, p_hi, p_lo);
       fence_regs(dv_acc);
       fence_regs(p_hi);
       fence_regs(p_lo);
       wgmma_fence();
-      product_rs<HD>(dv_acc, p_hi, p_lo, do_addr);
+      product_rs<NC, BQ / 16>(dv_acc, p_hi, p_lo, do_addr + col_off,
+                              BQ * kSwRow);
       wgmma_commit();
       split_bf16(dp, ds_hi, ds_lo);
       fence_regs(dk_acc);
       fence_regs(ds_hi);
       fence_regs(ds_lo);
       wgmma_fence();  // a fence per product, or ptxas serializes them
-      product_rs<HD>(dk_acc, ds_hi, ds_lo, q_addr);
+      product_rs<NC, BQ / 16>(dk_acc, ds_hi, ds_lo, q_addr + col_off,
+                              BQ * kSwRow);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -673,24 +745,68 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if ((warp % 4) == 0 && lane == 0) mbar_arrive(&bar_free[s]);
   }
 
-  // epilogue: dK scaled by 1/sqrt(hd), each gradient rounded once
+  // epilogue: below hd 256, dK scaled by 1/sqrt(hd) and each gradient
+  // rounded once; at 256, this head split's float32 partials
+  // (flash_bwd_dkdv_sum scales, sums and rounds them)
   const int64_t kv_base = (int64_t(b) * Hkv + hk) * Skv;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kj = r0 + 8 * r;
     if (kj < Skv) {
-      __nv_bfloat16* krow = dk + (kv_base + kj) * HD + cq;
-      __nv_bfloat16* vrow = dv + (kv_base + kj) * HD + cq;
+      if constexpr (L::kWide) {
+        const int64_t plane = int64_t(gridDim.y) * Hkv * Skv * HD;
+        float* krow = part + split * plane + (kv_base + kj) * HD + col0 + cq;
+        float* vrow = krow + splits * plane;
 #pragma unroll
-      for (int i = 0; i < HD / 8; ++i) {
-        *reinterpret_cast<__nv_bfloat162*>(krow + 8 * i) =
-            __floats2bfloat162_rn(dk_acc[4 * i + 2 * r] * scale,
-                                  dk_acc[4 * i + 2 * r + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * i) =
-            __floats2bfloat162_rn(dv_acc[4 * i + 2 * r],
-                                  dv_acc[4 * i + 2 * r + 1]);
+        for (int i = 0; i < NC / 8; ++i) {
+          *reinterpret_cast<float2*>(krow + 8 * i) =
+              make_float2(dk_acc[4 * i + 2 * r], dk_acc[4 * i + 2 * r + 1]);
+          *reinterpret_cast<float2*>(vrow + 8 * i) =
+              make_float2(dv_acc[4 * i + 2 * r], dv_acc[4 * i + 2 * r + 1]);
+        }
+      } else {
+        __nv_bfloat16* krow = dk + (kv_base + kj) * HD + cq;
+        __nv_bfloat16* vrow = dv + (kv_base + kj) * HD + cq;
+#pragma unroll
+        for (int i = 0; i < NC / 8; ++i) {
+          *reinterpret_cast<__nv_bfloat162*>(krow + 8 * i) =
+              __floats2bfloat162_rn(dk_acc[4 * i + 2 * r] * scale,
+                                    dk_acc[4 * i + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * i) =
+              __floats2bfloat162_rn(dv_acc[4 * i + 2 * r],
+                                    dv_acc[4 * i + 2 * r + 1]);
+        }
       }
     }
+  }
+}
+
+// hd 256: dK and dV from the head splits' float32 partials (part as
+// flash_bwd_dkdv_wgmma's, n = B * Hkv * Skv * 256 elements a split), summed
+// in split order, dK scaled by 1/sqrt(hd), each rounded once; four
+// elements a thread
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_sum(const float* __restrict__ part, int splits, int64_t n,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, float scale) {
+  const int64_t i = (int64_t(blockIdx.x) * kThreads + threadIdx.x) * 4;
+  if (i >= n) return;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    float4 acc = *reinterpret_cast<const float4*>(part + t * splits * n + i);
+    for (int s = 1; s < splits; ++s) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          part + (t * splits + s) * n + i);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const float f = t == 0 ? scale : 1.f;
+    __nv_bfloat162* out =
+        reinterpret_cast<__nv_bfloat162*>((t == 0 ? dk : dv) + i);
+    out[0] = __floats2bfloat162_rn(acc.x * f, acc.y * f);
+    out[1] = __floats2bfloat162_rn(acc.z * f, acc.w * f);
   }
 }
 
@@ -706,15 +822,16 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    int Skv, int causal, int window, float softcap, int prefix,
                    float scale) {
   using namespace hopper;
-  using L = WgSmem<HD>;
-  constexpr int BQ = kWgOwn, BK = kWgTile, ST = kWgStages;
+  using L = BwdPlan<HD>;
+  constexpr int BQ = L::kQOwn, BK = L::kKvTile, ST = L::kQStages;
   constexpr int NCB = HD / 64;
+  constexpr int kOwn = BQ * HD * 2, kTile = BK * HD * 2;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_q, bar_full[ST], bar_free[ST];
   uint8_t* Qs = align_1024(smem_raw);
-  uint8_t* dOs = Qs + L::kOwn;
-  uint8_t* Ks = dOs + L::kOwn;        // stage s at Ks + s * L::kTile
-  uint8_t* Vs = Ks + ST * L::kTile;
+  uint8_t* dOs = Qs + kOwn;
+  uint8_t* Ks = dOs + kOwn;           // stage s at Ks + s * kTile
+  uint8_t* Vs = Ks + ST * kTile;
 
   // the q tiles with the most kv tiles (the last, under the causal mask)
   // first: blockIdx.z runs slowest
@@ -737,7 +854,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     mbar_init_fence();
   }
   __syncthreads();
-  const int warp = tid / 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
   const int lane = tid % 32;
 
   if (warp >= kWgConsumers * 4) {
@@ -745,7 +862,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     setmaxnreg_dec<kProducerRegs>();
     if (warp == kWgConsumers * 4 && lane == 0) {
       const int zq = b * Hq + h, zk = b * Hkv + hk;
-      mbar_expect_tx(&bar_q, 2 * L::kOwn);
+      mbar_expect_tx(&bar_q, 2 * kOwn);
       for (int c = 0; c < NCB; ++c) {
         tma_load_3d(Qs + c * BQ * kSwRow, &tm_q, &bar_q, c * 64, q0, zq);
         tma_load_3d(dOs + c * BQ * kSwRow, &tm_do, &bar_q, c * 64, q0, zq);
@@ -754,9 +871,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const int s = j % ST;
         if (j >= ST) mbar_wait(&bar_free[s], ((j / ST) - 1) & 1);
         const int kt = k_lo + j * BK;
-        uint8_t* kd = Ks + s * L::kTile;
-        uint8_t* vd = Vs + s * L::kTile;
-        mbar_expect_tx(&bar_full[s], 2 * L::kTile);
+        uint8_t* kd = Ks + s * kTile;
+        uint8_t* vd = Vs + s * kTile;
+        mbar_expect_tx(&bar_full[s], 2 * kTile);
         for (int c = 0; c < NCB; ++c) {
           tma_load_3d(kd + c * BK * kSwRow, &tm_k, &bar_full[s], c * 64, kt,
                       zk);
@@ -796,8 +913,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
   float dq_acc[HD / 2];
   zero_regs(dq_acc);
-  float sc[32], dp[32];
-  uint32_t ds_hi[4][4], ds_lo[4][4];
+  float sc[BK / 2], dp[BK / 2];
+  uint32_t ds_hi[BK / 16][4], ds_lo[BK / 16][4];
 
   mbar_wait(&bar_q, 0);
   for (int j = 0; j < n_tiles; ++j) {
@@ -805,17 +922,17 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int kt = k_lo + j * BK;
     mbar_wait(&bar_full[s], (j / ST) & 1);
     if (kt < wr.hi && kt + BK > wr.lo) {
-      const uint32_t k_addr = smem_u32(Ks + s * L::kTile);
-      const uint32_t v_addr = smem_u32(Vs + s * L::kTile);
+      const uint32_t k_addr = smem_u32(Ks + s * kTile);
+      const uint32_t v_addr = smem_u32(Vs + s * kTile);
       // S = Q.K^T, dP = dO.V^T
       zero_regs(sc);
       zero_regs(dp);
       fence_regs(sc);
       fence_regs(dp);
       wgmma_fence();
-      product_ss<HD>(sc, q_addr, BQ, k_addr, BK);
+      product_ss<HD, BK>(sc, q_addr, BQ, k_addr, BK);
       wgmma_fence();
-      product_ss<HD>(dp, do_addr, BQ, v_addr, BK);
+      product_ss<HD, BK>(dp, do_addr, BQ, v_addr, BK);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -823,7 +940,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       // P and dS; the mask only on a tile that crosses an edge
       auto scores = [&](auto cap) {
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
+        for (int e = 0; e < BK / 2; ++e) {
           const int r = (e >> 1) & 1;
           p_and_ds<decltype(cap)::value>(sc[e], dp[e], lse_r[r], d_r[r],
                                          scale, scale2, softcap, inv_cap);
@@ -834,7 +951,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       if (!tile_admitted(qa, qa + 63, kt, kt + BK - 1, Sq, Skv, causal,
                          window, prefix)) {
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
+        for (int e = 0; e < BK / 2; ++e) {
           const int qi = r0 + ((e & 2) ? 8 : 0);
           const int kj = kt + (e / 4) * 8 + cq + (e & 1);
           if (!(qi < Sq && admitted(qi, kj, Skv, causal, window, prefix))) {
@@ -849,7 +966,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(ds_hi);
       fence_regs(ds_lo);
       wgmma_fence();
-      product_rs<HD>(dq_acc, ds_hi, ds_lo, k_addr);
+      product_rs<HD, BK / 16>(dq_acc, ds_hi, ds_lo, k_addr, BK * kSwRow);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq_acc);
@@ -885,7 +1002,8 @@ cudaError_t launch_delta(const void* o, const void* dout, float* delta,
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+// float32: D, then the FMA kernels
+template <int HD>
 int launch_backward(const void* q, const void* k, const void* v,
                     const void* o, const float* lse, const void* dout,
                     void* dq, void* dk, void* dv, float* delta, int B, int Hq,
@@ -897,64 +1015,72 @@ int launch_backward(const void* q, const void* k, const void* v,
   static_assert(kv_smem <= 232448 && q_smem <= 232448,
                 "a block's shared memory exceeds 227 KB");
   const float scale = static_cast<float>(1.0 / std::sqrt(double(HD)));
-  const T* Q = static_cast<const T*>(q);
-  const T* K = static_cast<const T*>(k);
-  const T* V = static_cast<const T*>(v);
-  const T* dO = static_cast<const T*>(dout);
+  const float* Q = static_cast<const float*>(q);
+  const float* K = static_cast<const float*>(k);
+  const float* V = static_cast<const float*>(v);
+  const float* dO = static_cast<const float*>(dout);
 
-  cudaError_t err = launch_delta<T, HD>(o, dout, delta,
-                                        int64_t(B) * Hq * Sq, stream);
+  cudaError_t err = launch_delta<float, HD>(o, dout, delta,
+                                            int64_t(B) * Hq * Sq, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // above 48 KB of dynamic shared memory needs the opt-in (per device, so
   // it is set on every launch)
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, HD>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid((Skv + Tl::kvBK - 1) / Tl::kvBK, Hkv, B);
-  flash_bwd_dkdv<T, HD><<<kv_grid, kThreads, kv_smem, stream>>>(
-      Q, K, V, dO, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Hq,
-      Hkv, Sq, Skv, causal, window, softcap, prefix, scale);
+  flash_bwd_dkdv<HD><<<kv_grid, kThreads, kv_smem, stream>>>(
+      Q, K, V, dO, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), Hq, Hkv, Sq, Skv, causal, window, softcap,
+      prefix, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, HD>,
+  err = cudaFuncSetAttribute(flash_bwd_dq<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              q_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 q_grid((Sq + Tl::qBQ - 1) / Tl::qBQ, Hq, B);
-  flash_bwd_dq<T, HD><<<q_grid, kThreads, q_smem, stream>>>(
-      Q, K, V, dO, lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Skv, causal,
-      window, softcap, prefix, scale);
+  flash_bwd_dq<HD><<<q_grid, kThreads, q_smem, stream>>>(
+      Q, K, V, dO, lse, delta, static_cast<float*>(dq), Hq, Hkv, Sq, Skv,
+      causal, window, softcap, prefix, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_backward_wgmma(const void* q, const void* k, const void* v,
                           const void* o, const float* lse, const void* dout,
-                          void* dq, void* dk, void* dv, float* delta, int B,
+                          void* dq, void* dk, void* dv, float* ws, int B,
                           int Hq, int Hkv, int Sq, int Skv, int causal,
-                          int window, float softcap, int prefix,
+                          int window, float softcap, int prefix, int splits,
                           cudaStream_t stream) {
   using hopper::encode_map;
-  const int n_kt = (Skv + kWgOwn - 1) / kWgOwn;
-  const int n_qt = (Sq + kWgOwn - 1) / kWgOwn;
-  if (n_kt > 65535 || n_qt > 65535)
+  using L = BwdPlan<HD>;
+  const int n_kt = (Skv + L::kKvOwn - 1) / L::kKvOwn;
+  const int n_qt = (Sq + L::kQOwn - 1) / L::kQOwn;
+  // a head split below hd 256 would have its blocks write the same rows
+  if (n_kt > 65535 || n_qt > 65535 || splits < 1 || (Hq / Hkv) % splits
+      || (!L::kWide && splits != 1) || int64_t(Hkv) * splits > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the streamed tiles' maps (64-row boxes) and the own tiles' (128 rows)
-  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
-  if (!encode_map(&q64, q, B * Hq, Sq, HD, kWgTile)
-      || !encode_map(&do64, dout, B * Hq, Sq, HD, kWgTile)
-      || !encode_map(&k128, k, B * Hkv, Skv, HD, kWgOwn)
-      || !encode_map(&v128, v, B * Hkv, Skv, HD, kWgOwn)
-      || !encode_map(&q128, q, B * Hq, Sq, HD, kWgOwn)
-      || !encode_map(&do128, dout, B * Hq, Sq, HD, kWgOwn)
-      || !encode_map(&k64, k, B * Hkv, Skv, HD, kWgTile)
-      || !encode_map(&v64, v, B * Hkv, Skv, HD, kWgTile))
+  // dK/dV's streamed q tiles and own kv rows, dQ's own q rows and streamed
+  // kv tiles
+  CUtensorMap q_tile, do_tile, k_own, v_own, q_own, do_own, k_tile, v_tile;
+  if (!encode_map(&q_tile, q, B * Hq, Sq, HD, L::kQTile)
+      || !encode_map(&do_tile, dout, B * Hq, Sq, HD, L::kQTile)
+      || !encode_map(&k_own, k, B * Hkv, Skv, HD, L::kKvOwn)
+      || !encode_map(&v_own, v, B * Hkv, Skv, HD, L::kKvOwn)
+      || !encode_map(&q_own, q, B * Hq, Sq, HD, L::kQOwn)
+      || !encode_map(&do_own, dout, B * Hq, Sq, HD, L::kQOwn)
+      || !encode_map(&k_tile, k, B * Hkv, Skv, HD, L::kKvTile)
+      || !encode_map(&v_tile, v, B * Hkv, Skv, HD, L::kKvTile))
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale = static_cast<float>(1.0 / std::sqrt(double(HD)));
-  constexpr int smem = WgSmem<HD>::kAlloc;
+  float* delta = ws;
+  float* part = L::kWide ? ws + delta_floats(int64_t(B) * Hq * Sq) : nullptr;
+  auto* dk16 = static_cast<__nv_bfloat16*>(dk);
+  auto* dv16 = static_cast<__nv_bfloat16*>(dv);
 
   cudaError_t err = launch_delta<__nv_bfloat16, HD>(
       o, dout, delta, int64_t(B) * Hq * Sq, stream);
@@ -962,22 +1088,32 @@ int launch_backward_wgmma(const void* q, const void* k, const void* v,
 
   err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             L::kKvAlloc);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_wgmma<HD><<<dim3(Hkv, B, n_kt), kWgThreads, smem, stream>>>(
-      q64, do64, k128, v128, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Hq, Hkv, Sq, Skv, causal, window,
-      softcap, prefix, scale);
+  flash_bwd_dkdv_wgmma<HD>
+      <<<dim3(Hkv * splits, B, n_kt), kWgThreads, L::kKvAlloc, stream>>>(
+          q_tile, do_tile, k_own, v_own, lse, delta, dk16, dv16, part, Hq,
+          Hkv, Sq, Skv, causal, window, softcap, prefix, scale, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             L::kQAlloc);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_wgmma<HD><<<dim3(Hq, B, n_qt), kWgThreads, smem, stream>>>(
-      q128, do128, k64, v64, lse, delta, static_cast<__nv_bfloat16*>(dq), Hq,
-      Hkv, Sq, Skv, causal, window, softcap, prefix, scale);
+  flash_bwd_dq_wgmma<HD><<<dim3(Hq, B, n_qt), kWgThreads, L::kQAlloc,
+                           stream>>>(
+      q_own, do_own, k_tile, v_tile, lse, delta,
+      static_cast<__nv_bfloat16*>(dq), Hq, Hkv, Sq, Skv, causal, window,
+      softcap, prefix, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !L::kWide) return static_cast<int>(err);
+
+  const int64_t n = int64_t(B) * Hkv * Skv * HD;
+  const int64_t blocks = (n / 4 + kThreads - 1) / kThreads;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dkdv_sum<<<unsigned(blocks), kThreads, 0, stream>>>(
+      part, splits, n, dk16, dv16, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -988,45 +1124,51 @@ extern "C" {
 
 // q, k, v, o, dout as the forward's (o its output, dout the gradient of o),
 // lse the forward's float32 [B, Hq, Sq]; dq, dk, dv the gradients, written
-// in full; delta float32 [B, Hq, Sq] scratch.  dtype: 0 = float32, 1 =
-// bfloat16 (flash_bwd_*_wgmma at hd 64 and 128, the float32-FMA kernels at
-// hd 256); hd: 64, 128 or 256; the mask options as attn_flash_forward's.
-// Three launches on `stream` (D, dK/dV, dQ).  Returns the first nonzero
-// cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernels do
-// not take (the wrapper refuses most before calling).
+// in full; workspace float32 scratch: D [B, Hq, Sq] rounded up to 64
+// floats, then, for bfloat16 at hd 256 only, the dK/dV partials
+// [2][head_splits][B * Hkv * Skv][256].  dtype: 0 = float32 (the
+// float32-FMA kernels), 1 = bfloat16 (flash_bwd_*_wgmma); hd: 64, 128 or
+// 256; the mask options as attn_flash_forward's; head_splits: the dK/dV
+// blocks a kv tile's group of q heads is split over (a divisor of Hq / Hkv;
+// 1 except for bfloat16 at hd 256).  Three launches on `stream` (D, dK/dV,
+// dQ), a fourth at hd 256 in bfloat16 (the partials' sum).  Returns the
+// first nonzero cudaGetLastError(), or cudaErrorInvalidValue for a shape the
+// kernels do not take (the wrapper refuses most before calling).
 int attn_flash_backward(const void* q, const void* k, const void* v,
                         const void* o, const void* lse, const void* dout,
-                        void* dq, void* dk, void* dv, void* delta, int B,
+                        void* dq, void* dk, void* dv, void* workspace, int B,
                         int Hq, int Hkv, int Sq, int Skv, int hd, int dtype,
                         int causal, int window, float softcap, int prefix_len,
-                        void* stream) {
+                        int head_splits, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hq > 65535 || Hq % Hkv != 0
       || Sq <= 0 || Skv <= 0 || prefix_len < 0 || prefix_len > Skv
-      || (prefix_len > 0 && (!causal || window > 0)))
+      || (prefix_len > 0 && (!causal || window > 0))
+      || (dtype == 0 && head_splits != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* L = static_cast<const float*>(lse);
-  float* D = static_cast<float*>(delta);
+  float* W = static_cast<float*>(workspace);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int P = prefix_len;
-#define ATTN_BWD(T, HD)                                                     \
-  return attn::bwd::launch_backward<T, HD>(q, k, v, o, L, dout, dq, dk, dv, \
-                                           D, B, Hq, Hkv, Sq, Skv, causal,  \
-                                           window, softcap, P, st)
-  if (dtype == 0 && hd == 64) ATTN_BWD(float, 64);
-  if (dtype == 0 && hd == 128) ATTN_BWD(float, 128);
-  if (dtype == 0 && hd == 256) ATTN_BWD(float, 256);
-  if (dtype == 1 && hd == 256) ATTN_BWD(__nv_bfloat16, 256);
-#undef ATTN_BWD
-  if (dtype == 1 && hd == 64)
-    return attn::bwd::launch_backward_wgmma<64>(q, k, v, o, L, dout, dq, dk,
-                                                dv, D, B, Hq, Hkv, Sq, Skv,
-                                                causal, window, softcap, P,
-                                                st);
-  if (dtype == 1 && hd == 128)
-    return attn::bwd::launch_backward_wgmma<128>(q, k, v, o, L, dout, dq, dk,
-                                                 dv, D, B, Hq, Hkv, Sq, Skv,
-                                                 causal, window, softcap, P,
-                                                 st);
+  if (dtype == 0 && hd == 64)
+    return attn::bwd::launch_backward<64>(
+        q, k, v, o, L, dout, dq, dk, dv, W, B, Hq, Hkv, Sq, Skv, causal,
+        window, softcap, P, st);
+  if (dtype == 0 && hd == 128)
+    return attn::bwd::launch_backward<128>(
+        q, k, v, o, L, dout, dq, dk, dv, W, B, Hq, Hkv, Sq, Skv, causal,
+        window, softcap, P, st);
+  if (dtype == 0 && hd == 256)
+    return attn::bwd::launch_backward<256>(
+        q, k, v, o, L, dout, dq, dk, dv, W, B, Hq, Hkv, Sq, Skv, causal,
+        window, softcap, P, st);
+#define ATTN_BWD_WGMMA(HD)                                                  \
+  return attn::bwd::launch_backward_wgmma<HD>(                              \
+      q, k, v, o, L, dout, dq, dk, dv, W, B, Hq, Hkv, Sq, Skv, causal,      \
+      window, softcap, P, head_splits, st)
+  if (dtype == 1 && hd == 64) ATTN_BWD_WGMMA(64);
+  if (dtype == 1 && hd == 128) ATTN_BWD_WGMMA(128);
+  if (dtype == 1 && hd == 256) ATTN_BWD_WGMMA(256);
+#undef ATTN_BWD_WGMMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

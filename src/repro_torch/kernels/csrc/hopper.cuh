@@ -176,6 +176,22 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared
 // memory
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
@@ -385,14 +401,15 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 }
 
 // x = hi + lo, hi = bf16(x) and lo = bf16(x - hi), each packed as wgmma's A
-// registers: columns 16c..16c+15 of a 64-column accumulator are
-// x[8c..8c+7].  A product that takes both parts keeps about 16 bits of x,
-// where one bf16 rounding keeps 8.
-__device__ __forceinline__ void split_bf16(const float (&x)[32],
-                                           uint32_t (&hi)[4][4],
-                                           uint32_t (&lo)[4][4]) {
+// registers: columns 16c..16c+15 of a 2N-column accumulator (N floats a
+// thread) are x[8c..8c+7].  A product that takes both parts keeps about 16
+// bits of x, where one bf16 rounding keeps 8.
+template <int N>
+__device__ __forceinline__ void split_bf16(const float (&x)[N],
+                                           uint32_t (&hi)[N / 8][4],
+                                           uint32_t (&lo)[N / 8][4]) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < N / 8; ++c) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float x0 = x[8 * c + 2 * i], x1 = x[8 * c + 2 * i + 1];

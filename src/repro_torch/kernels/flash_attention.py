@@ -15,10 +15,11 @@ other route, and a launch the card refuses raises.  For training,
 ``lse``, and
 :func:`flash_attention_backward` launches the backward kernels
 (``csrc/flash_attention_backward.cu``, no atomics: D, then dK/dV and dQ
-as ``flash_bwd_dkdv_wgmma`` / ``flash_bwd_dq_wgmma`` for bfloat16 at
-head_dim 64 and 128, tensor-core products fed by TMA with P and dS split
-into two bf16 parts, and as the float32-FMA ``flash_bwd_dkdv`` /
-``flash_bwd_dq`` for float32 and head_dim 256), which
+as ``flash_bwd_dkdv_wgmma`` / ``flash_bwd_dq_wgmma`` for bfloat16 at every
+head_dim, tensor-core products fed by TMA with P and dS split into two bf16
+parts, at 256 with the group's q heads split over :func:`head_splits`
+blocks a kv tile whose float32 partials a fourth kernel adds in order; as
+the float32-FMA ``flash_bwd_dkdv`` / ``flash_bwd_dq`` for float32), which
 :class:`FlashAttentionFunction` ties to the forward for autograd.  The
 wrappers take CUDA tensors only: each checks
 device, dtype, shape and contiguity, allocates the output, launches on the
@@ -31,6 +32,8 @@ counts the launch in :data:`LAUNCHES`.  CPU tensors go to
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
@@ -38,14 +41,57 @@ from repro_torch.kernels._build import check_cuda
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "FlashAttentionFunction",
            "check_attention_inputs", "check_prefix", "dead_rows_start",
-           "flash_attention", "flash_attention_backward"]
+           "flash_attention", "flash_attention_backward", "head_splits",
+           "workspace_floats"]
 
 #: kernel launches (reset with ``ops.reset_launch_counts``); a backward call
-#: (three kernels) counts once
+#: (three kernels, four in bfloat16 at head_dim 256) counts once
 LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0}
 #: the head dims the kernels are compiled for
 HEAD_DIMS = (64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kv rows of a bf16 dK/dV block at head_dim 256 (BwdPlan<256> of
+#: ``csrc/flash_attention_backward.cu``)
+WIDE_KV_ROWS = 64
+#: the SMs of an H100, the default of :func:`head_splits`
+H100_SMS = 132
+
+
+def head_splits(b: int, hq: int, hkv: int, skv: int, hd: int, dtype,
+                sms: int = H100_SMS) -> int:
+    """The dK/dV blocks a kv tile's group of q heads is split over, each
+    writing float32 partials: for bfloat16 at head_dim 256, the smallest
+    divisor of the group ``hq // hkv`` that gives at least 1.5 blocks an SM
+    (``sms`` SMs; the group when none does), so that a model with one kv
+    head fills the card; 1 otherwise.  A block takes 193 KB of shared
+    memory, one an SM.  At PaliGemma-3B's 8 q heads over 1 kv head on an
+    H100 (``chip_smoke.py --only-flash``, PERF.md) 4 splits were the
+    fastest at 4,096 and 4,352 positions (1.9-2.1 blocks an SM); 2 (1.0)
+    took 1.45x their time, 8 (3.9-4.1) 2-7% more: any bar between 1.03 and
+    1.94 blocks an SM picks 4 at both."""
+    if dtype != torch.bfloat16 or hd != 256:
+        return 1
+    group = hq // hkv
+    blocks = b * hkv * -(-skv // WIDE_KV_ROWS)
+    return next(s for s in range(1, group + 1)
+                if group % s == 0
+                and (2 * blocks * s >= 3 * sms or s == group))
+
+
+def workspace_floats(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int,
+                     dtype, splits: int) -> int:
+    """The backward's float32 workspace: D ``[B, Hq, Sq]`` rounded up to 64
+    floats, then, for bfloat16 at head_dim 256, dK's and dV's ``splits``
+    partials ``[2, splits, B * Hkv * Skv, hd]`` (the kernel's layout)."""
+    n = -(-b * hq * sq // 64) * 64
+    if dtype == torch.bfloat16 and hd == 256:
+        n += 2 * splits * b * hkv * skv * hd
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_attention_inputs(what: str, q, k, v) -> None:
@@ -179,8 +225,10 @@ def flash_attention_backward(q, k, v, o, lse, dout, *, causal: bool = True,
     input's dtype, accumulated in float32 and rounded once; a row whose lse
     is +inf contributes nothing.  Three kernels a call
     (``csrc/flash_attention_backward.cu``: D, dK/dV, dQ; the dK/dV and dQ
-    kernels routed by dtype and head_dim as the forward's), counted as one
-    launch; no atomics, so a call's result is the same bits every time."""
+    kernels routed by dtype as the forward's; bfloat16 at head_dim 256 adds
+    the sum of the dK/dV partials of :func:`head_splits` blocks), counted as
+    one launch; no atomics, so a call's result is the same bits every
+    time."""
     what = "flash_attention_backward"
     dev = check_cuda(("q", "k", "v", "o", "lse", "dout"), q, k, v, o, lse,
                      dout)
@@ -192,13 +240,16 @@ def flash_attention_backward(q, k, v, o, lse, dout, *, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    splits = head_splits(b, hq, hkv, skv, hd, q.dtype, _sm_count(dev))
+    work = torch.empty(workspace_floats(b, hq, hkv, sq, skv, hd, q.dtype,
+                                        splits),
+                       dtype=torch.float32, device=q.device)
     _build.launch("attn_flash_backward", dev, q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                   dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, hd,
+                  dv.data_ptr(), work.data_ptr(), b, hq, hkv, sq, skv, hd,
                   DTYPE_CODES[q.dtype], int(causal), int(window),
-                  float(softcap), int(prefix_len))
+                  float(softcap), int(prefix_len), splits)
     LAUNCHES["flash_attention_backward"] += 1
     return dq, dk, dv
 

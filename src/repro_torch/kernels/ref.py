@@ -244,9 +244,15 @@ def flash_attention_backward_ref(q, k, v, o, lse, dout, *, causal=True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# The bf16 backward kernels' tile plan (csrc/flash_attention_backward.cu):
-# blocks of 128 own rows as two warpgroups of 64, streamed tiles of 64 rows.
-_WG_OWN, _WG_ROWS, _WG_TILE = 128, 64, 64
+# The bf16 backward kernels' tile plan by head_dim (BwdPlan of
+# csrc/flash_attention_backward.cu): a dK/dV block's own kv rows, its
+# warpgroups' first own rows and dK/dV column ranges, the streamed q tile;
+# a dQ block's own q rows (two warpgroups of 64) and streamed kv tile.
+_WG_PLAN = {
+    hd: dict(kv_own=128, kv_wg=(0, 64), cols=((0, hd),), q_tile=64,
+             q_own=128, kv_tile=64) for hd in (64, 128)}
+_WG_PLAN[256] = dict(kv_own=64, kv_wg=(0,), cols=((0, 128), (128, 256)),
+                     q_tile=64, q_own=128, kv_tile=32)
 _LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 
 
@@ -285,27 +291,39 @@ def _bf16_parts(x, split):
 def flash_attention_backward_wgmma_model(q, k, v, o, lse, dout, *,
                                          causal=True, window=0, softcap=0.0,
                                          prefix_len=0, split_p=True,
-                                         split_ds=True):
+                                         split_ds=True, head_splits=None):
     """A CPU model of the bf16 backward kernels' arithmetic
-    (``flash_bwd_dkdv_wgmma``, ``flash_bwd_dq_wgmma``): their tile plan,
-    ranges, skipped tiles and per-element mask on the tiles that cross an
-    edge; bf16 operands (the inputs are rounded to bf16 first); P and dS
-    rounded to bf16 for the products that read them, each split into
-    ``bf16(x) + bf16(x - bf16(x))`` (two products) when ``split_p`` /
-    ``split_ds``; float32 scores and sums; each gradient rounded once to
-    bf16.  Returns ``(dq, dk, dv)`` in bf16.  Not on any path: the tests
-    hold it against :func:`flash_attention_backward_ref` and the JAX
-    package to show what the roundings cost."""
+    (``flash_bwd_dkdv_wgmma``, ``flash_bwd_dq_wgmma``): their tile plan by
+    head_dim (at 256: 64-row dK/dV blocks whose two warpgroups each take
+    128 of dK's and dV's columns, 32-row kv tiles in dQ), ranges, skipped
+    tiles and per-element mask on the tiles that cross an edge; bf16
+    operands (the inputs are rounded to bf16 first); P and dS rounded to
+    bf16 for the products that read them, each split into ``bf16(x) +
+    bf16(x - bf16(x))`` (two products) when ``split_p`` / ``split_ds``;
+    float32 scores and sums; at head_dim 256 the group's q heads split over
+    ``head_splits`` blocks (default: the wrapper's
+    :func:`~repro_torch.kernels.flash_attention.head_splits` on an H100),
+    whose float32 dK/dV partials are added in split order; each gradient
+    rounded once to bf16.  Returns ``(dq, dk, dv)`` in bf16.  Not on any
+    path: the tests hold it against :func:`flash_attention_backward_ref` and
+    the JAX package to show what the roundings cost."""
+    from repro_torch.kernels.flash_attention import head_splits as splits_of
+
     b, hq, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
+    plan = _WG_PLAN[hd]
+    kv_own, q_tile = plan["kv_own"], plan["q_tile"]
+    q_own, kv_tile = plan["q_own"], plan["kv_tile"]
+    if head_splits is None:
+        head_splits = splits_of(b, hq, hkv, skv, hd, torch.bfloat16)
     scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
     mask_args = (causal, window, prefix_len)
     qf, kf, vf, of, dof = (t.to(torch.bfloat16).float()
                            for t in (q, k, v, o, dout))
     # the streamed and own tiles read TMA's zero fill past Sq and Skv
-    pad_q = (-sq) % _WG_OWN + _WG_OWN
-    pad_k = (-skv) % _WG_OWN + _WG_OWN
+    pad_q = (-sq) % q_own + q_own
+    pad_k = (-skv) % 128 + 128
     qp, dop = (F.pad(t, (0, 0, 0, pad_q)) for t in (qf, dof))
     kp, vp = (F.pad(t, (0, 0, 0, pad_k)) for t in (kf, vf))
     lse_p = F.pad(lse.float(), (0, pad_q), value=math.inf)
@@ -324,13 +342,14 @@ def flash_attention_backward_wgmma_model(q, k, v, o, lse, dout, *,
             ds = p * (dp - d_t)
         return torch.where(ok, p, 0.0), torch.where(ok, ds, 0.0)
 
-    def tile_mask(q0, k0, whole):
-        """[64 q rows, 64 keys]: the per-element mask, or all of it on a
+    def tile_mask(q0, nq, k0, nk):
+        """[nq q rows, nk keys]: the per-element mask, or all of it on a
         tile that tile_admitted passes whole."""
-        if whole:
-            return torch.ones((_WG_TILE, _WG_ROWS), dtype=torch.bool)
-        qi = torch.arange(q0, q0 + _WG_TILE)[:, None]
-        kj = torch.arange(k0, k0 + _WG_ROWS)[None, :]
+        if _tile_admitted(q0, q0 + nq - 1, k0, k0 + nk - 1, sq, skv,
+                          *mask_args):
+            return torch.ones((nq, nk), dtype=torch.bool)
+        qi = torch.arange(q0, q0 + nq)[:, None]
+        kj = torch.arange(k0, k0 + nk)[None, :]
         ok = (qi < sq) & (kj < skv)
         if causal:
             ok &= (kj <= qi) | (kj < prefix_len)
@@ -342,67 +361,77 @@ def flash_attention_backward_wgmma_model(q, k, v, o, lse, dout, *,
         return sum(part @ b_op for part in _bf16_parts(x, split))
 
     dq = torch.zeros((b, hq, sq + pad_q, hd))
-    dk = torch.zeros((b, hkv, skv + pad_k, hd))
+    # dK and dV: one float32 partial per head split
+    dk = torch.zeros((head_splits, b, hkv, skv + pad_k, hd))
     dv = torch.zeros_like(dk)
+    heads = g // head_splits
     for bi in range(b):
         for hk in range(hkv):
-            # dK/dV: a block of 128 kv rows streams every q head of the
-            # group times the q tiles its rows admit; a warpgroup skips the
-            # tiles its own 64 rows' range does not reach
-            for k0 in range(0, skv, _WG_OWN):
-                lo, hi = _q_range(k0, min(k0 + _WG_OWN, skv) - 1, sq,
+            # dK/dV: a block of kv_own kv rows streams its split's q heads
+            # times the q tiles its rows admit; a warpgroup skips the tiles
+            # its own 64 rows' range does not reach, and adds to dK and dV
+            # over its columns
+            for k0 in range(0, skv, kv_own):
+                lo, hi = _q_range(k0, min(k0 + kv_own, skv) - 1, sq,
                                   *mask_args)
-                q_tiles = range(lo // _WG_TILE * _WG_TILE, hi, _WG_TILE)
-                for ka in (k0, k0 + _WG_ROWS):
+                q_tiles = range(lo // q_tile * q_tile, hi, q_tile)
+                for ka in (k0 + off for off in plan["kv_wg"]):
                     if ka >= skv:
                         continue
                     wlo, whi = _q_range(ka, min(ka + 63, skv - 1), sq,
                                         *mask_args)
                     kt, vt = kp[bi, hk, ka:ka + 64], vp[bi, hk, ka:ka + 64]
-                    for h in range(hk * g, hk * g + g):
-                        for q0 in q_tiles:
-                            if not (q0 < whi and q0 + 64 > wlo):
-                                continue
-                            qt = qp[bi, h, q0:q0 + 64]
-                            dot = dop[bi, h, q0:q0 + 64]
-                            whole = _tile_admitted(q0, q0 + 63, ka, ka + 63,
-                                                   sq, skv, *mask_args)
-                            p, ds = p_and_ds(
-                                kt @ qt.T, vt @ dot.T,
-                                lse_p[bi, h, q0:q0 + 64][None, :],
-                                delta[bi, h, q0:q0 + 64][None, :],
-                                tile_mask(q0, ka, whole).T)
-                            dv[bi, hk, ka:ka + 64] += product(p, split_p, dot)
-                            dk[bi, hk, ka:ka + 64] += product(ds, split_ds,
-                                                              qt)
+                    for split in range(head_splits):
+                        h0 = hk * g + split * heads
+                        for h in range(h0, h0 + heads):
+                            for q0 in q_tiles:
+                                if not (q0 < whi and q0 + q_tile > wlo):
+                                    continue
+                                qt = qp[bi, h, q0:q0 + q_tile]
+                                dot = dop[bi, h, q0:q0 + q_tile]
+                                p, ds = p_and_ds(
+                                    kt @ qt.T, vt @ dot.T,
+                                    lse_p[bi, h, q0:q0 + q_tile][None, :],
+                                    delta[bi, h, q0:q0 + q_tile][None, :],
+                                    tile_mask(q0, q_tile, ka, 64).T)
+                                for c0, c1 in plan["cols"]:
+                                    dv[split, bi, hk, ka:ka + 64, c0:c1] += \
+                                        product(p, split_p, dot[:, c0:c1])
+                                    dk[split, bi, hk, ka:ka + 64, c0:c1] += \
+                                        product(ds, split_ds, qt[:, c0:c1])
         for h in range(hq):
             hk = h // g
-            # dQ: a block of 128 q rows streams the kv tiles its rows admit
-            for q0 in range(0, sq, _WG_OWN):
-                lo, hi = _kv_range(q0, min(q0 + _WG_OWN, sq) - 1, skv,
+            # dQ: a block of q_own q rows streams the kv tiles its rows
+            # admit
+            for q0 in range(0, sq, q_own):
+                lo, hi = _kv_range(q0, min(q0 + q_own, sq) - 1, skv,
                                    *mask_args)
-                k_tiles = range(lo // _WG_TILE * _WG_TILE, hi, _WG_TILE)
-                for qa in (q0, q0 + _WG_ROWS):
+                k_tiles = range(lo // kv_tile * kv_tile, hi, kv_tile)
+                for qa in (q0, q0 + 64):
                     if qa >= sq:
                         continue
                     wlo, whi = _kv_range(qa, min(qa + 63, sq - 1), skv,
                                          *mask_args)
                     qt, dot = qp[bi, h, qa:qa + 64], dop[bi, h, qa:qa + 64]
                     for k0 in k_tiles:
-                        if not (k0 < whi and k0 + 64 > wlo):
+                        if not (k0 < whi and k0 + kv_tile > wlo):
                             continue
-                        kt, vt = kp[bi, hk, k0:k0 + 64], vp[bi, hk, k0:k0 + 64]
-                        whole = _tile_admitted(qa, qa + 63, k0, k0 + 63, sq,
-                                               skv, *mask_args)
+                        kt = kp[bi, hk, k0:k0 + kv_tile]
+                        vt = vp[bi, hk, k0:k0 + kv_tile]
                         _, ds = p_and_ds(
                             qt @ kt.T, dot @ vt.T,
                             lse_p[bi, h, qa:qa + 64][:, None],
                             delta[bi, h, qa:qa + 64][:, None],
-                            tile_mask(qa, k0, whole))
+                            tile_mask(qa, 64, k0, kv_tile))
                         dq[bi, h, qa:qa + 64] += product(ds, split_ds, kt)
+    # the partials added in split order (flash_bwd_dkdv_sum)
+    dk_sum, dv_sum = dk[0], dv[0]
+    for split in range(1, head_splits):
+        dk_sum = dk_sum + dk[split]
+        dv_sum = dv_sum + dv[split]
     bf = torch.bfloat16
-    return ((dq[:, :, :sq] * scale).to(bf), (dk[:, :, :skv] * scale).to(bf),
-            dv[:, :, :skv].to(bf))
+    return ((dq[:, :, :sq] * scale).to(bf),
+            (dk_sum[:, :, :skv] * scale).to(bf), dv_sum[:, :, :skv].to(bf))
 
 
 def _decode_scores(q, cache_k, cache_v, valid_len, pos0, softcap, window):

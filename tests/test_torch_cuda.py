@@ -1225,11 +1225,16 @@ BWD_CASES = {
     "bidirectional": (1, 4, 4, 97, 97, 64, False, 0, 10.0, 0),
     "cross": (2, 4, 2, 70, 150, 128, False, 0, 0.0, 0),
     "rows without keys": (1, 2, 1, 60, 30, 64, True, 11, 0.0, 0),
-    # hd 256 (bf16: the wgmma forward's lse, the FMA backward), 8 q heads a
-    # kv head, a window shorter than a tile, rows without keys from 85 on
+    # hd 256 (bf16: the wgmma kernels, the group's 8 q heads over as many
+    # dK/dV blocks), 8 q heads a kv head, a window shorter than a tile,
+    # rows without keys from 85 on
     "rows without keys hd 256": (1, 8, 1, 200, 70, 256, True, 16, 0.0, 0),
     # bf16: three 128-row kv blocks of the wgmma plan, GQA 4, a ragged Sq
     "GQA ragged prefix-LM": (1, 8, 2, 333, 333, 64, True, 0, 0.0, 100),
+    # PaliGemma-3B's layer at its training length (256 patches + 4,096
+    # tokens): in bf16 the dK/dV blocks take 2 q heads each (4 head
+    # splits), whose partials are added in order
+    "PaliGemma train hd 256": (1, 8, 1, 4352, 4352, 256, True, 0, 0.0, 256),
 }
 #: float32 gradients within this share of each one's largest magnitude
 #: (sums of up to Sq or Skv products in another order), bfloat16 within
@@ -1282,14 +1287,16 @@ def test_flash_backward_vs_plain(dev, dtype, mode):
     (torch.bfloat16, 64, ("flash_bwd_dkdv_wgmma<", "flash_bwd_dq_wgmma<")),
     (torch.bfloat16, 128, ("flash_bwd_dkdv_wgmma<", "flash_bwd_dq_wgmma<")),
     (torch.float32, 128, ("flash_bwd_dkdv<", "flash_bwd_dq<")),
-    (torch.bfloat16, 256, ("flash_bwd_dkdv<", "flash_bwd_dq<")),
+    (torch.bfloat16, 256, ("flash_bwd_dkdv_wgmma<", "flash_bwd_dq_wgmma<",
+                           "flash_bwd_dkdv_sum")),
+    (torch.float32, 256, ("flash_bwd_dkdv<", "flash_bwd_dq<")),
 ])
 def test_flash_backward_routes_by_dtype(dev, dtype, hd, kernels):
-    """bfloat16 at head_dim 64 and 128 runs the two wgmma kernels; float32,
-    and head_dim 256 in either dtype, the float32-FMA kernels; each call
-    launches D and those two, counted once.  The profile window holds one
-    warm call (the build, the first launch and a first profiler session
-    come before it)."""
+    """bfloat16 runs the two wgmma kernels at every head_dim, at 256 with
+    the sum of the dK/dV blocks' partials after them; float32 the
+    float32-FMA kernels; each call launches D and those, counted once.  The
+    profile window holds one warm call (the build, the first launch and a
+    first profiler session come before it)."""
     from torch.profiler import ProfilerActivity, profile
 
     q, k, v = _flash_inputs(dev, dtype, 1, 8, 2, 300, 300, hd, 9)
@@ -1308,7 +1315,7 @@ def test_flash_backward_routes_by_dtype(dev, dtype, hd, kernels):
     names = [e.key for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     bwd = sorted(n for n in names if "flash_bwd" in n)
-    assert len(bwd) == 3, names
+    assert len(bwd) == 1 + len(kernels), names
     assert any("flash_bwd_delta<" in n for n in bwd), bwd
     for kernel in kernels:
         assert sum(kernel in n for n in bwd) == 1, (kernel, bwd)

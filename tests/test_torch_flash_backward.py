@@ -1,16 +1,18 @@
 """A CPU model of the bf16 flash backward kernels' arithmetic, against the
 plain version and the JAX package, on the CPU.
 
-``csrc/flash_attention_backward.cu`` runs bfloat16 at head_dim 64 and 128
-on the tensor cores: bf16 operands, float32 sums, and P and dS, the only
+``csrc/flash_attention_backward.cu`` runs bfloat16 at every head_dim on
+the tensor cores: bf16 operands, float32 sums, and P and dS, the only
 values its products round, each split into ``bf16(x) + bf16(x -
 bf16(x))``.  :func:`repro_torch.kernels.ref.flash_attention_backward_wgmma_model`
 does that arithmetic on the CPU over the kernels' tile plan (128-row
 blocks of two 64-row warpgroups, their ranges and skipped tiles, the
-per-element mask on the tiles that cross an edge).  Here, for every mask
-mode of ``test_torch_cuda.py``'s ``BWD_CASES`` at head_dim 64 or 128 (at
-most 200 rows; the last case spans two 128-row kv blocks with GQA, a ragged
-Sq and a prefix):
+per-element mask on the tiles that cross an edge; at head_dim 256, 64-row
+dK/dV blocks whose warpgroups split dK's and dV's columns, the group's q
+heads split over blocks with float32 partials added in order, and 32-row
+kv tiles in dQ).  Here, for every mask mode of ``test_torch_cuda.py``'s
+``BWD_CASES`` at head_dim 64 or 128 and PaliGemma-3B's at 256 (at most 200
+rows; the GQA prefix-LM cases span two 128-row kv blocks with a ragged Sq):
 
 * the model with both splits stays within phase 6's limits of the plain
   version (``chip_smoke.py``: 2e-2 of each gradient's largest magnitude,
@@ -37,7 +39,8 @@ from repro.models import attention as jattn
 from repro_torch.kernels import ref as tref
 
 #: (B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap, prefix_len): the
-#: hd-64/128 modes of test_torch_cuda.py's BWD_CASES, the last at 190 rows
+#: modes of test_torch_cuda.py's BWD_CASES, the prefix-LM ones at 190 rows
+#: (the last PaliGemma-3B's heads: 8 q heads over 1 of 256)
 CASES = {
     "causal": (2, 4, 4, 130, 130, 64, True, 0, 0.0, 0),
     "sliding softcap GQA": (1, 8, 2, 200, 200, 128, True, 50, 30.0, 0),
@@ -45,6 +48,7 @@ CASES = {
     "cross": (2, 4, 2, 70, 150, 128, False, 0, 0.0, 0),
     "rows without keys": (1, 2, 1, 60, 30, 64, True, 11, 0.0, 0),
     "GQA ragged prefix-LM": (1, 8, 2, 190, 190, 64, True, 0, 0.0, 50),
+    "hd 256 GQA 8/1 prefix-LM": (1, 8, 1, 190, 190, 256, True, 0, 0.0, 50),
 }
 #: phase 6's limits (chip_smoke.py's F32_GRAD_REL, BF16_TOL, BF16_STEP)
 F32_GRAD_REL = 1e-4
@@ -127,10 +131,12 @@ def test_model_with_splits_within_one_rounding_step(mode):
         assert _rounding_steps(g, w) <= 1.0
 
 
-@pytest.mark.parametrize("mode", ["causal", "sliding softcap GQA"])
+@pytest.mark.parametrize("mode", ["causal", "sliding softcap GQA",
+                                  "hd 256 GQA 8/1 prefix-LM"])
 def test_model_without_splits_exceeds_the_step(mode):
     """One bf16 rounding of P moves dV, of dS moves dQ and dK, beyond one
-    rounding step of the plain version (5-12 steps in these cases)."""
+    rounding step of the plain version (5-12 steps in these cases; at
+    head_dim 256 too)."""
     case = CASES[mode]
     q, k, v, do, o, lse = _inputs(case)
     kw = _mask_kw(case)
@@ -147,6 +153,41 @@ def test_model_without_splits_exceeds_the_step(mode):
                                                           do, **kw)
     assert torch.equal(no_p[0], with_both[0])
     assert torch.equal(no_ds[2], with_both[2])
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_hd256_head_splits_add_in_order(splits):
+    """At head_dim 256 the dK/dV blocks split the group's q heads and add
+    their float32 partials in order: dQ does not move, dK and dV stay
+    within a rounding step of the plain version at every split count."""
+    case = CASES["hd 256 GQA 8/1 prefix-LM"]
+    q, k, v, do, o, lse = _inputs(case, seed=2)
+    kw = _mask_kw(case)
+    want = tref.flash_attention_backward_ref(q, k, v, o, lse, do, **kw)
+    whole = tref.flash_attention_backward_wgmma_model(
+        q, k, v, o, lse, do, head_splits=1, **kw)
+    got = tref.flash_attention_backward_wgmma_model(
+        q, k, v, o, lse, do, head_splits=splits, **kw)
+    assert torch.equal(got[0], whole[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert _rounding_steps(g, w) <= 1.0
+
+
+def test_head_splits_fill_the_card():
+    """The wrapper's split: bf16 at head_dim 256 only, the smallest divisor
+    of the group giving 1.5 blocks an SM of 132 (PaliGemma-3B's one kv
+    head: 4 at its 4,352 training positions, 68 kv tiles, and at 4,096, 64
+    tiles), the group when none does; 1 for every other case."""
+    from repro_torch.kernels.flash_attention import head_splits
+
+    bf16 = torch.bfloat16
+    assert head_splits(1, 8, 1, 4352, 256, bf16) == 4
+    assert head_splits(1, 8, 1, 4096, 256, bf16) == 4
+    assert head_splits(1, 8, 1, 190, 256, bf16) == 8
+    assert head_splits(4, 8, 1, 4352, 256, bf16) == 1
+    assert head_splits(1, 8, 1, 4352, 256, torch.float32) == 1
+    assert head_splits(1, 36, 36, 4096, 64, bf16) == 1
+    assert head_splits(1, 8, 1, 4352, 256, bf16, sms=16) == 1
 
 
 @pytest.mark.parametrize("mode", list(CASES))

@@ -16,7 +16,10 @@ on the CPU.
   1e-5 relative and each gradient leaf to ``GRAD_REL`` of its largest
   magnitude: both sides sum the same float32 products in another order,
   which moves a gradient by a few ulps of the leaf's largest entries (the
-  measured worst is 2.3e-6).
+  measured worst is 2.3e-6).  Reduced PaliGemma-3B runs twice: at the
+  reduced head_dim of 16 and at its own 256 (``@hd256``: the prefix-LM
+  attention whose gradient the bf16 hd-256 flash backward computes on the
+  card).
 * One training step on reduced Kimi-K2 (``accumulate_grads`` and
   ``apply_updates``) against ``jax.grad`` of the reference's
   ``train_forward`` and its AdamW: the loss, every gradient leaf (the
@@ -117,13 +120,23 @@ def _port_grads(model, tcfg, batch, remat=False, aux_weight=0.01):
 AUX_WEIGHT = {"jamba-1.5-large-398b": 0.0}
 
 
+def _reduced_pair(name):
+    """Both packages' reduced configurations of ``name``; ``model@hdN``
+    sets head_dim N on both."""
+    base, _, hd = name.partition("@hd")
+    cfg, tcfg = jconfigs.get(base).reduced(), tconfigs.get(base).reduced()
+    if hd:
+        cfg = dataclasses.replace(cfg, head_dim=int(hd))
+        tcfg = dataclasses.replace(tcfg, head_dim=int(hd))
+    return cfg, tcfg
+
+
 @pytest.mark.parametrize("name", [
     "paper-synthetic", "minicpm-2b", "gemma2-27b", "paligemma-3b",
-    "seamless-m4t-medium", "deepseek-moe-16b", "mamba2-780m",
-    "kimi-k2-1t-a32b", "jamba-1.5-large-398b"])
+    "paligemma-3b@hd256", "seamless-m4t-medium", "deepseek-moe-16b",
+    "mamba2-780m", "kimi-k2-1t-a32b", "jamba-1.5-large-398b"])
 def test_train_forward_and_grads_match_reference(name):
-    cfg = jconfigs.get(name).reduced()
-    tcfg = tconfigs.get(name).reduced()
+    cfg, tcfg = _reduced_pair(name)
     aux_weight = AUX_WEIGHT.get(name, 0.01)
     tree = jax_tree(cfg, 0)
     model = params_from_reference(tree, tcfg, device="cpu")
