@@ -203,7 +203,7 @@ Phases, each printed on its own line; any failure exits non-zero:
                ``WorkerMesh``, and ``StreamExecutor`` with the SPMD
                adapters (default mesh factory: the card) over 1,048,576
                int64 slots (S2 block, degrees 8 -> 4 -> 2 -> 8; S2 slotmap
-               replicated per worker, 3 -> 5 -> 7) and streams of 65,536
+               replicated per worker, 3 -> 5 -> 7) and streams of 32,768
                tasks (S3 at ``flush_every`` 1, 16 and 256 and 8 -> 4 -> 8;
                S4 on a float32 fitness stream at ``sync_every`` 1 and 64,
                8 -> 2 -> 8; S5 4 -> 8), each bit-exact against the port's
@@ -376,8 +376,8 @@ Phases, each printed on its own line; any failure exits non-zero:
                (8 -> 4 -> 2 -> 8, and 8 -> 1 -> 8, whose handoff moves the
                slots that change rank), S2 slot map (3 -> 5 -> 7), S3 at
                flush_every 16 (8 -> 4 -> 8), S4 at sync_every 64 (8 -> 2 ->
-               8), S5 (4 -> 8), 65,536 tasks in chunks of 8,192 (S2: 16,384
-               in 2,048, slot map 2,100).  (a) one rank over NCCL: every
+               8), S5 (4 -> 8), 32,768 tasks in chunks of 4,096 (S2: 8,192
+               in 1,024, slot map 1,050).  (a) one rank over NCCL: every
                output and state bit-equal to phase 13's one-card runs and
                the CPU oracle, no wire byte; (b) two gloo ranks on the one
                card, child processes of this script (``--ranks-rank``):
@@ -1258,6 +1258,10 @@ def phase_host(torch):
             q, k, v, causal=True, window=4096, softcap=50.0), None, 20),
         "decode_attention": (lambda: da.decode_attention(
             qd, ck, cv, valid, window=4097, softcap=50.0), None, 200),
+        # the tensor-core route (4 q heads a kv head: 8 kv heads narrowed
+        # out of the cache), which also encodes two TMA maps a call
+        "decode_attention (mma route)": (lambda: da.decode_attention(
+            qd, ck[:, :8], cv[:, :8], valid), None, 200),
         "ssd_scan": (lambda: ss.ssd_scan(x, dt, A, Bm, Cm), None, 20),
         "moe_gather": (lambda: md.moe_gather(xt, tok), None, 500),
     }
@@ -1667,6 +1671,47 @@ def build_report(source):
     return ptxas_entries(text) if text else "not compiled in this run"
 
 
+def decode_mma_ptxas(entries):
+    """Each ``decode_mma`` instance's registers and spill bytes in a
+    ``ptxas_entries`` report, by head_dim and product plan ("packed": P_lo
+    in the tile's rows 8-15, at 4-8 q heads a kv head; "two products": 9
+    or more)."""
+    if not isinstance(entries, dict):
+        return entries
+    out = {}
+    for name, e in entries.items():
+        if "decode_mma" not in name:
+            continue
+        hd = name.split("decode_mmaILi")[1].split("E")[0]
+        plan = "packed" if "ELb1E" in name else "two products"
+        out[f"hd {hd} {plan}"] = dict(
+            registers=e.get("registers"),
+            spill_bytes=e.get("spill_store_bytes", 0)
+            + e.get("spill_load_bytes", 0))
+    check(len(out) == 6, f"ptxas reports {len(out)} decode_mma instances, "
+          f"not 6: {list(entries)}")
+    return out
+
+
+def mma_instance_ptxas(hd, group):
+    """ptxas's registers and spills of the ``decode_mma`` instance a bf16
+    launch at ``group`` q heads a kv head runs (or why there is no
+    report)."""
+    mma = decode_mma_ptxas(build_report("decode_attention.cu"))
+    if not isinstance(mma, dict):
+        return mma
+    return mma[f"hd {hd} {'packed' if group <= 8 else 'two products'}"]
+
+
+#: the two decode kernels and what each takes, for the kernels line
+DECODE_ROUTES = {
+    "decode_mma": "mma.sync tensor cores, K/V by TMA: bf16 at >= 4 q heads "
+                  "a kv head",
+    "decode_split": "CUDA cores, bulk copies: float32, and bf16 at 1-2 q "
+                    "heads a kv head",
+}
+
+
 def _close(torch, got, want, tol, what, steps):
     """Largest absolute difference, held to ``tol`` (absolute and relative);
     a bfloat16 output is also held to one rounding step of each value
@@ -1894,7 +1939,9 @@ def phase_attention(torch):
                      "softcap 0": bound_ms / pair_ms0},
         first_version_ms=DECODE_FIRST_VERSION_MS,
         speedup_over_first_version=DECODE_FIRST_VERSION_MS / pair_ms,
-        splits=splits, tile_rows=tile,
+        splits=splits, tile_rows=tile, routes=DECODE_ROUTES,
+        route=da.route(bf16, HD, HQ // HKV),
+        mma_ptxas=decode_mma_ptxas(build_report("decode_attention.cu")),
         short_slots=dict(valid_len=short.tolist(), device_ms=short_ms),
         build=build_report("decode_attention.cu"),
         per_layer={f"window {w}": dict(
@@ -1919,6 +1966,7 @@ def phase_attention(torch):
         torch, randn)
     records["decode_attention"]["head_dim_256"] = wide["decode"]
     records["decode_attention"]["group_16"] = wide["group_16"]
+    records["decode_attention"]["granite_g4"] = wide["granite_g4"]
     records["decode_attention_partial"] = phase_decode_partial(torch)
     for name, rec in records.items():
         say("attention", kernel=name, **rec)
@@ -1996,17 +2044,17 @@ def phase_decode_partial(torch):
             .to(torch.bfloat16) for _ in range(2))
     q = torch.randn((1, hq, hd), generator=gen, device=dev).to(torch.bfloat16)
     valid = torch.full((1,), 2 * half, dtype=torch.int32, device=dev)
-    ms = cuda_ms(torch, lambda: da.decode_attention_partial(
-        q, k, v, valid, 0), 20)
+    ms = median_ms(torch, lambda: da.decode_attention_partial(
+        q, k, v, valid, 0), reps=20)
     # the whole-cache entry over the same rows: what the offset, the
     # log-sum-exp store and the float32 o cost beside it
-    whole_ms = cuda_ms(torch, lambda: da.decode_attention(
-        q, k, v, torch.full_like(valid, half)), 20)
+    whole_ms = median_ms(torch, lambda: da.decode_attention(
+        q, k, v, torch.full_like(valid, half)), reps=20)
     plain_ms = cuda_ms(torch, lambda: ref.decode_attention_partial_ref(
         q, k, v, valid, 0), 3)
     torch.cuda.empty_cache()
-    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k, v, enable_gqa=True), 20)
+    library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, enable_gqa=True), reps=20)
     nbytes = 2 * half * hkv * hd * 2 + hq * hd * 2 + hq * (hd + 1) * 4
     bound_ms, bound_by = attention_bound(half, hq, hd, nbytes)
     del k, v
@@ -2014,8 +2062,11 @@ def phase_decode_partial(torch):
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 bound_share=bound_ms / ms, bytes=nbytes,
-                whole_entry_ms=whole_ms,
-                splits=da.num_splits(1, hkv, half, hd, 2),
+                whole_entry_ms=whole_ms, whole_entry_bound_share=bound_ms
+                / whole_ms, route=da.route(torch.bfloat16, hd, hq // hkv),
+                routes=DECODE_ROUTES,
+                ptxas=mma_instance_ptxas(hd, hq // hkv),
+                splits=da.num_splits(1, hkv, half, hd, 2, "mma"),
                 library="SDPA over the same rows, enable_gqa, no mask; it "
                         "gives no log-sum-exp",
                 errors=errs, bf16_rounding_steps=steps,
@@ -2025,37 +2076,55 @@ def phase_decode_partial(torch):
 
 
 def phase_decode_whole(torch, smi):
-    """``--only-decode``: the whole-cache decode entry's times, each the
-    median of 5 readings of 20 calls, at phase 6's serve shapes (bf16, 8
-    slots of 8,192 rows at phase 6's ragged lengths, 32 q / 16 kv heads of
-    128; softcap 50 and 0, windows 4,097 and 0) and over one block of
-    Jamba-1.5-Large's layer (64 q / 8 kv heads of 128, 262,144 rows, all
-    admitted).  It calls only ``decode_attention``, so a copy of this
-    script beside an older tree times that tree's kernel: run the two trees
-    in turns in one call to compare them."""
+    """``--only-decode``: the decode entries' times, each the median of 5
+    readings of 20 calls, over phase 6's ragged slots (8 of 8,192 rows):
+    the serve pair's 32 q / 16 kv heads of 128 in bf16 (softcap 50 and 0,
+    windows 4,097 and 0) and in float32 (softcap 50, window 0), PaliGemma-3B's
+    8 / 1 heads of 256, a group of 16 (16 / 1 of 128) and Granite-8B's 32 /
+    8 of 128 (these three also by their device time under the profiler,
+    where back-to-back calls can time the wrapper's host path); and over
+    one block of Jamba-1.5-Large's layer (64 q / 8 kv heads of 128, 262,144
+    rows, all admitted), both entries.  It calls only
+    ``decode_attention`` and ``decode_attention_partial``, so a copy of this
+    script beside an older tree times that tree's kernels: run the two
+    trees in turns in one call to compare them."""
     from repro_torch.kernels import decode_attention as da
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(
-            torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     rng = np.random.default_rng(6)
     valid_np = np.sort(rng.integers(1, SERVE_SMAX + 1, SERVE_SLOTS))
     valid_np[0] = 1
     valid = torch.as_tensor(valid_np.astype(np.int32), device=dev)
+    times, device = {}, {}
     q = randn(SERVE_SLOTS, 32, 128)
     ck, cv = (randn(SERVE_SLOTS, 16, SERVE_SMAX, 128) for _ in range(2))
-    times = {}
     for softcap in (50.0, 0.0):
         for window in (4097, 0):
             times[f"serve softcap {softcap:g} window {window}"] = median_ms(
                 torch, lambda: da.decode_attention(
                     q, ck, cv, valid, softcap=softcap, window=window),
                 reps=20)
+    q, ck, cv = (x.float() for x in (q, ck, cv))
+    times["serve float32 softcap 50 window 0"] = median_ms(
+        torch, lambda: da.decode_attention(q, ck, cv, valid, softcap=50.0),
+        reps=20)
     del q, ck, cv
+    for label, hq, hkv, hd in (("paligemma hd 256", 8, 1, 256),
+                               ("group 16", 16, 1, 128),
+                               ("granite G 4", 32, 8, 128)):
+        q = randn(SERVE_SLOTS, hq, hd)
+        ck, cv = (randn(SERVE_SLOTS, hkv, SERVE_SMAX, hd) for _ in range(2))
+        times[label] = median_ms(
+            torch, lambda: da.decode_attention(q, ck, cv, valid), reps=20)
+        device[label] = sum(device_ms_by_kernel(
+            torch, lambda: da.decode_attention(q, ck, cv, valid),
+            20).values())
+        del q, ck, cv
     hq, hkv, hd, _ = LONG_ATTN
     rows = LONG_INDICES[2]
     q = randn(1, hq, hd)
@@ -2063,9 +2132,12 @@ def phase_decode_whole(torch, smi):
     full = torch.full((1,), rows, dtype=torch.int32, device=dev)
     times["jamba block softcap 0"] = median_ms(
         torch, lambda: da.decode_attention(q, ck, cv, full), reps=20)
+    times["jamba block partial softcap 0"] = median_ms(
+        torch, lambda: da.decode_attention_partial(q, ck, cv, full, 0),
+        reps=20)
     del q, ck, cv
     torch.cuda.empty_cache()
-    say("decode-whole", root=ROOT, ms=times,
+    say("decode-whole", root=ROOT, ms=times, device_ms=device,
         serve_pair_softcap50_ms=times["serve softcap 50 window 4097"]
         + times["serve softcap 50 window 0"], nvidia_smi=smi)
 
@@ -2211,13 +2283,19 @@ def phase_attention_wide(torch, randn, valid, valid_np):
               f"softcap 0")
     del q, k, v, kx, vx
 
-    # decode at head_dim 256 over phase 6's ragged slots, and at a group of
-    # 16 (16 q heads over 1 kv head, hd 128)
-    for label, hq, hd in (("decode", HQ, HD), ("group_16", 16, 128)):
+    # decode over phase 6's ragged slots at head_dim 256 (PaliGemma-3B's 8
+    # q heads over 1 kv head), at a group of 16 (16 over 1, hd 128) and at
+    # Granite-8B's 32 over 8 (hd 128): all three on the tensor-core route in
+    # bf16
+    pos = torch.arange(SERVE_SMAX, device=dev)
+    mask = (pos[None, :] < valid[:, None])[:, None, None, :]
+    for label, hq, hkv, hd in (("decode", HQ, HKV, HD),
+                               ("group_16", 16, 1, 128),
+                               ("granite_g4", 32, 8, 128)):
         errs, steps = {}, {}
         for dtype, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
             qd = randn(SERVE_SLOTS, hq, hd, dtype=dtype)
-            ck, cv = (randn(SERVE_SLOTS, HKV, SERVE_SMAX, hd, dtype=dtype)
+            ck, cv = (randn(SERVE_SLOTS, hkv, SERVE_SMAX, hd, dtype=dtype)
                       for _ in range(2))
             for window, cap in ((0, 0.0), (4097, 50.0)):
                 kw = dict(softcap=cap, window=window)
@@ -2227,25 +2305,32 @@ def phase_attention_wide(torch, randn, valid, valid_np):
                     f"decode_attention {label} {dtype} window {window}",
                     steps)
         kw = dict(softcap=0.0, window=0)   # qd, ck, cv are the bf16 ones
-        ms = cuda_ms(torch, lambda: da.decode_attention(qd, ck, cv, valid,
-                                                        **kw), 20)
+        ms = median_ms(torch, lambda: da.decode_attention(
+            qd, ck, cv, valid, **kw), reps=20)
+        # the kernel's own device time: at these shapes back-to-back calls
+        # can time the wrapper's host path instead
+        device = sum(device_ms_by_kernel(torch, lambda: da.decode_attention(
+            qd, ck, cv, valid, **kw), 20).values())
         plain = cuda_ms(torch, lambda: ref.decode_attention_ref(
             qd, ck, cv, valid, **kw), 3)
-        pos = torch.arange(SERVE_SMAX, device=dev)
-        mask = (pos[None, :] < valid[:, None])[:, None, None, :]
-        sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qd[:, :, None, :], ck, cv, attn_mask=mask, enable_gqa=True), 20)
+        sdpa = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd[:, :, None, :], ck, cv, attn_mask=mask, enable_gqa=True),
+            reps=20)
         rows = decode_rows(valid_np, 0, SERVE_SMAX)
         b_ms, b_by = attention_bound(
             rows, hq, hd,
-            rows * HKV * hd * 2 * 2 + 2 * SERVE_SLOTS * hq * hd * 2)
+            rows * hkv * hd * 2 * 2 + 2 * SERVE_SLOTS * hq * hd * 2)
+        kind = da.route(bf16, hd, hq // hkv)
         out[label] = dict(
-            ms=ms, plain_ms=plain, sdpa_ms=sdpa, bound_ms=b_ms, bound_by=b_by,
-            splits=da.num_splits(SERVE_SLOTS, HKV * da.chunks(hq, HKV),
-                                 SERVE_SMAX, hd, 2),
+            ms=ms, device_ms=device, plain_ms=plain, sdpa_ms=sdpa,
+            bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+            device_bound_share=b_ms / device, route=kind,
+            ptxas=mma_instance_ptxas(hd, hq // hkv),
+            splits=da.num_splits(SERVE_SLOTS, hkv * da.chunks(hq, hkv, kind),
+                                 SERVE_SMAX, hd, 2, kind),
             errors=errs, bf16_rounding_steps=steps,
             shape=f"q [{SERVE_SLOTS},{hq},{hd}] bf16, cache "
-                  f"[{SERVE_SLOTS},{HKV},{SERVE_SMAX},{hd}], softcap 0")
+                  f"[{SERVE_SLOTS},{hkv},{SERVE_SMAX},{hd}], softcap 0")
         del qd, ck, cv
     torch.cuda.empty_cache()
     return out
@@ -3603,12 +3688,14 @@ def phase_serving_runtime(torch, seed, smi):
 
 #: the patterns' state: the keyed plane's key space, int64 slots (8 MiB)
 PAT_SLOTS = 1 << 20
-#: S1 and S2: tasks in chunks of 2,048 (slotmap: 2,100, a multiple of its
-#: degrees 3, 5 and 7); S3-S5: 65,536 tasks in chunks of 8,192
-PAT_S1_TASKS = 4096
-PAT_S2_TASKS, PAT_S2_CHUNK = 16384, 2048
-PAT_SLOTMAP_CHUNK = 2100
-PAT_TASKS, PAT_CHUNK = 65536, 8192
+#: S1 and S2: tasks in chunks of 1,024 (slotmap: 1,050, a multiple of its
+#: degrees 3, 5 and 7); S3-S5: 32,768 tasks in chunks of 4,096 (half of
+#: the earlier sizes, to keep the smoke inside its time limit on a slow
+#: host; the state stays 1,048,576 slots and every schedule 8 chunks)
+PAT_S1_TASKS = 2048
+PAT_S2_TASKS, PAT_S2_CHUNK = 8192, 1024
+PAT_SLOTMAP_CHUNK = 1050
+PAT_TASKS, PAT_CHUNK = 32768, 4096
 
 
 def pattern_profile(torch, process, chunk, steps):
@@ -3648,7 +3735,7 @@ def pattern_profile(torch, process, chunk, steps):
 
 
 def pattern_inputs(seed):
-    """Phase 13's streams: 65,536 int64 tasks, the 1,048,576 int64 slots'
+    """Phase 13's streams: 32,768 int64 tasks, the 1,048,576 int64 slots'
     initial values (8 MiB) and S4's float32 fitness stream, drawn as the
     simulator draws it."""
     rng = np.random.default_rng(seed + 13)
@@ -3852,7 +3939,7 @@ def phase_patterns(torch, seed, smi):
             ones["S4"] = dict(trace=cat(res["outs"], "trace"),
                               s=res["state"].cpu(), oracle_s=s4_ref)
 
-    # -- S5: 65,536 int64 tasks, degrees 4 -> 8 -----------------------------
+    # -- S5: 32,768 int64 tasks, degrees 4 -> 8 -----------------------------
     (ys_ref, tr_ref, s5_ref), cpu_s = timed(S.separate_task_state, s5.f,
                                             s5.s, xs3, i64(1))
     res = drive(lambda: SeparateAdapter(s5, i64(1)), xs3, PAT_CHUNK, 4,
@@ -7644,6 +7731,8 @@ def kernels_line(records, path_counts):
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
+        if "routes" in rec:   # a source with more than one kernel design
+            kernels[-1]["routes"] = rec["routes"]
     return {"kernels": kernels}
 
 
@@ -7683,9 +7772,11 @@ def main(argv=None):
                              "over ranks: one rank over NCCL, two ranks on "
                              "the card over gloo) and stop")
     parser.add_argument("--only-decode", action="store_true",
-                        help="build, then time only the whole-cache decode "
-                             "entry (phase 6's serve shapes and one block "
-                             "of phase 21's) and stop")
+                        help="build, then time only the decode entries "
+                             "(phase 6's serve shapes in bf16 and float32, "
+                             "its hd-256, group-16 and Granite shapes, and "
+                             "one block of phase 21's, both entries) and "
+                             "stop")
     parser.add_argument("--only-flash", action="store_true",
                         help="build, then time only the flash forward "
                              "(phase 6's serve pair and hd-256 layer) and "

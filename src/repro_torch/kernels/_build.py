@@ -80,13 +80,10 @@ _SIGNATURES = {
     "attn_flash_backward":
         [_P] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
                                           ctypes.c_int, _P],
-    # q, k, v, valid_len, o, workspace, counters, B, Hq, Hkv, kv_slot, S,
-    # hd, dtype, window, softcap, n_splits, stream
-    "attn_decode_forward":
-        [_P] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, _P],
-    # q, k, v, valid_len, o, lse, workspace, counters, B, Hq, Hkv, kv_slot,
-    # S, pos0, hd, dtype, window, softcap, n_splits, stream
-    "attn_decode_partial":
+    # q, k, v, valid_len, o, lse (null: the whole cache), workspace,
+    # counters, B, Hq, Hkv, kv_slot, S, pos0, hd, dtype, window, softcap,
+    # n_splits, stream
+    "attn_decode":
         [_P] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, _P],
     # x, x strides, dt, dt strides, A, Bm, Bm strides, Cm, Cm strides, y,
     # y strides, h, workspace, its bytes, B, H, S, P, N, dtype, stream

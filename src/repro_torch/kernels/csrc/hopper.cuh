@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives in inline PTX: mbarriers, TMA tile loads (3-D
-// and 4-D), bulk copies and warpgroup matrix products (wgmma) on bf16
-// operands with float32 sums, either operand K-major or transposed; on the
+// and 4-D), bulk copies, warpgroup matrix products (wgmma) on bf16
+// operands with float32 sums, either operand K-major or transposed, and
+// warp products (ldmatrix + mma.sync m16n8k16); on the
 // host, the TMA tensor maps the attention kernels (encode_map) and the SSD
 // scan's backward (encode_map_strided, any strides) load bf16 tiles through.
 //
@@ -420,6 +421,52 @@ __device__ __forceinline__ void split_bf16(const float (&x)[N],
       lo[c][i] = *reinterpret_cast<const uint32_t*>(&l);
     }
   }
+}
+
+// -- warp products (mma.sync) ---------------------------------------------------
+
+// four 8 x 8 bf16 matrices from shared memory (lanes 8i..8i+7 give the row
+// addresses of matrix i); thread t gets row t/4, columns 2(t%4) + {0, 1}
+// of each, or with the transpose row 2(t%4) + {0, 1}, column t/4
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// D[16 x 8] += A[16 x 16] . B[16 x 8], bf16 operands, float32 sums: thread
+// t holds A rows t/4 and t/4 + 8 (a[0], a[2] and a[1], a[3], k columns
+// 2(t%4) + {0, 1} and + 8), B column t/4 (k rows 2(t%4) + {0, 1} in b0,
+// + 8 in b1), D rows t/4 (d[0], d[1]) and t/4 + 8 (d[2], d[3]) at columns
+// 2(t%4) + {0, 1}
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair (x0 in the low half), and what each loses
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t pack_bf16_rest(float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  return pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
 // -- TMA tensor maps (host) ---------------------------------------------------

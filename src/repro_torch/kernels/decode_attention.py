@@ -1,31 +1,36 @@
-"""Decode attention against the KV cache: wrapper around the CUDA kernel.
+"""Decode attention against the KV cache: wrapper around the CUDA kernels.
 
-Port of ``repro/kernels/decode_attention.py``.  The kernel is
+Port of ``repro/kernels/decode_attention.py``.  The kernels are
 ``csrc/decode_attention.cu``: one query row per (slot, q head) against the
 cached rows ``p < valid_len[slot]`` (and ``p > valid_len[slot] - window``),
 with softcap and GQA, float32 math for float32 or bfloat16 inputs,
-head_dim 64, 128 or 256, any number of q heads per kv head (a block serves
-at most :data:`MAX_GROUP` of them; a larger group takes :func:`chunks`
-blocks per kv head).  ``valid_len`` is one length per slot (int32
-``[B]``); a scalar broadcasts.  The cache may be a block of kv heads
-narrowed out of a cache that holds more (:func:`slot_heads`), which the
-kernel reads in place; any other layout is copied to a contiguous one
-first.  A slot with no admitted position
+head_dim 64, 128 or 256, any number of q heads per kv head.  ``valid_len``
+is one length per slot (int32 ``[B]``); a scalar broadcasts.  The cache
+may be a block of kv heads narrowed out of a cache that holds more
+(:func:`slot_heads`), which the kernels read in place; any other layout is
+copied to a contiguous one first.  A slot with no admitted position
 (``valid_len`` 0) gets the mean of V over all S rows, as the reference's
 finite mask gives.
 
-:func:`decode_attention_partial` is the same kernel over a block of global
+:func:`decode_attention_partial` is the same over a block of global
 positions ``[pos0, pos0 + S)`` (a cache whose sequence is split over
 ranks): float32 ``o`` and the rows' log-sum-exp, from which the blocks
-merge, and ``o = 0``, ``lse = -inf`` where a block admits no row.
+merge, and ``o = 0``, ``lse = -inf`` where a block admits no row.  Both
+call the one C entry ``attn_decode`` (a null ``lse`` for the whole cache).
 
-The kernel cuts each slot's admitted positions into at most
-:func:`num_splits` runs of whole tiles (:func:`split_length`), one block
-per (run, kv head, slot), and merges the runs in the same launch
-(split-KV, flash-decoding).  The wrapper picks the number of runs from the
-shapes alone (it never reads ``valid_len`` on the host), keeps
-the merge's float32 workspace and its per-(slot, kv head) counters, which
-the kernel leaves at zero, per device and stream, takes CUDA tensors only,
+Two routes, a pure function of the dtype and the group (:func:`route`):
+``"mma"``, the tensor cores, for bfloat16 at 4 or more q heads per kv head
+(a block serves 16 of them, the rows of an ``mma.sync`` tile); ``"split"``,
+the CUDA cores, for float32 and for bfloat16 at 1 or 2 (a block serves 8).
+Either cuts each slot's admitted positions into at most :func:`num_splits`
+runs of whole tiles (:func:`split_length`), one block per (run, kv head x
+chunk, slot), and merges the runs in the same launch (split-KV,
+flash-decoding): the split route's last block through a float32 workspace
+and per-(slot, kv head, chunk) counters, which the kernel leaves at zero,
+the mma route's blocks of one (slot, kv head, chunk) as a thread-block
+cluster through their shared memory.  The wrapper picks the number of runs
+from the shapes alone (it never reads ``valid_len`` on the host), keeps the
+workspace and counters per device and stream, takes CUDA tensors only,
 checks them, launches on the current stream through the shared helpers of
 :mod:`repro_torch.kernels._build`, raises on a refused launch and counts
 the launch in :data:`LAUNCHES`.
@@ -45,49 +50,76 @@ from repro_torch.kernels.flash_attention import (
 )
 
 __all__ = ["LAUNCHES", "MAX_GROUP", "chunks", "decode_attention",
-           "decode_attention_partial", "num_splits", "slot_heads",
+           "decode_attention_partial", "num_splits", "route", "slot_heads",
            "split_length", "tile_rows"]
 
 #: kernel launches (reset with ``ops.reset_launch_counts``)
 LAUNCHES = {"decode_attention": 0, "decode_attention_partial": 0}
-#: most q heads one block serves (``kMaxGroup`` in the kernel)
-MAX_GROUP = 8
-#: the kernel's constants (``csrc/decode_attention.cu``): bytes of K (and
-#: of V) in one shared-memory tile, most splits per slot, the fewest tiles
-#: in a run; the rows of a split of a full cache, and the blocks that make
-#: several waves on the H100's 132 SMs
+#: most q heads one block serves, by route (``kMaxGroup``, ``kMmaGroup``)
+MAX_GROUP = {"split": 8, "mma": 16}
+#: the kernels' constants (``csrc/decode_attention.cu``): the split route's
+#: bytes of K (and of V) in one shared-memory tile, the mma route's rows of
+#: a tile by head_dim, most splits per slot (split route: the merge's
+#: table; mma route: a cluster's blocks), the fewest tiles in a run; the
+#: rows of a split of a full cache and the blocks that make several waves on
+#: the H100's 132 SMs (split route), the blocks that give every SM one (mma
+#: route)
 TILE_BYTES = 8192
+MMA_TILE_ROWS = {64: 64, 128: 64, 256: 32}
 MAX_SPLITS = 64
+MMA_MAX_SPLITS = 8
 MIN_RUN_TILES = 4
 SPLIT_ROWS = 256
 WAVE_BLOCKS = 8 * 132
+MMA_WAVE_BLOCKS = 132
 
 #: (device, stream) -> (workspace, counters), grown as shapes need
 _SCRATCH: dict = {}
 
 
-def chunks(hq: int, hkv: int) -> int:
+def route(dtype: torch.dtype, head_dim: int, group: int) -> str:
+    """The kernel a launch takes: ``"mma"`` (tensor cores) for bfloat16 at
+    ``group`` >= 4 q heads per kv head, else ``"split"`` (CUDA cores); the
+    C entry decides alike.  ``head_dim`` does not change it."""
+    return "mma" if dtype == torch.bfloat16 and group >= 4 else "split"
+
+
+def chunks(hq: int, hkv: int, kind: str = "split") -> int:
     """Blocks per kv head and split: its q heads in chunks of at most
-    :data:`MAX_GROUP`."""
-    return -(-(hq // hkv) // MAX_GROUP)
+    ``MAX_GROUP[kind]``."""
+    return -(-(hq // hkv) // MAX_GROUP[kind])
 
 
-def tile_rows(head_dim: int, itemsize: int) -> int:
-    """Cache rows in one tile of the kernel's shared-memory ring."""
+def tile_rows(head_dim: int, itemsize: int, kind: str = "split") -> int:
+    """Cache rows in one tile of the route's shared-memory ring."""
+    if kind == "mma":
+        return MMA_TILE_ROWS[head_dim]
     return TILE_BYTES // (head_dim * itemsize)
 
 
 @functools.lru_cache(maxsize=256)
 def num_splits(b: int, hkv: int, s_len: int, head_dim: int,
-               itemsize: int) -> int:
-    """Splits per slot, the grid's first axis: ``ceil(S / 256)``, raised
-    until ``b * hkv`` slots and heads give :data:`WAVE_BLOCKS` blocks, but
-    no more than ``S`` has tiles, and at most :data:`MAX_SPLITS`."""
+               itemsize: int, kind: str = "split") -> int:
+    """Splits per slot, the grid's first axis, for ``b`` slots of ``hkv``
+    blocks each (kv heads times chunks); never more than ``S`` has tiles.
+    The split route: ``ceil(S / 256)``, raised until the grid has
+    :data:`WAVE_BLOCKS` blocks, at most :data:`MAX_SPLITS`.  The mma route:
+    the splits of a (slot, kv head, chunk) are one thread-block cluster, so
+    a power of two up to :data:`MMA_MAX_SPLITS`, the fewest that give the
+    grid :data:`MMA_WAVE_BLOCKS` blocks (long runs a block; measured
+    fastest, PERF.md)."""
+    tiles = -(-s_len // tile_rows(head_dim, itemsize, kind))
+    if kind == "mma":
+        n = 1
+        while n < MMA_MAX_SPLITS and b * hkv * n < MMA_WAVE_BLOCKS:
+            n *= 2
+        while n > tiles:
+            n //= 2
+        return n
     n = -(-s_len // SPLIT_ROWS)
     if b * hkv * n < WAVE_BLOCKS:
         n = -(-WAVE_BLOCKS // (b * hkv))
-    return max(1, min(n, -(-s_len // tile_rows(head_dim, itemsize)),
-                      MAX_SPLITS))
+    return max(1, min(n, tiles, MAX_SPLITS))
 
 
 def slot_heads(cache: torch.Tensor):
@@ -157,7 +189,8 @@ def _checked(name, q, cache_k, cache_v, valid_len, window):
                          f"{valid_len.dtype} {tuple(valid_len.shape)}")
     if window < 0:
         raise ValueError(f"{name}: window must be >= 0, got {window}")
-    if b > 65535 or hkv * chunks(hq, hkv) > 65535:
+    if b > 65535 or hkv * chunks(hq, hkv, route(q.dtype, q.shape[2],
+                                                hq // hkv)) > 65535:
         raise ValueError(f"{name}: batch and kv heads times chunks must be "
                          f"< 65536")
     kv_slot = slot_heads(cache_k)
@@ -168,11 +201,15 @@ def _checked(name, q, cache_k, cache_v, valid_len, window):
 
 
 def _grid(dev, q, cache_k):
-    """(splits, workspace, counters) of a launch over ``cache_k``."""
+    """(splits, workspace, counters) of a launch over ``cache_k``; the mma
+    route merges its splits in the cluster and takes no workspace."""
     b, hq, hd = q.shape
     _, hkv, s_len, _ = cache_k.shape
-    blocks = hkv * chunks(hq, hkv)   # per slot and split
-    splits = num_splits(b, blocks, s_len, hd, q.element_size())
+    kind = route(q.dtype, hd, hq // hkv)
+    blocks = hkv * chunks(hq, hkv, kind)   # per slot and split
+    splits = num_splits(b, blocks, s_len, hd, q.element_size(), kind)
+    if kind == "mma":
+        return splits, *_scratch(dev, 0, 0)
     ws, counters = _scratch(dev, b * hq * splits * (hd + 2), b * blocks)
     return splits, ws, counters
 
@@ -193,11 +230,11 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
     b, hq, hd = q.shape
     _, hkv, s_len, _ = cache_k.shape
     splits, ws, counters = _grid(dev, q, cache_k)
-    _build.launch("attn_decode_forward", dev, q.data_ptr(),
-                  cache_k.data_ptr(), cache_v.data_ptr(),
-                  valid_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                  counters.data_ptr(), b, hq, hkv, kv_slot, s_len, hd,
-                  DTYPE_CODES[q.dtype], int(window), float(softcap), splits)
+    _build.launch("attn_decode", dev, q.data_ptr(), cache_k.data_ptr(),
+                  cache_v.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
+                  None, ws.data_ptr(), counters.data_ptr(), b, hq, hkv,
+                  kv_slot, s_len, 0, hd, DTYPE_CODES[q.dtype], int(window),
+                  float(softcap), splits)
     LAUNCHES["decode_attention"] += 1
     return out
 
@@ -223,7 +260,7 @@ def decode_attention_partial(q, cache_k, cache_v, valid_len, pos0: int, *,
         return out, lse
     _, hkv, s_len, _ = cache_k.shape
     splits, ws, counters = _grid(dev, q, cache_k)
-    _build.launch("attn_decode_partial", dev, q.data_ptr(),
+    _build.launch("attn_decode", dev, q.data_ptr(),
                   cache_k.data_ptr(), cache_v.data_ptr(),
                   valid_len.data_ptr(), out.data_ptr(), lse.data_ptr(),
                   ws.data_ptr(), counters.data_ptr(), b, hq, hkv, kv_slot,

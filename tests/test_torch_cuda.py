@@ -617,25 +617,69 @@ def _split_decode_holds(dev, q, ck, cv, valid, **kw):
         assert _bf16_steps(got, want) <= 1.0
 
 
+def _run_rows(dtype, B, Hq, Hkv, S, hd):
+    """The rows of a whole cache's run as the route of this launch cuts
+    them (its chunks, tile and split count)."""
+    size = torch.finfo(dtype).bits // 8
+    kind = tda.route(dtype, hd, Hq // Hkv)
+    return tda.split_length(
+        S, tda.num_splits(B, Hkv * tda.chunks(Hq, Hkv, kind), S, hd, size,
+                          kind), tda.tile_rows(hd, size, kind))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("group", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 12, 16, 32])
 def test_split_decode_groups_vs_plain(dev, dtype, hd, group):
-    """Every register instance (q heads per kv head 1, 2, 4, 8) at every
-    head dim, and a group of 16 (two blocks of 8 per kv head): a slot at
-    1, at the edges of the whole cache's run length, past two runs and at
-    the whole cache; with no window, and with a window whose first admitted
-    row (where the runs start) is off a tile boundary."""
+    """Every register instance of the CUDA-core route (q heads per kv head
+    1, 2, 4, 8; float32 at every group) and of the tensor-core route (bf16
+    at 4 and 8, the packed P_hi/P_lo rows; 12, 16, 32 with separate
+    products, 12 no power of two, 32 in two chunks of 16) at every head
+    dim, and a group of 16 on the CUDA cores in float32 (two blocks of 8
+    per kv head): a slot at 1, at the edges of the whole cache's run length
+    (the route's own tile and run arithmetic), past two runs and at the
+    whole cache; with no window, and with a window whose first admitted row
+    (where the runs start) is off a tile boundary."""
     B, Hkv, S = 6, 4, 3000
     q, ck, cv = _decode_inputs(dev, dtype, B, group * Hkv, Hkv, S, hd,
                                group + hd)
-    size = q.element_size()
-    run = tda.split_length(
-        S, tda.num_splits(B, Hkv * tda.chunks(group * Hkv, Hkv), S, hd,
-                          size), tda.tile_rows(hd, size))
+    run = _run_rows(dtype, B, group * Hkv, Hkv, S, hd)
     valid = [1, run - 1, run, run + 1, 2 * run + 3, S]
     _split_decode_holds(dev, q, ck, cv, valid, softcap=30.0, window=0)
     _split_decode_holds(dev, q, ck, cv, valid, softcap=0.0, window=run + 5)
+
+
+@pytest.mark.parametrize("dtype,group,kernel", [
+    (torch.bfloat16, 8, "decode_mma"), (torch.bfloat16, 4, "decode_mma"),
+    (torch.bfloat16, 16, "decode_mma"), (torch.bfloat16, 2, "decode_split"),
+    (torch.float32, 8, "decode_split"), (torch.float32, 1, "decode_split"),
+])
+def test_decode_attention_routes_by_dtype_and_group(dev, dtype, group,
+                                                    kernel):
+    """bf16 at 4 or more q heads per kv head runs the tensor-core kernel,
+    bf16 at 1 or 2 and float32 the CUDA-core one: one launch, the kernel
+    route() names, within the tolerance of the plain version.  The profile
+    window holds one warm launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, ck, cv = _decode_inputs(dev, dtype, 2, 2 * group, 2, 1000, 128, 5)
+    valid = torch.tensor([700, 1000], dtype=torch.int32, device=dev)
+    assert tda.route(dtype, 128, group) == kernel.split("_")[1]
+    with profile(activities=[ProfilerActivity.CUDA]):
+        tda.decode_attention(q, ck, cv, valid)
+        torch.cuda.synchronize()
+    before = ops.launch_counts()["decode_attention"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tda.decode_attention(q, ck, cv, valid)
+        torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    decode = [n for n in names if "decode_" in n]
+    assert len(decode) == 1 and (kernel + "<") in decode[0], names
+    torch.testing.assert_close(
+        got.float(), tref.decode_attention_ref(q, ck, cv, valid).float(),
+        **_tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -656,15 +700,18 @@ def test_split_decode_at_the_serving_split(dev, dtype, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_reads_a_narrowed_cache_in_place(dev, dtype):
+@pytest.mark.parametrize("group", [2, 8])
+def test_decode_reads_a_narrowed_cache_in_place(dev, dtype, group):
     """A block of kv heads narrowed out of a larger cache (a TP rank's
     heads of a replicated cache) is read where it lies: within the
     tolerance of the plain version on the same view, and bit-identical to
-    the kernel on a contiguous copy."""
-    q, ck, cv = _decode_inputs(dev, dtype, 4, 16, 8, 700, 128, 3)
+    the kernel on a contiguous copy; at 2 q heads per kv head (the CUDA
+    cores' bulk copies) and at 8 (bf16: the tensor-core route's TMA maps
+    over the slots' rows)."""
+    q, ck, cv = _decode_inputs(dev, dtype, 4, 8 * group, 8, 700, 128, 3)
     kb, vb = ck.narrow(1, 2, 4), cv.narrow(1, 2, 4)
     assert tda.slot_heads(kb) == 8
-    qb = q[:, 4:12].contiguous()
+    qb = q[:, 2 * group:6 * group].contiguous()
     _split_decode_holds(dev, qb, kb, vb, [1, 300, 700, 64], softcap=30.0,
                         window=0)
     valid = torch.tensor([1, 300, 700, 64], dtype=torch.int32, device=dev)
@@ -674,18 +721,22 @@ def test_decode_reads_a_narrowed_cache_in_place(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,window", [(64, 0), (128, 0), (256, 40)])
-def test_decode_valid_len_zero_is_the_mean_of_v(dev, dtype, hd, window):
+@pytest.mark.parametrize("hd,window,group", [(64, 0, 2), (128, 0, 2),
+                                             (256, 40, 2), (128, 0, 8),
+                                             (256, 40, 8)])
+def test_decode_valid_len_zero_is_the_mean_of_v(dev, dtype, hd, window,
+                                                group):
     """A slot with no admitted row (valid_len 0, or with a window one whose
     window ends past the cache) gets what the plain version and the
     reference give, the mean of V over all S rows, beside a normal slot;
-    a second call is bit-identical."""
-    q, ck, cv = _decode_inputs(dev, dtype, 3, 4, 2, 600, hd, hd)
+    a second call is bit-identical; at 2 q heads per kv head and at 8 (bf16
+    there: the tensor-core route)."""
+    q, ck, cv = _decode_inputs(dev, dtype, 3, 2 * group, 2, 600, hd, hd)
     valid = [0, 300, 600 + window] if window else [0, 300, 0]
     _split_decode_holds(dev, q, ck, cv, valid, softcap=30.0, window=window)
     got = tda.decode_attention(q, ck, cv, torch.tensor(
         valid, dtype=torch.int32, device=dev), softcap=30.0, window=window)
-    mean = cv[0].float().mean(dim=1).repeat_interleave(2, dim=0)
+    mean = cv[0].float().mean(dim=1).repeat_interleave(group, dim=0)
     torch.testing.assert_close(got[0].float(), mean, **_tol(dtype))
 
 
@@ -711,7 +762,7 @@ def _partial_holds(dev, q, ck, cv, valid, pos0, **kw):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,group", [(64, 1), (128, 8), (256, 2),
-                                      (128, 16)])
+                                      (128, 16), (256, 8)])
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (700, 50.0)])
 def test_decode_partial_blocks_vs_plain(dev, dtype, hd, group, window,
                                         softcap):
@@ -747,12 +798,12 @@ def test_launch_helper_raises_on_a_refused_launch(dev):
     q, ck, cv = _decode_inputs(dev, torch.float32, 1, 2, 1, 64, 64, 0)
     valid = torch.ones(1, dtype=torch.int32, device=dev)
     out = torch.empty_like(q)
-    with pytest.raises(RuntimeError, match="attn_decode_forward launch "
+    with pytest.raises(RuntimeError, match="attn_decode launch "
                                            "failed: CUDA error 1"):
-        _build.launch("attn_decode_forward", 0, q.data_ptr(), ck.data_ptr(),
-                      cv.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                      out.data_ptr(), valid.data_ptr(), 1, 2, 1, 1, 64, 64,
-                      0, 0, 0.0, 0)
+        _build.launch("attn_decode", 0, q.data_ptr(), ck.data_ptr(),
+                      cv.data_ptr(), valid.data_ptr(), out.data_ptr(), None,
+                      out.data_ptr(), valid.data_ptr(), 1, 2, 1, 1, 64, 0,
+                      64, 0, 0, 0.0, 0)
 
 
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
