@@ -292,7 +292,11 @@ Phases, each printed on its own line; any failure exits non-zero:
                parameters and optimizer state bit-identical to the
                uninterrupted run's, every bfloat16 leaf written with descr
                ``'<V2'``, a checkpoint's bytes and the save and restore
-               seconds (on tmpfs when it has room).
+               seconds (on tmpfs when it has room); (d) PaliGemma-3B at
+               full width and depth, 4 steps as (a)'s behind 256 patch
+               embeddings, then a fifth held to the dry-run's count of it
+               (phase 18's check 5: launches exactly, peak, roofline), and
+               (b)'s bf16 comparison.
 17. train-ssm-moe -- in phase 16's child: (a) Mamba2-780M at full width and
                depth (48 layers, Mamba-2's published ``dt_bias`` init) and
                DeepSeekMoE-16B at full width cut to its dense first layer
@@ -440,13 +444,17 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-#: NVIDIA H100 SXM published peaks (dense, 700 W): HBM bytes/s and the
-#: 32-bit non-tensor-core operation rate (the float32 rate of the data sheet)
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
-#: the bf16 tensor-core rate, the bound of attention's products
-PEAK_BF16_S = 989e12
+sys.path.insert(0, os.path.join(ROOT, "src"))
+try:
+    # the H100's peak rates and every kernel's bound, one definition with
+    # the dry-run's cost count (numpy only)
+    from repro_torch.kernels.costs import (  # noqa: F401
+        PEAK_BF16_S, PEAK_BYTES_S, PEAK_OPS_S, admitted_pairs,
+        attention_bound, bound, decode_rows, flash_backward_bound,
+        scan_backward_bound, ssd_work,
+    )
+except ImportError:   # alone in its directory: main() says so and fails
+    pass
 #: the first flash kernel's time for phase 6's bf16 pair (float32 FMAs on the
 #: CUDA cores; PERF.md kernel table, row 5, H100 80GB HBM3 at 700 W), printed
 #: beside the tensor-core kernel's for reference
@@ -680,12 +688,6 @@ def device_ms_by_kernel(torch, fn, reps):
     return {e.key[:60]: _device_us(e) / reps / 1e3 for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and _device_us(e)}
-
-
-def bound(nbytes, ops):
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -1534,27 +1536,6 @@ def phase_small(torch):
 # phase 6: the attention kernels vs their plain versions
 # ---------------------------------------------------------------------------
 
-def admitted_pairs(sq, skv, causal, window, prefix=0):
-    """(q, k) pairs the flash mask admits for one (batch, head): with
-    ``causal`` the keys ``k <= q`` and, with a prefix, every ``k <
-    prefix``."""
-    q = np.arange(sq, dtype=np.int64)
-    hi = (np.minimum(np.maximum(q + 1, prefix), skv) if causal
-          else np.full(sq, skv))
-    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
-def decode_rows(valid, window, s):
-    """Cache rows the decode kernel reads for one kv head, summed over the
-    slots, by the kernel's own rule: positions ``[first, hi)`` with
-    ``hi = min(valid, S)`` and ``first = max(0, valid - window + 1)`` for
-    a window, else 0."""
-    valid = np.asarray(valid, np.int64)
-    hi = np.minimum(valid, s)
-    first = np.maximum(valid - window + 1, 0) if window else 0
-    return int(np.maximum(hi - first, 0).sum())
-
 
 def decode_blocks(da, valid, window, s, splits, tile):
     """Blocks of the split-KV decode kernel that hold admitted rows, per kv
@@ -1565,15 +1546,6 @@ def decode_blocks(da, valid, window, s, splits, tile):
         if rows > 0:
             n += -(-rows // da.split_length(rows, splits, tile))
     return n
-
-
-def attention_bound(pairs, heads, hd, nbytes):
-    """4 * hd flops per admitted (query, key) pair and head at the bf16
-    tensor-core rate, or the bytes read and written once, whichever is
-    larger."""
-    t_ops = pairs * heads * 4 * hd / PEAK_BF16_S * 1e3
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
 
 def ptxas_entries(report):
@@ -2405,16 +2377,6 @@ def phase_attention_families(torch, randn):
 # phase 8: the SSD scan and the MoE gather vs their plain versions
 # ---------------------------------------------------------------------------
 
-def ssd_work(b, h, s, p, n, chunk):
-    """Operations of the chunked formulation at ``chunk`` positions:
-    per chunk and head, the masked scores ``C B^T`` and their product with
-    ``x dt`` over the causal half (``c (c + 1) / 2`` pairs, ``N + P`` each)
-    and the carry-in and state products (``c N P`` each), 2 flops per
-    multiply-add."""
-    full, tail = divmod(s, chunk)
-    pairs = full * chunk * (chunk + 1) // 2 + tail * (tail + 1) // 2
-    return 2 * b * h * (pairs * (n + p) + 2 * s * n * p)
-
 
 def old_state_effect(scan, x, dt, A, Bm, Cm, tol, chunk):
     """How far the contributions older than one whole ``chunk`` move y, in
@@ -2648,21 +2610,6 @@ SCAN_BWD_SHAPES = (
 #: DeepSeekMoE-16B's dispatch of one training row: 64 experts, top 6,
 #: capacity 480 at 4,096 tokens
 GATHER_BWD_TOKENS = 4096
-
-
-def scan_backward_bound(b, h, s, p, n, groups, elem):
-    """The scan backward's least time: its bytes (x, dy, dx and B, C, dB,
-    dC of the groups in ``elem`` bytes, dt and ddt float32, each once) at
-    the memory rate, or its least operations, the recurrence's backward (per
-    position and head the state recomputed, its gradient passed back and
-    dx, dB, dC: 5 N P multiply-adds) at the bf16 tensor-core rate."""
-    nbytes = elem * (3 * b * h * s * p + 4 * b * groups * s * n) \
-        + 4 * (2 * b * h * s + 2 * h)
-    ops_n = 10 * b * h * s * n * p
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops_n / PEAK_BF16_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, ops_n
 
 
 def scan_route_bytes(b, h, s, p, n, chunk):
@@ -4601,18 +4548,6 @@ def _grad_close(torch, got, want, what, steps, f32_rel=F32_GRAD_REL,
     return err / scale, err
 
 
-def flash_backward_bound(pairs, hq, hkv, sq, skv, hd, elem):
-    """The backward's least time: 2.5x the forward's products (10 * hd
-    flops per admitted pair and head) at the bf16 tensor-core rate, or the
-    bytes read once (q, k, v, o, dO, lse) and written once (dq, dk, dv)."""
-    t_ops = pairs * hq * 10 * hd / PEAK_BF16_S * 1e3
-    nbytes = elem * (3 * hq * sq * hd + 2 * hkv * skv * hd) + 4 * hq * sq \
-        + elem * (hq * sq * hd + 2 * hkv * skv * hd)
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes")
-
-
 def phase_flash_backward(torch):
     """The training path's flash backward (three kernels a call, four in
     bf16 at hd 256) and the
@@ -4940,10 +4875,12 @@ def _timed_train_run(torch, step, data, cfg, params, opt, steps=TRAIN_STEPS):
 
 
 def _train_and_profile(torch, name, base, knobs, opt_cfg, data, seed,
-                       steps):
+                       steps, hold=False):
     """A model trained on the card from ``seed``'s weights, (a)'s run:
     ``build_train_step`` with ``knobs`` under :func:`_timed_train_run` for
-    ``steps`` steps, then one more step profiled.  Checks the losses
+    ``steps`` steps (with ``hold``, one more under
+    :func:`_hold_train_count`), then one more step profiled.  Checks the
+    losses
     finite, the peak memory under 80 GB and each step's launches (the flash
     forward twice a layer and microbatch under remat, the backward once,
     nothing else).  Returns the record (losses, step ms and their median,
@@ -4979,6 +4916,8 @@ def _train_and_profile(torch, name, base, knobs, opt_cfg, data, seed,
                   if key not in ("flash_attention",
                                  "flash_attention_backward")),
               f"{name} step {i}: another kernel launched: {c}")
+    held = _hold_train_count(torch, name, base, step, params, opt,
+                             data.batch_at(steps)) if hold else None
     tokens_per_step = TRAIN_SEQ * TRAIN_ROWS * k
     step_ms = float(np.median(walls[1:])) * 1e3
     flops_tok = T.model_flops_per_token(base, params)
@@ -5006,10 +4945,32 @@ def _train_and_profile(torch, name, base, knobs, opt_cfg, data, seed,
         mfu_bf16_dense=mflops / PEAK_BF16_S, max_memory_allocated=peak,
         launches=run["counts"], launches_per_step=per_step[0],
         profiled_step=prof, flash_backward_device_share=bwd_share,
-        logs=run["logs"])
+        logs=run["logs"], **({"count_held": held} if hold else {}))
     del params, opt, step
     torch.cuda.empty_cache()
     return rec, metrics[0], run_cfg
+
+
+def _hold_train_count(torch, name, cfg, step, params, opt, batch):
+    """Phase 18's check 5 for a train step: the dry-run's count of
+    ``step`` on ``meta`` arguments of the run's shapes (a model of ``cfg``,
+    its AdamW state, ``batch``'s), held by :func:`_hold_count` to one more
+    step of the run on the card, on ``batch``."""
+    from repro_torch.launch.cost_analysis import tensors_of
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    meta = T.Transformer(cfg, device="meta")
+    args = [meta, adamw.init_state(meta), _meta_like(torch, batch)]
+    counted, count_s = _count_step(step, args)
+    shapes = [[(tuple(t.shape), t.dtype) for t in tensors_of(a)]
+              for a in (args, [params, opt, batch])]
+    check(shapes[0] == shapes[1],
+          f"{name}: the count's arguments are not the card step's")
+    base = _card_window(torch)
+    _, ms = _step_timed(torch, lambda: step(params, opt, batch))
+    return _hold_count(torch, f"{name} train step", counted, count_s, base,
+                       ms)
 
 
 def _first_step(torch, cfg, batch, seed, mode):
@@ -5273,8 +5234,9 @@ def phase_train_paligemma(torch, seed, smi, fault=None):
     """Phase 16 (d): PaliGemma-3B trained on the card at full width and
     depth by (a)'s :func:`_train_and_profile`: ``knobs_for``'s microbatches
     and remat, 4 steps of TRAIN_4K rows behind 256 patch embeddings (4,352
-    positions, the prefix-LM mask: the bf16 hd-256 flash backward), then
-    check (ii)'s bf16 comparison as (b)'s.  With ``fault`` ("flash",
+    positions, the prefix-LM mask: the bf16 hd-256 flash backward) and a
+    fifth held to the dry-run's count of it (phase 18's check 5: launches,
+    peak, roofline), then check (ii)'s bf16 comparison as (b)'s.  With ``fault`` ("flash",
     calibration) only that comparison runs, the fault planted in kernel
     mode, its limits read and not enforced.  Returns the run's launch
     counts."""
@@ -5314,7 +5276,7 @@ def phase_train_paligemma(torch, seed, smi, fault=None):
 
     rec, first, run_cfg = _train_and_profile(
         torch, PALI_MODEL, base, knobs, adamw.AdamWConfig(**PALI_OPT), data,
-        seed, PALI_STEPS)
+        seed, PALI_STEPS, hold=True)
     say("train", part="d", **rec,
         reduced=dict(global_batch=f"256 -> {TRAIN_ROWS * k} rows (one "
                      f"card, a smoke run's time)",
@@ -5767,6 +5729,75 @@ LONG_REF_HEADS = 8
 #: segment when that is under 1 MiB (kSmallSize); a small one is rounded
 #: up to 512 bytes
 ALLOC_TAIL = 1 << 20
+#: check 5 (b), the dry-run's counted peak against the allocator's
+#: ``max_memory_allocated``, both above the arguments: within this share
+#: of the card's reading plus ``PEAK_SLACK`` bytes, the allocator's
+#: rounding of the blocks live at the peak (512 bytes a block; 8,184 and
+#: 10,072 bytes off at the two serve steps' peaks of 1.5 and 4.8 MB,
+#: PERF.md).  Scratch the wrappers keep across calls (decode's merge
+#: workspace, 1.2 MB at DECODE_32K's 2 rows) is not the step's: a serve
+#: step before the window allocates it, and the count takes none
+PEAK_REL = 0.05
+PEAK_SLACK = 64 << 10
+
+
+def _count_step(step, args):
+    """The dry-run's count of one step (``cost_analysis.analyze_step``) on
+    ``meta`` inputs of the shapes the card run gives it, and its seconds."""
+    from repro_torch.launch import cost_analysis
+
+    t0 = time.perf_counter()
+    counted = cost_analysis.analyze_step(step, args)
+    return counted, time.perf_counter() - t0
+
+
+def _meta_like(torch, tree):
+    """``meta`` tensors of a batch dict's shapes and dtypes."""
+    return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in tree.items()}
+
+
+def _card_window(torch):
+    """Opens a card window for :func:`_hold_count`: synchronizes, resets
+    the peak and the launch counts, returns ``memory_allocated``."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    return torch.cuda.memory_allocated()
+
+
+def _hold_count(torch, what, counted, count_s, base, ms, steps=1):
+    """Checks (a)-(c) of the count of one step against ``steps`` runs of it
+    on the card since :func:`_card_window` returned ``base``: (a) its
+    kernel launches times ``steps`` equal ``ops.launch_counts()`` entry by
+    entry; (b) its peak within :data:`PEAK_REL` of ``max_memory_allocated``
+    above ``base``, plus :data:`PEAK_SLACK`; (c) its roofline beside the
+    measured ``ms`` a step (printed only)."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    card = {k: v for k, v in ops.launch_counts().items() if v}
+    want = {k: v * steps for k, v in counted.kernel_launches.items()}
+    check(card == want, f"{what}: the count's kernel launches {want}, the "
+          f"card's {card}")
+    card_peak = torch.cuda.max_memory_allocated() - base
+    off = abs(counted.peak_bytes - card_peak)
+    rel = off / max(card_peak, 1)
+    check(off <= PEAK_REL * card_peak + PEAK_SLACK,
+          f"{what}: counted peak {counted.peak_bytes} B, the card's "
+          f"{card_peak} B above the arguments ({rel:.4f} off)")
+    roof = counted.roofline_ms()
+    return dict(count_seconds=count_s, launches=want,
+                counted_peak_bytes=counted.peak_bytes,
+                card_peak_bytes=card_peak, peak_rel_diff=rel,
+                peak_limit=f"{PEAK_REL} x card + {PEAK_SLACK} B",
+                flops=counted.flops,
+                dot_flops=counted.dot_flops, hbm_bytes=counted.hbm_bytes,
+                roofline_ms=roof, measured_ms=ms,
+                roofline_share=roof / ms if ms else None,
+                warnings=counted.warnings)
 
 
 def _tensors(torch, tree):
@@ -5952,10 +5983,14 @@ def _launch_dense(torch, seed, layout):
     mem = _bytes_check("prefill_32k", dryrun.cell_bytes(cell, layout),
                        _plus(params_grown, grown),
                        _tensors(torch, (params, caches, batch)))
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
+    meta_cell = St.build_cell(cfg, shape, layout, device="meta")
+    counted, count_s = _count_step(meta_cell.step,
+                                   list(meta_cell.specs.values()))
+    base = _card_window(torch)
     (tok, caches), ms = _step_timed(
         torch, lambda: cell.step(params, caches, batch))
+    costs = {"prefill step": _hold_count(torch, "prefill_32k", counted,
+                                         count_s, base, ms)}
     counts = ops.launch_counts()
     paths.append(counts)
     peak = torch.cuda.max_memory_allocated()
@@ -5998,7 +6033,7 @@ def _launch_dense(torch, seed, layout):
         prompt_tokens=LAUNCH_ROWS * s, step_ms=ms,
         prefill_ms_per_prompt_token=ms / (LAUNCH_ROWS * s),
         launches=counts, check1="bit-identical to prefill_forward + argmax",
-        check2=mem, peak_bytes=peak,
+        check2=mem, peak_bytes=peak, dryrun_count=costs,
         flash=dict(kernel_ms=flash_ms, bound_ms=f_bound, bound_by=f_by,
                    bound_share=f_bound / flash_ms, launches_in_step=n_layers,
                    max_abs_err=flash_err, bf16_rounding_steps=flash_step,
@@ -6024,15 +6059,32 @@ def _launch_dense(torch, seed, layout):
     tokens = torch.randint(0, cfg.vocab_size, (LAUNCH_ROWS, prompt),
                            generator=gen, device=dev, dtype=torch.int32)
     prefill = St.build_prefill_step(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
+    meta_cell = St.build_cell(cfg, shape, layout, device="meta")
+    specs = meta_cell.specs
+    counted_pre, pre_s = _count_step(prefill, [
+        specs["params"], specs["caches"], _meta_like(torch,
+                                                     {"tokens": tokens})])
+    counted_dec, dec_s = _count_step(meta_cell.step, list(specs.values()))
+    base = _card_window(torch)
     (tok, caches), pre_ms = _step_timed(
         torch, lambda: prefill(params, caches, {"tokens": tokens}))
+    costs = {"prefill step": _hold_count(torch, "decode_32k prefill",
+                                         counted_pre, pre_s, base, pre_ms)}
+    counts = ops.launch_counts()
     after_prefill = _clone_caches(caches)
+    # the first serve step once before the window (it writes its cache row
+    # again in the window): decode's merge workspace, which the wrapper
+    # keeps across calls, is allocated before check 5 reads the peak
+    batch["tokens"].copy_(tok[:, None])
+    batch["index"].fill_(prompt)
+    cell.step(params, caches, batch)
+    base = _card_window(torch)
     toks, step_ms = _serve_steps(torch, cell.step, params, caches, batch,
                                  tok, prompt)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    costs["serve step"] = _hold_count(
+        torch, "decode_32k serve", counted_dec, dec_s, base,
+        float(np.median(step_ms)), steps=LAUNCH_STEPS)
+    counts = {k: v + ops.launch_counts()[k] for k, v in counts.items()}
     paths.append(counts)
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention": n_layers,
@@ -6074,7 +6126,7 @@ def _launch_dense(torch, seed, layout):
             step_ms)), decode_ms_steps=step_ms, launches=counts,
         check1=f"{LAUNCH_STEPS} steps bit-identical to decode_forward + "
                "argmax",
-        check2=mem, peak_bytes=peak,
+        check2=mem, serve_peak_bytes=peak, dryrun_count=costs,
         decode=dict(kernel_ms=dec_ms, bound_ms=d_bound, bound_by=d_by,
                     bound_share=d_bound / dec_ms,
                     launches_in_run=n_layers * LAUNCH_STEPS,
@@ -6195,16 +6247,26 @@ def _launch_long(torch, seed, layout, fault=None):
     prefill = St.build_prefill_step(cfg)
     out = {}
     if fault is None:
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
+        specs = St.build_cell(cfg, LONG_500K, layout, device="meta").specs
+        counted_pre, pre_s = _count_step(prefill, [
+            specs["params"], specs["caches"],
+            _meta_like(torch, {"tokens": tokens})])
+        counted_dec, dec_s = _count_step(cell.step, list(specs.values()))
+        base = _card_window(torch)
         (tok, caches), pre_ms = _step_timed(
             torch, lambda: prefill(params, caches, {"tokens": tokens}))
         pre_peak = torch.cuda.max_memory_allocated()
+        costs = {"prefill step": _hold_count(
+            torch, "long_500k prefill", counted_pre, pre_s, base, pre_ms)}
+        counts = ops.launch_counts()
         after_prefill = _clone_caches(caches)
+        base = _card_window(torch)
         toks, step_ms = _serve_steps(torch, cell.step, params, caches,
                                      batch, tok, prompt)
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
+        costs["serve step"] = _hold_count(
+            torch, "long_500k serve", counted_dec, dec_s, base,
+            float(np.median(step_ms)), steps=LAUNCH_STEPS)
+        counts = {k: v + ops.launch_counts()[k] for k, v in counts.items()}
         check(counts["ssd_scan"] == n_layers,
               f"long_500k: {counts['ssd_scan']} scan launches, expected "
               f"{n_layers}")
@@ -6217,7 +6279,8 @@ def _launch_long(torch, seed, layout, fault=None):
               "long_500k: build_serve_step differs from decode_forward")
         out.update(prefill_ms=pre_ms,
                    prefill_ms_per_prompt_token=pre_ms / prompt,
-                   prefill_peak_bytes=pre_peak, serve_steps=LAUNCH_STEPS,
+                   prefill_peak_bytes=pre_peak, dryrun_count=costs,
+                   serve_steps=LAUNCH_STEPS,
                    decode_ms_per_step=float(np.median(step_ms)),
                    decode_ms_steps=step_ms, launches=counts)
         del caches, replay
@@ -6312,7 +6375,14 @@ def phase_launch(torch, seed, smi, fault=None):
     allocator's requested bytes (``memory_allocated`` within its block
     rounding); (3) the 524,272-token prefill against the same prompt in
     pieces of 8,192 with the state carried; (4) the flash, decode and scan
-    kernels at these shapes against their plain versions.  Returns the
+    kernels at these shapes against their plain versions; (5) each step's
+    count by the dry-run (``cost_analysis.analyze_step`` on ``meta``, made
+    before the card run) held to the card: (a) its kernel launches equal to
+    the card's launch counters exactly, (b) its peak above the arguments
+    within :data:`PEAK_REL` of ``max_memory_allocated``'s (plus
+    :data:`PEAK_SLACK`), (c) its roofline
+    printed beside the measured time (:func:`_hold_count`; phase 16 (d)
+    holds a train step alike).  Returns the
     main runs' launch counts.  With
     ``fault`` (``scan``) only (b)'s check 3 runs, read and not enforced,
     with the fault planted."""
@@ -6501,6 +6571,39 @@ def sharded_wire(cfg, cell, rows, prompt, new):
                 ring("all_reduce", r * cfg.d_model * elem, n_tp)
         ring("all_gather", n_tp * rows * 2 * 8, n_tp)
     return out
+
+
+def counted_wire(torch, cfg, shape, layout, coords, knobs, tokens=None,
+                 new=0, train=None):
+    """The dry-run's count of one rank's wire bytes by family: the cell
+    built on a counting mesh at ``coords`` of ``layout`` and run on
+    ``meta`` (``cost_analysis.analyze_step``), a prefill of ``tokens``'
+    shape and ``new`` serve steps, each step's bytes added in the run's
+    order; with ``train`` (the step's knobs and AdamW config) that cell's
+    train step on its rank inputs instead."""
+    from repro_torch.launch import cost_analysis as ca
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import counting_mesh
+
+    cell = St.build_cell(cfg, shape, layout, device="meta",
+                         mesh=counting_mesh(layout, coords), **knobs)
+    args = ca.rank_inputs(cell)
+    if train is not None:
+        step = St.build_train_step(cfg, *train, rules=cell.rules)
+        return ca.analyze_step(step, list(args.values())) \
+            .collective_breakdown
+    meta = functools.partial(torch.empty, device="meta")
+    total = ca.analyze_step(St.build_prefill_step(cfg, cell.rules), [
+        args["params"], args["caches"],
+        {"tokens": meta(tokens.shape, dtype=tokens.dtype)}]) \
+        .collective_breakdown
+    serve = ca.analyze_step(St.build_serve_step(cfg, cell.rules), [
+        args["params"], args["caches"],
+        {"tokens": meta((tokens.shape[0], 1), dtype=tokens.dtype),
+         "index": meta((), dtype=torch.int64)}]).collective_breakdown
+    for _ in range(new):
+        total = {k: v + serve[k] for k, v in total.items()}
+    return total
 
 
 def _sharded_one_rank(torch, seed):
@@ -6785,6 +6888,12 @@ def sharded_rank(torch, rank, port, out_dir, seed):
             rec[f"{dtype}_wire_bytes"] = wire
             rec[f"{dtype}_wire_closed_form"] = closed
             if main:
+                # the dry-run's count at this rank's coordinates
+                counted = counted_wire(torch, cfg, shape, layout,
+                                       live.coords, knobs, tokens, new)
+                flags[f"{label}/counted_wire/rank{rank}"] = counted == wire
+                rec[f"counted_wire_rank{rank}"] = counted
+            if main:
                 rec["bf16_vs_ops_ref"] = _sharded_check_i(
                     torch, dist, ml, ops, tmoe, St, cfg, cell, params, tokens,
                     new, run, rank, label, flags)
@@ -6838,9 +6947,16 @@ def sharded_rank(torch, rank, port, out_dir, seed):
     opt = adamw.init_state(params)
     step = St.build_train_step(cfg, step_knobs, opt_cfg, rules=tcell.rules)
     ops.reset_launch_counts()
+    ml.reset_wire_bytes()
     params, opt, metrics = step(params, opt, shard)
     torch.cuda.synchronize()
     counts.append(ops.launch_counts())
+    wire = ml.wire_bytes()
+    counted = counted_wire(torch, cfg, tshape, live.layout, live.coords,
+                           dict(knobs, microbatches=1, remat=False),
+                           train=(step_knobs, opt_cfg))
+    flags[f"train/counted_wire/rank{rank}"] = counted == wire
+    train_wire = dict(wire=wire, counted=counted)
     flags["train/launches"] = all(counts[-1][k] > 0 for k in (
         "flash_attention", "flash_attention_backward", "moe_gather",
         "moe_gather_backward", "token_rows_table"))
@@ -6859,6 +6975,7 @@ def sharded_rank(torch, rank, port, out_dir, seed):
                                  and loose <= TRAIN_F32_LOOSE)
         report["train-deepseek-dp2"] = dict(
             layers=SHARD_TRAIN_LAYERS, rows=SHARD_ROWS, seq=SHARD_TRAIN_SEQ,
+            wire_rank0=train_wire,
             launches={k: v for k, v in counts[-1].items() if v},
             loss=loss, loss_one_rank=loss1,
             param_max_abs_err=float(errs.max()), share_beyond_1e6=loose,

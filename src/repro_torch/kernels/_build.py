@@ -20,7 +20,15 @@ host's time per call near that of one PyTorch operator:
   the libraries are loaded), on the raw current stream of that device (no
   ``torch.cuda.Stream`` object), entering a device context only when the
   tensors are not on the current device, and raises ``RuntimeError`` on a
-  nonzero return code.
+  nonzero return code;
+- :func:`count` adds the launch to the wrapper's ``LAUNCHES``.
+
+Inside a cost count (``ops.cost_count``) the wrappers also take ``meta``
+tensors: :func:`check_cuda` gives them the index :data:`META`, the wrapper
+allocates its outputs and workspaces as on the card, :func:`launch` makes
+no call, and :func:`count` reports the launch with its closed form
+(:mod:`repro_torch.kernels.costs`) to the count instead of adding it to
+``LAUNCHES``.  So the count sees each wrapper's own allocations.
 
 Nothing here runs at import time.  :func:`library` builds on first use, so
 ``python3 chip_smoke.py`` alone builds everything.
@@ -210,13 +218,22 @@ def library() -> types.SimpleNamespace:
         return _LIB
 
 
+#: the report callbacks of the active cost counts (``ops.cost_count``),
+#: innermost last
+COUNTS: list = []
+#: the device index :func:`check_cuda` gives ``meta`` tensors inside a cost
+#: count (their ``get_device()``)
+META = -1
+
+
 def check_cuda(names, *tensors, contiguous: bool = True) -> int:
     """All ``tensors`` (called ``names`` in a refusal) on one CUDA device,
     and contiguous unless ``contiguous`` is False (a kernel that reads
-    strided views checks their strides itself); returns the device's index.
-    The checks read the cheapest tensor properties: the first tensor is on
-    CUDA, and every one has its device index (``get_device()``, -1 on the
-    CPU; a build has one accelerator)."""
+    strided views checks their strides itself); returns the device's index,
+    or :data:`META` for ``meta`` tensors inside a cost count.  The checks
+    read the cheapest tensor properties: the first tensor is on CUDA, and
+    every one has its device index (``get_device()``, -1 on the CPU; a
+    build has one accelerator)."""
     first = tensors[0]
     dev = first.get_device() if isinstance(first, torch.Tensor) \
         and first.is_cuda else -1
@@ -227,6 +244,10 @@ def check_cuda(names, *tensors, contiguous: bool = True) -> int:
                 break
         else:
             return dev
+    if COUNTS and all(isinstance(t, torch.Tensor) and t.is_meta
+                      and (not contiguous or t.is_contiguous())
+                      for t in tensors):
+        return META
     where = None
     for name, t in zip(names, tensors):  # the refusal's message
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
@@ -251,7 +272,9 @@ _current_device = getattr(torch._C, "_cuda_getDevice", None)
 def launch(name: str, device: int, *args) -> None:
     """Call the entry point ``name`` with ``args`` and the current stream of
     CUDA device ``device`` (from :func:`check_cuda`); raise if it returns a
-    CUDA error (a launch the card refused)."""
+    CUDA error (a launch the card refused).  On :data:`META`, nothing."""
+    if device == META:
+        return
     fn = _ENTRIES.get(name) or getattr(library(), name)
     if device == _current_device():
         rc = fn(*args, current_stream(device))
@@ -260,3 +283,16 @@ def launch(name: str, device: int, *args) -> None:
             rc = fn(*args, current_stream(device))
     if rc:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def count(launches: dict, entry: str, device: int, cost,
+          note: Optional[str] = None) -> None:
+    """One launch of ``entry`` made on ``device``: added to ``launches`` (a
+    wrapper's ``LAUNCHES``), or on :data:`META` reported to the innermost
+    cost count as ``(entry, cost(), note)``, ``cost`` a closed form of
+    :mod:`repro_torch.kernels.costs` taking no arguments and ``note`` what
+    the count cannot see."""
+    if device == META:
+        COUNTS[-1](entry, cost(), note)
+    else:
+        launches[entry] += 1

@@ -42,7 +42,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels._build import check_cuda
 from repro_torch.kernels.flash_attention import (
     DTYPE_CODES,
@@ -150,7 +150,11 @@ def split_length(rows: int, splits: int, tile: int) -> int:
 
 def _scratch(dev: int, n_ws: int, n_counters: int):
     """The merge's float32 workspace (at least ``n_ws``) and zeroed int32
-    counters (at least ``n_counters``) of the current stream."""
+    counters (at least ``n_counters``) of the current stream; kept across
+    calls, so a cost count (:data:`~repro_torch.kernels._build.META`) takes
+    none."""
+    if dev == _build.META:
+        return (torch.empty(0, device="meta"),) * 2
     key = (dev, _build.current_stream(dev))
     ws, counters = _SCRATCH.get(key, (None, None))
     if ws is None or ws.numel() < n_ws or counters.numel() < n_counters:
@@ -235,7 +239,7 @@ def decode_attention(q, cache_k, cache_v, valid_len, *, softcap: float = 0.0,
                   None, ws.data_ptr(), counters.data_ptr(), b, hq, hkv,
                   kv_slot, s_len, 0, hd, DTYPE_CODES[q.dtype], int(window),
                   float(softcap), splits)
-    LAUNCHES["decode_attention"] += 1
+    _count("decode_attention", dev, q, s_len, hkv, window, softcap)
     return out
 
 
@@ -266,5 +270,19 @@ def decode_attention_partial(q, cache_k, cache_v, valid_len, pos0: int, *,
                   ws.data_ptr(), counters.data_ptr(), b, hq, hkv, kv_slot,
                   s_len, int(pos0), hd, DTYPE_CODES[q.dtype], int(window),
                   float(softcap), splits)
-    LAUNCHES["decode_attention_partial"] += 1
+    _count("decode_attention_partial", dev, q, s_len, hkv, window, softcap)
     return out, lse
+
+
+def _count(entry, dev, q, s_len, hkv, window, softcap):
+    """Count the launch (a cost count, which cannot read ``valid_len``,
+    takes every slot's whole cache)."""
+    b, hq, hd = q.shape
+    _build.count(LAUNCHES, entry, dev,
+                 lambda: costs.decode_attention_cost(
+                     b, hq, hkv, s_len, hd, q.element_size(),
+                     b * costs.decode_rows(s_len, window, s_len),
+                     softcap=softcap,
+                     partial=entry == "decode_attention_partial"),
+                 f"{entry}: valid_len is data; costed over every slot's "
+                 f"whole cache")

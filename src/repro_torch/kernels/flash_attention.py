@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels._build import check_cuda
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "FlashAttentionFunction",
@@ -91,6 +91,8 @@ def workspace_floats(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int,
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: int) -> int:
+    if device == _build.META:
+        return H100_SMS
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -207,7 +209,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                   None if lse is None else lse.data_ptr(), b, hq, hkv, sq,
                   skv, hd, DTYPE_CODES[q.dtype], int(causal), int(window),
                   float(softcap), int(prefix_len))
-    LAUNCHES["flash_attention"] += 1
+    _build.count(LAUNCHES, "flash_attention", dev,
+                 lambda: costs.flash_attention_cost(
+                     b, hq, hkv, sq, skv, hd, q.element_size(),
+                     lse=lse is not None, causal=causal, window=window,
+                     softcap=softcap, prefix_len=prefix_len))
     dead = dead_rows_start(sq, skv, window)
     if dead < sq:
         mean_v = v.float().mean(dim=2, keepdim=True)
@@ -250,7 +256,11 @@ def flash_attention_backward(q, k, v, o, lse, dout, *, causal: bool = True,
                   dv.data_ptr(), work.data_ptr(), b, hq, hkv, sq, skv, hd,
                   DTYPE_CODES[q.dtype], int(causal), int(window),
                   float(softcap), int(prefix_len), splits)
-    LAUNCHES["flash_attention_backward"] += 1
+    _build.count(LAUNCHES, "flash_attention_backward", dev,
+                 lambda: costs.flash_attention_backward_cost(
+                     b, hq, hkv, sq, skv, hd, q.element_size(),
+                     causal=causal, window=window, softcap=softcap,
+                     prefix_len=prefix_len))
     return dq, dk, dv
 
 

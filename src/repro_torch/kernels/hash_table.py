@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels._build import check_cuda
 
 __all__ = ["LAUNCHES", "batched_table_lookup", "check_lookup",
@@ -95,7 +95,8 @@ def table_lookup(cell_keys, cell_starts, table_keys, table_starts,
                       cell_starts.data_ptr(), table_keys.data_ptr(),
                       table_starts.data_ptr(), table_occ.data_ptr(),
                       out.data_ptr(), n, total, max_probes)
-        LAUNCHES["table_lookup"] += 1
+        _build.count(LAUNCHES, "table_lookup", dev,
+                     lambda: costs.table_lookup_cost(n, total, max_probes))
     return out
 
 
@@ -121,5 +122,7 @@ def batched_table_lookup(cell_owners, cell_keys, cell_starts, table_keys,
                       cell_starts.data_ptr(), table_keys.data_ptr(),
                       table_starts.data_ptr(), table_occ.data_ptr(),
                       out.data_ptr(), n, total, capacity, max_probes)
-        LAUNCHES["batched_table_lookup"] += 1
+        _build.count(LAUNCHES, "batched_table_lookup", dev,
+                     lambda: costs.batched_table_lookup_cost(n, total,
+                                                             max_probes))
     return out

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels._build import check_cuda
 
 __all__ = ["LAUNCHES", "MoeGatherFunction", "moe_gather",
@@ -67,7 +67,8 @@ def moe_gather(x, row_token) -> torch.Tensor:
     unit = _unit(row_bytes, x.data_ptr(), out.data_ptr())
     _build.launch("moe_gather_forward", dev, x.data_ptr(),
                   row_token.data_ptr(), out.data_ptr(), r, t, row_bytes, unit)
-    LAUNCHES["moe_gather"] += 1
+    _build.count(LAUNCHES, "moe_gather", dev,
+                 lambda: costs.moe_gather_cost(r, d, x.element_size()))
     return out
 
 
@@ -92,7 +93,8 @@ def token_rows_table(row_token, num_tokens: int,
     if num_tokens:
         _build.launch("moe_token_table", dev, row_token.data_ptr(),
                       table.data_ptr(), r, num_tokens, k)
-        LAUNCHES["token_rows_table"] += 1
+        _build.count(LAUNCHES, "token_rows_table", dev,
+                     lambda: costs.token_rows_table_cost(r, num_tokens, k))
     return table
 
 
@@ -136,13 +138,15 @@ def moe_gather_backward(dout, row_token, num_tokens: int, *,
     _build.launch("moe_gather_backward", dev, dout.data_ptr(),
                   table.data_ptr(), dx.data_ptr(), num_tokens,
                   table.shape[1], r, d, DTYPE_CODES[dout.dtype], int(vec))
-    LAUNCHES["moe_gather_backward"] += 1
+    _build.count(LAUNCHES, "moe_gather_backward", dev,
+                 lambda: costs.moe_gather_backward_cost(
+                     num_tokens, r, d, table.shape[1], dout.element_size()))
     return dx
 
 
 class MoeGatherFunction(torch.autograd.Function):
     """:func:`moe_gather` with its gradient from :func:`moe_gather_backward`
-    (CUDA tensors), or ``ref.moe_gather_ref`` with
+    (CUDA tensors, and ``meta`` ones in a cost count), or ``ref.moe_gather_ref`` with
     ``ref.moe_gather_backward_ref`` (CPU tensors).  ``apply(x, row_token,
     max_rows_per_token, table=None)``; x contiguous, row_token int32;
     ``table`` the rows' :func:`token_rows_table`, which the backward reads
@@ -154,7 +158,7 @@ class MoeGatherFunction(torch.autograd.Function):
 
         ctx.save_for_backward(row_token, table)
         ctx.num_tokens, ctx.bound = x.shape[0], max_rows_per_token
-        if x.is_cuda:
+        if not x.is_cpu:
             return moe_gather(x, row_token)
         return ref.moe_gather_ref(x, row_token)
 
@@ -163,7 +167,7 @@ class MoeGatherFunction(torch.autograd.Function):
         from repro_torch.kernels import ref
 
         row_token, table = ctx.saved_tensors
-        if dout.is_cuda:
+        if not dout.is_cpu:
             dx = moe_gather_backward(dout.contiguous(), row_token,
                                      ctx.num_tokens,
                                      max_rows_per_token=ctx.bound,

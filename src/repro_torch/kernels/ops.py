@@ -17,6 +17,17 @@ combine read; the MoE combine has no kernel and takes its plain version
 There is no fallback: a CUDA tensor in ``auto`` mode gets the kernel or an
 exception.  The wrappers count their launches (:func:`launch_counts`).
 
+Cost counts (:mod:`repro_torch.launch.cost_analysis`): inside
+:func:`cost_count`, a ``meta`` tensor into an entry takes the kernel route
+(``auto`` and ``kernel`` modes): the CUDA wrapper and its
+``autograd.Function`` run on ``meta``, allocating what they allocate on
+the card, and each launch is reported with its closed form
+(:mod:`~repro_torch.kernels.costs`) to the count instead of being made
+(:mod:`~repro_torch.kernels._build`).  Scratch that the wrappers keep
+across calls (decode's merge workspace, the sorted reduce's look-back
+records) is not allocated.  Outside a count a ``meta`` tensor takes the
+plain version, as a CPU tensor does.
+
 Gradients (training): on the CPU, and in mode ``"ref"``, every function is
 plain PyTorch, which autograd differentiates.  Where the kernels run,
 :func:`flash_attention`, :func:`ssd_scan` and :func:`moe_gather` are
@@ -31,10 +42,12 @@ rather than return an output without a gradient.
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Callable, Dict, Iterator
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _dk
 from repro_torch.kernels import flash_attention as _fk
 from repro_torch.kernels import hash_table as _ht
@@ -55,10 +68,13 @@ def use_kernels(mode: str) -> None:
 
 
 def kernels_active(device) -> bool:
-    """True when tensors on ``device`` dispatch to the CUDA kernels."""
+    """True when tensors on ``device`` dispatch to the CUDA kernels (or,
+    on ``meta`` inside :func:`cost_count`, to their wrappers)."""
     dev = torch.device(device)
     if _MODE == "ref":
         return False
+    if dev.type == "meta" and _build.COUNTS:
+        return True
     if _MODE == "kernel":
         if dev.type != "cuda":
             raise RuntimeError(f"ops mode 'kernel' needs CUDA tensors, got {dev}")
@@ -78,6 +94,21 @@ def reset_launch_counts() -> None:
     for counts in _COUNTERS:
         for k in counts:
             counts[k] = 0
+
+
+@contextlib.contextmanager
+def cost_count(report: Callable) -> Iterator[None]:
+    """Inside, ``meta`` tensors take the kernel wrappers, which call
+    ``report(entry, cost, note)`` once per launch the card would make
+    (``entry`` a :func:`launch_counts` key, ``cost`` a
+    :class:`~repro_torch.kernels.costs.Cost`, ``note`` None or what the
+    count could not see); in ops mode ``ref`` they take the plain versions,
+    as the card does."""
+    _build.COUNTS.append(report)
+    try:
+        yield
+    finally:
+        _build.COUNTS.pop()
 
 
 def _requires_grad(*tensors) -> bool:

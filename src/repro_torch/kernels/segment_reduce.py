@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels._build import check_cuda
 
 __all__ = ["LAUNCHES", "SORTED_TILE", "scatter_add_", "segment_sum",
@@ -74,7 +74,10 @@ class _Workspace:
 _WORKSPACES: dict = {}
 
 
-def _workspace(dev: int, stream: int, n_tiles: int, d: int) -> _Workspace:
+def _workspace(dev: int, n_tiles: int, d: int) -> _Workspace:
+    if dev == _build.META:  # kept across calls: a cost count takes none
+        return _Workspace("meta", 0)
+    stream = _build.current_stream(dev)
     size = 1 + n_tiles * d
     ws = _WORKSPACES.get((dev, stream))
     if ws is not None and ws.size >= size \
@@ -115,7 +118,9 @@ def segment_sum(values, seg_ids, num_segments: int) -> torch.Tensor:
     if n_rows and d and num_segments:
         _build.launch(fn, dev, seg_ids.data_ptr(), values.data_ptr(),
                       out.data_ptr(), n_rows, d, num_segments)
-        LAUNCHES["segment_sum"] += 1
+        _build.count(LAUNCHES, "segment_sum", dev,
+                     lambda: costs.segment_sum_cost(n_rows, d, num_segments,
+                                                    values.element_size()))
     return out
 
 
@@ -140,12 +145,14 @@ def segment_sum_sorted(values, seg_ids, num_segments: int) -> torch.Tensor:
     out = torch.empty((num_segments, d), dtype=values.dtype,
                       device=values.device)
     n_tiles = -(-n_rows // SORTED_TILE)
-    ws = _workspace(dev, _build.current_stream(dev), n_tiles, d)
+    ws = _workspace(dev, n_tiles, d)
     _build.launch(fn, dev, seg_ids.data_ptr(), values.data_ptr(),
                   out.data_ptr(), n_rows, d, num_segments, ws.ptr,
                   ws.tickets)
     ws.tickets += n_tiles
-    LAUNCHES["segment_sum"] += 1
+    _build.count(LAUNCHES, "segment_sum", dev,
+                 lambda: costs.segment_sum_cost(n_rows, d, num_segments,
+                                                values.element_size()))
     return out
 
 
@@ -169,5 +176,7 @@ def scatter_add_(table, ids, rows) -> torch.Tensor:
     if n_rows and d and t_shape[0]:
         _build.launch(fn, dev, ids.data_ptr(), rows.data_ptr(),
                       table.data_ptr(), n_rows, d, t_shape[0])
-        LAUNCHES["scatter_add"] += 1
+        _build.count(LAUNCHES, "scatter_add", dev,
+                     lambda: costs.scatter_add_cost(n_rows, d,
+                                                    table.element_size()))
     return table

@@ -47,7 +47,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
+from repro_torch.kernels.flash_attention import H100_SMS
 
 __all__ = ["CHUNK", "LAUNCHES", "MAX_HEAD_DIM_BACKWARD", "MAX_STATE",
            "ROUTES", "SsdScanFunction", "heads_per_block", "heads_view",
@@ -128,8 +129,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, keep_states: bool = False):
     y = torch.empty((b, s, h, p), dtype=x.dtype,
                     device=x.device).transpose(1, 2)
     h_out = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
-    ws = torch.empty(workspace_bytes(b, h, s, p, n, x.dtype,
-                                     shared_group(Bm, Cm)),
+    shared = shared_group(Bm, Cm)
+    ws = torch.empty(workspace_bytes(b, h, s, p, n, x.dtype, shared),
                      dtype=torch.uint8, device=x.device)
     if x.numel() == 0:
         h_out.zero_()
@@ -141,7 +142,10 @@ def ssd_scan(x, dt, A, Bm, Cm, *, keep_states: bool = False):
                       _strides("Cm", Cm, 4), y.data_ptr(),
                       _strides("y", y, 4), h_out.data_ptr(), ws.data_ptr(),
                       ws.numel(), b, h, s, p, n, DTYPE_CODES[x.dtype])
-        LAUNCHES["ssd_scan"] += 1
+        _build.count(LAUNCHES, "ssd_scan", dev,
+                     lambda: costs.ssd_scan_cost(
+                         b, h, s, p, n, 1 if shared else h,
+                         x.element_size(), CHUNK[x.dtype]))
     return (y, h_out, ws) if keep_states else (y, h_out)
 
 
@@ -207,9 +211,11 @@ def wgmma_route_applies(x, dy, Bh, Ch, groups: int) -> bool:
 
 def heads_per_block(b: int, nc: int, h: int, device) -> int:
     """Heads a block of the tensor-core chunk pass walks: as few as fill
-    the card's SMs with one wave of (chunk, head group, batch) blocks."""
-    idx = torch.device(device).index or 0
-    sms = _SM_COUNT.get(idx)
+    the card's SMs with one wave of (chunk, head group, batch) blocks (an
+    H100's on ``meta``, in a cost count)."""
+    dev = torch.device(device)
+    idx = dev.index or 0
+    sms = H100_SMS if dev.type == "meta" else _SM_COUNT.get(idx)
     if sms is None:
         sms = _SM_COUNT[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
@@ -308,13 +314,16 @@ def ssd_scan_backward(x, dt, A, Bm, Cm, dy, dh_final=None, *, states,
     else:
         _build.launch("ssd_scan_backward", dev, *args, b, h, s, p, n, groups,
                       DTYPE_CODES[x.dtype])
-    LAUNCHES["ssd_scan_backward"] += 1
+    _build.count(LAUNCHES, "ssd_scan_backward", dev,
+                 lambda: costs.ssd_scan_backward_cost(
+                     b, h, s, p, n, groups, x.element_size(),
+                     CHUNK[x.dtype]))
     return dx, ddt, dA, dB, dC
 
 
 class SsdScanFunction(torch.autograd.Function):
     """:func:`ssd_scan` with its gradient from :func:`ssd_scan_backward`
-    (CUDA tensors), or :func:`~repro_torch.kernels.ref.ssd_scan_ref` with
+    (CUDA tensors, and ``meta`` ones in a cost count), or :func:`~repro_torch.kernels.ref.ssd_scan_ref` with
     :func:`~repro_torch.kernels.ref.ssd_scan_backward_ref` (CPU tensors).
     ``apply(x, dt, A, Bm, Cm)`` with B and C in their group layout ``[B, G,
     S, N]`` (``G`` 1 or H): the Function expands them itself, so a shared
@@ -328,7 +337,7 @@ class SsdScanFunction(torch.autograd.Function):
 
         heads = x.shape[1]
         ctx.set_materialize_grads(False)
-        if x.is_cuda:
+        if not x.is_cpu:
             y, h, ws = ssd_scan(x, dt, A, heads_view(Bm, heads),
                                 heads_view(Cm, heads), keep_states=True)
         else:
@@ -346,7 +355,7 @@ class SsdScanFunction(torch.autograd.Function):
         x, dt, A, Bm, Cm = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        if x.is_cuda:
+        if not x.is_cpu:
             if dy.stride(-1) != 1:
                 dy = dy.contiguous()
             grads = ssd_scan_backward(x, dt, A, Bm, Cm, dy.to(x.dtype), dh,

@@ -7,20 +7,19 @@
   and their execution on local shards;
 * :mod:`~repro_torch.launch.steps` -- the input specs on ``meta``, the
   training, prefill and serve steps, and ``build_cell``;
-* :mod:`~repro_torch.launch.dryrun` -- every cell's per-chip bytes and
-  FLOPs on ``meta``, with no card.
+* :mod:`~repro_torch.launch.cost_analysis` -- one rank's step counted on
+  ``meta``: per-chip FLOPs (and products), HBM bytes, collective bytes by
+  family and peak bytes, each hand kernel charged as its launch on the
+  card (``kernels/costs.py``);
+* :mod:`~repro_torch.launch.dryrun` -- every cell's per-chip bytes, FLOPs
+  and costs on ``meta``, with no card.
 
-Two files of the reference have no module here:
-
-* ``launch/hlo_analysis.py`` parses XLA's HLO text, which PyTorch never
-  produces.  Its three outputs map onto the port so: trip-count-aware
-  FLOPs are the dry-run's eager count (every loop iteration runs);
-  HBM bytes are the dry-run's per-chip argument bytes, activations not
-  counted; collective bytes are counted from the collectives that run on
-  a live mesh (``mesh.WIRE_BYTES``, per rank and family, by the same ring
-  formulas).
-* ``compat.py`` backfills JAX API names on old JAX releases; it has no
-  PyTorch meaning.
+``launch/cost_analysis.py`` is the counterpart of the reference's
+``launch/hlo_analysis.py``: where the reference parses the partitioned HLO
+text of one chip, the port runs one rank's step on a counting mesh
+(``mesh.counting_mesh``) and counts its operations as they dispatch.  One
+file of the reference has no module here: ``compat.py`` backfills JAX API
+names on old JAX releases and has no PyTorch meaning.
 
 The execution half of the reference's sharding runs on a live
 ``torch.distributed`` mesh (``mesh.live_mesh``): the rules context and

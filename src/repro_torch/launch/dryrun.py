@@ -10,8 +10,8 @@ cell (:func:`repro_torch.launch.steps.build_cell`) and records:
 * ``meta``: arch, shape, mesh sizes and the knobs (the reference's);
 * ``bytes_per_chip``: ``params``, ``opt_state``, ``caches`` and ``batch``,
   each leaf's bytes divided by the product of the mesh sizes of the axes
-  its spec names (the reference's ``argument_size_in_bytes``); activations
-  are not counted on ``meta``;
+  its spec names (the reference's ``argument_size_in_bytes``; the
+  activations are ``memory_analysis``'s temps, below);
 * ``flops``: the step run once on ``meta`` under
   ``torch.utils.flop_counter.FlopCounterMode`` (forward and backward of a
   training cell, remat included): the total and the products alone
@@ -25,8 +25,32 @@ cell (:func:`repro_torch.launch.steps.build_cell`) and records:
 * ``model_flops``: ``model_flops_per_token x tokens x mult`` with the
   reference's ``mult`` (1 for training, 1/3 for inference, whose tokens are
   a prefill's prompt or a decode step's one token a row);
-* ``timings``: seconds to build the cell and to count (a cell's second
-  layout takes the first one's count: ``flops_counted_for``).
+* ``costs`` (the reference's ``hlo_costs`` keys): rank 0's own step on
+  its layout, the cell built on a :func:`~repro_torch.launch.mesh.
+  counting_mesh` at rank 0's coordinates and run once on ``meta`` over the
+  rank's shards under :func:`~repro_torch.launch.cost_analysis.
+  analyze_step`, every hand kernel charged as its one launch on the card
+  (its closed form, ``kernels/costs.py``): ``flops_per_chip``,
+  ``dot_flops_per_chip``, ``hbm_bytes_per_chip``,
+  ``collective_bytes_per_chip`` and its ``collective_breakdown`` by family
+  (the wire bytes of the rank's collectives, the reference's ring
+  formulas), ``num_partitions``, ``warnings``, ``peak_bytes_per_chip``
+  (the live bytes' high-water mark above the arguments) and
+  ``kernel_launches``.  Rank 0 stands for every rank, as one partition
+  does in the reference: the rules give every rank the same shapes.  These
+  count what a rank runs (padded heads, the ZeRO gathers at use, work
+  every rank repeats), which ``flops``, the whole step divided by the
+  chips, does not see.  A cell whose inputs the rules cannot split (a
+  batch smaller than the data axes), or whose shapes a kernel refuses as
+  the card would (a head_dim it is not built for), has ``{"skipped":
+  reason}`` here;
+* ``memory_analysis`` (the reference's keys): ``argument_size_in_bytes``
+  (rank 0's shards), ``output_size_in_bytes`` (the step's results, the
+  arguments it updates in place among them), ``temp_size_in_bytes`` (the
+  peak above the arguments) and ``generated_code_size_in_bytes`` (None);
+* ``timings``: seconds to build the cell, to count the whole step (a
+  cell's second layout takes the first one's count: ``flops_counted_for``)
+  and to count rank 0's step.
 
 Usage::
 
@@ -53,8 +77,11 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs
-from repro_torch.launch import steps
-from repro_torch.launch.mesh import MeshLayout, make_production_mesh
+from repro_torch.launch import cost_analysis, steps
+from repro_torch.launch.cost_analysis import PRODUCT_OPS
+from repro_torch.launch.mesh import (
+    MeshLayout, counting_mesh, make_production_mesh,
+)
 from repro_torch.launch.sharding import spec_divisor
 from repro_torch.models import transformer as T
 from repro_torch.models.config import (
@@ -62,14 +89,11 @@ from repro_torch.models.config import (
 )
 
 __all__ = ["PRODUCT_OPS", "cell_bytes", "count_flops", "main", "model_flops",
-           "run_cell"]
+           "rank_costs", "run_cell"]
 
-#: the operators whose FLOPs are products
-PRODUCT_OPS = ("mm", "bmm", "addmm", "baddbmm")
-
-ACTIVATIONS_NOTE = ("activations are not counted: the leaves above are the "
-                    "step's arguments, as the reference's "
-                    "argument_size_in_bytes")
+ACTIVATIONS_NOTE = ("the step's arguments, as the reference's "
+                    "argument_size_in_bytes; activations are in "
+                    "memory_analysis's temp_size_in_bytes")
 
 
 def _leaf_bytes(t: torch.Tensor) -> int:
@@ -114,6 +138,34 @@ def count_flops(cell: steps.Cell, cfg: ModelConfig,
                    in PRODUCT_OPS)
     return {"total": int(counter.get_total_flops()),
             "products": int(products)}
+
+
+def rank_costs(cfg: ModelConfig, shape: ShapeConfig, layout: MeshLayout,
+               coords=None, **knob_overrides):
+    """(``costs``, ``memory_analysis``) of the rank at ``coords`` (rank 0's
+    by default) of ``layout``: its step on a counting mesh, counted by
+    :func:`~repro_torch.launch.cost_analysis.count_cell`."""
+    cell = steps.build_cell(cfg, shape, layout, device="meta",
+                            mesh=counting_mesh(layout, coords),
+                            **knob_overrides)
+    s = cost_analysis.count_cell(cell)
+    costs = {"flops_per_chip": s.flops,
+             "dot_flops_per_chip": s.dot_flops,
+             "hbm_bytes_per_chip": s.hbm_bytes,
+             "collective_bytes_per_chip": s.collective_bytes,
+             "collective_breakdown": s.collective_breakdown,
+             "num_partitions": s.num_partitions,
+             "warnings": s.warnings[:20],
+             "peak_bytes_per_chip": s.peak_bytes,
+             "kernel_launches": s.kernel_launches,
+             "roofline_ms": s.roofline_ms(),
+             "counted_on": "meta, rank 0's shards on a counting mesh, hand "
+                           "kernels by their closed forms"}
+    memory = {"argument_size_in_bytes": s.argument_bytes,
+              "output_size_in_bytes": s.output_bytes,
+              "temp_size_in_bytes": s.peak_bytes,
+              "generated_code_size_in_bytes": None}
+    return costs, memory
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
@@ -163,11 +215,25 @@ def run_cell(cfg: ModelConfig, shape: ShapeConfig, layout: MeshLayout,
             "counted_on": "meta (FlopCounterMode; plain versions)",
         }
         record["model_flops"] = model_flops(cfg, shape)
-        record["timings"] = {"build_s": t_build, "count_s": t_count}
+        t2 = time.perf_counter()
+        try:
+            record["costs"], record["memory_analysis"] = rank_costs(
+                cfg, shape, layout, **knob_overrides)
+            c = record["costs"]
+            rank = (f"{c['flops_per_chip']:.4g} flops/chip, "
+                    f"{c['collective_bytes_per_chip']:.4g} coll B/chip, "
+                    f"peak {c['peak_bytes_per_chip']:.4g} B")
+        except ValueError as e:   # the rules or a kernel refuse the rank
+            record["costs"] = record["memory_analysis"] = {
+                "skipped": f"{type(e).__name__}: {e}"}
+            rank = f"rank count skipped: {e}"
+        t_rank = time.perf_counter() - t2
+        record["timings"] = {"build_s": t_build, "count_s": t_count,
+                             "rank_count_s": t_rank}
         print(f"[dryrun] {tag} {cfg.name} x {shape.name}: OK "
-              f"(build {t_build:.2f}s count {t_count:.2f}s, "
-              f"{record['bytes_per_chip']['total']:.4g} B/chip, "
-              f"{flops['total'] / chips:.4g} flops/chip)", flush=True)
+              f"(build {t_build:.2f}s count {t_count:.2f}s rank "
+              f"{t_rank:.2f}s, {record['bytes_per_chip']['total']:.4g} "
+              f"B/chip, {rank})", flush=True)
     except Exception as e:  # noqa: BLE001 -- recorded, and the run fails
         record["status"] = "error"
         record["error"] = f"{type(e).__name__}: {e}"

@@ -12,7 +12,12 @@ divides bytes and FLOPs by.  Single pod: ``(16, 16)`` = 256 chips, axes
 process group: a ``DeviceMesh`` (``init_device_mesh`` with the layout's
 axis names) and one process group for every set of axes a collective can
 run over.  Rank ``r`` sits at the row-major coordinates of ``r`` in the
-layout's sizes, the ``DeviceMesh`` convention.
+layout's sizes, the ``DeviceMesh`` convention.  :func:`counting_mesh` is
+one rank's view of a layout of any size with no process group: a step
+runs on it with ``meta`` tensors (the dry-run's cost count,
+:mod:`repro_torch.launch.cost_analysis`), each collective returning a
+tensor of its result's shape and counting its wire bytes as on a live
+mesh.
 
 The collectives (:func:`all_reduce`, :func:`reduce_out`,
 :func:`copy_in`, :func:`all_gather`, :func:`reduce_scatter`,
@@ -62,7 +67,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["FAMILIES", "LiveMesh", "MeshLayout", "WIRE_BYTES", "all_gather",
-           "all_reduce", "all_to_all", "copy_in", "dp_axes",
+           "all_reduce", "all_to_all", "copy_in", "counting_mesh", "dp_axes",
            "group_all_gather", "group_all_reduce", "group_all_to_all_rows",
            "live_mesh", "make_host_mesh", "make_production_mesh",
            "prefix_groups", "reduce_out", "reduce_scatter",
@@ -127,22 +132,39 @@ def dp_axes(layout: MeshLayout) -> Tuple[str, ...]:
 class LiveMesh:
     """A :class:`MeshLayout` over the live ranks: ``device_mesh`` (the
     ``DeviceMesh``), this rank's ``coords`` ``{axis: index}``, and a process
-    group per set of axes (:meth:`group`)."""
+    group per set of axes (:meth:`group`).  Given ``coords`` (and no
+    groups) it is a counting mesh (:func:`counting_mesh`)."""
 
-    def __init__(self, layout: MeshLayout, device_mesh, groups):
+    def __init__(self, layout: MeshLayout, device_mesh, groups,
+                 coords: Optional[Dict[str, int]] = None):
         self.layout = layout
         self.device_mesh = device_mesh
         self._groups = groups
-        rank = dist.get_rank()
-        coords, rest = {}, rank
-        for name, size in reversed(list(zip(layout.axis_names,
-                                            layout.sizes))):
-            coords[name] = rest % size
-            rest //= size
+        self.counting = coords is not None
+        if coords is None:
+            rest = dist.get_rank()
+            coords = {}
+            for name, size in reversed(list(zip(layout.axis_names,
+                                                layout.sizes))):
+                coords[name] = rest % size
+                rest //= size
+        elif sorted(coords) != sorted(layout.axis_names) or any(
+                not 0 <= coords[a] < n for a, n in layout.shape.items()):
+            raise ValueError(f"coords {coords} do not lie in {layout.shape}")
         self.coords = {name: coords[name] for name in layout.axis_names}
 
     def __repr__(self):
-        return f"LiveMesh({self.layout.shape}, coords={self.coords})"
+        kind = "CountingMesh" if self.counting else "LiveMesh"
+        return f"{kind}({self.layout.shape}, coords={self.coords})"
+
+    @property
+    def rank(self) -> int:
+        """This rank's place in the world: the row-major index of its
+        coordinates."""
+        r = 0
+        for name, size in zip(self.layout.axis_names, self.layout.sizes):
+            r = r * size + self.coords[name]
+        return r
 
     def names(self, axis) -> Tuple[str, ...]:
         """``axis`` (None, a name or a tuple of names) as a tuple of the
@@ -175,7 +197,18 @@ class LiveMesh:
         """The process group of this rank's ranks along ``axis`` (ordered as
         :meth:`index`), or None for a single rank."""
         names = self.names(axis)
-        return self._groups[names] if names else None
+        return self._groups[names] if names and not self.counting else None
+
+
+def counting_mesh(layout: MeshLayout,
+                  coords: Optional[Dict[str, int]] = None) -> LiveMesh:
+    """One rank's view of ``layout`` (any size; ``coords`` ``{axis:
+    index}``, rank 0's by default) with no process group: the rules and
+    the layers run on it as on a live mesh, on ``meta`` tensors, and every
+    collective adds the bytes it would move to :data:`WIRE_BYTES`."""
+    if coords is None:
+        coords = dict.fromkeys(layout.axis_names, 0)
+    return LiveMesh(layout, None, None, coords=dict(coords))
 
 
 def live_mesh(layout: MeshLayout, device_type: str = "cuda") -> LiveMesh:
@@ -240,10 +273,12 @@ _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
 
 def group_all_reduce(x, group, n, op="sum"):
     """The sum (or ``op`` ``"min"`` / ``"max"``) of ``x`` over the ``n``
-    ranks of ``group``, in a new tensor; counted as an all-reduce."""
+    ranks of ``group``, in a new tensor; counted as an all-reduce.  On
+    ``meta`` (a counting mesh) only counted, as every collective below."""
     out = x.contiguous().clone()
     _count("all_reduce", _nbytes(out), n)
-    dist.all_reduce(out, op=_OPS[op], group=group)
+    if not out.is_meta:
+        dist.all_reduce(out, op=_OPS[op], group=group)
     return out
 
 
@@ -252,34 +287,47 @@ def group_all_gather(x, group, n, dim=0):
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((n * x.shape[0],) + x.shape[1:])
     _count("all_gather", _nbytes(out), n)
-    dist.all_gather_into_tensor(out, x, group=group)
+    if not x.is_meta:
+        dist.all_gather_into_tensor(out, x, group=group)
     return out.movedim(0, dim)
 
 
-def group_all_to_all_rows(x, send_rows, recv_rows):
+def group_all_to_all_rows(x, send_rows, recv_rows,
+                          mesh: Optional[LiveMesh] = None):
     """``x``'s rows cut in ``send_rows[q]`` rows for each rank ``q`` of the
     world, in rank order; returns the rows received, ``recv_rows[q]`` from
     each rank ``q`` in rank order.  The rows a rank keeps are a local copy:
     only those received from the other ranks are counted (as the
-    all-to-all's ``b (n-1)/n`` counts them)."""
-    me = dist.get_rank()
+    all-to-all's ``b (n-1)/n`` counts them).  This rank is ``mesh``'s when
+    given (a counting mesh's coordinates), else the process group's."""
+    me = mesh.rank if mesh is not None else dist.get_rank()
     x = x.contiguous()
     out = x.new_empty((sum(recv_rows),) + x.shape[1:])
     row = _nbytes(x[:1]) if x.shape[0] else _nbytes(out[:1])
     WIRE_BYTES["all_to_all"] += row * (sum(recv_rows) - recv_rows[me])
-    dist.all_to_all_single(out, x, list(recv_rows), list(send_rows))
+    if not x.is_meta:
+        dist.all_to_all_single(out, x, list(recv_rows), list(send_rows))
     return out
 
 
+def _check_counting(x, mesh) -> None:
+    if mesh.counting and not x.is_meta:
+        raise ValueError(f"a counting mesh runs meta tensors only, got "
+                         f"{x.device}")
+
+
 def _raw_all_reduce(x, mesh, axis, op="sum"):
+    _check_counting(x, mesh)
     return group_all_reduce(x, mesh.group(axis), mesh.size(axis), op)
 
 
 def _raw_all_gather(x, mesh, axis, dim):
+    _check_counting(x, mesh)
     return group_all_gather(x, mesh.group(axis), mesh.size(axis), dim)
 
 
 def _raw_reduce_scatter(x, mesh, axis, dim):
+    _check_counting(x, mesh)
     n = mesh.size(axis)
     x = x.movedim(dim, 0).contiguous()
     if x.shape[0] % n:
@@ -287,18 +335,21 @@ def _raw_reduce_scatter(x, mesh, axis, dim):
                          f"ranks")
     out = x.new_empty((x.shape[0] // n,) + x.shape[1:])
     _count("reduce_scatter", _nbytes(x), n)
-    dist.reduce_scatter_tensor(out, x, group=mesh.group(axis))
+    if not x.is_meta:
+        dist.reduce_scatter_tensor(out, x, group=mesh.group(axis))
     return out.movedim(0, dim)
 
 
 def _raw_all_to_all(x, mesh, axis):
+    _check_counting(x, mesh)
     n = mesh.size(axis)
     if x.shape[0] != n:
         raise ValueError(f"all_to_all of {x.shape[0]} slices over {n} ranks")
     x = x.contiguous()
     out = torch.empty_like(x)
     _count("all_to_all", _nbytes(out), n)
-    dist.all_to_all_single(out, x, group=mesh.group(axis))
+    if not x.is_meta:
+        dist.all_to_all_single(out, x, group=mesh.group(axis))
     return out
 
 

@@ -177,7 +177,7 @@ class _StateBlock:
     outputs, ``P`` values a head, where the state is ``N P``."""
 
     def __init__(self, rules, n_heads: int):
-        live = rules.live
+        live = self.live = rules.live
         self.n_dp, self.n_tp = live.size(rules.dp), live.size(rules.tp_axis)
         self.j, self.t = live.index(rules.dp), live.index(rules.tp_axis)
         self.world = self.n_dp * self.n_tp
@@ -216,7 +216,7 @@ class _StateBlock:
         owner = self.t * n_dp + self.j
         src = (self.k % n_dp) * n_tp + self.k // n_dp
         got = mesh_lib.group_all_to_all_rows(
-            send, self._rows({owner}), self._rows({src}))
+            send, self._rows({owner}), self._rows({src}), self.live)
         x_k = got[..., :p].transpose(0, 1)[:, None].to(xh.dtype)
         dt_k = got[..., p].transpose(0, 1)[:, None]
         A = -torch.exp(A_log[self.k * hl:(self.k + 1) * hl])
@@ -227,7 +227,7 @@ class _StateBlock:
         owners = {self.t * n_dp + i for i in range(n_dp)}
         y = mesh_lib.group_all_to_all_rows(
             y_k[:, 0].transpose(0, 1).repeat(n_dp, 1, 1),
-            self._rows(readers), self._rows(owners))
+            self._rows(readers), self._rows(owners), self.live)
         return y.transpose(0, 1)[:, None], h_new
 
 

@@ -17,12 +17,23 @@ last row.  ``run_layout`` then returns ``{check: (passed, detail)}``
 for every name of ``checks(layout)``, which the test files parametrise
 over.
 
+The dry-run's cost count (``launch/cost_analysis.py``) is held to these
+runs too: each rank counts its prefill, serve and train steps on a
+counting mesh at its own coordinates (``meta`` inputs of its shards, the
+plain versions counted: :func:`plain_count`) and the count's wire bytes
+must equal its live gloo run's, family by family, exactly
+(``counted/*``); and rank 0's product FLOPs of that prefill count (as
+``tests/test_torch_launch.py``'s prefill check counts) are held to the reference's ``hlo_analysis.analyze`` of the
+same step compiled by the JAX child, one partition's ``dot_flops``
+(``hlo/*``; the two packages' collective bytes go into the detail).
+
 Run by hand: ``python tests/_torch_mesh_parity.py jax dp2 out.npz`` (the
 reference side) or ``... rank dp2 <rank> <port> <dir>`` (one rank).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -78,6 +89,11 @@ A2A = tuple(k for k, v in LAYOUTS.items() if v[2].get("moe_a2a"))
 #: the layouts that check a dense TP model's wire bytes (Gemma2; no fsdp
 #: gathers there: the data axis has one rank)
 WIRE_DENSE = ("tp2",)
+#: models whose train step runs only for the count's wire bytes
+TRAIN_WIRE = {"dp2tp2": ("gemma2-27b",)}
+#: rank 0's product FLOPs against the reference's one partition's
+#: (tests/test_torch_launch.py's tolerance)
+FLOP_RTOL = 1e-6
 
 SEED = 7
 BATCH, PROMPT, STEPS = 4, 12, 8
@@ -124,9 +140,14 @@ def checks(key):
     if key in A2A:
         out += ["a2a/vs_reference", "a2a/vs_oracle", "a2a/grad",
                 "a2a/wire_bytes"]
+    for name in MODELS[key]:
+        out += [f"counted/{name}/prefill", f"counted/{name}/serve",
+                f"hlo/{name}/products"]
     for name in TRAIN.get(key, ()):
         out += [f"train/{name}/loss", f"train/{name}/params",
                 f"bytes/{name}/train"]
+    for name in TRAIN.get(key, ()) + TRAIN_WIRE.get(key, ()):
+        out.append(f"counted/{name}/train")
     if key in WIRE_DENSE:
         out.append("wire/gemma2-27b/prefill")
     for name in LONG_MODELS.get(key, ()):
@@ -218,9 +239,13 @@ def jax_main(key, out):
 
     import repro.configs as jconfigs
     from repro.data import pipeline as jpipeline
+    from jax.sharding import PartitionSpec as P
+
+    from repro.launch import hlo_analysis
     from repro.launch import steps as jsteps
     from repro.launch.cells import CellKnobs as JKnobs
     from repro.launch.sharding import use_rules
+    from repro.models import config as jconfig
     from repro.models import moe as jmoe
     from repro.models import transformer as JT
     from repro.optim import adamw as jadamw
@@ -256,8 +281,19 @@ def jax_main(key, out):
         decode = under(rules, lambda p, c, t, i: JT.decode_forward(
             p, {"tokens": t}, jcfg, c, i))
         caches = JT.init_caches(jcfg, BATCH, S_MAX, tp=rules.tp_size())
-        logits, caches = prefill(tree, caches,
-                                 {"tokens": tokens(jcfg.vocab_size)})
+        batch = {"tokens": tokens(jcfg.vocab_size)}
+        # the step as the reference's dry-run compiles it: every argument
+        # placed by its rules' specs
+        shape = jconfig.ShapeConfig("mesh", S_MAX, BATCH, "prefill")
+        hlo = hlo_analysis.analyze(prefill.lower(
+            place(mesh, tree, jsteps.model_specs(jcfg, rules)[1]),
+            place(mesh, caches, jsteps.cache_pspecs(jcfg, shape, rules)),
+            place(mesh, batch, {"tokens": P(rules.dp, None)}))
+            .compile().as_text())
+        res[f"{name}/hlo"] = json.dumps(dict(
+            dot_flops=hlo.dot_flops, num_partitions=hlo.num_partitions,
+            collective_breakdown=hlo.collective_breakdown))
+        logits, caches = prefill(tree, caches, batch)
         toks = [np.asarray(jnp.argmax(logits[:, -1], -1), np.int32)]
         for i in range(STEPS):
             logits, caches = decode(tree, caches, toks[-1][:, None],
@@ -346,6 +382,17 @@ def from_reference_caches(tcfg, tree):
     return out
 
 
+def place(mesh, tree, specs):
+    """``tree`` placed on ``mesh`` by ``specs``, whose one spec may cover
+    a subtree (a KV cache's ``k`` and ``v``)."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    return jax.tree.map(lambda s, sub: jax.tree.map(
+        lambda a: jax.device_put(a, NamedSharding(mesh, s)), sub),
+        specs, tree, is_leaf=lambda s: isinstance(s, P))
+
+
 def jax_long(key, mesh, res):
     """The reference's long-context decode on ``mesh``: its serve step
     under ``make_rules`` with ``knobs_for``'s knobs, the caches and
@@ -353,7 +400,6 @@ def jax_long(key, mesh, res):
     of ``long_indices``; the last logits of each step from
     ``decode_forward`` under the same rules on the same inputs."""
     import jax
-    from jax.sharding import NamedSharding, PartitionSpec as P
 
     import repro.configs as jconfigs
     from repro.launch import steps as jsteps
@@ -365,22 +411,15 @@ def jax_long(key, mesh, res):
     from repro_torch.interop import params_to_reference
     from repro_torch.models import transformer as TT
 
-    def place(tree, specs):
-        """``tree`` placed by ``specs``, whose one spec may cover a subtree
-        (a KV cache's ``k`` and ``v``)."""
-        return jax.tree.map(lambda s, sub: jax.tree.map(
-            lambda a: jax.device_put(a, NamedSharding(mesh, s)), sub),
-            specs, tree, is_leaf=lambda s: isinstance(s, P))
-
     shape = long_shape(jconfig)
     for name in LONG_MODELS.get(key, ()):
         jcfg, tcfg = configs(name, jconfigs), configs(name, tconfigs)
         rules = jsteps.make_rules(mesh, jcfg, knobs_for(jcfg, shape))
         tree = params_to_reference(TT.init_params(tcfg, SEED, device="cpu"),
                                    tcfg)
-        tree = place(tree, jsteps.model_specs(jcfg, rules)[1])
+        tree = place(mesh, tree, jsteps.model_specs(jcfg, rules)[1])
         jinit = JT.init_caches(jcfg, 1, LONG_S, tp=rules.tp_size())
-        caches = place(to_reference_caches(
+        caches = place(mesh, to_reference_caches(
             jcfg, tcfg, long_caches(tcfg, rules.tp_size()), jinit),
             jsteps.cache_pspecs(jcfg, shape, rules))
         serve = jax.jit(jsteps.build_serve_step(jcfg, rules))
@@ -483,11 +522,28 @@ def rank_main(key, rank, port, out_dir):
         mesh_lib.reset_wire_bytes()
         serve = steps.build_serve_step(cfg, rules)
         tok, c = cell.step(params, caches(), batch)
+        after = [mesh_lib.wire_bytes()]
         toks = [tok]
         for i in range(STEPS):
             tok, c = serve(params, c, {"tokens": toks[-1][:, None],
                                        "index": PROMPT + i})
             toks.append(tok)
+            after.append(mesh_lib.wire_bytes())
+        live_wire = {"prefill": after[0],
+                     "serve": {k: after[1][k] - after[0][k]
+                               for k in after[0]}}
+        count = counted_steps(cfg, shape, layout, live.coords, knobs,
+                              batch["tokens"])
+        for kind in ("prefill", "serve"):
+            flags[f"counted/{name}/{kind}"] = \
+                count[kind].collective_breakdown == live_wire[kind]
+            res[f"counted/{name}/{kind}/rank{rank}"] = json.dumps(
+                [count[kind].collective_breakdown, live_wire[kind]])
+        if rank == 0:
+            plain = count["prefill"]
+            res[f"{name}/products_rank0"] = json.dumps(dict(
+                dot_flops=plain.dot_flops,
+                collective_breakdown=plain.collective_breakdown))
         if name == "gemma2-27b":
             res["wire/prefill"] = json.dumps(mesh_lib.wire_bytes())
         toks = gather_full(torch.stack(toks), (None, dp))
@@ -564,7 +620,10 @@ def rank_main(key, rank, port, out_dir):
             step = steps.build_train_step(
                 cfg, CellKnobs(microbatches=1, remat=False, **knobs),
                 adamw.AdamWConfig(**OPT), rules=tcell.rules)
+            mesh_lib.reset_wire_bytes()
             params, opt, metrics = step(params, opt, tb)
+            counted_train(cfg, tshape, layout, live.coords, knobs,
+                          mesh_lib.wire_bytes(), name, rank, flags, res)
             res[f"train/{name}/loss"] = metrics["loss"].detach().numpy()
             whole = TT.init_params(cfg, SEED, device="cpu")
             for (n_, p), w in zip(params.named_parameters(),
@@ -572,6 +631,24 @@ def rank_main(key, rank, port, out_dir):
                 w.data.copy_(gather_full(p.detach(), p.mesh_spec))
             for path, leaf in _flat_tree(params_to_reference(whole, cfg)):
                 res[f"train/{name}/param/{path}"] = leaf
+
+    for name in TRAIN_WIRE.get(key, ()):
+        cfg = configs(name, tconfigs)
+        tshape = ShapeConfig("mesh-train", PROMPT, BATCH, "train")
+        tcell = steps.build_cell(cfg, tshape, layout, device="cpu",
+                                 mesh=live, microbatches=1, remat=False,
+                                 **knobs)
+        params = sh.distribute_params(TT.init_params(cfg, SEED, device="cpu"),
+                                      tcell.pspecs["params"], tcell.rules)
+        tb = synthetic(pipeline, cfg.vocab_size, device="cpu", mesh=live,
+                       pspec=tcell.pspecs["batch"]["tokens"][1:]).batch_at(0)
+        step = steps.build_train_step(
+            cfg, CellKnobs(microbatches=1, remat=False, **knobs),
+            adamw.AdamWConfig(**OPT), rules=tcell.rules)
+        mesh_lib.reset_wire_bytes()
+        step(params, adamw.init_state(params), tb)
+        counted_train(cfg, tshape, layout, live.coords, knobs,
+                      mesh_lib.wire_bytes(), name, rank, flags, res)
 
     rank_long(key, live, res, flags, gather_full, nbytes)
     mine = synthetic(pipeline, 256, device="cpu", mesh=live,
@@ -590,6 +667,75 @@ def rank_main(key, rank, port, out_dir):
         np.savez(os.path.join(out_dir, "port.npz"), **res)
     dist.barrier()
     dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def plain_count():
+    """Counts with the plain versions, op by op (ops mode ``ref``): the
+    reduced configurations' head_dim 16 is no kernel's, and the live ranks
+    ran the plain versions too; the collectives are the model's either
+    way."""
+    from repro_torch.kernels import ops
+
+    ops.use_kernels("ref")
+    try:
+        yield
+    finally:
+        ops.use_kernels("auto")
+
+
+def counted_steps(cfg, shape, layout, coords, knobs, tokens):
+    """The dry-run's count (``cost_analysis.analyze_step``, under
+    :func:`plain_count`) of the rank at ``coords``: the prefill cell built
+    on a counting mesh of ``layout``, its prefill step over ``meta`` tokens
+    of ``tokens``' shape and one serve step, on the rank's ``meta`` shards
+    -> ``{"prefill", "serve"}`` summaries."""
+    import torch
+
+    from repro_torch.launch import cost_analysis as ca
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import counting_mesh
+
+    cell = steps.build_cell(cfg, shape, layout, device="meta",
+                            mesh=counting_mesh(layout, coords), **knobs)
+    args = ca.rank_inputs(cell)
+    meta = {"tokens": torch.empty(tokens.shape, dtype=tokens.dtype,
+                                  device="meta")}
+    dec = {"tokens": torch.empty((tokens.shape[0], 1), dtype=tokens.dtype,
+                                 device="meta"),
+           "index": torch.empty((), dtype=torch.int64, device="meta")}
+    with plain_count():
+        pre = ca.analyze_step(cell.step,
+                              [args["params"], args["caches"], meta],
+                              num_partitions=layout.size)
+        serve = ca.analyze_step(steps.build_serve_step(cfg, cell.rules),
+                                [args["params"], args["caches"], dec],
+                                num_partitions=layout.size)
+    return {"prefill": pre, "serve": serve}
+
+
+def counted_train(cfg, tshape, layout, coords, knobs, live_wire, name, rank,
+                  flags, res):
+    """The count of the rank's train step (one microbatch, no remat, the
+    runs' AdamW; under :func:`plain_count`) on a counting mesh at
+    ``coords``, held to its live wire bytes (``counted/<name>/train``)."""
+    from repro_torch.launch import cost_analysis as ca
+    from repro_torch.launch import steps
+    from repro_torch.launch.cells import CellKnobs
+    from repro_torch.launch.mesh import counting_mesh
+    from repro_torch.optim import adamw
+
+    cell = steps.build_cell(cfg, tshape, layout, device="meta",
+                            mesh=counting_mesh(layout, coords),
+                            microbatches=1, remat=False, **knobs)
+    step = steps.build_train_step(
+        cfg, CellKnobs(microbatches=1, remat=False, **knobs),
+        adamw.AdamWConfig(**OPT), rules=cell.rules)
+    with plain_count():
+        got = ca.analyze_step(step, list(ca.rank_inputs(cell).values()),
+                              num_partitions=layout.size).collective_breakdown
+    flags[f"counted/{name}/train"] = got == live_wire
+    res[f"counted/{name}/train/rank{rank}"] = json.dumps([got, live_wire])
 
 
 def long_wire(cfg, rules, spec):
@@ -825,6 +971,12 @@ def compare(key, ref, port):
                 "all_gather": 0.0, "reduce_scatter": 0.0}
         out["a2a/wire_bytes"] = (got == want, f"counted {got}, closed form "
                                  f"{want}")
+    for name in MODELS[key]:
+        for kind in ("prefill", "serve"):
+            out[f"counted/{name}/{kind}"] = _counted(flags, port, name, kind)
+        out[f"hlo/{name}/products"] = _products(port, ref, key, name)
+    for name in TRAIN.get(key, ()) + TRAIN_WIRE.get(key, ()):
+        out[f"counted/{name}/train"] = _counted(flags, port, name, "train")
     for name in TRAIN.get(key, ()):
         out[f"train/{name}/loss"] = (
             abs(float(port[f"train/{name}/loss"])
@@ -874,6 +1026,74 @@ def compare(key, ref, port):
         out["synthetic/shards"] = (bool(keys) and not bad,
                                    f"{len(keys)} shards, differing {bad}")
     return out
+
+
+def _counted(flags, port, name, kind):
+    """A ``counted/*`` check: every rank's count equal to its live run's
+    wire bytes, with each rank's (count, live) pair as the detail."""
+    pre = f"counted/{name}/{kind}/rank"
+    detail = {k[len(pre):]: json.loads(str(port[k])) for k in port.files
+              if k.startswith(pre)}
+    return flags[f"counted/{name}/{kind}"], f"(count, live) by rank {detail}"
+
+
+def placed_differently(key, name):
+    """The products rank 0 of the port runs beyond one partition of the
+    reference's compiled prefill (``{what: FLOPs}``), by closed form:
+
+    * padded heads on replicated projections (MiniCPM-pad, 3 q and 3 kv
+      heads on a model axis of 2): each port rank projects every real
+      head's q, k and v (``T d hd`` multiply-adds a head) and keeps its
+      block of the padded heads, where GSPMD pads the weights and projects
+      the rank's ``H_pad / n`` heads;
+    * Mamba's B and C projections (``w_B``, ``w_C`` ``[d, N]``, stored over
+      ``data``) at a data and a model axis both above 1: GSPMD splits each
+      product over the model axis, where each port rank gathers the weight
+      and projects whole, ``2 x 2 T d N (1 - 1/n)`` a Mamba layer.
+
+    ``T`` is the rank's prompt tokens."""
+    import repro_torch.configs as tconfigs
+    from repro_torch.models.attention import padded_head_counts
+    from repro_torch.models.config import MAMBA
+
+    cfg = configs(name, tconfigs)
+    names, sizes, _ = LAYOUTS[key]
+    shape = dict(zip(names, sizes))
+    n = shape["model"]
+    t = BATCH // (math.prod(sizes) // n) * PROMPT
+    d, specs = cfg.d_model, cfg.layer_specs()
+    out = {}
+    if n > 1 and cfg.num_heads and cfg.num_heads % n:
+        hq_pad, kv_pad = padded_head_counts(cfg.num_heads, cfg.num_kv_heads,
+                                            n)
+        kv = cfg.num_kv_heads if cfg.num_kv_heads % n else kv_pad // n
+        heads = (cfg.num_heads - hq_pad // n) + 2 * (kv - kv_pad // n)
+        out["padded heads' q, k, v projected whole"] = 2 * t * d \
+            * cfg.head_dim_ * heads * sum(s.mixer != MAMBA for s in specs)
+    if n > 1 and shape["data"] > 1 and cfg.ssm is not None:
+        out["Mamba's B and C projections whole on each model rank"] = \
+            2 * 2 * t * d * cfg.ssm.d_state * (n - 1) / n \
+            * sum(s.mixer == MAMBA for s in specs)
+    return out
+
+
+def _products(port, ref, key, name):
+    """An ``hlo/*`` check: rank 0's product FLOPs of the prefill step on
+    the counting mesh equal one partition's ``dot_flops`` in the
+    reference's compiled HLO plus the products the two place differently
+    (:func:`placed_differently`) within ``FLOP_RTOL``; both packages'
+    collective bytes by family in the detail."""
+    got = json.loads(str(port[f"{name}/products_rank0"]))
+    want = json.loads(str(ref[f"{name}/hlo"]))
+    extra = placed_differently(key, name)
+    rel = abs(got["dot_flops"] - want["dot_flops"] - sum(extra.values())) \
+        / max(want["dot_flops"], 1.0)
+    return rel <= FLOP_RTOL, (
+        f"port rank 0 {got['dot_flops']!r}, reference partition "
+        f"{want['dot_flops']!r} of {want['num_partitions']}, placed "
+        f"differently {extra} (rel {rel:.3g}); collective bytes port "
+        f"{got['collective_breakdown']} reference "
+        f"{want['collective_breakdown']}")
 
 
 def _dense_wire(key, got):

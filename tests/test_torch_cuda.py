@@ -1919,3 +1919,65 @@ def test_dist_plane_refuses_fork_for_the_card(dev):
     with pytest.raises(ValueError, match="fork"):
         DistributedKeyedPlane(WindowSpec("tumbling", size=8), num_slots=4,
                               start_method="fork", device=dev)
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's cost count against the card's launch counters
+# ---------------------------------------------------------------------------
+
+COST_CELLS = {
+    "prefill": ("minicpm-2b", dict(global_batch=2, seq_len=256,
+                                   kind="prefill")),
+    "train": ("deepseek-moe-16b", dict(global_batch=2, seq_len=128,
+                                       kind="train")),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(COST_CELLS))
+def test_cost_count_launches_equal_the_card(dev, kind):
+    """A small prefill step (MiniCPM-2B, bf16, 2 layers) and a small train
+    step (DeepSeekMoE-16B, bf16, 2 layers, two microbatches, remat): the
+    count of ``cost_analysis.analyze_step`` on ``meta`` and the card's
+    ``ops.launch_counts()`` over the same step, entry by entry, exactly."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import cost_analysis as ca
+    from repro_torch.launch import mesh as ml
+    from repro_torch.launch import steps as St
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.config import ShapeConfig
+
+    name, dims = COST_CELLS[kind]
+    # full width (the kernels' head dims), the first 2 layers (DeepSeekMoE:
+    # its dense layer and an MoE layer)
+    cfg = configs.get(name)
+    cfg = dataclasses.replace(cfg, num_layers=2,
+                              unit=cfg.unit[:2 - len(cfg.prefix)],
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    shape = ShapeConfig(f"cost-{kind}", dims["seq_len"],
+                        dims["global_batch"], kind)
+    layout = ml.make_host_mesh()
+    knobs = dict(microbatches=2, remat=True) if kind == "train" else {}
+    meta = St.build_cell(cfg, shape, layout, device="meta", **knobs)
+    counted = ca.analyze_step(meta.step, list(meta.specs.values()))
+    cell = St.build_cell(cfg, shape, layout, device=dev, **knobs)
+    params = TT.init_params(cfg, 3, device=dev)
+    if kind == "train":
+        from repro_torch.optim import adamw
+
+        data = SyntheticLM(vocab=cfg.vocab_size, seq_len=shape.seq_len,
+                           batch=shape.global_batch // 2, seed=4, device=dev,
+                           microbatches=2)
+        args = (params, adamw.init_state(params), data.batch_at(0))
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (2, shape.seq_len),
+                             device=dev, dtype=torch.int32)
+        args = (params, TT.init_caches(cfg, 2, shape.seq_len, device=dev),
+                {"tokens": toks})
+    ops.reset_launch_counts()
+    cell.step(*args)
+    torch.cuda.synchronize()
+    card = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counted.kernel_launches == card
+    assert card   # the step ran hand kernels
